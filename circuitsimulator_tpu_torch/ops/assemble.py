@@ -184,6 +184,8 @@ class Engine:
         # waveform kinds are structural: only present formulas are evaluated
         self.vs_kinds = np.asarray(low.params["vs_kind"].cpu())
         self.is_kinds = np.asarray(low.params["is_kind"].cpu())
+        self.pwl_width = max(low.params["vs_pwl_t"].shape[-1],
+                             low.params["is_pwl_t"].shape[-1])
         self._vs_masks = srcmod.kind_masks(self.vs_kinds, dev)
         self._is_masks = srcmod.kind_masks(self.is_kinds, dev)
 

@@ -3,7 +3,9 @@
 Port of the batched main path of ``circuitsimulator_tpu/parallel/
 montecarlo.py`` and of the transient loop of ``bench.py``: parameters carry
 a leading lane axis written out (no vmap); the DC Newton loop and every
-dense solve run over all lanes at once (the K2 kernel on CUDA).
+dense solve run over all lanes at once (the K2 kernel on CUDA).  A
+waveform-free f32 transient on CUDA takes the fused chunk kernel (K1,
+``ops/fused_step.py``) when the deck is in its scope.
 """
 
 from __future__ import annotations
@@ -13,7 +15,9 @@ from typing import Dict, Mapping, Optional
 import torch
 
 from ..analysis.dc import dc_linear, dc_newton
-from ..analysis.transient import transient_step_fn
+from ..analysis.transient import (TransientResult, n_steps_for, run_transient,
+                                  transient_step_fn)
+from ..ops import fused_step
 from ..ops.assemble import Engine
 
 
@@ -85,3 +89,66 @@ def batched_transient_chunk(engine: Engine, bparams, carry, ts, dt,
     if rec is not None:
         return carry, iters, rec
     return carry, iters
+
+
+def make_fused_transient_fn(engine: Engine, bparams, tstep, chunk: int = 2000):
+    """Set up the fused-kernel batched transient: the per-lane constants
+    of the chunk kernel (NotImplementedError, naming the cause, for a deck
+    outside its scope), the batched DC (K2 on CUDA), and
+    ``advance(carry, step0, n=chunk) -> (carry, iters)``, which runs one
+    chunk of n steps from step index step0 (iters (B,) int32).
+    Returns (carry0, advance, meta); carry = (x, x_prev, vc, il, failed)."""
+    runner = fused_step.FusedStepRunner(engine, bparams, float(tstep))
+    x0 = batched_dc_fast(engine, bparams)
+    state0 = engine.init_state(x0)
+
+    def advance(carry, step0: int, n: int = chunk):
+        out = runner.run_chunk(*carry, step0, n)
+        return out[:5], out[5]
+
+    failed0 = torch.zeros((runner.B,), dtype=torch.bool, device=x0.device)
+    carry0 = (x0, x0, state0["vc"], state0["il"], failed0)
+    return carry0, advance, {"chunk": chunk, "runner": runner}
+
+
+def _fused_batched_transient(engine: Engine, bparams, tstep,
+                             tstop) -> TransientResult:
+    """Waveform-free batched transient on the fused chunk kernel:
+    newton_iters is the per-lane (B,) total over the run."""
+    n_steps = n_steps_for(float(tstep), float(tstop))
+    carry, advance, meta = make_fused_transient_fn(engine, bparams, tstep)
+    chunk = meta["chunk"]
+    total = torch.zeros_like(carry[4], dtype=torch.int32)
+    for s in range(0, n_steps, chunk):
+        carry, iters = advance(carry, s, min(chunk, n_steps - s))
+        total += iters
+    dt = torch.tensor(float(tstep), dtype=engine.dtype, device=engine.device)
+    ts = torch.arange(1, n_steps + 1, dtype=engine.dtype,
+                      device=engine.device) * dt
+    return TransientResult(times=ts, xs=None, x_final=carry[0],
+                           newton_iters=total, failed=carry[4],
+                           n_steps=n_steps)
+
+
+def batched_transient(engine: Engine, bparams, tstep, tstop,
+                      save_xs: bool = False, fused="auto") -> TransientResult:
+    """Backward-Euler transient of every lane, from the batched DC point.
+
+    fused="auto" takes the fused chunk kernel (K1) for a waveform-free
+    (save_xs=False) float32 run on CUDA whose deck is in the kernel's
+    scope (``fused_step.supported``); anything else runs the non-fused
+    loop, which keeps xs (n_steps + 1, B, N) when save_xs is set.
+    fused=True forces the fused path: on CPU tensors it runs the kernel's
+    plain version; an out-of-scope deck raises NotImplementedError naming
+    what is out of scope."""
+    dt = float(tstep)
+    if fused == "auto":
+        fused = (not save_xs and engine.dtype == torch.float32
+                 and engine.device.type == "cuda"
+                 and fused_step.supported(engine, dt))
+    if fused:
+        if save_xs:
+            raise ValueError("fused=True keeps no waveforms: save_xs=False")
+        return _fused_batched_transient(engine, bparams, tstep, tstop)
+    return run_transient(engine, bparams, tstep, tstop,
+                         x0=batched_dc_fast(engine, bparams), save_xs=save_xs)

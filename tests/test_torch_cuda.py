@@ -91,3 +91,59 @@ def test_batched_dbmixer_cuda_matches_cpu(cuda_device):
                                        ts.to(cuda_device), 1e-13)
     np.testing.assert_allclose(cg[0].cpu().numpy(), cc[0].numpy(), rtol=0,
                                atol=1e-9)
+
+
+LINEAR_DECK = """* linear RLC filter
+V1 in 0 SIN 0 1 2e6
+I1 0 mid PULSE(0 1m 0 0 0 100n 250n)
+R1 in a 1k
+L1 a mid 10u
+C1 mid 0 100p
+R2 mid out 2k
+C2 out 0 50p
+RL out 0 10k
+.op
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deck,dtype", [
+    ("dbmixer", torch.float32), ("dbmixer", torch.float64),
+    ("linear", torch.float64)])
+def test_fused_step_kernel_matches_plain(cuda_device, deck, dtype):
+    """K1 against its plain version on the same card and inputs: 64 lanes,
+    30 steps from the batched DC point (f32: bench.py's fast
+    configuration; f64: the damped reference configuration)."""
+    from circuitsimulator_tpu_torch import DEFAULT_OPTIONS
+    from circuitsimulator_tpu_torch.ops import cuda_step
+    from circuitsimulator_tpu_torch.parallel import montecarlo as mc
+    opts = DEFAULT_OPTIONS.replace(dtype=dtype)
+    if dtype == torch.float32:
+        opts = opts.replace(tran_tol=1e-5, dc_tol=1e-5, tran_alpha=1.0,
+                            tran_predictor=True, tran_max_newton_iters=6,
+                            tran_unrolled_iters=2)
+    if deck == "dbmixer":
+        sim = Simulator.from_file(
+            os.path.join(REPO, "tests", "netlists", "dbmixer.sp"), opts=opts,
+            device=cuda_device)
+        dt = 1e-13
+    else:
+        sim = Simulator.from_text(LINEAR_DECK, opts=opts, device=cuda_device)
+        dt = 2e-9
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    bp = mc.perturb_params(sim.params, g, 64,
+                           {"res_r": 0.01, "mos_vth": 0.02, "cap_c": 0.02})
+    carry, advance, meta = mc.make_fused_transient_fn(sim.engine, bp, dt)
+    before = cuda_step.LAUNCHES
+    got, it = advance(carry, 0, 30)
+    torch.cuda.synchronize()
+    assert cuda_step.LAUNCHES == before + 1
+    ref = meta["runner"].run_chunk_plain(*carry, 0, 30)
+    tol = 1e-4 if dtype == torch.float32 else 1e-9
+    for a, b in zip(got[:4], ref[:4]):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=0,
+                                   atol=tol)
+    np.testing.assert_array_equal(got[4].cpu().numpy(), ref[4].cpu().numpy())
+    if dtype == torch.float32:
+        np.testing.assert_array_equal(it.cpu().numpy(),
+                                      ref[5].cpu().numpy())
