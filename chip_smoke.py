@@ -27,13 +27,27 @@ Phases (one JSON line each):
      configuration, batched DC then 2,000 steps of K1 in chunks of 250
      (lane 0 held to the golden at every chunk boundary, final state
      against phase 4's non-fused run on the same lanes); then B = 1024 in
-     f64, damped, 500 steps, within 1e-9 V of phase 4's f64 run.
+     f64, damped, 500 steps, within 1e-9 V of phase 4's f64 run;
+  8. the AC Monte-Carlo main path (bench_ac_mc's workload): dbmixer,
+     B = 4096 lanes x F = 64 frequencies (1 MHz .. 10 GHz), batched DC (K2)
+     then the fused AC sweep (K3, csrc/ac_sweep.cu), f32 and f64: AC
+     solves/s, one K3 launch per sweep call, no failed lane, f32 within
+     1e-3 of f64, f64 within 1e-9 of the real 2N reference route on 64
+     lanes; then the CLI's --run-ac on examples/cs_amp.sp and
+     examples/feedback_loop.sp against the committed JAX goldens (1e-9);
+  9. K3 against its plain PyTorch version on the card: random lanes at
+     N = 5, 31, 64 in f32 and f64 with a singular and a NaN lane (fail
+     masks identical, lane-relative error <= 1e-12 in f64, <= 1e-4 in
+     f32), and phase 8's dbmixer systems; kernel, plain,
+     torch.linalg.solve_ex and bound times at the main shape.
 
-Kernel launch counts are reset just before each main-path run (phases 4
-and 7) and read just after it.  The last lines are the kernels JSON, the
-card's name and power limit, and {"ok": true, "device": {...}}.  There is
-no fallback: without a GPU, or if any build, launch or check fails, the
-script exits non-zero without the last line.
+Every error of K3 and of the AC path is lane-relative: for each lane
+max|x - ref| / max|ref| over its frequencies and unknowns, then the worst
+lane.  Kernel launch counts are reset just before each main-path run
+(phases 4, 7 and 8) and read just after it.  The last lines are the
+kernels JSON, the card's name and power limit, and {"ok": true,
+"device": {...}}.  There is no fallback: without a GPU, or if any build,
+launch or check fails, the script exits non-zero without the last line.
 """
 
 import contextlib
@@ -74,6 +88,31 @@ R6 6 0 1k
 M1 7 5 0 n 10e-6 0.35e-6 2
 RL 1 7 2k
 C1 7 0 1p
+.op
+"""
+
+# every linear controlled source around a MOS stage (K1a scope, k = 1);
+# the deck of tests/test_torch_ctrl.py
+MOS_CTRL_DECK = """* MOS stage with E/G/F/H
+.MODEL 2 VT 0.386 MU 3.0238e-2 COX 6.058e-3 LAMBDA 0.05 CJ0 4.0e-14
+VDD 1 0 DC 3
+Vin 2 0 SIN 0.6 0.2 5e6
+R1 2 3 1k
+C3 3 0 0.2p
+E1 4 0 3 0 1.5
+M1 5 4 0 n 10e-6 0.35e-6 2
+RL 1 5 5k
+C1 5 0 1p
+G1 0 6 5 0 1m
+R6 6 0 2k
+C6 6 0 0.5p
+Vs 6 7 DC 0
+R7 7 0 1k
+F1 0 8 Vs 2
+R8 8 0 1k
+L8 8 0 10u
+H1 9 0 Vs 100
+R9 9 0 1k
 .op
 """
 
@@ -159,7 +198,7 @@ def phase_device():
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     print(card, flush=True)
-    names = ("lu_batched", "fused_step")
+    names = ("lu_batched", "fused_step", "ac_sweep")
     t0 = time.perf_counter()
     # one nvcc per source, all started together
     with concurrent.futures.ThreadPoolExecutor(len(names)) as ex:
@@ -201,10 +240,14 @@ def _lane_masks(x):
     return (flat == 0).all(1), flat.isnan().any(1)
 
 
-def _lane_rel_err(x, ref, good):
+def _lane_rel_err(x, ref, good=None):
+    """Worst lane of max|x - ref| / max|ref| over all but the lane axis,
+    among the lanes in `good` (all by default)."""
     import torch
     d = (x - ref).abs().amax(dim=(1, 2))
     s = ref.abs().amax(dim=(1, 2)).clamp_min(1e-30)
+    if good is None:
+        return float((d / s).max())
     return float(torch.where(good, d / s, 0.0).max())
 
 
@@ -309,7 +352,8 @@ def phase_single_lane():
         gold = read_golden("dbmixer_stdout.txt")
         cut = gold.index("DC analysis finished.\n") + len(
             "DC analysis finished.\n")
-        check(buf.getvalue() == gold[:cut], "dbmixer DC table byte-identical")
+        check(buf.getvalue() == gold[:cut] + "\nNo .TRAN card; transient "
+              "analysis skipped.\n", "dbmixer DC table byte-identical")
     finally:
         os.chdir(here)
         shutil.rmtree(tmp)
@@ -496,7 +540,8 @@ def phase_k1():
         Simulator.from_file(os.path.join(NETLISTS, "buffer.sp"),
                             device="cuda"), 64, 100, True, 1e-9)[0])
     for name, text in (("waveform deck", WAVEFORM_DECK),
-                       ("linear deck (k=0)", LINEAR_DECK)):
+                       ("linear deck (k=0)", LINEAR_DECK),
+                       ("MOS + E/G/F/H deck", MOS_CTRL_DECK)):
         rows.append(_k1_case(
             f"{name} f64 damped from DC",
             Simulator.from_text(text, device="cuda"), 64, 50, True, 1e-9)[0])
@@ -614,6 +659,284 @@ def phase_monte_carlo_fused(x32_nonfused, x64_nonfused):
     emit("monte_carlo_fused_f64_reference", **m64)
     return launches, main
 
+# ------------------------------------------------------------ phases 8, 9
+AC_FREQS = (6.0, 10.0, 64)          # np.logspace(6, 10, 64): 1 MHz .. 10 GHz
+
+
+def _zero_lanes(xr, xi):
+    import torch
+    return _lane_masks(torch.complex(xr, xi))[0]
+
+
+def ac_flops(B, F, n):
+    """Operations of K3 (and its plain version) for B x F systems of size
+    n: forming w B1, |a|^2 of each pivot column, |pivot|^2, the complex
+    factors (two divisions each), the trailing and right-hand-side updates
+    (8 per complex multiply-subtract), then back substitution."""
+    per = n * n
+    for k in range(n):
+        m = n - k - 1
+        per += 3 * (n - k) + 3 + 8 * m + 8 * m * m + 8 * m
+    per += sum(8 * (n - j - 1) + 11 for j in range(n))
+    return B * F * per
+
+
+def ac_bytes(B, F, n, size):
+    """G, B1, br, bi and the omegas read once, xr and xi written once."""
+    return size * (2 * B * n * n + 2 * B * n + F + 2 * B * F * n)
+
+
+def _ac_csv_err(path, gold):
+    """(error, print flips) of a --run-ac CSV against a golden: phasors
+    rebuilt from VM/VP, |x - x_gold| over the probe's largest |x_gold|.  An
+    entry whose printed VM and VP each differ from the golden's by at most
+    one unit in their tenth significant digit is a rounding flip of %.9e
+    (both files print 10 digits); it is counted, not measured."""
+    import numpy as np
+    with open(path) as f, open(gold) as g:
+        check(f.readline() == g.readline(), f"{path}: CSV header")
+    a = np.loadtxt(path, delimiter=",", skiprows=1)
+    b = np.loadtxt(gold, delimiter=",", skiprows=1)
+    check(a.shape == b.shape and np.array_equal(a[:, 0], b[:, 0]),
+          f"{path}: CSV frequencies")
+
+    def unit(u, v):
+        m = np.maximum(np.abs(u), np.abs(v))
+        return np.where(m > 0, 10.0 ** (np.floor(np.log10(
+            np.where(m > 0, m, 1.0))) - 9), 0.0)
+
+    ma, pa, mb, pb = a[:, 1::2], a[:, 2::2], b[:, 1::2], b[:, 2::2]
+    xa = ma * np.exp(1j * np.radians(pa))
+    xb = mb * np.exp(1j * np.radians(pb))
+    rel = np.abs(xa - xb) / np.maximum(np.abs(xb).max(axis=0), 1e-300)
+    flip = ((np.abs(ma - mb) <= 1.5 * unit(ma, mb))
+            & (np.abs(pa - pb) <= 1.5 * unit(pa, pb)) & (rel > 0))
+    return float(np.where(flip, 0.0, rel).max()), int(flip.sum())
+
+
+def _ac_mc_lanes(B, seed):
+    """dbmixer lanes drawn once in f64 (lane 0 nominal; source 0 drives the
+    AC RHS, as bench_ac_mc.py does) and the same lanes in f32: the two
+    simulators and their parameter dicts."""
+    import torch
+    from circuitsimulator_tpu_torch import DEFAULT_OPTIONS, Simulator
+    sim64, bp64 = _mc_lanes(DEFAULT_OPTIONS, B, seed)
+    bp64["vs_ac_mag"] = bp64["vs_ac_mag"].clone()
+    bp64["vs_ac_mag"][:, 0] = 1.0
+    sim32 = Simulator.from_file(os.path.join(NETLISTS, "dbmixer.sp"),
+                                opts=fast_f32_options(), device="cuda")
+    bp32 = {k: (v.float() if v.is_floating_point() else v)
+            for k, v in bp64.items()}
+    return (sim32, bp32), (sim64, bp64)
+
+
+def _ac_run(sim, bp, freqs):
+    """The AC Monte-Carlo main path: batched DC, then the warm batched
+    sweep (one call to warm up, five timed).  Counts are reset just before
+    and read just after."""
+    import torch
+    from circuitsimulator_tpu_torch.analysis.ac import make_ac_batched_fn
+    from circuitsimulator_tpu_torch.ops import cuda_ac, cuda_lu
+    from circuitsimulator_tpu_torch.parallel import montecarlo as mc
+    eng = sim.engine
+    B, F = mc.lane_count(bp), len(freqs)
+    torch.cuda.synchronize()
+    cuda_lu.LAUNCHES = 0
+    cuda_ac.LAUNCHES = 0
+    t0 = time.perf_counter()
+    x_ops = mc.batched_dc_fast(eng, bp)
+    torch.cuda.synchronize()
+    dc_s = time.perf_counter() - t0
+    fn = make_ac_batched_fn(eng, freqs)
+    xr, xi = fn(bp, x_ops)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        xr, xi = fn(bp, x_ops)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    k3, k2 = cuda_ac.LAUNCHES, cuda_lu.LAUNCHES
+    bad = _zero_lanes(xr, xi) | ~(torch.isfinite(xr) & torch.isfinite(xi)
+                                  ).reshape(B, -1).all(1)
+    m = {"B": B, "F": F, "N": eng.N, "dtype": str(eng.dtype)[6:],
+         "dc_s": dc_s, "dc_k2_launches": k2, "sweep_calls": 6,
+         "k3_launches": k3, "k3_launches_per_sweep_call": k3 / 6,
+         "sweep_wall_s": walls,
+         "ac_solves_per_s": B * F / statistics.median(walls),
+         "failed_lanes": int(bad.sum())}
+    check(k3 == 6, f"one K3 launch per sweep call ({k3} in 6 calls)")
+    check(k2 > 0, "batched DC ran through K2")
+    check(m["failed_lanes"] == 0, f"{m['failed_lanes']} failed AC lanes")
+    return m, x_ops, xr, xi
+
+
+def phase_ac_monte_carlo():
+    import numpy as np
+    import torch
+    from circuitsimulator_tpu_torch import cli
+    from circuitsimulator_tpu_torch.analysis.ac import (ac_system_real,
+                                                        solve_ac_real)
+    freqs = np.logspace(*AC_FREQS)
+    (sim32, bp32), (sim64, bp64) = _ac_mc_lanes(4096, seed=44)
+    m32, x32, xr32, xi32 = _ac_run(sim32, bp32, freqs)
+    emit("ac_monte_carlo_f32", **m32)
+    m64, x64, xr64, xi64 = _ac_run(sim64, bp64, freqs)
+    m64["f32_vs_f64_lane_rel"] = _lane_rel_err(
+        torch.complex(xr32.double(), xi32.double()),
+        torch.complex(xr64, xi64))
+    check(m64["f32_vs_f64_lane_rel"] <= 1e-3, "f32 within 1e-3 of f64")
+    # the real 2N reference route (K2) on 64 lanes x all 64 frequencies
+    eng, n, L = sim64.engine, sim64.engine.N, min(64, m64["B"])
+    G, B1, br, bi = ac_system_real(eng, {k: v[:L] for k, v in bp64.items()},
+                                   x64[:L], 1.0)
+    om = 2.0 * np.pi * torch.as_tensor(freqs, dtype=torch.float64,
+                                       device="cuda")
+    F = len(freqs)
+    rr, ri = solve_ac_real(eng, G[:, None].expand(L, F, n, n),
+                           om[None, :, None, None] * B1[:, None],
+                           br[:, None].expand(L, F, n),
+                           bi[:, None].expand(L, F, n))
+    m64["vs_2n_route_lane_rel"] = _lane_rel_err(
+        torch.complex(xr64[:L], xi64[:L]), torch.complex(rr, ri))
+    check(m64["vs_2n_route_lane_rel"] <= 1e-9, "f64 K3 within 1e-9 of 2N")
+    emit("ac_monte_carlo_f64", **m64)
+    # the CLI on the card against the committed JAX goldens
+    cli_rows = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ac_")
+    try:
+        for deck in ("cs_amp", "feedback_loop"):
+            out = os.path.join(tmp, f"{deck}_ac.csv")
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main([os.path.join(REPO, "examples", f"{deck}.sp"),
+                               "--no-tran", "--run-ac", out])
+            check(rc == 0, f"{deck} --run-ac exit code")
+            check(f"Results written to '{out}'." in buf.getvalue(),
+                  f"{deck} --run-ac stdout")
+            err, flips = _ac_csv_err(
+                out, os.path.join(GOLDENS, f"{deck}_ac_jax.csv"))
+            cli_rows[deck] = {"rel_err_vs_jax_golden": err,
+                              "print_flips": flips,
+                              "cli_s": time.perf_counter() - t0}
+            check(err <= 1e-9, f"{deck} --run-ac CSV within 1e-9: {err}")
+    finally:
+        shutil.rmtree(tmp)
+    emit("ac_cli_vs_jax_goldens", decks=cli_rows)
+    return m32, {"float32": (sim32, bp32, x32), "float64": (sim64, bp64, x64)}
+
+
+def _ac_random(B, n, dtype, seed):
+    """Diagonally dominant lanes (tests/test_pallas_ac.py); lane 1 exactly
+    singular, lane 2 holds a NaN."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    arrays = [rng.standard_normal((B, n, n)) + n * np.eye(n),
+              rng.standard_normal((B, n, n)), rng.standard_normal((B, n)),
+              rng.standard_normal((B, n))]
+    arrays[0][1] = 0.0
+    arrays[1][1] = 0.0
+    arrays[0][2, n // 2, 1] = np.nan
+    return [torch.as_tensor(a, dtype=dtype, device="cuda") for a in arrays]
+
+
+def phase_k3(lanes):
+    import numpy as np
+    import torch
+    from circuitsimulator_tpu_torch.analysis.ac import ac_system_real
+    from circuitsimulator_tpu_torch.ops import ac_sweep
+    rows, max_abs = [], 0.0
+    for n in (5, 31, 64):
+        for dtype in (torch.float64, torch.float32):
+            G, B1, br, bi = _ac_random(300, n, dtype, seed=n)
+            # omega <= 1 keeps G + n I dominant (at omega = 100 the random
+            # w B1 sets the conditioning, and f32 rounding with it)
+            om = torch.logspace(-1, 0, 8, dtype=dtype, device="cuda")
+            xr, xi = ac_sweep.ac_sweep(G, B1, br, bi, om, FLOOR)
+            pr, pi = ac_sweep.ac_sweep_plain(G, B1, br, bi, om, FLOOR)
+            torch.cuda.synchronize()
+            zk, zp = _zero_lanes(xr, xi), _zero_lanes(pr, pi)
+            check(torch.equal(zk, zp), f"K3 fail masks N={n} {dtype}")
+            check(bool(zk[1] and zk[2]), "singular and NaN lanes zeroed")
+            rel = _lane_rel_err(torch.complex(xr, xi), torch.complex(pr, pi),
+                            ~zp)
+            tol = 1e-12 if dtype == torch.float64 else 1e-4
+            check(rel <= tol, f"K3 vs plain N={n} {dtype}: {rel} > {tol}")
+            good = ~zp
+            max_abs = max(max_abs, float((xr - pr).abs()[good].max()),
+                          float((xi - pi).abs()[good].max()))
+            rows.append({"case": "random", "B": 300, "F": 8, "N": n,
+                         "dtype": str(dtype)[6:], "lane_rel_err": rel,
+                         "tol": tol, "zero_lanes": int(zk.sum())})
+    freqs = np.logspace(*AC_FREQS)
+    timings = {}
+    for name, (sim, bp, x_ops) in lanes.items():
+        eng = sim.engine
+        G, B1, br, bi = ac_system_real(eng, bp, x_ops, 1.0)
+        om = 2.0 * np.pi * torch.as_tensor(freqs, dtype=eng.dtype,
+                                           device="cuda")
+        xr, xi = ac_sweep.ac_sweep(G, B1, br, bi, om, FLOOR)
+        pr, pi = ac_sweep.ac_sweep_plain(G, B1, br, bi, om, FLOOR)
+        torch.cuda.synchronize()
+        zk, zp = _zero_lanes(xr, xi), _zero_lanes(pr, pi)
+        check(torch.equal(zk, zp) and not bool(zp.any()),
+              f"dbmixer K3 fail masks {name}")
+        rel = _lane_rel_err(torch.complex(xr, xi), torch.complex(pr, pi))
+        tol = 1e-12 if eng.dtype == torch.float64 else 1e-4
+        check(rel <= tol, f"dbmixer K3 vs plain {name}: {rel} > {tol}")
+        max_abs = max(max_abs, float((xr - pr).abs().max()),
+                      float((xi - pi).abs().max()))
+        B, n = G.shape[0], G.shape[-1]
+        F = len(freqs)
+        rows.append({"case": "dbmixer unit-omega systems", "B": B, "F": F,
+                     "N": n, "dtype": name, "lane_rel_err": rel,
+                     "tol": tol, "zero_lanes": int(zk.sum())})
+        # the library yardstick: one complex solve of the pre-formed
+        # (B * F, N, N) systems (formation excluded; its fail semantics
+        # differ, so it is timed only)
+        A = torch.complex(G[:, None].expand(B, F, n, n),
+                          om[None, :, None, None] * B1[:, None])
+        A = A.reshape(B * F, n, n)
+        rhs = torch.complex(br, bi)[:, None].expand(B, F, n).reshape(
+            B * F, n, 1)
+        bms, by = bound_ms(ac_bytes(B, F, n, G.element_size()),
+                           ac_flops(B, F, n), eng.dtype)
+        timings[name] = {
+            "B": B, "F": F, "N": n,
+            "kernel_ms": cuda_ms(lambda: ac_sweep.ac_sweep(
+                G, B1, br, bi, om, FLOOR)),
+            "plain_ms": cuda_ms(lambda: ac_sweep.ac_sweep_plain(
+                G, B1, br, bi, om, FLOOR), reps=3, warmup=1),
+            "library_ms": cuda_ms(lambda: torch.linalg.solve_ex(A, rhs)),
+            "bound_ms": bms, "bound_by": by,
+            "flops": ac_flops(B, F, n),
+            "bytes": ac_bytes(B, F, n, G.element_size())}
+        del A, rhs
+    # N = 64, the kernel's largest size: random lanes, B = 1024 x F = 64
+    for dtype in (torch.float32, torch.float64):
+        G, B1, br, bi = _ac_random(1024, 64, dtype, seed=65)
+        om = torch.logspace(-1, 0, 64, dtype=dtype, device="cuda")
+        bms, by = bound_ms(ac_bytes(1024, 64, 64, G.element_size()),
+                           ac_flops(1024, 64, 64), dtype)
+        A = torch.complex(G[:, None].expand(1024, 64, 64, 64),
+                          om[None, :, None, None] * B1[:, None]).reshape(
+                              -1, 64, 64)
+        rhs = torch.complex(br, bi)[:, None].expand(1024, 64, 64).reshape(
+            -1, 64, 1)
+        timings[f"{str(dtype)[6:]} N=64"] = {
+            "library_ms": cuda_ms(lambda: torch.linalg.solve_ex(A, rhs)),
+            "B": 1024, "F": 64, "N": 64,
+            "kernel_ms": cuda_ms(lambda: ac_sweep.ac_sweep(
+                G, B1, br, bi, om, FLOOR)),
+            "plain_ms": cuda_ms(lambda: ac_sweep.ac_sweep_plain(
+                G, B1, br, bi, om, FLOOR), reps=3, warmup=1),
+            "bound_ms": bms, "bound_by": by}
+        del A, rhs
+    emit("k3_vs_plain", cases=rows, timings=timings, max_abs_err=max_abs)
+    return max_abs, timings
+
 
 def main():
     import torch
@@ -628,6 +951,9 @@ def main():
     phase_cuda_vs_cpu()
     k1_err = phase_k1()
     k1_launches, k1_main = phase_monte_carlo_fused(x32, x64)
+    ac_main, ac_lanes = phase_ac_monte_carlo()
+    k3_err, k3_timings = phase_k3(ac_lanes)
+    k3_main = k3_timings["float32"]  # B=4096, F=64, N=31: the bench shape
     k2_main = timings[0]             # B=8192, N=31, R=1, f32: batched DC
     print(json.dumps({"kernels": [{
         "name": "lu_batched", "route": "cuda",
@@ -644,7 +970,14 @@ def main():
         "max_abs_err": max(k1_err, k1_main["max_abs_err"]),
         "ms": k1_main["kernel_ms"], "plain_ms": k1_main["plain_ms"],
         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
-        "library_ms": None}]}), flush=True)
+        "library_ms": None}, {
+        "name": "ac_sweep", "route": "cuda",
+        "source": "circuitsimulator_tpu_torch/csrc/ac_sweep.cu",
+        "replaces": "circuitsimulator_tpu/ops/pallas_ac.py:49",
+        "launches": ac_main["k3_launches"], "max_abs_err": k3_err,
+        "ms": k3_main["kernel_ms"], "plain_ms": k3_main["plain_ms"],
+        "bound_ms": k3_main["bound_ms"], "bound_by": k3_main["bound_by"],
+        "library_ms": k3_main["library_ms"]}]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

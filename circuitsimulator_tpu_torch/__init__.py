@@ -1,10 +1,11 @@
 """circuitsimulator_tpu_torch: the PyTorch/CUDA port of circuitsimulator_tpu.
 
 Netlist -> lowering -> MNA assembly -> DC operating point -> Backward-Euler
-Woodbury transient -> DC table and CSV, single-lane or batched over
-Monte-Carlo lanes, on one NVIDIA GPU.  Dense pivoted-LU solves on CUDA
-tensors go through a hand-written CUDA kernel (``csrc/lu_batched.cu``);
-CPU tensors take its plain PyTorch version.  Imports torch, never jax.
+Woodbury transient -> DC table and CSV, and the .AC small-signal sweep,
+single-lane or batched over Monte-Carlo lanes, on one NVIDIA GPU.  Dense
+pivoted-LU solves, the fused transient chunk and the fused AC sweep on CUDA
+tensors go through hand-written CUDA kernels (``csrc/*.cu``); CPU tensors
+take their plain PyTorch versions.  Imports torch, never jax.
 """
 
 from .api import Simulator

@@ -1,1 +1,2 @@
-"""DC operating point and Backward-Euler transient."""
+"""DC operating point, Backward-Euler transient and AC small-signal
+analysis."""

@@ -5,6 +5,7 @@
     x = sim.dc()                      # DC operating point, (N,)
     res = sim.transient()             # Backward-Euler transient
     sim.write_transient_csv("out.csv", res)
+    ac = sim.ac()                     # .AC small-signal sweep (K3)
 """
 
 from __future__ import annotations
@@ -152,6 +153,20 @@ class Simulator:
         p = params if params is not None else self.params
         return run_transient(self.engine, p, tstep, tstop,
                              x0=self.dc(p), save_xs=save_xs)
+
+    def ac(self, params: Optional[Any] = None, freqs=None,
+           x_op: Optional[Any] = None):
+        """Small-signal AC sweep (analysis/ac.py).  Defaults to the
+        netlist's .AC card; `freqs` overrides with an explicit array."""
+        from .analysis.ac import ac_analysis, sweep_frequencies
+        if freqs is None:
+            cfg = self.config.ac
+            if not cfg.enabled:
+                raise ValueError(".AC card missing")
+            freqs = sweep_frequencies(cfg.sweep_type, cfg.n_points,
+                                      cfg.fstart, cfg.fstop)
+        p = params if params is not None else self.params
+        return ac_analysis(self.engine, p, freqs, x_op=x_op)
 
     # ---- output ----
     def write_transient_csv(self, path: str, result: TransientResult,

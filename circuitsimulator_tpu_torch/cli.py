@@ -1,13 +1,14 @@
 """Command-line entry point mirroring the reference CLI (src/main.cpp):
 
     python -m circuitsimulator_tpu_torch <netlist.sp> [tran_out.csv]
-        [--device cuda|cpu] [--dtype f64|f32] [--no-tran]
+        [--device cuda|cpu] [--dtype f64|f32] [--no-tran] [--run-ac [CSV]]
 
 prints the circuit summary and the DC node-voltage/branch-current tables,
 then runs the Backward-Euler transient if a .TRAN card is present and
-writes its CSV (default tran_out.csv).  ``--device`` defaults to cuda; on a
-machine without a GPU the run stops with an error instead of moving to the
-CPU.
+writes its CSV (default tran_out.csv); ``--run-ac`` also runs the .AC
+sweep and writes its magnitude/phase CSV (default ac_out.csv).
+``--device`` defaults to cuda; on a machine without a GPU the run stops
+with an error instead of moving to the CPU.
 """
 
 from __future__ import annotations
@@ -29,6 +30,8 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="working precision (default f64, reference parity)")
     p.add_argument("--no-tran", action="store_true",
                    help="skip the transient analysis even if .TRAN present")
+    p.add_argument("--run-ac", metavar="CSV", nargs="?", const="ac_out.csv",
+                   help="run the .AC small-signal sweep, write mag/phase CSV")
     return p
 
 
@@ -80,6 +83,20 @@ def main(argv=None) -> int:
             return 1
         print("Transient analysis (Backward Euler) finished. "
               f"Results written to '{args.tran_out}'.")
+    else:
+        print("\nNo .TRAN card; transient analysis skipped.")
+
+    if args.run_ac:
+        from .analysis.ac import write_ac_csv
+        print("\nRunning AC small-signal sweep...")
+        try:
+            acres = sim.ac(x_op=x)
+            write_ac_csv(args.run_ac, sim.topo, acres)
+        except Exception as e:  # noqa: BLE001
+            print(f"AC failed: {e}", file=sys.stderr)
+            return 1
+        print(f"AC sweep finished ({len(acres.freqs)} points). "
+              f"Results written to '{args.run_ac}'.")
     if sim.config.measures or sim.config.four.enabled:
         print("note: .MEASURE/.FOUR are not yet ported; skipped",
               file=sys.stderr)

@@ -1,1 +1,2 @@
-"""Assembly, Woodbury and LU solvers; the CUDA kernel wrapper and build."""
+"""Assembly, Woodbury, LU and AC-sweep solvers; the CUDA kernel wrappers
+and their build."""

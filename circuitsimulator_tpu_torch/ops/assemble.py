@@ -1,11 +1,13 @@
 """MNA assembly: precomputed stamp patterns, per-call values.
 
 Port of the part of ``circuitsimulator_tpu/ops/assemble.Engine`` that the
-DC + Backward-Euler path runs, for R, C, L, V, I and Level-1 MOS devices.
+DC, Backward-Euler and AC paths run, for R, C, L, V, I, Level-1 MOS and the
+linear controlled sources E/G/F/H.
 The stamp *pattern* (row/col index lists) is built once per circuit in
 numpy; only the *values* are recomputed, split by how often they change:
 
-- per analysis:  R, V/L couplings, C and MOS-cap companions, gmin -> G_static
+- per analysis:  R, V/L couplings, E/G/F/H, C and MOS-cap companions,
+                 gmin                                             -> G_static
 - per timestep:  source values at t, C/L history currents         -> I_static
 - per Newton iteration: MOS conduction linearization              -> scatter
 
@@ -28,9 +30,7 @@ from ..utils.options import SolverOptions
 
 # device classes of the JAX engine that the port does not stamp yet
 _UNPORTED = {"D": "diode", "Q": "BJT", "J": "JFET", "S": "switch (S/W)",
-             "K": "mutual inductance (K)", "T": "transmission line (T)",
-             "E": "controlled source (E)", "G": "controlled source (G)",
-             "F": "controlled source (F)", "H": "controlled source (H)"}
+             "K": "mutual inductance (K)", "T": "transmission line (T)"}
 
 
 def _two_terminal_pattern(a: np.ndarray, b: np.ndarray):
@@ -101,8 +101,35 @@ class Engine:
         self.dc_const_vals = torch.as_tensor(
             np.tile(np.array([1.0, -1.0, 1.0, -1.0]), nV + nL),
             dtype=dt_, device=dev)
-        self._dc_flat = flat(np.concatenate([self.res_rows, self.dc_const_rows]),
-                             np.concatenate([self.res_cols, self.dc_const_cols]))
+
+        # ---- linear controlled sources (static stamps) ----
+        # VCCS: rows [p,p,m,m] x cols [cp,cm,cp,cm], vals [+g,-g,-g,+g]
+        # CCCS: rows [p,m] x cols [kc,kc], vals [+gain,-gain]
+        # VCVS: rows [p,m,k,k,k,k] x cols [k,k,p,m,cp,cm],
+        #       vals [1,-1, 1,-1,-gain,+gain]
+        # CCVS: rows [p,m,k,k,k] x cols [k,k,p,m,kc], vals [1,-1,1,-1,-r]
+        self.ctrl_rows = np.concatenate([
+            np.stack([t.vccs_ep, t.vccs_ep, t.vccs_em, t.vccs_em], 1).ravel(),
+            np.stack([t.cccs_ep, t.cccs_em], 1).ravel(),
+            np.stack([t.vcvs_ep, t.vcvs_em, t.vcvs_k, t.vcvs_k,
+                      t.vcvs_k, t.vcvs_k], 1).ravel(),
+            np.stack([t.ccvs_ep, t.ccvs_em, t.ccvs_k, t.ccvs_k,
+                      t.ccvs_k], 1).ravel(),
+        ]).astype(np.int64)
+        self.ctrl_cols = np.concatenate([
+            np.stack([t.vccs_ecp, t.vccs_ecm, t.vccs_ecp,
+                      t.vccs_ecm], 1).ravel(),
+            np.stack([t.cccs_kc, t.cccs_kc], 1).ravel(),
+            np.stack([t.vcvs_k, t.vcvs_k, t.vcvs_ep, t.vcvs_em,
+                      t.vcvs_ecp, t.vcvs_ecm], 1).ravel(),
+            np.stack([t.ccvs_k, t.ccvs_k, t.ccvs_ep, t.ccvs_em,
+                      t.ccvs_kc], 1).ravel(),
+        ]).astype(np.int64)
+        self._dc_flat = flat(
+            np.concatenate([self.res_rows, self.dc_const_rows,
+                            self.ctrl_rows]),
+            np.concatenate([self.res_cols, self.dc_const_cols,
+                            self.ctrl_cols]))
 
         # ---- transient patterns: inductor BE companion (4 couplings + the
         # -L/dt branch diagonal), cap-like class = explicit C then the 4
@@ -122,9 +149,11 @@ class Engine:
         self.n_caplike = len(self.cap_a)
         self._tran_flat = flat(
             np.concatenate([self.res_rows, self.dc_const_rows[:4 * nV],
-                            self.ind_rows, self.cap_rows, t.node_eqs]),
+                            self.ind_rows, self.cap_rows, t.node_eqs,
+                            self.ctrl_rows]),
             np.concatenate([self.res_cols, self.dc_const_cols[:4 * nV],
-                            self.ind_cols, self.cap_cols, t.node_eqs]))
+                            self.ind_cols, self.cap_cols, t.node_eqs,
+                            self.ctrl_cols]))
 
         self.mos_body = bool(np.any(np.asarray(low.params["mos_gamma"].cpu())))
         self.res_tc = bool(np.any(np.asarray(low.params["res_tc1"].cpu()))
@@ -221,6 +250,19 @@ class Engine:
         g = torch.where(nz, 1.0 / torch.where(nz, r, 1.0), 0.0)
         return _two_terminal_vals(g)
 
+    def _ctrl_vals(self, params):
+        """Values for the controlled-source pattern (ctrl_rows/cols order);
+        all linear, so they belong to the static tier."""
+        g, a = params["vccs_g"], params["cccs_gain"]
+        e, r = params["vcvs_gain"], params["ccvs_r"]
+        oe, orr = torch.ones_like(e), torch.ones_like(r)
+        parts = [torch.stack([g, -g, -g, g], dim=-1).flatten(-2),
+                 torch.stack([a, -a], dim=-1).flatten(-2),
+                 torch.stack([oe, -oe, oe, -oe, -e, e], dim=-1).flatten(-2),
+                 torch.stack([orr, -orr, orr, -orr, -r], dim=-1).flatten(-2)]
+        lead = torch.broadcast_shapes(*(p.shape[:-1] for p in parts))
+        return torch.cat([p.expand(lead + p.shape[-1:]) for p in parts], -1)
+
     def _zeros_G(self, lead):
         return torch.zeros(lead + ((self.N + 1) ** 2,), dtype=self.dtype,
                            device=self.device)
@@ -253,11 +295,17 @@ class Engine:
     def dc_static_entries(self, params):
         """Static COO entries of the DC matrix: (rows, cols, vals)."""
         rvals = self._res_vals(params)
-        const = self.dc_const_vals.expand(rvals.shape[:-1]
-                                          + self.dc_const_vals.shape)
-        rows = np.concatenate([self.res_rows, self.dc_const_rows])
-        cols = np.concatenate([self.res_cols, self.dc_const_cols])
-        return rows, cols, torch.cat([rvals, const], dim=-1)
+        cvals = self._ctrl_vals(params)
+        lead = torch.broadcast_shapes(rvals.shape[:-1], cvals.shape[:-1])
+        const = self.dc_const_vals.expand(lead + self.dc_const_vals.shape)
+        rows = np.concatenate([self.res_rows, self.dc_const_rows,
+                               self.ctrl_rows])
+        cols = np.concatenate([self.res_cols, self.dc_const_cols,
+                               self.ctrl_cols])
+        return rows, cols, torch.cat([rvals.expand(lead + rvals.shape[-1:]),
+                                      const,
+                                      cvals.expand(lead + cvals.shape[-1:])],
+                                     dim=-1)
 
     def dc_rhs(self, params, scale):
         """DC RHS: V/I source values at the ramp scale."""
@@ -298,9 +346,10 @@ class Engine:
     # ------------------------------------------------------------------
     def tran_static_entries(self, params, dt, gmin):
         """Static COO entries of the BE transient matrix: R, V couplings,
-        L and C/MOS-cap companions (G_C = C/dt, R_L = L/dt), gmin."""
+        L and C/MOS-cap companions (G_C = C/dt, R_L = L/dt), gmin, E/G/F/H."""
         rvals = self._res_vals(params)
-        lead = rvals.shape[:-1]
+        cvals = self._ctrl_vals(params)
+        lead = torch.broadcast_shapes(rvals.shape[:-1], cvals.shape[:-1])
         nV = len(self.topo.vs_ep)
         vs_vals = self.dc_const_vals[:4 * nV]
         L = params["ind_l"]
@@ -317,11 +366,11 @@ class Engine:
             lead + (len(self.topo.node_eqs),))
         rows = np.concatenate([self.res_rows, self.dc_const_rows[:4 * nV],
                                self.ind_rows, self.cap_rows,
-                               self.topo.node_eqs])
+                               self.topo.node_eqs, self.ctrl_rows])
         cols = np.concatenate([self.res_cols, self.dc_const_cols[:4 * nV],
                                self.ind_cols, self.cap_cols,
-                               self.topo.node_eqs])
-        parts = [rvals, vs_vals, ind_vals, cap_vals, gm]
+                               self.topo.node_eqs, self.ctrl_cols])
+        parts = [rvals, vs_vals, ind_vals, cap_vals, gm, cvals]
         vals = torch.cat([p.expand(lead + p.shape[-1:]) for p in parts], -1)
         return rows, cols, vals
 

@@ -3,7 +3,8 @@ per lane in one launch.
 
 Port of ``circuitsimulator_tpu/ops/pallas_step.py`` (``PallasStepRunner``)
 for its K1a scope: R/C/L, V and I sources with every waveform kind
-(PULSE/SIN/PWL/EXP/SFFM, PWL with at most 8 breakpoints) and Level-1 MOS
+(PULSE/SIN/PWL/EXP/SFFM, PWL with at most 8 breakpoints), the linear
+controlled sources E/G/F/H (their stamps live in G0 only) and Level-1 MOS
 without body effect or reverse region, Woodbury rank 0 <= k <= 16 (k = 0
 is a linear deck: each Newton iteration accepts z0 = G0^{-1} b).
 
@@ -63,7 +64,8 @@ def unsupported_reason(engine, dt=None) -> Optional[str]:
     16 < k (K1d) and N > 64."""
     t = engine.topo
     opts = engine.opts
-    others = sorted(c for c, n in t.counts.items() if n and c not in "RCLVIM")
+    others = sorted(c for c, n in t.counts.items()
+                    if n and c not in "RCLVIMEGFH")
     if others:
         return f"device classes {', '.join(others)} (K1b/K1c)"
     if engine.mos_body:

@@ -53,14 +53,16 @@ def test_buffer_cli_stdout_and_csv_match_goldens(tmp_path, monkeypatch,
 
 
 def test_dbmixer_cli_dc_table_matches_golden(tmp_path, monkeypatch, capsys):
-    # the DC part of the reference stdout; the full 50,000-step transient
-    # is left to the GPU (and to a manual CPU run, about ten minutes)
+    # the DC part of the reference stdout, then the JAX CLI's line for a
+    # skipped transient; the full 50,000-step transient is left to the GPU
+    # (and to a manual CPU run, about ten minutes)
     deck = stage_deck(tmp_path, "dbmixer")
     monkeypatch.chdir(tmp_path)
     assert main([deck, "--device", "cpu", "--no-tran"]) == 0
     ref = read_golden("dbmixer_stdout.txt")
     cut = ref.index("DC analysis finished.\n") + len("DC analysis finished.\n")
-    assert capsys.readouterr().out == ref[:cut]
+    assert capsys.readouterr().out == (
+        ref[:cut] + "\nNo .TRAN card; transient analysis skipped.\n")
 
 
 def test_module_entry_point_runs():

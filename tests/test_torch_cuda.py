@@ -147,3 +147,104 @@ def test_fused_step_kernel_matches_plain(cuda_device, deck, dtype):
     if dtype == torch.float32:
         np.testing.assert_array_equal(it.cpu().numpy(),
                                       ref[5].cpu().numpy())
+
+
+def ac_lanes(B, n, seed):
+    """Diagonally dominant lanes; lane 1 exactly singular, lane 2 NaN."""
+    rng = np.random.default_rng(seed)
+    G = rng.standard_normal((B, n, n)) + n * np.eye(n)
+    B1 = rng.standard_normal((B, n, n))
+    br = rng.standard_normal((B, n))
+    bi = rng.standard_normal((B, n))
+    G[1] = 0.0
+    B1[1] = 0.0
+    G[2, n // 2, min(1, n - 1)] = np.nan
+    return G, B1, br, bi
+
+
+def lane_rel_err(x, ref, good):
+    """Worst lane of max|x - ref| / max|ref| over frequencies and unknowns."""
+    d = np.abs(x - ref)[good].reshape(int(good.sum()), -1).max(1)
+    s = np.abs(ref)[good].reshape(int(good.sum()), -1).max(1)
+    return float((d / np.maximum(s, 1e-300)).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,n,F", [(1, 1, 3), (7, 5, 4), (300, 31, 8),
+                                   (40, 64, 3)])
+def test_ac_sweep_kernel_matches_plain(cuda_device, dtype, B, n, F):
+    """K3 against its plain version on the card: identical fail masks,
+    lane-relative error <= 1e-12 (f64) and <= 1e-4 (f32)."""
+    from circuitsimulator_tpu_torch.ops import ac_sweep, cuda_ac
+    arrays = ac_lanes(max(B, 3), n, seed=n + F)
+    arrays = [a[:B] for a in arrays]
+    G, B1, br, bi = (torch.as_tensor(a, dtype=dtype, device=cuda_device)
+                     for a in arrays)
+    # omega <= 1 keeps the lanes diagonally dominant for the f32 bar
+    om = torch.as_tensor(np.logspace(-1, 0, F), dtype=dtype,
+                         device=cuda_device)
+    before = cuda_ac.LAUNCHES
+    xr, xi = ac_sweep.ac_sweep(G, B1, br, bi, om, FLOOR)
+    torch.cuda.synchronize()
+    assert cuda_ac.LAUNCHES == before + 1
+    pr, pi = ac_sweep.ac_sweep_plain(G, B1, br, bi, om, FLOOR)
+    x = xr.cpu().numpy() + 1j * xi.cpu().numpy()
+    ref = pr.cpu().numpy() + 1j * pi.cpu().numpy()
+    zero_k = np.all(x.reshape(B, -1) == 0.0, axis=1)
+    zero_p = np.all(ref.reshape(B, -1) == 0.0, axis=1)
+    np.testing.assert_array_equal(zero_k, zero_p)
+    if B > 2:
+        assert zero_k[1] and zero_k[2]
+    good = ~zero_p
+    tol = 1e-12 if dtype == torch.float64 else 1e-4
+    assert lane_rel_err(x, ref, good) <= tol
+
+
+@pytest.mark.cuda
+def test_ac_analysis_batched_on_the_card(cuda_device):
+    """dbmixer, 64 lanes x 8 frequencies, f64: the card's route (batched DC
+    on K2, K3) against the CPU route (plain versions) within 1e-9
+    lane-relative, with one K3 launch."""
+    from circuitsimulator_tpu_torch.analysis.ac import ac_analysis_batched
+    from circuitsimulator_tpu_torch.ops import cuda_ac
+    from circuitsimulator_tpu_torch.parallel import montecarlo as mc
+    deck = os.path.join(REPO, "tests", "netlists", "dbmixer.sp")
+    cpu = Simulator.from_file(deck, device="cpu")
+    gpu = Simulator.from_file(deck, device=cuda_device)
+    bp = mc.perturb_params(cpu.params, torch.Generator().manual_seed(4), 64,
+                           {"res_r": 0.01, "mos_vth": 0.02, "cap_c": 0.02})
+    bp["vs_ac_mag"] = bp["vs_ac_mag"].clone()
+    bp["vs_ac_mag"][:, 0] = 1.0
+    freqs = np.logspace(6, 10, 8)
+    want = ac_analysis_batched(cpu.engine, bp, freqs)
+    before = cuda_ac.LAUNCHES
+    got = ac_analysis_batched(gpu.engine,
+                              {k: v.to(cuda_device) for k, v in bp.items()},
+                              freqs)
+    assert cuda_ac.LAUNCHES == before + 1
+    assert got.xs.shape == (64, 8, gpu.engine.N)
+    assert np.isfinite(got.xs).all()
+    assert lane_rel_err(got.xs, want.xs, np.ones(64, bool)) <= 1e-9
+
+
+@pytest.mark.cuda
+def test_cli_run_ac_on_the_card(cuda_device, tmp_path, monkeypatch):
+    """--run-ac on the card: cs_amp.sp's CSV against the committed JAX
+    golden, phasors within 1e-9 of each probe's largest magnitude."""
+    import shutil
+    from circuitsimulator_tpu_torch import cli
+    shutil.copy(os.path.join(REPO, "examples", "cs_amp.sp"), tmp_path)
+    monkeypatch.chdir(tmp_path)
+    assert cli.main(["cs_amp.sp", "--device", "cuda", "--no-tran",
+                     "--run-ac", "ac.csv"]) == 0
+    gold = os.path.join(REPO, "tests", "goldens", "cs_amp_ac_jax.csv")
+    with open("ac.csv") as f, open(gold) as g:
+        assert f.readline() == g.readline()
+    a = np.loadtxt("ac.csv", delimiter=",", skiprows=1)
+    b = np.loadtxt(gold, delimiter=",", skiprows=1)
+    np.testing.assert_array_equal(a[:, 0], b[:, 0])
+    xa = a[:, 1::2] * np.exp(1j * np.radians(a[:, 2::2]))
+    xb = b[:, 1::2] * np.exp(1j * np.radians(b[:, 2::2]))
+    scale = np.maximum(np.abs(xb).max(axis=0), 1e-300)
+    assert (np.abs(xa - xb) / scale).max() <= 1e-9

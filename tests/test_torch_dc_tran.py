@@ -144,7 +144,7 @@ def test_perturb_params_draws_lognormal_lanes():
 @pytest.mark.parametrize("card,what", [
     ("D1 1 0 dmod\n.model dmod D IS=1e-14", "diode"),
     ("B1 1 0 V=2*v(1)", "B sources"),
-    ("E1 2 0 1 0 2.0\nR2 2 0 1k", "controlled source"),
+    ("L1 1 2 1u\nL2 2 0 1u\nK1 L1 L2 0.5", "mutual inductance"),
     (".OPTIONS METHOD=TRAP", "METHOD=TRAP"),
 ])
 def test_unported_features_raise_by_name(card, what):
@@ -156,6 +156,8 @@ def test_unported_features_raise_by_name(card, what):
 def test_port_never_imports_jax():
     code = ("import sys\n"
             "import circuitsimulator_tpu_torch\n"
+            "from circuitsimulator_tpu_torch.analysis import ac\n"
+            "from circuitsimulator_tpu_torch.ops import ac_sweep, cuda_ac\n"
             "from circuitsimulator_tpu_torch.netlist import "
             "parse_netlist_text, read_netlist\n"
             f"ckt, _ = parse_netlist_text(read_netlist({DBMIXER!r}))\n"
