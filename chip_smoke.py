@@ -39,12 +39,34 @@ Phases (one JSON line each):
      N = 5, 31, 64 in f32 and f64 with a singular and a NaN lane (fail
      masks identical, lane-relative error <= 1e-12 in f64, <= 1e-4 in
      f32), and phase 8's dbmixer systems; kernel, plain,
-     torch.linalg.solve_ex and bound times at the main shape.
+     torch.linalg.solve_ex and bound times at the main shape;
+ 10. K1's junction and switch rows (K1b) against the plain version on the
+     card, from each lane's batched DC point: a diode rectifier with a
+     zener, an NPN + PNP deck with Early voltage, a MOS + JFET + BJT +
+     diode deck and a switch + MOS + diode deck (W = 4), 256 lanes, 6-12
+     steps, damped configuration, f32 (1e-4 V) and f64 (1e-9 V, per-lane
+     iteration counts equal); failed masks identical; kernel and plain
+     times of the mixed deck at B = 8192 x 100 steps;
+ 11. the fused Monte-Carlo path on a BJT deck: examples/bjt_amp.sp over its
+     own .TRAN (dt 2 us, 250 steps), B = 8192 lanes f32 (resistors, bjt_is
+     and bjt_bf perturbed), batched DC on K2 then one K1 chunk: lane-steps
+     per second, K1 ms per chunk against plain and bound, failed lanes;
+     then B = 1024 in f64 against the non-fused f64 run (1e-9 V);
+ 12. the same on switches and a diode: examples/chopper.sp (S and W
+     switches, dt 5 ns, 600 steps in chunks of 200) and examples/
+     mixer_rf.sp (dt 1 ns, 2,000 steps in chunks of 500), B = 8192 f32;
+ 13. AC of the BJT deck: Simulator.ac and the batched sweep on bjt_amp.sp
+     over its .AC card at B = 4096, f32 and f64: K3 launches, failed
+     lanes, f64 against the real 2N route (1e-9) and the single lane
+     against the nominal lane.
 
 Every error of K3 and of the AC path is lane-relative: for each lane
 max|x - ref| / max|ref| over its frequencies and unknowns, then the worst
 lane.  Kernel launch counts are reset just before each main-path run
-(phases 4, 7 and 8) and read just after it.  The last lines are the
+(phases 4, 7, 8, 11, 12 and 13) and read just after it.  The junction decks
+run the damped while-loop Newton configuration at f32 tolerances: the fast
+configuration (alpha 1, predictor, two unrolled iterations) was tuned on
+dbmixer and is not held to anything on exponential devices.  The last lines are the
 kernels JSON, the card's name and power limit, and {"ok": true,
 "device": {...}}.  There is no fallback: without a GPU, or if any build,
 launch or check fails, the script exits non-zero without the last line.
@@ -66,6 +88,10 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 NETLISTS = os.path.join(REPO, "tests", "netlists")
 GOLDENS = os.path.join(REPO, "tests", "goldens")
 SIGMAS = {"res_r": 0.01, "mos_vth": 0.02, "cap_c": 0.02}
+# the junction and switch decks also vary their devices
+JUNCTION_SIGMAS = {**SIGMAS, "bjt_is": 0.05, "bjt_bf": 0.05, "dio_is": 0.05,
+                   "sw_ron": 0.02}
+EXAMPLES = os.path.join(REPO, "examples")
 FLOOR = 1e-15
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, non-tensor FLOP/s
 HBM_BPS = 3.35e12
@@ -129,6 +155,74 @@ RL out 0 10k
 """
 
 
+# the junction and switch decks of tests/test_pallas_step.py, with the
+# timestep each is run at
+DIODE_DECK = """* diode rectifier + zener
+V1 in 0 SIN 0 4 5e6
+R1 in a 100
+D1 a out
+C1 out 0 1n
+R2 out 0 10k
+RBD in bd 500
+D2 0 bd BV=3 IBV=1e-3
+.op
+"""
+
+BJT_DECK = """* npn + pnp stages
+.MODEL qn NPN IS=1e-15 BF=120 BR=2 VAF=50
+.MODEL qp PNP IS=1e-15 BF=80 BR=1
+VCC 1 0 5
+Vin 2 0 SIN 0.65 0.01 1e6
+RB 2 3 10k
+RC 1 4 2k
+Q1 4 3 0 qn
+VB2 5 0 DC 4.3
+RB2 5 6 10k
+RC2 7 0 2k
+Q2 7 6 1 qp
+CL 4 0 1p
+.op
+"""
+
+MIXED_DECK = """* mixed nonlinear classes
+.MODEL 2 VT 0.386 MU 3.0238e-2 COX 6.058e-3 LAMBDA 0.05 CJ0 4.0e-14
+.MODEL j1 NJF VTO=-2 BETA=1e-3 LAMBDA=0.01
+.MODEL qn NPN IS=1e-15 BF=120 BR=2
+VDD 1 0 DC 3
+Vin 2 0 SIN 0.8 0.2 5e6
+M1 3 2 0 n 10e-6 0.35e-6 2
+RL1 1 3 2k
+J1 4 2 0 j1
+RL2 1 4 2k
+RB 2 7 20k
+Q1 5 7 0 qn
+RL3 1 5 2k
+D1 6 0
+RD 1 6 1k
+C1 3 0 1p
+.op
+"""
+
+SWITCH_DECK = """* switch chopper + mixed classes
+.MODEL swm SW RON=10 ROFF=1e8 VT=0.5 VH=0.1
+.MODEL mn VT 0.6 MU 2e-2 COX 1e-3
+VCTL c 0 PULSE 0 1 0 1u 1u 8u 20u
+VIN in 0 SIN 0 2 5e4
+S1 in mid c 0 swm
+RL mid 0 1k
+C1 mid 0 100n
+M1 mid g 0 b mn W=5u L=1u
+VG g 0 0.8
+D1 mid 0
+.op
+"""
+
+K1B_DECKS = (("diode + zener", DIODE_DECK, 1e-9, 6),
+             ("npn + pnp", BJT_DECK, 1e-9, 6),
+             ("mos + jfet + bjt + diode", MIXED_DECK, 1e-9, 6),
+             ("switch + mos + diode", SWITCH_DECK, 1e-7, 12))
+
+
 def emit(phase, **kw):
     print(json.dumps({"phase": phase, **kw}), flush=True)
 
@@ -163,6 +257,14 @@ def fast_f32_options():
     return DEFAULT_OPTIONS.replace(
         dtype=torch.float32, tran_tol=1e-5, dc_tol=1e-5, tran_alpha=1.0,
         tran_predictor=True, tran_max_newton_iters=6, tran_unrolled_iters=2)
+
+
+def damped_f32_options():
+    """The damped while-loop Newton configuration at f32 tolerances."""
+    import torch
+    from circuitsimulator_tpu_torch import DEFAULT_OPTIONS
+    return DEFAULT_OPTIONS.replace(dtype=torch.float32, tran_tol=1e-5,
+                                   dc_tol=1e-5)
 
 
 def bound_ms(nbytes, flops, dtype):
@@ -375,17 +477,19 @@ def phase_single_lane():
 
 
 # ---------------------------------------------------------------- phase 4
-def _mc_lanes(opts, B, seed):
-    """dbmixer on the card and B lanes drawn from `seed` (lane 0 nominal)."""
+def _mc_lanes(opts, B, seed, deck=None, sigmas=SIGMAS):
+    """A deck (dbmixer by default) on the card and B lanes drawn from `seed`
+    (lane 0 nominal)."""
     import torch
     from circuitsimulator_tpu_torch import Simulator
     from circuitsimulator_tpu_torch.parallel import montecarlo as mc
-    sim = Simulator.from_file(os.path.join(NETLISTS, "dbmixer.sp"),
+    sim = Simulator.from_file(deck or os.path.join(NETLISTS, "dbmixer.sp"),
                               opts=opts, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    bp = mc.perturb_params(sim.params, gen, B, SIGMAS)
-    for k in SIGMAS:
-        bp[k][0] = sim.params[k]
+    bp = mc.perturb_params(sim.params, gen, B, sigmas)
+    for k in sigmas:
+        if sim.params[k].numel():
+            bp[k][0] = sim.params[k]
     return sim, bp
 
 
@@ -482,14 +586,29 @@ def phase_cuda_vs_cpu():
 
 
 # ---------------------------------------------------------------- phase 6
-def _k1_case(name, sim, B, steps, from_dc, tol, seed=11):
-    """K1 and its plain version on the same lanes of `sim` (on the card)."""
+def _dc_f64(sim64, bp):
+    """The lanes' DC operating points from the float64 simulator of the same
+    deck (K2 in f64).  The float32 lanes of a junction deck start there: the
+    reference's damped DC Newton with gmin stepping leaves about 1% of a BJT
+    deck's lanes unconverged in float32, and a transient from such a point
+    is chaotic."""
+    from circuitsimulator_tpu_torch.parallel import montecarlo as mc
+    bp64 = {k: (v.double() if v.is_floating_point() else v)
+            for k, v in bp.items()}
+    return mc.batched_dc_fast(sim64.engine, bp64), bp64
+
+
+def _k1_case(name, sim, B, steps, from_dc, tol, seed=11, sigmas=SIGMAS,
+             dt=None, sim64=None):
+    """K1 and its plain version on the same lanes of `sim` (on the card);
+    with `sim64` the lanes start from its float64 DC points."""
     import torch
     from circuitsimulator_tpu_torch.parallel import montecarlo as mc
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    bp = mc.perturb_params(sim.params, gen, B, SIGMAS)
-    dt = sim.config.tran.tstep or 2e-9
-    carry, _, meta = mc.make_fused_transient_fn(sim.engine, bp, dt)
+    bp = mc.perturb_params(sim.params, gen, B, sigmas)
+    dt = dt or sim.config.tran.tstep or 2e-9
+    x0 = _dc_f64(sim64, bp)[0] if sim64 is not None else None
+    carry, _, meta = mc.make_fused_transient_fn(sim.engine, bp, dt, x0=x0)
     runner = meta["runner"]
     if not from_dc:
         x = torch.zeros_like(carry[0])
@@ -502,7 +621,7 @@ def _k1_case(name, sim, B, steps, from_dc, tol, seed=11):
               if a.numel())
     row = {"case": name, "B": B, "steps": steps,
            "dtype": str(sim.engine.dtype)[6:], "N": runner.N, "k": runner.k,
-           "max_abs_err": err, "tol": tol,
+           "W": runner.W, "max_abs_err": err, "tol": tol,
            "failed_equal": bool(torch.equal(got[4], ref[4])),
            "iters_equal": bool(torch.equal(got[5], ref[5])),
            "failed_lanes": int(got[4].sum()),
@@ -550,20 +669,66 @@ def phase_k1():
 
 
 # ---------------------------------------------------------------- phase 7
-def _fused_run(opts, B, n_steps, chunk, seed):
-    """The fused main path: batched DC (K2), then K1 chunks.  Counts are
-    reset just before and read just after."""
+def k1_work(runner, n_steps, n_iters):
+    """(bytes, operations) of one K1 launch of n_steps whose lanes ran
+    n_iters Newton iterations in all.  Bytes: each input read once and each
+    output written once (the constants, the carry in and out, the failed
+    flags and iteration counts).  Operations per lane-step: sources (~20
+    each) and their scatter, inductor and cap history terms, z0, the
+    predictor, the history update; per Newton iteration: the device
+    linearisations (MOS/JFET ~25, diode ~20 or ~32 with breakdown, BJT
+    ~75, switch ~35, an exp or log counted as one), z, S, vz, the k x k
+    elimination and back substitution, x_raw, accept."""
+    B, N, k, P, W = runner.B, runner.N, runner.k, runner.P, runner.W
+    size = runner.G0invT.element_size()
+    nbytes = size * B * (N * N + k * N + W * k * k + 4 * runner.nMJ
+                         + 5 * runner.nD + 6 * runner.nQ + 4 * runner.nSw
+                         + runner.nS * (1 + 7 + 5 + 2 * P) + runner.nCap
+                         + runner.nL + 2 * (2 * N + runner.nCap + runner.nL))
+    nbytes += 4 * B * (runner.nS + 3)
+    per_step = (22 * runner.nS + 2 * runner.nL + 4 * runner.nCap
+                + 2 * N * N + 2 * N)
+    dio = 32 if runner.flags["dio_bv"] else 20
+    per_iter = (25 * runner.nMJ + dio * runner.nD + 75 * runner.nQ
+                + 35 * runner.nSw + 2 * k * N + 2 * W * k * k + 2 * W * k
+                + sum(m_ + 2 * m_ * m_ + 2 * m_ for m_ in range(k))
+                + k * k + k + 2 * k * N + 7 * N)
+    return nbytes, B * n_steps * per_step + n_iters * per_iter
+
+
+def _dc_failed_lanes(engine, bp, x0, bar):
+    """Lanes whose batched DC point is not one: non-finite, or one more
+    undamped Newton solve at the final gmin moves it by more than `bar`
+    volts."""
     import torch
+    from circuitsimulator_tpu_torch.ops import lu
+    N, opts = engine.N, engine.opts
+    G_s, I_s = engine.dc_static(bp, engine._scalar(1.0))
+    G, I = engine.assemble_dc_iter(G_s, I_s, bp, x0, opts.gmin_low_base)
+    x_raw = lu.lu_solve(G[..., :N, :N], I[..., :N], opts.lu_pivot_floor)
+    move = (x_raw - x0).abs().amax(-1)
+    bad = ~torch.isfinite(x0).all(-1) | ~(move <= bar)
+    return int(bad.sum()), float(move[~bad].max()) if (~bad).any() else None
+
+
+def _fused_run(opts, B, n_steps, chunk, seed, deck=None, sigmas=SIGMAS,
+               dt=None, dc64=False):
+    """The fused main path: batched DC (K2; in float64 with dc64), then K1
+    chunks.  Counts are reset just before and read just after."""
+    import torch
+    from circuitsimulator_tpu_torch import Simulator
     from circuitsimulator_tpu_torch.ops import cuda_lu, cuda_step
     from circuitsimulator_tpu_torch.parallel import montecarlo as mc
-    sim, bp = _mc_lanes(opts, B, seed)
-    dt = sim.config.tran.tstep
+    sim, bp = _mc_lanes(opts, B, seed, deck, sigmas)
+    dt = dt or sim.config.tran.tstep
+    sim64 = Simulator.from_file(deck, device="cuda") if dc64 else None
     torch.cuda.synchronize()
     cuda_lu.LAUNCHES = 0
     cuda_step.LAUNCHES = 0
     t0 = time.perf_counter()
+    x0 = _dc_f64(sim64, bp)[0] if dc64 else None
     carry, advance, meta = mc.make_fused_transient_fn(sim.engine, bp, dt,
-                                                      chunk=chunk)
+                                                      chunk=chunk, x0=x0)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     k2_setup = cuda_lu.LAUNCHES
@@ -576,7 +741,7 @@ def _fused_run(opts, B, n_steps, chunk, seed):
         lane0.append(carry[0][0].double().cpu())
         iters = iters + it
     rates = [B * chunk / w for w in walls]
-    m = {"B": B, "dtype": str(opts.dtype)[6:], "steps": n_steps,
+    m = {"B": B, "dtype": str(opts.dtype)[6:], "steps": n_steps, "dt": dt,
          "chunk": chunk, "setup_s": setup_s, "setup_k2_launches": k2_setup,
          "tran_k2_launches": cuda_lu.LAUNCHES - k2_setup,
          "k1_launches": cuda_step.LAUNCHES,
@@ -589,15 +754,15 @@ def _fused_run(opts, B, n_steps, chunk, seed):
     check(m["tran_k2_launches"] == 0, "no K2 launch during the transient")
     check(m["setup_k2_launches"] > 0, "batched DC ran through K2")
     check(m["failed_lanes"] == 0, "no failed lanes")
-    return m, carry, meta["runner"], lane0, sim.topo
+    return m, carry, meta["runner"], lane0, sim.topo, (sim, bp)
 
 
 def phase_monte_carlo_fused(x32_nonfused, x64_nonfused):
     import numpy as np
     from circuitsimulator_tpu_torch import DEFAULT_OPTIONS
     from circuitsimulator_tpu_torch.ops import cuda_step
-    m, carry, runner, lane0, topo = _fused_run(fast_f32_options(), 8192,
-                                               2000, 250, seed=42)
+    m, carry, runner, lane0, topo, _ = _fused_run(fast_f32_options(), 8192,
+                                                  2000, 250, seed=42)
     launches = m["k1_launches"]
     cols = np.concatenate([topo.volt_col_eqs, topo.branch_col_eqs])
     gold = golden_rows("dbmixer_tran.csv", 2001)
@@ -614,25 +779,8 @@ def phase_monte_carlo_fused(x32_nonfused, x64_nonfused):
     err = max(float((a - b).abs().max()) for a, b in zip(got[:4], ref[:4])
               if a.numel())
     check(err <= 2e-4, f"K1 main shape vs plain {err}")
-    n_iters = int(got[5].sum())
-    B, N, k, P = runner.B, runner.N, runner.k, runner.P
-    size = runner.G0invT.element_size()
-    # each input read once, each output written once: the constants, the
-    # carry in and out, the failed flags and iteration counts
-    nbytes = size * B * (N * N + k * N + 3 * k * k + 4 * k
-                         + runner.nS * (1 + 7 + 5 + 2 * P) + runner.nCap
-                         + runner.nL + 2 * (2 * N + runner.nCap + runner.nL))
-    nbytes += 4 * B * (runner.nS + 3)
-    # per lane-step: sources (~20 each) and their scatter, inductor and cap
-    # history terms, z0, predictor, history update; per Newton iteration:
-    # MOS linearisation (~25 per device), z, S, vz, the k x k elimination
-    # and back substitution, x_raw, accept
-    per_step = (22 * runner.nS + 2 * runner.nL + 4 * runner.nCap
-                + 2 * N * N + 2 * N)
-    per_iter = (25 * k + 2 * k * N + 6 * k * k + 6 * k
-                + sum(m_ + 2 * m_ * m_ + 2 * m_ for m_ in range(k))
-                + k * k + k + 2 * k * N + 7 * N)
-    flops = B * 250 * per_step + n_iters * per_iter
+    B = runner.B
+    nbytes, flops = k1_work(runner, 250, int(got[5].sum()))
     bms, by = bound_ms(nbytes, flops, runner.dtype)
     main = {"B": B, "steps": 250, "dtype": "float32", "max_abs_err": err,
             "kernel_ms": cuda_ms(lambda: runner.run_chunk(*carry, 2000, 250),
@@ -650,8 +798,7 @@ def phase_monte_carlo_fused(x32_nonfused, x64_nonfused):
                     reps=5, warmup=1) for th in (128, 64, 32)}
     m["kernel_at_main_shape"] = main
     emit("monte_carlo_fused_f32_fast", **m)
-    m64, carry64, _, _, _ = _fused_run(DEFAULT_OPTIONS, 1024, 500, 250,
-                                       seed=43)
+    m64, carry64 = _fused_run(DEFAULT_OPTIONS, 1024, 500, 250, seed=43)[:2]
     m64["final_max_abs_vs_nonfused"] = float(
         (carry64[0] - x64_nonfused).abs().max())
     check(m64["final_max_abs_vs_nonfused"] <= 1e-9,
@@ -730,10 +877,10 @@ def _ac_mc_lanes(B, seed):
     return (sim32, bp32), (sim64, bp64)
 
 
-def _ac_run(sim, bp, freqs):
-    """The AC Monte-Carlo main path: batched DC, then the warm batched
-    sweep (one call to warm up, five timed).  Counts are reset just before
-    and read just after."""
+def _ac_run(sim, bp, freqs, x_ops=None):
+    """The AC Monte-Carlo main path: batched DC (unless the operating
+    points are given), then the warm batched sweep (one call to warm up,
+    five timed).  Counts are reset just before and read just after."""
     import torch
     from circuitsimulator_tpu_torch.analysis.ac import make_ac_batched_fn
     from circuitsimulator_tpu_torch.ops import cuda_ac, cuda_lu
@@ -744,7 +891,9 @@ def _ac_run(sim, bp, freqs):
     cuda_lu.LAUNCHES = 0
     cuda_ac.LAUNCHES = 0
     t0 = time.perf_counter()
-    x_ops = mc.batched_dc_fast(eng, bp)
+    given = x_ops is not None
+    if not given:
+        x_ops = mc.batched_dc_fast(eng, bp)
     torch.cuda.synchronize()
     dc_s = time.perf_counter() - t0
     fn = make_ac_batched_fn(eng, freqs)
@@ -766,7 +915,7 @@ def _ac_run(sim, bp, freqs):
          "ac_solves_per_s": B * F / statistics.median(walls),
          "failed_lanes": int(bad.sum())}
     check(k3 == 6, f"one K3 launch per sweep call ({k3} in 6 calls)")
-    check(k2 > 0, "batched DC ran through K2")
+    check(given or k2 > 0, "batched DC ran through K2")
     check(m["failed_lanes"] == 0, f"{m['failed_lanes']} failed AC lanes")
     return m, x_ops, xr, xi
 
@@ -938,12 +1087,199 @@ def phase_k3(lanes):
     return max_abs, timings
 
 
+# ------------------------------------------------------------- phase 10
+def phase_k1b():
+    """K1's junction and switch rows against the plain version."""
+    import torch
+    from circuitsimulator_tpu_torch import DEFAULT_OPTIONS, Simulator
+    rows = []
+    for name, text, dt, steps in K1B_DECKS:
+        sim64 = Simulator.from_text(text, device="cuda")
+        for opts, tol in ((damped_f32_options(), 1e-4),
+                          (DEFAULT_OPTIONS, 1e-9)):
+            sim = Simulator.from_text(text, opts=opts, device="cuda")
+            row = _k1_case(f"{name} {str(opts.dtype)[6:]} damped from DC",
+                           sim, 256, steps, True, tol,
+                           sigmas=JUNCTION_SIGMAS, dt=dt, sim64=sim64)[0]
+            check(row["failed_lanes"] == 0, f"K1b {name}: failed lanes")
+            if opts.dtype == torch.float64:
+                check(row["iters_equal"], f"K1b {name}: iteration counts")
+            rows.append(row)
+    # the mixed deck (every K1b segment but the switch) at the main width
+    sim = Simulator.from_text(MIXED_DECK, opts=damped_f32_options(),
+                              device="cuda")
+    row, runner, carry = _k1_case(
+        "mixed deck f32 damped, main width", sim, 8192, 100, True, 1e-4,
+        sigmas=JUNCTION_SIGMAS, dt=1e-9,
+        sim64=Simulator.from_text(MIXED_DECK, device="cuda"))
+    rows.append(row)
+    got = runner.run_chunk(*carry, 0, 100)
+    nbytes, flops = k1_work(runner, 100, int(got[5].sum()))
+    bms, by = bound_ms(nbytes, flops, runner.dtype)
+    timing = {"case": "mixed deck", "B": 8192, "steps": 100,
+              "dtype": "float32", "N": runner.N, "k": runner.k,
+              "kernel_ms": cuda_ms(lambda: runner.run_chunk(*carry, 0, 100),
+                                   reps=5, warmup=1),
+              "plain_ms": cuda_ms(
+                  lambda: runner.run_chunk_plain(*carry, 0, 100),
+                  reps=1, warmup=0),
+              "bound_ms": bms, "bound_by": by, "bytes": nbytes,
+              "flops": flops}
+    emit("k1b_vs_plain", cases=rows, timing_per_chunk=timing)
+    return max(r["max_abs_err"] for r in rows)
+
+
+# -------------------------------------------------------- phases 11, 12
+def _junction_fused(name, deck, B, n_steps, chunk, dt=None, plain_reps=1):
+    """A junction or switch deck on the fused path at B lanes in f32
+    (damped configuration): the run, its DC check, K1 at the chunk's shape
+    against its plain version, bound and times."""
+    import torch
+    opts = damped_f32_options()
+    m, carry, runner, _, _, (sim, bp) = _fused_run(
+        opts, B, n_steps, chunk, seed=45, deck=deck,
+        sigmas=JUNCTION_SIGMAS, dt=dt, dc64=True)
+    m["deck"], m["N"], m["k"], m["W"] = name, runner.N, runner.k, runner.W
+    m["dc_dtype"] = "float64"
+    check(bool(torch.isfinite(carry[0]).all()), f"{name}: non-finite x")
+    from circuitsimulator_tpu_torch import Simulator
+    from circuitsimulator_tpu_torch.parallel import montecarlo as mc
+    sim64 = Simulator.from_file(deck, device="cuda")
+    x64, bp64 = _dc_f64(sim64, bp)
+    m["dc_failed_lanes"], m["dc_newton_move_max"] = _dc_failed_lanes(
+        sim64.engine, bp64, x64, 1e-6)
+    check(m["dc_failed_lanes"] == 0, f"{name}: DC failed lanes")
+    # for the record: the same lanes through the float32 DC
+    m["f32_dc_failed_lanes"] = _dc_failed_lanes(
+        sim.engine, bp, mc.batched_dc_fast(sim.engine, bp), 1e-3)[0]
+    x0 = x64.to(opts.dtype)
+    st = sim.engine.init_state(x0)
+    start = (x0, x0, st["vc"], st["il"], torch.zeros_like(carry[4]))
+    got = runner.run_chunk(*start, 0, chunk)
+    ref = runner.run_chunk_plain(*start, 0, chunk)
+    err = max(float((a - b).abs().max()) for a, b in zip(got[:4], ref[:4])
+              if a.numel())
+    check(err <= 1e-3, f"{name}: K1 at the main shape vs plain {err}")
+    check(bool(torch.equal(got[4], ref[4])), f"{name}: failed masks differ")
+    nbytes, flops = k1_work(runner, chunk, int(got[5].sum()))
+    bms, by = bound_ms(nbytes, flops, runner.dtype)
+    main = {"B": B, "steps": chunk, "dtype": "float32", "max_abs_err": err,
+            "newton_iters_per_step": float(got[5].float().mean()) / chunk,
+            "kernel_ms": cuda_ms(lambda: runner.run_chunk(*start, 0, chunk),
+                                 reps=5, warmup=1),
+            "plain_ms": cuda_ms(
+                lambda: runner.run_chunk_plain(*start, 0, chunk),
+                reps=plain_reps, warmup=0),
+            "bound_ms": bms, "bound_by": by, "bytes": nbytes, "flops": flops}
+    m["kernel_at_main_shape"] = main
+    return m, main
+
+
+def phase_monte_carlo_fused_bjt():
+    import torch
+    from circuitsimulator_tpu_torch import DEFAULT_OPTIONS
+    from circuitsimulator_tpu_torch.ops import cuda_lu
+    from circuitsimulator_tpu_torch.parallel import montecarlo as mc
+    deck = os.path.join(EXAMPLES, "bjt_amp.sp")
+    m, main = _junction_fused("bjt_amp", deck, 8192, 250, 250, plain_reps=2)
+    emit("monte_carlo_fused_bjt_f32", **m)
+    # f64, B = 1024: the fused run against the non-fused loop, same lanes
+    m64, carry64, _, _, _, (sim, bp) = _fused_run(
+        DEFAULT_OPTIONS, 1024, 250, 250, seed=46, deck=deck,
+        sigmas=JUNCTION_SIGMAS)
+    cfg = sim.config.tran
+    t0 = time.perf_counter()
+    ref = mc.batched_transient(sim.engine, bp, cfg.tstep, cfg.tstop,
+                               fused=False)
+    torch.cuda.synchronize()
+    m64["nonfused_s"] = time.perf_counter() - t0
+    m64["final_max_abs_vs_nonfused"] = float(
+        (carry64[0] - ref.x_final).abs().max())
+    check(not bool(ref.failed.any()), "bjt_amp non-fused f64 failed lanes")
+    check(m64["final_max_abs_vs_nonfused"] <= 1e-9,
+          "bjt_amp fused f64 within 1e-9 V of the non-fused run")
+    emit("monte_carlo_fused_bjt_f64", **m64)
+    return m, main
+
+
+def phase_monte_carlo_fused_switch():
+    rows = {}
+    for name, n_steps, chunk, dt in (("chopper", 600, 200, None),
+                                     ("mixer_rf", 2000, 500, 1e-9)):
+        m, _ = _junction_fused(name, os.path.join(EXAMPLES, f"{name}.sp"),
+                               8192, n_steps, chunk, dt=dt)
+        emit(f"monte_carlo_fused_{name}_f32", **m)
+        rows[name] = m
+    return rows
+
+
+# ------------------------------------------------------------- phase 13
+def phase_ac_bjt():
+    """Simulator.ac and the batched AC sweep on bjt_amp.sp's .AC card."""
+    import numpy as np
+    import torch
+    from circuitsimulator_tpu_torch import DEFAULT_OPTIONS, Simulator
+    from circuitsimulator_tpu_torch.analysis.ac import (ac_system_real,
+                                                        solve_ac_real,
+                                                        sweep_frequencies)
+    from circuitsimulator_tpu_torch.ops import cuda_ac
+    deck = os.path.join(EXAMPLES, "bjt_amp.sp")
+    sim64, bp64 = _mc_lanes(DEFAULT_OPTIONS, 4096, 47, deck, JUNCTION_SIGMAS)
+    sim32 = Simulator.from_file(deck, opts=damped_f32_options(),
+                                device="cuda")
+    bp32 = {k: (v.float() if v.is_floating_point() else v)
+            for k, v in bp64.items()}
+    cfg = sim64.config.ac
+    freqs = sweep_frequencies(cfg.sweep_type, cfg.n_points, cfg.fstart,
+                              cfg.fstop)
+    m64, x64, xr64, xi64 = _ac_run(sim64, bp64, freqs)
+    m64["dc_failed_lanes"] = _dc_failed_lanes(sim64.engine, bp64, x64,
+                                              1e-6)[0]
+    check(m64["dc_failed_lanes"] == 0, "bjt_amp AC: DC failed lanes")
+    # the f32 lanes are linearised at the f64 operating points (see _dc_f64)
+    m32, _, xr32, xi32 = _ac_run(sim32, bp32, freqs, x_ops=x64.float())
+    m32["dc_dtype"] = "float64"
+    emit("ac_bjt_f32", deck="bjt_amp", **m32)
+    x64c = torch.complex(xr64, xi64)
+    m64["f32_vs_f64_lane_rel"] = _lane_rel_err(
+        torch.complex(xr32.double(), xi32.double()), x64c)
+    check(m64["f32_vs_f64_lane_rel"] <= 1e-3, "bjt_amp f32 within 1e-3")
+    eng, n, F, L = sim64.engine, sim64.engine.N, len(freqs), 64
+    G, B1, br, bi = ac_system_real(eng, {k: v[:L] for k, v in bp64.items()},
+                                   x64[:L], 1.0)
+    om = 2.0 * np.pi * torch.as_tensor(freqs, dtype=torch.float64,
+                                       device="cuda")
+    rr, ri = solve_ac_real(eng, G[:, None].expand(L, F, n, n),
+                           om[None, :, None, None] * B1[:, None],
+                           br[:, None].expand(L, F, n),
+                           bi[:, None].expand(L, F, n))
+    m64["vs_2n_route_lane_rel"] = _lane_rel_err(x64c[:L],
+                                                torch.complex(rr, ri))
+    check(m64["vs_2n_route_lane_rel"] <= 1e-9, "bjt_amp K3 within 1e-9 of 2N")
+    # the single lane through Simulator.ac: one K3 launch, the nominal lane
+    before = cuda_ac.LAUNCHES
+    one = sim64.ac()
+    m64["single_lane_k3_launches"] = cuda_ac.LAUNCHES - before
+    check(m64["single_lane_k3_launches"] == 1, "Simulator.ac ran K3 once")
+    lane0 = x64c[0].cpu().numpy()
+    m64["single_lane_vs_lane0_rel"] = float(
+        np.abs(one.xs - lane0).max() / np.abs(lane0).max())
+    check(m64["single_lane_vs_lane0_rel"] <= 1e-9, "Simulator.ac vs lane 0")
+    m64["gain_db_at_1khz"] = float(20 * np.log10(np.abs(
+        one.xs[np.argmin(np.abs(freqs - 1e3)),
+               sim64.topo.volt_col_eqs[sim64.topo.volt_col_names.index("c")]])))
+    emit("ac_bjt_f64", deck="bjt_amp", **m64)
+    m32["dc_k2_launches_f64"] = m64["dc_k2_launches"]
+    return m32
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
+    t_start = time.perf_counter()
     card = phase_device()
     max_abs, timings = phase_k2()
     phase_single_lane()
@@ -953,31 +1289,60 @@ def main():
     k1_launches, k1_main = phase_monte_carlo_fused(x32, x64)
     ac_main, ac_lanes = phase_ac_monte_carlo()
     k3_err, k3_timings = phase_k3(ac_lanes)
+    k1b_err = phase_k1b()
+    bjt, bjt_main = phase_monte_carlo_fused_bjt()
+    switch = phase_monte_carlo_fused_switch()
+    ac_bjt = phase_ac_bjt()
     k3_main = k3_timings["float32"]  # B=4096, F=64, N=31: the bench shape
     k2_main = timings[0]             # B=8192, N=31, R=1, f32: batched DC
+    # launches: read just after each main path's run, counts set to 0 just
+    # before it; every path of every kernel must have launched it
+    paths = {
+        "lu_batched": {"monte_carlo_f32_fast": launches,
+                       "monte_carlo_fused_bjt_f32": bjt["setup_k2_launches"],
+                       "ac_bjt_f32_dc_f64": ac_bjt["dc_k2_launches_f64"]},
+        "fused_step": {"monte_carlo_fused_f32_fast": k1_launches,
+                       "monte_carlo_fused_bjt_f32": bjt["k1_launches"],
+                       **{f"monte_carlo_fused_{n}_f32": m["k1_launches"]
+                          for n, m in switch.items()}},
+        "ac_sweep": {"ac_monte_carlo_f32": ac_main["k3_launches"],
+                     "ac_bjt_f32": ac_bjt["k3_launches"]}}
+    for kernel, by_path in paths.items():
+        for path, n in by_path.items():
+            check(n > 0, f"{kernel} launched on {path}")
     print(json.dumps({"kernels": [{
         "name": "lu_batched", "route": "cuda",
         "source": "circuitsimulator_tpu_torch/csrc/lu_batched.cu",
         "replaces": "circuitsimulator_tpu/ops/pallas_lu.py:35",
-        "launches": launches, "max_abs_err": max_abs,
+        "launches": sum(paths["lu_batched"].values()),
+        "launches_by_path": paths["lu_batched"], "max_abs_err": max_abs,
         "ms": k2_main["kernel_ms"], "plain_ms": k2_main["plain_ms"],
         "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],
         "library_ms": k2_main["library_ms"]}, {
-        "name": "fused_step", "route": "cuda",
+        "name": "fused_step", "route": "cuda", "scope": "K1a + K1b",
         "source": "circuitsimulator_tpu_torch/csrc/fused_step.cu",
         "replaces": "circuitsimulator_tpu/ops/pallas_step.py:582",
-        "launches": k1_launches,
-        "max_abs_err": max(k1_err, k1_main["max_abs_err"]),
+        "launches": sum(paths["fused_step"].values()),
+        "launches_by_path": paths["fused_step"],
+        "max_abs_err": max(k1_err, k1_main["max_abs_err"], k1b_err,
+                           bjt_main["max_abs_err"]),
         "ms": k1_main["kernel_ms"], "plain_ms": k1_main["plain_ms"],
         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
-        "library_ms": None}, {
+        "library_ms": None,
+        "shape": "dbmixer B=8192 x 250 steps f32 fast (K1a)",
+        "bjt_amp_B8192_250_steps_f32_damped": {
+            key: bjt_main[key] for key in (
+                "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                "max_abs_err")}}, {
         "name": "ac_sweep", "route": "cuda",
         "source": "circuitsimulator_tpu_torch/csrc/ac_sweep.cu",
         "replaces": "circuitsimulator_tpu/ops/pallas_ac.py:49",
-        "launches": ac_main["k3_launches"], "max_abs_err": k3_err,
+        "launches": sum(paths["ac_sweep"].values()),
+        "launches_by_path": paths["ac_sweep"], "max_abs_err": k3_err,
         "ms": k3_main["kernel_ms"], "plain_ms": k3_main["plain_ms"],
         "bound_ms": k3_main["bound_ms"], "bound_by": k3_main["bound_by"],
         "library_ms": k3_main["library_ms"]}]}), flush=True)
+    emit("total", seconds=time.perf_counter() - t_start)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,6 +25,7 @@ from .netlist import (expand_text, parse_netlist_text, parse_spice_number,
 from .ops import cuda_lu
 from .ops.assemble import Engine
 from .utils.options import DEFAULT_OPTIONS, SolverOptions
+from .utils.temp import apply_is_temp, has_is_temp
 
 # the JAX package switches to structure-exploiting solvers above this many
 # node equations (api.py auto_backend); the port has only the dense path
@@ -91,18 +92,22 @@ class Simulator:
         self.opts = opts = _apply_netlist_options(opts, sim_config)
         if getattr(sim_config, "temp_c", None) is not None:
             # .TEMP: rescale the thermal voltage kT/q and the resistor TC
-            # temperature offset (diode/BJT IS(T) scaling is not ported)
+            # temperature offset; with EG/XTI given, the diode/BJT
+            # saturation currents too
             k_b, q_e = 1.380649e-23, 1.602176634e-19
             temp_c = float(sim_config.temp_c)
             self.params["vt_thermal"] = torch.tensor(
                 k_b * (273.15 + temp_c) / q_e, dtype=opts.dtype, device=device)
             self.params["temp_delta_c"] = torch.tensor(
                 temp_c - 27.0, dtype=opts.dtype, device=device)
+            if has_is_temp(self.params):
+                self.params = apply_is_temp(self.params)
         if opts.auto_backend and self.topo.n_node_eq > MAX_DENSE_NODE_EQS:
             raise NotImplementedError(
                 f"{self.topo.n_node_eq} node equations: the large-circuit "
                 f"backends (tridiag/blockband/blockwb) are not yet ported")
-        rank = len(self.topo.mos_ed)        # Woodbury k x k solve size
+        c = self.topo.counts                # Woodbury k x k solve size
+        rank = c["M"] + c["J"] + c["D"] + 2 * c["Q"] + c["S"]
         if device.type == "cuda" and max(self.topo.n_unknowns,
                                          rank) > cuda_lu.MAX_N:
             raise NotImplementedError(

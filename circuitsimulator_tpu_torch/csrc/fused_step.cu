@@ -1,41 +1,54 @@
-// K1a for Hopper: the fused Monte-Carlo transient chunk.  Every lane
-// advances n_steps whole Backward-Euler timesteps in one launch.
+// K1 for Hopper (scope K1a + K1b): the fused Monte-Carlo transient chunk.
+// Every lane advances n_steps whole Backward-Euler timesteps in one launch.
 //
 // Replaces the TPU kernel circuitsimulator_tpu/ops/pallas_step.py:
-// PallasStepRunner._kernel (launched by run_chunk) for its K1a scope:
-// R/C/L, V/I sources with PULSE/SIN/PWL/EXP/SFFM waveforms, Level-1 MOS
-// without body effect or reverse region, Woodbury rank 0 <= k <= 16.  Per
-// step it computes what the TPU kernel computes (plain PyTorch version:
+// PallasStepRunner._kernel (launched by run_chunk) for R/C/L, V/I sources
+// with PULSE/SIN/PWL/EXP/SFFM waveforms, Level-1 MOS without body effect or
+// reverse region (K1a), and JFET, diode (with reverse breakdown), Ebers-Moll
+// BJT (with Early voltage) and S/W switch rows (K1b); Woodbury rank
+// 0 <= k = nMJ + nD + 2 nQ + nSw <= 16.  Per step it computes what the TPU
+// kernel computes (plain PyTorch version:
 // circuitsimulator_tpu_torch/ops/fused_step.py run_chunk_plain):
 //   - source values at t = (step0 + i + 1) * dt in the working type;
 //   - b0 = [sources, -gl*il, gc*vc] scattered to their rows; z0 = G0^-1 b0;
-//   - Newton from x (or 2x - x_prev): MOS linearisation, z = z0 - Y c,
-//     S = I + V^T Y, vz = V^T z, the pivoted k x k solve (first index of
-//     max |col|, a zero pivot and a zero diagonal replaced by 1, no pivot
-//     floor), x_raw = z - Y w, then accept: clamp, alpha damping,
-//     err^2 < tol^2, a non-finite x_raw freezes the lane and sets failed;
-//   - vc and il from the accepted x.
+//   - Newton from x (or 2x - x_prev): the device linearisations in Woodbury
+//     row order (MOS then JFET rows from one pack, diode rows, an Ic and an
+//     Ib row per BJT, switch rows), z = z0 - Y c, S = I + V^T Y, vz = V^T z,
+//     the pivoted k x k solve (first index of max |col|, a zero pivot and a
+//     zero diagonal replaced by 1, no pivot floor), x_raw = z - Y w, then
+//     accept: clamp, alpha damping, err^2 < tol^2, a non-finite x_raw
+//     freezes the lane and sets failed;
+//   - vc and il from the accepted x (the cap plan holds the explicit, MOS,
+//     diode and BJT junction capacitors).
 // The Newton loop is the fixed unrolled count, or a per-lane loop up to
 // max_nr that stops when the lane is done (the TPU kernel's block-wide
-// while loop gives the same x: accept freezes lanes that are done).
+// while loop gives the same x: accept freezes lanes that are done).  The TPU
+// kernel evaluates both BJT currents on row-duplicated lanes and selects by
+// parity; here each device is evaluated once and writes its two rows.
 //
 // Design (simple first): one thread per lane, lane-minor constants
-// (G0invT (N,N,B) [m][n][lane], YT (k,N,B), Yc3 (3,k,k,B), sources and
-// companions (rows, B)), so every read of a warp is 32 consecutive
-// addresses.  The TPU kernel's one-hot selection matmuls are index reads
-// here; index N is the ground dump slot and reads 0.  Per-lane vectors
+// (G0invT (N,N,B) [m][n][lane], YT (k,N,B), Yc3 (W,k,k,B), the device packs,
+// sources and companions (rows, B)), so every read of a warp is 32
+// consecutive addresses.  The TPU kernel's one-hot selection matmuls are
+// index reads here: row_cols (W, k) gives each V^T row's columns, which are
+// also the terminals its device reads (W = 4 with a switch: p, m, cp, cm;
+// else 3); index N is the ground dump slot and reads 0.  Per-lane vectors
 // live in fixed-capacity local arrays (N <= 64, k <= 16) indexed at run
 // time, so they sit in local memory (L1/L2), not registers.
 //
 // What bounds it on the H100: the constants are re-read every step
-// (G0invT + 2 Newton iterations x (2 YT + Yc3) = 7.7 KB per lane-step in
-// f32 at N = 31, k = 6; 63 MB per step at B = 8192, most of it L2-resident
-// since the unique constants are ~41 MB), against ~5 kFLOP of arithmetic
-// per lane-step; at one warp-load per constant and few warps per SM it is
-// bound by memory latency.  Staging G0invT in shared memory per lane block
-// and wgmma for the z0 product are later work.  Compiled without fast
-// math (SIN/SFFM arguments reach tens of radians); nvcc contracts a*b+c
-// into FMAs, so results agree with the plain version to rounding.
+// (G0invT once, then per Newton iteration 2 YT + Yc3 + the device packs:
+// 7.7 KB per lane-step in f32 at N = 31, k = 6 and two iterations; 63 MB
+// per step at B = 8192, most of it L2-resident since the unique constants
+// are ~41 MB), against ~5 kFLOP of arithmetic per lane-step; at one
+// warp-load per constant and few warps per SM it is bound by memory
+// latency.  On small junction decks (N = 7, k = 2) the per-lane chain of
+// dependent expf/divisions of the damped Newton loop (tens of iterations
+// per step) takes over.  Staging G0invT in shared memory per lane block and
+// wgmma for the z0 product are later work.  Compiled without fast math
+// (SIN/SFFM arguments reach tens of radians, the switch conductance spans
+// nine decades through exp/log); nvcc contracts a*b+c into FMAs, so results
+// agree with the plain version to rounding.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -48,8 +61,11 @@ struct StepArgs {
   // per-lane constants, lane-minor
   const T* G0invT;   // (N, N, B)
   const T* YT;       // (k, N, B)
-  const T* Yc3;      // (3, k, k, B)
-  const T* mosp;     // (4, k, B): vth, k, lambda, polarity
+  const T* Yc3;      // (W, k, k, B)
+  const T* mosp;     // (4, nMJ, B): vth | VTO, k | 2 BETA, lambda, polarity
+  const T* diop;     // (5, nD, B): is, n*vt, bv, ibv, vt
+  const T* bjtp;     // (6, nQ, B): is, bf, br, polarity, vaf, vt
+  const T* swp;      // (4, nSw, B): ron, roff, vt, vh
   const T* dc;       // (nS, B)
   const T* pulse;    // (7, nS, B)  PULSE / EXP parameters
   const T* sinp;     // (5, nS, B)  SIN / SFFM parameters
@@ -65,7 +81,7 @@ struct StepArgs {
   const int* ind_k;     // (nL) inductor branch rows
   const int* cap_a;     // (nCap) cap terminal pairs
   const int* cap_b;
-  const int* mos_cols;  // (3, k) drain, gate, source columns
+  const int* row_cols;  // (W, k) columns of each V^T row
   // carry, lane-minor, updated in place
   T* x;              // (N, B)
   T* xprev;          // (N, B)
@@ -74,6 +90,7 @@ struct StepArgs {
   int* failed;       // (B)
   int* iters;        // (B) Newton iterations over the chunk (output)
   int B, N, k, nS, P, nL, nCap, unrolled, max_nr, predictor, n_steps;
+  int nMJ, nD, nQ, nSw, W;
   long long step0;
   T dt, tol2, alpha, clamp, off_gds;
 };
@@ -82,6 +99,8 @@ __device__ __forceinline__ float sin_(float v) { return sinf(v); }
 __device__ __forceinline__ double sin_(double v) { return sin(v); }
 __device__ __forceinline__ float exp_(float v) { return expf(v); }
 __device__ __forceinline__ double exp_(double v) { return exp(v); }
+__device__ __forceinline__ float log_(float v) { return logf(v); }
+__device__ __forceinline__ double log_(double v) { return log(v); }
 __device__ __forceinline__ float fmod_(float a, float b) { return fmodf(a, b); }
 __device__ __forceinline__ double fmod_(double a, double b) { return fmod(a, b); }
 
@@ -188,25 +207,42 @@ __device__ T source_value(const StepArgs<T>& a, int s, T tt, long long lane) {
   return val;
 }
 
+// e(u) = exp(u) up to u = 40, its tangent above; de = e'(u)
+// (models/diode.py exp_lim; the constant is exp(40))
+template <typename T>
+__device__ __forceinline__ void exp_lim(T u, T& e, T& de) {
+  const T u_max = T(40), top = T(2.3538526683701998e17);
+  if (u <= u_max) {
+    e = de = exp_(u);
+  } else {
+    e = top * (T(1) + (u - u_max));
+    de = top;
+  }
+}
+
 // One Newton iteration of one lane: xx is the iterate, z0 = G0^-1 b0,
 // zb scratch (z, then x_raw, then x_new).
 template <typename T>
 __device__ __forceinline__ void newton_iter(
     const StepArgs<T>& a, long long lane, T* xx, const T* z0, T* zb, T* cst,
     T (*vco)[MAXK], T (*A)[MAXK], T* bb, T* w, bool& done, bool& fl) {
-  const int N = a.N, k = a.k;
+  const int N = a.N, k = a.k, W = a.W;
   const long long B = a.B;
+  // terminal q of row j (the ground slot reads 0)
+  auto rd = [&](int q, int j) -> T {
+    const int c = a.row_cols[q * k + j];
+    return c < N ? xx[c] : T(0);
+  };
   if (k > 0) {
-    for (int j = 0; j < k; ++j) {  // Level-1 MOS linearisation
-      const int cd = a.mos_cols[j], cg = a.mos_cols[k + j];
-      const int cs = a.mos_cols[2 * k + j];
-      const T vd = cd < N ? xx[cd] : T(0);
-      const T vg = cg < N ? xx[cg] : T(0);
-      const T vs = cs < N ? xx[cs] : T(0);
-      const T vth = a.mosp[(0LL * k + j) * B + lane];
-      const T kk = a.mosp[(1LL * k + j) * B + lane];
-      const T lam = a.mosp[(2LL * k + j) * B + lane];
-      const T pp = a.mosp[(3LL * k + j) * B + lane];
+    if (W > 3)
+      for (int j = 0; j < k; ++j) vco[3][j] = T(0);
+    const int nMJ = a.nMJ, nD = a.nD, nQ = a.nQ, nSw = a.nSw;
+    for (int j = 0; j < nMJ; ++j) {  // Level-1 MOS and JFET rows
+      const T vd = rd(0, j), vg = rd(1, j), vs = rd(2, j);
+      const T vth = a.mosp[(0LL * nMJ + j) * B + lane];
+      const T kk = a.mosp[(1LL * nMJ + j) * B + lane];
+      const T lam = a.mosp[(2LL * nMJ + j) * B + lane];
+      const T pp = a.mosp[(3LL * nMJ + j) * B + lane];
       const T vgs = pp * (vg - vs), vds = pp * (vd - vs);
       const bool on = (vgs > vth) && (vds >= T(0));
       const T vov = vgs - vth;
@@ -226,6 +262,89 @@ __device__ __forceinline__ void newton_iter(
       vco[1][j] = gg;
       vco[2][j] = gs;
     }
+    for (int d = 0; d < nD; ++d) {  // diode rows: Shockley + breakdown
+      const int j = nMJ + d;
+      const T isat = a.diop[(0LL * nD + d) * B + lane];
+      const T nvt = a.diop[(1LL * nD + d) * B + lane];
+      const T bv = a.diop[(2LL * nD + d) * B + lane];
+      const T v = rd(0, j) - rd(1, j);
+      T e, de;
+      exp_lim(v / nvt, e, de);
+      T i = isat * (e - T(1));
+      T g = isat * de / nvt;
+      if (bv > T(0)) {
+        const T ibv = a.diop[(3LL * nD + d) * B + lane];
+        const T vt = a.diop[(4LL * nD + d) * B + lane];
+        exp_lim(-(v + bv) / vt, e, de);
+        i -= ibv * e;
+        g += ibv * de / vt;
+      }
+      cst[j] = i - g * v;
+      vco[0][j] = g;
+      vco[1][j] = -g;
+      vco[2][j] = T(0);
+    }
+    for (int d = 0; d < nQ; ++d) {  // BJT: Ebers-Moll, Ic row then Ib row
+      const int j = nMJ + nD + 2 * d;
+      const T vc = rd(0, j), vb = rd(1, j), ve = rd(2, j);
+      const T isat = a.bjtp[(0LL * nQ + d) * B + lane];
+      const T bf = a.bjtp[(1LL * nQ + d) * B + lane];
+      const T br = a.bjtp[(2LL * nQ + d) * B + lane];
+      const T pq = a.bjtp[(3LL * nQ + d) * B + lane];
+      const T vaf = a.bjtp[(4LL * nQ + d) * B + lane];
+      const T vt = a.bjtp[(5LL * nQ + d) * B + lane];
+      const T vbe = pq * (vb - ve), vbc = pq * (vb - vc);
+      T ef, def, er, der;
+      exp_lim(vbe / vt, ef, def);
+      exp_lim(vbc / vt, er, der);
+      const T i_f = isat * (ef - T(1)), i_r = isat * (er - T(1));
+      const T gf = isat * def / vt, gr = isat * der / vt;
+      T kq = T(1), dkq = T(0);
+      if (vaf > T(0)) {  // Early voltage, clamped for a large forward Vbc
+        const T raw = T(1) - vbc / vaf;
+        kq = raw > T(0.05) ? raw : T(0.05);
+        dkq = raw > T(0.05) ? T(-1) / vaf : T(0);
+      }
+      const T ic_eff = (i_f - i_r) * kq - i_r / br;
+      const T ib_eff = i_f / bf + i_r / br;
+      const T dic_dvbe = gf * kq;
+      const T dic_dvbc = -gr * kq + (i_f - i_r) * dkq - gr / br;
+      const T dib_dvbe = gf / bf, dib_dvbc = gr / br;
+      const T gc_c = -dic_dvbc, gc_b = dic_dvbe + dic_dvbc, gc_e = -dic_dvbe;
+      const T gb_c = -dib_dvbc, gb_b = dib_dvbe + dib_dvbc, gb_e = -dib_dvbe;
+      cst[j] = pq * ic_eff - gc_c * vc - gc_b * vb - gc_e * ve;
+      cst[j + 1] = pq * ib_eff - gb_c * vc - gb_b * vb - gb_e * ve;
+      vco[0][j] = gc_c;
+      vco[1][j] = gc_b;
+      vco[2][j] = gc_e;
+      vco[0][j + 1] = gb_c;
+      vco[1][j + 1] = gb_b;
+      vco[2][j + 1] = gb_e;
+    }
+    for (int d = 0; d < nSw; ++d) {  // switch: log-smoothstep conductance
+      const int j = nMJ + nD + 2 * nQ + d;
+      const T vd = rd(0, j) - rd(1, j), vc = rd(2, j) - rd(3, j);
+      const T ron = a.swp[(0LL * nSw + d) * B + lane];
+      const T roff = a.swp[(1LL * nSw + d) * B + lane];
+      const T svt = a.swp[(2LL * nSw + d) * B + lane];
+      const T svh = a.swp[(3LL * nSw + d) * B + lane];
+      const T l_on = log_(T(1) / ron), l_off = log_(T(1) / roff);
+      const bool has_win = svh > T(0);
+      const T width = has_win ? T(2) * svh : T(1);
+      const T u = has_win ? clamp01((vc - (svt - svh)) / width)
+                          : (vc > svt ? T(1) : T(0));
+      const T sm = u * u * (T(3) - T(2) * u);
+      const T G = exp_(l_off + (l_on - l_off) * sm);
+      const T dsdu = T(6) * u * (T(1) - u);
+      const T dG = has_win ? G * (l_on - l_off) * dsdu / width : T(0);
+      const T gc = dG * vd;
+      const T i0 = G * vd;  // the current is exactly G vd: i0 - gd vd == 0
+      cst[j] = (i0 - i0) - gc * vc;
+      vco[0][j] = G;
+      vco[1][j] = -G;
+      vco[2][j] = gc;
+      vco[3][j] = -gc;
+    }
     for (int n = 0; n < N; ++n) {  // z = z0 - Y c
       T acc = z0[n];
       for (int j = 0; j < k; ++j)
@@ -235,13 +354,13 @@ __device__ __forceinline__ void newton_iter(
     for (int j = 0; j < k; ++j) {  // S = I + V^T Y, vz = V^T z
       for (int l = 0; l < k; ++l) {
         T s = (j == l) ? T(1) : T(0);
-        for (int q = 0; q < 3; ++q)
+        for (int q = 0; q < W; ++q)
           s += vco[q][j] * a.Yc3[(((long long)q * k + j) * k + l) * B + lane];
         A[j][l] = s;
       }
       T s = T(0);
-      for (int q = 0; q < 3; ++q) {
-        const int c = a.mos_cols[q * k + j];
+      for (int q = 0; q < W; ++q) {
+        const int c = a.row_cols[q * k + j];
         s += vco[q][j] * (c < N ? zb[c] : T(0));
       }
       bb[j] = s;
@@ -316,7 +435,7 @@ __global__ void __launch_bounds__(128) fused_step_kernel(const StepArgs<T> a) {
   const long long B = a.B;
   const int N = a.N;
   T x[MAXN], xp[MAXN], xx[MAXN], z0[MAXN], zb[MAXN + 1];
-  T cst[MAXK], vco[3][MAXK], A[MAXK][MAXK], bb[MAXK], w[MAXK];
+  T cst[MAXK], vco[4][MAXK], A[MAXK][MAXK], bb[MAXK], w[MAXK];
   for (int n = 0; n < N; ++n) {
     x[n] = a.x[n * B + lane];
     xp[n] = a.xprev[n * B + lane];
@@ -377,37 +496,42 @@ __global__ void __launch_bounds__(128) fused_step_kernel(const StepArgs<T> a) {
   a.iters[lane] = it_total;
 }
 
-// ptrs: the 25 arrays in StepArgs order; ints: B N k nS P nL nCap unrolled
-// max_nr predictor n_steps step0 threads; reals: dt tol2 alpha clamp off_gds
+// ptrs: the 28 arrays in StepArgs order; ints: B N k nS P nL nCap unrolled
+// max_nr predictor n_steps step0 threads nMJ nD nQ nSw W; reals: dt tol2
+// alpha clamp off_gds
 template <typename T>
 static int launch(void* const* ptrs, const long long* ints,
                   const double* reals, void* stream) {
   StepArgs<T> a;
-  a.G0invT = (const T*)ptrs[0];
-  a.YT = (const T*)ptrs[1];
-  a.Yc3 = (const T*)ptrs[2];
-  a.mosp = (const T*)ptrs[3];
-  a.dc = (const T*)ptrs[4];
-  a.pulse = (const T*)ptrs[5];
-  a.sinp = (const T*)ptrs[6];
-  a.pwl_t = (const T*)ptrs[7];
-  a.pwl_v = (const T*)ptrs[8];
-  a.pwl_n = (const int*)ptrs[9];
-  a.gc = (const T*)ptrs[10];
-  a.gl = (const T*)ptrs[11];
-  a.kinds = (const int*)ptrs[12];
-  a.src_pos = (const int*)ptrs[13];
-  a.src_neg = (const int*)ptrs[14];
-  a.ind_k = (const int*)ptrs[15];
-  a.cap_a = (const int*)ptrs[16];
-  a.cap_b = (const int*)ptrs[17];
-  a.mos_cols = (const int*)ptrs[18];
-  a.x = (T*)ptrs[19];
-  a.xprev = (T*)ptrs[20];
-  a.vc = (T*)ptrs[21];
-  a.il = (T*)ptrs[22];
-  a.failed = (int*)ptrs[23];
-  a.iters = (int*)ptrs[24];
+  int p = 0;
+  a.G0invT = (const T*)ptrs[p++];
+  a.YT = (const T*)ptrs[p++];
+  a.Yc3 = (const T*)ptrs[p++];
+  a.mosp = (const T*)ptrs[p++];
+  a.diop = (const T*)ptrs[p++];
+  a.bjtp = (const T*)ptrs[p++];
+  a.swp = (const T*)ptrs[p++];
+  a.dc = (const T*)ptrs[p++];
+  a.pulse = (const T*)ptrs[p++];
+  a.sinp = (const T*)ptrs[p++];
+  a.pwl_t = (const T*)ptrs[p++];
+  a.pwl_v = (const T*)ptrs[p++];
+  a.pwl_n = (const int*)ptrs[p++];
+  a.gc = (const T*)ptrs[p++];
+  a.gl = (const T*)ptrs[p++];
+  a.kinds = (const int*)ptrs[p++];
+  a.src_pos = (const int*)ptrs[p++];
+  a.src_neg = (const int*)ptrs[p++];
+  a.ind_k = (const int*)ptrs[p++];
+  a.cap_a = (const int*)ptrs[p++];
+  a.cap_b = (const int*)ptrs[p++];
+  a.row_cols = (const int*)ptrs[p++];
+  a.x = (T*)ptrs[p++];
+  a.xprev = (T*)ptrs[p++];
+  a.vc = (T*)ptrs[p++];
+  a.il = (T*)ptrs[p++];
+  a.failed = (int*)ptrs[p++];
+  a.iters = (int*)ptrs[p++];
   a.B = (int)ints[0];
   a.N = (int)ints[1];
   a.k = (int)ints[2];
@@ -421,11 +545,19 @@ static int launch(void* const* ptrs, const long long* ints,
   a.n_steps = (int)ints[10];
   a.step0 = ints[11];
   const int threads = (int)ints[12];
+  a.nMJ = (int)ints[13];
+  a.nD = (int)ints[14];
+  a.nQ = (int)ints[15];
+  a.nSw = (int)ints[16];
+  a.W = (int)ints[17];
   a.dt = (T)reals[0];
   a.tol2 = (T)reals[1];
   a.alpha = (T)reals[2];
   a.clamp = (T)reals[3];
   a.off_gds = (T)reals[4];
+  if (a.nMJ < 0 || a.nD < 0 || a.nQ < 0 || a.nSw < 0 ||
+      a.nMJ + a.nD + 2 * a.nQ + a.nSw != a.k || a.W != (a.nSw ? 4 : 3))
+    return (int)cudaErrorInvalidValue;
   if (a.N > MAXN || a.k > MAXK || a.N <= 0 || a.k < 0 || threads <= 0 ||
       threads > 128)
     return (int)cudaErrorInvalidValue;

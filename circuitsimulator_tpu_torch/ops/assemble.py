@@ -1,15 +1,15 @@
 """MNA assembly: precomputed stamp patterns, per-call values.
 
 Port of the part of ``circuitsimulator_tpu/ops/assemble.Engine`` that the
-DC, Backward-Euler and AC paths run, for R, C, L, V, I, Level-1 MOS and the
-linear controlled sources E/G/F/H.
+DC, Backward-Euler and AC paths run, for R, C, L, V, I, Level-1 MOS, JFET,
+diode, BJT, the S/W switches and the linear controlled sources E/G/F/H.
 The stamp *pattern* (row/col index lists) is built once per circuit in
 numpy; only the *values* are recomputed, split by how often they change:
 
-- per analysis:  R, V/L couplings, E/G/F/H, C and MOS-cap companions,
-                 gmin                                             -> G_static
+- per analysis:  R, V/L couplings, E/G/F/H, C and MOS/diode/BJT junction-cap
+                 companions, gmin                                 -> G_static
 - per timestep:  source values at t, C/L history currents         -> I_static
-- per Newton iteration: MOS conduction linearization              -> scatter
+- per Newton iteration: MOS/JFET/diode/BJT/switch linearization   -> scatter
 
 Ground is the dump slot N of an (N+1)-sized system.  Parameters, x and the
 transient state may carry leading lane axes; the index patterns are shared.
@@ -25,12 +25,14 @@ import torch
 
 from ..ir.lower import LoweredCircuit
 from ..models import sources as srcmod
+from ..models.bjt import bjt_stamp_vals
+from ..models.diode import diode_stamp_vals
 from ..models.mosfet import mos_stamp_vals
+from ..models.switch import switch_stamp_vals
 from ..utils.options import SolverOptions
 
 # device classes of the JAX engine that the port does not stamp yet
-_UNPORTED = {"D": "diode", "Q": "BJT", "J": "JFET", "S": "switch (S/W)",
-             "K": "mutual inductance (K)", "T": "transmission line (T)"}
+_UNPORTED = {"K": "mutual inductance (K)", "T": "transmission line (T)"}
 
 
 def _two_terminal_pattern(a: np.ndarray, b: np.ndarray):
@@ -132,8 +134,10 @@ class Engine:
                             self.ctrl_cols]))
 
         # ---- transient patterns: inductor BE companion (4 couplings + the
-        # -L/dt branch diagonal), cap-like class = explicit C then the 4
-        # lumped MOS caps per device, pairs (G,S),(G,D),(S,B),(D,B) ----
+        # -L/dt branch diagonal), cap-like class = explicit C, then the 4
+        # lumped MOS caps per device, pairs (G,S),(G,D),(S,B),(D,B), then
+        # the diode junction caps, then the BJT caps CJE (B-E) and CJC
+        # (B-C) interleaved per device; the state vector shares the layout
         self.ind_rows = np.concatenate(
             [np.stack([t.ind_ep, t.ind_em, t.ind_k, t.ind_k], 1).ravel(),
              t.ind_k]).astype(np.int64)
@@ -142,8 +146,12 @@ class Engine:
              t.ind_k]).astype(np.int64)
         mc_a = np.stack([t.mos_eg, t.mos_eg, t.mos_es, t.mos_ed], 1).ravel()
         mc_b = np.stack([t.mos_es, t.mos_ed, t.mos_eb, t.mos_eb], 1).ravel()
-        self.cap_a = np.concatenate([t.cap_e1, mc_a]).astype(np.int64)
-        self.cap_b = np.concatenate([t.cap_e2, mc_b]).astype(np.int64)
+        qc_a = np.stack([t.bjt_eb, t.bjt_eb], 1).ravel()
+        qc_b = np.stack([t.bjt_ee, t.bjt_ec], 1).ravel()
+        self.cap_a = np.concatenate([t.cap_e1, mc_a, t.dio_ep,
+                                     qc_a]).astype(np.int64)
+        self.cap_b = np.concatenate([t.cap_e2, mc_b, t.dio_em,
+                                     qc_b]).astype(np.int64)
         self.cap_rows, self.cap_cols = _two_terminal_pattern(self.cap_a,
                                                              self.cap_b)
         self.n_caplike = len(self.cap_a)
@@ -155,19 +163,44 @@ class Engine:
                             self.ind_cols, self.cap_cols, t.node_eqs,
                             self.ctrl_cols]))
 
-        self.mos_body = bool(np.any(np.asarray(low.params["mos_gamma"].cpu())))
-        self.res_tc = bool(np.any(np.asarray(low.params["res_tc1"].cpu()))
-                           or np.any(np.asarray(low.params["res_tc2"].cpu())))
+        def any_nz(key):
+            return bool(np.any(np.asarray(low.params[key].cpu())))
 
-        # ---- nonlinear (per-Newton-iteration) MOS pattern ----
-        self.nl_rows = np.stack(
-            [t.mos_ed, t.mos_ed, t.mos_ed, t.mos_es, t.mos_es, t.mos_es],
-            1).ravel().astype(np.int64)
-        self.nl_cols = np.stack(
-            [t.mos_ed, t.mos_eg, t.mos_es, t.mos_ed, t.mos_eg, t.mos_es],
-            1).ravel().astype(np.int64)
-        self.nl_rhs_rows = np.stack([t.mos_ed, t.mos_es],
-                                    1).ravel().astype(np.int64)
+        # static flags: an optional term no device uses stays structurally
+        # absent from the stamp math
+        self.mos_body = any_nz("mos_gamma")
+        self.res_tc = any_nz("res_tc1") or any_nz("res_tc2")
+        self.bjt_early = any_nz("bjt_vaf")
+        self.dio_bv = any_nz("dio_bv")
+
+        # ---- nonlinear (per-Newton-iteration) patterns, concatenated in
+        # the order mos, jfet, diode, bjt, switch ----
+        def fet(d, g, s):
+            """rows [D,D,D,S,S,S] x cols [D,G,S,D,G,S]; RHS rows [D,S]."""
+            return (np.stack([d, d, d, s, s, s], 1).ravel(),
+                    np.stack([d, g, s, d, g, s], 1).ravel(),
+                    np.stack([d, s], 1).ravel())
+
+        mos = fet(t.mos_ed, t.mos_eg, t.mos_es)
+        jf = fet(t.jf_ed, t.jf_eg, t.jf_es)
+        dio = (np.stack([t.dio_ep, t.dio_ep, t.dio_em, t.dio_em], 1).ravel(),
+               np.stack([t.dio_ep, t.dio_em, t.dio_ep, t.dio_em], 1).ravel(),
+               np.stack([t.dio_ep, t.dio_em], 1).ravel())
+        # BJT: rows [C,C,C, B,B,B, E,E,E] x cols [C,B,E] x 3 (models/bjt.py)
+        bjt = (np.stack([t.bjt_ec] * 3 + [t.bjt_eb] * 3 + [t.bjt_ee] * 3,
+                        1).ravel(),
+               np.stack([t.bjt_ec, t.bjt_eb, t.bjt_ee] * 3, 1).ravel(),
+               np.stack([t.bjt_ec, t.bjt_eb, t.bjt_ee], 1).ravel())
+        # switch: 2x2 conductance block + 2x2 control coupling
+        sw = (np.stack([t.sw_ep, t.sw_ep, t.sw_em, t.sw_em,
+                        t.sw_ep, t.sw_ep, t.sw_em, t.sw_em], 1).ravel(),
+              np.stack([t.sw_ep, t.sw_em, t.sw_ep, t.sw_em,
+                        t.sw_ecp, t.sw_ecm, t.sw_ecp, t.sw_ecm], 1).ravel(),
+              np.stack([t.sw_ep, t.sw_em], 1).ravel())
+        classes = (mos, jf, dio, bjt, sw)
+        self.nl_rows, self.nl_cols, self.nl_rhs_rows = (
+            np.concatenate([c[i] for c in classes]).astype(np.int64)
+            for i in range(3))
         self._nl_flat = flat(self.nl_rows, self.nl_cols)
         self._nl_rhs = idx(self.nl_rhs_rows)
         self._gmin_flat = flat(t.node_eqs, t.node_eqs)
@@ -175,6 +208,11 @@ class Engine:
         self.is_rhs_rows = np.stack([t.is_ep, t.is_em], 1).ravel()
         self._is_rhs = idx(self.is_rhs_rows)
         self._mos_term = (idx(t.mos_ed), idx(t.mos_eg), idx(t.mos_es))
+        self._jf_term = (idx(t.jf_ed), idx(t.jf_eg), idx(t.jf_es))
+        self._dio_term = (idx(t.dio_ep), idx(t.dio_em))
+        self._bjt_term = (idx(t.bjt_ec), idx(t.bjt_eb), idx(t.bjt_ee))
+        self._sw_term = (idx(t.sw_ep), idx(t.sw_em), idx(t.sw_ecp),
+                         idx(t.sw_ecm))
 
         # ---- one-hot hot-path operators ----
         #   RHS assembly:  I = [vval | ival | vhist | cap_hist] @ rhs_mat
@@ -229,14 +267,17 @@ class Engine:
         return torch.as_tensor(v, dtype=self.dtype, device=self.device)
 
     def _caplike_C(self, params):
-        """Explicit C values then the MOS junction caps Cgs = Cgd = Cj0/2,
-        Csb = Cdb = Cj0 (tanalisis.cpp:337-341)."""
+        """Explicit C values, the MOS junction caps Cgs = Cgd = Cj0/2,
+        Csb = Cdb = Cj0 (tanalisis.cpp:337-341), the diode CJO, then the
+        BJT (CJE, CJC) pairs."""
         cj0 = params["mos_cj0"]
         mc = torch.stack([0.5 * cj0, 0.5 * cj0, cj0, cj0], dim=-1).flatten(-2)
-        cap = params["cap_c"]
-        lead = torch.broadcast_shapes(cap.shape[:-1], mc.shape[:-1])
-        return torch.cat([cap.expand(lead + cap.shape[-1:]),
-                          mc.expand(lead + mc.shape[-1:])], dim=-1)
+        qc = torch.stack([params["bjt_cje"], params["bjt_cjc"]],
+                         dim=-1).flatten(-2)
+        parts = [params["cap_c"], mc, params["dio_cjo"], qc]
+        lead = torch.broadcast_shapes(*(p.shape[:-1] for p in parts))
+        return torch.cat([p.expand(lead + p.shape[-1:]) for p in parts],
+                         dim=-1)
 
     def _res_vals(self, params):
         r = params["res_r"]
@@ -275,19 +316,62 @@ class Engine:
         return Gf.reshape(Gf.shape[:-1] + (self.N + 1, self.N + 1))
 
     def _nl_vals(self, params, x, t=0.0):
-        """Per-Newton-iteration MOS stamp values (G entries, RHS entries)."""
-        if not len(self.topo.mos_ed):
+        """Per-Newton-iteration nonlinear stamp values (G entries, RHS
+        entries) in the order mos, jfet, diode, bjt, switch."""
+        topo, opts = self.topo, self.opts
+        xe = self.x_ext(x)
+        gv, rv = [], []
+
+        def add(pair):
+            gv.append(pair[0])
+            rv.append(pair[1])
+
+        def lane_vt():
+            # vt_thermal is per lane (scalar or (B,)) while the device
+            # leaves are (..., n): expand it on the last axis
+            return params["vt_thermal"][..., None]
+
+        if len(topo.mos_ed):
+            ed, eg, es = self._mos_term
+            add(mos_stamp_vals(
+                params["mos_vth"], params["mos_k"], params["mos_lam"],
+                params["mos_p"], xe[..., ed], xe[..., eg], xe[..., es],
+                opts.mos_off_gds, opts.mos_reverse_region,
+                gamma=params["mos_gamma"] if self.mos_body else None,
+                phi=params["mos_phi"] if self.mos_body else None))
+        if len(topo.jf_ed):
+            # Shichman-Hodges == square law with K = 2*BETA, signed VTO
+            ed, eg, es = self._jf_term
+            add(mos_stamp_vals(
+                params["jf_vto"], 2.0 * params["jf_beta"], params["jf_lam"],
+                params["jf_p"], xe[..., ed], xe[..., eg], xe[..., es],
+                opts.mos_off_gds, opts.mos_reverse_region))
+        if len(topo.dio_ep):
+            ep, em = self._dio_term
+            add(diode_stamp_vals(
+                params["dio_is"], params["dio_n"], xe[..., ep], xe[..., em],
+                vt=lane_vt(),
+                bv=params["dio_bv"] if self.dio_bv else None,
+                ibv=params["dio_ibv"] if self.dio_bv else None))
+        if len(topo.bjt_ec):
+            ec, eb, ee = self._bjt_term
+            add(bjt_stamp_vals(
+                params["bjt_is"], params["bjt_bf"], params["bjt_br"],
+                params["bjt_p"], xe[..., ec], xe[..., eb], xe[..., ee],
+                vt=lane_vt(),
+                vaf=params["bjt_vaf"] if self.bjt_early else None))
+        if len(topo.sw_ep):
+            ep, em, ecp, ecm = self._sw_term
+            add(switch_stamp_vals(
+                params["sw_ron"], params["sw_roff"], params["sw_vt"],
+                params["sw_vh"], xe[..., ep], xe[..., em], xe[..., ecp],
+                xe[..., ecm]))
+        if not gv:
             z = x.new_zeros(x.shape[:-1] + (0,))
             return z, z
-        xe = self.x_ext(x)
-        ed, eg, es = self._mos_term
-        opts = self.opts
-        return mos_stamp_vals(
-            params["mos_vth"], params["mos_k"], params["mos_lam"],
-            params["mos_p"], xe[..., ed], xe[..., eg], xe[..., es],
-            opts.mos_off_gds, opts.mos_reverse_region,
-            gamma=params["mos_gamma"] if self.mos_body else None,
-            phi=params["mos_phi"] if self.mos_body else None)
+        lead = torch.broadcast_shapes(*(g.shape[:-1] for g in gv))
+        return (torch.cat([g.expand(lead + g.shape[-1:]) for g in gv], -1),
+                torch.cat([r.expand(lead + r.shape[-1:]) for r in rv], -1))
 
     # ------------------------------------------------------------------
     # DC assembly
@@ -328,7 +412,7 @@ class Engine:
         return self._as_matrix(Gf), self.dc_rhs(params, scale)
 
     def assemble_dc_iter(self, G_static, I_static, params, x, gmin):
-        """Add the MOS linearization and the adaptive gmin diagonal."""
+        """Add the device linearization and the adaptive gmin diagonal."""
         gvals, rvals = self._nl_vals(params, x)
         lead = torch.broadcast_shapes(G_static.shape[:-2], gvals.shape[:-1])
         Gf = G_static.reshape(G_static.shape[:-2] + (-1,))
@@ -375,7 +459,7 @@ class Engine:
         return rows, cols, vals
 
     def tran_static_G(self, params, dt, gmin):
-        """The whole BE matrix except the MOS conduction entries: constant
+        """The whole BE matrix except the nonlinear devices' entries: constant
         for the entire transient (fixed dt, fixed gmin)."""
         _, _, vals = self.tran_static_entries(params, dt, gmin)
         Gf = self._zeros_G(vals.shape[:-1])

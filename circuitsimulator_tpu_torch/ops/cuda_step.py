@@ -2,7 +2,7 @@
 Monte-Carlo transient chunk on the GPU.
 
 The kernel replaces the TPU kernel ``circuitsimulator_tpu/ops/pallas_step.py:
-PallasStepRunner._kernel`` (K1a scope); its plain PyTorch version is
+PallasStepRunner._kernel`` (scope K1a + K1b); its plain PyTorch version is
 ``ops/fused_step.FusedStepRunner.run_chunk_plain``.  The runner holds the
 lane-minor constants; the wrapper lays the carry out lane-minor in fresh
 copies (the kernel updates them in place), launches on the current stream
@@ -73,19 +73,21 @@ def run_chunk_cuda(runner, x, x_prev, vc, il, failed, step0: int,
     ft = failed.to(torch.int32).clone()
     iters = torch.zeros((B,), dtype=torch.int32, device=dev)
     arrays = [runner.G0invT, runner.YT, runner.Yc3, runner.mosp,
+              runner.diop, runner.bjtp, runner.swp,
               *runner.src, runner.gc, runner.gl,
               runner.kinds, runner.src_pos, runner.src_neg, runner.ind_k,
-              runner.cap_a, runner.cap_b, runner.mos_cols,
+              runner.cap_a, runner.cap_b, runner.row_cols,
               xt, xpt, vct, ilt, ft, iters]
     for a in arrays:
         if not a.is_contiguous() or a.device != dev:
             raise ValueError("run_chunk_cuda: runner constants must be "
                              "contiguous on the runner's device")
     ptrs = (ctypes.c_void_p * len(arrays))(*[a.data_ptr() for a in arrays])
-    ints = (ctypes.c_longlong * 13)(
+    ints = (ctypes.c_longlong * 18)(
         B, N, k, runner.nS, runner.P, runner.nL, runner.nCap,
         runner.unrolled, runner.max_nr, int(runner.predictor), n_steps,
-        int(step0), threads)
+        int(step0), threads, runner.nMJ, runner.nD, runner.nQ, runner.nSw,
+        runner.W)
     reals = (ctypes.c_double * 5)(runner.dt, runner.tol2, runner.alpha,
                                   runner.clamp, runner.off_gds)
     with torch.cuda.device(dev):

@@ -1,23 +1,26 @@
-"""Fused Monte-Carlo transient chunk (K1a): whole Backward-Euler timesteps
-per lane in one launch.
+"""Fused Monte-Carlo transient chunk (K1, scope K1a + K1b): whole
+Backward-Euler timesteps per lane in one launch.
 
 Port of ``circuitsimulator_tpu/ops/pallas_step.py`` (``PallasStepRunner``)
-for its K1a scope: R/C/L, V and I sources with every waveform kind
-(PULSE/SIN/PWL/EXP/SFFM, PWL with at most 8 breakpoints), the linear
-controlled sources E/G/F/H (their stamps live in G0 only) and Level-1 MOS
-without body effect or reverse region, Woodbury rank 0 <= k <= 16 (k = 0
-is a linear deck: each Newton iteration accepts z0 = G0^{-1} b).
+for R/C/L, V and I sources with every waveform kind (PULSE/SIN/PWL/EXP/SFFM,
+PWL with at most 8 breakpoints), the linear controlled sources E/G/F/H
+(their stamps live in G0 only), Level-1 MOS without body effect or reverse
+region (K1a), and JFETs, diodes with reverse breakdown, Ebers-Moll BJTs
+with Early voltage and the S/W switches (K1b); Woodbury rank
+0 <= k = nM + nJ + nD + 2 nQ + nS <= 16 (k = 0 is a linear deck: each
+Newton iteration accepts z0 = G0^{-1} b).
 
 Per step and lane (what the kernel and ``run_chunk_plain`` compute):
 
 - sources at t = (step0 + i + 1) dt in the working type (never t += dt);
 - b0 = [sources, -gl il, gc vc] scattered to their rows; z0 = G0^{-1} b0;
-- Newton from x (or 2x - x_prev with the predictor): MOS linearisation,
-  z = z0 - Y c, S = I + V^T Y, vz = V^T z, the pivoted k x k solve
-  S w = vz (first index of max |col|, a zero pivot and a zero diagonal
-  replaced by 1, no pivot floor), x_raw = z - Y w, then the damped accept
-  (clamp, alpha, err^2 < tol^2, a non-finite x_raw freezes the lane and
-  raises ``failed``);
+- Newton from x (or 2x - x_prev with the predictor): the device
+  linearisations in Woodbury row order (MOS then JFET rows from one pack,
+  diode rows, two rows per BJT, switch rows), z = z0 - Y c, S = I + V^T Y,
+  vz = V^T z, the pivoted k x k solve S w = vz (first index of max |col|, a
+  zero pivot and a zero diagonal replaced by 1, no pivot floor),
+  x_raw = z - Y w, then the damped accept (clamp, alpha, err^2 < tol^2, a
+  non-finite x_raw freezes the lane and raises ``failed``);
 - vc and il from the accepted x.
 
 The Newton loop runs ``tran_unrolled_iters`` fixed iterations, or per lane
@@ -28,9 +31,13 @@ done; it differs only in that a done lane never again raises ``failed``
 
 Constants are lane-minor and contraction-major, as in the JAX kernel:
 G0invT (N, N, B) [m, n, lane] = G0inv[lane, n, m], YT (k, N, B), Yc3
-(3, k, k, B).  The one-hot selection matmuls of the TPU kernel are index
-plans here (source rows, inductor rows, cap terminal pairs, MOS (d, g, s)
-columns); index N is the ground dump slot and reads 0.
+(W, k, k, B) with W = 4 when a switch is present, else 3.  The one-hot
+selection matmuls of the TPU kernel are index plans here (source rows,
+inductor rows, cap terminal pairs, the (W, k) column plan of the V^T rows,
+which is also where each row's device reads its terminal voltages); index N
+is the ground dump slot and reads 0.  Exponential-device decks must start
+from the DC operating point: from x = 0 a junction at 1e5 S amplifies a
+rounding difference to volts.
 
 ``FusedStepRunner.run_chunk`` launches the CUDA kernel (``ops/cuda_step``,
 ``csrc/fused_step.cu``) on CUDA tensors and runs ``run_chunk_plain``, the
@@ -45,7 +52,10 @@ import numpy as np
 import torch
 
 from ..models import sources as srcmod
+from ..models.bjt import bjt_linearize
+from ..models.diode import diode_linearize
 from ..models.mosfet import mos_linearize
+from ..models.switch import switch_linearize
 from ..netlist import WAVE_PWL
 from . import cuda_step
 from .lu import lu_solve_plain
@@ -54,20 +64,22 @@ from .woodbury import WoodburySolver
 MAX_N = cuda_step.MAX_N      # unknowns per lane (the kernel's local arrays)
 MAX_K = cuda_step.MAX_K      # Woodbury rank; 16 < k <= 32 is K1d
 MAX_PWL = 8                  # PWL breakpoints (the JAX kernel unrolls <= 8)
+IN_SCOPE = "RCLVIMEGFHDQJS"  # device classes of K1a + K1b
 
 
 def unsupported_reason(engine, dt=None) -> Optional[str]:
-    """Why ``engine`` is outside the K1a scope, or None when it is in.
+    """Why ``engine`` is outside the K1a + K1b scope, or None when it is in.
 
     In scope is a subset of ``circuitsimulator_tpu/ops/pallas_step.py:
     supported``: every condition refused there is refused here, plus
-    16 < k (K1d) and N > 64."""
+    16 < k (K1d) and N > 64.  B sources, T-lines, TRNOISE and mutual
+    inductance never reach an Engine of the port (K1c/K1d)."""
     t = engine.topo
     opts = engine.opts
-    others = sorted(c for c, n in t.counts.items()
-                    if n and c not in "RCLVIMEGFH")
+    c = t.counts
+    others = sorted(cls for cls, n in c.items() if n and cls not in IN_SCOPE)
     if others:
-        return f"device classes {', '.join(others)} (K1b/K1c)"
+        return f"device classes {', '.join(others)} (K1c/K1d)"
     if engine.mos_body:
         return "MOS body effect (GAMMA)"
     if opts.mos_reverse_region:
@@ -83,15 +95,15 @@ def unsupported_reason(engine, dt=None) -> Optional[str]:
         return f"PWL source with {engine.pwl_width} > {MAX_PWL} breakpoints"
     if engine.N > MAX_N:
         return f"N = {engine.N} > {MAX_N} unknowns"
-    k = len(t.mos_ed)
+    k = c["M"] + c["J"] + c["D"] + 2 * c["Q"] + c["S"]
     if k > MAX_K:
         return f"Woodbury rank k = {k} > {MAX_K} (K1d)"
     return None
 
 
 def supported(engine, dt=None) -> bool:
-    """The K1a gate (``dt`` is accepted for the JAX signature; K1a has no
-    dt-dependent device)."""
+    """The K1 gate (``dt`` is accepted for the JAX signature; no device in
+    scope depends on dt)."""
     return unsupported_reason(engine, dt) is None
 
 
@@ -106,7 +118,7 @@ class FusedStepRunner:
     def __init__(self, engine, bparams, dt: float):
         reason = unsupported_reason(engine, dt)
         if reason is not None:
-            raise NotImplementedError(f"fused transient chunk (K1a): {reason}")
+            raise NotImplementedError(f"fused transient chunk (K1): {reason}")
         t = engine.topo
         opts = engine.opts
         self.N = N = engine.N
@@ -120,18 +132,50 @@ class FusedStepRunner:
         self.predictor = bool(opts.tran_predictor)
         self.unrolled = int(opts.tran_unrolled_iters)
         self.off_gds = float(opts.mos_off_gds)
+        self.flags = {"dio_bv": engine.dio_bv,
+                      "bjt_early": engine.bjt_early}
         self.B = B = next(iter(bparams.values())).shape[0]
         self.dt_t = dt_t = torch.tensor(self.dt, dtype=dtype, device=dev)
 
         G = engine.tran_static_G(bparams, dt_t, opts.tran_gmin)
         wb = WoodburySolver(engine, bparams, G[..., :N, :N])
-        self.k = k = wb.plan.k
+        plan = wb.plan
+        self.k = k = plan.k
+        self.W = W = plan.W
+        self.nMJ = plan.nM + plan.nJ
+        self.nD, self.nQ, self.nSw = plan.nD, plan.nQ, plan.nS
         self.G0invT = wb.G0inv.permute(2, 1, 0).contiguous()   # (N, N, B)
         self.YT = wb.Y.permute(2, 1, 0).contiguous()           # (k, N, B)
-        self.Yc3 = wb.Y_cols.permute(2, 1, 3, 0).contiguous()  # (3, k, k, B)
-        self.mosp = torch.stack([bparams["mos_vth"], bparams["mos_k"],
-                                 bparams["mos_lam"], bparams["mos_p"]],
-                                0).permute(0, 2, 1).contiguous()  # (4, k, B)
+        self.Yc3 = wb.Y_cols.permute(2, 1, 3, 0).contiguous()  # (W, k, k, B)
+
+        def pack(*leaves):
+            """(B, n) leaves -> lane-minor (len(leaves), n, B)."""
+            return torch.stack([a.expand(B, a.shape[-1]) for a in leaves],
+                               0).permute(0, 2, 1).contiguous()
+
+        def lanes(name, n):
+            """A per-lane (B,) or scalar leaf as (B, n)."""
+            return bparams[name].reshape(-1, 1).expand(B, n)
+
+        def both(mos, jf, scale=1.0):
+            return torch.cat([bparams[mos], scale * bparams[jf]], -1)
+
+        # nonlinear-row parameters in Woodbury plan order.  MOS and JFET
+        # rows share the Level-1 linearisation (vth = VTO, k = 2 BETA)
+        self.mosp = pack(both("mos_vth", "jf_vto"),
+                         both("mos_k", "jf_beta", 2.0),
+                         both("mos_lam", "jf_lam"),
+                         both("mos_p", "jf_p"))                # (4, nMJ, B)
+        vt_d = lanes("vt_thermal", self.nD)
+        self.diop = pack(bparams["dio_is"], bparams["dio_n"] * vt_d,
+                         bparams["dio_bv"], bparams["dio_ibv"],
+                         vt_d)                                 # (5, nD, B)
+        self.bjtp = pack(bparams["bjt_is"], bparams["bjt_bf"],
+                         bparams["bjt_br"], bparams["bjt_p"],
+                         bparams["bjt_vaf"],
+                         lanes("vt_thermal", self.nQ))         # (6, nQ, B)
+        self.swp = pack(bparams["sw_ron"], bparams["sw_roff"],
+                        bparams["sw_vt"], bparams["sw_vh"])    # (4, nSw, B)
 
         # independent sources, V then I, lane-minor: dc (nS, B), pulse
         # (7, nS, B), sin (5, nS, B), pwl_t and pwl_v (P, nS, B), pwl_n
@@ -167,15 +211,14 @@ class FusedStepRunner:
         neg = np.concatenate([np.full(nV, N), t.is_ep])
 
         def i32(a):
-            return torch.as_tensor(np.asarray(a, np.int64).astype(np.int32),
-                                   device=dev)
+            return torch.as_tensor(
+                np.ascontiguousarray(a, dtype=np.int32), device=dev)
 
         self.kinds = i32(kinds)
         self.src_pos, self.src_neg = i32(pos), i32(neg)
         self.ind_k = i32(t.ind_k)
         self.cap_a, self.cap_b = i32(engine.cap_a), i32(engine.cap_b)
-        self.mos_cols = i32(np.stack([t.mos_ed, t.mos_eg, t.mos_es], 0)
-                            .reshape(3, k))                     # (3, k)
+        self.row_cols = i32(plan.col_idx().T.reshape(W, k))     # (W, k)
         # one scatter for the whole RHS in the plain version
         self._rhs_rows = torch.cat([self.src_pos, self.src_neg, self.ind_k,
                                     self.cap_a, self.cap_b]).long()
@@ -208,23 +251,67 @@ class FusedStepRunner:
         pulse, sin, pwl_t, pwl_v = (a.permute(2, 1, 0)         # (B, nS, q)
                                     for a in self.src[1:5])
         iters = torch.zeros((B,), dtype=torch.int32, device=dev)
-        vth, kk, lam, pp = (p.T for p in self.mosp)            # (B, k) each
         eye = torch.eye(k, dtype=dtype, device=dev)
-        cols = self.mos_cols.long()
+        cols = self.row_cols.long()                            # (W, k)
+        W = self.W
+        flags = self.flags
+        mosp, diop, bjtp, swp = ([q.T for q in p] for p in (   # (B, n) each
+            self.mosp, self.diop, self.bjtp, self.swp))
+        o_d = self.nMJ
+        o_q = o_d + self.nD
+        o_s = o_q + 2 * self.nQ
+
+        def nl_rows(xx):
+            """V^T rows (W, B, k) and Newton constants (B, k) at xx, the
+            segments in Woodbury row order."""
+            xe = torch.cat([xx, zcol], 1)
+            xm = xe[:, cols]                                   # (B, W, k)
+            vparts, cparts = [], []
+
+            def rows(*coef):
+                coef = list(coef) + [torch.zeros_like(coef[0])] * (
+                    W - len(coef))
+                return torch.stack(coef)
+
+            if self.nMJ:
+                vd, vg, vs = (xm[:, q, :o_d] for q in range(3))
+                gd, gg, gs, cst = mos_linearize(*mosp, vd, vg, vs,
+                                                self.off_gds)
+                vparts.append(rows(gd, gg, gs))
+                cparts.append(cst)
+            if self.nD:
+                isat, nvt, bv, ibv, vt = diop
+                g, cst = diode_linearize(
+                    isat, None, xm[:, 0, o_d:o_q], xm[:, 1, o_d:o_q], vt=vt,
+                    bv=bv if flags["dio_bv"] else None,
+                    ibv=ibv if flags["dio_bv"] else None, nvt=nvt)
+                vparts.append(rows(g, -g))
+                cparts.append(cst)
+            if self.nQ:
+                isat, bf, br, pq, vaf, vt = bjtp
+                # each device is read at its Ic row (even rows of the pair)
+                vc, vb, ve = (xm[:, q, o_q:o_s:2] for q in range(3))
+                rc, rb = bjt_linearize(isat, bf, br, pq, vc, vb, ve, vt=vt,
+                                       vaf=vaf if flags["bjt_early"] else None)
+                vparts.append(torch.stack([rows(*rc[:3]), rows(*rb[:3])],
+                                          dim=-1).flatten(-2))
+                cparts.append(torch.stack([rc[3], rb[3]], dim=-1).flatten(-2))
+            if self.nSw:
+                gd, gc, cst = switch_linearize(
+                    *swp, *(xm[:, q, o_s:] for q in range(4)))
+                vparts.append(rows(gd, -gd, gc, -gc))
+                cparts.append(cst)
+            return torch.cat(vparts, -1), torch.cat(cparts, -1)
 
         def newton(xx, done, fl, z0, active):
             """One iteration; ``active`` masks the failed update and the
             count (the per-lane while loop), None runs it ungated."""
             if k:
-                xe = torch.cat([xx, zcol], 1)
-                gd, gg, gs, cst = mos_linearize(
-                    vth, kk, lam, pp, xe[:, cols[0]], xe[:, cols[1]],
-                    xe[:, cols[2]], self.off_gds)
+                v, cst = nl_rows(xx)                           # (W, B, k)
                 z = z0 - torch.einsum("jnb,bj->bn", self.YT, cst)
-                v = torch.stack([gd, gg, gs])                  # (3, B, k)
                 S = eye + torch.einsum("sbj,sjlb->bjl", v, self.Yc3)
                 ze = torch.cat([z, zcol], 1)
-                vz = (v * torch.stack([ze[:, c] for c in cols])).sum(0)
+                vz = (v * ze[:, cols].movedim(1, 0)).sum(0)
                 w = lu_solve_plain(S, vz, 0.0)
                 x_raw = z - torch.einsum("jnb,bj->bn", self.YT, w)
             else:

@@ -1,8 +1,10 @@
 """Low-rank (Woodbury) Newton solve for the transient hot loop.
 
-Port of ``circuitsimulator_tpu/ops/woodbury.py`` for Level-1 MOS rows.
-Each MOSFET's conduction stamp is a rank-one update (e_D - e_S) v^T of the
-otherwise constant BE matrix G0 (fixed dt), so with G0 inverted once:
+Port of ``circuitsimulator_tpu/ops/woodbury.py`` for Level-1 MOS, JFET,
+diode, BJT and switch rows.  Each MOSFET's conduction stamp is a rank-one
+update (e_D - e_S) v^T of the otherwise constant BE matrix G0 (fixed dt);
+JFETs, diodes and switches are rank one too, a BJT is rank two
+((e_C - e_E) for Ic, (e_B - e_E) for Ib).  With G0 inverted once:
 
     A = G0 + U V^T,  b = b0 - U c,  Y = G0^{-1} U,  z = G0^{-1} b0 - Y c
     x = z - Y (I_k + V^T Y)^{-1} V^T z
@@ -18,26 +20,60 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..models.bjt import bjt_linearize
+from ..models.diode import diode_linearize
 from ..models.mosfet import mos_linearize
+from ..models.switch import switch_linearize
 from .lu import lu_inverse, lu_solve
 
 
 class WoodburyPlan:
-    """Static index plan of the rank-k MOS update (W = 3: d, g, s)."""
+    """Static index plan of the rank-k update, rows in the order mos, jfet,
+    diode, bjt (Ic row then Ib row per device), switch.
+
+    The V^T row width W is 3 (MOS/JFET d, g, s; diode p, m, dump; BJT c, b,
+    e) unless a switch is present: its row couples the node pair to the
+    control pair (p, m, cp, cm), so every class pads to W = 4 with the dump
+    column (zero coefficient).  Decks without a switch keep the exact
+    width-3 layout."""
 
     def __init__(self, engine):
         t = engine.topo
-        self.N = engine.N
-        self.nM = len(t.mos_ed)
-        self.k = self.nM
-        self.W = 3
-        self.u_pos = t.mos_ed.astype(np.int64)
-        self.u_neg = t.mos_es.astype(np.int64)
-        self.mos_cols = (np.stack([t.mos_ed, t.mos_eg, t.mos_es], 1)
-                         if self.nM else np.zeros((0, 3), np.int32))
+        N = self.N = engine.N
+        self.nM, self.nJ = len(t.mos_ed), len(t.jf_ed)
+        self.nD, self.nQ, self.nS = len(t.dio_ep), len(t.bjt_ec), len(t.sw_ep)
+        self.k = self.nM + self.nJ + self.nD + 2 * self.nQ + self.nS
+        self.W = W = 4 if self.nS else 3
+        # U column j = e_pos[j] - e_neg[j] (dump-mapped entries vanish)
+        self.u_pos = np.concatenate([
+            t.mos_ed, t.jf_ed, t.dio_ep,
+            np.stack([t.bjt_ec, t.bjt_eb], 1).ravel(), t.sw_ep
+        ]).astype(np.int64)
+        self.u_neg = np.concatenate([
+            t.mos_es, t.jf_es, t.dio_em,
+            np.stack([t.bjt_ee, t.bjt_ee], 1).ravel(), t.sw_em
+        ]).astype(np.int64)
+
+        def cols(*terms):
+            """(n, W) column block, padded with the dump index."""
+            n = len(terms[0])
+            pad = [np.full(n, N)] * (W - len(terms))
+            return np.stack(list(terms) + pad, 1).reshape(n, W)
+
+        # terminal reads of each class, (n, W) in the row layout
+        self.mos_cols = cols(t.mos_ed, t.mos_eg, t.mos_es)
+        self.jf_cols = cols(t.jf_ed, t.jf_eg, t.jf_es)
+        self.dio_cols = cols(t.dio_ep, t.dio_em)
+        self.bjt_cols = cols(t.bjt_ec, t.bjt_eb, t.bjt_ee)
+        self.sw_cols = (cols(t.sw_ep, t.sw_em, t.sw_ecp, t.sw_ecm)
+                        if self.nS else np.zeros((0, W)))
+        self._cols = np.concatenate([
+            self.mos_cols, self.jf_cols, self.dio_cols,
+            np.repeat(self.bjt_cols, 2, axis=0), self.sw_cols
+        ]).astype(np.int64)
 
     def build_U(self, dtype, device):
-        """(N, k) dense U: column j = e_D - e_S (dump entries vanish)."""
+        """(N, k) dense U (dump entries vanish)."""
         U = np.zeros((self.N + 1, self.k))
         np.add.at(U, (self.u_pos, np.arange(self.k)), 1.0)
         np.add.at(U, (self.u_neg, np.arange(self.k)), -1.0)
@@ -45,7 +81,7 @@ class WoodburyPlan:
 
     def col_idx(self) -> np.ndarray:
         """(k, W) column indices of the V^T coefficient rows."""
-        return self.mos_cols.astype(np.int64)
+        return self._cols
 
 
 class WoodburySolver:
@@ -62,39 +98,99 @@ class WoodburySolver:
         U = plan.build_U(dt_, dev)
         self.G0inv = lu_inverse(G0, opts.lu_pivot_floor)
         self.Y = self.G0inv @ U                                 # (..., N, k)
-        cols = torch.as_tensor(plan.col_idx(), device=dev)      # (k, 3)
+        cols = torch.as_tensor(plan.col_idx(), device=dev)      # (k, W)
         Y_ext = torch.cat([self.Y, torch.zeros_like(self.Y[..., :1, :])],
                           dim=-2)                               # dump row = 0
-        self.Y_cols = Y_ext[..., cols, :]                       # (..., k, 3, k)
+        self.Y_cols = Y_ext[..., cols, :]                       # (..., k, W, k)
         self.eye_k = torch.eye(plan.k, dtype=dt_, device=dev)
 
-        def onehot(idx_list):
-            M = np.zeros((N, len(idx_list)))
-            for j, r in enumerate(idx_list):
-                if r < N:
-                    M[r, j] = 1.0
-            return torch.as_tensor(M, dtype=dt_, device=dev)
+        def onehot(idx):
+            idx = np.asarray(idx, np.int64).ravel()
+            M = np.zeros((N + 1, len(idx)))
+            M[idx, np.arange(len(idx))] = 1.0
+            return torch.as_tensor(M[:N], dtype=dt_, device=dev)
 
-        self.M_mos = onehot(plan.mos_cols.ravel())               # (N, 3nM)
-        self.M_cols = onehot(plan.col_idx().ravel())             # (N, 3k)
+        self.M_mos = onehot(plan.mos_cols)                      # (N, W nM)
+        self.M_jf = onehot(plan.jf_cols)
+        self.M_dio = onehot(plan.dio_cols)
+        self.M_bjt = onehot(plan.bjt_cols)
+        self.M_sw = onehot(plan.sw_cols)
+        self.M_cols = onehot(plan.col_idx())                    # (N, W k)
 
     def z0(self, b0):
         """G0^{-1} b0, once per timestep (b0 = sources + history)."""
         return (self.G0inv @ b0[..., None])[..., 0]
 
     def nl_coeffs(self, params, x):
-        """Per-device V^T rows (..., k, 3) and Newton constants (..., k)."""
-        plan = self.plan
-        opts = self.engine.opts
-        vm = (x @ self.M_mos).unflatten(-1, (plan.nM, 3))
-        body = self.engine.mos_body
-        gd, gg, gs, cst = mos_linearize(
-            params["mos_vth"], params["mos_k"], params["mos_lam"],
-            params["mos_p"], vm[..., 0], vm[..., 1], vm[..., 2],
-            opts.mos_off_gds, opts.mos_reverse_region,
-            gamma=params["mos_gamma"] if body else None,
-            phi=params["mos_phi"] if body else None)
-        return torch.stack([gd, gg, gs], dim=-1), cst
+        """Per-row V^T values (..., k, W) and Newton constants (..., k)."""
+        plan, eng = self.plan, self.engine
+        opts = eng.opts
+        W = plan.W
+        parts_v, parts_c = [], []
+
+        def read(M, n):
+            """Terminal voltages of a class: W tensors of (..., n)."""
+            return (x @ M).unflatten(-1, (n, W)).unbind(-1)
+
+        def rows(*coef):
+            """Coefficient rows (..., n, W), short rows zero-padded."""
+            coef = list(coef) + [torch.zeros_like(coef[0])] * (W - len(coef))
+            return torch.stack(coef, dim=-1)
+
+        def lane_vt():
+            return params["vt_thermal"][..., None]
+
+        if plan.nM:
+            vd, vg, vs = read(self.M_mos, plan.nM)[:3]
+            body = eng.mos_body
+            gd, gg, gs, cst = mos_linearize(
+                params["mos_vth"], params["mos_k"], params["mos_lam"],
+                params["mos_p"], vd, vg, vs,
+                opts.mos_off_gds, opts.mos_reverse_region,
+                gamma=params["mos_gamma"] if body else None,
+                phi=params["mos_phi"] if body else None)
+            parts_v.append(rows(gd, gg, gs))
+            parts_c.append(cst)
+        if plan.nJ:
+            vd, vg, vs = read(self.M_jf, plan.nJ)[:3]
+            gd, gg, gs, cst = mos_linearize(
+                params["jf_vto"], 2.0 * params["jf_beta"], params["jf_lam"],
+                params["jf_p"], vd, vg, vs,
+                opts.mos_off_gds, opts.mos_reverse_region)
+            parts_v.append(rows(gd, gg, gs))
+            parts_c.append(cst)
+        if plan.nD:
+            vp, vm = read(self.M_dio, plan.nD)[:2]
+            g, cst = diode_linearize(
+                params["dio_is"], params["dio_n"], vp, vm, vt=lane_vt(),
+                bv=params["dio_bv"] if eng.dio_bv else None,
+                ibv=params["dio_ibv"] if eng.dio_bv else None)
+            parts_v.append(rows(g, -g))
+            parts_c.append(cst)
+        if plan.nQ:
+            vc, vb, ve = read(self.M_bjt, plan.nQ)[:3]
+            rc, rb = bjt_linearize(
+                params["bjt_is"], params["bjt_bf"], params["bjt_br"],
+                params["bjt_p"], vc, vb, ve, vt=lane_vt(),
+                vaf=params["bjt_vaf"] if eng.bjt_early else None)
+            # interleave (Ic row, Ib row) per device
+            parts_v.append(torch.stack([rows(*rc[:3]), rows(*rb[:3])],
+                                       dim=-2).flatten(-3, -2))
+            parts_c.append(torch.stack([rc[3], rb[3]], dim=-1).flatten(-2))
+        if plan.nS:
+            vp, vm, vcp, vcm = read(self.M_sw, plan.nS)
+            gd, gc, cst = switch_linearize(
+                params["sw_ron"], params["sw_roff"], params["sw_vt"],
+                params["sw_vh"], vp, vm, vcp, vcm)
+            parts_v.append(rows(gd, -gd, gc, -gc))
+            parts_c.append(cst)
+        if len(parts_v) == 1:
+            return parts_v[0], parts_c[0]
+        lead = torch.broadcast_shapes(*(c.shape[:-1] for c in parts_c))
+        return (torch.cat([v.expand(lead + v.shape[-2:]) for v in parts_v],
+                          dim=-2),
+                torch.cat([c.expand(lead + c.shape[-1:]) for c in parts_c],
+                          dim=-1))
 
     def solve(self, params, x, z0):
         """One Newton linear solve: x_raw with A(x) x_raw = b(x)."""

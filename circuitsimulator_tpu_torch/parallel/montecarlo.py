@@ -5,7 +5,8 @@ montecarlo.py`` and of the transient loop of ``bench.py``: parameters carry
 a leading lane axis written out (no vmap); the DC Newton loop and every
 dense solve run over all lanes at once (the K2 kernel on CUDA).  A
 waveform-free f32 transient on CUDA takes the fused chunk kernel (K1,
-``ops/fused_step.py``) when the deck is in its scope.
+``ops/fused_step.py``) when the deck is in its scope (R/C/L, sources, E/G/F/H,
+Level-1 MOS, JFET, diode, BJT, S/W switch; Woodbury rank <= 16).
 """
 
 from __future__ import annotations
@@ -91,15 +92,19 @@ def batched_transient_chunk(engine: Engine, bparams, carry, ts, dt,
     return carry, iters
 
 
-def make_fused_transient_fn(engine: Engine, bparams, tstep, chunk: int = 2000):
+def make_fused_transient_fn(engine: Engine, bparams, tstep, chunk: int = 2000,
+                            x0=None):
     """Set up the fused-kernel batched transient: the per-lane constants
     of the chunk kernel (NotImplementedError, naming the cause, for a deck
-    outside its scope), the batched DC (K2 on CUDA), and
+    outside its scope), the batched DC (K2 on CUDA) unless the (B, N)
+    operating points ``x0`` are given, and
     ``advance(carry, step0, n=chunk) -> (carry, iters)``, which runs one
     chunk of n steps from step index step0 (iters (B,) int32).
     Returns (carry0, advance, meta); carry = (x, x_prev, vc, il, failed)."""
     runner = fused_step.FusedStepRunner(engine, bparams, float(tstep))
-    x0 = batched_dc_fast(engine, bparams)
+    if x0 is None:
+        x0 = batched_dc_fast(engine, bparams)
+    x0 = x0.to(engine.dtype)
     state0 = engine.init_state(x0)
 
     def advance(carry, step0: int, n: int = chunk):
@@ -111,12 +116,13 @@ def make_fused_transient_fn(engine: Engine, bparams, tstep, chunk: int = 2000):
     return carry0, advance, {"chunk": chunk, "runner": runner}
 
 
-def _fused_batched_transient(engine: Engine, bparams, tstep,
-                             tstop) -> TransientResult:
+def _fused_batched_transient(engine: Engine, bparams, tstep, tstop,
+                             x0=None) -> TransientResult:
     """Waveform-free batched transient on the fused chunk kernel:
     newton_iters is the per-lane (B,) total over the run."""
     n_steps = n_steps_for(float(tstep), float(tstop))
-    carry, advance, meta = make_fused_transient_fn(engine, bparams, tstep)
+    carry, advance, meta = make_fused_transient_fn(engine, bparams, tstep,
+                                                   x0=x0)
     chunk = meta["chunk"]
     total = torch.zeros_like(carry[4], dtype=torch.int32)
     for s in range(0, n_steps, chunk):
@@ -131,8 +137,12 @@ def _fused_batched_transient(engine: Engine, bparams, tstep,
 
 
 def batched_transient(engine: Engine, bparams, tstep, tstop,
-                      save_xs: bool = False, fused="auto") -> TransientResult:
-    """Backward-Euler transient of every lane, from the batched DC point.
+                      save_xs: bool = False, fused="auto",
+                      x0=None) -> TransientResult:
+    """Backward-Euler transient of every lane, from the batched DC point
+    (or from the (B, N) operating points ``x0``, e.g. a float64 DC for a
+    float32 run: the reference's damped DC Newton with its gmin stepping
+    leaves about 1% of the lanes of a BJT deck unconverged in float32).
 
     fused="auto" takes the fused chunk kernel (K1) for a waveform-free
     (save_xs=False) float32 run on CUDA whose deck is in the kernel's
@@ -149,6 +159,8 @@ def batched_transient(engine: Engine, bparams, tstep, tstop,
     if fused:
         if save_xs:
             raise ValueError("fused=True keeps no waveforms: save_xs=False")
-        return _fused_batched_transient(engine, bparams, tstep, tstop)
+        return _fused_batched_transient(engine, bparams, tstep, tstop, x0)
+    if x0 is None:
+        x0 = batched_dc_fast(engine, bparams)
     return run_transient(engine, bparams, tstep, tstop,
-                         x0=batched_dc_fast(engine, bparams), save_xs=save_xs)
+                         x0=x0.to(engine.dtype), save_xs=save_xs)

@@ -133,7 +133,7 @@ def zero_lanes(x):
 
 @pytest.mark.parametrize("n", [5, 13])
 def test_plain_matches_pallas_interpret_and_numpy(n):
-    B, F = 6, 4
+    B, F = 6, 2
     G, B1, br, bi = lane_systems(B, n, seed=n)
     om = np.logspace(-1, 2, F)
     pr, pi = ac_sweep_pallas(*(jnp.asarray(a) for a in (G, B1, br, bi, om)),

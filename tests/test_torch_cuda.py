@@ -149,6 +149,112 @@ def test_fused_step_kernel_matches_plain(cuda_device, deck, dtype):
                                       ref[5].cpu().numpy())
 
 
+# the junction and switch decks of tests/test_pallas_step.py
+K1B_DECKS = {
+    "diode": ("""* diode rectifier + zener
+V1 in 0 SIN 0 4 5e6
+R1 in a 100
+D1 a out
+C1 out 0 1n
+R2 out 0 10k
+RBD in bd 500
+D2 0 bd BV=3 IBV=1e-3
+.op
+""", 1e-9, 6),
+    "bjt": ("""* npn + pnp stages
+.MODEL qn NPN IS=1e-15 BF=120 BR=2 VAF=50
+.MODEL qp PNP IS=1e-15 BF=80 BR=1
+VCC 1 0 5
+Vin 2 0 SIN 0.65 0.01 1e6
+RB 2 3 10k
+RC 1 4 2k
+Q1 4 3 0 qn
+VB2 5 0 DC 4.3
+RB2 5 6 10k
+RC2 7 0 2k
+Q2 7 6 1 qp
+CL 4 0 1p
+.op
+""", 1e-9, 6),
+    "mixed": ("""* mixed nonlinear classes
+.MODEL 2 VT 0.386 MU 3.0238e-2 COX 6.058e-3 LAMBDA 0.05 CJ0 4.0e-14
+.MODEL j1 NJF VTO=-2 BETA=1e-3 LAMBDA=0.01
+.MODEL qn NPN IS=1e-15 BF=120 BR=2
+VDD 1 0 DC 3
+Vin 2 0 SIN 0.8 0.2 5e6
+M1 3 2 0 n 10e-6 0.35e-6 2
+RL1 1 3 2k
+J1 4 2 0 j1
+RL2 1 4 2k
+RB 2 7 20k
+Q1 5 7 0 qn
+RL3 1 5 2k
+D1 6 0
+RD 1 6 1k
+C1 3 0 1p
+.op
+""", 1e-9, 6),
+    "switch": ("""* switch chopper + mixed classes
+.MODEL swm SW RON=10 ROFF=1e8 VT=0.5 VH=0.1
+.MODEL mn VT 0.6 MU 2e-2 COX 1e-3
+VCTL c 0 PULSE 0 1 0 1u 1u 8u 20u
+VIN in 0 SIN 0 2 5e4
+S1 in mid c 0 swm
+RL mid 0 1k
+C1 mid 0 100n
+M1 mid g 0 b mn W=5u L=1u
+VG g 0 0.8
+D1 mid 0
+.op
+""", 1e-7, 12),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("deck", list(K1B_DECKS))
+def test_fused_step_kernel_matches_plain_k1b(cuda_device, deck, dtype):
+    """K1's junction and switch rows against the plain version on the same
+    card and inputs: 64 lanes from the float64 batched DC point (the
+    float32 DC Newton leaves about 1% of a BJT deck's lanes unconverged),
+    damped configuration (f32 within 1e-4 V, f64 within 1e-9 V with equal
+    per-lane iteration counts), failed masks identical and empty."""
+    from circuitsimulator_tpu_torch import DEFAULT_OPTIONS
+    from circuitsimulator_tpu_torch.ops import cuda_step
+    from circuitsimulator_tpu_torch.parallel import montecarlo as mc
+    text, dt, steps = K1B_DECKS[deck]
+    opts = DEFAULT_OPTIONS.replace(dtype=dtype)
+    if dtype == torch.float32:
+        opts = opts.replace(tran_tol=1e-5, dc_tol=1e-5)
+    sim = Simulator.from_text(text, opts=opts, device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    bp = mc.perturb_params(sim.params, g, 64,
+                           {"res_r": 0.01, "mos_vth": 0.02, "cap_c": 0.02,
+                            "bjt_is": 0.05, "bjt_bf": 0.05, "dio_is": 0.05,
+                            "sw_ron": 0.02})
+    sim64 = Simulator.from_text(text, device=cuda_device)
+    x0 = mc.batched_dc_fast(sim64.engine,
+                            {k: v.double() if v.is_floating_point() else v
+                             for k, v in bp.items()})
+    carry, advance, meta = mc.make_fused_transient_fn(sim.engine, bp, dt,
+                                                      x0=x0)
+    assert meta["runner"].W == (4 if deck == "switch" else 3)
+    before = cuda_step.LAUNCHES
+    got, it = advance(carry, 0, steps)
+    torch.cuda.synchronize()
+    assert cuda_step.LAUNCHES == before + 1
+    ref = meta["runner"].run_chunk_plain(*carry, 0, steps)
+    tol = 1e-4 if dtype == torch.float32 else 1e-9
+    for a, b in zip(got[:4], ref[:4]):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=0,
+                                   atol=tol)
+    np.testing.assert_array_equal(got[4].cpu().numpy(), ref[4].cpu().numpy())
+    assert not bool(got[4].any())
+    if dtype == torch.float64:
+        np.testing.assert_array_equal(it.cpu().numpy(),
+                                      ref[5].cpu().numpy())
+
+
 def ac_lanes(B, n, seed):
     """Diagonally dominant lanes; lane 1 exactly singular, lane 2 NaN."""
     rng = np.random.default_rng(seed)

@@ -1,7 +1,8 @@
-"""The fused transient chunk (K1a) of the PyTorch port on the CPU: its plain
-version against the JAX Pallas kernel (interpret mode) and against the
-port's own non-fused loop, the K1a gate against the JAX gate, and the
-``batched_transient`` dispatch."""
+"""The fused transient chunk (K1, scope K1a + K1b) of the PyTorch port on the
+CPU: its plain version against the JAX Pallas kernel (interpret mode) and
+against the port's own non-fused loop, on MOS decks and on the junction and
+switch decks; the gate against the JAX gate; the ``batched_transient``
+dispatch."""
 
 import os
 
@@ -13,8 +14,8 @@ import torch
 
 from circuitsimulator_tpu import DEFAULT_OPTIONS as JAX_OPTIONS
 from circuitsimulator_tpu import Simulator as JaxSimulator
+from circuitsimulator_tpu.analysis.dc import dc_operating_point
 from circuitsimulator_tpu.ops import pallas_step
-from circuitsimulator_tpu.parallel import montecarlo as jmc
 from circuitsimulator_tpu_torch import DEFAULT_OPTIONS, Simulator
 from circuitsimulator_tpu_torch.convert import params_from_numpy
 from circuitsimulator_tpu_torch.ops import cuda_step, fused_step
@@ -62,6 +63,76 @@ RL out 0 10k
 """
 
 
+# the junction and switch decks of tests/test_pallas_step.py, with the
+# timestep, step count and f32 tolerance of its cases
+DIODE_DECK = """* diode rectifier + zener
+V1 in 0 SIN 0 4 5e6
+R1 in a 100
+D1 a out
+C1 out 0 1n
+R2 out 0 10k
+RBD in bd 500
+D2 0 bd BV=3 IBV=1e-3
+.op
+"""
+
+BJT_DECK = """* npn + pnp stages
+.MODEL qn NPN IS=1e-15 BF=120 BR=2 VAF=50
+.MODEL qp PNP IS=1e-15 BF=80 BR=1
+VCC 1 0 5
+Vin 2 0 SIN 0.65 0.01 1e6
+RB 2 3 10k
+RC 1 4 2k
+Q1 4 3 0 qn
+VB2 5 0 DC 4.3
+RB2 5 6 10k
+RC2 7 0 2k
+Q2 7 6 1 qp
+CL 4 0 1p
+.op
+"""
+
+MIXED_DECK = """* mixed nonlinear classes
+.MODEL 2 VT 0.386 MU 3.0238e-2 COX 6.058e-3 LAMBDA 0.05 CJ0 4.0e-14
+.MODEL j1 NJF VTO=-2 BETA=1e-3 LAMBDA=0.01
+.MODEL qn NPN IS=1e-15 BF=120 BR=2
+VDD 1 0 DC 3
+Vin 2 0 SIN 0.8 0.2 5e6
+M1 3 2 0 n 10e-6 0.35e-6 2
+RL1 1 3 2k
+J1 4 2 0 j1
+RL2 1 4 2k
+RB 2 7 20k
+Q1 5 7 0 qn
+RL3 1 5 2k
+D1 6 0
+RD 1 6 1k
+C1 3 0 1p
+.op
+"""
+
+SWITCH_DECK = """* switch chopper + mixed classes
+.MODEL swm SW RON=10 ROFF=1e8 VT=0.5 VH=0.1
+.MODEL mn VT 0.6 MU 2e-2 COX 1e-3
+VCTL c 0 PULSE 0 1 0 1u 1u 8u 20u
+VIN in 0 SIN 0 2 5e4
+S1 in mid c 0 swm
+RL mid 0 1k
+C1 mid 0 100n
+M1 mid g 0 b mn W=5u L=1u
+VG g 0 0.8
+D1 mid 0
+.op
+"""
+
+K1B = {"diode": (DIODE_DECK, 1e-9, 6, 5e-6),
+       "bjt": (BJT_DECK, 1e-9, 6, 1e-4),
+       "mixed": (MIXED_DECK, 1e-9, 6, 1e-4),
+       "switch": (SWITCH_DECK, 1e-7, 12, 1e-4)}
+K1B_SIGMAS = {**SIGMAS, "bjt_is": 0.05, "bjt_bf": 0.05, "dio_is": 0.05,
+              "sw_ron": 0.02}
+
+
 def fast(opts, dtype):
     """bench.py's Monte-Carlo fast configuration."""
     return opts.replace(dtype=dtype, tran_tol=1e-5, dc_tol=1e-5,
@@ -74,21 +145,52 @@ def damped(opts, dtype):
     return opts.replace(dtype=dtype, tran_tol=1e-5, dc_tol=1e-5)
 
 
+def draw_lanes(params, B, seed=0, sigmas=(("res_r", 0.01), ("mos_vth", 0.02))):
+    """B lanes of the JAX params with lognormal factors on the named leaves,
+    drawn with numpy (``jmc.perturb_params`` run eagerly costs a second and
+    a half of small compiles per deck)."""
+    rng = np.random.default_rng(seed)
+    out = {k: np.broadcast_to(np.asarray(v), (B,) + np.shape(v)).copy()
+           for k, v in params.items()}
+    for key, sigma in sigmas:
+        out[key] = out[key] * np.exp(sigma * rng.standard_normal(
+            out[key].shape)).astype(out[key].dtype)
+    return {k: jnp.asarray(v) for k, v in out.items()}
+
+
+def jax_runner(engine, bparams, dt):
+    """``PallasStepRunner(engine, bparams, dt)`` with its constructor run
+    under one ``jax.jit`` trace.  Run eagerly, the constructor dispatches a
+    few hundred small operations (the unrolled G0 inverse among them), each
+    compiled on its own: 10-15 s per deck on the CPU against 1-2 s for the
+    one traced computation.  The arrays it builds are the same to f32
+    rounding; the static plan (k, W, index operators) is untouched."""
+    made = []
+
+    def build(p):
+        made.append(pallas_step.PallasStepRunner(engine, p, dt))
+        return {k: v for k, v in vars(made[-1]).items()
+                if isinstance(v, jax.Array)}
+
+    arrays = jax.jit(build)(bparams)
+    vars(made[-1]).update(arrays)
+    return made[-1]
+
+
 @pytest.mark.parametrize("config", ["fast", "damped"])
 def test_plain_matches_jax_pallas_kernel(config):
-    """dbmixer, B = 128, 10 steps from x = 0 (tests/test_pallas_step.py
+    """dbmixer, B = 128, 4 steps from x = 0 (tests/test_pallas_step.py
     _run_both without its XLA scan): the plain version against the JAX
-    kernel in interpret mode on the same JAX-drawn lanes."""
+    kernel in interpret mode on the same lanes."""
     make = fast if config == "fast" else damped
-    B, steps, dt = 128, 10, 1e-13
+    B, steps, dt = 128, 4, 1e-13
     path = os.path.join(NETLISTS, "dbmixer.sp")
     js = JaxSimulator.from_file(path, opts=make(JAX_OPTIONS, jnp.float32))
-    jp = jmc.perturb_params(js.params, jax.random.key(0), B,
-                            {"res_r": 0.01, "mos_vth": 0.02})
+    jp = draw_lanes(js.params, B)
     je = js.engine
     x0 = jnp.zeros((B, je.N), jnp.float32)
     st0 = jax.vmap(je.init_state)(x0)
-    runner = pallas_step.PallasStepRunner(je, jp, dt)
+    runner = jax_runner(je, jp, dt)
     want = runner.run_chunk(x0, x0, st0["vc"], st0["il"],
                             jnp.zeros((B,), bool), 0, steps, interpret=True)
     want = [np.asarray(a) for a in want]
@@ -113,20 +215,68 @@ def test_plain_matches_jax_pallas_kernel(config):
         assert iters.min() > 0
 
 
+@pytest.mark.parametrize("deck", list(K1B))
+def test_plain_matches_jax_pallas_kernel_k1b(deck):
+    """The junction and switch decks from the DC operating point (a
+    junction at 1e5 S amplifies an f32 ULP to volts from x = 0), B = 128,
+    f32 damped: the plain version against the JAX kernel in interpret mode
+    on the same lanes and the same JAX DC points, at the
+    tolerances the JAX tests hold their kernel to."""
+    text, dt, steps, tol = K1B[deck]
+    B = 128
+    js = JaxSimulator.from_text(text, opts=damped(JAX_OPTIONS, jnp.float32))
+    jp = draw_lanes(js.params, B)
+    je = js.engine
+    ns = js._nodeset()
+    x0 = jax.jit(jax.vmap(
+        lambda p: dc_operating_point(je, p, nodeset=ns)))(jp)
+    x0 = x0.astype(jnp.float32)
+    st0 = jax.vmap(je.init_state)(x0)
+    runner = jax_runner(je, jp, dt)
+    want = runner.run_chunk(x0, x0, st0["vc"], st0["il"],
+                            jnp.zeros((B,), bool), 0, steps, interpret=True)
+    want = [np.asarray(a) for a in want]
+
+    ts = Simulator.from_text(text, device="cpu",
+                             opts=damped(DEFAULT_OPTIONS, torch.float32))
+    tp = params_from_numpy({k: np.array(v) for k, v in jp.items()},
+                           dtype=torch.float32)
+    tr = fused_step.FusedStepRunner(ts.engine, tp, dt)
+    assert (tr.k, tr.W) == (runner.k, runner.W)
+    x = torch.as_tensor(np.array(x0))
+    st = ts.engine.init_state(x)
+    np.testing.assert_allclose(st["vc"].numpy(), np.asarray(st0["vc"]),
+                               rtol=0, atol=1e-6)
+    got = tr.run_chunk_plain(x, x, st["vc"], st["il"],
+                             torch.zeros((B,), dtype=torch.bool), 0, steps)
+    xo, _, vco, ilo, fo, iters = (a.numpy() for a in got)
+    np.testing.assert_allclose(xo, want[0], rtol=0, atol=tol)
+    np.testing.assert_allclose(vco, want[2], rtol=0, atol=tol)
+    np.testing.assert_allclose(ilo, want[3], rtol=0, atol=tol)
+    np.testing.assert_array_equal(fo, want[4])
+    assert not fo.any() and iters.min() > 0
+
+
 def _deck(name, opts):
     if name in ("dbmixer", "buffer"):
         return Simulator.from_file(os.path.join(NETLISTS, f"{name}.sp"),
                                    opts=opts, device="cpu")
+    if name in K1B:
+        return Simulator.from_text(K1B[name][0], opts=opts, device="cpu")
     text = WAVEFORM_DECK if name == "waveform" else LINEAR_DECK
     return Simulator.from_text(text, opts=opts, device="cpu")
 
 
 @pytest.mark.parametrize("deck,config,B,steps,dt", [
-    ("dbmixer", "fast", 16, 100, 1e-13),
-    ("dbmixer", "damped", 16, 100, 1e-13),
-    ("buffer", "damped", 8, 100, 1e-9),
-    ("waveform", "damped", 8, 50, 2e-9),
-    ("linear", "damped", 8, 50, 2e-9),
+    ("dbmixer", "fast", 8, 40, 1e-13),
+    ("dbmixer", "damped", 8, 40, 1e-13),
+    ("buffer", "damped", 4, 40, 1e-9),
+    ("waveform", "damped", 4, 50, 2e-9),
+    ("linear", "damped", 4, 50, 2e-9),
+    ("diode", "damped", 8, 6, 1e-9),
+    ("bjt", "damped", 8, 6, 1e-9),
+    ("mixed", "damped", 8, 6, 1e-9),
+    ("switch", "damped", 8, 12, 1e-7),
 ])
 def test_plain_matches_nonfused_f64(deck, config, B, steps, dt):
     """f64 from the batched DC point: the plain version of the fused chunk
@@ -137,7 +287,7 @@ def test_plain_matches_nonfused_f64(deck, config, B, steps, dt):
     sim = _deck(deck, opts)
     assert fused_step.supported(sim.engine, dt)
     bp = tmc.perturb_params(sim.params, torch.Generator().manual_seed(3), B,
-                            SIGMAS)
+                            K1B_SIGMAS)
     carry, advance, _ = tmc.make_fused_transient_fn(sim.engine, bp, dt,
                                                     chunk=steps)
     (x, xp, vc, il, failed), iters = advance(carry, 0, steps)
@@ -155,15 +305,21 @@ def test_plain_matches_nonfused_f64(deck, config, B, steps, dt):
 
 @pytest.mark.parametrize("deck,expect", [
     ("buffer", True), ("dbmixer", True), ("inamp", False),
-    ("waveform", True), ("linear", True),
+    ("waveform", True), ("linear", True), ("diode", True), ("bjt", True),
+    ("mixed", True), ("switch", True), ("bjt_amp", True), ("chopper", True),
+    ("mixer_rf", True),
 ])
 def test_gate_implies_jax_gate(deck, expect):
-    if deck in ("buffer", "dbmixer", "inamp"):
-        path = os.path.join(NETLISTS, f"{deck}.sp")
+    if deck in ("buffer", "dbmixer", "inamp", "bjt_amp", "chopper",
+                "mixer_rf"):
+        folder = NETLISTS if deck in ("buffer", "dbmixer", "inamp") \
+            else os.path.join(REPO, "examples")
+        path = os.path.join(folder, f"{deck}.sp")
         js = JaxSimulator.from_file(path)
         ts = Simulator.from_file(path, device="cpu")
     else:
-        text = WAVEFORM_DECK if deck == "waveform" else LINEAR_DECK
+        text = {"waveform": WAVEFORM_DECK, "linear": LINEAR_DECK}.get(
+            deck) or K1B[deck][0]
         js = JaxSimulator.from_text(text)
         ts = Simulator.from_text(text, device="cpu")
     ours = fused_step.supported(ts.engine, 1e-9)
@@ -188,16 +344,21 @@ def test_dispatch_on_cpu(no_cuda_kernel):
     sim = _deck("dbmixer", DEFAULT_OPTIONS)
     bp = tmc.perturb_params(sim.params, torch.Generator().manual_seed(5), 4,
                             SIGMAS)
-    dt, n = 1e-13, 20
+    dt, n = 1e-13, 8
     auto = tmc.batched_transient(sim.engine, bp, dt, n * dt)
     assert auto.xs is None and tuple(auto.newton_iters.shape) == (n, 4)
-    forced = tmc.batched_transient(sim.engine, bp, dt, n * dt, fused=True)
+    # the other two runs start from the same operating points (one batched
+    # DC, not three)
+    x0 = tmc.batched_dc_fast(sim.engine, bp)
+    forced = tmc.batched_transient(sim.engine, bp, dt, n * dt, fused=True,
+                                   x0=x0)
     assert forced.xs is None and tuple(forced.newton_iters.shape) == (4,)
     np.testing.assert_allclose(forced.x_final.numpy(), auto.x_final.numpy(),
                                rtol=0, atol=1e-9)
     np.testing.assert_array_equal(forced.newton_iters.numpy(),
                                   auto.newton_iters.sum(0).numpy())
-    saved = tmc.batched_transient(sim.engine, bp, dt, n * dt, save_xs=True)
+    saved = tmc.batched_transient(sim.engine, bp, dt, n * dt, save_xs=True,
+                                  x0=x0)
     assert tuple(saved.xs.shape) == (n + 1, 4, sim.engine.N)
 
 
@@ -215,3 +376,51 @@ def test_out_of_scope_fused_raises_by_name(no_cuda_kernel, deck, what):
     bp = tmc.broadcast_params(sim.params, 2)
     with pytest.raises(NotImplementedError, match=what):
         tmc.batched_transient(sim.engine, bp, 1e-9, 1e-8, fused=True)
+
+
+def test_k1a_plain_output_is_unchanged_by_the_row_plan():
+    """dbmixer keeps the width-3 layout: W = 3, the (W, k) column plan is
+    the MOS (d, g, s) plan, the junction packs are empty, and the plain
+    chunk is bitwise the one-class computation (the MOS linearisation, the
+    width-3 S and vz sums) written out here."""
+    from circuitsimulator_tpu_torch.models.mosfet import mos_linearize
+    from circuitsimulator_tpu_torch.ops.lu import lu_solve_plain
+    sim = _deck("dbmixer", fast(DEFAULT_OPTIONS, torch.float32))
+    t = sim.topo
+    bp = tmc.perturb_params(sim.params, torch.Generator().manual_seed(3), 4,
+                            SIGMAS)
+    r = fused_step.FusedStepRunner(sim.engine, bp, 1e-13)
+    assert (r.W, r.k, r.nMJ, r.nD, r.nQ, r.nSw) == (3, 6, 6, 0, 0, 0)
+    np.testing.assert_array_equal(
+        r.row_cols.numpy(), np.stack([t.mos_ed, t.mos_eg, t.mos_es]))
+    assert tuple(r.Yc3.shape) == (3, 6, 6, 4)
+    assert r.diop.numel() == r.bjtp.numel() == r.swp.numel() == 0
+    x = torch.zeros((4, r.N), dtype=torch.float32)
+    st = sim.engine.init_state(x)
+    nofail = torch.zeros((4,), dtype=torch.bool)
+    got = r.run_chunk_plain(x, x, st["vc"], st["il"], nofail, 0, 1)
+    # one step of two undamped iterations from x = 0, sources at t = dt
+    zcol = torch.zeros((4, 1))
+    cols = r.row_cols.long()
+    vth, kk, lam, pp = (p.T for p in r.mosp)
+    b = torch.zeros((4, r.N + 1))
+    sv = fused_step.srcmod.eval_tran_masked(
+        r.src_masks, r.src[0].T, *(a.permute(2, 1, 0) for a in r.src[1:5]),
+        r.src[5].T, torch.tensor(1.0) * r.dt_t)
+    h = r.gc.T * st["vc"]
+    b.index_add_(1, r._rhs_rows,
+                 torch.cat([sv, -sv, -(r.gl.T * st["il"]), h, -h], 1))
+    z0 = torch.einsum("mnb,bm->bn", r.G0invT, b[:, :r.N])
+    xx = x
+    for _ in range(2):
+        xe = torch.cat([xx, zcol], 1)
+        gd, gg, gs, cst = mos_linearize(vth, kk, lam, pp, xe[:, cols[0]],
+                                        xe[:, cols[1]], xe[:, cols[2]],
+                                        r.off_gds)
+        z = z0 - torch.einsum("jnb,bj->bn", r.YT, cst)
+        v = torch.stack([gd, gg, gs])
+        S = torch.eye(6) + torch.einsum("sbj,sjlb->bjl", v, r.Yc3)
+        ze = torch.cat([z, zcol], 1)
+        vz = (v * torch.stack([ze[:, c] for c in cols])).sum(0)
+        xx = z - torch.einsum("jnb,bj->bn", r.YT, lu_solve_plain(S, vz, 0.0))
+    assert torch.equal(got[0], xx)
