@@ -58,15 +58,42 @@ Phases (one JSON line each):
  13. AC of the BJT deck: Simulator.ac and the batched sweep on bjt_amp.sp
      over its .AC card at B = 4096, f32 and f64: K3 launches, failed
      lanes, f64 against the real 2N route (1e-9) and the single lane
-     against the nominal lane.
+     against the nominal lane;
+ 14. K1d-i against the plain version on the card (k1d_vs_plain): the 2-MOS
+     stage under MOSCAP=CHARGE (k = 12, elimination with charge rows) and
+     inamp.sp (k = 22, Gauss-Jordan) from each lane's f64 DC point, and
+     buffer.sp under MOSCAP=CHARGE (k = 24, Gauss-Jordan with charge rows),
+     256 lanes x 8 steps, damped configuration: f32 within 1e-4 V, f64
+     within 1e-10 V with equal per-lane iteration counts and failed masks.
+     buffer.sp's output sits at ~1e-16 V at its DC point, where the
+     model's triode charges lose every digit to cancellation (in the JAX
+     package too: q_G comes out 0 there, and its Jacobian 223 F): from
+     there two correct implementations differ by ~1e-3 V, so its cases
+     start from x = 0, and its f64 case runs at tran_tol 1e-13 (100
+     iterations; iteration counts reported, not held);
+ 15. the fused Monte-Carlo path on inamp.sp (22 MOS, N = 28, k = 22): B =
+     8192 f32, fast configuration, f64 batched DC, its .TRAN (1 ns, 2,000
+     steps) in chunks of 250: lane-steps/s, K1 ms per chunk against plain
+     and bound, failed lanes; then B = 1024 in f64, damped, one chunk
+     against the non-fused loop (1e-9 V);
+ 16. the fused Monte-Carlo path on the charge decks: the 2-MOS stage (1 ns,
+     1,000 steps in chunks of 250) and buffer.sp under MOSCAP=CHARGE (its
+     .TRAN, 300 steps in chunks of 100, from x = 0: the power-up
+     transient; its failed lanes are counted, not held to zero, see phase
+     14), B = 8192 f32 damped; then B = 1024 in f64 against the non-fused
+     loop (1e-9 V; the 2-MOS stage 120 steps from its DC point, buffer.sp
+     60 steps from x = 0 at tran_tol 1e-13); then the AC of the 2-MOS
+     stage at B = 4096 x F = 64 (its charge trans-caps in B1), f32 and
+     f64, f64 against the real 2N route (1e-9).
 
 Every error of K3 and of the AC path is lane-relative: for each lane
 max|x - ref| / max|ref| over its frequencies and unknowns, then the worst
 lane.  Kernel launch counts are reset just before each main-path run
-(phases 4, 7, 8, 11, 12 and 13) and read just after it.  The junction decks
-run the damped while-loop Newton configuration at f32 tolerances: the fast
-configuration (alpha 1, predictor, two unrolled iterations) was tuned on
-dbmixer and is not held to anything on exponential devices.  The last lines are the
+(phases 4, 7, 8, 11, 12, 13, 15 and 16) and read just after it.  The
+junction decks run the damped while-loop Newton configuration at f32
+tolerances: the fast configuration (alpha 1, predictor, two unrolled
+iterations) was tuned on dbmixer and is not held to anything on
+exponential devices.  The last lines are the
 kernels JSON, the card's name and power limit, and {"ok": true,
 "device": {...}}.  There is no fallback: without a GPU, or if any build,
 launch or check fails, the script exits non-zero without the last line.
@@ -217,6 +244,23 @@ D1 mid 0
 .op
 """
 
+# the 2-MOS stage under the charge model (tests/test_pallas_step.py): k = 12
+CHARGE_DECK = """* charge-model CMOS stage
+.OPTIONS MOSCAP=CHARGE
+.MODEL 1 VT -0.75 MU 5e-2 COX 0.3e-4 LAMBDA 0.05 CJ0 4.0e-14
+.MODEL 2 VT 0.83 MU 1.5e-1 COX 0.3e-4 LAMBDA 0.05 CJ0 4.0e-14
+VDD 1 0 3
+Vin 2 0 SIN 1.5 0.5 5e6
+M1 3 2 1 p 30e-6 0.35e-6 1
+M2 3 2 0 n 10e-6 0.35e-6 2
+C1 3 0 0.5p
+RL 3 0 10k
+.op
+"""
+# the same stage with its input as the AC source
+CHARGE_AC_DECK = CHARGE_DECK.replace("Vin 2 0 SIN 1.5 0.5 5e6",
+                                     "Vin 2 0 DC 1.4 AC 1")
+
 K1B_DECKS = (("diode + zener", DIODE_DECK, 1e-9, 6),
              ("npn + pnp", BJT_DECK, 1e-9, 6),
              ("mos + jfet + bjt + diode", MIXED_DECK, 1e-9, 6),
@@ -306,8 +350,11 @@ def phase_device():
     with concurrent.futures.ThreadPoolExecutor(len(names)) as ex:
         built = dict(zip(names, ex.map(_build.load, names)))
     build_wall = time.perf_counter() - t0
+    # per kernel (and per instantiation of K1: rank capacity 16 or 32, with
+    # or without the charge rows): its properties line and registers line
     ptxas = {n: [ln.strip() for ln in b.log.splitlines()
-                 if "registers" in ln or "stack frame" in ln]
+                 if "registers" in ln or "stack frame" in ln
+                 or "Function properties for" in ln]
              for n, b in built.items()}
     emit("device", nvidia_smi=card, kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
@@ -477,14 +524,20 @@ def phase_single_lane():
 
 
 # ---------------------------------------------------------------- phase 4
-def _mc_lanes(opts, B, seed, deck=None, sigmas=SIGMAS):
-    """A deck (dbmixer by default) on the card and B lanes drawn from `seed`
-    (lane 0 nominal)."""
-    import torch
+def _sim(opts, deck):
+    """A simulator on the card for a deck file or a deck's text."""
     from circuitsimulator_tpu_torch import Simulator
+    if "\n" in deck:
+        return Simulator.from_text(deck, opts=opts, device="cuda")
+    return Simulator.from_file(deck, opts=opts, device="cuda")
+
+
+def _mc_lanes(opts, B, seed, deck=None, sigmas=SIGMAS):
+    """A deck (dbmixer by default; a file or a deck's text) on the card and
+    B lanes drawn from `seed` (lane 0 nominal)."""
+    import torch
     from circuitsimulator_tpu_torch.parallel import montecarlo as mc
-    sim = Simulator.from_file(deck or os.path.join(NETLISTS, "dbmixer.sp"),
-                              opts=opts, device="cuda")
+    sim = _sim(opts, deck or os.path.join(NETLISTS, "dbmixer.sp"))
     gen = torch.Generator(device="cuda").manual_seed(seed)
     bp = mc.perturb_params(sim.params, gen, B, sigmas)
     for k in sigmas:
@@ -612,7 +665,7 @@ def _k1_case(name, sim, B, steps, from_dc, tol, seed=11, sigmas=SIGMAS,
     runner = meta["runner"]
     if not from_dc:
         x = torch.zeros_like(carry[0])
-        st = sim.engine.init_state(x)
+        st = sim.engine.init_state(x, bp)
         carry = (x, x, st["vc"], st["il"], carry[4])
     got = runner.run_chunk(*carry, 0, steps)
     ref = runner.run_chunk_plain(*carry, 0, steps)
@@ -669,30 +722,51 @@ def phase_k1():
 
 
 # ---------------------------------------------------------------- phase 7
+# operations of one MOS's five charges (models/moscap.py): the Ward-Dutton
+# gate charges (~70 with the powers of the triode rows) and the two
+# depletion junctions (~20 each); on dual numbers each product, quotient and
+# power carries three tangents too (~4x)
+CHARGE_OPS = 110
+CHARGE_DUAL_OPS = 4 * CHARGE_OPS
+
+
+def k_solve_ops(k):
+    """Operations of K1's k x k solve: the pivoted elimination with back
+    substitution for k <= 16, column-pivoted Gauss-Jordan above (per
+    column: |col| of every row, k factors, the k x k update of A and the
+    update of bb; then k divisions)."""
+    if k <= 16:
+        return sum(m + 2 * m * m + 2 * m for m in range(k)) + k * k + k
+    return k * (2 * k + k + 2 * k * k + 2 * k) + k
+
+
 def k1_work(runner, n_steps, n_iters):
     """(bytes, operations) of one K1 launch of n_steps whose lanes ran
     n_iters Newton iterations in all.  Bytes: each input read once and each
     output written once (the constants, the carry in and out, the failed
     flags and iteration counts).  Operations per lane-step: sources (~20
     each) and their scatter, inductor and cap history terms, z0, the
-    predictor, the history update; per Newton iteration: the device
+    predictor, the history update, and under the charge model q_prev (one
+    charge evaluation per MOS); per Newton iteration: the device
     linearisations (MOS/JFET ~25, diode ~20 or ~32 with breakdown, BJT
-    ~75, switch ~35, an exp or log counted as one), z, S, vz, the k x k
-    elimination and back substitution, x_raw, accept."""
+    ~75, switch ~35, an exp or log counted as one; per charge-model MOS its
+    charges on dual numbers and five rows of ~9), z, S, vz, the k x k
+    solve (``k_solve_ops``), x_raw, accept."""
     B, N, k, P, W = runner.B, runner.N, runner.k, runner.P, runner.W
     size = runner.G0invT.element_size()
     nbytes = size * B * (N * N + k * N + W * k * k + 4 * runner.nMJ
                          + 5 * runner.nD + 6 * runner.nQ + 4 * runner.nSw
+                         + 4 * runner.nMq
                          + runner.nS * (1 + 7 + 5 + 2 * P) + runner.nCap
                          + runner.nL + 2 * (2 * N + runner.nCap + runner.nL))
     nbytes += 4 * B * (runner.nS + 3)
     per_step = (22 * runner.nS + 2 * runner.nL + 4 * runner.nCap
-                + 2 * N * N + 2 * N)
+                + 2 * N * N + 2 * N + CHARGE_OPS * runner.nMq)
     dio = 32 if runner.flags["dio_bv"] else 20
     per_iter = (25 * runner.nMJ + dio * runner.nD + 75 * runner.nQ
-                + 35 * runner.nSw + 2 * k * N + 2 * W * k * k + 2 * W * k
-                + sum(m_ + 2 * m_ * m_ + 2 * m_ for m_ in range(k))
-                + k * k + k + 2 * k * N + 7 * N)
+                + 35 * runner.nSw + (CHARGE_DUAL_OPS + 45) * runner.nMq
+                + 2 * k * N + 2 * W * k * k + 2 * W * k + k_solve_ops(k)
+                + 2 * k * N + 7 * N)
     return nbytes, B * n_steps * per_step + n_iters * per_iter
 
 
@@ -712,21 +786,27 @@ def _dc_failed_lanes(engine, bp, x0, bar):
 
 
 def _fused_run(opts, B, n_steps, chunk, seed, deck=None, sigmas=SIGMAS,
-               dt=None, dc64=False):
-    """The fused main path: batched DC (K2; in float64 with dc64), then K1
-    chunks.  Counts are reset just before and read just after."""
+               dt=None, dc64=False, x_zero=False, allow_failed=False):
+    """The fused main path: batched DC (K2; in float64 with dc64), or x = 0
+    with x_zero (a power-up transient), then K1 chunks.  Counts are reset
+    just before and read just after.  Every lane must finish unless
+    allow_failed (then the failed lanes are counted and the others must be
+    finite)."""
     import torch
-    from circuitsimulator_tpu_torch import Simulator
+    from circuitsimulator_tpu_torch import DEFAULT_OPTIONS
     from circuitsimulator_tpu_torch.ops import cuda_lu, cuda_step
     from circuitsimulator_tpu_torch.parallel import montecarlo as mc
     sim, bp = _mc_lanes(opts, B, seed, deck, sigmas)
     dt = dt or sim.config.tran.tstep
-    sim64 = Simulator.from_file(deck, device="cuda") if dc64 else None
+    sim64 = (_sim(DEFAULT_OPTIONS.replace(mos_cap_model=opts.mos_cap_model),
+                  deck) if dc64 else None)
     torch.cuda.synchronize()
     cuda_lu.LAUNCHES = 0
     cuda_step.LAUNCHES = 0
     t0 = time.perf_counter()
     x0 = _dc_f64(sim64, bp)[0] if dc64 else None
+    if x_zero:
+        x0 = torch.zeros((B, sim.engine.N), dtype=opts.dtype, device="cuda")
     carry, advance, meta = mc.make_fused_transient_fn(sim.engine, bp, dt,
                                                       chunk=chunk, x0=x0)
     torch.cuda.synchronize()
@@ -752,8 +832,14 @@ def _fused_run(opts, B, n_steps, chunk, seed, deck=None, sigmas=SIGMAS,
          "mean_newton_iters": float(iters.float().mean()) / n_steps}
     check(m["k1_launches"] == n_steps // chunk, "one K1 launch per chunk")
     check(m["tran_k2_launches"] == 0, "no K2 launch during the transient")
-    check(m["setup_k2_launches"] > 0, "batched DC ran through K2")
-    check(m["failed_lanes"] == 0, "no failed lanes")
+    check(m["setup_k2_launches"] > 0,
+          "set-up (batched DC, the runner's G0 inverse) ran through K2")
+    if allow_failed:
+        alive = ~carry[4]
+        check(bool(torch.isfinite(carry[0][alive]).all()),
+              "the lanes that did not fail are finite")
+    else:
+        check(m["failed_lanes"] == 0, "no failed lanes")
     return m, carry, meta["runner"], lane0, sim.topo, (sim, bp)
 
 
@@ -1130,10 +1216,10 @@ def phase_k1b():
 
 
 # -------------------------------------------------------- phases 11, 12
-def _junction_fused(name, deck, B, n_steps, chunk, dt=None, plain_reps=1):
+def _junction_fused(name, deck, B, n_steps, chunk, dt=None):
     """A junction or switch deck on the fused path at B lanes in f32
     (damped configuration): the run, its DC check, K1 at the chunk's shape
-    against its plain version, bound and times."""
+    from the DC point against its plain version, bound and times."""
     import torch
     opts = damped_f32_options()
     m, carry, runner, _, _, (sim, bp) = _fused_run(
@@ -1155,22 +1241,7 @@ def _junction_fused(name, deck, B, n_steps, chunk, dt=None, plain_reps=1):
     x0 = x64.to(opts.dtype)
     st = sim.engine.init_state(x0)
     start = (x0, x0, st["vc"], st["il"], torch.zeros_like(carry[4]))
-    got = runner.run_chunk(*start, 0, chunk)
-    ref = runner.run_chunk_plain(*start, 0, chunk)
-    err = max(float((a - b).abs().max()) for a, b in zip(got[:4], ref[:4])
-              if a.numel())
-    check(err <= 1e-3, f"{name}: K1 at the main shape vs plain {err}")
-    check(bool(torch.equal(got[4], ref[4])), f"{name}: failed masks differ")
-    nbytes, flops = k1_work(runner, chunk, int(got[5].sum()))
-    bms, by = bound_ms(nbytes, flops, runner.dtype)
-    main = {"B": B, "steps": chunk, "dtype": "float32", "max_abs_err": err,
-            "newton_iters_per_step": float(got[5].float().mean()) / chunk,
-            "kernel_ms": cuda_ms(lambda: runner.run_chunk(*start, 0, chunk),
-                                 reps=5, warmup=1),
-            "plain_ms": cuda_ms(
-                lambda: runner.run_chunk_plain(*start, 0, chunk),
-                reps=plain_reps, warmup=0),
-            "bound_ms": bms, "bound_by": by, "bytes": nbytes, "flops": flops}
+    main = _k1_at_main_shape(runner, start, 0, chunk, 1e-3)
     m["kernel_at_main_shape"] = main
     return m, main
 
@@ -1181,7 +1252,7 @@ def phase_monte_carlo_fused_bjt():
     from circuitsimulator_tpu_torch.ops import cuda_lu
     from circuitsimulator_tpu_torch.parallel import montecarlo as mc
     deck = os.path.join(EXAMPLES, "bjt_amp.sp")
-    m, main = _junction_fused("bjt_amp", deck, 8192, 250, 250, plain_reps=2)
+    m, main = _junction_fused("bjt_amp", deck, 8192, 250, 250)
     emit("monte_carlo_fused_bjt_f32", **m)
     # f64, B = 1024: the fused run against the non-fused loop, same lanes
     m64, carry64, _, _, _, (sim, bp) = _fused_run(
@@ -1273,6 +1344,211 @@ def phase_ac_bjt():
     return m32
 
 
+# ------------------------------------------------------------- phase 14
+def phase_k1d():
+    """K1d-i (the Gauss-Jordan solve, the charge rows) against the plain
+    version."""
+    import torch
+    from circuitsimulator_tpu_torch import DEFAULT_OPTIONS
+    inamp = os.path.join(NETLISTS, "inamp.sp")
+    buf = os.path.join(NETLISTS, "buffer.sp")
+    rows = []
+    for name, deck, cap in (("charge stage (k=12)", CHARGE_DECK, "charge"),
+                            ("inamp (k=22)", inamp, "fixed"),
+                            ("buffer charge (k=24)", buf, "charge")):
+        sim64 = _sim(DEFAULT_OPTIONS.replace(mos_cap_model=cap), deck)
+        for opts, tol in ((damped_f32_options(), 1e-4),
+                          (DEFAULT_OPTIONS, 1e-10)):
+            opts = opts.replace(mos_cap_model=cap)
+            f64 = opts.dtype == torch.float64
+            from_dc, label = True, "damped from DC"
+            tight = name.startswith("buffer") and f64
+            if name.startswith("buffer"):
+                from_dc, label = False, "damped from x=0"
+            if tight:
+                opts = opts.replace(tran_tol=1e-13, tran_max_newton_iters=100)
+                label = "tran_tol 1e-13 from x=0"
+            row, runner, _ = _k1_case(
+                f"{name} {str(opts.dtype)[6:]} {label}", _sim(opts, deck),
+                256, 8, from_dc, tol, dt=1e-9, sim64=sim64)
+            row["gauss_jordan"] = runner.k > 16
+            row["charge_rows"] = runner.nCq
+            check(row["failed_lanes"] == 0, f"K1d {name}: failed lanes")
+            if f64 and not tight:
+                check(row["iters_equal"], f"K1d {name}: iteration counts")
+            rows.append(row)
+    emit("k1d_vs_plain", cases=rows)
+    return max(r["max_abs_err"] for r in rows)
+
+
+def _k1_at_main_shape(runner, carry, step0, chunk, tol, plain_steps=None,
+                      masks_equal=True):
+    """K1 at a main path's chunk shape from `carry`: its time and bound,
+    and its agreement with the plain version over `plain_steps` (the whole
+    chunk by default) from the same carry, error within `tol` on the lanes
+    alive in both, failed masks equal unless not `masks_equal` (then the
+    differing lanes are counted).  The plain version is timed once, on that
+    comparison run: on the charge decks a 250-step chunk of it is about a
+    million small launches (50 s), so there it runs 25 steps."""
+    import torch
+    plain_steps = plain_steps or chunk
+    got = runner.run_chunk(*carry, step0, plain_steps)
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    ref = runner.run_chunk_plain(*carry, step0, plain_steps)
+    b.record()
+    torch.cuda.synchronize()
+    alive = ~(got[4] | ref[4])
+    check(bool(alive.any()), "main shape: every lane failed")
+    err = max(float((a[alive] - b[alive]).abs().max())
+              for a, b in zip(got[:4], ref[:4]) if a.numel())
+    check(err <= tol, f"K1 at the main shape vs plain {err} > {tol}")
+    mask_diff = int((got[4] != ref[4]).sum())
+    if masks_equal:
+        check(mask_diff == 0, "main shape: failed masks")
+    full = (got if plain_steps == chunk
+            else runner.run_chunk(*carry, step0, chunk))
+    nbytes, flops = k1_work(runner, chunk, int(full[5].sum()))
+    bms, by = bound_ms(nbytes, flops, runner.dtype)
+    return {"B": runner.B, "steps": chunk, "dtype": str(runner.dtype)[6:],
+            "N": runner.N, "k": runner.k, "W": runner.W,
+            "charge_rows": runner.nCq, "max_abs_err": err, "tol": tol,
+            "failed_mask_diff": mask_diff,
+            "newton_iters_per_step": float(full[5].float().mean()) / chunk,
+            "kernel_ms": cuda_ms(lambda: runner.run_chunk(*carry, step0,
+                                                          chunk),
+                                 reps=5, warmup=1),
+            "plain_ms": a.elapsed_time(b), "plain_steps": plain_steps,
+            "bound_ms": bms, "bound_by": by, "bytes": nbytes, "flops": flops}
+
+
+# ------------------------------------------------------------- phase 15
+def phase_monte_carlo_fused_inamp():
+    """inamp.sp (k = 22, the Gauss-Jordan branch) on the fused path."""
+    import torch
+    from circuitsimulator_tpu_torch import DEFAULT_OPTIONS
+    from circuitsimulator_tpu_torch.parallel import montecarlo as mc
+    deck = os.path.join(NETLISTS, "inamp.sp")
+    m, carry, runner, _, _, _ = _fused_run(fast_f32_options(), 8192, 2000,
+                                           250, seed=48, deck=deck,
+                                           dc64=True)
+    m["deck"], m["N"], m["k"], m["W"] = "inamp", runner.N, runner.k, runner.W
+    m["dc_dtype"] = "float64"
+    check(bool(torch.isfinite(carry[0]).all()), "inamp: non-finite x")
+    main = _k1_at_main_shape(runner, carry, 2000, 250, 1e-3)
+    m["kernel_at_main_shape"] = main
+    m["ms_per_chunk"] = main["kernel_ms"]
+    emit("monte_carlo_fused_inamp_f32", **m)
+    m64, carry64, _, _, _, (sim, bp) = _fused_run(
+        DEFAULT_OPTIONS, 1024, 250, 250, seed=49, deck=deck)
+    t0 = time.perf_counter()
+    ref = mc.batched_transient(sim.engine, bp, 1e-9, 250e-9, fused=False)
+    torch.cuda.synchronize()
+    m64["nonfused_s"] = time.perf_counter() - t0
+    m64["final_max_abs_vs_nonfused"] = float(
+        (carry64[0] - ref.x_final).abs().max())
+    check(not bool(ref.failed.any()), "inamp non-fused f64 failed lanes")
+    check(m64["final_max_abs_vs_nonfused"] <= 1e-9,
+          "inamp fused f64 within 1e-9 V of the non-fused run")
+    emit("monte_carlo_fused_inamp_f64", **m64)
+    return m, main
+
+
+# ------------------------------------------------------------- phase 16
+def phase_monte_carlo_fused_charge():
+    """The charge decks on the fused path, then the charge stage's AC."""
+    import numpy as np
+    import torch
+    from circuitsimulator_tpu_torch import DEFAULT_OPTIONS
+    from circuitsimulator_tpu_torch.analysis.ac import (ac_system_real,
+                                                        solve_ac_real)
+    from circuitsimulator_tpu_torch.parallel import montecarlo as mc
+    buf = os.path.join(NETLISTS, "buffer.sp")
+    f32 = damped_f32_options().replace(mos_cap_model="charge")
+    f64 = DEFAULT_OPTIONS.replace(mos_cap_model="charge")
+    out = {}
+    # buffer.sp in f32: lanes whose output settles near 0 V meet the
+    # model's cancellation (phase 14) and can fail; they are counted
+    for name, deck, n_steps, chunk, dt, kw in (
+            ("charge_stage", CHARGE_DECK, 1000, 250, 1e-9, {"dc64": True}),
+            ("buffer_charge", buf, 300, 100, None,
+             {"x_zero": True, "allow_failed": True})):
+        m, carry, runner, _, _, (sim, bp) = _fused_run(
+            f32, 8192, n_steps, chunk, seed=50, deck=deck, dt=dt, **kw)
+        m["deck"], m["N"], m["k"], m["W"] = name, runner.N, runner.k, runner.W
+        m["start"] = "f64 DC" if "dc64" in kw else "x = 0"
+        step0 = n_steps
+        if "x_zero" in kw:
+            # from the power-up state: later, lanes whose output has settled
+            # near 0 V take rounding-dependent paths (phase 14)
+            x = torch.zeros_like(carry[0])
+            st = sim.engine.init_state(x, bp)
+            carry, step0 = (x, x, st["vc"], st["il"],
+                            torch.zeros_like(carry[4])), 0
+        main = _k1_at_main_shape(runner, carry, step0, chunk, 1e-3,
+                                 plain_steps=25,
+                                 masks_equal="allow_failed" not in kw)
+        m["kernel_at_main_shape"] = main
+        m["ms_per_chunk"] = main["kernel_ms"]
+        emit(f"monte_carlo_fused_{name}_f32", **m)
+        out[name] = (m, main)
+    # f64 against the non-fused loop on the same lanes: the charge stage
+    # from the DC point, buffer.sp from x = 0 at tran_tol 1e-13 (see phase
+    # 14)
+    for name, deck, n_steps, opts, x_zero in (
+            ("charge_stage", CHARGE_DECK, 120, f64, False),
+            ("buffer_charge", buf, 60,
+             f64.replace(tran_tol=1e-13, tran_max_newton_iters=100), True)):
+        m64, carry64, _, _, _, (sim, bp) = _fused_run(
+            opts, 1024, n_steps, n_steps, seed=51, deck=deck, dt=1e-9,
+            x_zero=x_zero)
+        t0 = time.perf_counter()
+        x0 = torch.zeros_like(carry64[0]) if x_zero else None
+        ref = mc.batched_transient(sim.engine, bp, 1e-9, n_steps * 1e-9,
+                                   fused=False, x0=x0)
+        torch.cuda.synchronize()
+        m64["deck"], m64["tran_tol"] = name, opts.tran_tol
+        m64["nonfused_s"] = time.perf_counter() - t0
+        m64["final_max_abs_vs_nonfused"] = float(
+            (carry64[0] - ref.x_final).abs().max())
+        check(not bool(ref.failed.any()), f"{name} non-fused f64 failed")
+        check(m64["final_max_abs_vs_nonfused"] <= 1e-9,
+              f"{name} fused f64 within 1e-9 V of the non-fused run")
+        emit(f"monte_carlo_fused_{name}_f64", **m64)
+    # AC of the charge stage: the charge trans-caps in B1, K3 sweep
+    freqs = np.logspace(3, 10, 64)
+    sim64, bp64 = _mc_lanes(f64, 4096, 52, CHARGE_AC_DECK)
+    sim32 = _sim(f32, CHARGE_AC_DECK)
+    bp32 = {k: (v.float() if v.is_floating_point() else v)
+            for k, v in bp64.items()}
+    m64, x64, xr64, xi64 = _ac_run(sim64, bp64, freqs)
+    m32, _, xr32, xi32 = _ac_run(sim32, bp32, freqs, x_ops=x64.float())
+    m32["dc_dtype"] = "float64"
+    emit("ac_charge_f32", deck="charge stage", **m32)
+    x64c = torch.complex(xr64, xi64)
+    m64["f32_vs_f64_lane_rel"] = _lane_rel_err(
+        torch.complex(xr32.double(), xi32.double()), x64c)
+    check(m64["f32_vs_f64_lane_rel"] <= 1e-3, "charge AC f32 within 1e-3")
+    eng, n, F, L = sim64.engine, sim64.engine.N, len(freqs), 64
+    G, B1, br, bi = ac_system_real(eng, {k: v[:L] for k, v in bp64.items()},
+                                   x64[:L], 1.0)
+    om = 2.0 * np.pi * torch.as_tensor(freqs, dtype=torch.float64,
+                                       device="cuda")
+    rr, ri = solve_ac_real(eng, G[:, None].expand(L, F, n, n),
+                           om[None, :, None, None] * B1[:, None],
+                           br[:, None].expand(L, F, n),
+                           bi[:, None].expand(L, F, n))
+    m64["vs_2n_route_lane_rel"] = _lane_rel_err(x64c[:L],
+                                                torch.complex(rr, ri))
+    check(m64["vs_2n_route_lane_rel"] <= 1e-9,
+          "charge AC K3 within 1e-9 of 2N")
+    emit("ac_charge_f64", deck="charge stage", **m64)
+    out["ac_f32"] = m32
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1293,6 +1569,9 @@ def main():
     bjt, bjt_main = phase_monte_carlo_fused_bjt()
     switch = phase_monte_carlo_fused_switch()
     ac_bjt = phase_ac_bjt()
+    k1d_err = phase_k1d()
+    inamp, inamp_main = phase_monte_carlo_fused_inamp()
+    charge = phase_monte_carlo_fused_charge()
     k3_main = k3_timings["float32"]  # B=4096, F=64, N=31: the bench shape
     k2_main = timings[0]             # B=8192, N=31, R=1, f32: batched DC
     # launches: read just after each main path's run, counts set to 0 just
@@ -1300,13 +1579,23 @@ def main():
     paths = {
         "lu_batched": {"monte_carlo_f32_fast": launches,
                        "monte_carlo_fused_bjt_f32": bjt["setup_k2_launches"],
-                       "ac_bjt_f32_dc_f64": ac_bjt["dc_k2_launches_f64"]},
+                       "ac_bjt_f32_dc_f64": ac_bjt["dc_k2_launches_f64"],
+                       "monte_carlo_fused_inamp_f32":
+                           inamp["setup_k2_launches"],
+                       **{f"monte_carlo_fused_{n}_f32":
+                          charge[n][0]["setup_k2_launches"]
+                          for n in ("charge_stage", "buffer_charge")}},
         "fused_step": {"monte_carlo_fused_f32_fast": k1_launches,
                        "monte_carlo_fused_bjt_f32": bjt["k1_launches"],
                        **{f"monte_carlo_fused_{n}_f32": m["k1_launches"]
-                          for n, m in switch.items()}},
+                          for n, m in switch.items()},
+                       "monte_carlo_fused_inamp_f32": inamp["k1_launches"],
+                       **{f"monte_carlo_fused_{n}_f32":
+                          charge[n][0]["k1_launches"]
+                          for n in ("charge_stage", "buffer_charge")}},
         "ac_sweep": {"ac_monte_carlo_f32": ac_main["k3_launches"],
-                     "ac_bjt_f32": ac_bjt["k3_launches"]}}
+                     "ac_bjt_f32": ac_bjt["k3_launches"],
+                     "ac_charge_f32": charge["ac_f32"]["k3_launches"]}}
     for kernel, by_path in paths.items():
         for path, n in by_path.items():
             check(n > 0, f"{kernel} launched on {path}")
@@ -1319,21 +1608,27 @@ def main():
         "ms": k2_main["kernel_ms"], "plain_ms": k2_main["plain_ms"],
         "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],
         "library_ms": k2_main["library_ms"]}, {
-        "name": "fused_step", "route": "cuda", "scope": "K1a + K1b",
+        "name": "fused_step", "route": "cuda",
+        "scope": "K1a + K1b + K1d-i",
         "source": "circuitsimulator_tpu_torch/csrc/fused_step.cu",
         "replaces": "circuitsimulator_tpu/ops/pallas_step.py:582",
         "launches": sum(paths["fused_step"].values()),
         "launches_by_path": paths["fused_step"],
         "max_abs_err": max(k1_err, k1_main["max_abs_err"], k1b_err,
-                           bjt_main["max_abs_err"]),
+                           bjt_main["max_abs_err"], k1d_err,
+                           inamp_main["max_abs_err"],
+                           *(charge[n][1]["max_abs_err"]
+                             for n in ("charge_stage", "buffer_charge"))),
         "ms": k1_main["kernel_ms"], "plain_ms": k1_main["plain_ms"],
         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
         "library_ms": None,
         "shape": "dbmixer B=8192 x 250 steps f32 fast (K1a)",
-        "bjt_amp_B8192_250_steps_f32_damped": {
-            key: bjt_main[key] for key in (
-                "kernel_ms", "plain_ms", "bound_ms", "bound_by",
-                "max_abs_err")}}, {
+        "scopes": {
+            "K1b bjt_amp B=8192 x 250 steps f32 damped": bjt_main,
+            "K1d-i inamp B=8192 x 250 steps f32 fast": inamp_main,
+            **{f"K1d-i {n} B=8192 x {charge[n][1]['steps']} steps f32 "
+               "damped": charge[n][1]
+               for n in ("charge_stage", "buffer_charge")}}}, {
         "name": "ac_sweep", "route": "cuda",
         "source": "circuitsimulator_tpu_torch/csrc/ac_sweep.cu",
         "replaces": "circuitsimulator_tpu/ops/pallas_ac.py:49",

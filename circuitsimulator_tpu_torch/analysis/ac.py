@@ -9,7 +9,9 @@ port of ``circuitsimulator_tpu/analysis/ac.py``.
      L: branch rows +/-1 with Y[k,k] = -jwL
      V: branch rows +/-1, J[k] = acMag e^{j phase}
      I: J[p] -= Iac, J[m] += Iac
-     E/G/F/H: their static stamps;    MOS: DC-point conductances.
+     E/G/F/H: their static stamps;    MOS: DC-point conductances;
+     MOSCAP=CHARGE: jw C_tj with C_tj = dq_t/dv_j at the operating point
+     (``models/moscap.charge_jacobian``) at the charge rows' entries.
 
 Every reactive entry is linear in w, so G, the unit-w susceptance B1 and
 the RHS are assembled once per lane and the K3 sweep
@@ -19,8 +21,8 @@ the same route, in every dtype.  ``solve_ac_real`` keeps the JAX CPU route,
 the real 2N system [[G, -B], [B, G]], as a reference.
 
 Devices whose AC stamps the port has not ported raise NotImplementedError:
-transmission lines, mutual inductance, MOSCAP=CHARGE (B sources are refused
-at lowering).  Sweep conventions: lin = n points total; dec = n points per
+transmission lines and mutual inductance (B sources are refused at
+lowering).  Sweep conventions: lin = n points total; dec = n points per
 decade; oct = n points per octave (endpoints included).
 """
 
@@ -33,6 +35,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ..models.moscap import charge_jacobian
 from ..ops.ac_sweep import ac_sweep
 from ..ops.assemble import Engine, _two_terminal_vals
 from ..ops.lu import lu_solve
@@ -70,8 +73,6 @@ def _check_ac_scope(engine: Engine) -> None:
     if counts["K"]:
         raise NotImplementedError("mutual inductance (K) in AC: not yet "
                                   "ported")
-    if engine.opts.mos_cap_model != "fixed":
-        raise NotImplementedError("MOSCAP=CHARGE in AC: not yet ported")
 
 
 def _scatter(engine: Engine, rows, cols, vals, lead):
@@ -107,10 +108,19 @@ def ac_system_real(engine: Engine, params, x_op, omega):
     C = engine._caplike_C(params)
     L = params["ind_l"]
     bparts = [_two_terminal_vals(omega * C), -omega * L]
+    brows, bcols = [engine.cap_rows, t.ind_k], [engine.cap_cols, t.ind_k]
+    if engine.mos_charge:
+        # charge model: the trans-capacitances dq_t/dv_j at the operating
+        # point (bias-dependent and non-reciprocal; _caplike_C zeroes the
+        # fixed lumps under this model)
+        _, Jq = charge_jacobian(engine.mos_vdgs(x_op), params)
+        bparts.append(omega * Jq.flatten(-3))
+        brows.append(engine.mq_rows)
+        bcols.append(engine.mq_cols)
     blead = torch.broadcast_shapes(lead, *(p.shape[:-1] for p in bparts))
     bv = torch.cat([p.expand(blead + p.shape[-1:]) for p in bparts], -1)
-    B = _scatter(engine, np.concatenate([engine.cap_rows, t.ind_k]),
-                 np.concatenate([engine.cap_cols, t.ind_k]), bv, blead)
+    B = _scatter(engine, np.concatenate(brows), np.concatenate(bcols), bv,
+                 blead)
 
     deg = math.pi / 180.0
     vph = params["vs_ac_phase"] * deg

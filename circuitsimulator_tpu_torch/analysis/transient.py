@@ -1,11 +1,12 @@
 """Backward-Euler transient on the Woodbury backend (port of
 ``circuitsimulator_tpu/analysis/transient.py``).
 
-Reproduces src/tanalisis.cpp:83-424: t = 0 state from the DC operating
-point; nSteps = floor(tstop/dt + 1e-12), t_k = (k+1) dt; per step a damped
-Newton (alpha 0.45, gmin 1e-6, tol 1e-6 on the damped step, max 50
-iterations, non-convergence is not an error); element history updates from
-the accepted x.  A non-finite solve freezes the lane and raises its
+Reproduces src/tanalisis.cpp:83-424 (and, under ``MOSCAP=CHARGE``, the
+JAX package's charge rows with the previous step's charges in the state):
+t = 0 state from the DC operating point; nSteps = floor(tstop/dt + 1e-12),
+t_k = (k+1) dt; per step a damped Newton (alpha 0.45, gmin 1e-6, tol 1e-6
+on the damped step, max 50 iterations, non-convergence is not an error);
+element history updates from the accepted x.  A non-finite solve freezes the lane and raises its
 ``failed`` flag instead of aborting the batch.
 
 The JAX ``lax.scan`` over steps is a Python loop; the per-step Newton is
@@ -56,13 +57,15 @@ def transient_step_fn(engine: Engine, params, dt, predictor: bool = False):
     wb = WoodburySolver(engine, params, G_static[..., :N, :N])
     unrolled = int(opts.tran_unrolled_iters)
     alpha, tol, clamp = opts.tran_alpha, opts.tran_tol, opts.tran_newton_clamp
+    # the charge rows' BE companion reads the previous step's charges
+    inv_dt = 1.0 / dt if engine.mos_charge else None
 
-    def body(c, z0, masked: bool):
+    def body(c, z0, qex, masked: bool):
         """One damped Newton iteration.  masked=True freezes lanes that were
         done before it (the while-loop form: a vmapped while_loop does not
         touch the carry of a lane whose condition is false)."""
         x, done, failed, it = c
-        x_raw = wb.solve(params, x, z0)
+        x_raw = wb.solve(params, x, z0, qex)
         finite = torch.isfinite(x_raw).all(-1)
         upd_vec = x_raw - x
         if clamp > 0.0:
@@ -89,15 +92,16 @@ def transient_step_fn(engine: Engine, params, dt, predictor: bool = False):
             x_init = x
         I_s = static_I(params, state, t)
         z0 = wb.z0(I_s[..., :N])
+        qex = (state["qm"], inv_dt) if engine.mos_charge else None
         c = (x_init, failed, failed, torch.zeros_like(failed, dtype=torch.int32))
         if unrolled > 0:
             for _ in range(unrolled):
-                c = body(c, z0, masked=False)
+                c = body(c, z0, qex, masked=False)
         else:
             for _ in range(opts.tran_max_newton_iters):
                 if not bool((~c[1]).any()):
                     break
-                c = body(c, z0, masked=True)
+                c = body(c, z0, qex, masked=True)
         x_new, _, failed_new, iters = c
         state = update_state(params, x_new, state)
         if predictor:
@@ -117,7 +121,7 @@ def run_transient(engine: Engine, params, tstep, tstop,
     n_steps = n_steps_for(float(tstep), float(tstop))
     if x0 is None:
         x0 = dc_operating_point(engine, params)
-    state = engine.init_state(x0)
+    state = engine.init_state(x0, params)
     failed = torch.zeros(x0.shape[:-1], dtype=torch.bool, device=dev)
     predictor = engine.opts.tran_predictor
     carry = (x0, x0, state, failed) if predictor else (x0, state, failed)

@@ -108,6 +108,8 @@ class Simulator:
                 f"backends (tridiag/blockband/blockwb) are not yet ported")
         c = self.topo.counts                # Woodbury k x k solve size
         rank = c["M"] + c["J"] + c["D"] + 2 * c["Q"] + c["S"]
+        if opts.mos_cap_model == "charge":
+            rank += 5 * c["M"]              # the charge rows
         if device.type == "cuda" and max(self.topo.n_unknowns,
                                          rank) > cuda_lu.MAX_N:
             raise NotImplementedError(
@@ -144,8 +146,11 @@ class Simulator:
     def transient(self, params: Optional[Any] = None,
                   tstep: Optional[float] = None,
                   tstop: Optional[float] = None,
-                  save_xs: bool = True) -> TransientResult:
-        """Backward-Euler transient; defaults to the netlist's .TRAN card."""
+                  save_xs: bool = True,
+                  x_op: Optional[Any] = None) -> TransientResult:
+        """Backward-Euler transient; defaults to the netlist's .TRAN card.
+        It starts from ``x_op`` when given (the DC point of ``dc()`` for the
+        same params), else it solves the DC point itself."""
         cfg = self.config.tran
         tstep = cfg.tstep if tstep is None else tstep
         tstop = cfg.tstop if tstop is None else tstop
@@ -156,8 +161,9 @@ class Simulator:
             raise NotImplementedError(".IC / UIC initial conditions: "
                                       "not yet ported")
         p = params if params is not None else self.params
-        return run_transient(self.engine, p, tstep, tstop,
-                             x0=self.dc(p), save_xs=save_xs)
+        x0 = self.dc(p) if x_op is None else x_op
+        return run_transient(self.engine, p, tstep, tstop, x0=x0,
+                             save_xs=save_xs)
 
     def ac(self, params: Optional[Any] = None, freqs=None,
            x_op: Optional[Any] = None):

@@ -76,7 +76,7 @@ def main(argv=None) -> int:
               f"tstart={tran.tstart:.6e}")
         print(f"[TRAN] total steps = {n_steps_for(tran.tstep, tran.tstop)}")
         try:
-            res = sim.transient()
+            res = sim.transient(x_op=x)
             sim.write_transient_csv(args.tran_out, res)
         except Exception as e:  # noqa: BLE001
             print(f"Transient failed: {e}", file=sys.stderr)

@@ -1,30 +1,53 @@
-// K1 for Hopper (scope K1a + K1b): the fused Monte-Carlo transient chunk.
-// Every lane advances n_steps whole Backward-Euler timesteps in one launch.
+// K1 for Hopper (scopes K1a, K1b and K1d-i): the fused Monte-Carlo transient
+// chunk.  Every lane advances n_steps whole Backward-Euler timesteps in one
+// launch.
 //
 // Replaces the TPU kernel circuitsimulator_tpu/ops/pallas_step.py:
 // PallasStepRunner._kernel (launched by run_chunk) for R/C/L, V/I sources
 // with PULSE/SIN/PWL/EXP/SFFM waveforms, Level-1 MOS without body effect or
-// reverse region (K1a), and JFET, diode (with reverse breakdown), Ebers-Moll
-// BJT (with Early voltage) and S/W switch rows (K1b); Woodbury rank
-// 0 <= k = nMJ + nD + 2 nQ + nSw <= 16.  Per step it computes what the TPU
-// kernel computes (plain PyTorch version:
-// circuitsimulator_tpu_torch/ops/fused_step.py run_chunk_plain):
+// reverse region (K1a), JFET, diode (with reverse breakdown), Ebers-Moll BJT
+// (with Early voltage) and S/W switch rows (K1b), and the charge rows of
+// MOSCAP=CHARGE with Woodbury ranks up to 32 (K1d-i); rank
+// 0 <= k = nMJ + nD + 2 nQ + nSw + 5 nMq <= 32 (nMq = the MOS count under the
+// charge model, else 0).  Per step it computes what the TPU kernel computes
+// (plain PyTorch version: circuitsimulator_tpu_torch/ops/fused_step.py
+// run_chunk_plain):
 //   - source values at t = (step0 + i + 1) * dt in the working type;
 //   - b0 = [sources, -gl*il, gc*vc] scattered to their rows; z0 = G0^-1 b0;
+//   - under the charge model q_prev = q(x) of the incoming x;
 //   - Newton from x (or 2x - x_prev): the device linearisations in Woodbury
 //     row order (MOS then JFET rows from one pack, diode rows, an Ic and an
-//     Ib row per BJT, switch rows), z = z0 - Y c, S = I + V^T Y, vz = V^T z,
-//     the pivoted k x k solve (first index of max |col|, a zero pivot and a
-//     zero diagonal replaced by 1, no pivot floor), x_raw = z - Y w, then
+//     Ib row per BJT, switch rows, five charge rows per MOS), z = z0 - Y c,
+//     S = I + V^T Y, vz = V^T z, the k x k solve, x_raw = z - Y w, then
 //     accept: clamp, alpha damping, err^2 < tol^2, a non-finite x_raw
 //     freezes the lane and sets failed;
 //   - vc and il from the accepted x (the cap plan holds the explicit, MOS,
-//     diode and BJT junction capacitors).
-// The Newton loop is the fixed unrolled count, or a per-lane loop up to
-// max_nr that stops when the lane is done (the TPU kernel's block-wide
-// while loop gives the same x: accept freezes lanes that are done).  The TPU
-// kernel evaluates both BJT currents on row-duplicated lanes and selects by
-// parity; here each device is evaluated once and writes its two rows.
+//     diode and BJT junction capacitors; the MOS slots carry C = 0 under the
+//     charge model).
+// The k x k solve is the TPU kernel's: for k <= 16 pivoted elimination and
+// back substitution (first index of max |col|, a zero pivot and a zero
+// diagonal replaced by 1, no pivot floor); for 16 < k <= 32 column-pivoted
+// Gauss-Jordan (for column c the pivot is the first maximum of |col| over
+// the rows not used yet; every row but the pivot row subtracts
+// A[i][c] / A[p][c] times it, a zero pivot divides by 1; at the end
+// w[c(p)] = bb[p] / A[p][c(p)], a zero divides by 1).  In both a NaN |col|
+// counts as the largest (the first NaN wins), as torch.max and jnp.argmax
+// rank it.  The Newton loop is the fixed unrolled count, or a per-lane loop
+// up to max_nr that stops when the lane is done (the TPU kernel's
+// block-wide while loop gives the same x: accept freezes lanes that are
+// done).  The TPU kernel evaluates both BJT currents on row-duplicated lanes
+// and selects by parity; here each device is evaluated once and writes its
+// two rows.
+//
+// Charge rows (models/moscap.py, JAX kernel pallas_step.py:997-1019): the
+// Ward-Dutton gate and depletion junction charges of each MOS are evaluated
+// once on Dual<T> numbers (a value and d/d(vd, vg, vs)), the three jvp
+// passes of the TPU kernel side by side; g = (dq/dv)/dt and
+// cst = (q(v) - q_prev)/dt - g.v for its five rows (i_d, i_g, i_s, i_sb,
+// i_db), which read the MOS's (d, g, s) columns from the row plan.  The
+// rules are JAX's: select for where, half of each tangent at an exact tie
+// of maximum/minimum, d(a/b) = da/b - db a/b^2; arg^(1 - MJ) with MJ = 0.5
+// is sqrt(arg) as PyTorch computes it, its tangent 0.5/sqrt(arg).
 //
 // Design (simple first): one thread per lane, lane-minor constants
 // (G0invT (N,N,B) [m][n][lane], YT (k,N,B), Yc3 (W,k,k,B), the device packs,
@@ -33,8 +56,11 @@
 // index reads here: row_cols (W, k) gives each V^T row's columns, which are
 // also the terminals its device reads (W = 4 with a switch: p, m, cp, cm;
 // else 3); index N is the ground dump slot and reads 0.  Per-lane vectors
-// live in fixed-capacity local arrays (N <= 64, k <= 16) indexed at run
-// time, so they sit in local memory (L1/L2), not registers.
+// live in fixed-capacity local arrays (N <= 64, k <= KCAP) indexed at run
+// time, so they sit in local memory (L1/L2), not registers.  The kernel is
+// instantiated for KCAP = 16 (elimination) and KCAP = 32 (Gauss-Jordan),
+// each with and without the charge rows, so the K1a/K1b instantiation keeps
+// its 16 x 16 frame and code.
 //
 // What bounds it on the H100: the constants are re-read every step
 // (G0invT once, then per Newton iteration 2 YT + Yc3 + the device packs:
@@ -44,17 +70,20 @@
 // warp-load per constant and few warps per SM it is bound by memory
 // latency.  On small junction decks (N = 7, k = 2) the per-lane chain of
 // dependent expf/divisions of the damped Newton loop (tens of iterations
-// per step) takes over.  Staging G0invT in shared memory per lane block and
-// wgmma for the z0 product are later work.  Compiled without fast math
-// (SIN/SFFM arguments reach tens of radians, the switch conductance spans
-// nine decades through exp/log); nvcc contracts a*b+c into FMAs, so results
-// agree with the plain version to rounding.
+// per step) takes over; at k = 22-32 the Gauss-Jordan solve (about 2 k^3
+// operations on a local-memory A per iteration) and Yc3 (W k^2 per lane) do.
+// Staging G0invT in shared memory per lane block and wgmma for the z0
+// product are later work.  Compiled without fast math (SIN/SFFM arguments
+// reach tens of radians, the switch conductance spans nine decades through
+// exp/log); nvcc contracts a*b+c into FMAs, so results agree with the plain
+// version to rounding.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 #define MAXN 64
-#define MAXK 16
+#define UNROLL_K 16  // the elimination instantiation's capacity
+#define MAXK 32      // the Gauss-Jordan instantiation's capacity
 
 template <typename T>
 struct StepArgs {
@@ -93,6 +122,10 @@ struct StepArgs {
   int nMJ, nD, nQ, nSw, W;
   long long step0;
   T dt, tol2, alpha, clamp, off_gds;
+  // charge model (MOSCAP=CHARGE): nMq MOS with five rows each, last
+  const T* mqp;      // (4, nMq, B): vth, coxwl, cj0, polarity
+  int nMq;
+  T inv_dt;          // 1/dt, computed on the host in double
 };
 
 __device__ __forceinline__ float sin_(float v) { return sinf(v); }
@@ -220,12 +253,200 @@ __device__ __forceinline__ void exp_lim(T u, T& e, T& de) {
   }
 }
 
-// One Newton iteration of one lane: xx is the iterate, z0 = G0^-1 b0,
-// zb scratch (z, then x_raw, then x_new).
+
+// ---- forward-mode dual numbers for the charge rows (models/moscap.py) ----
 template <typename T>
+struct Dual {
+  T v, d[3];  // value, d/d(vd, vg, vs)
+};
+
+template <typename T>
+__device__ __forceinline__ Dual<T> dconst(T c) {
+  return {c, {T(0), T(0), T(0)}};
+}
+
+template <typename T>
+__device__ __forceinline__ Dual<T> operator-(const Dual<T>& a) {
+  return {-a.v, {-a.d[0], -a.d[1], -a.d[2]}};
+}
+
+template <typename T>
+__device__ __forceinline__ Dual<T> operator+(const Dual<T>& a, const Dual<T>& b) {
+  return {a.v + b.v, {a.d[0] + b.d[0], a.d[1] + b.d[1], a.d[2] + b.d[2]}};
+}
+
+template <typename T>
+__device__ __forceinline__ Dual<T> operator+(T a, const Dual<T>& b) {
+  return {b.v + a, {b.d[0], b.d[1], b.d[2]}};
+}
+
+template <typename T>
+__device__ __forceinline__ Dual<T> operator-(const Dual<T>& a, const Dual<T>& b) {
+  return {a.v - b.v, {a.d[0] - b.d[0], a.d[1] - b.d[1], a.d[2] - b.d[2]}};
+}
+
+template <typename T>
+__device__ __forceinline__ Dual<T> operator-(const Dual<T>& a, T b) {
+  return {a.v - b, {a.d[0], a.d[1], a.d[2]}};
+}
+
+template <typename T>
+__device__ __forceinline__ Dual<T> operator-(T a, const Dual<T>& b) {
+  return {a - b.v, {-b.d[0], -b.d[1], -b.d[2]}};
+}
+
+template <typename T>
+__device__ __forceinline__ Dual<T> operator*(const Dual<T>& a, const Dual<T>& b) {
+  Dual<T> r;
+  r.v = a.v * b.v;
+  for (int i = 0; i < 3; ++i) r.d[i] = a.d[i] * b.v + a.v * b.d[i];
+  return r;
+}
+
+template <typename T>
+__device__ __forceinline__ Dual<T> operator*(T a, const Dual<T>& b) {
+  return {b.v * a, {b.d[0] * a, b.d[1] * a, b.d[2] * a}};
+}
+
+template <typename T>
+__device__ __forceinline__ Dual<T> operator/(const Dual<T>& a, const Dual<T>& b) {
+  Dual<T> r;
+  r.v = a.v / b.v;
+  const T inv2 = T(1) / (b.v * b.v);
+  for (int i = 0; i < 3; ++i) r.d[i] = a.d[i] / b.v + (-b.d[i] * a.v) * inv2;
+  return r;
+}
+
+template <typename T>
+__device__ __forceinline__ Dual<T> operator/(const Dual<T>& a, T b) {
+  return {a.v / b, {a.d[0] / b, a.d[1] / b, a.d[2] / b}};
+}
+
+// x^n and its tangent n x^(n-1) dx, with the powers PyTorch takes: x*x and
+// x*x*x for 2 and 3, pow otherwise, sqrt for 1/2 (its tangent 0.5/sqrt)
+template <typename T>
+__device__ __forceinline__ Dual<T> dscale(const Dual<T>& a, T v, T f) {
+  return {v, {a.d[0] * f, a.d[1] * f, a.d[2] * f}};
+}
+template <typename T>
+__device__ __forceinline__ Dual<T> pow2(const Dual<T>& a) {
+  return dscale(a, a.v * a.v, T(2) * a.v);
+}
+template <typename T>
+__device__ __forceinline__ Dual<T> pow3(const Dual<T>& a) {
+  return dscale(a, a.v * a.v * a.v, T(3) * (a.v * a.v));
+}
+template <typename T>
+__device__ __forceinline__ Dual<T> pow4(const Dual<T>& a) {
+  return dscale(a, pow(a.v, T(4)), T(4) * (a.v * a.v * a.v));
+}
+template <typename T>
+__device__ __forceinline__ Dual<T> pow5(const Dual<T>& a) {
+  return dscale(a, pow(a.v, T(5)), T(5) * pow(a.v, T(4)));
+}
+template <typename T>
+__device__ __forceinline__ Dual<T> dsqrt(const Dual<T>& a) {
+  return dscale(a, sqrt(a.v), T(0.5) * (T(1) / sqrt(a.v)));
+}
+
+// maximum/minimum with JAX's tie rule (half of each tangent at an exact
+// tie); a NaN in a wins (NaN propagates)
+template <typename T>
+__device__ __forceinline__ Dual<T> pick(const Dual<T>& a, const Dual<T>& b,
+                                        bool a_wins) {
+  a_wins = a_wins || isnan_(a.v);
+  Dual<T> r = a_wins ? a : b;
+  if (a.v == b.v)
+    for (int i = 0; i < 3; ++i) r.d[i] = T(0.5) * a.d[i] + T(0.5) * b.d[i];
+  return r;
+}
+template <typename T>
+__device__ __forceinline__ Dual<T> dmax(const Dual<T>& a, T b) {
+  return pick(a, dconst(b), a.v > b);
+}
+template <typename T>
+__device__ __forceinline__ Dual<T> dmin(const Dual<T>& a, const Dual<T>& b) {
+  return pick(a, b, a.v < b.v);
+}
+
+// SPICE depletion charge against the forward bias v (PB = 0.8, MJ = 0.5,
+// FC = 0.5; the constants are the Python values of models/moscap.py)
+template <typename T>
+__device__ __forceinline__ Dual<T> depletion_charge(const Dual<T>& v, T cj0) {
+  const T vb = T(0.4), f1 = T(0.4686291501015239), f2 = T(0.3535533905932738);
+  const Dual<T> v_lo = dmin(v, dconst(vb));
+  const Dual<T> arg = dmax(T(1) - v_lo / T(0.8), T(1e-6));
+  const Dual<T> q_lo = (cj0 * T(0.8) / T(0.5)) * (T(1) - dsqrt(arg));
+  const Dual<T> dv = dmax(v - vb, T(0));
+  const Dual<T> q_hi = (cj0 / f2) * (T(0.25) * dv + T(0.3125) *
+                                     (pow2(vb + dv) - T(0.16000000000000003)));
+  return v.v <= vb ? q_lo : (cj0 * f1) + q_hi;
+}
+
+// (q_d, q_g, q_s, q_sb, q_db) of one MOS and their derivatives with respect
+// to (vd, vg, vs): models/moscap.py mos_all_charges, formula for formula
+template <typename T>
+__device__ __forceinline__ void mos_charges(T vd_, T vg_, T vs_, T vth, T cox,
+                                            T cj0, T p, Dual<T>* q) {
+  using D = Dual<T>;
+  const D vd = {vd_, {T(1), T(0), T(0)}};
+  const D vg = {vg_, {T(0), T(1), T(0)}};
+  const D vs = {vs_, {T(0), T(0), T(1)}};
+  const D vgs = p * (vg - vs);
+  const D vds = p * (vd - vs);
+  const bool swap = vds.v < T(0);
+  const D d_ = swap ? -vds : vds;
+  D vgt = (swap ? vgs - vds : vgs) - vth;  // vgd when swapped
+  const bool on = vgt.v > T(0);
+  vgt = dmax(vgt, T(0));
+  const bool sat = d_.v >= vgt.v;
+  const D d_t = dmin(d_, vgt);             // triode-clamped vds
+  const D Dq = vgt * d_t - T(0.5) * d_t * d_t;
+  const bool D_ok = Dq.v > T(0);
+  const D Ds = D_ok ? Dq : dconst(T(1));
+  const D qg_tri = cox * (pow3(vgt) - pow3(vgt - d_t)) / (T(3) * Ds);
+  const D qd_tri = (-cox) * (T(0.5) * pow3(vgt) * pow2(d_t)
+                             - T(5.0 / 6.0) * pow2(vgt) * pow3(d_t)
+                             + T(0.5) * vgt * pow4(d_t)
+                             - T(0.1) * pow5(d_t)) / (Ds * Ds);
+  const D qg_sat = (T(2.0 / 3.0) * cox) * vgt;
+  const D qd_sat = (T(-(4.0 / 15.0)) * cox) * vgt;
+  D qg = D_ok ? qg_tri : cox * vgt;
+  D qd = D_ok ? qd_tri : (T(-0.5) * cox) * vgt;
+  qg = sat ? qg_sat : qg;
+  qd = sat ? qd_sat : qd;
+  qg = on ? qg : dconst(T(0));
+  qd = on ? qd : dconst(T(0));
+  const D qs = -(qg + qd);
+  q[0] = p * (swap ? qs : qd);
+  q[1] = p * qg;
+  q[2] = p * (swap ? qd : qs);
+  q[3] = (-p) * depletion_charge((-p) * vs, cj0);
+  q[4] = (-p) * depletion_charge((-p) * vd, cj0);
+}
+
+// the charges of the charge model's MOS m at terminal voltages (vd, vg, vs)
+template <typename T>
+__device__ __forceinline__ void mos_charges_at(const StepArgs<T>& a,
+                                               long long lane, int m, T vd,
+                                               T vg, T vs, Dual<T>* q) {
+  const long long B = a.B;
+  const int nMq = a.nMq;
+  mos_charges(vd, vg, vs, a.mqp[(0LL * nMq + m) * B + lane],
+              a.mqp[(1LL * nMq + m) * B + lane],
+              a.mqp[(2LL * nMq + m) * B + lane],
+              a.mqp[(3LL * nMq + m) * B + lane], q);
+}
+
+// One Newton iteration of one lane: xx is the iterate, z0 = G0^-1 b0,
+// zb scratch (z, then x_raw, then x_new), qprev the charges of the step's
+// incoming x (CHARGE only).  KCAP is the rank capacity: 16 runs the pivoted
+// elimination, 32 the Gauss-Jordan solve.
+template <typename T, int KCAP, bool CHARGE>
 __device__ __forceinline__ void newton_iter(
     const StepArgs<T>& a, long long lane, T* xx, const T* z0, T* zb, T* cst,
-    T (*vco)[MAXK], T (*A)[MAXK], T* bb, T* w, bool& done, bool& fl) {
+    T (*vco)[KCAP], T (*A)[KCAP], T* bb, T* w, const T* qprev, bool& done,
+    bool& fl) {
   const int N = a.N, k = a.k, W = a.W;
   const long long B = a.B;
   // terminal q of row j (the ground slot reads 0)
@@ -345,6 +566,25 @@ __device__ __forceinline__ void newton_iter(
       vco[2][j] = gc;
       vco[3][j] = -gc;
     }
+    if constexpr (CHARGE) {  // charge rows: five per MOS, device-major
+      const int o_c = nMJ + nD + 2 * nQ + nSw;
+      for (int m = 0; m < a.nMq; ++m) {
+        const int j0 = o_c + 5 * m;
+        const T vd = rd(0, j0), vg = rd(1, j0), vs = rd(2, j0);
+        Dual<T> q[5];
+        mos_charges_at(a, lane, m, vd, vg, vs, q);
+        for (int r = 0; r < 5; ++r) {
+          const int j = j0 + r;
+          const T gd = q[r].d[0] * a.inv_dt, gg = q[r].d[1] * a.inv_dt;
+          const T gs = q[r].d[2] * a.inv_dt;
+          cst[j] = (q[r].v - qprev[5 * m + r]) * a.inv_dt - gd * vd - gg * vg -
+                   gs * vs;
+          vco[0][j] = gd;
+          vco[1][j] = gg;
+          vco[2][j] = gs;
+        }
+      }
+    }
     for (int n = 0; n < N; ++n) {  // z = z0 - Y c
       T acc = z0[n];
       for (int j = 0; j < k; ++j)
@@ -365,39 +605,72 @@ __device__ __forceinline__ void newton_iter(
       }
       bb[j] = s;
     }
-    for (int c = 0; c < k; ++c) {  // pivoted elimination
-      int p = c;
-      T best = absval(A[c][c]);
-      for (int i = c + 1; i < k; ++i) {
-        const T v = absval(A[i][c]);
-        if (v > best || (isnan_(v) && !isnan_(best))) {
-          best = v;
-          p = i;
+    if constexpr (KCAP <= UNROLL_K) {
+      for (int c = 0; c < k; ++c) {  // pivoted elimination
+        int p = c;
+        T best = absval(A[c][c]);
+        for (int i = c + 1; i < k; ++i) {
+          const T v = absval(A[i][c]);
+          if (v > best || (isnan_(v) && !isnan_(best))) {
+            best = v;
+            p = i;
+          }
+        }
+        if (p != c) {
+          for (int l = c; l < k; ++l) {
+            const T t = A[c][l];
+            A[c][l] = A[p][l];
+            A[p][l] = t;
+          }
+          const T t = bb[c];
+          bb[c] = bb[p];
+          bb[p] = t;
+        }
+        const T piv = A[c][c];
+        const T safe = piv != T(0) ? piv : T(1);
+        for (int i = c + 1; i < k; ++i) {
+          const T f = A[i][c] / safe;
+          for (int l = c + 1; l < k; ++l) A[i][l] -= f * A[c][l];
+          bb[i] -= f * bb[c];
         }
       }
-      if (p != c) {
-        for (int l = c; l < k; ++l) {
-          const T t = A[c][l];
-          A[c][l] = A[p][l];
-          A[p][l] = t;
+      for (int j = k - 1; j >= 0; --j) {  // back substitution
+        T acc = T(0);
+        for (int l = j + 1; l < k; ++l) acc += A[j][l] * w[l];
+        const T d = A[j][j];
+        w[j] = (bb[j] - acc) / (d != T(0) ? d : T(1));
+      }
+    } else {  // column-pivoted Gauss-Jordan (pallas_step.py:1126-1160)
+      bool used[KCAP];
+      int colof[KCAP];
+      T rowp[KCAP];
+      for (int i = 0; i < k; ++i) used[i] = false;
+      for (int c = 0; c < k; ++c) {
+        int p = 0;
+        T best = used[0] ? T(-1) : absval(A[0][c]);
+        for (int i = 1; i < k; ++i) {
+          const T v = used[i] ? T(-1) : absval(A[i][c]);
+          if (v > best || (isnan_(v) && !isnan_(best))) {
+            best = v;
+            p = i;
+          }
         }
-        const T t = bb[c];
-        bb[c] = bb[p];
-        bb[p] = t;
+        for (int l = 0; l < k; ++l) rowp[l] = A[p][l];
+        const T bp = bb[p];
+        const T piv = rowp[c];
+        const T safe = piv != T(0) ? piv : T(1);
+        for (int i = 0; i < k; ++i) {  // the pivot row subtracts 0 x itself
+          const T f = i == p ? T(0) : A[i][c] / safe;
+          for (int l = 0; l < k; ++l) A[i][l] -= f * rowp[l];
+          bb[i] -= f * bp;
+        }
+        used[p] = true;
+        colof[p] = c;
       }
-      const T piv = A[c][c];
-      const T safe = piv != T(0) ? piv : T(1);
-      for (int i = c + 1; i < k; ++i) {
-        const T f = A[i][c] / safe;
-        for (int l = c + 1; l < k; ++l) A[i][l] -= f * A[c][l];
-        bb[i] -= f * bb[c];
+      for (int p = 0; p < k; ++p) {  // w[c(p)] = bb[p] / A[p][c(p)]
+        const T d = A[p][colof[p]];
+        w[colof[p]] = bb[p] / (d != T(0) ? d : T(1));
       }
-    }
-    for (int j = k - 1; j >= 0; --j) {  // back substitution
-      T acc = T(0);
-      for (int l = j + 1; l < k; ++l) acc += A[j][l] * w[l];
-      const T d = A[j][j];
-      w[j] = (bb[j] - acc) / (d != T(0) ? d : T(1));
     }
     for (int n = 0; n < N; ++n) {  // x_raw = z - Y w
       T acc = zb[n];
@@ -428,14 +701,15 @@ __device__ __forceinline__ void newton_iter(
   fl = fl || !finite;
 }
 
-template <typename T>
+template <typename T, int KCAP, bool CHARGE>
 __global__ void __launch_bounds__(128) fused_step_kernel(const StepArgs<T> a) {
   const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= a.B) return;
   const long long B = a.B;
   const int N = a.N;
   T x[MAXN], xp[MAXN], xx[MAXN], z0[MAXN], zb[MAXN + 1];
-  T cst[MAXK], vco[4][MAXK], A[MAXK][MAXK], bb[MAXK], w[MAXK];
+  T cst[KCAP], vco[4][KCAP], A[KCAP][KCAP], bb[KCAP], w[KCAP];
+  T qprev[CHARGE ? KCAP : 1];
   for (int n = 0; n < N; ++n) {
     x[n] = a.x[n * B + lane];
     xp[n] = a.xprev[n * B + lane];
@@ -466,14 +740,29 @@ __global__ void __launch_bounds__(128) fused_step_kernel(const StepArgs<T> a) {
     }
     for (int n = 0; n < N; ++n)
       xx[n] = a.predictor ? T(2) * x[n] - xp[n] : x[n];
+    if constexpr (CHARGE) {  // q_prev = q(x of the previous step)
+      const int o_c = a.nMJ + a.nD + 2 * a.nQ + a.nSw;
+      for (int m = 0; m < a.nMq; ++m) {
+        T v[3];
+        for (int q = 0; q < 3; ++q) {
+          const int c = a.row_cols[q * a.k + o_c + 5 * m];
+          v[q] = c < N ? x[c] : T(0);
+        }
+        Dual<T> qm[5];
+        mos_charges_at(a, lane, m, v[0], v[1], v[2], qm);
+        for (int r = 0; r < 5; ++r) qprev[5 * m + r] = qm[r].v;
+      }
+    }
     bool done = failed, fl = failed;
     int its = 0;
     if (a.unrolled > 0) {
       for (; its < a.unrolled; ++its)
-        newton_iter(a, lane, xx, z0, zb, cst, vco, A, bb, w, done, fl);
+        newton_iter<T, KCAP, CHARGE>(a, lane, xx, z0, zb, cst, vco, A, bb, w,
+                                     qprev, done, fl);
     } else {
       for (; !done && its < a.max_nr; ++its)
-        newton_iter(a, lane, xx, z0, zb, cst, vco, A, bb, w, done, fl);
+        newton_iter<T, KCAP, CHARGE>(a, lane, xx, z0, zb, cst, vco, A, bb, w,
+                                     qprev, done, fl);
     }
     it_total += its;
     // history from the accepted x
@@ -496,9 +785,19 @@ __global__ void __launch_bounds__(128) fused_step_kernel(const StepArgs<T> a) {
   a.iters[lane] = it_total;
 }
 
-// ptrs: the 28 arrays in StepArgs order; ints: B N k nS P nL nCap unrolled
-// max_nr predictor n_steps step0 threads nMJ nD nQ nSw W; reals: dt tol2
-// alpha clamp off_gds
+template <typename T, int KCAP, bool CHARGE>
+static int launch_as(const StepArgs<T>& a, int threads, void* stream) {
+  const int blocks = (a.B + threads - 1) / threads;
+  fused_step_kernel<T, KCAP, CHARGE>
+      <<<blocks, threads, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// ptrs: the 29 arrays in StepArgs order (the charge pack last); ints: B N k
+// nS P nL nCap unrolled max_nr predictor n_steps step0 threads nMJ nD nQ nSw
+// W nMq; reals: dt tol2 alpha clamp off_gds inv_dt.  k <= 16 launches the
+// elimination instantiation, 16 < k <= 32 the Gauss-Jordan one; each with
+// the charge rows when nMq > 0.
 template <typename T>
 static int launch(void* const* ptrs, const long long* ints,
                   const double* reals, void* stream) {
@@ -532,6 +831,7 @@ static int launch(void* const* ptrs, const long long* ints,
   a.il = (T*)ptrs[p++];
   a.failed = (int*)ptrs[p++];
   a.iters = (int*)ptrs[p++];
+  a.mqp = (const T*)ptrs[p++];
   a.B = (int)ints[0];
   a.N = (int)ints[1];
   a.k = (int)ints[2];
@@ -550,21 +850,27 @@ static int launch(void* const* ptrs, const long long* ints,
   a.nQ = (int)ints[15];
   a.nSw = (int)ints[16];
   a.W = (int)ints[17];
+  a.nMq = (int)ints[18];
   a.dt = (T)reals[0];
   a.tol2 = (T)reals[1];
   a.alpha = (T)reals[2];
   a.clamp = (T)reals[3];
   a.off_gds = (T)reals[4];
-  if (a.nMJ < 0 || a.nD < 0 || a.nQ < 0 || a.nSw < 0 ||
-      a.nMJ + a.nD + 2 * a.nQ + a.nSw != a.k || a.W != (a.nSw ? 4 : 3))
+  a.inv_dt = (T)reals[5];
+  if (a.nMJ < 0 || a.nD < 0 || a.nQ < 0 || a.nSw < 0 || a.nMq < 0 ||
+      a.nMq > a.nMJ ||
+      a.nMJ + a.nD + 2 * a.nQ + a.nSw + 5 * a.nMq != a.k ||
+      a.W != (a.nSw ? 4 : 3))
     return (int)cudaErrorInvalidValue;
   if (a.N > MAXN || a.k > MAXK || a.N <= 0 || a.k < 0 || threads <= 0 ||
       threads > 128)
     return (int)cudaErrorInvalidValue;
   if (a.B <= 0) return 0;
-  const int blocks = (a.B + threads - 1) / threads;
-  fused_step_kernel<T><<<blocks, threads, 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  if (a.k <= UNROLL_K)
+    return a.nMq ? launch_as<T, UNROLL_K, true>(a, threads, stream)
+                 : launch_as<T, UNROLL_K, false>(a, threads, stream);
+  return a.nMq ? launch_as<T, MAXK, true>(a, threads, stream)
+               : launch_as<T, MAXK, false>(a, threads, stream);
 }
 
 extern "C" int csim_fused_step_f32(void* const* ptrs, const long long* ints,

@@ -2,7 +2,9 @@
 
 Port of the part of ``circuitsimulator_tpu/ops/assemble.Engine`` that the
 DC, Backward-Euler and AC paths run, for R, C, L, V, I, Level-1 MOS, JFET,
-diode, BJT, the S/W switches and the linear controlled sources E/G/F/H.
+diode, BJT, the S/W switches and the linear controlled sources E/G/F/H, with
+the fixed MOS caps or the charge-conserving model (``MOSCAP=CHARGE``: five
+injection rows per MOS, ``models/moscap.py``).
 The stamp *pattern* (row/col index lists) is built once per circuit in
 numpy; only the *values* are recomputed, split by how often they change:
 
@@ -10,6 +12,7 @@ numpy; only the *values* are recomputed, split by how often they change:
                  companions, gmin                                 -> G_static
 - per timestep:  source values at t, C/L history currents         -> I_static
 - per Newton iteration: MOS/JFET/diode/BJT/switch linearization   -> scatter
+                 (and under MOSCAP=CHARGE the charge rows: ``mosq_linearize``)
 
 Ground is the dump slot N of an (N+1)-sized system.  Parameters, x and the
 transient state may carry leading lane axes; the index patterns are shared.
@@ -27,6 +30,7 @@ from ..ir.lower import LoweredCircuit
 from ..models import sources as srcmod
 from ..models.bjt import bjt_stamp_vals
 from ..models.diode import diode_stamp_vals
+from ..models.moscap import charge_jacobian, charges_of_x
 from ..models.mosfet import mos_stamp_vals
 from ..models.switch import switch_stamp_vals
 from ..utils.options import SolverOptions
@@ -63,8 +67,9 @@ def check_supported(low: LoweredCircuit, opts: SolverOptions) -> None:
                          np.asarray(low.params["is_tn"].cpu()).reshape(-1, 4)])
     if np.any(tn[:, 0] > 0) or np.any(tn[:, 3] > 0):
         raise NotImplementedError("TRNOISE sources: not yet ported")
-    if opts.mos_cap_model != "fixed":
-        raise NotImplementedError("MOSCAP=CHARGE: not yet ported")
+    if opts.mos_cap_model not in ("fixed", "charge"):
+        raise ValueError(f"unknown mos_cap_model {opts.mos_cap_model!r} "
+                         "(fixed|charge)")
     if opts.dc_solver != "lu" or opts.tran_solver != "woodbury":
         raise NotImplementedError(
             f"dc_solver={opts.dc_solver!r}, tran_solver={opts.tran_solver!r}: "
@@ -155,6 +160,22 @@ class Engine:
         self.cap_rows, self.cap_cols = _two_terminal_pattern(self.cap_a,
                                                              self.cap_b)
         self.n_caplike = len(self.cap_a)
+
+        # ---- charge-conserving MOS caps (MOSCAP=CHARGE): the fixed lumps
+        # stay in the cap-like layout with C = 0 (_caplike_C), the charges
+        # ride 5 injection rows per device (i_d, i_g, i_s at d, g, s; i_sb at
+        # s; i_db at d), each with Jacobian entries at the (d, g, s) columns
+        nM = len(t.mos_ed)
+        self.mos_charge = opts.mos_cap_model == "charge" and nM > 0
+        if self.mos_charge:
+            term = np.stack([t.mos_ed, t.mos_eg, t.mos_es], 1)     # (nM, 3)
+            inj = np.stack([t.mos_ed, t.mos_eg, t.mos_es, t.mos_es,
+                            t.mos_ed], 1)                         # (nM, 5)
+            self.mq_rows = np.repeat(inj, 3, axis=1).ravel().astype(np.int64)
+            self.mq_cols = np.tile(term, (1, 5)).ravel().astype(np.int64)
+            self.mq_rhs_rows = inj.ravel().astype(np.int64)       # (5 nM,)
+            self._mq_flat = flat(self.mq_rows, self.mq_cols)
+            self._mq_rhs = idx(self.mq_rhs_rows)
         self._tran_flat = flat(
             np.concatenate([self.res_rows, self.dc_const_rows[:4 * nV],
                             self.ind_rows, self.cap_rows, t.node_eqs,
@@ -269,8 +290,11 @@ class Engine:
     def _caplike_C(self, params):
         """Explicit C values, the MOS junction caps Cgs = Cgd = Cj0/2,
         Csb = Cdb = Cj0 (tanalisis.cpp:337-341), the diode CJO, then the
-        BJT (CJE, CJC) pairs."""
+        BJT (CJE, CJC) pairs.  Under the charge model the MOS slots stay in
+        the layout with C = 0: the charges are injection rows instead."""
         cj0 = params["mos_cj0"]
+        if self.mos_charge:
+            cj0 = torch.zeros_like(cj0)
         mc = torch.stack([0.5 * cj0, 0.5 * cj0, cj0, cj0], dim=-1).flatten(-2)
         qc = torch.stack([params["bjt_cje"], params["bjt_cjc"]],
                          dim=-1).flatten(-2)
@@ -495,6 +519,41 @@ class Engine:
 
         return f
 
+    def mos_vdgs(self, x):
+        """Per-MOS terminal voltages (..., nM, 3) ordered (vd, vg, vs)."""
+        xe = self.x_ext(x)
+        return torch.stack([xe[..., i] for i in self._mos_term], dim=-1)
+
+    def mosq_linearize(self, params, vdgs, qprev, inv_dt):
+        """Backward-Euler companion of the charge currents i = dq/dt:
+        (g (..., nM, 5, 3), cst (..., nM, 5)) with i ~= g (vd, vg, vs) + cst,
+        g = (dq/dv)/dt, cst = (q(v) - q_prev)/dt - g v; qprev (..., nM, 5)
+        are the accepted charges of the previous step."""
+        q, J = charge_jacobian(vdgs, params)
+        g = J * inv_dt
+        cst = (q - qprev) * inv_dt - (g * vdgs[..., None, :]).sum(-1)
+        return g, cst
+
+    def assemble_tran_iter(self, G_static, I_static, params, x, t=0.0,
+                           qex=None):
+        """Dense BE system of one Newton iteration: the static G and RHS
+        (both (..., N+1, ...)) plus the device linearisation at x; qex =
+        (qprev, inv_dt) adds the 15 Jacobian and 5 RHS entries per MOS of
+        the charge model."""
+        gvals, rvals = self._nl_vals(params, x, t)
+        lead = torch.broadcast_shapes(G_static.shape[:-2], gvals.shape[:-1])
+        Gf = G_static.reshape(G_static.shape[:-2] + (-1,))
+        Gf = Gf.expand(lead + Gf.shape[-1:]).clone()
+        Gf.index_add_(-1, self._nl_flat, gvals.expand(lead + gvals.shape[-1:]))
+        I = I_static.expand(lead + I_static.shape[-1:]).clone()
+        I.index_add_(-1, self._nl_rhs, rvals.expand(lead + rvals.shape[-1:]))
+        if qex is not None:
+            gq, cq = self.mosq_linearize(params, self.mos_vdgs(x), *qex)
+            gq, cq = gq.flatten(-3), -cq.flatten(-2)
+            Gf.index_add_(-1, self._mq_flat, gq.expand(lead + gq.shape[-1:]))
+            I.index_add_(-1, self._mq_rhs, cq.expand(lead + cq.shape[-1:]))
+        return self._as_matrix(Gf), I
+
     # ------------------------------------------------------------------
     # Transient state
     # ------------------------------------------------------------------
@@ -505,19 +564,30 @@ class Engine:
         s = x @ self.state_mat
         return s[..., :ncap], s[..., ncap:ncap + nL], s[..., ncap + nL:]
 
-    def init_state(self, x):
+    def init_state(self, x, params=None):
         """TranState from a DC solution (tanalisis.cpp:139-180); x may carry
-        leading lane axes.  ic/vl are the trapezoidal extras (zero at DC)."""
+        leading lane axes.  ic/vl are the trapezoidal extras (zero at DC).
+        The charge model adds the MOS charges qm (..., nM, 5) at x, which
+        needs ``params``."""
         vc, il, _ = self._state_parts(x)
-        return {"vc": vc, "ic": torch.zeros_like(vc),
-                "il": il, "vl": torch.zeros_like(il)}
+        state = {"vc": vc, "ic": torch.zeros_like(vc),
+                 "il": il, "vl": torch.zeros_like(il)}
+        if self.mos_charge:
+            if params is None:
+                raise ValueError("the charge cap model needs "
+                                 "init_state(x, params)")
+            state["qm"] = charges_of_x(self.mos_vdgs(x), params)
+        return state
 
     def make_update_state(self, dt):
         """Post-step BE state update: voltages and currents of the accepted x
-        (tanalisis.cpp:379-417)."""
+        (tanalisis.cpp:379-417), and the charges under the charge model."""
         def f(params, x, state):
             vc, il, _ = self._state_parts(x)
-            return {"vc": vc, "ic": torch.zeros_like(vc),
-                    "il": il, "vl": torch.zeros_like(il)}
+            new = {"vc": vc, "ic": torch.zeros_like(vc),
+                   "il": il, "vl": torch.zeros_like(il)}
+            if self.mos_charge:
+                new["qm"] = charges_of_x(self.mos_vdgs(x), params)
+            return new
 
         return f

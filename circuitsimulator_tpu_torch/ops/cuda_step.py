@@ -2,12 +2,14 @@
 Monte-Carlo transient chunk on the GPU.
 
 The kernel replaces the TPU kernel ``circuitsimulator_tpu/ops/pallas_step.py:
-PallasStepRunner._kernel`` (scope K1a + K1b); its plain PyTorch version is
-``ops/fused_step.FusedStepRunner.run_chunk_plain``.  The runner holds the
-lane-minor constants; the wrapper lays the carry out lane-minor in fresh
-copies (the kernel updates them in place), launches on the current stream
-and never falls back to the plain version.  ``LAUNCHES`` counts successful
-launches.
+PallasStepRunner._kernel`` (scopes K1a, K1b and K1d-i); its plain PyTorch
+version is ``ops/fused_step.FusedStepRunner.run_chunk_plain``.  The runner
+holds the lane-minor constants; the wrapper lays the carry out lane-minor in
+fresh copies (the kernel updates them in place), launches on the current
+stream and never falls back to the plain version.  The library holds four
+instantiations: rank capacity 16 (pivoted elimination) or 32 (Gauss-Jordan,
+16 < k), each with or without the charge rows; the C entry point picks one
+from k and the charge-row count.  ``LAUNCHES`` counts successful launches.
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ import torch
 from . import _build
 
 MAX_N = 64        # csrc/fused_step.cu MAXN
-MAX_K = 16        # csrc/fused_step.cu MAXK
+MAX_K = 32        # csrc/fused_step.cu: the Gauss-Jordan instantiation
+UNROLL_K_MAX = 16 # csrc/fused_step.cu: the elimination instantiation
 THREADS = 128     # lanes per block
 LAUNCHES = 0
 
@@ -77,19 +80,20 @@ def run_chunk_cuda(runner, x, x_prev, vc, il, failed, step0: int,
               *runner.src, runner.gc, runner.gl,
               runner.kinds, runner.src_pos, runner.src_neg, runner.ind_k,
               runner.cap_a, runner.cap_b, runner.row_cols,
-              xt, xpt, vct, ilt, ft, iters]
+              xt, xpt, vct, ilt, ft, iters, runner.mqp]
     for a in arrays:
         if not a.is_contiguous() or a.device != dev:
             raise ValueError("run_chunk_cuda: runner constants must be "
                              "contiguous on the runner's device")
     ptrs = (ctypes.c_void_p * len(arrays))(*[a.data_ptr() for a in arrays])
-    ints = (ctypes.c_longlong * 18)(
+    ints = (ctypes.c_longlong * 19)(
         B, N, k, runner.nS, runner.P, runner.nL, runner.nCap,
         runner.unrolled, runner.max_nr, int(runner.predictor), n_steps,
         int(step0), threads, runner.nMJ, runner.nD, runner.nQ, runner.nSw,
-        runner.W)
-    reals = (ctypes.c_double * 5)(runner.dt, runner.tol2, runner.alpha,
-                                  runner.clamp, runner.off_gds)
+        runner.W, runner.nMq)
+    reals = (ctypes.c_double * 6)(runner.dt, runner.tol2, runner.alpha,
+                                  runner.clamp, runner.off_gds,
+                                  runner.inv_dt)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(ptrs, ints, reals, stream)

@@ -1,27 +1,40 @@
-"""Fused Monte-Carlo transient chunk (K1, scope K1a + K1b): whole
+"""Fused Monte-Carlo transient chunk (K1, scopes K1a, K1b and K1d-i): whole
 Backward-Euler timesteps per lane in one launch.
 
 Port of ``circuitsimulator_tpu/ops/pallas_step.py`` (``PallasStepRunner``)
 for R/C/L, V and I sources with every waveform kind (PULSE/SIN/PWL/EXP/SFFM,
 PWL with at most 8 breakpoints), the linear controlled sources E/G/F/H
 (their stamps live in G0 only), Level-1 MOS without body effect or reverse
-region (K1a), and JFETs, diodes with reverse breakdown, Ebers-Moll BJTs
-with Early voltage and the S/W switches (K1b); Woodbury rank
-0 <= k = nM + nJ + nD + 2 nQ + nS <= 16 (k = 0 is a linear deck: each
-Newton iteration accepts z0 = G0^{-1} b).
+region (K1a), JFETs, diodes with reverse breakdown, Ebers-Moll BJTs with
+Early voltage and the S/W switches (K1b), and the charge rows of
+``MOSCAP=CHARGE`` with Woodbury ranks past 16 (K1d-i); rank
+0 <= k = nM + nJ + nD + 2 nQ + nS (+ 5 nM under the charge model) <= 32
+(k = 0 is a linear deck: each Newton iteration accepts z0 = G0^{-1} b).
 
 Per step and lane (what the kernel and ``run_chunk_plain`` compute):
 
 - sources at t = (step0 + i + 1) dt in the working type (never t += dt);
 - b0 = [sources, -gl il, gc vc] scattered to their rows; z0 = G0^{-1} b0;
+- under the charge model, q_prev = q(x) of the incoming x (q is a function
+  of x, so this is the non-fused state's qm; no extra carry);
 - Newton from x (or 2x - x_prev with the predictor): the device
   linearisations in Woodbury row order (MOS then JFET rows from one pack,
-  diode rows, two rows per BJT, switch rows), z = z0 - Y c, S = I + V^T Y,
-  vz = V^T z, the pivoted k x k solve S w = vz (first index of max |col|, a
-  zero pivot and a zero diagonal replaced by 1, no pivot floor),
+  diode rows, two rows per BJT, switch rows, then five charge rows per MOS,
+  device-major: g = (dq/dv)/dt, cst = (q(v) - q_prev)/dt - g v),
+  z = z0 - Y c, S = I + V^T Y, vz = V^T z, the k x k solve S w = vz,
   x_raw = z - Y w, then the damped accept (clamp, alpha, err^2 < tol^2, a
   non-finite x_raw freezes the lane and raises ``failed``);
 - vc and il from the accepted x.
+
+The k x k solve is the JAX kernel's: for k <= 16 pivoted elimination with
+back substitution (first index of max |col|, a zero pivot and a zero
+diagonal replaced by 1, no pivot floor); for 16 < k <= 32 column-pivoted
+Gauss-Jordan (for each column c the pivot is the first maximum of |col| over
+the rows not used yet, every other row is eliminated, a zero pivot is
+replaced by 1; at the end w[c(p)] = bb[p] / A[p, c(p)], a zero A[p, c(p)]
+replaced by 1).  A NaN counts as the largest |col| in both.  The pivot
+order differs from the non-fused loop's LU, so the Gauss-Jordan branch
+agrees with it to rounding, not bitwise.
 
 The Newton loop runs ``tran_unrolled_iters`` fixed iterations, or per lane
 until done or ``tran_max_newton_iters``.  A per-lane loop gives the x of the
@@ -54,6 +67,7 @@ import torch
 from ..models import sources as srcmod
 from ..models.bjt import bjt_linearize
 from ..models.diode import diode_linearize
+from ..models.moscap import charge_jacobian, charges_of_x
 from ..models.mosfet import mos_linearize
 from ..models.switch import switch_linearize
 from ..netlist import WAVE_PWL
@@ -62,30 +76,30 @@ from .lu import lu_solve_plain
 from .woodbury import WoodburySolver
 
 MAX_N = cuda_step.MAX_N      # unknowns per lane (the kernel's local arrays)
-MAX_K = cuda_step.MAX_K      # Woodbury rank; 16 < k <= 32 is K1d
+MAX_K = cuda_step.MAX_K      # Woodbury rank (the JAX kernel's MAX_K)
+UNROLL_K_MAX = cuda_step.UNROLL_K_MAX  # elimination up to here, then GJ
 MAX_PWL = 8                  # PWL breakpoints (the JAX kernel unrolls <= 8)
-IN_SCOPE = "RCLVIMEGFHDQJS"  # device classes of K1a + K1b
+IN_SCOPE = "RCLVIMEGFHDQJS"  # device classes of K1a, K1b and K1d-i
 
 
 def unsupported_reason(engine, dt=None) -> Optional[str]:
-    """Why ``engine`` is outside the K1a + K1b scope, or None when it is in.
+    """Why ``engine`` is outside the K1a + K1b + K1d-i scope, or None when
+    it is in.
 
     In scope is a subset of ``circuitsimulator_tpu/ops/pallas_step.py:
     supported``: every condition refused there is refused here, plus
-    16 < k (K1d) and N > 64.  B sources, T-lines, TRNOISE and mutual
-    inductance never reach an Engine of the port (K1c/K1d)."""
+    N > 64.  B sources (K1d-ii), T-lines, TRNOISE (K1c) and mutual
+    inductance never reach an Engine of the port."""
     t = engine.topo
     opts = engine.opts
     c = t.counts
     others = sorted(cls for cls, n in c.items() if n and cls not in IN_SCOPE)
     if others:
-        return f"device classes {', '.join(others)} (K1c/K1d)"
+        return f"device classes {', '.join(others)} (K1c/K1d-ii)"
     if engine.mos_body:
         return "MOS body effect (GAMMA)"
     if opts.mos_reverse_region:
         return "MOS reverse region (MOSSYM)"
-    if opts.mos_cap_model != "fixed":
-        return "MOSCAP=CHARGE (K1d)"
     if opts.tran_method != "be":
         return f"METHOD={opts.tran_method.upper()} (Backward Euler only)"
     if engine.dtype not in (torch.float32, torch.float64):
@@ -96,8 +110,10 @@ def unsupported_reason(engine, dt=None) -> Optional[str]:
     if engine.N > MAX_N:
         return f"N = {engine.N} > {MAX_N} unknowns"
     k = c["M"] + c["J"] + c["D"] + 2 * c["Q"] + c["S"]
+    if engine.mos_charge:
+        k += 5 * c["M"]                         # the charge rows
     if k > MAX_K:
-        return f"Woodbury rank k = {k} > {MAX_K} (K1d)"
+        return f"Woodbury rank k = {k} > {MAX_K}"
     return None
 
 
@@ -125,6 +141,7 @@ class FusedStepRunner:
         self.dtype = dtype = engine.dtype
         dev = engine.device
         self.dt = float(dt)
+        self.inv_dt = 1.0 / self.dt           # the charge rows' 1/dt
         self.max_nr = int(opts.tran_max_newton_iters)
         self.tol2 = float(opts.tran_tol) ** 2
         self.alpha = float(opts.tran_alpha)
@@ -144,6 +161,8 @@ class FusedStepRunner:
         self.W = W = plan.W
         self.nMJ = plan.nM + plan.nJ
         self.nD, self.nQ, self.nSw = plan.nD, plan.nQ, plan.nS
+        self.nCq = plan.nCq
+        self.nMq = plan.nCq // 5                # MOS with charge rows
         self.G0invT = wb.G0inv.permute(2, 1, 0).contiguous()   # (N, N, B)
         self.YT = wb.Y.permute(2, 1, 0).contiguous()           # (k, N, B)
         self.Yc3 = wb.Y_cols.permute(2, 1, 3, 0).contiguous()  # (W, k, k, B)
@@ -176,6 +195,11 @@ class FusedStepRunner:
                          lanes("vt_thermal", self.nQ))         # (6, nQ, B)
         self.swp = pack(bparams["sw_ron"], bparams["sw_roff"],
                         bparams["sw_vt"], bparams["sw_vh"])    # (4, nSw, B)
+        # the charge model's parameters (models/moscap.py), empty unless
+        # the deck runs MOSCAP=CHARGE
+        nq = self.nMq
+        self.mqp = pack(*(bparams[key][..., :nq] for key in (
+            "mos_vth", "mos_coxwl", "mos_cj0", "mos_p")))      # (4, nMq, B)
 
         # independent sources, V then I, lane-minor: dc (nS, B), pulse
         # (7, nS, B), sin (5, nS, B), pwl_t and pwl_v (P, nS, B), pwl_n
@@ -260,10 +284,21 @@ class FusedStepRunner:
         o_d = self.nMJ
         o_q = o_d + self.nD
         o_s = o_q + 2 * self.nQ
+        o_c = o_s + self.nSw
+        inv_dt = self.inv_dt
+        qpar = dict(zip(("mos_vth", "mos_coxwl", "mos_cj0", "mos_p"),
+                        (q.T for q in self.mqp)))              # (B, nMq) each
 
-        def nl_rows(xx):
+        def vdgs_of(xx):
+            """(B, nMq, 3) terminal voltages of the charge rows' MOS (the
+            first of each device's five rows carries its columns)."""
+            xm = torch.cat([xx, zcol], 1)[:, cols[:3, o_c::5]]
+            return xm.permute(0, 2, 1)
+
+        def nl_rows(xx, qprev):
             """V^T rows (W, B, k) and Newton constants (B, k) at xx, the
-            segments in Woodbury row order."""
+            segments in Woodbury row order; qprev (B, nMq, 5) are the
+            charges of the incoming x."""
             xe = torch.cat([xx, zcol], 1)
             xm = xe[:, cols]                                   # (B, W, k)
             vparts, cparts = [], []
@@ -298,21 +333,34 @@ class FusedStepRunner:
                 cparts.append(torch.stack([rc[3], rb[3]], dim=-1).flatten(-2))
             if self.nSw:
                 gd, gc, cst = switch_linearize(
-                    *swp, *(xm[:, q, o_s:] for q in range(4)))
+                    *swp, *(xm[:, q, o_s:o_c] for q in range(4)))
                 vparts.append(rows(gd, -gd, gc, -gc))
+                cparts.append(cst)
+            if self.nCq:
+                # charge rows (JAX kernel :997-1019), device-major: five
+                # rows per MOS over its (vd, vg, vs)
+                vd, vg, vs = (xm[:, q, o_c::5] for q in range(3))
+                q, J = charge_jacobian(torch.stack([vd, vg, vs], -1), qpar)
+                gd, gg, gs = (J[..., j].flatten(1) * inv_dt for j in range(3))
+                cst = ((q.flatten(1) - qprev.flatten(1)) * inv_dt
+                       - gd * vd.repeat_interleave(5, 1)
+                       - gg * vg.repeat_interleave(5, 1)
+                       - gs * vs.repeat_interleave(5, 1))
+                vparts.append(rows(gd, gg, gs))
                 cparts.append(cst)
             return torch.cat(vparts, -1), torch.cat(cparts, -1)
 
-        def newton(xx, done, fl, z0, active):
+        def newton(xx, done, fl, z0, active, qprev):
             """One iteration; ``active`` masks the failed update and the
             count (the per-lane while loop), None runs it ungated."""
             if k:
-                v, cst = nl_rows(xx)                           # (W, B, k)
+                v, cst = nl_rows(xx, qprev)                    # (W, B, k)
                 z = z0 - torch.einsum("jnb,bj->bn", self.YT, cst)
                 S = eye + torch.einsum("sbj,sjlb->bjl", v, self.Yc3)
                 ze = torch.cat([z, zcol], 1)
                 vz = (v * ze[:, cols].movedim(1, 0)).sum(0)
-                w = lu_solve_plain(S, vz, 0.0)
+                w = (lu_solve_plain(S, vz, 0.0) if k <= UNROLL_K_MAX
+                     else gauss_jordan_plain(S, vz))
                 x_raw = z - torch.einsum("jnb,bj->bn", self.YT, w)
             else:
                 x_raw = z0
@@ -339,20 +387,50 @@ class FusedStepRunner:
             b.index_add_(1, self._rhs_rows, vals)
             z0 = torch.einsum("mnb,bm->bn", self.G0invT, b[:, :N])
             xx = 2.0 * x - x_prev if self.predictor else x
+            # q_prev = q(x of the previous step): the state's qm
+            qprev = charges_of_x(vdgs_of(x), qpar) if self.nCq else None
             done, fl = failed, failed
             if self.unrolled > 0:
                 for _ in range(self.unrolled):
-                    xx, done, fl = newton(xx, done, fl, z0, None)
+                    xx, done, fl = newton(xx, done, fl, z0, None, qprev)
                 iters += self.unrolled
             else:
                 for _ in range(self.max_nr):
                     active = ~done
                     if not bool(active.any()):
                         break
-                    xx, done, fl = newton(xx, done, fl, z0, active)
+                    xx, done, fl = newton(xx, done, fl, z0, active, qprev)
                     iters += active.to(torch.int32)
             xe = torch.cat([xx, zcol], 1)
             vc = xe[:, self.cap_a.long()] - xe[:, self.cap_b.long()]
             il = xe[:, self.ind_k.long()]
             x_prev, x, failed = x, xx, fl
         return x, x_prev, vc, il, failed, iters
+
+
+def gauss_jordan_plain(A, b):
+    """Column-pivoted Gauss-Jordan of the JAX kernel's 16 < k branch
+    (``pallas_step.py:1126-1160``) on (B, k, k) x (B, k): for each column
+    c the pivot row p is the first maximum of |A[:, c]| over the rows not
+    used yet (a NaN counts as largest), every other row subtracts
+    A[i, c] / A[p, c] times row p (a zero pivot divides by 1), and at the
+    end w[c(p)] = b[p] / A[p, c(p)] (a zero divides by 1)."""
+    B, k = b.shape
+    rows = torch.arange(k, device=b.device)
+    used = torch.zeros((B, k), dtype=torch.bool, device=b.device)
+    colof = torch.zeros((B, k), dtype=torch.long, device=b.device)
+    for c in range(k):
+        col = A[:, :, c]
+        p = torch.where(used, -1.0, col.abs()).max(1).indices     # (B,)
+        onep = rows == p[:, None]                                  # (B, k)
+        rowp = A.gather(1, p[:, None, None].expand(B, 1, k))[:, 0]
+        bp = b.gather(1, p[:, None])
+        piv = rowp[:, c:c + 1]
+        fac = torch.where(onep, 0.0, col / torch.where(piv != 0.0, piv, 1.0))
+        A = A - fac[:, :, None] * rowp[:, None, :]
+        b = b - fac * bp
+        used = used | onep
+        colof = colof + onep * c
+    pivd = A.gather(2, colof[:, :, None])[:, :, 0]
+    wrow = b / torch.where(pivd != 0.0, pivd, 1.0)
+    return torch.zeros_like(b).scatter_(1, colof, wrow)

@@ -17,8 +17,6 @@ hand-written kernel (``ops/cuda_lu.py``), or raises.
 
 from __future__ import annotations
 
-import math
-
 import torch
 
 from . import cuda_lu
@@ -47,36 +45,41 @@ def lu_solve_plain(A, b, pivot_floor: float = 1e-15):
     M = torch.cat([A, B], dim=-1)
     lead = M.shape[:-2]
     W = M.shape[-1]
-    minpiv = torch.full(lead, math.inf, dtype=A.dtype, device=A.device)
+    on_cpu = M.device.type == "cpu"
+    rows, cols = M.unbind(-2), M.unbind(-1)     # views, one call each
+    bests = []
     for k in range(N):
         m = N - k - 1
-        colk = M.select(-1, k)
         # max with indices: the first largest |A[i, k]| (a NaN counts as
-        # largest), its value feeds the running minimum
-        best, p = colk.narrow(-1, k, N - k).abs().max(-1, keepdim=True)
-        minpiv = torch.minimum(minpiv, best.squeeze(-1))
-        # swap rows k <-> p (row k is written last, so p == k is a no-op)
-        ip = p.add_(k).unsqueeze_(-1).expand(lead + (1, W))
-        rowp = M.gather(-2, ip)
-        rowk = M.narrow(-2, k, 1)
-        M.scatter_(-2, ip, rowk.clone())
-        rowk.copy_(rowp)
-        pivot = rowp.select(-1, k)                              # (..., 1)
+        # largest); the smallest of these decides the fail-to-zero below
+        best, p = cols[k].narrow(-1, k, N - k).abs().max(-1, keepdim=True)
+        bests.append(best)
+        rowk = rows[k]
+        # swap rows k <-> k + p (row k is written last, so p == 0 is a
+        # no-op); on the CPU a batch where no lane swaps skips it (the check
+        # would be a device sync on a GPU)
+        if not on_cpu or bool(p.any()):
+            ip = p.add_(k).unsqueeze_(-1).expand(lead + (1, W))
+            rowp = M.gather(-2, ip)
+            M.scatter_(-2, ip, rowk.unsqueeze(-2).clone())
+            rowk.copy_(rowp.squeeze(-2))
+        pivot = rowk.narrow(-1, k, 1)                           # (..., 1)
         safe = pivot.masked_fill(pivot == 0.0, 1.0)
-        f = (colk.narrow(-1, k + 1, m) / safe).unsqueeze(-1)    # (..., m, 1)
+        f = (cols[k].narrow(-1, k + 1, m) / safe).unsqueeze(-1)  # (..., m, 1)
         M.narrow(-2, k + 1, m).narrow(-1, k + 1, W - k - 1).sub_(
-            f * rowk.narrow(-1, k + 1, W - k - 1))
-    A = M.narrow(-1, 0, N)
-    B = M.narrow(-1, N, W - N)
-    x = torch.zeros_like(B)
+            f * rowk.narrow(-1, k + 1, W - k - 1).unsqueeze(-2))
+    d = M.diagonal(dim1=-2, dim2=-1).unsqueeze(-1)              # (..., N, 1)
+    dsafe = d.masked_fill(d == 0.0, 1.0).unbind(-2)
+    dzero = (d.abs() < pivot_floor).unbind(-2)
+    x = torch.zeros(lead + (N, W - N), dtype=M.dtype, device=M.device)
+    xrows = x.unbind(-2)
     for j in range(N - 1, -1, -1):
         m = N - j - 1
-        acc = (A.select(-2, j).narrow(-1, j + 1, m).unsqueeze(-1)
+        acc = (rows[j].narrow(-1, j + 1, m).unsqueeze(-1)
                * x.narrow(-2, j + 1, m)).sum(-2)
-        s = B.select(-2, j) - acc
-        d = A.select(-1, j).select(-1, j).unsqueeze(-1)
-        xj = s / d.masked_fill(d == 0.0, 1.0)
-        x.select(-2, j).copy_(xj.masked_fill_(d.abs() < pivot_floor, 0.0))
+        xj = (rows[j].narrow(-1, N, W - N) - acc) / dsafe[j]
+        xrows[j].copy_(xj.masked_fill_(dzero[j], 0.0))
+    minpiv = torch.cat(bests, -1).amin(-1)
     x.masked_fill_((minpiv < pivot_floor)[..., None, None], 0.0)
     return x[..., 0] if vec else x
 

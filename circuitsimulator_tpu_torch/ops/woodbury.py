@@ -1,10 +1,13 @@
 """Low-rank (Woodbury) Newton solve for the transient hot loop.
 
 Port of ``circuitsimulator_tpu/ops/woodbury.py`` for Level-1 MOS, JFET,
-diode, BJT and switch rows.  Each MOSFET's conduction stamp is a rank-one
-update (e_D - e_S) v^T of the otherwise constant BE matrix G0 (fixed dt);
-JFETs, diodes and switches are rank one too, a BJT is rank two
-((e_C - e_E) for Ic, (e_B - e_E) for Ib).  With G0 inverted once:
+diode, BJT and switch rows and the charge rows of ``MOSCAP=CHARGE``.  Each
+MOSFET's conduction stamp is a rank-one update (e_D - e_S) v^T of the
+otherwise constant BE matrix G0 (fixed dt); JFETs, diodes and switches are
+rank one too, a BJT is rank two ((e_C - e_E) for Ic, (e_B - e_E) for Ib),
+and the charge model adds five node-to-ground rows per MOS (i_d, i_g, i_s,
+i_sb, i_db at d, g, s, s, d, each over (vd, vg, vs)).  With G0 inverted
+once:
 
     A = G0 + U V^T,  b = b0 - U c,  Y = G0^{-1} U,  z = G0^{-1} b0 - Y c
     x = z - Y (I_k + V^T Y)^{-1} V^T z
@@ -29,7 +32,8 @@ from .lu import lu_inverse, lu_solve
 
 class WoodburyPlan:
     """Static index plan of the rank-k update, rows in the order mos, jfet,
-    diode, bjt (Ic row then Ib row per device), switch.
+    diode, bjt (Ic row then Ib row per device), switch, then the charge
+    rows (five per MOS, device-major) when the engine runs the charge model.
 
     The V^T row width W is 3 (MOS/JFET d, g, s; diode p, m, dump; BJT c, b,
     e) unless a switch is present: its row couples the node pair to the
@@ -42,16 +46,23 @@ class WoodburyPlan:
         N = self.N = engine.N
         self.nM, self.nJ = len(t.mos_ed), len(t.jf_ed)
         self.nD, self.nQ, self.nS = len(t.dio_ep), len(t.bjt_ec), len(t.sw_ep)
-        self.k = self.nM + self.nJ + self.nD + 2 * self.nQ + self.nS
+        self.nCq = 5 * self.nM if engine.mos_charge else 0
+        self.k = (self.nM + self.nJ + self.nD + 2 * self.nQ + self.nS
+                  + self.nCq)
         self.W = W = 4 if self.nS else 3
+        # charge rows inject at (d, g, s, s, d) against ground
+        mcq_pos = (np.stack([t.mos_ed, t.mos_eg, t.mos_es, t.mos_es,
+                             t.mos_ed], 1).ravel() if self.nCq
+                   else np.zeros((0,), np.int64))
         # U column j = e_pos[j] - e_neg[j] (dump-mapped entries vanish)
         self.u_pos = np.concatenate([
             t.mos_ed, t.jf_ed, t.dio_ep,
-            np.stack([t.bjt_ec, t.bjt_eb], 1).ravel(), t.sw_ep
+            np.stack([t.bjt_ec, t.bjt_eb], 1).ravel(), t.sw_ep, mcq_pos
         ]).astype(np.int64)
         self.u_neg = np.concatenate([
             t.mos_es, t.jf_es, t.dio_em,
-            np.stack([t.bjt_ee, t.bjt_ee], 1).ravel(), t.sw_em
+            np.stack([t.bjt_ee, t.bjt_ee], 1).ravel(), t.sw_em,
+            np.full(self.nCq, N)
         ]).astype(np.int64)
 
         def cols(*terms):
@@ -67,9 +78,12 @@ class WoodburyPlan:
         self.bjt_cols = cols(t.bjt_ec, t.bjt_eb, t.bjt_ee)
         self.sw_cols = (cols(t.sw_ep, t.sw_em, t.sw_ecp, t.sw_ecm)
                         if self.nS else np.zeros((0, W)))
+        # the charge rows read (vd, vg, vs): all five rows of a device
+        self.mcq_cols = (np.repeat(self.mos_cols, 5, axis=0) if self.nCq
+                         else np.zeros((0, W)))
         self._cols = np.concatenate([
             self.mos_cols, self.jf_cols, self.dio_cols,
-            np.repeat(self.bjt_cols, 2, axis=0), self.sw_cols
+            np.repeat(self.bjt_cols, 2, axis=0), self.sw_cols, self.mcq_cols
         ]).astype(np.int64)
 
     def build_U(self, dtype, device):
@@ -121,8 +135,9 @@ class WoodburySolver:
         """G0^{-1} b0, once per timestep (b0 = sources + history)."""
         return (self.G0inv @ b0[..., None])[..., 0]
 
-    def nl_coeffs(self, params, x):
-        """Per-row V^T values (..., k, W) and Newton constants (..., k)."""
+    def nl_coeffs(self, params, x, qex=None):
+        """Per-row V^T values (..., k, W) and Newton constants (..., k);
+        qex = (qprev, inv_dt) for the charge rows."""
         plan, eng = self.plan, self.engine
         opts = eng.opts
         W = plan.W
@@ -184,6 +199,13 @@ class WoodburySolver:
                 params["sw_vh"], vp, vm, vcp, vcm)
             parts_v.append(rows(gd, -gd, gc, -gc))
             parts_c.append(cst)
+        if plan.nCq:
+            if qex is None:
+                raise ValueError("the charge rows need qex=(qprev, inv_dt)")
+            vdgs = torch.stack(read(self.M_mos, plan.nM)[:3], dim=-1)
+            gq, cq = eng.mosq_linearize(params, vdgs, *qex)
+            parts_v.append(rows(*gq.flatten(-3, -2).unbind(-1)))
+            parts_c.append(cq.flatten(-2))
         if len(parts_v) == 1:
             return parts_v[0], parts_c[0]
         lead = torch.broadcast_shapes(*(c.shape[:-1] for c in parts_c))
@@ -192,12 +214,13 @@ class WoodburySolver:
                 torch.cat([c.expand(lead + c.shape[-1:]) for c in parts_c],
                           dim=-1))
 
-    def solve(self, params, x, z0):
-        """One Newton linear solve: x_raw with A(x) x_raw = b(x)."""
+    def solve(self, params, x, z0, qex=None):
+        """One Newton linear solve: x_raw with A(x) x_raw = b(x); qex =
+        (qprev, inv_dt) under the charge model."""
         plan = self.plan
         if plan.k == 0:
             return z0
-        vcoef, c = self.nl_coeffs(params, x)
+        vcoef, c = self.nl_coeffs(params, x, qex)
         z = z0 - (self.Y @ c[..., None])[..., 0]
         # S = I + V^T Y: S[j, l] = sum_s vcoef[j, s] * Y[cols[j, s], l]
         S = self.eye_k + (vcoef[..., None] * self.Y_cols).sum(-2)

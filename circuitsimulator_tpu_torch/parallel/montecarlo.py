@@ -6,7 +6,10 @@ a leading lane axis written out (no vmap); the DC Newton loop and every
 dense solve run over all lanes at once (the K2 kernel on CUDA).  A
 waveform-free f32 transient on CUDA takes the fused chunk kernel (K1,
 ``ops/fused_step.py``) when the deck is in its scope (R/C/L, sources, E/G/F/H,
-Level-1 MOS, JFET, diode, BJT, S/W switch; Woodbury rank <= 16).
+Level-1 MOS with the fixed or the charge-conserving caps, JFET, diode, BJT,
+S/W switch; Woodbury rank <= 32, so inamp.sp and MOSCAP=CHARGE decks up to
+five MOSFETs run fused).  Under MOSCAP=CHARGE the non-fused carry's state
+holds the MOS charges qm.
 """
 
 from __future__ import annotations
@@ -57,10 +60,11 @@ def batched_dc_fast(engine: Engine, bparams):
     return dc_newton(engine, bparams, batch=lane_count(bparams))
 
 
-def init_carry(engine: Engine, x0):
-    """Transient carry of the batched loop from a (B, N) DC solution."""
+def init_carry(engine: Engine, x0, bparams=None):
+    """Transient carry of the batched loop from a (B, N) DC solution (the
+    charge model needs ``bparams`` for the charges at x0)."""
     failed = torch.zeros(x0.shape[:-1], dtype=torch.bool, device=x0.device)
-    state = engine.init_state(x0)
+    state = engine.init_state(x0, bparams)
     if engine.opts.tran_predictor:
         return (x0, x0, state, failed)
     return (x0, state, failed)
@@ -105,7 +109,7 @@ def make_fused_transient_fn(engine: Engine, bparams, tstep, chunk: int = 2000,
     if x0 is None:
         x0 = batched_dc_fast(engine, bparams)
     x0 = x0.to(engine.dtype)
-    state0 = engine.init_state(x0)
+    state0 = engine.init_state(x0, bparams)
 
     def advance(carry, step0: int, n: int = chunk):
         out = runner.run_chunk(*carry, step0, n)

@@ -4,11 +4,12 @@
 Every knob the reference hard-codes keeps the reference value as its
 default (DC ramp and ConvController constants, transient Newton constants,
 the LU pivot floor), so the default configuration reproduces reference
-numerics.  The fields of backends the port does not have yet (gs,
-tridiag, blockband, adaptive, mixed refinement) are kept so that option
-sets carry over unchanged; selecting such a backend, ``tran_method="trap"``
-or ``mos_cap_model="charge"`` raises ``NotImplementedError`` in the
-engine.
+numerics.  ``mos_cap_model`` is "fixed" (the reference's lumped MOS caps)
+or "charge" (the charge-conserving model, ``models/moscap.py``).  The fields
+of backends the port does not have yet (gs, tridiag, blockband, adaptive,
+mixed refinement) are kept so that option sets carry over unchanged;
+selecting such a backend or ``tran_method="trap"`` raises
+``NotImplementedError`` in the engine.
 """
 
 from __future__ import annotations
@@ -71,7 +72,7 @@ class SolverOptions:
     strict_reference_mode: bool = True
     mos_off_gds: float = 1e-12
     mos_reverse_region: bool = False
-    mos_cap_model: str = "fixed"
+    mos_cap_model: str = "fixed"      # "fixed" | "charge" (MOSCAP=CHARGE)
 
     def replace(self, **kw) -> "SolverOptions":
         return dataclasses.replace(self, **kw)

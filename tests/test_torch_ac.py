@@ -203,13 +203,18 @@ def test_sdomain_filter_waits_for_behavioral_sources():
 
 
 def test_ac_analysis_batched_matches_jax_on_dbmixer():
-    """B = 4 JAX-drawn lanes, F = 5, linearized at the reference DC point
-    (row 0 of the dbmixer golden) in both programs."""
-    from circuitsimulator_tpu.parallel.montecarlo import perturb_params
+    """B = 4 lanes drawn with numpy, F = 5, linearized at the reference DC
+    point (row 0 of the dbmixer golden) in both programs."""
     path = os.path.join(REPO, "tests", "netlists", "dbmixer.sp")
     js = JaxSimulator.from_file(path)
-    jp = dict(perturb_params(js.params, jax.random.key(1), 4, SIGMAS))
-    jp["vs_ac_mag"] = jp["vs_ac_mag"].at[:, 0].set(1.0)
+    rng = np.random.default_rng(1)
+    jp = {k: np.broadcast_to(np.asarray(v), (4,) + np.shape(v)).copy()
+          for k, v in js.params.items()}
+    for key, sigma in SIGMAS.items():
+        jp[key] = jp[key] * np.exp(sigma * rng.standard_normal(
+            jp[key].shape))
+    jp["vs_ac_mag"][:, 0] = 1.0
+    jp = {k: jnp.asarray(v) for k, v in jp.items()}
     ts = Simulator.from_file(path, device="cpu")
     tp = params_from_numpy({k: np.array(v) for k, v in jp.items()})
     row0 = np.loadtxt(os.path.join(GOLDENS, "dbmixer_tran.csv"),
@@ -228,6 +233,52 @@ def test_ac_analysis_batched_matches_jax_on_dbmixer():
     np.testing.assert_array_equal(res.freqs, freqs)
     np.testing.assert_allclose(res.xs, want, rtol=RTOL, atol=ATOL)
     assert np.abs(res.xs).max() > 0.5
+
+
+# the 2-MOS stage under the charge model (tests/test_pallas_step.py), with
+# the input as the AC source
+CHARGE_DECK = """* charge-model CMOS stage
+.OPTIONS MOSCAP=CHARGE
+.MODEL 1 VT -0.75 MU 5e-2 COX 0.3e-4 LAMBDA 0.05 CJ0 4.0e-14
+.MODEL 2 VT 0.83 MU 1.5e-1 COX 0.3e-4 LAMBDA 0.05 CJ0 4.0e-14
+VDD 1 0 3
+Vin 2 0 DC 1.4 AC 1
+M1 3 2 1 p 30e-6 0.35e-6 1
+M2 3 2 0 n 10e-6 0.35e-6 2
+C1 3 0 0.5p
+RL 3 0 10k
+.op
+"""
+
+
+def test_ac_charge_trans_caps_match_jax():
+    """MOSCAP=CHARGE: the trans-capacitances dq_t/dv_j at each lane's
+    operating point enter B1 at the charge rows' entries.  Three lanes
+    (res_r, mos_vth drawn with numpy) at the port's batched f64 DC points,
+    8 frequencies up to 10 GHz: ac_analysis_batched against the JAX batched
+    sweep within 1e-9 lane-relative; the fixed-cap result differs."""
+    from circuitsimulator_tpu_torch.ops.assemble import Engine
+    js = JaxSimulator.from_text(CHARGE_DECK)
+    ts = Simulator.from_text(CHARGE_DECK, device="cpu")
+    assert js.engine.mos_charge and ts.engine.mos_charge
+    rng = np.random.default_rng(3)
+    jp = {k: np.broadcast_to(np.asarray(v), (3,) + np.shape(v)).copy()
+          for k, v in js.params.items()}
+    for key in ("res_r", "mos_vth"):
+        jp[key] = jp[key] * np.exp(0.02 * rng.standard_normal(jp[key].shape))
+    tp = params_from_numpy(jp)
+    x_ops = tmc.batched_dc_fast(ts.engine, tp)
+    freqs = np.logspace(3, 10, 8)
+    res = ac_analysis_batched(ts.engine, tp, freqs, x_ops=x_ops)
+    jx = jnp.asarray(x_ops.numpy())
+    xr, xi = make_ac_batched_fn(js.engine, jnp.asarray(freqs))(
+        {k: jnp.asarray(v) for k, v in jp.items()}, jx)
+    want = np.asarray(xr) + 1j * np.asarray(xi)
+    scale = np.abs(want).reshape(3, -1).max(1)[:, None, None]
+    assert (np.abs(res.xs - want) / scale).max() <= 1e-9
+    fixed = Engine(ts.lowered, ts.opts.replace(mos_cap_model="fixed"), "cpu")
+    other = ac_analysis_batched(fixed, tp, freqs, x_ops=x_ops).xs
+    assert (np.abs(other - want) / scale).max() > 1e-3
 
 
 def test_batched_lanes_equal_single_lane_runs():

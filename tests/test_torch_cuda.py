@@ -255,6 +255,82 @@ def test_fused_step_kernel_matches_plain_k1b(cuda_device, deck, dtype):
                                       ref[5].cpu().numpy())
 
 
+CHARGE_DECK = """* charge-model CMOS stage
+.OPTIONS MOSCAP=CHARGE
+.MODEL 1 VT -0.75 MU 5e-2 COX 0.3e-4 LAMBDA 0.05 CJ0 4.0e-14
+.MODEL 2 VT 0.83 MU 1.5e-1 COX 0.3e-4 LAMBDA 0.05 CJ0 4.0e-14
+VDD 1 0 3
+Vin 2 0 SIN 1.5 0.5 5e6
+M1 3 2 1 p 30e-6 0.35e-6 1
+M2 3 2 0 n 10e-6 0.35e-6 2
+C1 3 0 0.5p
+RL 3 0 10k
+.op
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("deck", ["charge", "inamp", "buffer-charge"])
+def test_fused_step_kernel_matches_plain_k1d(cuda_device, deck, dtype):
+    """K1d-i against the plain version on the same card and inputs, 64
+    lanes x 8 steps, damped configuration: the charge stage (k = 12,
+    elimination with charge rows) and inamp (k = 22, Gauss-Jordan) from the
+    batched f64 DC point, f32 within 1e-4 V, f64 within 1e-10 V with equal
+    per-lane iteration counts; buffer.sp under the charge model (k = 24,
+    Gauss-Jordan with charge rows) from x = 0 in f32 and, in f64, at
+    tran_tol 1e-13 within 1e-10 V (its Newton path depends on rounding at
+    the default tolerance, ROADMAP queue 3), iteration counts not held."""
+    from circuitsimulator_tpu_torch import DEFAULT_OPTIONS
+    from circuitsimulator_tpu_torch.ops import cuda_step
+    from circuitsimulator_tpu_torch.parallel import montecarlo as mc
+    opts = DEFAULT_OPTIONS.replace(dtype=dtype)
+    if dtype == torch.float32:
+        opts = opts.replace(tran_tol=1e-5, dc_tol=1e-5)
+    if deck == "charge":
+        sim = Simulator.from_text(CHARGE_DECK, opts=opts, device=cuda_device)
+        sim64 = Simulator.from_text(CHARGE_DECK, device=cuda_device)
+    else:
+        name = deck.split("-")[0]
+        if deck == "buffer-charge":
+            opts = opts.replace(mos_cap_model="charge")
+            if dtype == torch.float64:
+                opts = opts.replace(tran_tol=1e-13, tran_max_newton_iters=100)
+        path = os.path.join(REPO, "tests", "netlists", f"{name}.sp")
+        sim = Simulator.from_file(path, opts=opts, device=cuda_device)
+        sim64 = Simulator.from_file(
+            path, opts=DEFAULT_OPTIONS.replace(
+                mos_cap_model=opts.mos_cap_model), device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    bp = mc.perturb_params(sim.params, g, 64,
+                           {"res_r": 0.01, "mos_vth": 0.02, "cap_c": 0.02})
+    x0 = mc.batched_dc_fast(sim64.engine,
+                            {k: v.double() if v.is_floating_point() else v
+                             for k, v in bp.items()})
+    carry, advance, meta = mc.make_fused_transient_fn(sim.engine, bp, 1e-9,
+                                                      x0=x0)
+    if deck == "buffer-charge":
+        x = torch.zeros_like(carry[0])
+        st = sim.engine.init_state(x, bp)
+        carry = (x, x, st["vc"], st["il"], carry[4])
+    assert meta["runner"].k == {"charge": 12, "inamp": 22,
+                                "buffer-charge": 24}[deck]
+    before = cuda_step.LAUNCHES
+    got, it = advance(carry, 0, 8)
+    torch.cuda.synchronize()
+    assert cuda_step.LAUNCHES == before + 1
+    ref = meta["runner"].run_chunk_plain(*carry, 0, 8)
+    tol = 1e-4 if dtype == torch.float32 else 1e-10
+    for a, b in zip(got[:4], ref[:4]):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=0,
+                                   atol=tol)
+    np.testing.assert_array_equal(got[4].cpu().numpy(), ref[4].cpu().numpy())
+    assert not bool(got[4].any())
+    if dtype == torch.float64 and deck != "buffer-charge":
+        np.testing.assert_array_equal(it.cpu().numpy(),
+                                      ref[5].cpu().numpy())
+
+
 def ac_lanes(B, n, seed):
     """Diagonally dominant lanes; lane 1 exactly singular, lane 2 NaN."""
     rng = np.random.default_rng(seed)

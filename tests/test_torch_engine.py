@@ -1,6 +1,6 @@
 """MNA assembly and the Woodbury solve of the PyTorch port against the JAX
 Engine on the same numpy inputs (f64, CPU, rtol 1e-12), single-lane and
-with a leading lane axis of JAX-drawn Monte-Carlo parameters."""
+with a leading lane axis of Monte-Carlo parameters drawn with numpy."""
 
 import numpy as np
 import jax
@@ -10,7 +10,6 @@ import torch
 
 from circuitsimulator_tpu import Simulator as JaxSimulator
 from circuitsimulator_tpu.ops.woodbury import WoodburySolver as JaxWoodbury
-from circuitsimulator_tpu.parallel.montecarlo import perturb_params
 from circuitsimulator_tpu_torch import Simulator
 from circuitsimulator_tpu_torch.convert import params_from_numpy
 from circuitsimulator_tpu_torch.ops.woodbury import WoodburySolver
@@ -32,7 +31,15 @@ def pair(request):
     jp = js.params
     lanes = ()
     if request.param.endswith("lanes"):
-        jp = perturb_params(jp, jax.random.key(3), 3, SIGMAS)
+        # three lanes drawn with numpy (perturb_params run eagerly costs
+        # about a second and a half of one-by-one dispatches)
+        rng = np.random.default_rng(3)
+        jp = {k: np.broadcast_to(np.asarray(v), (3,) + np.shape(v)).copy()
+              for k, v in jp.items()}
+        for key, sigma in SIGMAS.items():
+            jp[key] = jp[key] * np.exp(sigma * rng.standard_normal(
+                jp[key].shape))
+        jp = {k: jnp.asarray(v) for k, v in jp.items()}
         lanes = (3,)
     tp = params_from_numpy({k: np.array(v) for k, v in jp.items()})
     rng = np.random.default_rng(17)

@@ -1,8 +1,9 @@
-"""The fused transient chunk (K1, scope K1a + K1b) of the PyTorch port on the
-CPU: its plain version against the JAX Pallas kernel (interpret mode) and
-against the port's own non-fused loop, on MOS decks and on the junction and
-switch decks; the gate against the JAX gate; the ``batched_transient``
-dispatch."""
+"""The fused transient chunk (K1, scopes K1a, K1b and K1d-i) of the PyTorch
+port on the CPU: its plain version against the JAX Pallas kernel
+(interpret mode) and against the port's own non-fused loop, on MOS decks,
+on the junction and switch decks, on the charge-model decks and on the
+rank-22 inamp (the Gauss-Jordan branch); the gate against the JAX gate; the
+``batched_transient`` dispatch."""
 
 import os
 
@@ -14,7 +15,6 @@ import torch
 
 from circuitsimulator_tpu import DEFAULT_OPTIONS as JAX_OPTIONS
 from circuitsimulator_tpu import Simulator as JaxSimulator
-from circuitsimulator_tpu.analysis.dc import dc_operating_point
 from circuitsimulator_tpu.ops import pallas_step
 from circuitsimulator_tpu_torch import DEFAULT_OPTIONS, Simulator
 from circuitsimulator_tpu_torch.convert import params_from_numpy
@@ -125,6 +125,26 @@ D1 mid 0
 .op
 """
 
+# the 2-MOS stage under the charge model (tests/test_pallas_step.py): rank
+# 2 + 10 charge rows = 12, the elimination branch with charge rows
+CHARGE_DECK = """* charge-model CMOS stage
+.OPTIONS MOSCAP=CHARGE
+.MODEL 1 VT -0.75 MU 5e-2 COX 0.3e-4 LAMBDA 0.05 CJ0 4.0e-14
+.MODEL 2 VT 0.83 MU 1.5e-1 COX 0.3e-4 LAMBDA 0.05 CJ0 4.0e-14
+VDD 1 0 3
+Vin 2 0 SIN 1.5 0.5 5e6
+M1 3 2 1 p 30e-6 0.35e-6 1
+M2 3 2 0 n 10e-6 0.35e-6 2
+C1 3 0 0.5p
+RL 3 0 10k
+.op
+"""
+
+# the start point that two runs under test share needs no reference-grade
+# DC: three source-ramp steps to 1e-7 V land within 2e-7 V of the
+# reference's ten to 1e-9 V, at a third of the Newton iterations
+START_DC = {"ramp_steps": 3, "dc_tol": 1e-7}
+
 K1B = {"diode": (DIODE_DECK, 1e-9, 6, 5e-6),
        "bjt": (BJT_DECK, 1e-9, 6, 1e-4),
        "mixed": (MIXED_DECK, 1e-9, 6, 1e-4),
@@ -189,7 +209,7 @@ def test_plain_matches_jax_pallas_kernel(config):
     jp = draw_lanes(js.params, B)
     je = js.engine
     x0 = jnp.zeros((B, je.N), jnp.float32)
-    st0 = jax.vmap(je.init_state)(x0)
+    st0 = jax.jit(jax.vmap(je.init_state))(x0)
     runner = jax_runner(je, jp, dt)
     want = runner.run_chunk(x0, x0, st0["vc"], st0["il"],
                             jnp.zeros((B,), bool), 0, steps, interpret=True)
@@ -215,23 +235,32 @@ def test_plain_matches_jax_pallas_kernel(config):
         assert iters.min() > 0
 
 
+def dc_points(text, jp, opts=DEFAULT_OPTIONS):
+    """The lanes' operating points from the port's float64 batched DC, as
+    float32 numpy: both kernels start there (the float32 DC leaves about 1%
+    of a BJT deck's lanes unconverged, in both packages), computed with
+    START_DC: the points are only shared starting values."""
+    sim = Simulator.from_text(text, opts=opts.replace(**START_DC),
+                              device="cpu")
+    x0 = tmc.batched_dc_fast(sim.engine, params_from_numpy(
+        {k: np.array(v) for k, v in jp.items()}))
+    return x0.numpy().astype(np.float32)
+
+
 @pytest.mark.parametrize("deck", list(K1B))
 def test_plain_matches_jax_pallas_kernel_k1b(deck):
     """The junction and switch decks from the DC operating point (a
     junction at 1e5 S amplifies an f32 ULP to volts from x = 0), B = 128,
     f32 damped: the plain version against the JAX kernel in interpret mode
-    on the same lanes and the same JAX DC points, at the
-    tolerances the JAX tests hold their kernel to."""
+    on the same lanes from the same DC points (the port's f64 batched DC),
+    at the tolerances the JAX tests hold their kernel to."""
     text, dt, steps, tol = K1B[deck]
     B = 128
     js = JaxSimulator.from_text(text, opts=damped(JAX_OPTIONS, jnp.float32))
     jp = draw_lanes(js.params, B)
     je = js.engine
-    ns = js._nodeset()
-    x0 = jax.jit(jax.vmap(
-        lambda p: dc_operating_point(je, p, nodeset=ns)))(jp)
-    x0 = x0.astype(jnp.float32)
-    st0 = jax.vmap(je.init_state)(x0)
+    x0 = jnp.asarray(dc_points(text, jp))
+    st0 = jax.jit(jax.vmap(je.init_state))(x0)
     runner = jax_runner(je, jp, dt)
     want = runner.run_chunk(x0, x0, st0["vc"], st0["il"],
                             jnp.zeros((B,), bool), 0, steps, interpret=True)
@@ -257,8 +286,65 @@ def test_plain_matches_jax_pallas_kernel_k1b(deck):
     assert not fo.any() and iters.min() > 0
 
 
+@pytest.mark.parametrize("deck", ["charge", "buffer-charge"])
+def test_plain_matches_jax_pallas_kernel_k1d(deck):
+    """K1d-i on the charge-model decks, B = 128, 4 steps, f32 damped: the
+    plain version against the JAX kernel in interpret mode on the same lanes
+    within 1e-4 V (the bar of tests/test_pallas_step.py: 1/dt = 1e9 scales
+    the charge rows' rounding).  The 2-MOS stage (k = 12, elimination with
+    charge rows) starts from the port's f64 DC point; buffer.sp under the
+    charge model (k = 24, Gauss-Jordan with charge rows) starts from x = 0:
+    from its DC point the output sits at ~1e-16 V, where the Ward-Dutton
+    triode-charge Jacobian loses every digit (ROADMAP queue 3) and both
+    kernels fail every lane at the first iteration in f32."""
+    B, steps, dt = 128, 4, 1e-9
+    jo = damped(JAX_OPTIONS, jnp.float32).replace(mos_cap_model="charge")
+    to = damped(DEFAULT_OPTIONS, torch.float32).replace(mos_cap_model="charge")
+    if deck == "charge":
+        js = JaxSimulator.from_text(CHARGE_DECK, opts=jo)
+        ts = Simulator.from_text(CHARGE_DECK, opts=to, device="cpu")
+    else:
+        path = os.path.join(NETLISTS, "buffer.sp")
+        js = JaxSimulator.from_file(path, opts=jo)
+        ts = Simulator.from_file(path, opts=to, device="cpu")
+    je = js.engine
+    jp = draw_lanes(js.params, B)
+    if deck == "charge":
+        x0 = jnp.asarray(dc_points(CHARGE_DECK, jp))
+    else:
+        x0 = jnp.zeros((B, je.N), jnp.float32)
+    # both kernels take vc and il of the port's init_state (the JAX one
+    # would trace the charge model's jvp for qm, which K1 does not read)
+    tp = params_from_numpy({k: np.array(v) for k, v in jp.items()},
+                           dtype=torch.float32)
+    x = torch.as_tensor(np.array(x0))
+    st = ts.engine.init_state(x, tp)
+    runner = jax_runner(je, jp, dt)
+    want = runner.run_chunk(x0, x0, jnp.asarray(st["vc"].numpy()),
+                            jnp.asarray(st["il"].numpy()),
+                            jnp.zeros((B,), bool), 0, steps, interpret=True)
+    want = [np.asarray(a) for a in want]
+
+    tr = fused_step.FusedStepRunner(ts.engine, tp, dt)
+    assert (tr.k, tr.W, tr.nCq) == (runner.k, runner.W, runner.nCq)
+    assert tr.k == (12 if deck == "charge" else 24)
+    got = tr.run_chunk_plain(x, x, st["vc"], st["il"],
+                             torch.zeros((B,), dtype=torch.bool), 0, steps)
+    xo, _, vco, ilo, fo, iters = (a.numpy() for a in got)
+    np.testing.assert_allclose(xo, want[0], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(vco, want[2], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(ilo, want[3], rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(fo, want[4])
+    assert not fo.any() and iters.min() > 0
+
+
 def _deck(name, opts):
-    if name in ("dbmixer", "buffer"):
+    if name.endswith("-charge"):
+        opts = opts.replace(mos_cap_model="charge")
+        name = name[:-len("-charge")]
+    if name == "charge":
+        return Simulator.from_text(CHARGE_DECK, opts=opts, device="cpu")
+    if name in ("dbmixer", "buffer", "inamp"):
         return Simulator.from_file(os.path.join(NETLISTS, f"{name}.sp"),
                                    opts=opts, device="cpu")
     if name in K1B:
@@ -268,30 +354,46 @@ def _deck(name, opts):
 
 
 @pytest.mark.parametrize("deck,config,B,steps,dt", [
-    ("dbmixer", "fast", 8, 40, 1e-13),
-    ("dbmixer", "damped", 8, 40, 1e-13),
-    ("buffer", "damped", 4, 40, 1e-9),
-    ("waveform", "damped", 4, 50, 2e-9),
-    ("linear", "damped", 4, 50, 2e-9),
+    ("dbmixer", "fast", 8, 20, 1e-13),
+    ("dbmixer", "damped", 8, 20, 1e-13),
+    ("buffer", "damped", 4, 20, 1e-9),
+    ("waveform", "damped", 4, 25, 2e-9),
+    ("linear", "damped", 4, 25, 2e-9),
     ("diode", "damped", 8, 6, 1e-9),
     ("bjt", "damped", 8, 6, 1e-9),
     ("mixed", "damped", 8, 6, 1e-9),
     ("switch", "damped", 8, 12, 1e-7),
+    ("charge", "damped", 4, 4, 1e-9),
+    ("inamp", "damped", 4, 3, 1e-9),
+    ("buffer-charge", "tight", 4, 3, 1e-9),
 ])
 def test_plain_matches_nonfused_f64(deck, config, B, steps, dt):
-    """f64 from the batched DC point: the plain version of the fused chunk
-    against the port's non-fused loop on the same lanes, within 1e-9 V,
-    with the same failed masks and per-lane Newton iteration counts."""
+    """f64 from the batched DC point (START_DC): the plain
+    version of the fused chunk against the port's non-fused loop on the
+    same lanes, within 1e-9 V, with the same failed masks and per-lane
+    Newton iteration counts.  inamp (k = 22) takes the Gauss-Jordan branch
+    against the non-fused LU.  The
+    "tight" configuration (tran_tol 1e-13, 100 iterations) holds buffer.sp
+    under the charge model (k = 24) to the same 1e-9 V: at the default
+    1e-6 its damped Newton stops on a path that depends on rounding (the
+    triode-charge Jacobian has no correct digit at its output's ~1e-16 V
+    drain, ROADMAP queue 3), so there the iteration counts are not
+    compared."""
     opts = (fast(DEFAULT_OPTIONS, torch.float64) if config == "fast"
             else DEFAULT_OPTIONS)
-    sim = _deck(deck, opts)
+    if config == "tight":
+        opts = opts.replace(tran_tol=1e-13, tran_max_newton_iters=100)
+    # both runs start from the same point (START_DC)
+    sim = _deck(deck, opts.replace(
+        ramp_steps=START_DC["ramp_steps"],
+        dc_tol=max(opts.dc_tol, START_DC["dc_tol"])))
     assert fused_step.supported(sim.engine, dt)
     bp = tmc.perturb_params(sim.params, torch.Generator().manual_seed(3), B,
                             K1B_SIGMAS)
     carry, advance, _ = tmc.make_fused_transient_fn(sim.engine, bp, dt,
                                                     chunk=steps)
     (x, xp, vc, il, failed), iters = advance(carry, 0, steps)
-    ref = tmc.init_carry(sim.engine, carry[0])
+    ref = tmc.init_carry(sim.engine, carry[0], bp)
     ts = torch.arange(1, steps + 1, dtype=torch.float64) * dt
     ref, ref_iters = tmc.batched_transient_chunk(sim.engine, bp, ref, ts, dt)
     np.testing.assert_allclose(x.numpy(), ref[0].numpy(), rtol=0, atol=1e-9)
@@ -300,33 +402,43 @@ def test_plain_matches_nonfused_f64(deck, config, B, steps, dt):
     np.testing.assert_allclose(il.numpy(), ref[-2]["il"].numpy(), rtol=0,
                                atol=1e-9)
     np.testing.assert_array_equal(failed.numpy(), ref[-1].numpy())
-    np.testing.assert_array_equal(iters.numpy(), ref_iters.numpy())
+    assert not failed.any()
+    if config != "tight":
+        np.testing.assert_array_equal(iters.numpy(), ref_iters.numpy())
 
 
 @pytest.mark.parametrize("deck,expect", [
-    ("buffer", True), ("dbmixer", True), ("inamp", False),
+    ("buffer", True), ("dbmixer", True), ("inamp", True),
     ("waveform", True), ("linear", True), ("diode", True), ("bjt", True),
     ("mixed", True), ("switch", True), ("bjt_amp", True), ("chopper", True),
-    ("mixer_rf", True),
+    ("mixer_rf", True), ("charge", True), ("buffer-charge", True),
+    ("dbmixer-charge", False),
 ])
 def test_gate_implies_jax_gate(deck, expect):
-    if deck in ("buffer", "dbmixer", "inamp", "bjt_amp", "chopper",
+    name = deck.split("-")[0]
+    opts = {}
+    if deck.endswith("-charge"):
+        opts = {"mos_cap_model": "charge"}
+    if name in ("buffer", "dbmixer", "inamp", "bjt_amp", "chopper",
                 "mixer_rf"):
-        folder = NETLISTS if deck in ("buffer", "dbmixer", "inamp") \
+        folder = NETLISTS if name in ("buffer", "dbmixer", "inamp") \
             else os.path.join(REPO, "examples")
-        path = os.path.join(folder, f"{deck}.sp")
-        js = JaxSimulator.from_file(path)
-        ts = Simulator.from_file(path, device="cpu")
+        path = os.path.join(folder, f"{name}.sp")
+        js = JaxSimulator.from_file(path, opts=JAX_OPTIONS.replace(**opts))
+        ts = Simulator.from_file(path, opts=DEFAULT_OPTIONS.replace(**opts),
+                                 device="cpu")
     else:
-        text = {"waveform": WAVEFORM_DECK, "linear": LINEAR_DECK}.get(
-            deck) or K1B[deck][0]
+        text = {"waveform": WAVEFORM_DECK, "linear": LINEAR_DECK,
+                "charge": CHARGE_DECK}.get(name) or K1B[name][0]
         js = JaxSimulator.from_text(text)
         ts = Simulator.from_text(text, device="cpu")
     ours = fused_step.supported(ts.engine, 1e-9)
     assert ours == expect
     assert not ours or pallas_step.supported(js.engine, 1e-9)
-    if deck == "inamp":
-        assert "k = 22" in fused_step.unsupported_reason(ts.engine, 1e-9)
+    assert ts.engine.mos_charge == js.engine.mos_charge
+    if deck == "dbmixer-charge":
+        assert "k = 36 > 32" in fused_step.unsupported_reason(ts.engine,
+                                                              1e-9)
 
 
 @pytest.fixture
@@ -341,15 +453,15 @@ def no_cuda_kernel(monkeypatch):
 def test_dispatch_on_cpu(no_cuda_kernel):
     """fused="auto" on CPU tensors takes the non-fused loop, fused=True the
     kernel's plain version; both agree and neither reaches the kernel."""
-    sim = _deck("dbmixer", DEFAULT_OPTIONS)
+    sim = _deck("dbmixer", DEFAULT_OPTIONS.replace(**START_DC))
     bp = tmc.perturb_params(sim.params, torch.Generator().manual_seed(5), 4,
                             SIGMAS)
-    dt, n = 1e-13, 8
-    auto = tmc.batched_transient(sim.engine, bp, dt, n * dt)
-    assert auto.xs is None and tuple(auto.newton_iters.shape) == (n, 4)
-    # the other two runs start from the same operating points (one batched
-    # DC, not three)
+    dt, n = 1e-13, 4
+    # the three runs start from the same operating points (one batched DC,
+    # not three)
     x0 = tmc.batched_dc_fast(sim.engine, bp)
+    auto = tmc.batched_transient(sim.engine, bp, dt, n * dt, x0=x0)
+    assert auto.xs is None and tuple(auto.newton_iters.shape) == (n, 4)
     forced = tmc.batched_transient(sim.engine, bp, dt, n * dt, fused=True,
                                    x0=x0)
     assert forced.xs is None and tuple(forced.newton_iters.shape) == (4,)
@@ -363,14 +475,13 @@ def test_dispatch_on_cpu(no_cuda_kernel):
 
 
 @pytest.mark.parametrize("deck,what", [
-    ("inamp", "k = 22"),
+    ("dbmixer-charge", "k = 36 > 32"),
     ("* pwl\nV1 1 0 PWL(0 0 1n 1 2n 0 3n 1 4n 0 5n 1 6n 0 7n 1 8n 0)\n"
      "R1 1 0 1k\n.op\n", "PWL"),
 ])
 def test_out_of_scope_fused_raises_by_name(no_cuda_kernel, deck, what):
-    if deck == "inamp":
-        sim = Simulator.from_file(os.path.join(NETLISTS, "inamp.sp"),
-                                  device="cpu")
+    if deck == "dbmixer-charge":
+        sim = _deck(deck, DEFAULT_OPTIONS)
     else:
         sim = Simulator.from_text(deck, device="cpu")
     bp = tmc.broadcast_params(sim.params, 2)
