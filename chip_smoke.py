@@ -84,12 +84,33 @@ Phases (one JSON line each):
      loop (1e-9 V; the 2-MOS stage 120 steps from its DC point, buffer.sp
      60 steps from x = 0 at tran_tol 1e-13); then the AC of the 2-MOS
      stage at B = 4096 x F = 64 (its charge trans-caps in B1), f32 and
-     f64, f64 against the real 2N route (1e-9).
+     f64, f64 against the real 2N route (1e-9);
+ 17. K1d-ii, the B-source rows, against the plain version on the card
+     (k1d_ii_vs_plain): the B deck of tests/test_pallas_step.py (an I-form
+     source with a .PARAM, a V-form source with a time term, a diode),
+     examples/behavioral.sp (W = 4) and examples/sdomain_filter.sp
+     (POLY(3) sources, W = 6), 256 lanes x 10 steps from each lane's f64
+     DC point, damped configuration, resistors and b_consts perturbed: f32
+     within 1e-4 V, f64 within 1e-9 V with equal per-lane iteration counts;
+ 18. the fused Monte-Carlo path on behavioral.sp over its own .TRAN (2 ns,
+     5,000 steps in chunks of 250), B = 8192 f32 damped from an f64 DC:
+     lane-steps/s, K1 ms per chunk against plain (25 steps) and bound,
+     failed lanes; then B = 1024 in f64 against the non-fused loop (1e-9 V);
+ 19. the CLI on B-source decks (cli_bsource): behavioral.sp in f64 on the
+     card, its DC table byte-identical to the JAX CLI's
+     (tests/goldens/behavioral_stdout_jax.txt) and its CSV within 1e-9 V of
+     tests/goldens/behavioral_tran_jax.csv; then --no-tran --run-ac on
+     sdomain_filter.sp against tests/goldens/sdomain_filter_ac_jax.csv
+     (1e-9);
+ 20. .NODESET (nodeset): inamp.sp's f64 CLI DC (--no-tran) runs to its end
+     on the card.  Phase 15's float32 lanes start as
+     benchmarks/bench_inamp.py does: the nominal f64 DC with the deck's
+     .NODESET card, then the warm batched DC (batched_dc_warm).
 
 Every error of K3 and of the AC path is lane-relative: for each lane
 max|x - ref| / max|ref| over its frequencies and unknowns, then the worst
 lane.  Kernel launch counts are reset just before each main-path run
-(phases 4, 7, 8, 11, 12, 13, 15 and 16) and read just after it.  The
+(phases 4, 7, 8, 11, 12, 13, 15, 16 and 18) and read just after it.  The
 junction decks run the damped while-loop Newton configuration at f32
 tolerances: the fast configuration (alpha 1, predictor, two unrolled
 iterations) was tuned on dbmixer and is not held to anything on
@@ -260,6 +281,26 @@ RL 3 0 10k
 # the same stage with its input as the AC source
 CHARGE_AC_DECK = CHARGE_DECK.replace("Vin 2 0 SIN 1.5 0.5 5e6",
                                      "Vin 2 0 DC 1.4 AC 1")
+
+# the B-source deck of tests/test_pallas_step.py: an I-form source with a
+# .PARAM, a V-form source with a time term, and a diode
+B_DECK = """* behavioral multiplier + limiter + diode
+.PARAM gain=1m
+V1 a 0 SIN 0 1 1e4
+V2 b 0 SIN 0 1 1.3e4
+R1 a 0 1k
+R2 b 0 1k
+B1 p 0 I=v(a)*v(b)*gain
+RP p 0 1k
+B2 q 0 V=tanh(v(p)*2)+0.1*sin(6.28e4*time)
+RQ q 0 2k
+C1 q 0 10n
+D1 q 0 IS=1e-14
+.op
+"""
+# B-source decks vary their resistors and the .PARAM values the
+# expressions read
+B_SIGMAS = {"res_r": 0.01, "b_consts": 0.05}
 
 K1B_DECKS = (("diode + zener", DIODE_DECK, 1e-9, 6),
              ("npn + pnp", BJT_DECK, 1e-9, 6),
@@ -750,21 +791,31 @@ def k1_work(runner, n_steps, n_iters):
     charge evaluation per MOS); per Newton iteration: the device
     linearisations (MOS/JFET ~25, diode ~20 or ~32 with breakdown, BJT
     ~75, switch ~35, an exp or log counted as one; per charge-model MOS its
-    charges on dual numbers and five rows of ~9), z, S, vz, the k x k
-    solve (``k_solve_ops``), x_raw, accept."""
+    charges on dual numbers and five rows of ~9; per B source each tape
+    instruction on its value and its m partials, 1 + m operations, and ~4
+    per probe pair for the row), z, S, vz, the k x k solve
+    (``k_solve_ops``), x_raw, accept.  The B tapes are read once (every
+    lane reads the same ones), their constants once per lane."""
     B, N, k, P, W = runner.B, runner.N, runner.k, runner.P, runner.W
     size = runner.G0invT.element_size()
+    nc = runner.bconsts.shape[0] if runner.nB else 0
     nbytes = size * B * (N * N + k * N + W * k * k + 4 * runner.nMJ
                          + 5 * runner.nD + 6 * runner.nQ + 4 * runner.nSw
-                         + 4 * runner.nMq
+                         + 4 * runner.nMq + nc
                          + runner.nS * (1 + 7 + 5 + 2 * P) + runner.nCap
                          + runner.nL + 2 * (2 * N + runner.nCap + runner.nL))
     nbytes += 4 * B * (runner.nS + 3)
+    if runner.nB:
+        nbytes += (4 * (runner.b_ops.numel() + runner.b_meta.numel())
+                   + size * runner.b_lits.numel())
+    b_ops = sum(len(bs.tape.ops) * (1 + len(bs.pairs)) + 4 * len(bs.pairs)
+                + 2 for bs in runner.b_sources)
     per_step = (22 * runner.nS + 2 * runner.nL + 4 * runner.nCap
                 + 2 * N * N + 2 * N + CHARGE_OPS * runner.nMq)
     dio = 32 if runner.flags["dio_bv"] else 20
     per_iter = (25 * runner.nMJ + dio * runner.nD + 75 * runner.nQ
                 + 35 * runner.nSw + (CHARGE_DUAL_OPS + 45) * runner.nMq
+                + b_ops
                 + 2 * k * N + 2 * W * k * k + 2 * W * k + k_solve_ops(k)
                 + 2 * k * N + 7 * N)
     return nbytes, B * n_steps * per_step + n_iters * per_iter
@@ -786,12 +837,14 @@ def _dc_failed_lanes(engine, bp, x0, bar):
 
 
 def _fused_run(opts, B, n_steps, chunk, seed, deck=None, sigmas=SIGMAS,
-               dt=None, dc64=False, x_zero=False, allow_failed=False):
-    """The fused main path: batched DC (K2; in float64 with dc64), or x = 0
-    with x_zero (a power-up transient), then K1 chunks.  Counts are reset
-    just before and read just after.  Every lane must finish unless
-    allow_failed (then the failed lanes are counted and the others must be
-    finite)."""
+               dt=None, dc64=False, x_zero=False, allow_failed=False,
+               warm=False):
+    """The fused main path: batched DC (K2; in float64 with dc64; with warm
+    the nominal float64 DC with the deck's .NODESET card, then the warm
+    batched DC from it), or x = 0 with x_zero (a power-up transient), then
+    K1 chunks.  Counts are reset just before and read just after.  Every
+    lane must finish unless allow_failed (then the failed lanes are counted
+    and the others must be finite)."""
     import torch
     from circuitsimulator_tpu_torch import DEFAULT_OPTIONS
     from circuitsimulator_tpu_torch.ops import cuda_lu, cuda_step
@@ -804,7 +857,13 @@ def _fused_run(opts, B, n_steps, chunk, seed, deck=None, sigmas=SIGMAS,
     cuda_lu.LAUNCHES = 0
     cuda_step.LAUNCHES = 0
     t0 = time.perf_counter()
-    x0 = _dc_f64(sim64, bp)[0] if dc64 else None
+    x0 = None
+    if warm:
+        bp64 = {k: (v.double() if v.is_floating_point() else v)
+                for k, v in bp.items()}
+        x0 = mc.batched_dc_warm(sim64.engine, bp64, sim64.dc())
+    elif dc64:
+        x0 = _dc_f64(sim64, bp)[0]
     if x_zero:
         x0 = torch.zeros((B, sim.engine.N), dtype=opts.dtype, device="cuda")
     carry, advance, meta = mc.make_fused_transient_fn(sim.engine, bp, dt,
@@ -1433,9 +1492,10 @@ def phase_monte_carlo_fused_inamp():
     deck = os.path.join(NETLISTS, "inamp.sp")
     m, carry, runner, _, _, _ = _fused_run(fast_f32_options(), 8192, 2000,
                                            250, seed=48, deck=deck,
-                                           dc64=True)
+                                           dc64=True, warm=True)
     m["deck"], m["N"], m["k"], m["W"] = "inamp", runner.N, runner.k, runner.W
     m["dc_dtype"] = "float64"
+    m["dc_start"] = "nominal DC with its .NODESET card, then batched_dc_warm"
     check(bool(torch.isfinite(carry[0]).all()), "inamp: non-finite x")
     main = _k1_at_main_shape(runner, carry, 2000, 250, 1e-3)
     m["kernel_at_main_shape"] = main
@@ -1549,6 +1609,144 @@ def phase_monte_carlo_fused_charge():
     return out
 
 
+# ------------------------------------------------------------- phase 17
+def phase_k1d_ii():
+    """K1d-ii (the B-source rows) against the plain version."""
+    import torch
+    from circuitsimulator_tpu_torch import DEFAULT_OPTIONS
+    rows = []
+    for name, deck, dt, W in (
+            ("B deck", B_DECK, 1e-6, 4),
+            ("behavioral", os.path.join(EXAMPLES, "behavioral.sp"), None, 4),
+            ("sdomain_filter", os.path.join(EXAMPLES, "sdomain_filter.sp"),
+             None, 6)):
+        sim64 = _sim(DEFAULT_OPTIONS, deck)
+        for opts, tol in ((damped_f32_options(), 1e-4),
+                          (DEFAULT_OPTIONS, 1e-9)):
+            row, runner, _ = _k1_case(
+                f"{name} {str(opts.dtype)[6:]} damped from DC",
+                _sim(opts, deck), 256, 10, True, tol, sigmas=B_SIGMAS, dt=dt,
+                sim64=sim64)
+            row["b_sources"] = runner.nB
+            check(runner.W == W and runner.nB > 0, f"K1d-ii {name}: W, nB")
+            check(row["failed_lanes"] == 0, f"K1d-ii {name}: failed lanes")
+            if opts.dtype == torch.float64:
+                check(row["iters_equal"], f"K1d-ii {name}: iteration counts")
+            rows.append(row)
+    # sdomain_filter (POLY(3) rows, W = 6) at the main width over its own
+    # .TRAN (250 steps of 20 us) from the f64 DC: time, plain and bound
+    from circuitsimulator_tpu_torch.parallel import montecarlo as mc
+    deck = os.path.join(EXAMPLES, "sdomain_filter.sp")
+    sim, bp = _mc_lanes(damped_f32_options(), 8192, 55, deck, B_SIGMAS)
+    x0 = _dc_f64(_sim(DEFAULT_OPTIONS, deck), bp)[0]
+    carry, _, meta = mc.make_fused_transient_fn(
+        sim.engine, bp, sim.config.tran.tstep, x0=x0)
+    timing = _k1_at_main_shape(meta["runner"], carry, 0, 250, 1e-3,
+                               plain_steps=25)
+    timing["case"] = "sdomain_filter f32 damped, main width"
+    emit("k1d_ii_vs_plain", cases=rows, timing_per_chunk=timing)
+    return max([r["max_abs_err"] for r in rows] + [timing["max_abs_err"]])
+
+
+# ------------------------------------------------------------- phase 18
+def phase_monte_carlo_fused_behavioral():
+    """behavioral.sp (three B sources) on the fused path."""
+    import torch
+    from circuitsimulator_tpu_torch import DEFAULT_OPTIONS
+    from circuitsimulator_tpu_torch.parallel import montecarlo as mc
+    deck = os.path.join(EXAMPLES, "behavioral.sp")
+    m, carry, runner, _, _, _ = _fused_run(
+        damped_f32_options(), 8192, 5000, 250, seed=53, deck=deck,
+        sigmas=B_SIGMAS, dc64=True)
+    m["deck"], m["N"], m["k"], m["W"] = ("behavioral", runner.N, runner.k,
+                                         runner.W)
+    m["b_sources"], m["dc_dtype"] = runner.nB, "float64"
+    check(bool(torch.isfinite(carry[0]).all()), "behavioral: non-finite x")
+    main = _k1_at_main_shape(runner, carry, 5000, 250, 1e-3, plain_steps=25)
+    m["kernel_at_main_shape"] = main
+    m["ms_per_chunk"] = main["kernel_ms"]
+    emit("monte_carlo_fused_behavioral_f32", **m)
+    n = 200
+    m64, carry64, _, _, _, (sim, bp) = _fused_run(
+        DEFAULT_OPTIONS, 1024, n, n, seed=54, deck=deck, sigmas=B_SIGMAS)
+    dt = sim.config.tran.tstep
+    t0 = time.perf_counter()
+    ref = mc.batched_transient(sim.engine, bp, dt, n * dt, fused=False)
+    torch.cuda.synchronize()
+    m64["nonfused_s"] = time.perf_counter() - t0
+    m64["final_max_abs_vs_nonfused"] = float(
+        (carry64[0] - ref.x_final).abs().max())
+    check(not bool(ref.failed.any()), "behavioral non-fused f64 failed")
+    check(m64["final_max_abs_vs_nonfused"] <= 1e-9,
+          "behavioral fused f64 within 1e-9 V of the non-fused run")
+    emit("monte_carlo_fused_behavioral_f64", **m64)
+    return m, main
+
+
+# ------------------------------------------------------- phases 19, 20
+def _cli(args):
+    """(exit code, stdout, seconds) of the port's CLI run in-process."""
+    from circuitsimulator_tpu_torch import cli
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(args)
+    return rc, buf.getvalue(), time.perf_counter() - t0
+
+
+def phase_cli_bsource():
+    """The CLI on behavioral.sp (transient) and sdomain_filter.sp (AC) in
+    f64 on the card against the JAX CLI's goldens."""
+    import numpy as np
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_b_")
+    here = os.getcwd()
+    try:
+        # the golden names the deck relative to the cwd
+        os.makedirs(os.path.join(tmp, "examples"))
+        for deck in ("behavioral", "sdomain_filter"):
+            shutil.copy(os.path.join(EXAMPLES, f"{deck}.sp"),
+                        os.path.join(tmp, "examples"))
+        os.chdir(tmp)
+        rc, text, out["behavioral_cli_s"] = _cli(
+            ["examples/behavioral.sp", "behavioral_tran.csv", "--device",
+             "cuda"])
+        check(rc == 0, "behavioral CLI exit code")
+        gold = read_golden("behavioral_stdout_jax.txt")
+        check(text[:len(gold)] == gold,
+              "behavioral DC table byte-identical to the JAX CLI's")
+        got = np.loadtxt("behavioral_tran.csv", delimiter=",", skiprows=1)
+        ref = golden_rows("behavioral_tran_jax.csv", None)
+        check(got.shape == ref.shape, "behavioral CSV shape")
+        out["behavioral_csv_max_abs"] = float(np.abs(got - ref).max())
+        check(out["behavioral_csv_max_abs"] <= 1e-9,
+              "behavioral CSV within 1e-9 V of the JAX golden")
+        rc, text, out["sdomain_filter_ac_cli_s"] = _cli(
+            ["examples/sdomain_filter.sp", "--no-tran", "--run-ac",
+             "sdomain_ac.csv", "--device", "cuda"])
+        check(rc == 0, "sdomain_filter --run-ac exit code")
+        err, flips = _ac_csv_err("sdomain_ac.csv", os.path.join(
+            GOLDENS, "sdomain_filter_ac_jax.csv"))
+        out["sdomain_filter_ac_rel_err"] = err
+        out["sdomain_filter_ac_print_flips"] = flips
+        check(err <= 1e-9, f"sdomain_filter --run-ac within 1e-9: {err}")
+    finally:
+        os.chdir(here)
+        shutil.rmtree(tmp)
+    emit("cli_bsource", **out)
+
+
+def phase_nodeset():
+    """inamp.sp's .NODESET DC through the CLI on the card (f64)."""
+    from circuitsimulator_tpu_torch.ops import cuda_lu
+    cuda_lu.LAUNCHES = 0
+    rc, text, secs = _cli([os.path.join(NETLISTS, "inamp.sp"), "--no-tran",
+                           "--device", "cuda"])
+    check(rc == 0, "inamp CLI DC exit code")
+    check("DC analysis finished." in text, "inamp CLI DC table")
+    emit("nodeset", deck="inamp", cli_s=secs, k2_launches=cuda_lu.LAUNCHES)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1572,6 +1770,10 @@ def main():
     k1d_err = phase_k1d()
     inamp, inamp_main = phase_monte_carlo_fused_inamp()
     charge = phase_monte_carlo_fused_charge()
+    k1d_ii_err = phase_k1d_ii()
+    beh, beh_main = phase_monte_carlo_fused_behavioral()
+    phase_cli_bsource()
+    phase_nodeset()
     k3_main = k3_timings["float32"]  # B=4096, F=64, N=31: the bench shape
     k2_main = timings[0]             # B=8192, N=31, R=1, f32: batched DC
     # launches: read just after each main path's run, counts set to 0 just
@@ -1584,7 +1786,9 @@ def main():
                            inamp["setup_k2_launches"],
                        **{f"monte_carlo_fused_{n}_f32":
                           charge[n][0]["setup_k2_launches"]
-                          for n in ("charge_stage", "buffer_charge")}},
+                          for n in ("charge_stage", "buffer_charge")},
+                       "monte_carlo_fused_behavioral_f32":
+                           beh["setup_k2_launches"]},
         "fused_step": {"monte_carlo_fused_f32_fast": k1_launches,
                        "monte_carlo_fused_bjt_f32": bjt["k1_launches"],
                        **{f"monte_carlo_fused_{n}_f32": m["k1_launches"]
@@ -1592,7 +1796,9 @@ def main():
                        "monte_carlo_fused_inamp_f32": inamp["k1_launches"],
                        **{f"monte_carlo_fused_{n}_f32":
                           charge[n][0]["k1_launches"]
-                          for n in ("charge_stage", "buffer_charge")}},
+                          for n in ("charge_stage", "buffer_charge")},
+                       "monte_carlo_fused_behavioral_f32":
+                           beh["k1_launches"]},
         "ac_sweep": {"ac_monte_carlo_f32": ac_main["k3_launches"],
                      "ac_bjt_f32": ac_bjt["k3_launches"],
                      "ac_charge_f32": charge["ac_f32"]["k3_launches"]}}
@@ -1609,7 +1815,7 @@ def main():
         "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],
         "library_ms": k2_main["library_ms"]}, {
         "name": "fused_step", "route": "cuda",
-        "scope": "K1a + K1b + K1d-i",
+        "scope": "K1a + K1b + K1d-i + K1d-ii",
         "source": "circuitsimulator_tpu_torch/csrc/fused_step.cu",
         "replaces": "circuitsimulator_tpu/ops/pallas_step.py:582",
         "launches": sum(paths["fused_step"].values()),
@@ -1618,7 +1824,8 @@ def main():
                            bjt_main["max_abs_err"], k1d_err,
                            inamp_main["max_abs_err"],
                            *(charge[n][1]["max_abs_err"]
-                             for n in ("charge_stage", "buffer_charge"))),
+                             for n in ("charge_stage", "buffer_charge")),
+                           k1d_ii_err, beh_main["max_abs_err"]),
         "ms": k1_main["kernel_ms"], "plain_ms": k1_main["plain_ms"],
         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
         "library_ms": None,
@@ -1628,7 +1835,8 @@ def main():
             "K1d-i inamp B=8192 x 250 steps f32 fast": inamp_main,
             **{f"K1d-i {n} B=8192 x {charge[n][1]['steps']} steps f32 "
                "damped": charge[n][1]
-               for n in ("charge_stage", "buffer_charge")}}}, {
+               for n in ("charge_stage", "buffer_charge")},
+            "K1d-ii behavioral B=8192 x 250 steps f32 damped": beh_main}}, {
         "name": "ac_sweep", "route": "cuda",
         "source": "circuitsimulator_tpu_torch/csrc/ac_sweep.cu",
         "replaces": "circuitsimulator_tpu/ops/pallas_ac.py:49",

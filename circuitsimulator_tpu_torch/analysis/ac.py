@@ -10,6 +10,8 @@ port of ``circuitsimulator_tpu/analysis/ac.py``.
      V: branch rows +/-1, J[k] = acMag e^{j phase}
      I: J[p] -= Iac, J[m] += Iac
      E/G/F/H: their static stamps;    MOS: DC-point conductances;
+     B: the V form's branch couplings, and the expression's gradient at
+     the operating point (part of the linearisation);
      MOSCAP=CHARGE: jw C_tj with C_tj = dq_t/dv_j at the operating point
      (``models/moscap.charge_jacobian``) at the charge rows' entries.
 
@@ -21,9 +23,9 @@ the same route, in every dtype.  ``solve_ac_real`` keeps the JAX CPU route,
 the real 2N system [[G, -B], [B, G]], as a reference.
 
 Devices whose AC stamps the port has not ported raise NotImplementedError:
-transmission lines and mutual inductance (B sources are refused at
-lowering).  Sweep conventions: lin = n points total; dec = n points per
-decade; oct = n points per octave (endpoints included).
+transmission lines and mutual inductance.  Sweep conventions: lin = n
+points total; dec = n points per decade; oct = n points per octave
+(endpoints included).
 """
 
 from __future__ import annotations
@@ -96,15 +98,19 @@ def ac_system_real(engine: Engine, params, x_op, omega):
     dtype, dev = engine.dtype, engine.device
     omega = torch.as_tensor(omega, dtype=dtype, device=dev)
     gvals, _ = engine._nl_vals(params, x_op)
+    # the B V-form branch couplings are static; the expression part is in
+    # the linearisation at the operating point (gvals)
     parts = [engine._res_vals(params), engine.dc_const_vals,
-             engine._ctrl_vals(params), gvals]
+             engine._ctrl_vals(params), engine.b_static_vals, gvals]
     lead = torch.broadcast_shapes(*(p.shape[:-1] for p in parts))
     gv = torch.cat([p.expand(lead + p.shape[-1:]) for p in parts], -1)
     G = _scatter(engine,
                  np.concatenate([engine.res_rows, engine.dc_const_rows,
-                                 engine.ctrl_rows, engine.nl_rows]),
+                                 engine.ctrl_rows, engine.b_static_rows,
+                                 engine.nl_rows]),
                  np.concatenate([engine.res_cols, engine.dc_const_cols,
-                                 engine.ctrl_cols, engine.nl_cols]), gv, lead)
+                                 engine.ctrl_cols, engine.b_static_cols,
+                                 engine.nl_cols]), gv, lead)
     C = engine._caplike_C(params)
     L = params["ind_l"]
     bparts = [_two_terminal_vals(omega * C), -omega * L]

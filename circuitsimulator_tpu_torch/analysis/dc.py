@@ -40,9 +40,14 @@ def dc_linear(engine: Engine, params):
 
 @torch.inference_mode()
 def dc_newton(engine: Engine, params, batch: int = 0, x_init=None,
-              final_only: bool = False):
+              final_only: bool = False, nodeset=None):
     """dcSolveNewtonLU: source ramp + damped Newton.  x_init warm-starts
-    Newton; final_only skips the ramp and runs only the scale = 1 step."""
+    Newton; final_only skips the ramp and runs only the scale = 1 step.
+
+    nodeset = (eqs, vals) (``Simulator._nodeset``, the .NODESET card):
+    Newton starts from x[eqs] = vals, and every ramp step but the last
+    holds those unknowns there with a unit conductance to vals (G[e, e] +=
+    1, I[e] += vals); the last step releases the hold."""
     opts = engine.opts
     N, dtype, dev = engine.N, engine.dtype, engine.device
     ramp = opts.ramp_steps
@@ -54,9 +59,22 @@ def dc_newton(engine: Engine, params, batch: int = 0, x_init=None,
             lane_shape + (N,)).clone()
     else:
         x = torch.zeros(lane_shape + (N,), dtype=dtype, device=dev)
+    if nodeset is not None:
+        ns_eqs = torch.as_tensor(nodeset[0], dtype=torch.long, device=dev)
+        ns_vals = torch.as_tensor(nodeset[1], dtype=dtype, device=dev)
+        ns_diag = ns_eqs * (N + 2)        # flat (e, e) of the (N+1)^2 matrix
+        x[..., ns_eqs] = ns_vals
     for step in range(ramp - 1 if final_only else 0, ramp):
         scale = torch.tensor(float(step + 1), dtype=dtype, device=dev) / ramp
         G_s, I_s = engine.dc_static(params, scale)
+        if nodeset is not None and step < ramp - 1:
+            # hold: a unit conductance from each set unknown to its value
+            Gf = G_s.flatten(-2)
+            Gf.index_add_(-1, ns_diag, torch.ones_like(ns_vals).expand(
+                Gf.shape[:-1] + ns_vals.shape))
+            G_s = Gf.unflatten(-1, G_s.shape[-2:])
+            I_s.index_add_(-1, ns_eqs, ns_vals.expand(I_s.shape[:-1]
+                                                      + ns_vals.shape))
         s = torch.clamp(scale, 0.0, 1.0)
         gmin_base = opts.gmin_high_base * (1.0 - s) + opts.gmin_low_base * s
         gmin = gmin_base.expand(lane_shape).clone()
@@ -112,9 +130,9 @@ def dc_newton(engine: Engine, params, batch: int = 0, x_init=None,
     return x
 
 
-def dc_operating_point(engine: Engine, params):
-    """computeDcOperatingPoint: Newton for nonlinear circuits, else one
-    direct LU solve."""
+def dc_operating_point(engine: Engine, params, nodeset=None):
+    """computeDcOperatingPoint: Newton for nonlinear circuits (with the
+    .NODESET hold of ``dc_newton``), else one direct LU solve."""
     if engine.topo.has_nonlinear:
-        return dc_newton(engine, params)
+        return dc_newton(engine, params, nodeset=nodeset)
     return dc_linear(engine, params)

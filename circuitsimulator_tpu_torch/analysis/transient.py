@@ -60,12 +60,12 @@ def transient_step_fn(engine: Engine, params, dt, predictor: bool = False):
     # the charge rows' BE companion reads the previous step's charges
     inv_dt = 1.0 / dt if engine.mos_charge else None
 
-    def body(c, z0, qex, masked: bool):
+    def body(c, z0, qex, t, masked: bool):
         """One damped Newton iteration.  masked=True freezes lanes that were
         done before it (the while-loop form: a vmapped while_loop does not
         touch the carry of a lane whose condition is false)."""
         x, done, failed, it = c
-        x_raw = wb.solve(params, x, z0, qex)
+        x_raw = wb.solve(params, x, z0, qex, t)
         finite = torch.isfinite(x_raw).all(-1)
         upd_vec = x_raw - x
         if clamp > 0.0:
@@ -96,12 +96,12 @@ def transient_step_fn(engine: Engine, params, dt, predictor: bool = False):
         c = (x_init, failed, failed, torch.zeros_like(failed, dtype=torch.int32))
         if unrolled > 0:
             for _ in range(unrolled):
-                c = body(c, z0, qex, masked=False)
+                c = body(c, z0, qex, t, masked=False)
         else:
             for _ in range(opts.tran_max_newton_iters):
                 if not bool((~c[1]).any()):
                     break
-                c = body(c, z0, qex, masked=True)
+                c = body(c, z0, qex, t, masked=True)
         x_new, _, failed_new, iters = c
         state = update_state(params, x_new, state)
         if predictor:

@@ -13,6 +13,7 @@ from __future__ import annotations
 import sys
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
 from .analysis.dc import dc_operating_point
@@ -107,7 +108,8 @@ class Simulator:
                 f"{self.topo.n_node_eq} node equations: the large-circuit "
                 f"backends (tridiag/blockband/blockwb) are not yet ported")
         c = self.topo.counts                # Woodbury k x k solve size
-        rank = c["M"] + c["J"] + c["D"] + 2 * c["Q"] + c["S"]
+        rank = (c["M"] + c["J"] + c["D"] + 2 * c["Q"] + c["S"]
+                + len(self.lowered.b_sources))
         if opts.mos_cap_model == "charge":
             rank += 5 * c["M"]              # the charge rows
         if device.type == "cuda" and max(self.topo.n_unknowns,
@@ -136,12 +138,32 @@ class Simulator:
         return cls(ckt, sim, opts, device)
 
     # ---- analyses ----
+    def _nodeset(self):
+        """The .NODESET card as (eqs, vals) arrays, or None; unknown and
+        ground nodes are skipped with a warning."""
+        if not getattr(self.config, "nodesets", None):
+            return None
+        eqs, vals = [], []
+        for node, val in self.config.nodesets:
+            nid = self.circuit.node_name_to_id.get(node)
+            if nid is None or self.circuit.nodes[nid].eq_index < 0:
+                print(f".NODESET: unknown or ground node {node!r}; ignored",
+                      file=sys.stderr)
+                continue
+            eqs.append(self.circuit.nodes[nid].eq_index)
+            vals.append(val)
+        if not eqs:
+            return None
+        return (np.asarray(eqs, np.int64),
+                torch.as_tensor(vals, dtype=self.opts.dtype,
+                                device=self.device))
+
     def dc(self, params: Optional[Any] = None):
-        """DC operating point -> (N,) solution vector."""
-        if getattr(self.config, "nodesets", None):
-            raise NotImplementedError(".NODESET: not yet ported")
-        return dc_operating_point(self.engine,
-                                  params if params is not None else self.params)
+        """DC operating point -> (N,) solution vector.  A .NODESET card
+        steers Newton toward the wanted solution branch (hold, then
+        release on the last ramp step)."""
+        p = params if params is not None else self.params
+        return dc_operating_point(self.engine, p, nodeset=self._nodeset())
 
     def transient(self, params: Optional[Any] = None,
                   tstep: Optional[float] = None,

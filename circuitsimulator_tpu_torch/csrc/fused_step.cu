@@ -1,15 +1,16 @@
-// K1 for Hopper (scopes K1a, K1b and K1d-i): the fused Monte-Carlo transient
-// chunk.  Every lane advances n_steps whole Backward-Euler timesteps in one
-// launch.
+// K1 for Hopper (scopes K1a, K1b, K1d-i and K1d-ii): the fused Monte-Carlo
+// transient chunk.  Every lane advances n_steps whole Backward-Euler
+// timesteps in one launch.
 //
 // Replaces the TPU kernel circuitsimulator_tpu/ops/pallas_step.py:
 // PallasStepRunner._kernel (launched by run_chunk) for R/C/L, V/I sources
 // with PULSE/SIN/PWL/EXP/SFFM waveforms, Level-1 MOS without body effect or
 // reverse region (K1a), JFET, diode (with reverse breakdown), Ebers-Moll BJT
-// (with Early voltage) and S/W switch rows (K1b), and the charge rows of
-// MOSCAP=CHARGE with Woodbury ranks up to 32 (K1d-i); rank
-// 0 <= k = nMJ + nD + 2 nQ + nSw + 5 nMq <= 32 (nMq = the MOS count under the
-// charge model, else 0).  Per step it computes what the TPU kernel computes
+// (with Early voltage) and S/W switch rows (K1b), the charge rows of
+// MOSCAP=CHARGE with Woodbury ranks up to 32 (K1d-i), and the behavioral B
+// source rows (K1d-ii, rank <= 16, no charge rows); rank
+// 0 <= k = nMJ + nD + 2 nQ + nSw + nB + 5 nMq <= 32 (nMq = the MOS count
+// under the charge model, else 0).  Per step it computes what the TPU kernel computes
 // (plain PyTorch version: circuitsimulator_tpu_torch/ops/fused_step.py
 // run_chunk_plain):
 //   - source values at t = (step0 + i + 1) * dt in the working type;
@@ -17,7 +18,8 @@
 //   - under the charge model q_prev = q(x) of the incoming x;
 //   - Newton from x (or 2x - x_prev): the device linearisations in Woodbury
 //     row order (MOS then JFET rows from one pack, diode rows, an Ic and an
-//     Ib row per BJT, switch rows, five charge rows per MOS), z = z0 - Y c,
+//     Ib row per BJT, switch rows, B rows, five charge rows per MOS),
+//     z = z0 - Y c,
 //     S = I + V^T Y, vz = V^T z, the k x k solve, x_raw = z - Y w, then
 //     accept: clamp, alpha damping, err^2 < tol^2, a non-finite x_raw
 //     freezes the lane and sets failed;
@@ -49,6 +51,24 @@
 // of maximum/minimum, d(a/b) = da/b - db a/b^2; arg^(1 - MJ) with MJ = 0.5
 // is sqrt(arg) as PyTorch computes it, its tangent 0.5/sqrt(arg).
 //
+// B rows (utils/expr.py compile_tape / eval_tape, JAX kernel
+// pallas_step.py:973-996): an interpreter, not per-deck source, so one build
+// serves every deck.  Each source's tape (postfix opcodes, its literals)
+// sits in arrays that every lane reads at the same address; the probe
+// values vals_i = x[a_i] - x[b_i] come from the row's column plan
+// (a_0, b_0, a_1, b_1, ...).  A tape runs on a per-thread stack of
+// DualN<T, 4> (a value and its partials in the up to four probes) plus the
+// set of probes each entry depends on: a partial outside it is a symbolic
+// zero that no rule multiplies, as in JAX's jvp (so sqrt(v1) + v2 at v1 = 0
+// has the v2-partial 1, not inf * 0).  The derivative rules are JAX's
+// (jax/_src/lax/lax.py): abs' = 1 at 0, a 0.5/0.5 split at a min/max tie,
+// floor' = ceil' = 0, the x-partial 1 of fmod, POWC (an exponent that reads
+// no probe) never forms the log(x) x^y term, POW's exponent partial is
+// log(x or 1) x^y.  The row is sig (g_0, -g_0, g_1, -g_1, ...) zero-padded
+// to W and c = sig (e0 - g.vals) with sig = -1 for V=expr, +1 for I=expr;
+// time is t = (step0 + i + 1) dt.  The B instantiation has a row width
+// capacity of 8 (POLY(3) sources need 6); the others keep 4.
+//
 // Design (simple first): one thread per lane, lane-minor constants
 // (G0invT (N,N,B) [m][n][lane], YT (k,N,B), Yc3 (W,k,k,B), the device packs,
 // sources and companions (rows, B)), so every read of a warp is 32
@@ -59,8 +79,8 @@
 // live in fixed-capacity local arrays (N <= 64, k <= KCAP) indexed at run
 // time, so they sit in local memory (L1/L2), not registers.  The kernel is
 // instantiated for KCAP = 16 (elimination) and KCAP = 32 (Gauss-Jordan),
-// each with and without the charge rows, so the K1a/K1b instantiation keeps
-// its 16 x 16 frame and code.
+// each with and without the charge rows, and for KCAP = 16 with the B rows,
+// so the K1a/K1b instantiation keeps its 16 x 16 frame and code.
 //
 // What bounds it on the H100: the constants are re-read every step
 // (G0invT once, then per Newton iteration 2 YT + Yc3 + the device packs:
@@ -126,6 +146,14 @@ struct StepArgs {
   const T* mqp;      // (4, nMq, B): vth, coxwl, cj0, polarity
   int nMq;
   T inv_dt;          // 1/dt, computed on the host in double
+  // behavioral B sources: the concatenated tapes and per-source metadata
+  // (instruction offset, count, literal offset, probe pairs, V form,
+  // constant offset), shared by all lanes; their .PARAM values lane-minor
+  const int* b_ops;  // (sum of tape lengths)
+  const T* b_lits;   // (sum of literal counts)
+  const int* b_meta; // (nB, 6)
+  const T* bconsts;  // (nc | 1, B)
+  int nB;
 };
 
 __device__ __forceinline__ float sin_(float v) { return sinf(v); }
@@ -136,6 +164,26 @@ __device__ __forceinline__ float log_(float v) { return logf(v); }
 __device__ __forceinline__ double log_(double v) { return log(v); }
 __device__ __forceinline__ float fmod_(float a, float b) { return fmodf(a, b); }
 __device__ __forceinline__ double fmod_(double a, double b) { return fmod(a, b); }
+#define MATH1(name, fn32, fn64)                                        \
+  __device__ __forceinline__ float name(float v) { return fn32(v); }   \
+  __device__ __forceinline__ double name(double v) { return fn64(v); }
+MATH1(cos_, cosf, cos)
+MATH1(tan_, tanf, tan)
+MATH1(asin_, asinf, asin)
+MATH1(acos_, acosf, acos)
+MATH1(atan_, atanf, atan)
+MATH1(sinh_, sinhf, sinh)
+MATH1(cosh_, coshf, cosh)
+MATH1(tanh_, tanhf, tanh)
+MATH1(sqrt_, sqrtf, sqrt)
+MATH1(fabs_, fabsf, fabs)
+MATH1(floor_, floorf, floor)
+MATH1(ceil_, ceilf, ceil)
+#undef MATH1
+__device__ __forceinline__ float pow_(float a, float b) { return powf(a, b); }
+__device__ __forceinline__ double pow_(double a, double b) { return pow(a, b); }
+__device__ __forceinline__ float atan2_(float a, float b) { return atan2f(a, b); }
+__device__ __forceinline__ double atan2_(double a, double b) { return atan2(a, b); }
 
 template <typename T>
 __device__ __forceinline__ T absval(T v) { return v < T(0) ? -v : v; }
@@ -254,11 +302,15 @@ __device__ __forceinline__ void exp_lim(T u, T& e, T& de) {
 }
 
 
-// ---- forward-mode dual numbers for the charge rows (models/moscap.py) ----
-template <typename T>
-struct Dual {
-  T v, d[3];  // value, d/d(vd, vg, vs)
+// ---- forward-mode dual numbers: a value and M partials.  The charge rows
+// (models/moscap.py) use Dual<T> = DualN<T, 3>, d/d(vd, vg, vs); the B-source
+// interpreter keeps DualN<T, 4> on its stack ----
+template <typename T, int M>
+struct DualN {
+  T v, d[M];
 };
+template <typename T>
+using Dual = DualN<T, 3>;
 
 template <typename T>
 __device__ __forceinline__ Dual<T> dconst(T c) {
@@ -438,15 +490,195 @@ __device__ __forceinline__ void mos_charges_at(const StepArgs<T>& a,
               a.mqp[(3LL * nMq + m) * B + lane], q);
 }
 
+// ---- B sources: the tape interpreter (utils/expr.py compile_tape) ----
+#define BSTACK 16   // expression stack (ops/cuda_step.py MAX_STACK)
+#define BPROBES 4   // probe pairs per source (ops/fused_step.py MAX_B_PAIRS)
+// opcodes in the order of utils/expr.py OPS; an instruction is
+// opcode | operand << 8
+enum BOp {
+  B_PUSH_NUM, B_PUSH_PROBE, B_PUSH_TIME, B_PUSH_CONST, B_NEG,
+  B_ADD, B_SUB, B_MUL, B_DIV, B_MOD, B_POW, B_POWC,
+  B_SIN, B_COS, B_TAN, B_ASIN, B_ACOS, B_ATAN, B_SINH, B_COSH, B_TANH,
+  B_EXP, B_LOG, B_LOG10, B_SQRT, B_ABS, B_FLOOR, B_CEIL,
+  B_ATAN2, B_MIN, B_MAX
+};
+
+template <typename T>
+__device__ __forceinline__ T nan_of() { return T(NAN); }
+
+template <typename T>
+__device__ __forceinline__ T sign_(T v) {  // jnp.sign: NaN and +-0 pass
+  return v > T(0) ? T(1) : (v < T(0) ? T(-1) : v);
+}
+
+// value and partial rule of a unary opcode (r = its value at a)
+template <typename T>
+__device__ __forceinline__ T b_unary(int op, T a) {
+  switch (op) {
+    case B_SIN: return sin_(a);
+    case B_COS: return cos_(a);
+    case B_TAN: return tan_(a);
+    case B_ASIN: return asin_(a);
+    case B_ACOS: return acos_(a);
+    case B_ATAN: return atan_(a);
+    case B_SINH: return sinh_(a);
+    case B_COSH: return cosh_(a);
+    case B_TANH: return tanh_(a);
+    case B_EXP: return exp_(a);
+    case B_LOG: return log_(a);
+    case B_LOG10: return log_(a) * T(0.4342944819032518);
+    case B_SQRT: return sqrt_(a);
+    case B_ABS: return fabs_(a);
+    case B_FLOOR: return floor_(a);
+    default: return ceil_(a);  // B_CEIL
+  }
+}
+template <typename T>
+__device__ __forceinline__ T b_unary_d(int op, T g, T a, T r) {
+  switch (op) {
+    case B_SIN: return g * cos_(a);
+    case B_COS: return -(g * sin_(a));
+    case B_TAN: return g * (T(1) + r * r);
+    case B_ASIN: return g * (T(1) / sqrt_(T(1) - a * a));
+    case B_ACOS: return g * -(T(1) / sqrt_(T(1) - a * a));
+    case B_ATAN: return g / (T(1) + a * a);
+    case B_SINH: return g * cosh_(a);
+    case B_COSH: return g * sinh_(a);
+    case B_TANH: return (g + g * r) * (T(1) - r);
+    case B_EXP: return g * r;
+    case B_LOG: return g / a;
+    case B_LOG10: return (g / a) * T(0.4342944819032518);
+    case B_SQRT: return g * (T(0.5) / r);
+    default: return a >= T(0) ? g : -g;  // B_ABS
+  }
+}
+// value and the partial rules through a and through b of a binary opcode
+template <typename T>
+__device__ __forceinline__ T b_binary(int op, T a, T b) {
+  switch (op) {
+    case B_ADD: return a + b;
+    case B_SUB: return a - b;
+    case B_MUL: return a * b;
+    case B_DIV: return a / b;
+    case B_MOD: return fmod_(a, b);
+    case B_ATAN2: return atan2_(a, b);
+    case B_MIN:
+      return (isnan_(a) || isnan_(b)) ? nan_of<T>() : (a < b ? a : b);
+    case B_MAX:
+      return (isnan_(a) || isnan_(b)) ? nan_of<T>() : (a > b ? a : b);
+    default: return pow_(a, b);  // B_POW, B_POWC
+  }
+}
+template <typename T>
+__device__ __forceinline__ T b_tie(T x, T y, T r) {  // JAX _balanced_eq
+  return (x == r ? T(1) : T(0)) / (y == r ? T(2) : T(1));
+}
+template <typename T>
+__device__ __forceinline__ T b_binary_da(int op, T g, T a, T b, T r) {
+  switch (op) {
+    case B_MUL: return g * b;
+    case B_DIV: return g / b;
+    case B_POW: case B_POWC: return g * (b * pow_(a, b - T(1)));
+    case B_ATAN2: return g * (b / (a * a + b * b));
+    case B_MIN: case B_MAX: return g * b_tie(a, b, r);
+    default: return g;  // B_ADD, B_SUB, B_MOD
+  }
+}
+template <typename T>
+__device__ __forceinline__ T b_binary_db(int op, T g, T a, T b, T r) {
+  switch (op) {
+    case B_SUB: return -g;
+    case B_MUL: return a * g;
+    case B_DIV: return (-g * a) * (T(1) / (b * b));
+    case B_MOD: return -g * (sign_(a / b) * floor_(fabs_(a / b)));
+    case B_POW: return g * (log_(a == T(0) ? T(1) : a) * r);
+    case B_ATAN2: return g * (-a / (a * a + b * b));
+    case B_MIN: case B_MAX: return g * b_tie(b, a, r);
+    default: return g;  // B_ADD (B_POWC has no exponent partial)
+  }
+}
+
+// e0 and the gradient g[0..m) of B source `src` at the probe values vals
+// and time tt (utils/expr.py eval_tape, rule for rule)
+template <typename T>
+__device__ void b_eval(const StepArgs<T>& a, long long lane, int src,
+                       const T* vals, T tt, T& e0, T* g) {
+  const int* meta = a.b_meta + 6 * src;
+  const int* ops = a.b_ops + meta[0];
+  const int n_ops = meta[1];
+  const T* lits = a.b_lits + meta[2];
+  const long long coff = meta[5];
+  const long long B = a.B;
+  DualN<T, BPROBES> st[BSTACK];
+  int dep[BSTACK];  // probes each entry depends on (bit j: probe j)
+  int sp = 0;
+  for (int pc = 0; pc < n_ops; ++pc) {
+    const int op = ops[pc] & 0xFF, arg = ops[pc] >> 8;
+    if (op <= B_PUSH_CONST) {
+      DualN<T, BPROBES>& r = st[sp];
+      for (int j = 0; j < BPROBES; ++j) r.d[j] = T(0);
+      dep[sp] = 0;
+      if (op == B_PUSH_NUM) {
+        r.v = lits[arg];
+      } else if (op == B_PUSH_PROBE) {
+        r.v = vals[arg];
+        r.d[arg] = T(1);
+        dep[sp] = 1 << arg;
+      } else if (op == B_PUSH_TIME) {
+        r.v = tt;
+      } else {
+        r.v = a.bconsts[(coff + arg) * B + lane];
+      }
+      ++sp;
+    } else if (op == B_NEG) {
+      DualN<T, BPROBES>& r = st[sp - 1];
+      r.v = -r.v;
+      for (int j = 0; j < BPROBES; ++j) r.d[j] = -r.d[j];
+    } else if (op >= B_SIN && op <= B_CEIL) {
+      DualN<T, BPROBES>& r = st[sp - 1];
+      const T x = r.v, y = b_unary(op, x);
+      if (op == B_FLOOR || op == B_CEIL) {
+        dep[sp - 1] = 0;  // symbolic zero tangent
+        for (int j = 0; j < BPROBES; ++j) r.d[j] = T(0);
+      } else {
+        for (int j = 0; j < BPROBES; ++j)
+          if (dep[sp - 1] >> j & 1) r.d[j] = b_unary_d(op, r.d[j], x, y);
+      }
+      r.v = y;
+    } else {  // binary: pop b, combine into a
+      --sp;
+      const DualN<T, BPROBES>& rb = st[sp];
+      DualN<T, BPROBES>& ra = st[sp - 1];
+      const int ma = dep[sp - 1], mb = op == B_POWC ? 0 : dep[sp];
+      const T x = ra.v, y = rb.v, r = b_binary(op, x, y);
+      for (int j = 0; j < BPROBES; ++j) {
+        const bool ia = ma >> j & 1, ib = mb >> j & 1;
+        if (ia && ib)
+          ra.d[j] = b_binary_da(op, ra.d[j], x, y, r) +
+                    b_binary_db(op, rb.d[j], x, y, r);
+        else if (ia)
+          ra.d[j] = b_binary_da(op, ra.d[j], x, y, r);
+        else if (ib)
+          ra.d[j] = b_binary_db(op, rb.d[j], x, y, r);
+      }
+      ra.v = r;
+      dep[sp - 1] = ma | mb;
+    }
+  }
+  e0 = st[0].v;
+  for (int j = 0; j < BPROBES; ++j) g[j] = (dep[0] >> j & 1) ? st[0].d[j] : T(0);
+}
+
 // One Newton iteration of one lane: xx is the iterate, z0 = G0^-1 b0,
 // zb scratch (z, then x_raw, then x_new), qprev the charges of the step's
-// incoming x (CHARGE only).  KCAP is the rank capacity: 16 runs the pivoted
-// elimination, 32 the Gauss-Jordan solve.
-template <typename T, int KCAP, bool CHARGE>
+// incoming x (CHARGE only), tt the step's time (BSRC only).  KCAP is the rank
+// capacity: 16 runs the pivoted elimination, 32 the Gauss-Jordan solve; vco
+// holds 8 rows with the B rows (BSRC), else 4.
+template <typename T, int KCAP, bool CHARGE, bool BSRC>
 __device__ __forceinline__ void newton_iter(
     const StepArgs<T>& a, long long lane, T* xx, const T* z0, T* zb, T* cst,
-    T (*vco)[KCAP], T (*A)[KCAP], T* bb, T* w, const T* qprev, bool& done,
-    bool& fl) {
+    T (*vco)[KCAP], T (*A)[KCAP], T* bb, T* w, const T* qprev, T tt,
+    bool& done, bool& fl) {
   const int N = a.N, k = a.k, W = a.W;
   const long long B = a.B;
   // terminal q of row j (the ground slot reads 0)
@@ -455,8 +687,12 @@ __device__ __forceinline__ void newton_iter(
     return c < N ? xx[c] : T(0);
   };
   if (k > 0) {
-    if (W > 3)
+    if constexpr (BSRC) {
+      for (int q = 3; q < W; ++q)
+        for (int j = 0; j < k; ++j) vco[q][j] = T(0);
+    } else if (W > 3) {
       for (int j = 0; j < k; ++j) vco[3][j] = T(0);
+    }
     const int nMJ = a.nMJ, nD = a.nD, nQ = a.nQ, nSw = a.nSw;
     for (int j = 0; j < nMJ; ++j) {  // Level-1 MOS and JFET rows
       const T vd = rd(0, j), vg = rd(1, j), vs = rd(2, j);
@@ -566,8 +802,26 @@ __device__ __forceinline__ void newton_iter(
       vco[2][j] = gc;
       vco[3][j] = -gc;
     }
+    if constexpr (BSRC) {  // B rows: the expression's value and gradient
+      for (int b = 0; b < a.nB; ++b) {
+        const int j = nMJ + nD + 2 * nQ + nSw + b;
+        const int m = a.b_meta[6 * b + 3];
+        const T sig = a.b_meta[6 * b + 4] ? T(-1) : T(1);
+        T vals[BPROBES], g[BPROBES], e0;
+        for (int i = 0; i < m; ++i) vals[i] = rd(2 * i, j) - rd(2 * i + 1, j);
+        b_eval(a, lane, b, vals, tt, e0, g);
+        T gv = T(0);
+        for (int i = 0; i < m; ++i) gv += g[i] * vals[i];
+        cst[j] = sig * (e0 - gv);
+        for (int i = 0; i < m; ++i) {
+          vco[2 * i][j] = sig * g[i];
+          vco[2 * i + 1][j] = -sig * g[i];
+        }
+        for (int q = 2 * m; q < 3; ++q) vco[q][j] = T(0);
+      }
+    }
     if constexpr (CHARGE) {  // charge rows: five per MOS, device-major
-      const int o_c = nMJ + nD + 2 * nQ + nSw;
+      const int o_c = nMJ + nD + 2 * nQ + nSw;  // no B rows with CHARGE
       for (int m = 0; m < a.nMq; ++m) {
         const int j0 = o_c + 5 * m;
         const T vd = rd(0, j0), vg = rd(1, j0), vs = rd(2, j0);
@@ -701,14 +955,14 @@ __device__ __forceinline__ void newton_iter(
   fl = fl || !finite;
 }
 
-template <typename T, int KCAP, bool CHARGE>
+template <typename T, int KCAP, bool CHARGE, bool BSRC>
 __global__ void __launch_bounds__(128) fused_step_kernel(const StepArgs<T> a) {
   const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= a.B) return;
   const long long B = a.B;
   const int N = a.N;
   T x[MAXN], xp[MAXN], xx[MAXN], z0[MAXN], zb[MAXN + 1];
-  T cst[KCAP], vco[4][KCAP], A[KCAP][KCAP], bb[KCAP], w[KCAP];
+  T cst[KCAP], vco[BSRC ? 8 : 4][KCAP], A[KCAP][KCAP], bb[KCAP], w[KCAP];
   T qprev[CHARGE ? KCAP : 1];
   for (int n = 0; n < N; ++n) {
     x[n] = a.x[n * B + lane];
@@ -757,12 +1011,12 @@ __global__ void __launch_bounds__(128) fused_step_kernel(const StepArgs<T> a) {
     int its = 0;
     if (a.unrolled > 0) {
       for (; its < a.unrolled; ++its)
-        newton_iter<T, KCAP, CHARGE>(a, lane, xx, z0, zb, cst, vco, A, bb, w,
-                                     qprev, done, fl);
+        newton_iter<T, KCAP, CHARGE, BSRC>(a, lane, xx, z0, zb, cst, vco, A,
+                                           bb, w, qprev, tt, done, fl);
     } else {
       for (; !done && its < a.max_nr; ++its)
-        newton_iter<T, KCAP, CHARGE>(a, lane, xx, z0, zb, cst, vco, A, bb, w,
-                                     qprev, done, fl);
+        newton_iter<T, KCAP, CHARGE, BSRC>(a, lane, xx, z0, zb, cst, vco, A,
+                                           bb, w, qprev, tt, done, fl);
     }
     it_total += its;
     // history from the accepted x
@@ -785,19 +1039,21 @@ __global__ void __launch_bounds__(128) fused_step_kernel(const StepArgs<T> a) {
   a.iters[lane] = it_total;
 }
 
-template <typename T, int KCAP, bool CHARGE>
+template <typename T, int KCAP, bool CHARGE, bool BSRC>
 static int launch_as(const StepArgs<T>& a, int threads, void* stream) {
   const int blocks = (a.B + threads - 1) / threads;
-  fused_step_kernel<T, KCAP, CHARGE>
+  fused_step_kernel<T, KCAP, CHARGE, BSRC>
       <<<blocks, threads, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-// ptrs: the 29 arrays in StepArgs order (the charge pack last); ints: B N k
-// nS P nL nCap unrolled max_nr predictor n_steps step0 threads nMJ nD nQ nSw
-// W nMq; reals: dt tol2 alpha clamp off_gds inv_dt.  k <= 16 launches the
-// elimination instantiation, 16 < k <= 32 the Gauss-Jordan one; each with
-// the charge rows when nMq > 0.
+// ptrs: the 33 arrays in StepArgs order (the charge pack, then the B tapes,
+// metadata and constants last); ints: B N k nS P nL nCap unrolled max_nr
+// predictor n_steps step0 threads nMJ nD nQ nSw W nMq nB; reals: dt tol2
+// alpha clamp off_gds inv_dt.  B sources launch the B instantiation (k <= 16,
+// no charge rows); otherwise k <= 16 launches the elimination instantiation,
+// 16 < k <= 32 the Gauss-Jordan one, each with the charge rows when
+// nMq > 0.
 template <typename T>
 static int launch(void* const* ptrs, const long long* ints,
                   const double* reals, void* stream) {
@@ -832,6 +1088,10 @@ static int launch(void* const* ptrs, const long long* ints,
   a.failed = (int*)ptrs[p++];
   a.iters = (int*)ptrs[p++];
   a.mqp = (const T*)ptrs[p++];
+  a.b_ops = (const int*)ptrs[p++];
+  a.b_lits = (const T*)ptrs[p++];
+  a.b_meta = (const int*)ptrs[p++];
+  a.bconsts = (const T*)ptrs[p++];
   a.B = (int)ints[0];
   a.N = (int)ints[1];
   a.k = (int)ints[2];
@@ -851,26 +1111,30 @@ static int launch(void* const* ptrs, const long long* ints,
   a.nSw = (int)ints[16];
   a.W = (int)ints[17];
   a.nMq = (int)ints[18];
+  a.nB = (int)ints[19];
   a.dt = (T)reals[0];
   a.tol2 = (T)reals[1];
   a.alpha = (T)reals[2];
   a.clamp = (T)reals[3];
   a.off_gds = (T)reals[4];
   a.inv_dt = (T)reals[5];
+  const int w0 = a.nSw ? 4 : 3;
   if (a.nMJ < 0 || a.nD < 0 || a.nQ < 0 || a.nSw < 0 || a.nMq < 0 ||
-      a.nMq > a.nMJ ||
-      a.nMJ + a.nD + 2 * a.nQ + a.nSw + 5 * a.nMq != a.k ||
-      a.W != (a.nSw ? 4 : 3))
+      a.nB < 0 || a.nMq > a.nMJ ||
+      a.nMJ + a.nD + 2 * a.nQ + a.nSw + a.nB + 5 * a.nMq != a.k ||
+      (a.nB ? (a.W < w0 || a.W > 8 || a.k > UNROLL_K || a.nMq)
+            : a.W != w0))
     return (int)cudaErrorInvalidValue;
   if (a.N > MAXN || a.k > MAXK || a.N <= 0 || a.k < 0 || threads <= 0 ||
       threads > 128)
     return (int)cudaErrorInvalidValue;
   if (a.B <= 0) return 0;
+  if (a.nB) return launch_as<T, UNROLL_K, false, true>(a, threads, stream);
   if (a.k <= UNROLL_K)
-    return a.nMq ? launch_as<T, UNROLL_K, true>(a, threads, stream)
-                 : launch_as<T, UNROLL_K, false>(a, threads, stream);
-  return a.nMq ? launch_as<T, MAXK, true>(a, threads, stream)
-               : launch_as<T, MAXK, false>(a, threads, stream);
+    return a.nMq ? launch_as<T, UNROLL_K, true, false>(a, threads, stream)
+                 : launch_as<T, UNROLL_K, false, false>(a, threads, stream);
+  return a.nMq ? launch_as<T, MAXK, true, false>(a, threads, stream)
+               : launch_as<T, MAXK, false, false>(a, threads, stream);
 }
 
 extern "C" int csim_fused_step_f32(void* const* ptrs, const long long* ints,

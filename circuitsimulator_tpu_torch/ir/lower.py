@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import sys
-from typing import Dict, Tuple
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -109,11 +109,32 @@ class Topology:
 
 
 @dataclasses.dataclass
+class BSourceInfo:
+    """One lowered behavioral source.  ``tape`` is its compiled expression
+    (``utils/expr.compile_tape``) over the probe values
+    vals[j] = x_ext[pairs[j, 0]] - x_ext[pairs[j, 1]]; is_v selects the
+    V=expr form (branch row ``k``) over the I=expr form (KCL rows ep/em)."""
+    name: str
+    tape: Any
+    pairs: np.ndarray             # (m, 2) eq-index pairs per probe
+    is_v: bool
+    ep: int
+    em: int
+    k: int                        # branch eq (V form), -1 otherwise
+    uses_time: bool
+    # slice of params["b_consts"] holding the .PARAM values the expression
+    # reads (Monte-Carlo lanes may perturb them)
+    const_off: int = 0
+    n_consts: int = 0
+
+
+@dataclasses.dataclass
 class LoweredCircuit:
     topo: Topology
     params: Dict[str, torch.Tensor]
     circuit: Circuit
     device: torch.device
+    b_sources: List[BSourceInfo] = dataclasses.field(default_factory=list)
 
 
 def _np_i32(xs) -> np.ndarray:
@@ -184,8 +205,6 @@ def lower(ckt: Circuit, dtype=torch.float64, device="cpu") -> LoweredCircuit:
     sw = [e for e in ckt.elements if e.kind in (KIND_S, KIND_W)]
     jf, tl, bsrc = of(KIND_J), of(KIND_T), of(KIND_B)
     vcvs, vccs, cccs, ccvs = of(KIND_E), of(KIND_G), of(KIND_F), of(KIND_H)
-    if bsrc:
-        raise NotImplementedError("B sources: not yet ported")
 
     def ctrl_branch(e):
         """Branch eq of an F/H/W element's controlling V source."""
@@ -224,7 +243,8 @@ def lower(ckt: Circuit, dtype=torch.float64, device="cpu") -> LoweredCircuit:
     branch_cols = []
     branch_table = []
     for e in ckt.elements:
-        if e.kind in (KIND_V, KIND_L, KIND_E, KIND_H):
+        if (e.kind in (KIND_V, KIND_L, KIND_E, KIND_H)
+                or (e.kind == KIND_B and e.b_is_v)):
             branch_cols.append((e.name, e.branch_eq))
             branch_table.append(
                 (e.kind, e.name, ckt.nodes[e.node_ids[0]].name,
@@ -247,7 +267,7 @@ def lower(ckt: Circuit, dtype=torch.float64, device="cpu") -> LoweredCircuit:
         n_node_eq=ckt.num_node_equations(),
         n_nodes=len(ckt.nodes),
         n_elements=len(ckt.elements),
-        has_nonlinear=bool(mos or dio or bjt or sw or jf),
+        has_nonlinear=bool(mos or dio or bjt or sw or jf or bsrc),
         node_eqs=node_eqs,
         res_e1=eqs(res, 0), res_e2=eqs(res, 1),
         cap_e1=eqs(cap, 0), cap_e2=eqs(cap, 1),
@@ -291,6 +311,8 @@ def lower(ckt: Circuit, dtype=torch.float64, device="cpu") -> LoweredCircuit:
         branch_table=tuple(branch_table),
     )
 
+    b_infos, b_consts = _lower_bsources(ckt, bsrc, eq, dump)
+
     def f(vals):
         return torch.as_tensor(np.asarray(vals, dtype=np.float64),
                                dtype=dtype, device=device)
@@ -331,7 +353,7 @@ def lower(ckt: Circuit, dtype=torch.float64, device="cpu") -> LoweredCircuit:
         "bjt_br": f([e.br for e in bjt]),
         "bjt_vaf": f([e.vaf for e in bjt]),
         "mut_k": f([m[2] for m in mut_ok]),
-        "b_consts": f([]),
+        "b_consts": f(b_consts),
         "tl_z0": f([e.z0 for e in tl]),
         "tl_td": f([e.td for e in tl]),
         "jf_vto": f([e.vth for e in jf]),
@@ -356,4 +378,68 @@ def lower(ckt: Circuit, dtype=torch.float64, device="cpu") -> LoweredCircuit:
             params[f"{key}_{name}"] = arr
 
     return LoweredCircuit(topo=topo, params=params, circuit=ckt,
-                          device=device)
+                          device=device, b_sources=b_infos)
+
+
+def _lower_bsources(ckt: Circuit, bsrc, eq, dump):
+    """Compile the behavioral sources and resolve their probes: (infos,
+    b_consts), b_consts the referenced .PARAM values in (device,
+    first-appearance) order."""
+    from ..utils.expr import (ExprError, compile_tape, free_names,
+                              parse_expr, probe_refs)
+    infos, b_consts = [], []
+    for e in bsrc:
+        try:
+            ast = parse_expr(e.b_expr, probes=True)
+            refs = probe_refs(ast)
+            prefs = [r for r in refs if r[0] != "time"]
+            pairs = []
+            for r in prefs:
+                if r[0] == "v":
+                    nid = ckt.node_name_to_id.get(r[1])
+                    if nid is None:
+                        raise ExprError(f"unknown node {r[1]!r} in v()")
+                    bq = dump
+                    if r[2] is not None:
+                        nid2 = ckt.node_name_to_id.get(r[2])
+                        if nid2 is None:
+                            raise ExprError(f"unknown node {r[2]!r} in v()")
+                        bq = eq(nid2)
+                    pairs.append((eq(nid), bq))
+                else:
+                    keq = -1
+                    for exact in (True, False):
+                        for el in ckt.elements:
+                            if getattr(el, "branch_eq", -1) < 0:
+                                continue
+                            if (el.name == r[1]) if exact \
+                                    else (el.name.lower() == r[1].lower()):
+                                keq = el.branch_eq
+                                break
+                        if keq >= 0:
+                            break
+                    if keq < 0:
+                        raise ExprError(
+                            f"i({r[1]}): no branch-current unknown (only "
+                            "V/L/E/H/B-V elements carry one)")
+                    pairs.append((keq, dump))
+            names = free_names(ast)
+            pv = {k.lower(): v for k, v in ckt.param_values.items()}
+            const_off = len(b_consts)
+            for nm in names:
+                if nm not in pv:
+                    raise ExprError(f"undefined parameter {nm!r}")
+                b_consts.append(float(pv[nm]))
+            tape = compile_tape(ast, {r: j for j, r in enumerate(prefs)},
+                                {nm: j for j, nm in enumerate(names)})
+            infos.append(BSourceInfo(
+                name=e.name, tape=tape,
+                pairs=np.asarray(pairs, np.int64).reshape(-1, 2),
+                is_v=e.b_is_v, ep=eq(e.node_ids[0]), em=eq(e.node_ids[1]),
+                k=e.branch_eq, uses_time=("time",) in refs,
+                const_off=const_off, n_consts=len(names)))
+        except ExprError as err:
+            # a V-form B owns a branch equation: skipping it would leave a
+            # singular row, so an unresolved reference is loud
+            raise ValueError(f"behavioral source {e.name}: {err}")
+    return infos, b_consts

@@ -2,7 +2,9 @@
 
 Port of the part of ``circuitsimulator_tpu/ops/assemble.Engine`` that the
 DC, Backward-Euler and AC paths run, for R, C, L, V, I, Level-1 MOS, JFET,
-diode, BJT, the S/W switches and the linear controlled sources E/G/F/H, with
+diode, BJT, the S/W switches, the linear controlled sources E/G/F/H and the
+behavioral B sources (``utils/expr.eval_tape``: value and gradient of the
+compiled expression), with
 the fixed MOS caps or the charge-conserving model (``MOSCAP=CHARGE``: five
 injection rows per MOS, ``models/moscap.py``).
 The stamp *pattern* (row/col index lists) is built once per circuit in
@@ -11,7 +13,7 @@ numpy; only the *values* are recomputed, split by how often they change:
 - per analysis:  R, V/L couplings, E/G/F/H, C and MOS/diode/BJT junction-cap
                  companions, gmin                                 -> G_static
 - per timestep:  source values at t, C/L history currents         -> I_static
-- per Newton iteration: MOS/JFET/diode/BJT/switch linearization   -> scatter
+- per Newton iteration: MOS/JFET/diode/BJT/switch/B linearization -> scatter
                  (and under MOSCAP=CHARGE the charge rows: ``mosq_linearize``)
 
 Ground is the dump slot N of an (N+1)-sized system.  Parameters, x and the
@@ -33,6 +35,7 @@ from ..models.diode import diode_stamp_vals
 from ..models.moscap import charge_jacobian, charges_of_x
 from ..models.mosfet import mos_stamp_vals
 from ..models.switch import switch_stamp_vals
+from ..utils.expr import eval_tape
 from ..utils.options import SolverOptions
 
 # device classes of the JAX engine that the port does not stamp yet
@@ -132,11 +135,37 @@ class Engine:
             np.stack([t.ccvs_k, t.ccvs_k, t.ccvs_ep, t.ccvs_em,
                       t.ccvs_kc], 1).ravel(),
         ]).astype(np.int64)
+        # ---- behavioral B sources: the V form's branch coupling is static
+        # (like a V source); the expression's linearisation is per
+        # iteration (nl tier, after the switches)
+        self.b_sources = list(low.b_sources)
+        b_static_rows, b_static_cols = [], []
+        b_nl_rows, b_nl_cols, b_rhs_rows = [], [], []
+        for bs in self.b_sources:
+            if bs.is_v:
+                b_static_rows += [bs.ep, bs.em, bs.k, bs.k]
+                b_static_cols += [bs.k, bs.k, bs.ep, bs.em]
+                for a, b in bs.pairs:
+                    b_nl_rows += [bs.k, bs.k]
+                    b_nl_cols += [int(a), int(b)]
+                b_rhs_rows.append(bs.k)
+            else:
+                for a, b in bs.pairs:
+                    b_nl_rows += [bs.ep, bs.ep, bs.em, bs.em]
+                    b_nl_cols += [int(a), int(b), int(a), int(b)]
+                b_rhs_rows += [bs.ep, bs.em]
+        self._b_pairs = [(idx(bs.pairs[:, 0]), idx(bs.pairs[:, 1]))
+                         for bs in self.b_sources]
+        self.b_static_rows = np.asarray(b_static_rows, np.int64)
+        self.b_static_cols = np.asarray(b_static_cols, np.int64)
+        self.b_static_vals = torch.as_tensor(
+            np.tile(np.array([1.0, -1.0, 1.0, -1.0]),
+                    len(b_static_rows) // 4), dtype=dt_, device=dev)
         self._dc_flat = flat(
             np.concatenate([self.res_rows, self.dc_const_rows,
-                            self.ctrl_rows]),
+                            self.b_static_rows, self.ctrl_rows]),
             np.concatenate([self.res_cols, self.dc_const_cols,
-                            self.ctrl_cols]))
+                            self.b_static_cols, self.ctrl_cols]))
 
         # ---- transient patterns: inductor BE companion (4 couplings + the
         # -L/dt branch diagonal), cap-like class = explicit C, then the 4
@@ -179,10 +208,10 @@ class Engine:
         self._tran_flat = flat(
             np.concatenate([self.res_rows, self.dc_const_rows[:4 * nV],
                             self.ind_rows, self.cap_rows, t.node_eqs,
-                            self.ctrl_rows]),
+                            self.ctrl_rows, self.b_static_rows]),
             np.concatenate([self.res_cols, self.dc_const_cols[:4 * nV],
                             self.ind_cols, self.cap_cols, t.node_eqs,
-                            self.ctrl_cols]))
+                            self.ctrl_cols, self.b_static_cols]))
 
         def any_nz(key):
             return bool(np.any(np.asarray(low.params[key].cpu())))
@@ -195,7 +224,7 @@ class Engine:
         self.dio_bv = any_nz("dio_bv")
 
         # ---- nonlinear (per-Newton-iteration) patterns, concatenated in
-        # the order mos, jfet, diode, bjt, switch ----
+        # the order mos, jfet, diode, bjt, switch, B ----
         def fet(d, g, s):
             """rows [D,D,D,S,S,S] x cols [D,G,S,D,G,S]; RHS rows [D,S]."""
             return (np.stack([d, d, d, s, s, s], 1).ravel(),
@@ -218,7 +247,10 @@ class Engine:
               np.stack([t.sw_ep, t.sw_em, t.sw_ep, t.sw_em,
                         t.sw_ecp, t.sw_ecm, t.sw_ecp, t.sw_ecm], 1).ravel(),
               np.stack([t.sw_ep, t.sw_em], 1).ravel())
-        classes = (mos, jf, dio, bjt, sw)
+        classes = (mos, jf, dio, bjt, sw,
+                   (np.asarray(b_nl_rows, np.int64),
+                    np.asarray(b_nl_cols, np.int64),
+                    np.asarray(b_rhs_rows, np.int64)))
         self.nl_rows, self.nl_cols, self.nl_rhs_rows = (
             np.concatenate([c[i] for c in classes]).astype(np.int64)
             for i in range(3))
@@ -341,7 +373,9 @@ class Engine:
 
     def _nl_vals(self, params, x, t=0.0):
         """Per-Newton-iteration nonlinear stamp values (G entries, RHS
-        entries) in the order mos, jfet, diode, bjt, switch."""
+        entries) in the order mos, jfet, diode, bjt, switch, B; ``t``
+        reaches B expressions that read ``time`` (DC and AC linearise at
+        t = 0)."""
         topo, opts = self.topo, self.opts
         xe = self.x_ext(x)
         gv, rv = [], []
@@ -390,6 +424,22 @@ class Engine:
                 params["sw_ron"], params["sw_roff"], params["sw_vt"],
                 params["sw_vh"], xe[..., ep], xe[..., em], xe[..., ecp],
                 xe[..., ecm]))
+        for bs, (pa, pb) in zip(self.b_sources, self._b_pairs):
+            # the expression's value and gradient at the probe values give
+            # the linearisation; consts are its .PARAM values (per lane)
+            vals = xe[..., pa] - xe[..., pb]
+            consts = params["b_consts"][
+                ..., bs.const_off:bs.const_off + bs.n_consts]
+            e0, grads = eval_tape(bs.tape, vals, t, consts)
+            cst = e0 - (grads * vals).sum(-1)
+            if bs.is_v:
+                # branch row: Vp - Vm - sum g_j val_j = cst
+                add((torch.stack([-grads, grads], -1).flatten(-2),
+                     cst[..., None]))
+            else:
+                add((torch.stack([grads, -grads, -grads, grads],
+                                 -1).flatten(-2),
+                     torch.stack([-cst, cst], -1)))
         if not gv:
             z = x.new_zeros(x.shape[:-1] + (0,))
             return z, z
@@ -406,12 +456,13 @@ class Engine:
         cvals = self._ctrl_vals(params)
         lead = torch.broadcast_shapes(rvals.shape[:-1], cvals.shape[:-1])
         const = self.dc_const_vals.expand(lead + self.dc_const_vals.shape)
+        bvals = self.b_static_vals.expand(lead + self.b_static_vals.shape)
         rows = np.concatenate([self.res_rows, self.dc_const_rows,
-                               self.ctrl_rows])
+                               self.b_static_rows, self.ctrl_rows])
         cols = np.concatenate([self.res_cols, self.dc_const_cols,
-                               self.ctrl_cols])
+                               self.b_static_cols, self.ctrl_cols])
         return rows, cols, torch.cat([rvals.expand(lead + rvals.shape[-1:]),
-                                      const,
+                                      const, bvals,
                                       cvals.expand(lead + cvals.shape[-1:])],
                                      dim=-1)
 
@@ -454,7 +505,8 @@ class Engine:
     # ------------------------------------------------------------------
     def tran_static_entries(self, params, dt, gmin):
         """Static COO entries of the BE transient matrix: R, V couplings,
-        L and C/MOS-cap companions (G_C = C/dt, R_L = L/dt), gmin, E/G/F/H."""
+        L and C/MOS-cap companions (G_C = C/dt, R_L = L/dt), gmin, E/G/F/H,
+        the B V-form couplings."""
         rvals = self._res_vals(params)
         cvals = self._ctrl_vals(params)
         lead = torch.broadcast_shapes(rvals.shape[:-1], cvals.shape[:-1])
@@ -474,11 +526,14 @@ class Engine:
             lead + (len(self.topo.node_eqs),))
         rows = np.concatenate([self.res_rows, self.dc_const_rows[:4 * nV],
                                self.ind_rows, self.cap_rows,
-                               self.topo.node_eqs, self.ctrl_rows])
+                               self.topo.node_eqs, self.ctrl_rows,
+                               self.b_static_rows])
         cols = np.concatenate([self.res_cols, self.dc_const_cols[:4 * nV],
                                self.ind_cols, self.cap_cols,
-                               self.topo.node_eqs, self.ctrl_cols])
-        parts = [rvals, vs_vals, ind_vals, cap_vals, gm, cvals]
+                               self.topo.node_eqs, self.ctrl_cols,
+                               self.b_static_cols])
+        parts = [rvals, vs_vals, ind_vals, cap_vals, gm, cvals,
+                 self.b_static_vals]
         vals = torch.cat([p.expand(lead + p.shape[-1:]) for p in parts], -1)
         return rows, cols, vals
 

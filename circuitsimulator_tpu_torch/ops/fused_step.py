@@ -1,15 +1,18 @@
-"""Fused Monte-Carlo transient chunk (K1, scopes K1a, K1b and K1d-i): whole
-Backward-Euler timesteps per lane in one launch.
+"""Fused Monte-Carlo transient chunk (K1, scopes K1a, K1b, K1d-i and
+K1d-ii): whole Backward-Euler timesteps per lane in one launch.
 
 Port of ``circuitsimulator_tpu/ops/pallas_step.py`` (``PallasStepRunner``)
 for R/C/L, V and I sources with every waveform kind (PULSE/SIN/PWL/EXP/SFFM,
 PWL with at most 8 breakpoints), the linear controlled sources E/G/F/H
 (their stamps live in G0 only), Level-1 MOS without body effect or reverse
 region (K1a), JFETs, diodes with reverse breakdown, Ebers-Moll BJTs with
-Early voltage and the S/W switches (K1b), and the charge rows of
-``MOSCAP=CHARGE`` with Woodbury ranks past 16 (K1d-i); rank
-0 <= k = nM + nJ + nD + 2 nQ + nS (+ 5 nM under the charge model) <= 32
-(k = 0 is a linear deck: each Newton iteration accepts z0 = G0^{-1} b).
+Early voltage and the S/W switches (K1b), the charge rows of
+``MOSCAP=CHARGE`` with Woodbury ranks past 16 (K1d-i), and the behavioral
+B sources (K1d-ii: at most 4 probe pairs and an expression stack of at most
+16, at rank k <= 16 and without charge rows); rank
+0 <= k = nM + nJ + nD + 2 nQ + nS + nB (+ 5 nM under the charge model)
+<= 32 (k = 0 is a linear deck: each Newton iteration accepts
+z0 = G0^{-1} b).
 
 Per step and lane (what the kernel and ``run_chunk_plain`` compute):
 
@@ -19,8 +22,8 @@ Per step and lane (what the kernel and ``run_chunk_plain`` compute):
   of x, so this is the non-fused state's qm; no extra carry);
 - Newton from x (or 2x - x_prev with the predictor): the device
   linearisations in Woodbury row order (MOS then JFET rows from one pack,
-  diode rows, two rows per BJT, switch rows, then five charge rows per MOS,
-  device-major: g = (dq/dv)/dt, cst = (q(v) - q_prev)/dt - g v),
+  diode rows, two rows per BJT, switch rows, B rows, then five charge rows
+  per MOS, device-major: g = (dq/dv)/dt, cst = (q(v) - q_prev)/dt - g v),
   z = z0 - Y c, S = I + V^T Y, vz = V^T z, the k x k solve S w = vz,
   x_raw = z - Y w, then the damped accept (clamp, alpha, err^2 < tol^2, a
   non-finite x_raw freezes the lane and raises ``failed``);
@@ -42,9 +45,18 @@ JAX kernel's block-wide while loop, because accept freezes lanes that are
 done; it differs only in that a done lane never again raises ``failed``
 (the masked semantics of the non-fused loop, analysis/transient.py).
 
+A B row evaluates its compiled expression (``utils/expr.compile_tape``) at
+the probe values vals_i = x[a_i] - x[b_i] and t: value e0 and gradient g
+(``eval_tape``'s forward-mode rules, which are JAX's), the row
+sig (g_0, -g_0, g_1, -g_1, ...) zero-padded to W and c = sig (e0 - g.vals),
+sig = -1 for a V=expr source (its row is the branch row) and +1 for I=expr.
+The kernel interprets the same opcodes (one build serves every deck); the
+JAX kernel traces the expression's vjp instead.
+
 Constants are lane-minor and contraction-major, as in the JAX kernel:
 G0invT (N, N, B) [m, n, lane] = G0inv[lane, n, m], YT (k, N, B), Yc3
-(W, k, k, B) with W = 4 when a switch is present, else 3.  The one-hot
+(W, k, k, B) with W = 4 when a switch is present, else 3, widened to
+2 max(m) by B sources of m probe pairs.  The one-hot
 selection matmuls of the TPU kernel are index plans here (source rows,
 inductor rows, cap terminal pairs, the (W, k) column plan of the V^T rows,
 which is also where each row's device reads its terminal voltages); index N
@@ -71,6 +83,7 @@ from ..models.moscap import charge_jacobian, charges_of_x
 from ..models.mosfet import mos_linearize
 from ..models.switch import switch_linearize
 from ..netlist import WAVE_PWL
+from ..utils.expr import eval_tape
 from . import cuda_step
 from .lu import lu_solve_plain
 from .woodbury import WoodburySolver
@@ -79,23 +92,34 @@ MAX_N = cuda_step.MAX_N      # unknowns per lane (the kernel's local arrays)
 MAX_K = cuda_step.MAX_K      # Woodbury rank (the JAX kernel's MAX_K)
 UNROLL_K_MAX = cuda_step.UNROLL_K_MAX  # elimination up to here, then GJ
 MAX_PWL = 8                  # PWL breakpoints (the JAX kernel unrolls <= 8)
-IN_SCOPE = "RCLVIMEGFHDQJS"  # device classes of K1a, K1b and K1d-i
+MAX_B_PAIRS = cuda_step.MAX_W // 2   # probe pairs per B source
+MAX_STACK = cuda_step.MAX_STACK      # expression stack of a B source
+IN_SCOPE = "RCLVIMEGFHDQJSB"  # device classes of K1a, K1b, K1d-i, K1d-ii
 
 
 def unsupported_reason(engine, dt=None) -> Optional[str]:
-    """Why ``engine`` is outside the K1a + K1b + K1d-i scope, or None when
-    it is in.
+    """Why ``engine`` is outside the K1a + K1b + K1d-i + K1d-ii scope, or
+    None when it is in.
 
     In scope is a subset of ``circuitsimulator_tpu/ops/pallas_step.py:
     supported``: every condition refused there is refused here, plus
-    N > 64.  B sources (K1d-ii), T-lines, TRNOISE (K1c) and mutual
-    inductance never reach an Engine of the port."""
+    N > 64, and for B sources an expression stack deeper than 16, charge
+    rows, or a rank above 16 (no kernel instantiation has them together).
+    T-lines, TRNOISE (K1c) and mutual inductance never reach an Engine of
+    the port."""
     t = engine.topo
     opts = engine.opts
     c = t.counts
     others = sorted(cls for cls, n in c.items() if n and cls not in IN_SCOPE)
     if others:
-        return f"device classes {', '.join(others)} (K1c/K1d-ii)"
+        return f"device classes {', '.join(others)} (K1c)"
+    for bs in engine.b_sources:
+        if len(bs.pairs) > MAX_B_PAIRS:
+            return (f"B source {bs.name}: {len(bs.pairs)} probe pairs > "
+                    f"{MAX_B_PAIRS}")
+        if bs.tape.depth > MAX_STACK:
+            return (f"B source {bs.name}: expression stack depth "
+                    f"{bs.tape.depth} > {MAX_STACK}")
     if engine.mos_body:
         return "MOS body effect (GAMMA)"
     if opts.mos_reverse_region:
@@ -109,11 +133,16 @@ def unsupported_reason(engine, dt=None) -> Optional[str]:
         return f"PWL source with {engine.pwl_width} > {MAX_PWL} breakpoints"
     if engine.N > MAX_N:
         return f"N = {engine.N} > {MAX_N} unknowns"
-    k = c["M"] + c["J"] + c["D"] + 2 * c["Q"] + c["S"]
+    nB = len(engine.b_sources)
+    k = c["M"] + c["J"] + c["D"] + 2 * c["Q"] + c["S"] + nB
     if engine.mos_charge:
         k += 5 * c["M"]                         # the charge rows
     if k > MAX_K:
         return f"Woodbury rank k = {k} > {MAX_K}"
+    if nB and engine.mos_charge:
+        return "B sources with MOSCAP=CHARGE rows"
+    if nB and k > UNROLL_K_MAX:
+        return f"B sources at Woodbury rank k = {k} > {UNROLL_K_MAX}"
     return None
 
 
@@ -163,6 +192,7 @@ class FusedStepRunner:
         self.nD, self.nQ, self.nSw = plan.nD, plan.nQ, plan.nS
         self.nCq = plan.nCq
         self.nMq = plan.nCq // 5                # MOS with charge rows
+        self.nB = plan.nB
         self.G0invT = wb.G0inv.permute(2, 1, 0).contiguous()   # (N, N, B)
         self.YT = wb.Y.permute(2, 1, 0).contiguous()           # (k, N, B)
         self.Yc3 = wb.Y_cols.permute(2, 1, 3, 0).contiguous()  # (W, k, k, B)
@@ -200,6 +230,27 @@ class FusedStepRunner:
         nq = self.nMq
         self.mqp = pack(*(bparams[key][..., :nq] for key in (
             "mos_vth", "mos_coxwl", "mos_cj0", "mos_p")))      # (4, nMq, B)
+
+        # B sources: every tape's instructions and literals concatenated,
+        # per source (instruction offset, count, literal offset, probe
+        # pairs, V form, constant offset); their .PARAM values lane-minor
+        tapes = [bs.tape for bs in plan.b_sources]
+        offs = np.cumsum([0] + [len(tp.ops) for tp in tapes])
+        loffs = np.cumsum([0] + [len(tp.lits) for tp in tapes])
+        self.b_meta = torch.as_tensor(np.asarray(
+            [[offs[i], len(tp.ops), loffs[i], len(bs.pairs), int(bs.is_v),
+              bs.const_off] for i, (bs, tp) in enumerate(
+                  zip(plan.b_sources, tapes))], np.int32).reshape(-1, 6),
+            device=dev)
+        self.b_ops = torch.as_tensor(np.concatenate(
+            [tp.ops for tp in tapes] + [np.zeros(1, np.int32)]), device=dev)
+        self.b_lits = torch.as_tensor(np.concatenate(
+            [tp.lits for tp in tapes] + [np.zeros(1)]), dtype=dtype,
+            device=dev)
+        bc = bparams["b_consts"]
+        self.bconsts = (_lm(bc.expand(B, bc.shape[-1])) if bc.shape[-1]
+                        else torch.zeros((1, B), dtype=dtype, device=dev))
+        self.b_sources = plan.b_sources
 
         # independent sources, V then I, lane-minor: dc (nS, B), pulse
         # (7, nS, B), sin (5, nS, B), pwl_t and pwl_v (P, nS, B), pwl_n
@@ -284,7 +335,9 @@ class FusedStepRunner:
         o_d = self.nMJ
         o_q = o_d + self.nD
         o_s = o_q + 2 * self.nQ
-        o_c = o_s + self.nSw
+        o_b = o_s + self.nSw
+        o_c = o_b + self.nB
+        bconsts = self.bconsts.T                               # (B, nc)
         inv_dt = self.inv_dt
         qpar = dict(zip(("mos_vth", "mos_coxwl", "mos_cj0", "mos_p"),
                         (q.T for q in self.mqp)))              # (B, nMq) each
@@ -295,10 +348,10 @@ class FusedStepRunner:
             xm = torch.cat([xx, zcol], 1)[:, cols[:3, o_c::5]]
             return xm.permute(0, 2, 1)
 
-        def nl_rows(xx, qprev):
-            """V^T rows (W, B, k) and Newton constants (B, k) at xx, the
-            segments in Woodbury row order; qprev (B, nMq, 5) are the
-            charges of the incoming x."""
+        def nl_rows(xx, qprev, t):
+            """V^T rows (W, B, k) and Newton constants (B, k) at xx and time
+            t, the segments in Woodbury row order; qprev (B, nMq, 5) are
+            the charges of the incoming x."""
             xe = torch.cat([xx, zcol], 1)
             xm = xe[:, cols]                                   # (B, W, k)
             vparts, cparts = [], []
@@ -333,9 +386,24 @@ class FusedStepRunner:
                 cparts.append(torch.stack([rc[3], rb[3]], dim=-1).flatten(-2))
             if self.nSw:
                 gd, gc, cst = switch_linearize(
-                    *swp, *(xm[:, q, o_s:o_c] for q in range(4)))
+                    *swp, *(xm[:, q, o_s:o_b] for q in range(4)))
                 vparts.append(rows(gd, -gd, gc, -gc))
                 cparts.append(cst)
+            for i, bs in enumerate(self.b_sources):
+                # B rows: sig (g_0, -g_0, ...) and c = sig (e0 - g.vals)
+                j, m = o_b + i, len(bs.pairs)
+                vals = torch.stack([xm[:, 2 * q, j] - xm[:, 2 * q + 1, j]
+                                    for q in range(m)], -1) if m else \
+                    xm[:, 0, :0]
+                e0, g = eval_tape(bs.tape, vals, t, bconsts[
+                    :, bs.const_off:bs.const_off + bs.n_consts])
+                cst = e0 - (g * vals).sum(-1)
+                sig = -1.0 if bs.is_v else 1.0
+                coef = [c for q in range(m)
+                        for c in (sig * g[:, q], -sig * g[:, q])]
+                vparts.append(rows(*(coef or [torch.zeros_like(e0)]))[
+                    ..., None])
+                cparts.append((sig * cst)[:, None])
             if self.nCq:
                 # charge rows (JAX kernel :997-1019), device-major: five
                 # rows per MOS over its (vd, vg, vs)
@@ -350,11 +418,11 @@ class FusedStepRunner:
                 cparts.append(cst)
             return torch.cat(vparts, -1), torch.cat(cparts, -1)
 
-        def newton(xx, done, fl, z0, active, qprev):
+        def newton(xx, done, fl, z0, active, qprev, t):
             """One iteration; ``active`` masks the failed update and the
             count (the per-lane while loop), None runs it ungated."""
             if k:
-                v, cst = nl_rows(xx, qprev)                    # (W, B, k)
+                v, cst = nl_rows(xx, qprev, t)                 # (W, B, k)
                 z = z0 - torch.einsum("jnb,bj->bn", self.YT, cst)
                 S = eye + torch.einsum("sbj,sjlb->bjl", v, self.Yc3)
                 ze = torch.cat([z, zcol], 1)
@@ -392,14 +460,15 @@ class FusedStepRunner:
             done, fl = failed, failed
             if self.unrolled > 0:
                 for _ in range(self.unrolled):
-                    xx, done, fl = newton(xx, done, fl, z0, None, qprev)
+                    xx, done, fl = newton(xx, done, fl, z0, None, qprev, t)
                 iters += self.unrolled
             else:
                 for _ in range(self.max_nr):
                     active = ~done
                     if not bool(active.any()):
                         break
-                    xx, done, fl = newton(xx, done, fl, z0, active, qprev)
+                    xx, done, fl = newton(xx, done, fl, z0, active, qprev,
+                                          t)
                     iters += active.to(torch.int32)
             xe = torch.cat([xx, zcol], 1)
             vc = xe[:, self.cap_a.long()] - xe[:, self.cap_b.long()]

@@ -1,11 +1,13 @@
 """Low-rank (Woodbury) Newton solve for the transient hot loop.
 
 Port of ``circuitsimulator_tpu/ops/woodbury.py`` for Level-1 MOS, JFET,
-diode, BJT and switch rows and the charge rows of ``MOSCAP=CHARGE``.  Each
-MOSFET's conduction stamp is a rank-one update (e_D - e_S) v^T of the
-otherwise constant BE matrix G0 (fixed dt); JFETs, diodes and switches are
-rank one too, a BJT is rank two ((e_C - e_E) for Ic, (e_B - e_E) for Ib),
-and the charge model adds five node-to-ground rows per MOS (i_d, i_g, i_s,
+diode, BJT, switch and behavioral B-source rows and the charge rows of
+``MOSCAP=CHARGE``.  Each MOSFET's conduction stamp is a rank-one update
+(e_D - e_S) v^T of the otherwise constant BE matrix G0 (fixed dt); JFETs,
+diodes and switches are rank one too, a BJT is rank two ((e_C - e_E) for
+Ic, (e_B - e_E) for Ib), a B source is one row over its probe pairs
+(applied at e_p - e_m for I=expr, at the branch row e_k for V=expr), and
+the charge model adds five node-to-ground rows per MOS (i_d, i_g, i_s,
 i_sb, i_db at d, g, s, s, d, each over (vd, vg, vs)).  With G0 inverted
 once:
 
@@ -27,19 +29,21 @@ from ..models.bjt import bjt_linearize
 from ..models.diode import diode_linearize
 from ..models.mosfet import mos_linearize
 from ..models.switch import switch_linearize
+from ..utils.expr import eval_tape
 from .lu import lu_inverse, lu_solve
 
 
 class WoodburyPlan:
     """Static index plan of the rank-k update, rows in the order mos, jfet,
-    diode, bjt (Ic row then Ib row per device), switch, then the charge
+    diode, bjt (Ic row then Ib row per device), switch, B, then the charge
     rows (five per MOS, device-major) when the engine runs the charge model.
 
     The V^T row width W is 3 (MOS/JFET d, g, s; diode p, m, dump; BJT c, b,
     e) unless a switch is present: its row couples the node pair to the
     control pair (p, m, cp, cm), so every class pads to W = 4 with the dump
-    column (zero coefficient).  Decks without a switch keep the exact
-    width-3 layout."""
+    column (zero coefficient).  A B source's row reads its m probe pairs
+    (a_0, b_0, a_1, b_1, ...), so B sources widen W to 2 max(m).  Decks
+    without a switch or a B source keep the exact width-3 layout."""
 
     def __init__(self, engine):
         t = engine.topo
@@ -47,21 +51,30 @@ class WoodburyPlan:
         self.nM, self.nJ = len(t.mos_ed), len(t.jf_ed)
         self.nD, self.nQ, self.nS = len(t.dio_ep), len(t.bjt_ec), len(t.sw_ep)
         self.nCq = 5 * self.nM if engine.mos_charge else 0
-        self.k = (self.nM + self.nJ + self.nD + 2 * self.nQ + self.nS
+        self.b_sources = list(engine.b_sources)
+        self.nB = nB = len(self.b_sources)
+        self.k = (self.nM + self.nJ + self.nD + 2 * self.nQ + self.nS + nB
                   + self.nCq)
-        self.W = W = 4 if self.nS else 3
+        W = 4 if self.nS else 3
+        if nB:
+            W = max(W, max(2 * len(bs.pairs) for bs in self.b_sources))
+        self.W = W
         # charge rows inject at (d, g, s, s, d) against ground
         mcq_pos = (np.stack([t.mos_ed, t.mos_eg, t.mos_es, t.mos_es,
                              t.mos_ed], 1).ravel() if self.nCq
                    else np.zeros((0,), np.int64))
         # U column j = e_pos[j] - e_neg[j] (dump-mapped entries vanish)
+        # a B row applies at e_k (V form: its branch row) or e_p - e_m
+        b_pos = [bs.k if bs.is_v else bs.ep for bs in self.b_sources]
+        b_neg = [N if bs.is_v else bs.em for bs in self.b_sources]
         self.u_pos = np.concatenate([
             t.mos_ed, t.jf_ed, t.dio_ep,
-            np.stack([t.bjt_ec, t.bjt_eb], 1).ravel(), t.sw_ep, mcq_pos
+            np.stack([t.bjt_ec, t.bjt_eb], 1).ravel(), t.sw_ep, b_pos,
+            mcq_pos
         ]).astype(np.int64)
         self.u_neg = np.concatenate([
             t.mos_es, t.jf_es, t.dio_em,
-            np.stack([t.bjt_ee, t.bjt_ee], 1).ravel(), t.sw_em,
+            np.stack([t.bjt_ee, t.bjt_ee], 1).ravel(), t.sw_em, b_neg,
             np.full(self.nCq, N)
         ]).astype(np.int64)
 
@@ -78,12 +91,17 @@ class WoodburyPlan:
         self.bjt_cols = cols(t.bjt_ec, t.bjt_eb, t.bjt_ee)
         self.sw_cols = (cols(t.sw_ep, t.sw_em, t.sw_ecp, t.sw_ecm)
                         if self.nS else np.zeros((0, W)))
+        # each B row reads its probe pairs (a_0, b_0, a_1, b_1, ...)
+        self.b_cols = np.asarray(
+            [list(bs.pairs.ravel()) + [N] * (W - 2 * len(bs.pairs))
+             for bs in self.b_sources], np.int64).reshape(nB, W)
         # the charge rows read (vd, vg, vs): all five rows of a device
         self.mcq_cols = (np.repeat(self.mos_cols, 5, axis=0) if self.nCq
                          else np.zeros((0, W)))
         self._cols = np.concatenate([
             self.mos_cols, self.jf_cols, self.dio_cols,
-            np.repeat(self.bjt_cols, 2, axis=0), self.sw_cols, self.mcq_cols
+            np.repeat(self.bjt_cols, 2, axis=0), self.sw_cols, self.b_cols,
+            self.mcq_cols
         ]).astype(np.int64)
 
     def build_U(self, dtype, device):
@@ -129,15 +147,17 @@ class WoodburySolver:
         self.M_dio = onehot(plan.dio_cols)
         self.M_bjt = onehot(plan.bjt_cols)
         self.M_sw = onehot(plan.sw_cols)
+        self.M_b = onehot(plan.b_cols)                          # (N, W nB)
         self.M_cols = onehot(plan.col_idx())                    # (N, W k)
 
     def z0(self, b0):
         """G0^{-1} b0, once per timestep (b0 = sources + history)."""
         return (self.G0inv @ b0[..., None])[..., 0]
 
-    def nl_coeffs(self, params, x, qex=None):
+    def nl_coeffs(self, params, x, qex=None, t=0.0):
         """Per-row V^T values (..., k, W) and Newton constants (..., k);
-        qex = (qprev, inv_dt) for the charge rows."""
+        qex = (qprev, inv_dt) for the charge rows, t the time that B
+        expressions read."""
         plan, eng = self.plan, self.engine
         opts = eng.opts
         W = plan.W
@@ -199,6 +219,27 @@ class WoodburySolver:
                 params["sw_vh"], vp, vm, vcp, vcm)
             parts_v.append(rows(gd, -gd, gc, -gc))
             parts_c.append(cst)
+        if plan.nB:
+            # B rows: I form [g, -g, ...] at the probe pairs with c = cst;
+            # V form (-f on the branch row, U column = +e_k) [-g, g, ...]
+            # with c = -cst (Engine._nl_vals sign convention)
+            xb = read(self.M_b, plan.nB)
+            for i, bs in enumerate(plan.b_sources):
+                m = len(bs.pairs)
+                vals = torch.stack([xb[2 * j][..., i] - xb[2 * j + 1][..., i]
+                                    for j in range(m)], -1) if m else \
+                    x[..., :0]
+                consts = params["b_consts"][
+                    ..., bs.const_off:bs.const_off + bs.n_consts]
+                e0, grads = eval_tape(bs.tape, vals, t, consts)
+                cst = e0 - (grads * vals).sum(-1)
+                sig = -1.0 if bs.is_v else 1.0
+                coef = [c for j in range(m)
+                        for c in (sig * grads[..., j], -sig * grads[..., j])]
+                if not coef:
+                    coef = [torch.zeros_like(e0)]
+                parts_v.append(rows(*coef)[..., None, :])
+                parts_c.append((sig * cst)[..., None])
         if plan.nCq:
             if qex is None:
                 raise ValueError("the charge rows need qex=(qprev, inv_dt)")
@@ -214,13 +255,14 @@ class WoodburySolver:
                 torch.cat([c.expand(lead + c.shape[-1:]) for c in parts_c],
                           dim=-1))
 
-    def solve(self, params, x, z0, qex=None):
+    def solve(self, params, x, z0, qex=None, t=0.0):
         """One Newton linear solve: x_raw with A(x) x_raw = b(x); qex =
-        (qprev, inv_dt) under the charge model."""
+        (qprev, inv_dt) under the charge model, t the step time (B
+        expressions that read ``time``)."""
         plan = self.plan
         if plan.k == 0:
             return z0
-        vcoef, c = self.nl_coeffs(params, x, qex)
+        vcoef, c = self.nl_coeffs(params, x, qex, t)
         z = z0 - (self.Y @ c[..., None])[..., 0]
         # S = I + V^T Y: S[j, l] = sum_s vcoef[j, s] * Y[cols[j, s], l]
         S = self.eye_k + (vcoef[..., None] * self.Y_cols).sum(-2)

@@ -7,9 +7,12 @@ dense solve run over all lanes at once (the K2 kernel on CUDA).  A
 waveform-free f32 transient on CUDA takes the fused chunk kernel (K1,
 ``ops/fused_step.py``) when the deck is in its scope (R/C/L, sources, E/G/F/H,
 Level-1 MOS with the fixed or the charge-conserving caps, JFET, diode, BJT,
-S/W switch; Woodbury rank <= 32, so inamp.sp and MOSCAP=CHARGE decks up to
-five MOSFETs run fused).  Under MOSCAP=CHARGE the non-fused carry's state
-holds the MOS charges qm.
+S/W switch, B sources; Woodbury rank <= 32, so inamp.sp and MOSCAP=CHARGE
+decks up to five MOSFETs run fused).  Under MOSCAP=CHARGE the non-fused
+carry's state holds the MOS charges qm.  A deck with a .NODESET card starts
+its lanes as ``benchmarks/bench_inamp.py`` does: the nominal DC with the
+card (``Simulator.dc``), then ``batched_dc_warm``; ``batched_dc_fast`` takes
+the card too (``nodeset=``).
 """
 
 from __future__ import annotations
@@ -52,12 +55,25 @@ def lane_count(bparams: Dict[str, torch.Tensor]) -> int:
     return next(iter(bparams.values())).shape[0]
 
 
-def batched_dc_fast(engine: Engine, bparams):
+def batched_dc_fast(engine: Engine, bparams, nodeset=None):
     """Natively batched DC operating point (B, N): one Newton loop with
-    per-lane masks, every iteration's solve batched over all lanes."""
+    per-lane masks, every iteration's solve batched over all lanes.
+    nodeset: the (eqs, vals) Newton aid of ``Simulator._nodeset()``."""
     if not engine.topo.has_nonlinear:
         return dc_linear(engine, bparams)
-    return dc_newton(engine, bparams, batch=lane_count(bparams))
+    return dc_newton(engine, bparams, batch=lane_count(bparams),
+                     nodeset=nodeset)
+
+
+def batched_dc_warm(engine: Engine, bparams, x_nom):
+    """Monte-Carlo DC from the nominal operating point ``x_nom``: every
+    lane warm-starts there and runs only the final (scale = 1) Newton
+    step, not the whole source ramp.  Same tolerance and gmin schedule at
+    scale 1 as ``batched_dc_fast``; the trajectories differ."""
+    if not engine.topo.has_nonlinear:
+        return dc_linear(engine, bparams)
+    return dc_newton(engine, bparams, batch=lane_count(bparams),
+                     x_init=x_nom, final_only=True)
 
 
 def init_carry(engine: Engine, x0, bparams=None):

@@ -72,6 +72,7 @@ C1 out 0 1u
 DECKS = {"cs_amp": os.path.join(EXAMPLES, "cs_amp.sp"),
          "feedback_loop": os.path.join(EXAMPLES, "feedback_loop.sp"),
          "opamp_filter": os.path.join(EXAMPLES, "opamp_filter.sp"),
+         "sdomain_filter": os.path.join(EXAMPLES, "sdomain_filter.sp"),
          "rc": RC_DECK}
 
 
@@ -194,12 +195,19 @@ def test_ac_analysis_matches_jax(deck):
                                atol=ATOL)
 
 
-def test_sdomain_filter_waits_for_behavioral_sources():
+def test_sdomain_filter_waits_for_behavioral_sources(tmp_path):
     # its LAPLACE expansion ends in a POLY(3) E source, which the frontend
-    # lowers onto a behavioral (B) source
-    with pytest.raises(NotImplementedError, match="B sources"):
-        Simulator.from_file(os.path.join(EXAMPLES, "sdomain_filter.sp"),
-                            device="cpu")
+    # lowers onto a behavioral (B) source: the port now runs it, and its
+    # .AC sweep writes the JAX-made golden within 1e-9
+    ts = Simulator.from_file(os.path.join(EXAMPLES, "sdomain_filter.sp"),
+                             device="cpu")
+    assert len(ts.lowered.b_sources) == 2
+    path = tmp_path / "ac.csv"
+    write_ac_csv(str(path), ts.topo, ts.ac())
+    got = np.loadtxt(path, delimiter=",", skiprows=1)
+    want = np.loadtxt(os.path.join(GOLDENS, "sdomain_filter_ac_jax.csv"),
+                      delimiter=",", skiprows=1)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-9)
 
 
 def test_ac_analysis_batched_matches_jax_on_dbmixer():
@@ -323,7 +331,8 @@ def test_ac_refuses_unported_stamps_by_name(monkeypatch):
 
 
 # ---------------------------------------------------------------- output
-@pytest.mark.parametrize("deck", ["cs_amp", "feedback_loop"])
+@pytest.mark.parametrize("deck", ["cs_amp", "feedback_loop",
+                                  "sdomain_filter"])
 def test_goldens_are_current(deck, tmp_path):
     js, jres = jax_ac(deck)
     path = tmp_path / "ac.csv"

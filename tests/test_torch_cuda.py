@@ -331,6 +331,92 @@ def test_fused_step_kernel_matches_plain_k1d(cuda_device, deck, dtype):
                                       ref[5].cpu().numpy())
 
 
+# the B-source deck of tests/test_pallas_step.py: an I-form source with a
+# .PARAM, a V-form source with a time term, and a diode
+B_DECK = """* behavioral multiplier + limiter + diode
+.PARAM gain=1m
+V1 a 0 SIN 0 1 1e4
+V2 b 0 SIN 0 1 1.3e4
+R1 a 0 1k
+R2 b 0 1k
+B1 p 0 I=v(a)*v(b)*gain
+RP p 0 1k
+B2 q 0 V=tanh(v(p)*2)+0.1*sin(6.28e4*time)
+RQ q 0 2k
+C1 q 0 10n
+D1 q 0 IS=1e-14
+.op
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("deck", ["bdeck", "sdomain_filter"])
+def test_fused_step_kernel_matches_plain_k1d_ii(cuda_device, deck, dtype):
+    """K1d-ii (the B-source rows) against the plain version on the same
+    card and inputs, 64 lanes x 10 steps from the f64 batched DC point,
+    damped configuration, resistors and b_consts perturbed: B_DECK (W = 4)
+    and sdomain_filter.sp (POLY(3) sources, W = 6); f32 within 1e-4 V,
+    f64 within 1e-9 V with equal per-lane iteration counts."""
+    from circuitsimulator_tpu_torch import DEFAULT_OPTIONS
+    from circuitsimulator_tpu_torch.ops import cuda_step
+    from circuitsimulator_tpu_torch.parallel import montecarlo as mc
+    opts = DEFAULT_OPTIONS.replace(dtype=dtype)
+    if dtype == torch.float32:
+        opts = opts.replace(tran_tol=1e-5, dc_tol=1e-5)
+    if deck == "bdeck":
+        sim = Simulator.from_text(B_DECK, opts=opts, device=cuda_device)
+        sim64 = Simulator.from_text(B_DECK, device=cuda_device)
+        dt, W = 1e-6, 4
+    else:
+        path = os.path.join(REPO, "examples", f"{deck}.sp")
+        sim = Simulator.from_file(path, opts=opts, device=cuda_device)
+        sim64 = Simulator.from_file(path, device=cuda_device)
+        dt, W = 2e-5, 6
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    bp = mc.perturb_params(sim.params, g, 64,
+                           {"res_r": 0.01, "b_consts": 0.05})
+    x0 = mc.batched_dc_fast(sim64.engine,
+                            {k: v.double() if v.is_floating_point() else v
+                             for k, v in bp.items()})
+    carry, advance, meta = mc.make_fused_transient_fn(sim.engine, bp, dt,
+                                                      x0=x0)
+    assert meta["runner"].W == W and meta["runner"].nB == 2
+    before = cuda_step.LAUNCHES
+    got, it = advance(carry, 0, 10)
+    torch.cuda.synchronize()
+    assert cuda_step.LAUNCHES == before + 1
+    ref = meta["runner"].run_chunk_plain(*carry, 0, 10)
+    tol = 1e-4 if dtype == torch.float32 else 1e-9
+    for a, b in zip(got[:4], ref[:4]):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=0,
+                                   atol=tol)
+    np.testing.assert_array_equal(got[4].cpu().numpy(), ref[4].cpu().numpy())
+    assert not bool(got[4].any())
+    if dtype == torch.float64:
+        np.testing.assert_array_equal(it.cpu().numpy(),
+                                      ref[5].cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_fused_step_refuses_a_deep_b_expression(cuda_device):
+    """An expression whose stack would overflow the kernel's (16 entries)
+    is refused by name by the gate and by the wrapper; nothing launches."""
+    from circuitsimulator_tpu_torch.ops import cuda_step, fused_step
+    from circuitsimulator_tpu_torch.parallel import montecarlo as mc
+    deep = "v(a)*(" * 17 + "v(a)" + ")" * 17
+    sim = Simulator.from_text(f"* deep\nV1 a 0 SIN 0 1 1e6\nR1 a 0 1k\n"
+                              f"B1 q 0 V={deep}\nRQ q 0 1k\n.op\n",
+                              device=cuda_device)
+    assert "stack depth 18 > 16" in fused_step.unsupported_reason(
+        sim.engine, 1e-9)
+    bp = mc.broadcast_params(sim.params, 4)
+    before = cuda_step.LAUNCHES
+    with pytest.raises(NotImplementedError, match="stack depth 18 > 16"):
+        mc.batched_transient(sim.engine, bp, 1e-9, 4e-9, fused=True)
+    assert cuda_step.LAUNCHES == before
+
+
 def ac_lanes(B, n, seed):
     """Diagonally dominant lanes; lane 1 exactly singular, lane 2 NaN."""
     rng = np.random.default_rng(seed)

@@ -156,7 +156,7 @@ def test_perturb_params_draws_lognormal_lanes():
 
 @pytest.mark.parametrize("card,what", [
     ("T1 1 0 2 0 Z0=50 TD=1n\nR2 2 0 50", "transmission line"),
-    ("B1 1 0 V=2*v(1)", "B sources"),
+    ("V2 2 0 DC 0 TRNOISE(1m 1n)\nR2 2 0 1k", "TRNOISE"),
     ("L1 1 2 1u\nL2 2 0 1u\nK1 L1 L2 0.5", "mutual inductance"),
     (".OPTIONS METHOD=TRAP", "METHOD=TRAP"),
 ])
