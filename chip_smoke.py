@@ -98,19 +98,43 @@ Phases (one JSON line each):
      failed lanes; then B = 1024 in f64 against the non-fused loop (1e-9 V);
  19. the CLI on B-source decks (cli_bsource): behavioral.sp in f64 on the
      card, its DC table byte-identical to the JAX CLI's
-     (tests/goldens/behavioral_stdout_jax.txt) and its CSV within 1e-9 V of
+     (tests/goldens/behavioral_stdout_jax.txt) and its CSV, over the first
+     1,000 of the deck's 5,000 steps, within 1e-9 V of the first rows of
      tests/goldens/behavioral_tran_jax.csv; then --no-tran --run-ac on
      sdomain_filter.sp against tests/goldens/sdomain_filter_ac_jax.csv
      (1e-9);
  20. .NODESET (nodeset): inamp.sp's f64 CLI DC (--no-tran) runs to its end
      on the card.  Phase 15's float32 lanes start as
      benchmarks/bench_inamp.py does: the nominal f64 DC with the deck's
-     .NODESET card, then the warm batched DC (batched_dc_warm).
+     .NODESET card, then the warm batched DC (batched_dc_warm);
+ 21. K1c-i, K1's probe stream, against the plain version on the card
+     (k1c_i_vs_plain): a (4, N) probe matrix of +1/-1 pairs on one deck per
+     instantiation family (dbmixer, bjt_amp, inamp, behavioral.sp), 256
+     lanes x 8 steps from each lane's f64 DC point, damped configuration:
+     f64 within 1e-9 V with equal per-lane iteration counts, f32 within
+     1e-4 V, the last probe tile bit-equal to probe_mat @ x_out, and the
+     same carry as the kernel without probes;
+ 22. the Monte-Carlo measurement path (monte_carlo_measures_*):
+     Simulator.monte_carlo(8192) on examples/mc_filter.sp in f32 (K1 with
+     its probe stream, then the streaming accumulators): K1 launches,
+     failed lanes, lane-steps/s, K1 (with and without probes), accumulator,
+     plain and bound ms per chunk; fused against the non-fused loop on
+     1,024 lanes in f32 (rtol 2e-4, atol 2e-6) and f64 (rtol 1e-9);
+     bjt_amp's vout_pp at B = 8192 from an f64 DC; rc_step's WHEN
+     crossings at B = 8192 over 2,000 steps; batched_ac_measures on
+     examples/opamp_filter.sp at B = 4096 (K3); and the CLI's --run-mc
+     8192 --dtype f32 on mc_filter;
+ 23. the CLI's .MEASURE output on the card (cli_measures): rc_step.sp and
+     mc_filter.sp byte-identical to the JAX CLI's stdout
+     (tests/goldens/{rc_step,mc_filter}_stdout_jax.txt), bjt_amp.sp with
+     --run-ac through its .MEASURE AC block
+     (tests/goldens/bjt_amp_run_ac_stdout_jax.txt, whose .TF block the
+     port does not print yet).
 
 Every error of K3 and of the AC path is lane-relative: for each lane
 max|x - ref| / max|ref| over its frequencies and unknowns, then the worst
 lane.  Kernel launch counts are reset just before each main-path run
-(phases 4, 7, 8, 11, 12, 13, 15, 16 and 18) and read just after it.  The
+(phases 4, 7, 8, 11, 12, 13, 15, 16, 18 and 22) and read just after it.  The
 junction decks run the damped while-loop Newton configuration at f32
 tolerances: the fast configuration (alpha 1, predictor, two unrolled
 iterations) was tuned on dbmixer and is not held to anything on
@@ -122,6 +146,7 @@ launch or check fails, the script exits non-zero without the last line.
 
 import contextlib
 import concurrent.futures
+import copy
 import io
 import json
 import os
@@ -350,6 +375,14 @@ def damped_f32_options():
     from circuitsimulator_tpu_torch import DEFAULT_OPTIONS
     return DEFAULT_OPTIONS.replace(dtype=torch.float32, tran_tol=1e-5,
                                    dc_tol=1e-5)
+
+
+def ref_f32_options():
+    """The reference configuration (damped Newton, tran_tol 1e-6) in f32:
+    its nominal lane can be held to the JAX CLI's f64 numbers."""
+    import torch
+    from circuitsimulator_tpu_torch import DEFAULT_OPTIONS
+    return DEFAULT_OPTIONS.replace(dtype=torch.float32)
 
 
 def bound_ms(nbytes, flops, dtype):
@@ -785,10 +818,12 @@ def k1_work(runner, n_steps, n_iters):
     """(bytes, operations) of one K1 launch of n_steps whose lanes ran
     n_iters Newton iterations in all.  Bytes: each input read once and each
     output written once (the constants, the carry in and out, the failed
-    flags and iteration counts).  Operations per lane-step: sources (~20
-    each) and their scatter, inductor and cap history terms, z0, the
-    predictor, the history update, and under the charge model q_prev (one
-    charge evaluation per MOS); per Newton iteration: the device
+    flags and iteration counts; with a probe matrix (K1c-i) the matrix
+    once and the P values of every lane-step).  Operations per lane-step:
+    sources (~20 each) and their scatter, inductor and cap history terms,
+    z0, the predictor, the history update, under the charge model q_prev
+    (one charge evaluation per MOS), and the probe stream's P x N
+    multiply-adds; per Newton iteration: the device
     linearisations (MOS/JFET ~25, diode ~20 or ~32 with breakdown, BJT
     ~75, switch ~35, an exp or log counted as one; per charge-model MOS its
     charges on dual numbers and five rows of ~9; per B source each tape
@@ -810,8 +845,11 @@ def k1_work(runner, n_steps, n_iters):
                    + size * runner.b_lits.numel())
     b_ops = sum(len(bs.tape.ops) * (1 + len(bs.pairs)) + 4 * len(bs.pairs)
                 + 2 for bs in runner.b_sources)
+    n_probe = 0 if runner.probe_mat is None else runner.probe_mat.shape[0]
+    nbytes += size * (n_probe * N + n_steps * n_probe * B)
     per_step = (22 * runner.nS + 2 * runner.nL + 4 * runner.nCap
-                + 2 * N * N + 2 * N + CHARGE_OPS * runner.nMq)
+                + 2 * N * N + 2 * N + CHARGE_OPS * runner.nMq
+                + 2 * n_probe * N)
     dio = 32 if runner.flags["dio_bv"] else 20
     per_iter = (25 * runner.nMJ + dio * runner.nD + 75 * runner.nQ
                 + 35 * runner.nSw + (CHARGE_DUAL_OPS + 45) * runner.nMq
@@ -1707,6 +1745,15 @@ def phase_cli_bsource():
         for deck in ("behavioral", "sdomain_filter"):
             shutil.copy(os.path.join(EXAMPLES, f"{deck}.sp"),
                         os.path.join(tmp, "examples"))
+        # the first 1,000 of behavioral.sp's 5,000 steps: the single-lane
+        # non-fused loop takes about 25 ms a step on the card, and the
+        # golden's first rows hold the cut run as well
+        beh = os.path.join(tmp, "examples", "behavioral.sp")
+        with open(beh) as f:
+            text = f.read()
+        check(".TRAN 2n 10u\n" in text, "behavioral.sp's .TRAN card")
+        with open(beh, "w") as f:
+            f.write(text.replace(".TRAN 2n 10u\n", ".TRAN 2n 2u\n"))
         os.chdir(tmp)
         rc, text, out["behavioral_cli_s"] = _cli(
             ["examples/behavioral.sp", "behavioral_tran.csv", "--device",
@@ -1716,7 +1763,7 @@ def phase_cli_bsource():
         check(text[:len(gold)] == gold,
               "behavioral DC table byte-identical to the JAX CLI's")
         got = np.loadtxt("behavioral_tran.csv", delimiter=",", skiprows=1)
-        ref = golden_rows("behavioral_tran_jax.csv", None)
+        ref = golden_rows("behavioral_tran_jax.csv", 1001)
         check(got.shape == ref.shape, "behavioral CSV shape")
         out["behavioral_csv_max_abs"] = float(np.abs(got - ref).max())
         check(out["behavioral_csv_max_abs"] <= 1e-9,
@@ -1746,6 +1793,386 @@ def phase_nodeset():
     check("DC analysis finished." in text, "inamp CLI DC table")
     emit("nodeset", deck="inamp", cli_s=secs, k2_launches=cuda_lu.LAUNCHES)
 
+# ------------------------------------------------------------- phase 21
+def _probe_mat(N, dtype):
+    """A (4, N) probe matrix of +1/-1 pairs, the form StreamingMeasures
+    builds: two node voltages, a differential pair, the last unknown."""
+    import torch
+    pm = torch.zeros((4, N), dtype=dtype, device="cuda")
+    pm[0, 0] = 1.0
+    pm[1, N // 2] = 1.0
+    pm[2, 1] = 1.0
+    pm[2, N - 2] -= 1.0
+    pm[3, N - 1] = 1.0
+    return pm
+
+
+def phase_k1c_i():
+    """K1c-i (the probe stream) against the plain version, on one deck per
+    instantiation family, from each lane's f64 DC point."""
+    import torch
+    from circuitsimulator_tpu_torch import DEFAULT_OPTIONS
+    from circuitsimulator_tpu_torch.ops import fused_step
+    from circuitsimulator_tpu_torch.parallel import montecarlo as mc
+    rows = []
+    B, steps = 256, 8
+    for name, deck, sigmas in (
+            ("dbmixer (K1a)", os.path.join(NETLISTS, "dbmixer.sp"), SIGMAS),
+            ("bjt_amp (K1b)", os.path.join(EXAMPLES, "bjt_amp.sp"),
+             JUNCTION_SIGMAS),
+            ("inamp (K1d-i)", os.path.join(NETLISTS, "inamp.sp"), SIGMAS),
+            ("behavioral (K1d-ii)", os.path.join(EXAMPLES, "behavioral.sp"),
+             B_SIGMAS)):
+        sim64 = _sim(DEFAULT_OPTIONS, deck)
+        gen = torch.Generator(device="cuda").manual_seed(61)
+        bp64 = mc.perturb_params(sim64.params, gen, B, sigmas)
+        x64 = mc.batched_dc_fast(sim64.engine, bp64)
+        for opts, tol in ((damped_f32_options(), 1e-4),
+                          (DEFAULT_OPTIONS, 1e-9)):
+            sim = _sim(opts, deck)
+            dt = sim.config.tran.tstep
+            bp = {k: (v.to(opts.dtype) if v.is_floating_point() else v)
+                  for k, v in bp64.items()}
+            x0 = x64.to(opts.dtype)
+            pm = _probe_mat(sim.engine.N, opts.dtype)
+            runner = fused_step.FusedStepRunner(sim.engine, bp, dt,
+                                                probe_mat=pm)
+            bare = copy.copy(runner)        # the same constants, no probes
+            bare.probe_mat = None
+            st = sim.engine.init_state(x0, bp)
+            carry = (x0, x0, st["vc"], st["il"],
+                     torch.zeros((B,), dtype=torch.bool, device="cuda"))
+            got = runner.run_chunk(*carry, 0, steps)
+            ref = runner.run_chunk_plain(*carry, 0, steps)
+            nop = bare.run_chunk(*carry, 0, steps)
+            torch.cuda.synchronize()
+            err = max(float((a - b).abs().max()) for a, b in
+                      zip(got[:4] + got[6:], ref[:4] + ref[6:]) if a.numel())
+            f64 = opts.dtype == torch.float64
+            row = {"case": f"{name} {str(opts.dtype)[6:]} damped from DC",
+                   "B": B, "steps": steps, "N": runner.N, "k": runner.k,
+                   "W": runner.W, "P": pm.shape[0], "max_abs_err": err,
+                   "tol": tol,
+                   "ys_max_abs_err": float((got[6] - ref[6]).abs().max()),
+                   "last_tile_bitwise": bool(torch.equal(
+                       got[6][-1], pm @ got[0].T)),
+                   "same_carry_without_probes": all(
+                       bool(torch.equal(a, b))
+                       for a, b in zip(got[:6], nop[:6])),
+                   "failed_equal": bool(torch.equal(got[4], ref[4])),
+                   "iters_equal": bool(torch.equal(got[5], ref[5])),
+                   "failed_lanes": int(got[4].sum()),
+                   "mean_newton_iters": float(got[5].float().mean()) / steps}
+            check(err <= tol, f"K1c-i {row['case']}: {err} > {tol}")
+            check(row["last_tile_bitwise"], f"K1c-i {row['case']}: the last "
+                  "probe tile is not probe_mat @ x_out bit for bit")
+            check(row["same_carry_without_probes"],
+                  f"K1c-i {row['case']}: probes changed the carry")
+            check(row["failed_equal"] and row["failed_lanes"] == 0,
+                  f"K1c-i {row['case']}: failed lanes")
+            if f64:
+                check(row["iters_equal"],
+                      f"K1c-i {row['case']}: iteration counts differ")
+            rows.append(row)
+    emit("k1c_i_vs_plain", cases=rows)
+    return max(r["max_abs_err"] for r in rows)
+
+
+# ------------------------------------------------------------- phase 22
+def _measures_run(sim, bp, x0=None, fused="auto"):
+    """batched_transient_measures on the card; the counts are reset just
+    before and read just after."""
+    import torch
+    from circuitsimulator_tpu_torch.ops import cuda_ac, cuda_lu, cuda_step
+    from circuitsimulator_tpu_torch.parallel import montecarlo as mc
+    tran = sim.config.tran
+    torch.cuda.synchronize()
+    cuda_step.LAUNCHES = cuda_lu.LAUNCHES = cuda_ac.LAUNCHES = 0
+    t0 = time.perf_counter()
+    res, vals = mc.batched_transient_measures(
+        sim.engine, bp, tran.tstep, tran.tstop, sim.config.measures,
+        sim.topo, fused=fused, x0=x0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    B = mc.lane_count(bp)
+    m = {"B": B, "dtype": str(sim.engine.dtype)[6:], "steps": res.n_steps,
+         "wall_s": wall, "k1_launches": cuda_step.LAUNCHES,
+         "k2_launches": cuda_lu.LAUNCHES,
+         "lane_steps_per_s": B * res.n_steps / wall,
+         "failed_lanes": int(res.failed.sum())}
+    return vals, m
+
+
+def _measure_chunk(sim, bp, x0, n, plain_steps=None):
+    """One fused chunk of n steps at the main width: K1 with its probe
+    stream and without it, the streaming accumulators over the chunk's
+    probe block, the plain version (over plain_steps, all by default) and
+    the bound, in ms."""
+    import torch
+    from circuitsimulator_tpu_torch.analysis.measure_stream import (
+        StreamingMeasures)
+    from circuitsimulator_tpu_torch.ops import fused_step
+    eng = sim.engine
+    dt = sim.config.tran.tstep
+    sm = StreamingMeasures(sim.config.measures, sim.topo, eng.dtype,
+                           eng.device)
+    runner = fused_step.FusedStepRunner(eng, bp, dt,
+                                        probe_mat=sm.probe_matrix)
+    bare = copy.copy(runner)                # the same constants, no probes
+    bare.probe_mat = None
+    x0 = x0.to(eng.dtype)
+    st = eng.init_state(x0, bp)
+    carry = (x0, x0, st["vc"], st["il"],
+             torch.zeros((runner.B,), dtype=torch.bool, device="cuda"))
+    got = runner.run_chunk(*carry, 0, n)
+    ys = sm.vals_from_raw(got[6].transpose(1, 2))
+    ts = torch.arange(1, n + 1, dtype=eng.dtype, device="cuda") * dt
+    dt_t = torch.tensor(dt, dtype=eng.dtype, device="cuda")
+    acc0 = sm.init(eng, x0)
+
+    def accumulate():
+        acc = acc0
+        for i in range(n):
+            acc = sm.update_vals(acc, ys[i], ts[i], dt_t)
+        return acc
+
+    plain_steps = plain_steps or n
+    part = runner.run_chunk(*carry, 0, plain_steps)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    ref = runner.run_chunk_plain(*carry, 0, plain_steps)
+    b.record()
+    torch.cuda.synchronize()
+    err = max(float((u - v).abs().max()) for u, v in
+              zip(part[:4] + part[6:], ref[:4] + ref[6:]) if u.numel())
+    nbytes, flops = k1_work(runner, n, int(got[5].sum()))
+    bms, by = bound_ms(nbytes, flops, eng.dtype)
+    return {"B": runner.B, "steps": n, "dtype": str(eng.dtype)[6:],
+            "N": runner.N, "k": runner.k, "P": sm.probe_matrix.shape[0],
+            "max_abs_err": err, "plain_steps": plain_steps,
+            "newton_iters_per_step": float(got[5].float().mean()) / n,
+            "kernel_ms": cuda_ms(lambda: runner.run_chunk(*carry, 0, n),
+                                 reps=5, warmup=1),
+            "kernel_ms_without_probes": cuda_ms(
+                lambda: bare.run_chunk(*carry, 0, n), reps=5, warmup=1),
+            "accumulator_ms": cuda_ms(accumulate, reps=3, warmup=1),
+            "plain_ms": a.elapsed_time(b), "bound_ms": bms, "bound_by": by,
+            "bytes": nbytes, "flops": flops}
+
+
+def _rel_close(got, want, rtol, atol=0.0):
+    """max |got - want| / (atol + rtol |want|) over the lanes (<= 1 holds)."""
+    import torch
+    w = torch.as_tensor(want).double().cpu()
+    g = torch.as_tensor(got).double().cpu()
+    return float(((g - w).abs() / (atol + rtol * w.abs())).max())
+
+
+def phase_monte_carlo_measures():
+    """The Monte-Carlo measurement path: Simulator.monte_carlo and
+    batched_transient_measures on the fused path (K1c-i), against the
+    non-fused loop, on three transient decks; batched_ac_measures on K3;
+    the CLI's --run-mc."""
+    import numpy as np
+    import torch
+    from circuitsimulator_tpu_torch import DEFAULT_OPTIONS, Simulator
+    from circuitsimulator_tpu_torch.ops import cuda_ac, cuda_lu, cuda_step
+    from circuitsimulator_tpu_torch.parallel import montecarlo as mc
+    out = {}
+    mcf = os.path.join(EXAMPLES, "mc_filter.sp")
+    # Simulator.monte_carlo(8192) on mc_filter, f32: the fused path
+    sim = _sim(damped_f32_options(), mcf)
+    walls = []
+    for _ in range(2):          # the second call is the one reported
+        torch.cuda.synchronize()
+        cuda_step.LAUNCHES = cuda_lu.LAUNCHES = 0
+        t0 = time.perf_counter()
+        bp, vals = sim.monte_carlo(8192, seed=7)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    n_steps = 250
+    m = {"deck": "mc_filter", "B": 8192, "dtype": "float32",
+         "steps": n_steps, "wall_s": walls[1], "first_call_wall_s": walls[0],
+         "k1_launches": cuda_step.LAUNCHES, "k2_launches": cuda_lu.LAUNCHES,
+         "lane_steps_per_s": 8192 * n_steps / walls[1]}
+    check(m["k1_launches"] > 0, "Simulator.monte_carlo ran through K1")
+    # the same lanes again on the fused path: its failed lanes, and the
+    # values within f32 rounding (the CUDA assembly's index_add sums in
+    # no fixed order, so two runners of the same lanes differ in the last
+    # bits of G0^-1)
+    again, m2 = _measures_run(sim, bp, fused=True)
+    m["failed_lanes"] = m2["failed_lanes"]
+    m["rerun_worst_ratio"] = max(_rel_close(vals[k], again[k], 2e-4, 2e-6)
+                                 for k in vals)
+    check(m["failed_lanes"] == 0, "mc_filter: failed lanes")
+    check(m["rerun_worst_ratio"] <= 1.0,
+          "Simulator.monte_carlo agrees with the fused path")
+    check(all(bool(torch.isfinite(v).all()) for v in vals.values()),
+          "mc_filter: non-finite measures")
+    m["measures"] = {k: {"mean": float(v.double().mean()),
+                         "std": float(v.double().std())}
+                     for k, v in vals.items()}
+    m["chunk"] = _measure_chunk(sim, bp, mc.batched_dc_fast(sim.engine, bp),
+                                n_steps)
+    emit("monte_carlo_measures_mc_filter_f32", **m)
+    out["mc_filter"] = m
+    # fused against the non-fused loop on 1,024 lanes, f32 and f64
+    for opts, rtol, atol in ((damped_f32_options(), 2e-4, 2e-6),
+                             (DEFAULT_OPTIONS, 1e-9, 0.0)):
+        s2 = _sim(opts, mcf)
+        bp2 = mc.perturb_params_netlist(
+            s2.params, torch.Generator(device="cuda").manual_seed(8), 1024,
+            s2.lowered.mc_tols)
+        fv, fm = _measures_run(s2, bp2, fused=True)
+        nv, nm = _measures_run(s2, bp2, fused=False)
+        r = {"B": 1024, "dtype": fm["dtype"], "fused": fm, "nonfused": nm,
+             "rtol": rtol, "atol": atol,
+             "worst_ratio": max(_rel_close(fv[k], nv[k], rtol, atol)
+                                for k in nv)}
+        check(fm["k1_launches"] > 0 and nm["k1_launches"] == 0,
+              "fused vs non-fused: the paths")
+        check(fm["failed_lanes"] == 0 and nm["failed_lanes"] == 0,
+              "fused vs non-fused: failed lanes")
+        check(r["worst_ratio"] <= 1.0,
+              f"mc_filter fused vs non-fused {fm['dtype']}: "
+              f"{r['worst_ratio']}")
+        emit(f"monte_carlo_measures_mc_filter_vs_nonfused_{fm['dtype']}",
+             **r)
+    # bjt_amp's vout_pp at B = 8192 from an f64 DC (phase 11's lanes)
+    deck = os.path.join(EXAMPLES, "bjt_amp.sp")
+    sim, bp = _mc_lanes(ref_f32_options(), 8192, 45, deck, JUNCTION_SIGMAS)
+    x64 = _dc_f64(_sim(DEFAULT_OPTIONS, deck), bp)[0]
+    vals, m = _measures_run(sim, bp, x0=x64)
+    pp = vals["vout_pp"]
+    m["deck"] = "bjt_amp"
+    m["vout_pp_lane0"] = float(pp[0])
+    m["vout_pp_lane0_rel_vs_jax_cli"] = abs(float(pp[0]) / 7.398583977e-02
+                                            - 1.0)
+    m["vout_pp_mean"], m["vout_pp_std"] = (float(pp.double().mean()),
+                                           float(pp.double().std()))
+    check(m["k1_launches"] > 0 and m["failed_lanes"] == 0,
+          "bjt_amp measures: K1, failed lanes")
+    check(bool(torch.isfinite(pp).all() & (pp > 0).all()), "bjt_amp vout_pp")
+    check(m["vout_pp_lane0_rel_vs_jax_cli"] <= 1e-3,
+          "bjt_amp nominal vout_pp within 1e-3 of the JAX CLI's")
+    m["chunk"] = _measure_chunk(sim, bp, x64, 250, plain_steps=25)
+    emit("monte_carlo_measures_bjt_amp_f32", **m)
+    out["bjt_amp"] = m
+    # rc_step's WHEN crossings at B = 8192 over 2,000 steps
+    deck = os.path.join(EXAMPLES, "rc_step.sp")
+    sim, bp = _mc_lanes(ref_f32_options(), 8192, 47, deck,
+                        {"res_r": 0.05, "cap_c": 0.05})
+    vals, m = _measures_run(sim, bp)
+    tau = (bp["res_r"][:, 0] * bp["cap_c"][:, 0]).double()
+    m["deck"] = "rc_step"
+    m["t63_vs_tau_rel_max"] = float((vals["t63"].double()
+                                     / (tau * -np.log(1 - 0.632)) - 1).abs()
+                                    .max())
+    m["t63_lane0_rel_vs_jax_cli"] = abs(float(vals["t63"][0])
+                                        / 1.005565901e-06 - 1.0)
+    m["t90_lane0_rel_vs_jax_cli"] = abs(float(vals["t90"][0])
+                                        / 2.321706292e-06 - 1.0)
+    check(m["k1_launches"] == 4 and m["failed_lanes"] == 0,
+          "rc_step measures: four K1 chunks, no failed lane")
+    check(all(bool(torch.isfinite(v).all()) for v in vals.values()),
+          "rc_step: every lane crosses")
+    check(m["t63_vs_tau_rel_max"] <= 2e-2, "rc_step t63 tracks R C")
+    check(max(m["t63_lane0_rel_vs_jax_cli"],
+              m["t90_lane0_rel_vs_jax_cli"]) <= 1e-4,
+          "rc_step nominal crossings within 1e-4 of the JAX CLI's")
+    m["chunk"] = _measure_chunk(
+        sim, bp, mc.batched_dc_fast(sim.engine, bp), 512, plain_steps=50)
+    emit("monte_carlo_measures_rc_step_f32", **m)
+    out["rc_step"] = m
+    # batched_ac_measures on opamp_filter at B = 4096 (K3)
+    deck = os.path.join(EXAMPLES, "opamp_filter.sp")
+    from circuitsimulator_tpu_torch.analysis.ac import sweep_frequencies
+    sim, bp = _mc_lanes(ref_f32_options(), 4096, 49, deck,
+                        {"res_r": 0.02, "cap_c": 0.02})
+    ac = sim.config.ac
+    freqs = sweep_frequencies(ac.sweep_type, ac.n_points, ac.fstart,
+                              ac.fstop)
+    torch.cuda.synchronize()
+    cuda_ac.LAUNCHES = cuda_lu.LAUNCHES = 0
+    t0 = time.perf_counter()
+    avals = mc.batched_ac_measures(sim.engine, sim.topo, bp, freqs,
+                                   sim.config.measures)
+    wall = time.perf_counter() - t0
+    k3, k2 = cuda_ac.LAUNCHES, cuda_lu.LAUNCHES
+    sim64 = _sim(DEFAULT_OPTIONS, deck)
+    nominal = dict(sim64.measure(sim64.ac(), analysis="ac"))
+    m = {"deck": "opamp_filter", "B": 4096, "F": len(freqs),
+         "dtype": "float32", "wall_s": wall, "k3_launches": k3,
+         "k2_launches": k2,
+         "f3db_lane0": float(avals["f3db"][0]),
+         "f3db_nominal_f64": nominal["f3db"],
+         "f3db_mean": float(np.mean(avals["f3db"])),
+         "f3db_std": float(np.std(avals["f3db"]))}
+    m["f3db_lane0_rel"] = abs(m["f3db_lane0"] / nominal["f3db"] - 1.0)
+    check(m["k3_launches"] > 0, "batched_ac_measures ran through K3")
+    check(all(np.isfinite(v).all() for v in avals.values()),
+          "opamp_filter AC measures finite")
+    check(m["f3db_lane0_rel"] <= 1e-3, "opamp_filter nominal f3db")
+    emit("monte_carlo_measures_ac_opamp_filter_f32", **m)
+    out["ac"] = m
+    # the CLI's --run-mc 8192 on mc_filter, f32 (the fused path)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mc_")
+    try:
+        csv = os.path.join(tmp, "mc.csv")
+        cuda_step.LAUNCHES = 0
+        rc, text, secs = _cli([mcf, os.path.join(tmp, "t.csv"), "--device",
+                               "cuda", "--dtype", "f32", "--run-mc", "8192",
+                               "--run-mc-out", csv])
+        with open(csv) as f:
+            rows = f.read().splitlines()
+        m = {"cli_s": secs, "k1_launches": cuda_step.LAUNCHES,
+             "csv_rows": len(rows) - 1, "header": rows[0]}
+        check(rc == 0 and "==== Monte-Carlo measure statistics ====" in text,
+              "--run-mc exit code and statistics block")
+        check(rows[0] == "lane,settle,vfinal" and m["csv_rows"] == 8192,
+              "--run-mc CSV")
+        check(m["k1_launches"] > 0, "--run-mc --dtype f32 ran through K1")
+    finally:
+        shutil.rmtree(tmp)
+    emit("monte_carlo_measures_cli_run_mc", **m)
+    out["cli"] = m
+    return out
+
+
+# ------------------------------------------------------------- phase 23
+def phase_cli_measures():
+    """The CLI's .MEASURE output on the card (f64) against the JAX CLI's
+    stdout."""
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_m_")
+    here = os.getcwd()
+    try:
+        # the goldens name the deck and the CSV relative to the cwd
+        os.makedirs(os.path.join(tmp, "examples"))
+        for deck in ("rc_step", "mc_filter", "bjt_amp"):
+            shutil.copy(os.path.join(EXAMPLES, f"{deck}.sp"),
+                        os.path.join(tmp, "examples"))
+        os.chdir(tmp)
+        for deck in ("rc_step", "mc_filter"):
+            rc, text, out[f"{deck}_cli_s"] = _cli(
+                [f"examples/{deck}.sp", f"{deck}_tran.csv", "--device",
+                 "cuda"])
+            check(rc == 0 and text == read_golden(f"{deck}_stdout_jax.txt"),
+                  f"{deck} stdout byte-identical to the JAX CLI's")
+        rc, text, out["bjt_amp_run_ac_cli_s"] = _cli(
+            ["examples/bjt_amp.sp", "bjt_amp_tran.csv", "--device", "cuda",
+             "--run-ac", "bjt_amp_ac.csv"])
+        gold = read_golden("bjt_amp_run_ac_stdout_jax.txt")
+        check(rc == 0 and gold.startswith(text) and gold[len(text):]
+              .startswith("\n==== Transfer function ===="),
+              "bjt_amp --run-ac stdout byte-identical to the JAX CLI's "
+              "through its .MEASURE AC block")
+    finally:
+        os.chdir(here)
+        shutil.rmtree(tmp)
+    emit("cli_measures", **out)
+
 
 def main():
     import torch
@@ -1774,6 +2201,9 @@ def main():
     beh, beh_main = phase_monte_carlo_fused_behavioral()
     phase_cli_bsource()
     phase_nodeset()
+    k1c_err = phase_k1c_i()
+    meas = phase_monte_carlo_measures()
+    phase_cli_measures()
     k3_main = k3_timings["float32"]  # B=4096, F=64, N=31: the bench shape
     k2_main = timings[0]             # B=8192, N=31, R=1, f32: batched DC
     # launches: read just after each main path's run, counts set to 0 just
@@ -1788,7 +2218,9 @@ def main():
                           charge[n][0]["setup_k2_launches"]
                           for n in ("charge_stage", "buffer_charge")},
                        "monte_carlo_fused_behavioral_f32":
-                           beh["setup_k2_launches"]},
+                           beh["setup_k2_launches"],
+                       "monte_carlo_measures_mc_filter_f32":
+                           meas["mc_filter"]["k2_launches"]},
         "fused_step": {"monte_carlo_fused_f32_fast": k1_launches,
                        "monte_carlo_fused_bjt_f32": bjt["k1_launches"],
                        **{f"monte_carlo_fused_{n}_f32": m["k1_launches"]
@@ -1798,10 +2230,17 @@ def main():
                           charge[n][0]["k1_launches"]
                           for n in ("charge_stage", "buffer_charge")},
                        "monte_carlo_fused_behavioral_f32":
-                           beh["k1_launches"]},
+                           beh["k1_launches"],
+                       **{f"monte_carlo_measures_{n}_f32":
+                          meas[n]["k1_launches"]
+                          for n in ("mc_filter", "bjt_amp", "rc_step")},
+                       "monte_carlo_measures_cli_run_mc":
+                           meas["cli"]["k1_launches"]},
         "ac_sweep": {"ac_monte_carlo_f32": ac_main["k3_launches"],
                      "ac_bjt_f32": ac_bjt["k3_launches"],
-                     "ac_charge_f32": charge["ac_f32"]["k3_launches"]}}
+                     "ac_charge_f32": charge["ac_f32"]["k3_launches"],
+                     "monte_carlo_measures_ac_opamp_filter_f32":
+                         meas["ac"]["k3_launches"]}}
     for kernel, by_path in paths.items():
         for path, n in by_path.items():
             check(n > 0, f"{kernel} launched on {path}")
@@ -1815,7 +2254,7 @@ def main():
         "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],
         "library_ms": k2_main["library_ms"]}, {
         "name": "fused_step", "route": "cuda",
-        "scope": "K1a + K1b + K1d-i + K1d-ii",
+        "scope": "K1a + K1b + K1c-i + K1d-i + K1d-ii",
         "source": "circuitsimulator_tpu_torch/csrc/fused_step.cu",
         "replaces": "circuitsimulator_tpu/ops/pallas_step.py:582",
         "launches": sum(paths["fused_step"].values()),
@@ -1825,7 +2264,9 @@ def main():
                            inamp_main["max_abs_err"],
                            *(charge[n][1]["max_abs_err"]
                              for n in ("charge_stage", "buffer_charge")),
-                           k1d_ii_err, beh_main["max_abs_err"]),
+                           k1d_ii_err, beh_main["max_abs_err"], k1c_err,
+                           *(meas[n]["chunk"]["max_abs_err"]
+                             for n in ("mc_filter", "bjt_amp", "rc_step"))),
         "ms": k1_main["kernel_ms"], "plain_ms": k1_main["plain_ms"],
         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
         "library_ms": None,
@@ -1836,7 +2277,10 @@ def main():
             **{f"K1d-i {n} B=8192 x {charge[n][1]['steps']} steps f32 "
                "damped": charge[n][1]
                for n in ("charge_stage", "buffer_charge")},
-            "K1d-ii behavioral B=8192 x 250 steps f32 damped": beh_main}}, {
+            "K1d-ii behavioral B=8192 x 250 steps f32 damped": beh_main,
+            **{f"K1c-i {n} B=8192 x {meas[n]['chunk']['steps']} steps f32 "
+               "with its probe stream": meas[n]["chunk"]
+               for n in ("mc_filter", "bjt_amp", "rc_step")}}}, {
         "name": "ac_sweep", "route": "cuda",
         "source": "circuitsimulator_tpu_torch/csrc/ac_sweep.cu",
         "replaces": "circuitsimulator_tpu/ops/pallas_ac.py:49",

@@ -6,6 +6,8 @@
     res = sim.transient()             # Backward-Euler transient
     sim.write_transient_csv("out.csv", res)
     ac = sim.ac()                     # .AC small-signal sweep (K3)
+    sim.measure(res)                  # .MEASURE TRAN cards, [(name, value)]
+    bp, vals = sim.monte_carlo(8192)  # DEV=/LOT= lanes, per-lane measures
 """
 
 from __future__ import annotations
@@ -73,6 +75,11 @@ def _apply_netlist_options(opts: SolverOptions, sim_config) -> SolverOptions:
         except ValueError as e:
             print(f".OPTIONS: cannot parse {k}={v}: {e}", file=sys.stderr)
     return opts.replace(**kw) if kw else opts
+
+
+def _host(a):
+    """A tensor or array as numpy on the host."""
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
 class Simulator:
@@ -200,6 +207,106 @@ class Simulator:
                                       cfg.fstart, cfg.fstop)
         p = params if params is not None else self.params
         return ac_analysis(self.engine, p, freqs, x_op=x_op)
+
+    def monte_carlo(self, n: int, seed: int = 0,
+                    params: Optional[Any] = None, warm_start: bool = True,
+                    sampler: str = "mc"):
+        """Netlist-driven Monte Carlo from the DEV=/LOT= tolerances on R/C/L
+        cards (the value) and M/J/D/Q cards (VT/VTO, IS, BF mismatch),
+        drawn by ``perturb_params_netlist`` from a ``torch.Generator``
+        seeded with ``seed``.  Runs the deck's primary analysis over n
+        lanes in one batched solve: with .TRAN and .MEASURE TRAN cards,
+        (bparams, {measure: (n,) values}) from the streaming measures (K1
+        with its probe stream on a float32 CUDA run of a deck in its
+        scope); with .AC and .MEASURE AC cards, one lanes x frequencies
+        sweep (K3) and the measures per lane; otherwise (bparams, (n, N) DC
+        operating points).
+
+        warm_start: every lane's DC starts from the nominal operating point
+        (``dc()``) and runs only the final Newton stage
+        (``batched_dc_warm``); False runs the whole source ramp per lane
+        (``batched_dc_fast``)."""
+        from .parallel.montecarlo import (batched_ac_measures,
+                                          batched_dc_fast, batched_dc_warm,
+                                          batched_transient_measures,
+                                          perturb_params_netlist)
+        if not self.lowered.mc_tols:
+            raise ValueError("no DEV=/LOT= tolerances in the netlist")
+        p = params if params is not None else self.params
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        bp = perturb_params_netlist(p, gen, n, self.lowered.mc_tols,
+                                    sampler=sampler)
+        warm = warm_start and self.topo.has_nonlinear
+
+        def dc_init():
+            if warm:
+                return batched_dc_warm(self.engine, bp, self.dc(params=p))
+            return batched_dc_fast(self.engine, bp)
+
+        tran = self.config.tran
+        ms = self.config.measures
+        if tran.enabled and any(m.analysis == "tran" for m in ms):
+            # derived PARAM= measures see the .PARAM values (the JAX
+            # facade passes none here, api.py:1777-1781)
+            _, vals = batched_transient_measures(
+                self.engine, bp, tran.tstep, tran.tstop,
+                [m for m in ms if m.analysis == "tran"], self.topo,
+                bindings=self.config.param_values, x0=dc_init())
+            return bp, vals
+        ac = self.config.ac
+        if ac.enabled and any(m.analysis == "ac" for m in ms):
+            from .analysis.ac import sweep_frequencies
+            freqs = sweep_frequencies(ac.sweep_type, ac.n_points,
+                                      ac.fstart, ac.fstop)
+            return bp, batched_ac_measures(
+                self.engine, self.topo, bp, freqs,
+                [m for m in ms if m.analysis == "ac"],
+                bindings=self.config.param_values, x_ops=dc_init())
+        return bp, dc_init()
+
+    # ---- post-processing ----
+    def measure(self, result, analysis: str = "tran"):
+        """.MEASURE evaluation on the host (analysis/measure.py): a
+        TransientResult ("tran", axis = time) or an ACResult ("ac", axis =
+        frequency; complex data reduces per the VDB/VP/... modifiers).
+        Returns [(name, value)] with NaN for failed measurements.  The DC
+        sweep ("dc") is not yet ported."""
+        from .analysis.measure import run_measures
+        if result.xs is None:
+            raise ValueError(".MEASURE needs saved waveforms "
+                             "(save_xs=True)")
+        if analysis == "dc":
+            raise NotImplementedError(".MEASURE DC: the .DC sweep is not "
+                                      "yet ported")
+        axis = result.freqs if analysis == "ac" else result.times
+        return run_measures(self.config.measures, self.topo, _host(axis),
+                            _host(result.xs), analysis=analysis,
+                            bindings=self.config.param_values)
+
+    def fourier(self, result: TransientResult, f0: Optional[float] = None,
+                probes=None, n_harm: int = 9):
+        """.FOUR Fourier analysis of a finished transient (analysis/
+        fourier.py).  Defaults to the netlist's .FOUR card."""
+        from .analysis.fourier import fourier_analysis
+        from .io.csvout import probe_selection
+        from .netlist.parser import PrintCommand
+        cfg = self.config.four
+        if f0 is None:
+            if not cfg.enabled:
+                raise ValueError(".FOUR card missing")
+            f0 = cfg.f0
+        if probes is None:
+            if not cfg.enabled:
+                raise ValueError("explicit f0 requires `probes`")
+            probes = cfg.probes
+        sel = probe_selection(self.topo,
+                              [PrintCommand(analysis="none", probes=probes)])
+        if not sel:
+            raise ValueError(".FOUR: no resolvable output probes")
+        if result.xs is None:
+            raise ValueError(".FOUR needs a transient run with save_xs=True")
+        return fourier_analysis(_host(result.times), _host(result.xs), f0,
+                                sel, n_harm=n_harm)
 
     # ---- output ----
     def write_transient_csv(self, path: str, result: TransientResult,

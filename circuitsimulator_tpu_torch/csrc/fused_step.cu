@@ -1,4 +1,4 @@
-// K1 for Hopper (scopes K1a, K1b, K1d-i and K1d-ii): the fused Monte-Carlo
+// K1 for Hopper (scopes K1a, K1b, K1c-i, K1d-i and K1d-ii): the fused Monte-Carlo
 // transient chunk.  Every lane advances n_steps whole Backward-Euler
 // timesteps in one launch.
 //
@@ -23,6 +23,9 @@
 //     S = I + V^T Y, vz = V^T z, the k x k solve, x_raw = z - Y w, then
 //     accept: clamp, alpha damping, err^2 < tol^2, a non-finite x_raw
 //     freezes the lane and sets failed;
+//   - with a probe matrix (K1c-i, the TPU kernel's probe_mat output,
+//     pallas_step.py:1242-1244), the P values probe_mat @ x of the accepted
+//     x into ys (n_steps, P, B);
 //   - vc and il from the accepted x (the cap plan holds the explicit, MOS,
 //     diode and BJT junction capacitors; the MOS slots carry C = 0 under the
 //     charge model).
@@ -69,6 +72,15 @@
 // time is t = (step0 + i + 1) dt.  The B instantiation has a row width
 // capacity of 8 (POLY(3) sources need 6); the others keep 4.
 //
+// Probe stream (K1c-i): every instantiation writes it when ys is not null
+// (a run-time branch after the Newton loop, outside the frames of the
+// Newton iteration).  Each lane stores its P values at ys[(i P + p) B +
+// lane], so neighbouring threads store to neighbouring addresses, and every
+// lane reads the (P, N) matrix at the same address, as it reads the B tapes.
+// The matrices of StreamingMeasures are +1/-1 pairs, so for a finite x the
+// sum is exactly x[a] - x[b] in any order (FMA contraction included): the
+// kernel and the plain version agree bit for bit on the same x.
+//
 // Design (simple first): one thread per lane, lane-minor constants
 // (G0invT (N,N,B) [m][n][lane], YT (k,N,B), Yc3 (W,k,k,B), the device packs,
 // sources and companions (rows, B)), so every read of a warp is 32
@@ -104,6 +116,7 @@
 #define MAXN 64
 #define UNROLL_K 16  // the elimination instantiation's capacity
 #define MAXK 32      // the Gauss-Jordan instantiation's capacity
+#define MAXPROBES 64 // rows of the probe matrix (K1c-i)
 
 template <typename T>
 struct StepArgs {
@@ -154,6 +167,10 @@ struct StepArgs {
   const int* b_meta; // (nB, 6)
   const T* bconsts;  // (nc | 1, B)
   int nB;
+  // the probe stream (K1c-i): both null, nP = 0, when the run keeps none
+  const T* probe_mat;  // (nP, N), shared by all lanes
+  T* ys;               // (n_steps, nP, B) output
+  int nP;
 };
 
 __device__ __forceinline__ float sin_(float v) { return sinf(v); }
@@ -1019,6 +1036,14 @@ __global__ void __launch_bounds__(128) fused_step_kernel(const StepArgs<T> a) {
                                            bb, w, qprev, tt, done, fl);
     }
     it_total += its;
+    if (a.ys != nullptr) {  // the probe stream: probe_mat @ x, lane-minor
+      T* yi = a.ys + (long long)i * a.nP * B + lane;
+      for (int p = 0; p < a.nP; ++p) {
+        T acc = T(0);
+        for (int n = 0; n < N; ++n) acc += a.probe_mat[p * N + n] * xx[n];
+        yi[(long long)p * B] = acc;
+      }
+    }
     // history from the accepted x
     for (int j = 0; j < a.nCap; ++j) {
       const int ca = a.cap_a[j], cb = a.cap_b[j];
@@ -1047,9 +1072,10 @@ static int launch_as(const StepArgs<T>& a, int threads, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// ptrs: the 33 arrays in StepArgs order (the charge pack, then the B tapes,
-// metadata and constants last); ints: B N k nS P nL nCap unrolled max_nr
-// predictor n_steps step0 threads nMJ nD nQ nSw W nMq nB; reals: dt tol2
+// ptrs: the 35 arrays in StepArgs order (the charge pack, then the B tapes,
+// metadata and constants, then the probe matrix and ys, null without
+// probes); ints: B N k nS P nL nCap unrolled max_nr predictor n_steps step0
+// threads nMJ nD nQ nSw W nMq nB nP; reals: dt tol2
 // alpha clamp off_gds inv_dt.  B sources launch the B instantiation (k <= 16,
 // no charge rows); otherwise k <= 16 launches the elimination instantiation,
 // 16 < k <= 32 the Gauss-Jordan one, each with the charge rows when
@@ -1092,6 +1118,8 @@ static int launch(void* const* ptrs, const long long* ints,
   a.b_lits = (const T*)ptrs[p++];
   a.b_meta = (const int*)ptrs[p++];
   a.bconsts = (const T*)ptrs[p++];
+  a.probe_mat = (const T*)ptrs[p++];
+  a.ys = (T*)ptrs[p++];
   a.B = (int)ints[0];
   a.N = (int)ints[1];
   a.k = (int)ints[2];
@@ -1112,6 +1140,7 @@ static int launch(void* const* ptrs, const long long* ints,
   a.W = (int)ints[17];
   a.nMq = (int)ints[18];
   a.nB = (int)ints[19];
+  a.nP = (int)ints[20];
   a.dt = (T)reals[0];
   a.tol2 = (T)reals[1];
   a.alpha = (T)reals[2];
@@ -1127,6 +1156,9 @@ static int launch(void* const* ptrs, const long long* ints,
     return (int)cudaErrorInvalidValue;
   if (a.N > MAXN || a.k > MAXK || a.N <= 0 || a.k < 0 || threads <= 0 ||
       threads > 128)
+    return (int)cudaErrorInvalidValue;
+  if (a.nP < 0 || a.nP > MAXPROBES ||
+      (a.ys != nullptr && (a.probe_mat == nullptr || a.nP == 0)))
     return (int)cudaErrorInvalidValue;
   if (a.B <= 0) return 0;
   if (a.nB) return launch_as<T, UNROLL_K, false, true>(a, threads, stream);

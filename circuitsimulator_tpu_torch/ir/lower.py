@@ -135,6 +135,9 @@ class LoweredCircuit:
     circuit: Circuit
     device: torch.device
     b_sources: List[BSourceInfo] = dataclasses.field(default_factory=list)
+    # DEV=/LOT= tolerances: param leaf -> (dev (n,), lot (n,)) numpy arrays
+    mc_tols: Dict[str, Tuple[np.ndarray, np.ndarray]] = dataclasses.field(
+        default_factory=dict)
 
 
 def _np_i32(xs) -> np.ndarray:
@@ -377,8 +380,20 @@ def lower(ckt: Circuit, dtype=torch.float64, device="cpu") -> LoweredCircuit:
         for name, arr in _pack_sources(specs, dtype, device).items():
             params[f"{key}_{name}"] = arr
 
+    mc_tols = {}
+    # DEV=/LOT= tolerance -> the param leaf it perturbs: R/C/L values and
+    # the per-device mismatch knobs (MOS/JFET threshold, diode saturation
+    # current, BJT forward beta); parallel/montecarlo.perturb_params_netlist
+    # draws the lanes
+    for key, els in (("res_r", res), ("cap_c", cap), ("ind_l", ind),
+                     ("mos_vth", mos), ("jf_vto", jf),
+                     ("dio_is", dio), ("bjt_bf", bjt)):
+        if any(e.dev_tol or e.lot_tol for e in els):
+            mc_tols[key] = (np.asarray([e.dev_tol for e in els]),
+                            np.asarray([e.lot_tol for e in els]))
+
     return LoweredCircuit(topo=topo, params=params, circuit=ckt,
-                          device=device, b_sources=b_infos)
+                          device=device, b_sources=b_infos, mc_tols=mc_tols)
 
 
 def _lower_bsources(ckt: Circuit, bsrc, eq, dump):

@@ -2,7 +2,7 @@
 Monte-Carlo transient chunk on the GPU.
 
 The kernel replaces the TPU kernel ``circuitsimulator_tpu/ops/pallas_step.py:
-PallasStepRunner._kernel`` (scopes K1a, K1b, K1d-i and K1d-ii); its plain
+PallasStepRunner._kernel`` (scopes K1a, K1b, K1c-i, K1d-i and K1d-ii); its plain
 PyTorch version is ``ops/fused_step.FusedStepRunner.run_chunk_plain``.  The
 runner holds the lane-minor constants; the wrapper lays the carry out
 lane-minor in fresh copies (the kernel updates them in place), launches on
@@ -11,7 +11,9 @@ holds five instantiations per type: rank capacity 16 (pivoted elimination)
 or 32 (Gauss-Jordan, 16 < k), each with or without the charge rows, and
 rank capacity 16 with the B-source rows (row width capacity 8, the others
 4); the C entry point picks one from k, the charge-row count and the
-B-source count.  ``LAUNCHES`` counts successful launches.
+B-source count.  A runner with a probe matrix (K1c-i) passes it and an
+(n_steps, P, B) output block; without one both pointers are null and the
+kernel writes no probe stream.  ``LAUNCHES`` counts successful launches.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ MAX_K = 32        # csrc/fused_step.cu: the Gauss-Jordan instantiation
 UNROLL_K_MAX = 16 # csrc/fused_step.cu: the elimination instantiation
 MAX_W = 8         # csrc/fused_step.cu: row width of the B instantiation
 MAX_STACK = 16    # csrc/fused_step.cu BSTACK: a B expression's stack
+MAX_PROBES = 64   # csrc/fused_step.cu MAXPROBES: rows of the probe matrix
 THREADS = 128     # lanes per block
 LAUNCHES = 0
 
@@ -51,7 +54,8 @@ def run_chunk_cuda(runner, x, x_prev, vc, il, failed, step0: int,
     """One launch: advance every lane of ``runner`` n_steps from the carry
     (x, x_prev (B, N), vc (B, nCap), il (B, nL), failed (B,) bool), all on
     the runner's CUDA device in its dtype.  Returns (x, x_prev, vc, il,
-    failed, iters) lane-major; iters (B,) int32."""
+    failed, iters) lane-major; iters (B,) int32; with the runner's probe
+    matrix also ys (n_steps, P, B), the probe values of each step."""
     global LAUNCHES
     dev, dtype = runner.G0invT.device, runner.dtype   # cuda:<index>
     B, N, k = runner.B, runner.N, runner.k
@@ -83,6 +87,13 @@ def run_chunk_cuda(runner, x, x_prev, vc, il, failed, step0: int,
     if n_steps < 0 or not 0 < threads <= THREADS:
         raise ValueError(f"run_chunk_cuda: n_steps={n_steps}, "
                          f"threads={threads}")
+    pm = runner.probe_mat
+    if pm is not None and (pm.device != dev or pm.dtype != dtype
+                           or pm.ndim != 2 or pm.shape[1] != N
+                           or not 0 < pm.shape[0] <= MAX_PROBES):
+        raise ValueError(f"run_chunk_cuda: probe_mat is {tuple(pm.shape)} "
+                         f"{pm.dtype} on {pm.device}, want (P <= "
+                         f"{MAX_PROBES}, {N}) {dtype} on {dev}")
     fn = _fn(dtype)
     xt, xpt = _lane_minor(x), _lane_minor(x_prev)
     vct, ilt = _lane_minor(vc), _lane_minor(il)
@@ -95,16 +106,22 @@ def run_chunk_cuda(runner, x, x_prev, vc, il, failed, step0: int,
               runner.cap_a, runner.cap_b, runner.row_cols,
               xt, xpt, vct, ilt, ft, iters, runner.mqp,
               runner.b_ops, runner.b_lits, runner.b_meta, runner.bconsts]
+    ys = None
+    if pm is not None:
+        ys = torch.empty((n_steps, pm.shape[0], B), dtype=dtype, device=dev)
+        arrays += [pm, ys]
     for a in arrays:
         if not a.is_contiguous() or a.device != dev:
             raise ValueError("run_chunk_cuda: runner constants must be "
                              "contiguous on the runner's device")
-    ptrs = (ctypes.c_void_p * len(arrays))(*[a.data_ptr() for a in arrays])
-    ints = (ctypes.c_longlong * 20)(
+    ptrs = [a.data_ptr() for a in arrays] + ([] if ys is not None
+                                             else [None, None])
+    ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    ints = (ctypes.c_longlong * 21)(
         B, N, k, runner.nS, runner.P, runner.nL, runner.nCap,
         runner.unrolled, runner.max_nr, int(runner.predictor), n_steps,
         int(step0), threads, runner.nMJ, runner.nD, runner.nQ, runner.nSw,
-        runner.W, runner.nMq, nB)
+        runner.W, runner.nMq, nB, 0 if pm is None else pm.shape[0])
     reals = (ctypes.c_double * 6)(runner.dt, runner.tol2, runner.alpha,
                                   runner.clamp, runner.off_gds,
                                   runner.inv_dt)
@@ -114,4 +131,5 @@ def run_chunk_cuda(runner, x, x_prev, vc, il, failed, step0: int,
     if rc != 0:
         raise RuntimeError(f"fused_step kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
-    return xt.t(), xpt.t(), vct.t(), ilt.t(), ft.bool(), iters
+    out = (xt.t(), xpt.t(), vct.t(), ilt.t(), ft.bool(), iters)
+    return out if ys is None else out + (ys,)

@@ -1,4 +1,4 @@
-"""Fused Monte-Carlo transient chunk (K1, scopes K1a, K1b, K1d-i and
+"""Fused Monte-Carlo transient chunk (K1, scopes K1a, K1b, K1c-i, K1d-i and
 K1d-ii): whole Backward-Euler timesteps per lane in one launch.
 
 Port of ``circuitsimulator_tpu/ops/pallas_step.py`` (``PallasStepRunner``)
@@ -64,6 +64,14 @@ is the ground dump slot and reads 0.  Exponential-device decks must start
 from the DC operating point: from x = 0 a junction at 1e5 S amplifies a
 rounding difference to volts.
 
+K1c-i, the probe stream (JAX kernel ``pallas_step.py:1242-1244``): a
+runner built with ``probe_mat`` (P, N) also writes, after each step's
+accept, the P values probe_mat @ x of every lane into an (n_steps, P, B)
+block that ``run_chunk`` returns as a seventh output.  The rows of
+``StreamingMeasures.probe_matrix`` are +1/-1 pairs, so for a finite x each
+value is exactly x[a] - x[b] in any summation order, and the kernel and
+the plain version agree bit for bit on the same x.
+
 ``FusedStepRunner.run_chunk`` launches the CUDA kernel (``ops/cuda_step``,
 ``csrc/fused_step.cu``) on CUDA tensors and runs ``run_chunk_plain``, the
 plain PyTorch version, on CPU tensors.
@@ -94,6 +102,7 @@ UNROLL_K_MAX = cuda_step.UNROLL_K_MAX  # elimination up to here, then GJ
 MAX_PWL = 8                  # PWL breakpoints (the JAX kernel unrolls <= 8)
 MAX_B_PAIRS = cuda_step.MAX_W // 2   # probe pairs per B source
 MAX_STACK = cuda_step.MAX_STACK      # expression stack of a B source
+MAX_PROBES = cuda_step.MAX_PROBES    # rows of the probe matrix (K1c-i)
 IN_SCOPE = "RCLVIMEGFHDQJSB"  # device classes of K1a, K1b, K1d-i, K1d-ii
 
 
@@ -158,9 +167,10 @@ def _lm(a: torch.Tensor) -> torch.Tensor:
 
 
 class FusedStepRunner:
-    """Per-lane constants of the fused chunk for one batch of parameters."""
+    """Per-lane constants of the fused chunk for one batch of parameters;
+    with ``probe_mat`` (P, N) every chunk also returns its probe stream."""
 
-    def __init__(self, engine, bparams, dt: float):
+    def __init__(self, engine, bparams, dt: float, probe_mat=None):
         reason = unsupported_reason(engine, dt)
         if reason is not None:
             raise NotImplementedError(f"fused transient chunk (K1): {reason}")
@@ -182,6 +192,17 @@ class FusedStepRunner:
                       "bjt_early": engine.bjt_early}
         self.B = B = next(iter(bparams.values())).shape[0]
         self.dt_t = dt_t = torch.tensor(self.dt, dtype=dtype, device=dev)
+        self.probe_mat = None
+        if probe_mat is not None:
+            pm = torch.as_tensor(probe_mat, dtype=dtype, device=dev)
+            if pm.ndim != 2 or pm.shape[1] != N:
+                raise ValueError(f"probe_mat is {tuple(pm.shape)}, want "
+                                 f"(P, {N})")
+            if pm.shape[0] > MAX_PROBES:
+                raise NotImplementedError(
+                    f"fused transient chunk (K1): {pm.shape[0]} probes > "
+                    f"{MAX_PROBES}")
+            self.probe_mat = pm.contiguous()
 
         G = engine.tran_static_G(bparams, dt_t, opts.tran_gmin)
         wb = WoodburySolver(engine, bparams, G[..., :N, :N])
@@ -301,7 +322,8 @@ class FusedStepRunner:
     # ------------------------------------------------------------------
     def run_chunk(self, x, x_prev, vc, il, failed, step0: int, n_steps: int):
         """Advance every lane n_steps: x, x_prev (B, N), vc (B, nCap),
-        il (B, nL), failed (B,) bool -> (x, x_prev, vc, il, failed, iters).
+        il (B, nL), failed (B,) bool -> (x, x_prev, vc, il, failed, iters),
+        plus ys (n_steps, P, B) when the runner has a probe matrix.
         iters is the per-lane (B,) int32 total of Newton iterations over
         the chunk (the JAX kernel reports per-128-lane-block totals).  CUDA
         tensors launch the kernel, CPU tensors take ``run_chunk_plain``."""
@@ -326,6 +348,9 @@ class FusedStepRunner:
         pulse, sin, pwl_t, pwl_v = (a.permute(2, 1, 0)         # (B, nS, q)
                                     for a in self.src[1:5])
         iters = torch.zeros((B,), dtype=torch.int32, device=dev)
+        pm = self.probe_mat
+        ys = (None if pm is None else
+              torch.empty((n_steps, pm.shape[0], B), dtype=dtype, device=dev))
         eye = torch.eye(k, dtype=dtype, device=dev)
         cols = self.row_cols.long()                            # (W, k)
         W = self.W
@@ -470,10 +495,14 @@ class FusedStepRunner:
                     xx, done, fl = newton(xx, done, fl, z0, active, qprev,
                                           t)
                     iters += active.to(torch.int32)
+            if ys is not None:          # the probe stream of the accepted x
+                ys[i] = pm @ xx.T
             xe = torch.cat([xx, zcol], 1)
             vc = xe[:, self.cap_a.long()] - xe[:, self.cap_b.long()]
             il = xe[:, self.ind_k.long()]
             x_prev, x, failed = x, xx, fl
+        if ys is not None:
+            return x, x_prev, vc, il, failed, iters, ys
         return x, x_prev, vc, il, failed, iters
 
 

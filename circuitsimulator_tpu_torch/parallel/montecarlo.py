@@ -13,12 +13,20 @@ carry's state holds the MOS charges qm.  A deck with a .NODESET card starts
 its lanes as ``benchmarks/bench_inamp.py`` does: the nominal DC with the
 card (``Simulator.dc``), then ``batched_dc_warm``; ``batched_dc_fast`` takes
 the card too (``nodeset=``).
+
+The measurement entries (``batched_transient_measures``,
+``batched_ac_measures``) give per-lane ``.MEASURE`` results without a
+(B, T, N) waveform: on the fused path K1 streams the probe values of every
+step (K1c-i) into the accumulators of ``analysis/measure_stream.py``.
+``perturb_params_netlist`` draws the lanes of the deck's DEV=/LOT=
+tolerances.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional
 
+import numpy as np
 import torch
 
 from ..analysis.dc import dc_linear, dc_newton
@@ -48,6 +56,39 @@ def perturb_params(params: Dict[str, torch.Tensor], generator: torch.Generator,
         z = torch.randn((batch,) + arr.shape, generator=generator,
                         dtype=arr.dtype, device=arr.device)
         out[name] = arr[None] * torch.exp(rel_sigma[name] * z)
+    return out
+
+
+def perturb_params_netlist(params: Dict[str, torch.Tensor],
+                           generator: torch.Generator, batch: int,
+                           mc_tols: Mapping[str, Any],
+                           sampler: str = "mc") -> Dict[str, torch.Tensor]:
+    """Lanes from the netlist's DEV=/LOT= tolerances
+    (``LoweredCircuit.mc_tols``): value * exp(dev * z_dev + lot * z_lot),
+    z_dev drawn per device per lane and z_lot ONE draw per lane shared by
+    every element with a LOT tolerance (same production lot).  Draw order
+    from ``generator`` (on the parameters' device): z_lot (batch, 1) in
+    float64, then z_dev per leaf in sorted-name order in the leaf's dtype.
+    Only the independent-draw plan "mc" is ported."""
+    if sampler != "mc":
+        raise NotImplementedError(
+            f"sampler {sampler!r}: the stratified plans (lhs, sobol, "
+            f"antithetic) are not yet ported (ROADMAP queue 1 item 11)")
+    out = broadcast_params(params, batch)
+    dev = next(iter(params.values())).device
+    lot_z = torch.randn((batch, 1), generator=generator, dtype=torch.float64,
+                        device=dev)
+    for name in sorted(mc_tols):
+        arr = params[name]
+        if not (arr.is_floating_point() and arr.numel()):
+            continue
+        dtol, ltol = (torch.as_tensor(np.asarray(v), dtype=arr.dtype,
+                                      device=arr.device)
+                      for v in mc_tols[name])
+        z = torch.randn((batch,) + arr.shape, generator=generator,
+                        dtype=arr.dtype, device=arr.device)
+        out[name] = arr[None] * torch.exp(dtol * z
+                                          + ltol * lot_z.to(arr.dtype))
     return out
 
 
@@ -184,3 +225,103 @@ def batched_transient(engine: Engine, bparams, tstep, tstop,
         x0 = batched_dc_fast(engine, bparams)
     return run_transient(engine, bparams, tstep, tstop,
                          x0=x0.to(engine.dtype), save_xs=save_xs)
+
+
+@torch.inference_mode()
+def fused_transient_measures(engine: Engine, bparams, tstep, tstop, sm,
+                             x0=None, chunk: int = 512):
+    """Streaming-measures transient stepped by the fused chunk kernel: each
+    K1 launch also writes the (chunk, P, B) probe values of its steps
+    (K1c-i, ``sm.probe_matrix``), which the accumulators of ``sm`` (a
+    ``StreamingMeasures``) consume on the device; no (B, T, N) state
+    history is ever kept.  The time axis is (step0 + arange(1, n + 1)) dt
+    in the working dtype, as the JAX fused path builds it in float32.
+    Failed lanes keep feeding their frozen x to the accumulators.  The
+    deck must be in K1's scope (``fused_step.supported``; else
+    NotImplementedError naming the cause); TRNOISE decks are refused by
+    the Engine.  Returns (TransientResult with xs None, {name: (B,)})."""
+    dtype, dev = engine.dtype, engine.device
+    dt = float(tstep)
+    n_steps = n_steps_for(dt, float(tstop))
+    runner = fused_step.FusedStepRunner(engine, bparams, dt,
+                                        probe_mat=sm.probe_matrix)
+    if x0 is None:
+        x0 = batched_dc_fast(engine, bparams)
+    x0 = x0.to(dtype)
+    state0 = engine.init_state(x0, bparams)
+    carry = (x0, x0, state0["vc"], state0["il"],
+             torch.zeros((runner.B,), dtype=torch.bool, device=dev))
+    acc = sm.init(engine, x0)
+    dt_t = torch.tensor(dt, dtype=dtype, device=dev)
+    total = torch.zeros((runner.B,), dtype=torch.int32, device=dev)
+    for s in range(0, n_steps, chunk):
+        n = min(chunk, n_steps - s)
+        out = runner.run_chunk(*carry, s, n)
+        carry = out[:5]
+        total += out[5]
+        ys = sm.vals_from_raw(out[6].transpose(1, 2))       # (n, B, P)
+        ts = (float(s) + torch.arange(1, n + 1, dtype=dtype, device=dev)) * dt
+        for i in range(n):
+            acc = sm.update_vals(acc, ys[i], ts[i], dt_t)
+    ts_all = torch.arange(1, n_steps + 1, dtype=dtype, device=dev) * dt
+    res = TransientResult(times=ts_all, xs=None, x_final=carry[0],
+                          newton_iters=total, failed=carry[4],
+                          n_steps=n_steps)
+    return res, sm.finalize(acc)
+
+
+def batched_transient_measures(engine: Engine, bparams, tstep, tstop,
+                               measures, topo, bindings=None, fused="auto",
+                               x0=None):
+    """Batched transient with STREAMING .MEASURE evaluation: per-lane
+    results with O(1) waveform memory (analysis/measure_stream.py).
+    Returns (TransientResult with xs None, {measure_name: (B,) values}):
+    tensors for the streamed measures, numpy for the derived PARAM= ones,
+    which are evaluated on the host.
+
+    fused="auto" takes the fused chunk kernel (K1 with its probe stream)
+    under the conditions of ``batched_transient``: float32, CUDA, and a
+    deck in its scope, with at most ``fused_step.MAX_PROBES`` distinct
+    probes; True forces it (on CPU tensors K1's plain version; more probes
+    raise NotImplementedError by name), False keeps the non-fused loop.  x0: the (B, N) operating
+    points (default: the batched DC)."""
+    from ..analysis.measure_stream import (StreamingMeasures,
+                                           apply_derived_measures,
+                                           run_transient_streaming)
+    sm = StreamingMeasures(measures, topo, engine.dtype, engine.device)
+    if x0 is None:
+        x0 = batched_dc_fast(engine, bparams)
+    if fused == "auto":
+        fused = (engine.dtype == torch.float32
+                 and engine.device.type == "cuda"
+                 and fused_step.supported(engine, float(tstep))
+                 and sm.probe_matrix.shape[0] <= fused_step.MAX_PROBES)
+    if fused:
+        res, vals = fused_transient_measures(engine, bparams, tstep, tstop,
+                                             sm, x0=x0)
+    else:
+        res, vals = run_transient_streaming(engine, bparams, tstep, tstop,
+                                            sm, x0=x0.to(engine.dtype))
+    derived = [m for m in measures
+               if m.analysis == "tran" and m.kind == "param"]
+    if derived:
+        host = apply_derived_measures(
+            measures, {k: v.cpu().numpy() for k, v in vals.items()},
+            bindings=bindings)
+        vals = {**vals, **{m.name: host[m.name] for m in derived}}
+    return res, vals
+
+
+def batched_ac_measures(engine: Engine, topo, bparams, freqs, measures,
+                        bindings=None, x_ops=None):
+    """``.MEASURE AC`` cards per lane over one batched lanes x frequencies
+    sweep (K3 on CUDA), evaluated on the host.  Returns {name: (B,) numpy}
+    for the AC measures."""
+    from ..analysis.ac import ac_analysis_batched
+    from ..analysis.measure import run_measures
+    res = ac_analysis_batched(engine, bparams, freqs, x_ops=x_ops)
+    fr = np.asarray(freqs)
+    rows = [dict(run_measures(measures, topo, fr, lane_xs, "ac",
+                              bindings=bindings)) for lane_xs in res.xs]
+    return {m.name: np.asarray([r[m.name] for r in rows])
+            for m in measures if m.analysis == "ac"}

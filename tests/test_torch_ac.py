@@ -364,7 +364,10 @@ def test_cli_run_ac_matches_jax_writer(tmp_path, monkeypatch, capsys):
     out = capsys.readouterr()
     assert "AC sweep finished (121 points). Results written to 'ac.csv'." \
         in out.out
-    assert ".MEASURE" in out.err
+    # the deck's .MEASURE AC card is printed after the sweep (it was named
+    # on stderr as skipped before the measurement path was ported)
+    assert "\n==== Measurements ====\n" in out.out
+    assert "                f3db = " in out.out
     assert_csv_close(tmp_path / "ac.csv",
                      os.path.join(GOLDENS, "cs_amp_ac_jax.csv"))
 

@@ -5,6 +5,7 @@ not installed; run it there without the JAX conftest:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import copy
 import os
 
 import numpy as np
@@ -415,6 +416,99 @@ def test_fused_step_refuses_a_deep_b_expression(cuda_device):
     with pytest.raises(NotImplementedError, match="stack depth 18 > 16"):
         mc.batched_transient(sim.engine, bp, 1e-9, 4e-9, fused=True)
     assert cuda_step.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("deck", ["dbmixer", "bjt", "linear"])
+def test_fused_step_probe_stream_matches_plain(cuda_device, deck, dtype):
+    """K1c-i, the probe stream, against the plain version on the same card
+    and inputs: a (3, N) matrix of +1/-1 pairs, 64 lanes x 10 steps from
+    the f64 batched DC point, damped configuration: carry and probe block
+    within 1e-4 V in f32 and 1e-9 V in f64, the last probe tile equal to
+    probe_mat @ x_out bit for bit, and the carry equal to the kernel's
+    without probes."""
+    from circuitsimulator_tpu_torch import DEFAULT_OPTIONS
+    from circuitsimulator_tpu_torch.ops import cuda_step, fused_step
+    from circuitsimulator_tpu_torch.parallel import montecarlo as mc
+    opts = DEFAULT_OPTIONS.replace(dtype=dtype)
+    if dtype == torch.float32:
+        opts = opts.replace(tran_tol=1e-5, dc_tol=1e-5)
+    if deck == "dbmixer":
+        path = os.path.join(REPO, "tests", "netlists", "dbmixer.sp")
+        sim = Simulator.from_file(path, opts=opts, device=cuda_device)
+        sim64 = Simulator.from_file(path, device=cuda_device)
+        dt = 1e-13
+    else:
+        text = K1B_DECKS["bjt"][0] if deck == "bjt" else LINEAR_DECK
+        sim = Simulator.from_text(text, opts=opts, device=cuda_device)
+        sim64 = Simulator.from_text(text, device=cuda_device)
+        dt = 1e-9
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    bp = mc.perturb_params(sim.params, g, 64, {"res_r": 0.02})
+    x0 = mc.batched_dc_fast(sim64.engine,
+                            {k: v.double() if v.is_floating_point() else v
+                             for k, v in bp.items()}).to(dtype)
+    N = sim.engine.N
+    pm = torch.zeros((3, N), dtype=dtype, device=cuda_device)
+    pm[0, 0] = 1.0
+    pm[1, 1] = 1.0
+    pm[1, N - 1] -= 1.0
+    pm[2, N // 2] = 1.0
+    runner = fused_step.FusedStepRunner(sim.engine, bp, dt, probe_mat=pm)
+    bare = copy.copy(runner)                # the same constants, no probes
+    bare.probe_mat = None
+    st = sim.engine.init_state(x0, bp)
+    carry = (x0, x0, st["vc"], st["il"],
+             torch.zeros((64,), dtype=torch.bool, device=cuda_device))
+    before = cuda_step.LAUNCHES
+    got = runner.run_chunk(*carry, 0, 10)
+    torch.cuda.synchronize()
+    assert cuda_step.LAUNCHES == before + 1
+    assert len(got) == 7 and got[6].shape == (10, 3, 64)
+    ref = runner.run_chunk_plain(*carry, 0, 10)
+    tol = 1e-4 if dtype == torch.float32 else 1e-9
+    for a, b in zip(got[:4] + got[6:], ref[:4] + ref[6:]):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=0,
+                                   atol=tol)
+    assert torch.equal(got[6][-1], pm @ got[0].T)
+    nop = bare.run_chunk(*carry, 0, 10)
+    for a, b in zip(got[:6], nop):
+        assert torch.equal(a, b)
+    assert not bool(got[4].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_batched_transient_measures_on_the_card(cuda_device, dtype):
+    """examples/mc_filter.sp, 256 lanes of its DEV=/LOT= tolerances:
+    fused="auto" takes K1 with its probe stream in f32; the fused run
+    against the non-fused loop within rtol 2e-4, atol 2e-6 in f32 and rtol
+    1e-9 in f64."""
+    from circuitsimulator_tpu_torch import DEFAULT_OPTIONS
+    from circuitsimulator_tpu_torch.ops import cuda_step
+    from circuitsimulator_tpu_torch.parallel import montecarlo as mc
+    opts = DEFAULT_OPTIONS.replace(dtype=dtype)
+    if dtype == torch.float32:
+        opts = opts.replace(tran_tol=1e-5, dc_tol=1e-5)
+    sim = Simulator.from_file(os.path.join(REPO, "examples", "mc_filter.sp"),
+                              opts=opts, device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    bp = mc.perturb_params_netlist(sim.params, g, 256, sim.lowered.mc_tols)
+    tran, ms = sim.config.tran, sim.config.measures
+    before = cuda_step.LAUNCHES
+    res, got = mc.batched_transient_measures(
+        sim.engine, bp, tran.tstep, tran.tstop, ms, sim.topo,
+        fused="auto" if dtype == torch.float32 else True)
+    torch.cuda.synchronize()
+    assert cuda_step.LAUNCHES == before + 1 and not bool(res.failed.any())
+    _, want = mc.batched_transient_measures(
+        sim.engine, bp, tran.tstep, tran.tstop, ms, sim.topo, fused=False)
+    rtol, atol = (2e-4, 2e-6) if dtype == torch.float32 else (1e-9, 0.0)
+    for name in ("settle", "vfinal"):
+        np.testing.assert_allclose(got[name].cpu().numpy(),
+                                   want[name].cpu().numpy(), rtol=rtol,
+                                   atol=atol, err_msg=name)
 
 
 def ac_lanes(B, n, seed):

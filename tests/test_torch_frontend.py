@@ -33,7 +33,11 @@ def test_port_loads_nothing_from_the_jax_package():
     jax_dir = os.path.join(REPO, "circuitsimulator_tpu") + os.sep
     deck = os.path.join(REPO, "tests", "netlists", "dbmixer.sp")
     code = ("import sys\n"
-            "from circuitsimulator_tpu_torch import Simulator\n"
+            "from circuitsimulator_tpu_torch import Simulator, cli\n"
+            "from circuitsimulator_tpu_torch.analysis import (\n"
+            "    fourier, measure, measure_stream)\n"
+            "from circuitsimulator_tpu_torch.io import csvout\n"
+            "from circuitsimulator_tpu_torch.parallel import montecarlo\n"
             f"sim = Simulator.from_file({deck!r}, device='cpu')\n"
             "assert sim.topo.n_unknowns == 31\n"
             "assert 'jax' not in sys.modules\n"

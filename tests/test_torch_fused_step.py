@@ -178,9 +178,9 @@ def draw_lanes(params, B, seed=0, sigmas=(("res_r", 0.01), ("mos_vth", 0.02))):
     return {k: jnp.asarray(v) for k, v in out.items()}
 
 
-def jax_runner(engine, bparams, dt):
-    """``PallasStepRunner(engine, bparams, dt)`` with its constructor run
-    under one ``jax.jit`` trace.  Run eagerly, the constructor dispatches a
+def jax_runner(engine, bparams, dt, **kw):
+    """``PallasStepRunner(engine, bparams, dt, **kw)`` with its constructor
+    run under one ``jax.jit`` trace.  Run eagerly, the constructor dispatches a
     few hundred small operations (the unrolled G0 inverse among them), each
     compiled on its own: 10-15 s per deck on the CPU against 1-2 s for the
     one traced computation.  The arrays it builds are the same to f32
@@ -188,7 +188,7 @@ def jax_runner(engine, bparams, dt):
     made = []
 
     def build(p):
-        made.append(pallas_step.PallasStepRunner(engine, p, dt))
+        made.append(pallas_step.PallasStepRunner(engine, p, dt, **kw))
         return {k: v for k, v in vars(made[-1]).items()
                 if isinstance(v, jax.Array)}
 
