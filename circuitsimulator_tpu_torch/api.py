@@ -246,12 +246,12 @@ class Simulator:
         tran = self.config.tran
         ms = self.config.measures
         if tran.enabled and any(m.analysis == "tran" for m in ms):
-            # derived PARAM= measures see the .PARAM values (the JAX
-            # facade passes none here, api.py:1777-1781)
+            # as in the JAX facade, no .PARAM bindings here: a derived
+            # PARAM= measure that reads a .PARAM name is NaN
             _, vals = batched_transient_measures(
                 self.engine, bp, tran.tstep, tran.tstop,
                 [m for m in ms if m.analysis == "tran"], self.topo,
-                bindings=self.config.param_values, x0=dc_init())
+                x0=dc_init())
             return bp, vals
         ac = self.config.ac
         if ac.enabled and any(m.analysis == "ac" for m in ms):

@@ -47,10 +47,10 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--run-mc-out", metavar="CSV", default="mc_out.csv",
                    help="per-lane Monte-Carlo results CSV "
                         "(default mc_out.csv)")
-    p.add_argument("--mc-sampler", default="mc",
-                   choices=["mc", "lhs", "sobol", "antithetic"],
-                   help="Monte-Carlo sampling plan (only mc, independent "
-                        "draws, is ported)")
+    p.add_argument("--mc-sampler", default="mc", choices=["mc"],
+                   help="Monte-Carlo sampling plan: mc, independent draws "
+                        "(the stratified lhs, sobol and antithetic plans "
+                        "are not yet ported)")
     return p
 
 

@@ -25,7 +25,7 @@ from circuitsimulator_tpu_torch.ops import fused_step
 from circuitsimulator_tpu_torch.parallel import montecarlo as tmc
 
 from test_torch_fused_step import START_DC, damped, jax_runner
-from test_torch_measure import DEVICE_DECK
+from test_torch_measure import DEVICE_DECK, jax_parse
 
 # one intra-op thread, as in every port test file (pytest-xdist shares
 # the cores between workers)
@@ -185,7 +185,7 @@ def test_monte_carlo_branches():
     and a derived measure), the DC branch with LOT-only tolerances (a
     matched divider that never moves), the DC branch of a nonlinear deck
     (warm-started lanes on the batched DC's fixpoint within 1e-6 V), and a
-    derived transient measure over a .PARAM value."""
+    derived transient measure over a .PARAM name (NaN, as in JAX)."""
     sim = Simulator.from_file(MC_FILTER, device="cpu")
     bp, vals = sim.monte_carlo(8, seed=1)
     assert set(vals) == {"settle", "vfinal"}
@@ -224,9 +224,10 @@ R2 out 0 1k LOT=10%
     assert float(bp["mos_vth"].std()) > 0 and float(bp["bjt_bf"].std()) > 0
     np.testing.assert_allclose(xs.numpy(), tmc.batched_dc_fast(
         dev.engine, bp).numpy(), rtol=0, atol=1e-6)
-    # a derived measure reads the .PARAM values (the JAX facade passes
-    # none to its transient branch; ROADMAP queue 3)
-    rc = Simulator.from_text("""* mc rc derived
+    # a derived transient measure over a .PARAM name: the JAX facade
+    # hands its transient branch no .PARAM bindings (api.py:1777-1780), so
+    # the JAX evaluator gives NaN on those lanes, and so does the port
+    text = """* mc rc derived
 .PARAM k=2
 V1 in 0 PULSE(0 1 0 1n 1n 1 1)
 R1 in out 1k DEV=10%
@@ -234,10 +235,12 @@ C1 out 0 1u
 .TRAN 5e-5 1e-3
 .MEASURE TRAN vend FIND V(out) AT=5e-4
 .MEASURE TRAN twice PARAM='k*vend'
-""", device="cpu")
-    _, rv = rc.monte_carlo(8, seed=3)
-    np.testing.assert_allclose(rv["twice"], 2 * rv["vend"].numpy(),
-                               rtol=1e-15)
+"""
+    _, rv = Simulator.from_text(text, device="cpu").monte_carlo(8, seed=3)
+    want = jstream.apply_derived_measures(
+        jax_parse(text)[1].measures, {"vend": rv["vend"].numpy()})
+    assert bool(torch.isfinite(rv["vend"]).all())
+    assert np.isnan(want["twice"]).all() and np.isnan(rv["twice"]).all()
     with pytest.raises(ValueError, match="DEV=/LOT="):
         Simulator.from_text("V1 a 0 DC 1\nR1 a 0 1k\n.op\n",
                             device="cpu").monte_carlo(4)
