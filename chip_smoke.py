@@ -132,12 +132,41 @@ Phases (one JSON line each):
      (tests/goldens/{rc_step,mc_filter}_stdout_jax.txt), bjt_amp.sp with
      --run-ac through its .MEASURE AC block
      (tests/goldens/bjt_amp_run_ac_stdout_jax.txt, whose .TF block the
-     port does not print yet).
+     port does not print yet);
+ 24. K1c-ii, K1's delay ring, against the plain version on the card
+     (k1c_ii_vs_plain): the diode-clamp T-line deck of
+     tests/test_pallas_step.py (K1b), examples/tline_reflect.sp (k = 0),
+     examples/delay_osc.sp with a .TRAN 0.1n 40n card (the B
+     instantiation, each lane kicked off its rest point) and the charge
+     stage with a 50-ohm line at its output (K1d-i), 256 lanes from each
+     lane's f64 DC point, Rs and Z0 perturbed, two launches in a row so
+     the ring crosses a launch boundary: f64 within 1e-9 V over x and
+     the ring with equal per-lane iteration counts, f32 within 1e-4 V,
+     the ring at launch exit in the Engine's layout (slots 0 and 1 the
+     waves of x and x_prev, bit for bit);
+ 25. the T-line main paths (monte_carlo_tline_*, ac_tline_*):
+     batched_transient on benchmarks/bench_tline_fused.py's workload at
+     B = 8192 in f32 (4,000 steps of 0.25 ns, the damped configuration:
+     the benchmark's fast one is recorded beside it, K1 against its plain
+     version after 100 steps and K1's ms, and not held, since on the
+     diode clamp two correct implementations part by volts): K1
+     launches, failed lanes, lane-steps/s, K1 kernel, plain and bound ms
+     per 2,000-step chunk; fused against non-fused on 1,024 lanes over
+     400 steps (f32 damped atol 5e-5, f64 1e-9);
+     batched_transient_measures on tline_reflect.sp at B = 8192, Rs
+     perturbed 2% (K1 with its probe stream and its ring; lane 0 held to
+     the JAX CLI's measures within 1e-4); the matched line's AC at
+     B = 1024 x F = 64 through K2 (K3 launched 0 times), lane 0 against
+     the exact line (f32 1e-4, f64 1e-9);
+ 26. the CLI on tline_reflect.sp on the card (cli_tline): stdout
+     byte-identical to tests/goldens/tline_reflect_stdout_jax.txt, CSV
+     within 1e-9 V of tests/goldens/tline_reflect_tran_jax.csv.
 
 Every error of K3 and of the AC path is lane-relative: for each lane
 max|x - ref| / max|ref| over its frequencies and unknowns, then the worst
 lane.  Kernel launch counts are reset just before each main-path run
-(phases 4, 7, 8, 11, 12, 13, 15, 16, 18 and 22) and read just after it.  The
+(phases 4, 7, 8, 11, 12, 13, 15, 16, 18, 22 and 25) and read just after
+it.  The
 junction decks run the damped while-loop Newton configuration at f32
 tolerances: the fast configuration (alpha 1, predictor, two unrolled
 iterations) was tuned on dbmixer and is not held to anything on
@@ -329,6 +358,31 @@ D1 q 0 IS=1e-14
 # B-source decks vary their resistors and the .PARAM values the
 # expressions read
 B_SIGMAS = {"res_r": 0.01, "b_consts": 0.05}
+
+# transmission lines (K1c-ii): the diode-clamp deck of tests/test_pallas_step
+# .py, and with a 14 ns pulse period the workload of
+# benchmarks/bench_tline_fused.py; the matched line of tests/test_tline.py
+# with an AC source; the charge stage with a 50-ohm line at its output
+TL_DECK = """* T-line reflections + diode clamp at the far end
+V1 in 0 PULSE(0 1 1n 0.2n 0.2n 6n 0)
+RS in a 50
+T1 a 0 b 0 Z0=50 TD=2n
+RL b 0 200
+D1 b 0
+.op
+"""
+TL_BENCH_DECK = TL_DECK.replace("6n 0)", "6n 14n)")
+TL_AC_DECK = """* ac matched line
+V1 src 0 DC 0 AC 1
+Rs src in 50
+T1 in 0 out 0 Z0=50 TD=10n
+Rl out 0 50
+.AC lin 5 1e6 9e6
+"""
+CHARGE_TL_DECK = CHARGE_DECK.replace(".op", """T1 3 0 4 0 Z0=50 TD=5n
+RT 4 0 1meg
+.op""")
+TL_SIGMAS = {"res_r": 0.02, "tl_z0": 0.02, "dio_is": 0.05}
 
 K1B_DECKS = (("diode + zener", DIODE_DECK, 1e-9, 6),
              ("npn + pnp", BJT_DECK, 1e-9, 6),
@@ -640,7 +694,7 @@ def _mc_run(opts, B, n_steps, chunk, seed):
     torch.cuda.synchronize()
     dc_s = time.perf_counter() - t0
     dc_launches = cuda_lu.LAUNCHES
-    carry = mc.init_carry(eng, x0)
+    carry = mc.init_carry(eng, x0, bp, dt)
     walls, lane0, iters = [], [], 0
     for c in range(n_steps // chunk):
         ts = torch.arange(c * chunk + 1, (c + 1) * chunk + 1,
@@ -701,7 +755,7 @@ def phase_cuda_vs_cpu():
         p = {k: v.to(dev) for k, v in bp.items()}
         t0 = time.perf_counter()
         x0 = mc.batched_dc_fast(sim.engine, p)
-        carry = mc.init_carry(sim.engine, x0)
+        carry = mc.init_carry(sim.engine, x0, p, dt)
         finals = [x0]
         for c in range(10):
             ts = torch.arange(c * 50 + 1, c * 50 + 51, dtype=torch.float64,
@@ -742,7 +796,7 @@ def _k1_case(name, sim, B, steps, from_dc, tol, seed=11, sigmas=SIGMAS,
     runner = meta["runner"]
     if not from_dc:
         x = torch.zeros_like(carry[0])
-        st = sim.engine.init_state(x, bp)
+        st = sim.engine.init_state(x, bp, dt)
         carry = (x, x, st["vc"], st["il"], carry[4])
     got = runner.run_chunk(*carry, 0, steps)
     ref = runner.run_chunk_plain(*carry, 0, steps)
@@ -833,7 +887,12 @@ def k1_work(runner, n_steps, n_iters):
     instruction on its value and its m partials, 1 + m operations, and ~4
     per probe pair for the row), z, S, vz, the k x k solve
     (``k_solve_ops``), x_raw, accept.  The B tapes are read once (every
-    lane reads the same ones), their constants once per lane."""
+    lane reads the same ones), their constants once per lane.  The delay
+    ring of a T-line deck (K1c-ii) is read once and written once (Dmax x
+    2 nT words per lane), with Z0 per lane and the read slots and index
+    plan once; per lane-step each of the 2 nT waves takes about four
+    operations (the voltage difference, Z0 i, their sum, the EMF's add
+    into b0)."""
     B, N, k, P, W = runner.B, runner.N, runner.k, runner.P, runner.W
     size = runner.G0invT.element_size()
     nc = runner.bconsts.shape[0] if runner.nB else 0
@@ -850,9 +909,11 @@ def k1_work(runner, n_steps, n_iters):
                 + 2 for bs in runner.b_sources)
     n_probe = 0 if runner.probe_mat is None else runner.probe_mat.shape[0]
     nbytes += size * (n_probe * N + n_steps * n_probe * B)
+    nT = runner.nT
+    nbytes += size * B * (2 * runner.Dmax * 2 * nT + nT) + 4 * 7 * nT
     per_step = (22 * runner.nS + 2 * runner.nL + 4 * runner.nCap
                 + 2 * N * N + 2 * N + CHARGE_OPS * runner.nMq
-                + 2 * n_probe * N)
+                + 2 * n_probe * N + 4 * 2 * nT)
     dio = 32 if runner.flags["dio_bv"] else 20
     per_iter = (25 * runner.nMJ + dio * runner.nD + 75 * runner.nQ
                 + 35 * runner.nSw + (CHARGE_DUAL_OPS + 45) * runner.nMq
@@ -1345,7 +1406,7 @@ def _junction_fused(name, deck, B, n_steps, chunk, dt=None):
     m["f32_dc_failed_lanes"] = _dc_failed_lanes(
         sim.engine, bp, mc.batched_dc_fast(sim.engine, bp), 1e-3)[0]
     x0 = x64.to(opts.dtype)
-    st = sim.engine.init_state(x0)
+    st = sim.engine.init_state(x0, bp, runner.dt)
     start = (x0, x0, st["vc"], st["il"], torch.zeros_like(carry[4]))
     main = _k1_at_main_shape(runner, start, 0, chunk, 1e-3)
     m["kernel_at_main_shape"] = main
@@ -1487,6 +1548,14 @@ def phase_k1d():
     return max(r["max_abs_err"] for r in rows)
 
 
+def _launch(runner, carry, step0, n, plain=False):
+    """K1 (or, with plain, its plain version) on a fused carry: five
+    tensors, plus the delay ring of a T-line deck (returned advanced as
+    the last output)."""
+    run = runner.run_chunk_plain if plain else runner.run_chunk
+    return run(*carry[:5], step0, n, tlw=carry[5] if runner.nT else None)
+
+
 def _k1_at_main_shape(runner, carry, step0, chunk, tol, plain_steps=None,
                       masks_equal=True):
     """K1 at a main path's chunk shape from `carry`: its time and bound,
@@ -1498,24 +1567,25 @@ def _k1_at_main_shape(runner, carry, step0, chunk, tol, plain_steps=None,
     million small launches (50 s), so there it runs 25 steps."""
     import torch
     plain_steps = plain_steps or chunk
-    got = runner.run_chunk(*carry, step0, plain_steps)
+    got = _launch(runner, carry, step0, plain_steps)
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     a.record()
-    ref = runner.run_chunk_plain(*carry, step0, plain_steps)
+    ref = _launch(runner, carry, step0, plain_steps, plain=True)
     b.record()
     torch.cuda.synchronize()
     alive = ~(got[4] | ref[4])
     check(bool(alive.any()), "main shape: every lane failed")
+    ring = [(got[-1], ref[-1])] if runner.nT else []
     err = max(float((a[alive] - b[alive]).abs().max())
-              for a, b in zip(got[:4], ref[:4]) if a.numel())
+              for a, b in list(zip(got[:4], ref[:4])) + ring if a.numel())
     check(err <= tol, f"K1 at the main shape vs plain {err} > {tol}")
     mask_diff = int((got[4] != ref[4]).sum())
     if masks_equal:
         check(mask_diff == 0, "main shape: failed masks")
     full = (got if plain_steps == chunk
-            else runner.run_chunk(*carry, step0, chunk))
+            else _launch(runner, carry, step0, chunk))
     nbytes, flops = k1_work(runner, chunk, int(full[5].sum()))
     bms, by = bound_ms(nbytes, flops, runner.dtype)
     return {"B": runner.B, "steps": chunk, "dtype": str(runner.dtype)[6:],
@@ -1523,8 +1593,8 @@ def _k1_at_main_shape(runner, carry, step0, chunk, tol, plain_steps=None,
             "charge_rows": runner.nCq, "max_abs_err": err, "tol": tol,
             "failed_mask_diff": mask_diff,
             "newton_iters_per_step": float(full[5].float().mean()) / chunk,
-            "kernel_ms": cuda_ms(lambda: runner.run_chunk(*carry, step0,
-                                                          chunk),
+            "kernel_ms": cuda_ms(lambda: _launch(runner, carry, step0,
+                                                 chunk),
                                  reps=5, warmup=1),
             "plain_ms": a.elapsed_time(b), "plain_steps": plain_steps,
             "bound_ms": bms, "bound_by": by, "bytes": nbytes, "flops": flops}
@@ -1591,7 +1661,7 @@ def phase_monte_carlo_fused_charge():
             # from the power-up state: later, lanes whose output has settled
             # near 0 V take rounding-dependent paths (phase 14)
             x = torch.zeros_like(carry[0])
-            st = sim.engine.init_state(x, bp)
+            st = sim.engine.init_state(x, bp, runner.dt)
             carry, step0 = (x, x, st["vc"], st["il"],
                             torch.zeros_like(carry[4])), 0
         main = _k1_at_main_shape(runner, carry, step0, chunk, 1e-3,
@@ -1839,7 +1909,7 @@ def phase_k1c_i():
                                                 probe_mat=pm)
             bare = copy.copy(runner)        # the same constants, no probes
             bare.probe_mat = None
-            st = sim.engine.init_state(x0, bp)
+            st = sim.engine.init_state(x0, bp, dt)
             carry = (x0, x0, st["vc"], st["il"],
                      torch.zeros((B,), dtype=torch.bool, device="cuda"))
             got = runner.run_chunk(*carry, 0, steps)
@@ -1923,10 +1993,12 @@ def _measure_chunk(sim, bp, x0, n, plain_steps=None, tol=1e-4):
     bare = copy.copy(runner)                # the same constants, no probes
     bare.probe_mat = None
     x0 = x0.to(eng.dtype)
-    st = eng.init_state(x0, bp)
+    st = eng.init_state(x0, bp, dt)
     carry = (x0, x0, st["vc"], st["il"],
              torch.zeros((runner.B,), dtype=torch.bool, device="cuda"))
-    got = runner.run_chunk(*carry, 0, n)
+    if runner.nT:
+        carry += (st["tlw"],)
+    got = _launch(runner, carry, 0, n)
     ys = sm.vals_from_raw(got[6].transpose(1, 2))
     ts = torch.arange(1, n + 1, dtype=eng.dtype, device="cuda") * dt
     dt_t = torch.tensor(dt, dtype=eng.dtype, device="cuda")
@@ -1939,11 +2011,11 @@ def _measure_chunk(sim, bp, x0, n, plain_steps=None, tol=1e-4):
         return acc
 
     plain_steps = plain_steps or n
-    part = runner.run_chunk(*carry, 0, plain_steps)
+    part = _launch(runner, carry, 0, plain_steps)
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     a.record()
-    ref = runner.run_chunk_plain(*carry, 0, plain_steps)
+    ref = _launch(runner, carry, 0, plain_steps, plain=True)
     b.record()
     torch.cuda.synchronize()
     err = max(float((u - v).abs().max()) for u, v in
@@ -1960,10 +2032,10 @@ def _measure_chunk(sim, bp, x0, n, plain_steps=None, tol=1e-4):
             "N": runner.N, "k": runner.k, "P": sm.probe_matrix.shape[0],
             "max_abs_err": err, "tol": tol, "plain_steps": plain_steps,
             "newton_iters_per_step": float(got[5].float().mean()) / n,
-            "kernel_ms": cuda_ms(lambda: runner.run_chunk(*carry, 0, n),
+            "kernel_ms": cuda_ms(lambda: _launch(runner, carry, 0, n),
                                  reps=5, warmup=1),
             "kernel_ms_without_probes": cuda_ms(
-                lambda: bare.run_chunk(*carry, 0, n), reps=5, warmup=1),
+                lambda: _launch(bare, carry, 0, n), reps=5, warmup=1),
             "accumulator_ms": cuda_ms(accumulate, reps=3, warmup=1),
             "plain_ms": a.elapsed_time(b), "bound_ms": bms, "bound_by": by,
             "bytes": nbytes, "flops": flops}
@@ -2180,6 +2252,275 @@ def phase_cli_measures():
     emit("cli_measures", **out)
 
 
+# ------------------------------------------------------------- phase 24
+def phase_k1c_ii():
+    """K1c-ii (the delay ring) against the plain version on one deck per
+    instantiation family, 256 lanes from each lane's f64 DC point, two
+    launches in a row so the ring crosses a launch boundary and its head
+    wraps (except tline_reflect's 100 slots, which the two launches of 60
+    steps cross once)."""
+    import torch
+    from circuitsimulator_tpu_torch import DEFAULT_OPTIONS
+    from circuitsimulator_tpu_torch.ops import fused_step
+    from circuitsimulator_tpu_torch.parallel import montecarlo as mc
+    with open(os.path.join(EXAMPLES, "delay_osc.sp")) as f:
+        osc = f.read() + ".TRAN 0.1n 40n\n"
+    rows = []
+    B = 256
+    for name, deck, dt, chunks, kick in (
+            ("TL_DECK (K1b)", TL_DECK, 0.25e-9, (13, 11), None),
+            ("tline_reflect (k = 0)", os.path.join(EXAMPLES,
+                                                   "tline_reflect.sp"),
+             1e-10, (60, 60), None),
+            ("delay_osc (B)", osc, 1e-10, (30, 30), "a"),
+            ("charge stage + line (K1d-i)", CHARGE_TL_DECK, 1e-9, (7, 6),
+             None)):
+        sim64 = _sim(DEFAULT_OPTIONS, deck)
+        gen = torch.Generator(device="cuda").manual_seed(71)
+        bp64 = mc.perturb_params(sim64.params, gen, B, TL_SIGMAS)
+        x64 = mc.batched_dc_fast(sim64.engine, bp64).clone()
+        if kick:
+            # the oscillator rests at 0 V: start every lane from a kick
+            # of 0.05-0.2 V at its amplifier input
+            e = sim64.circuit.nodes[
+                sim64.circuit.node_name_to_id[kick]].eq_index
+            x64[:, e] += 0.05 + 0.15 * torch.rand(
+                B, generator=gen, dtype=torch.float64, device="cuda")
+        for opts, tol in ((damped_f32_options(), 1e-4),
+                          (DEFAULT_OPTIONS, 1e-9)):
+            sim = _sim(opts, deck)
+            bp = {k: (v.to(opts.dtype) if v.is_floating_point() else v)
+                  for k, v in bp64.items()}
+            x0 = x64.to(opts.dtype)
+            runner = fused_step.FusedStepRunner(sim.engine, bp, dt)
+            st = sim.engine.init_state(x0, bp, dt)
+            carry = (x0, x0, st["vc"], st["il"],
+                     torch.zeros((B,), dtype=torch.bool, device="cuda"),
+                     st["tlw"])
+            kc, pc, step0, iters_equal = carry, carry, 0, True
+            for n in chunks:
+                got = _launch(runner, kc, step0, n)
+                ref = _launch(runner, pc, step0, n, plain=True)
+                iters_equal &= bool(torch.equal(got[5], ref[5]))
+                kc, pc = got[:5] + got[-1:], ref[:5] + ref[-1:]
+                step0 += n
+            torch.cuda.synchronize()
+            err = max(float((a - b).abs().max())
+                      for a, b in zip(kc[:4], pc[:4]) if a.numel())
+            ring_err = float((kc[5] - pc[5]).abs().max())
+            row = {"case": f"{name} {str(opts.dtype)[6:]} damped",
+                   "B": B, "chunks": list(chunks), "N": runner.N,
+                   "k": runner.k, "W": runner.W, "nT": runner.nT,
+                   "b_sources": runner.nB, "charge_rows": runner.nCq,
+                   "Dmax": runner.Dmax,
+                   "read_slots": runner.tl_read.tolist(),
+                   "max_abs_err": max(err, ring_err), "x_max_abs_err": err,
+                   "ring_max_abs_err": ring_err, "tol": tol,
+                   # the Engine's layout: slot 0 holds the wave of the last
+                   # x, slot 1 that of the x before it
+                   "ring_slots_0_1_bitwise": all(
+                       bool(torch.equal(kc[5][:, q], sim.engine._tl_wave_now(
+                           bp, kc[q]))) for q in (0, 1)),
+                   "failed_equal": bool(torch.equal(kc[4], pc[4])),
+                   "iters_equal": iters_equal,
+                   "failed_lanes": int(kc[4].sum()),
+                   "x_final_max_abs": float(kc[0].abs().max())}
+            c = row["case"]
+            check(max(err, ring_err) <= tol, f"K1c-ii {c}: {err}, "
+                  f"{ring_err} > {tol}")
+            check(row["ring_slots_0_1_bitwise"],
+                  f"K1c-ii {c}: the ring is not in the Engine's layout")
+            check(row["failed_equal"] and row["failed_lanes"] == 0,
+                  f"K1c-ii {c}: failed lanes")
+            if opts.dtype == torch.float64:
+                check(iters_equal, f"K1c-ii {c}: iteration counts differ")
+            rows.append(row)
+    check(rows[4]["b_sources"] == 1 and rows[6]["charge_rows"] > 0,
+          "delay_osc ran the B instantiation, the charge stage its rows")
+    emit("k1c_ii_vs_plain", cases=rows)
+    return max(r["max_abs_err"] for r in rows)
+
+
+# ------------------------------------------------------------- phase 25
+def phase_monte_carlo_tline():
+    """The T-line main paths: batched_transient on the bench workload at
+    B = 8192 (K1 with its delay ring), fused against non-fused on 1,024
+    lanes, batched_transient_measures on tline_reflect.sp at B = 8192 (the
+    probe stream and the ring together), and the matched line's AC at
+    B = 1024 x F = 64 (K2, never K3)."""
+    import numpy as np
+    import torch
+    from circuitsimulator_tpu_torch import DEFAULT_OPTIONS
+    from circuitsimulator_tpu_torch.analysis.ac import ac_analysis_batched
+    from circuitsimulator_tpu_torch.ops import cuda_ac, cuda_lu, cuda_step
+    from circuitsimulator_tpu_torch.parallel import montecarlo as mc
+    out = {}
+    dt, n_steps, B = 0.25e-9, 4000, 8192
+    sim, bp = _mc_lanes(damped_f32_options(), B, 73, TL_BENCH_DECK,
+                        TL_SIGMAS)
+    torch.cuda.synchronize()
+    cuda_step.LAUNCHES = cuda_lu.LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = mc.batched_transient(sim.engine, bp, dt, n_steps * dt)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    m = {"deck": "TL_BENCH_DECK", "B": B, "dtype": "float32",
+         "configuration": "damped", "steps": n_steps, "dt": dt,
+         "wall_s": wall,
+         "k1_launches": cuda_step.LAUNCHES, "k2_launches": cuda_lu.LAUNCHES,
+         "lane_steps_per_s": B * n_steps / wall,
+         "failed_lanes": int(res.failed.sum()),
+         "newton_iters_per_step": float(res.newton_iters.float().mean())
+         / n_steps}
+    check(m["k1_launches"] > 0, "batched_transient ran through K1")
+    check(m["failed_lanes"] == 0, "TL deck: failed lanes")
+    check(bool(torch.isfinite(res.x_final).all()), "TL deck: finite x")
+    # the run's set-up alone (batched DC on K2, the runner's constants),
+    # then K1 at the run's chunk shape (2,000 steps) from the DC point
+    t0 = time.perf_counter()
+    carry, _, meta = mc.make_fused_transient_fn(sim.engine, bp, dt)
+    torch.cuda.synchronize()
+    m["setup_s"] = time.perf_counter() - t0
+    main = _k1_at_main_shape(meta["runner"], carry, 0, 2000, 1e-3,
+                             plain_steps=100)
+    main["case"] = "TL_BENCH_DECK f32 damped"
+    m["kernel_at_main_shape"] = main
+    # the benchmark's own fast configuration (alpha 1, predictor, two
+    # unrolled iterations), recorded and not held: on the diode clamp two
+    # correct implementations part by volts within 100 steps
+    fsim, fbp = _mc_lanes(fast_f32_options(), B, 73, TL_BENCH_DECK,
+                          TL_SIGMAS)
+    fcarry, _, fmeta = mc.make_fused_transient_fn(fsim.engine, fbp, dt)
+    got = _launch(fmeta["runner"], fcarry, 0, 100)
+    ref = _launch(fmeta["runner"], fcarry, 0, 100, plain=True)
+    m["fast_configuration"] = {
+        "kernel_vs_plain_max_abs_after_100_steps": float(
+            (got[0] - ref[0]).abs().max()),
+        "kernel_ms_per_2000_steps": cuda_ms(
+            lambda: _launch(fmeta["runner"], fcarry, 0, 2000), reps=3,
+            warmup=1)}
+    emit("monte_carlo_tline_f32", **m)
+    out["bench"], out["bench_main"] = m, main
+    # fused against non-fused on 1,024 lanes over 400 steps (the damped
+    # configuration of tests/test_pallas_step.py in f32, atol 5e-5; f64
+    # within 1e-9)
+    for opts, tol in ((damped_f32_options(), 5e-5), (DEFAULT_OPTIONS, 1e-9)):
+        s2, bp2 = _mc_lanes(opts, 1024, 74, TL_BENCH_DECK, TL_SIGMAS)
+        cuda_step.LAUNCHES = 0
+        fr = mc.batched_transient(s2.engine, bp2, dt, 400 * dt, fused=True)
+        k1 = cuda_step.LAUNCHES
+        nr = mc.batched_transient(s2.engine, bp2, dt, 400 * dt, fused=False)
+        torch.cuda.synchronize()
+        r = {"B": 1024, "dtype": str(opts.dtype)[6:], "steps": 400,
+             "k1_launches": k1, "tol": tol,
+             "failed_lanes": int(fr.failed.sum() + nr.failed.sum()),
+             "final_max_abs_vs_nonfused": float(
+                 (fr.x_final - nr.x_final).abs().max())}
+        check(k1 > 0 and r["failed_lanes"] == 0,
+              "T-line fused vs non-fused: K1, failed lanes")
+        check(r["final_max_abs_vs_nonfused"] <= tol,
+              f"T-line fused vs non-fused {r['dtype']}: "
+              f"{r['final_max_abs_vs_nonfused']} > {tol}")
+        emit(f"monte_carlo_tline_vs_nonfused_{r['dtype']}", **r)
+    # tline_reflect's WHEN and MAX measures at B = 8192, Rs 2% (lane 0
+    # nominal), in the reference configuration: K1 with its probe stream
+    # and the ring
+    deck = os.path.join(EXAMPLES, "tline_reflect.sp")
+    sim = _sim(ref_f32_options(), deck)
+    bp = mc.broadcast_params(sim.params, B)
+    gen = torch.Generator(device="cuda").manual_seed(75)
+    rs = sim.params["res_r"][0] * torch.exp(0.02 * torch.randn(
+        B, generator=gen, device="cuda"))
+    rs[0] = sim.params["res_r"][0]
+    bp["res_r"] = bp["res_r"].clone()
+    bp["res_r"][:, 0] = rs
+    vals, m = _measures_run(sim, bp)
+    m["deck"] = "tline_reflect"
+    m["arrival_lane0_rel_vs_jax_cli"] = abs(float(vals["arrival"][0])
+                                            / 1.005000386e-08 - 1.0)
+    m["vpeak_lane0_rel_vs_jax_cli"] = abs(float(vals["vpeak"][0])
+                                          / 9.999249544e-01 - 1.0)
+    m["measures"] = {k: {"mean": float(v.double().mean()),
+                         "std": float(v.double().std())}
+                     for k, v in vals.items()}
+    check(m["k1_launches"] > 0 and m["failed_lanes"] == 0,
+          "tline_reflect measures: K1, failed lanes")
+    check(all(bool(torch.isfinite(v).all()) for v in vals.values()),
+          "tline_reflect measures finite")
+    check(max(m["arrival_lane0_rel_vs_jax_cli"],
+              m["vpeak_lane0_rel_vs_jax_cli"]) <= 1e-4,
+          "tline_reflect nominal measures within 1e-4 of the JAX CLI's")
+    m["chunk"] = _measure_chunk(sim, bp, mc.batched_dc_fast(sim.engine, bp),
+                                512, plain_steps=100)
+    emit("monte_carlo_tline_measures_f32", **m)
+    out["measures"] = m
+    # the matched line's AC at B = 1024 x F = 64 (1 MHz .. 1 GHz): the
+    # per-frequency route on K2; lane 0 (nominal) against the exact line,
+    # |V(in)| = 0.5 and V(out) = V(in) e^{-j w TD}
+    freqs = np.logspace(6, 9, 64)
+    for opts, tol in ((ref_f32_options(), 1e-4), (DEFAULT_OPTIONS, 1e-9)):
+        sim, bp = _mc_lanes(opts, 1024, 76, TL_AC_DECK,
+                            {"res_r": 0.02, "tl_z0": 0.02})
+        torch.cuda.synchronize()
+        cuda_lu.LAUNCHES = cuda_ac.LAUNCHES = 0
+        t0 = time.perf_counter()
+        acres = ac_analysis_batched(sim.engine, bp, freqs)
+        wall = time.perf_counter() - t0
+        xs = acres.xs
+        ein, eout = (sim.circuit.nodes[sim.circuit.node_name_to_id[n]]
+                     .eq_index for n in ("in", "out"))
+        want_in = 0.5 * np.ones(len(freqs))
+        want_out = 0.5 * np.exp(-2j * np.pi * freqs * 10e-9)
+        err = max(float(np.abs(np.abs(xs[0, :, ein]) - want_in).max()),
+                  float(np.abs(xs[0, :, eout] / xs[0, :, ein] * 0.5
+                               - want_out).max()))
+        a = {"deck": "matched line", "B": 1024, "F": len(freqs),
+             "dtype": str(opts.dtype)[6:], "wall_s": wall,
+             "solves_per_s": 1024 * len(freqs) / wall,
+             "k2_launches": cuda_lu.LAUNCHES,
+             "k3_launches": cuda_ac.LAUNCHES, "lane0_vs_exact": err,
+             "tol": tol, "finite": bool(np.isfinite(xs).all())}
+        check(a["k2_launches"] > 0 and a["k3_launches"] == 0,
+              "T-line AC: K2, never K3")
+        check(a["finite"] and err <= tol, f"T-line AC lane 0: {err}")
+        emit(f"ac_tline_{a['dtype']}", **a)
+        out[f"ac_{a['dtype']}"] = a
+    return out
+
+
+# ------------------------------------------------------------- phase 26
+def phase_cli_tline():
+    """The CLI on tline_reflect.sp in f64 on the card against the JAX
+    CLI's stdout and CSV."""
+    import numpy as np
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_t_")
+    here = os.getcwd()
+    try:
+        # the golden names the deck and the CSV relative to the cwd
+        os.makedirs(os.path.join(tmp, "examples"))
+        shutil.copy(os.path.join(EXAMPLES, "tline_reflect.sp"),
+                    os.path.join(tmp, "examples"))
+        os.chdir(tmp)
+        rc, text, out["cli_s"] = _cli(
+            ["examples/tline_reflect.sp", "tline_reflect_tran.csv",
+             "--device", "cuda"])
+        check(rc == 0 and text == read_golden(
+            "tline_reflect_stdout_jax.txt"),
+            "tline_reflect stdout byte-identical to the JAX CLI's")
+        got = np.loadtxt("tline_reflect_tran.csv", delimiter=",",
+                         skiprows=1)
+        ref = golden_rows("tline_reflect_tran_jax.csv", None)
+        check(got.shape == ref.shape, "tline_reflect CSV shape")
+        out["csv_max_abs"] = float(np.abs(got - ref).max())
+        check(out["csv_max_abs"] <= 1e-9,
+              "tline_reflect CSV within 1e-9 V of the JAX golden")
+    finally:
+        os.chdir(here)
+        shutil.rmtree(tmp)
+    emit("cli_tline", **out)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2210,6 +2551,9 @@ def main():
     k1c_err = phase_k1c_i()
     meas = phase_monte_carlo_measures()
     phase_cli_measures()
+    k1c_ii_err = phase_k1c_ii()
+    tline = phase_monte_carlo_tline()
+    phase_cli_tline()
     k3_main = k3_timings["float32"]  # B=4096, F=64, N=31: the bench shape
     k2_main = timings[0]             # B=8192, N=31, R=1, f32: batched DC
     # launches: read just after each main path's run, counts set to 0 just
@@ -2226,7 +2570,10 @@ def main():
                        "monte_carlo_fused_behavioral_f32":
                            beh["setup_k2_launches"],
                        "monte_carlo_measures_mc_filter_f32":
-                           meas["mc_filter"]["k2_launches"]},
+                           meas["mc_filter"]["k2_launches"],
+                       "monte_carlo_tline_f32":
+                           tline["bench"]["k2_launches"],
+                       "ac_tline_f32": tline["ac_float32"]["k2_launches"]},
         "fused_step": {"monte_carlo_fused_f32_fast": k1_launches,
                        "monte_carlo_fused_bjt_f32": bjt["k1_launches"],
                        **{f"monte_carlo_fused_{n}_f32": m["k1_launches"]
@@ -2241,7 +2588,11 @@ def main():
                           meas[n]["k1_launches"]
                           for n in ("mc_filter", "bjt_amp", "rc_step")},
                        "monte_carlo_measures_cli_run_mc":
-                           meas["cli"]["k1_launches"]},
+                           meas["cli"]["k1_launches"],
+                       "monte_carlo_tline_f32":
+                           tline["bench"]["k1_launches"],
+                       "monte_carlo_tline_measures_f32":
+                           tline["measures"]["k1_launches"]},
         "ac_sweep": {"ac_monte_carlo_f32": ac_main["k3_launches"],
                      "ac_bjt_f32": ac_bjt["k3_launches"],
                      "ac_charge_f32": charge["ac_f32"]["k3_launches"],
@@ -2260,7 +2611,7 @@ def main():
         "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],
         "library_ms": k2_main["library_ms"]}, {
         "name": "fused_step", "route": "cuda",
-        "scope": "K1a + K1b + K1c-i + K1d-i + K1d-ii",
+        "scope": "K1a + K1b + K1c-i + K1c-ii + K1d-i + K1d-ii",
         "source": "circuitsimulator_tpu_torch/csrc/fused_step.cu",
         "replaces": "circuitsimulator_tpu/ops/pallas_step.py:582",
         "launches": sum(paths["fused_step"].values()),
@@ -2272,7 +2623,9 @@ def main():
                              for n in ("charge_stage", "buffer_charge")),
                            k1d_ii_err, beh_main["max_abs_err"], k1c_err,
                            *(meas[n]["chunk"]["max_abs_err"]
-                             for n in ("mc_filter", "bjt_amp", "rc_step"))),
+                             for n in ("mc_filter", "bjt_amp", "rc_step")),
+                           k1c_ii_err, tline["bench_main"]["max_abs_err"],
+                           tline["measures"]["chunk"]["max_abs_err"]),
         "ms": k1_main["kernel_ms"], "plain_ms": k1_main["plain_ms"],
         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
         "library_ms": None,
@@ -2286,7 +2639,11 @@ def main():
             "K1d-ii behavioral B=8192 x 250 steps f32 damped": beh_main,
             **{f"K1c-i {n} B=8192 x {meas[n]['chunk']['steps']} steps f32 "
                "with its probe stream": meas[n]["chunk"]
-               for n in ("mc_filter", "bjt_amp", "rc_step")}}}, {
+               for n in ("mc_filter", "bjt_amp", "rc_step")},
+            "K1c-ii TL_BENCH_DECK B=8192 x 2000 steps f32 damped":
+                tline["bench_main"],
+            "K1c-ii + K1c-i tline_reflect B=8192 x 512 steps f32 with its "
+            "probe stream and delay ring": tline["measures"]["chunk"]}}, {
         "name": "ac_sweep", "route": "cuda",
         "source": "circuitsimulator_tpu_torch/csrc/ac_sweep.cu",
         "replaces": "circuitsimulator_tpu/ops/pallas_ac.py:49",

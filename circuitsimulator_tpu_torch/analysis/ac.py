@@ -13,17 +13,23 @@ port of ``circuitsimulator_tpu/analysis/ac.py``.
      B: the V form's branch couplings, and the expression's gradient at
      the operating point (part of the linearisation);
      MOSCAP=CHARGE: jw C_tj with C_tj = dq_t/dv_j at the operating point
-     (``models/moscap.charge_jacobian``) at the charge rows' entries.
+     (``models/moscap.charge_jacobian``) at the charge rows' entries;
+     T: the exact lossless line, the Branin branch rows with the delay as
+     the phase factor e^{-jwTD}, split into cos and sin parts.
 
-Every reactive entry is linear in w, so G, the unit-w susceptance B1 and
-the RHS are assembled once per lane and the K3 sweep
+Without T-lines every reactive entry is linear in w, so G, the unit-w
+susceptance B1 and the RHS are assembled once per lane and the K3 sweep
 (``ops/ac_sweep.ac_sweep``: the CUDA kernel on the card, its plain version
 on the CPU) forms and solves every (lane, w) system.  One lane and many take
-the same route, in every dtype.  ``solve_ac_real`` keeps the JAX CPU route,
-the real 2N system [[G, -B], [B, G]], as a reference.
+the same route, in every dtype.  A T-line deck's G and B are not linear in
+w: as in the JAX package, each frequency is assembled on its own and the
+(lanes x frequencies) systems are solved as the real 2N system
+[[G, -B], [B, G]] (``solve_ac_real``: the pivoted LU, K2 on CUDA tensors,
+2N <= 64 there), never by K3.  ``solve_ac_real`` is also the reference
+route of the other decks.
 
-Devices whose AC stamps the port has not ported raise NotImplementedError:
-transmission lines and mutual inductance.  Sweep conventions: lin = n
+Mutual inductance, whose AC stamps the port has not ported, raises
+NotImplementedError.  Sweep conventions: lin = n
 points total; dec = n points per decade; oct = n points per octave
 (endpoints included).
 """
@@ -38,10 +44,15 @@ import numpy as np
 import torch
 
 from ..models.moscap import charge_jacobian
+from ..ops import cuda_lu
 from ..ops.ac_sweep import ac_sweep
 from ..ops.assemble import Engine, _two_terminal_vals
 from ..ops.lu import lu_solve
 from .dc import dc_operating_point
+
+# entries of the (lanes x frequencies) real 2N systems of a T-line sweep
+# that are assembled and solved at once
+_TL_BLOCK_ELEMS = 1 << 25
 
 
 @dataclasses.dataclass
@@ -69,9 +80,6 @@ def _check_ac_scope(engine: Engine) -> None:
     Engine that admits them (a later transient slice) cannot have them
     silently dropped here."""
     counts = engine.topo.counts
-    if counts["T"]:
-        raise NotImplementedError("transmission line (T) in AC: not yet "
-                                  "ported")
     if counts["K"]:
         raise NotImplementedError("mutual inductance (K) in AC: not yet "
                                   "ported")
@@ -123,6 +131,30 @@ def ac_system_real(engine: Engine, params, x_op, omega):
         bparts.append(omega * Jq.flatten(-3))
         brows.append(engine.mq_rows)
         bcols.append(engine.mq_cols)
+    if engine.n_tl:
+        # the exact line: k1: V(p1) - V(n1) - Z0 I1
+        #   - e^{-jwTD} (V(p2) - V(n2) + Z0 I2) = 0, and k2 likewise; the
+        # own-port part +1, -1, -Z0 is real, the delayed other-port part
+        # -e^{-j th} = -cos th + j sin th (th = w TD)
+        z0 = params["tl_z0"]
+        th = omega * params["tl_td"]
+        cth, sth, one = torch.cos(th), torch.sin(th), torch.ones_like(z0)
+        G = G + _scatter(
+            engine,
+            np.concatenate([engine.tl_kcl_rows, engine.tl_tran_rows,
+                            engine.tl_tran_rows]),
+            np.concatenate([engine.tl_kcl_cols, engine.tl_tran_cols,
+                            engine._tl_other_cols]),
+            torch.cat([engine.tl_kcl_vals.expand(z0.shape[:-1] + (-1,)),
+                       torch.stack([one, -one, -z0, one, -one, -z0],
+                                   -1).flatten(-2),
+                       torch.stack([-cth, cth, -z0 * cth, -cth, cth,
+                                    -z0 * cth], -1).flatten(-2)], -1),
+            torch.broadcast_shapes(lead, z0.shape[:-1], th.shape[:-1]))
+        bparts.append(torch.stack([sth, -sth, z0 * sth, sth, -sth, z0 * sth],
+                                  -1).flatten(-2))
+        brows.append(engine.tl_tran_rows)
+        bcols.append(engine._tl_other_cols)
     blead = torch.broadcast_shapes(lead, *(p.shape[:-1] for p in bparts))
     bv = torch.cat([p.expand(blead + p.shape[-1:]) for p in bparts], -1)
     B = _scatter(engine, np.concatenate(brows), np.concatenate(bcols), bv,
@@ -162,10 +194,16 @@ def solve_ac_real(engine: Engine, G, B, br, bi):
 
 
 def _make_solve_sweep(engine: Engine, params, x_op):
-    """Per-frequency solver closure of the reference route, with the
-    assembly hoisted: every susceptance entry is linear in omega, so G,
-    B1 and the RHS are built once and each frequency solves
-    [[G, -wB1], [wB1, G]]."""
+    """Per-frequency solver closure of the reference route.  Without
+    T-lines the assembly is hoisted: every susceptance entry is linear in
+    omega, so G, B1 and the RHS are built once and each frequency solves
+    [[G, -wB1], [wB1, G]]; a T-line deck is assembled at each frequency
+    (e^{-jwTD} is not linear in omega)."""
+    if engine.n_tl:
+        def solve_at(f):
+            return solve_ac_real(engine, *ac_system_real(
+                engine, params, x_op, 2.0 * math.pi * f))
+        return solve_at
     G, B1, br, bi = ac_system_real(engine, params, x_op, 1.0)
 
     def solve_one(f):
@@ -179,14 +217,44 @@ def _omegas(engine: Engine, freqs):
     return f, 2.0 * math.pi * f
 
 
+def _tline_sweep(engine: Engine, params, x_op, om):
+    """The sweep of a T-line deck: (xr, xi), each lead + (F, N), where lead
+    is the lanes' shape.  Every frequency is assembled on its own
+    (``ac_system_real`` at omega) and the real 2N systems of a block of
+    frequencies times every lane go to one ``solve_ac_real`` (K2 on CUDA
+    tensors); K3's hoisted G + wB1 does not hold for them."""
+    N = engine.N
+    if engine.device.type == "cuda" and 2 * N > cuda_lu.MAX_N:
+        raise NotImplementedError(
+            f"T-line AC of {N} unknowns: its real 2N = {2 * N} system is "
+            f"above the CUDA LU kernel's {cuda_lu.MAX_N}")
+    first = ac_system_real(engine, params, x_op, om[0])
+    lanes = first[0].numel() // (N * N)
+    blk = max(1, _TL_BLOCK_ELEMS // (4 * N * N * lanes))
+    xr, xi = [], []
+    for f0 in range(0, len(om), blk):
+        systems = [first if f == 0 else
+                   ac_system_real(engine, params, x_op, om[f])
+                   for f in range(f0, min(f0 + blk, len(om)))]
+        G, B, br, bi = (torch.stack([sy[q] for sy in systems], -3 + (q > 1))
+                        for q in range(4))
+        r, i = solve_ac_real(engine, G, B, br, bi)
+        xr.append(r)
+        xi.append(i)
+    return torch.cat(xr, -2), torch.cat(xi, -2)
+
+
 def make_ac_batched_fn(engine: Engine, freqs):
     """fn(bparams, x_ops) -> (xr, xi), each (B, F, N) on the engine's
     device: the unit-omega (G, B1, br, bi) of every lane assembled once,
-    then one K3 sweep over all (lane, frequency) systems."""
+    then one K3 sweep over all (lane, frequency) systems; a T-line deck
+    takes the per-frequency route (``_tline_sweep``, K2)."""
     _, om = _omegas(engine, freqs)
 
     @torch.inference_mode()
     def fn(bparams, x_ops):
+        if engine.n_tl:
+            return _tline_sweep(engine, bparams, x_ops, om)
         G, B1, br, bi = ac_system_real(engine, bparams, x_ops, 1.0)
         return ac_sweep(G, B1, br, bi, om, engine.opts.lu_pivot_floor)
 
@@ -195,15 +263,19 @@ def make_ac_batched_fn(engine: Engine, freqs):
 
 def ac_analysis(engine: Engine, params, freqs,
                 x_op: Optional[Any] = None) -> ACResult:
-    """Run the AC sweep of one lane; returns ACResult with complex (F, N)
-    solutions, composed on the host."""
+    """Run the AC sweep of one lane (K3, or the per-frequency route of a
+    T-line deck); returns ACResult with complex (F, N) solutions, composed
+    on the host."""
     if x_op is None:
         x_op = dc_operating_point(engine, params)
     f, om = _omegas(engine, freqs)
     with torch.inference_mode():
-        G, B1, br, bi = ac_system_real(engine, params, x_op, 1.0)
-        xr, xi = ac_sweep(G[None], B1[None], br[None], bi[None], om,
-                          engine.opts.lu_pivot_floor)
+        if engine.n_tl:
+            xr, xi = (a[None] for a in _tline_sweep(engine, params, x_op, om))
+        else:
+            G, B1, br, bi = ac_system_real(engine, params, x_op, 1.0)
+            xr, xi = ac_sweep(G[None], B1[None], br[None], bi[None], om,
+                              engine.opts.lu_pivot_floor)
     xs = xr[0].cpu().numpy() + 1j * xi[0].cpu().numpy()
     return ACResult(freqs=f.cpu().numpy(), xs=xs)
 

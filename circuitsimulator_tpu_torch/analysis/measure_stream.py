@@ -325,12 +325,13 @@ def run_transient_streaming(engine: Engine, params, tstep, tstop,
     n_steps = n_steps_for(float(tstep), float(tstop))
     if x0 is None:
         x0 = dc_operating_point(engine, params)
-    state0 = engine.init_state(x0, params)
+    state0 = engine.init_state(x0, params, float(tstep))
     failed0 = torch.zeros(x0.shape[:-1], dtype=torch.bool, device=dev)
     predictor = engine.opts.tran_predictor
     carry = (x0, x0, state0, failed0) if predictor else (x0, state0, failed0)
     ts = torch.arange(1, n_steps + 1, dtype=dtype, device=dev) * dt
-    step = transient_step_fn(engine, params, dt, predictor=predictor)
+    step = transient_step_fn(engine, params, float(tstep),
+                             predictor=predictor)
     acc = sm.init(engine, x0)
     iters = torch.empty((n_steps,) + tuple(failed0.shape), dtype=torch.int32,
                         device=dev)

@@ -2,7 +2,8 @@
 ``circuitsimulator_tpu/analysis/transient.py``).
 
 Reproduces src/tanalisis.cpp:83-424 (and, under ``MOSCAP=CHARGE``, the
-JAX package's charge rows with the previous step's charges in the state):
+JAX package's charge rows with the previous step's charges in the state;
+with transmission lines, the delay ring of past waves, ``state["tlw"]``):
 t = 0 state from the DC operating point; nSteps = floor(tstop/dt + 1e-12),
 t_k = (k+1) dt; per step a damped Newton (alpha 0.45, gmin 1e-6, tol 1e-6
 on the damped step, max 50 iterations, non-convergence is not an error);
@@ -47,11 +48,14 @@ def transient_step_fn(engine: Engine, params, dt, predictor: bool = False):
     """Build step(carry, t) -> (carry, (x, iters)).
 
     carry = (x, state, failed), or (x, x_prev, state, failed) with the
-    predictor, where each step's Newton starts from 2x - x_prev."""
+    predictor, where each step's Newton starts from 2x - x_prev.  ``dt``
+    is best the Python float of the timestep: the T-line delays are
+    counted in steps from ``float(dt)`` (``Engine.tl_ticks``)."""
     opts = engine.opts
     N = engine.N
+    dt_host = float(dt)
     dt = torch.as_tensor(dt, dtype=engine.dtype, device=engine.device)
-    static_I = engine.make_tran_static_I(dt)
+    static_I = engine.make_tran_static_I(dt_host)
     update_state = engine.make_update_state(dt)
     G_static = engine.tran_static_G(params, dt, opts.tran_gmin)
     wb = WoodburySolver(engine, params, G_static[..., :N, :N])
@@ -121,12 +125,13 @@ def run_transient(engine: Engine, params, tstep, tstop,
     n_steps = n_steps_for(float(tstep), float(tstop))
     if x0 is None:
         x0 = dc_operating_point(engine, params)
-    state = engine.init_state(x0, params)
+    state = engine.init_state(x0, params, float(tstep))
     failed = torch.zeros(x0.shape[:-1], dtype=torch.bool, device=dev)
     predictor = engine.opts.tran_predictor
     carry = (x0, x0, state, failed) if predictor else (x0, state, failed)
     ts = torch.arange(1, n_steps + 1, dtype=dtype, device=dev) * dt
-    step = transient_step_fn(engine, params, dt, predictor=predictor)
+    step = transient_step_fn(engine, params, float(tstep),
+                             predictor=predictor)
     xs = (torch.empty((n_steps + 1,) + tuple(x0.shape), dtype=dtype,
                       device=dev) if save_xs else None)
     if save_xs:

@@ -1,4 +1,4 @@
-// K1 for Hopper (scopes K1a, K1b, K1c-i, K1d-i and K1d-ii): the fused Monte-Carlo
+// K1 for Hopper (scopes K1a, K1b, K1c-i, K1c-ii, K1d-i and K1d-ii): the fused Monte-Carlo
 // transient chunk.  Every lane advances n_steps whole Backward-Euler
 // timesteps in one launch.
 //
@@ -8,13 +8,16 @@
 // reverse region (K1a), JFET, diode (with reverse breakdown), Ebers-Moll BJT
 // (with Early voltage) and S/W switch rows (K1b), the charge rows of
 // MOSCAP=CHARGE with Woodbury ranks up to 32 (K1d-i), and the behavioral B
-// source rows (K1d-ii, rank <= 16, no charge rows); rank
+// source rows (K1d-ii, rank <= 16, no charge rows) and the delay ring of the
+// lossless transmission lines (K1c-ii, nT <= 8, Dmax x 2 nT <= 1024); rank
 // 0 <= k = nMJ + nD + 2 nQ + nSw + nB + 5 nMq <= 32 (nMq = the MOS count
 // under the charge model, else 0).  Per step it computes what the TPU kernel computes
 // (plain PyTorch version: circuitsimulator_tpu_torch/ops/fused_step.py
 // run_chunk_plain):
 //   - source values at t = (step0 + i + 1) * dt in the working type;
-//   - b0 = [sources, -gl*il, gc*vc] scattered to their rows; z0 = G0^-1 b0;
+//   - b0 = [sources, -gl*il, gc*vc, E1, E2] scattered to their rows (the
+//     T-line EMFs: E1_j = the wave w2_j of ticks_j steps ago on row k1_j,
+//     E2_j = w1_j on row k2_j); z0 = G0^-1 b0;
 //   - under the charge model q_prev = q(x) of the incoming x;
 //   - Newton from x (or 2x - x_prev): the device linearisations in Woodbury
 //     row order (MOS then JFET rows from one pack, diode rows, an Ic and an
@@ -28,7 +31,8 @@
 //     x into ys (n_steps, P, B);
 //   - vc and il from the accepted x (the cap plan holds the explicit, MOS,
 //     diode and BJT junction capacitors; the MOS slots carry C = 0 under the
-//     charge model).
+//     charge model), and with T-lines the waves w = V(p) - V(n) + Z0 i of
+//     both ports of every line pushed into the delay ring.
 // The k x k solve is the TPU kernel's: for k <= 16 pivoted elimination and
 // back substitution (first index of max |col|, a zero pivot and a zero
 // diagonal replaced by 1, no pivot floor); for 16 < k <= 32 column-pivoted
@@ -81,6 +85,21 @@
 // sum is exactly x[a] - x[b] in any order (FMA contraction included): the
 // kernel and the plain version agree bit for bit on the same x.
 //
+// Delay ring (K1c-ii, the TPU kernel's tlw carry, pallas_step.py:1181-1190
+// and :1236-1241): the ring (Dmax, 2 nT, B) holds the last Dmax waves of
+// each port, lane-minor, in global memory.  The TPU kernel shifts the whole
+// ring every step (Dmax x 2 nT words per lane-step, up to 1024); here it
+// stays in place and a head index moves: at step i of the launch the wave
+// d + 1 steps old sits in slot (d - i) mod Dmax, and the push writes slot
+// (-(i + 1)) mod Dmax.  A step reads its EMFs before its push, so at
+// ticks = Dmax the oldest wave is read before the push overwrites it.
+// Each lane-step reads 2 nT words and writes 2 nT words of the ring; the
+// wrapper rolls it back to slot 0 = newest at launch exit.  The wave is
+// (V(p) - V(n)) + Z0 i rounded twice (no FMA contraction, __fmul_rn and
+// __fadd_rn), as PyTorch computes it, so kernel and plain rings agree bit
+// for bit on the same x.  It runs behind a run-time nT test in every
+// instantiation, as the probe stream does.
+//
 // Design (simple first): one thread per lane, lane-minor constants
 // (G0invT (N,N,B) [m][n][lane], YT (k,N,B), Yc3 (W,k,k,B), the device packs,
 // sources and companions (rows, B)), so every read of a warp is 32
@@ -117,6 +136,8 @@
 #define UNROLL_K 16  // the elimination instantiation's capacity
 #define MAXK 32      // the Gauss-Jordan instantiation's capacity
 #define MAXPROBES 64 // rows of the probe matrix (K1c-i)
+#define MAXTL 8        // transmission lines (K1c-ii)
+#define MAXRING 1024   // Dmax x 2 nT waves of the delay ring (K1c-ii)
 
 template <typename T>
 struct StepArgs {
@@ -171,6 +192,12 @@ struct StepArgs {
   const T* probe_mat;  // (nP, N), shared by all lanes
   T* ys;               // (n_steps, nP, B) output
   int nP;
+  // transmission lines (K1c-ii): nT = 0 and ring null without them
+  const int* tl_read;  // (nT) read slot ticks - 1 of each line
+  const int* tl_plan;  // (6, nT): ep1, em1, k1, ep2, em2, k2 (N = ground)
+  const T* tl_z0;      // (nT, B)
+  T* ring;             // (Dmax, 2 nT, B), updated in place
+  int nT, Dmax;
 };
 
 __device__ __forceinline__ float sin_(float v) { return sinf(v); }
@@ -204,6 +231,14 @@ __device__ __forceinline__ double atan2_(double a, double b) { return atan2(a, b
 
 template <typename T>
 __device__ __forceinline__ T absval(T v) { return v < T(0) ? -v : v; }
+
+// a + b * c with two roundings (never contracted into an FMA)
+__device__ __forceinline__ float add_mul_rn(float a, float b, float c) {
+  return __fadd_rn(a, __fmul_rn(b, c));
+}
+__device__ __forceinline__ double add_mul_rn(double a, double b, double c) {
+  return __dadd_rn(a, __dmul_rn(b, c));
+}
 
 template <typename T>
 __device__ __forceinline__ bool isnan_(T v) { return v != v; }
@@ -972,6 +1007,42 @@ __device__ __forceinline__ void newton_iter(
   fl = fl || !finite;
 }
 
+// K1c-ii: the EMFs of step i, E1_j <- w2_j and E2_j <- w1_j of ticks_j steps
+// ago (slot (ticks_j - 1 - i) mod Dmax), added into the RHS zb.  Out of line,
+// with the few fields it needs as arguments: the ring adds no registers to
+// the allocation of the Newton loop.
+template <typename T>
+__device__ __noinline__ void tl_emfs(const T* ring, const int* tl_read,
+                                     const int* tl_plan, int nT, int Dmax,
+                                     long long B, long long lane, int i,
+                                     T* zb) {
+  const int head = i % Dmax;
+  for (int j = 0; j < nT; ++j) {
+    int slot = tl_read[j] - head;
+    if (slot < 0) slot += Dmax;
+    const T* r = ring + (long long)slot * 2 * nT * B + lane;
+    zb[tl_plan[2 * nT + j]] += r[(long long)(nT + j) * B];
+    zb[tl_plan[5 * nT + j]] += r[(long long)j * B];
+  }
+}
+
+// K1c-ii: push the waves of the accepted x of step i into slot
+// (-(i + 1)) mod Dmax, w1 of every line then w2.
+template <typename T>
+__device__ __noinline__ void tl_push(T* ring, const int* tl_plan,
+                                     const T* tl_z0, int nT, int Dmax,
+                                     long long B, int N, long long lane,
+                                     int i, const T* xx) {
+  T* r = ring + (long long)(Dmax - 1 - i % Dmax) * 2 * nT * B + lane;
+  for (int q = 0; q < 2 * nT; ++q) {
+    const int j = q < nT ? q : q - nT;
+    const int* pl = tl_plan + (q < nT ? 0 : 3) * nT + j;
+    const int ep = pl[0], em = pl[nT], kk = pl[2 * nT];
+    const T d = (ep < N ? xx[ep] : T(0)) - (em < N ? xx[em] : T(0));
+    r[(long long)q * B] = add_mul_rn(d, tl_z0[j * B + lane], xx[kk]);
+  }
+}
+
 template <typename T, int KCAP, bool CHARGE, bool BSRC>
 __global__ void __launch_bounds__(128) fused_step_kernel(const StepArgs<T> a) {
   const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -1003,6 +1074,8 @@ __global__ void __launch_bounds__(128) fused_step_kernel(const StepArgs<T> a) {
       zb[a.cap_a[j]] += h;
       zb[a.cap_b[j]] -= h;
     }
+    if (a.nT)  // the EMFs of ticks steps ago, read before this step's push
+      tl_emfs(a.ring, a.tl_read, a.tl_plan, a.nT, a.Dmax, B, lane, i, zb);
     for (int n = 0; n < N; ++n) {  // z0 = G0^-1 b0, contraction-major reads
       T acc = T(0);
       for (int m = 0; m < N; ++m)
@@ -1050,6 +1123,8 @@ __global__ void __launch_bounds__(128) fused_step_kernel(const StepArgs<T> a) {
       a.vc[j * B + lane] = (ca < N ? xx[ca] : T(0)) - (cb < N ? xx[cb] : T(0));
     }
     for (int j = 0; j < a.nL; ++j) a.il[j * B + lane] = xx[a.ind_k[j]];
+    if (a.nT)  // push this step's waves
+      tl_push(a.ring, a.tl_plan, a.tl_z0, a.nT, a.Dmax, B, N, lane, i, xx);
     for (int n = 0; n < N; ++n) {
       xp[n] = x[n];
       x[n] = xx[n];
@@ -1072,10 +1147,11 @@ static int launch_as(const StepArgs<T>& a, int threads, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// ptrs: the 35 arrays in StepArgs order (the charge pack, then the B tapes,
+// ptrs: the 39 arrays in StepArgs order (the charge pack, then the B tapes,
 // metadata and constants, then the probe matrix and ys, null without
-// probes); ints: B N k nS P nL nCap unrolled max_nr predictor n_steps step0
-// threads nMJ nD nQ nSw W nMq nB nP; reals: dt tol2
+// probes, then the T-line read slots, plan, Z0 and ring, the ring null
+// without lines); ints: B N k nS P nL nCap unrolled max_nr predictor
+// n_steps step0 threads nMJ nD nQ nSw W nMq nB nP nT Dmax; reals: dt tol2
 // alpha clamp off_gds inv_dt.  B sources launch the B instantiation (k <= 16,
 // no charge rows); otherwise k <= 16 launches the elimination instantiation,
 // 16 < k <= 32 the Gauss-Jordan one, each with the charge rows when
@@ -1120,6 +1196,10 @@ static int launch(void* const* ptrs, const long long* ints,
   a.bconsts = (const T*)ptrs[p++];
   a.probe_mat = (const T*)ptrs[p++];
   a.ys = (T*)ptrs[p++];
+  a.tl_read = (const int*)ptrs[p++];
+  a.tl_plan = (const int*)ptrs[p++];
+  a.tl_z0 = (const T*)ptrs[p++];
+  a.ring = (T*)ptrs[p++];
   a.B = (int)ints[0];
   a.N = (int)ints[1];
   a.k = (int)ints[2];
@@ -1141,6 +1221,8 @@ static int launch(void* const* ptrs, const long long* ints,
   a.nMq = (int)ints[18];
   a.nB = (int)ints[19];
   a.nP = (int)ints[20];
+  a.nT = (int)ints[21];
+  a.Dmax = (int)ints[22];
   a.dt = (T)reals[0];
   a.tol2 = (T)reals[1];
   a.alpha = (T)reals[2];
@@ -1159,6 +1241,10 @@ static int launch(void* const* ptrs, const long long* ints,
     return (int)cudaErrorInvalidValue;
   if (a.nP < 0 || a.nP > MAXPROBES ||
       (a.ys != nullptr && (a.probe_mat == nullptr || a.nP == 0)))
+    return (int)cudaErrorInvalidValue;
+  if (a.nT < 0 || a.nT > MAXTL ||
+      (a.nT && (a.Dmax <= 0 || a.Dmax * 2 * a.nT > MAXRING ||
+                a.ring == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (a.B <= 0) return 0;
   if (a.nB) return launch_as<T, UNROLL_K, false, true>(a, threads, stream);

@@ -2,7 +2,7 @@
 Monte-Carlo transient chunk on the GPU.
 
 The kernel replaces the TPU kernel ``circuitsimulator_tpu/ops/pallas_step.py:
-PallasStepRunner._kernel`` (scopes K1a, K1b, K1c-i, K1d-i and K1d-ii); its plain
+PallasStepRunner._kernel`` (scopes K1a, K1b, K1c-i, K1c-ii, K1d-i and K1d-ii); its plain
 PyTorch version is ``ops/fused_step.FusedStepRunner.run_chunk_plain``.  The
 runner holds the lane-minor constants; the wrapper lays the carry out
 lane-minor in fresh copies (the kernel updates them in place), launches on
@@ -13,7 +13,11 @@ rank capacity 16 with the B-source rows (row width capacity 8, the others
 4); the C entry point picks one from k, the charge-row count and the
 B-source count.  A runner with a probe matrix (K1c-i) passes it and an
 (n_steps, P, B) output block; without one both pointers are null and the
-kernel writes no probe stream.  ``LAUNCHES`` counts successful launches.
+kernel writes no probe stream.  A T-line deck (K1c-ii) passes its delay
+ring as a fresh lane-minor (Dmax, 2 nT, B) copy that the kernel updates in
+place around a head index; one ``torch.roll`` by n_steps mod Dmax slots
+brings it back to the Engine's layout (slot 0 the newest wave) at chunk
+exit.  ``LAUNCHES`` counts successful launches.
 """
 
 from __future__ import annotations
@@ -30,6 +34,8 @@ UNROLL_K_MAX = 16 # csrc/fused_step.cu: the elimination instantiation
 MAX_W = 8         # csrc/fused_step.cu: row width of the B instantiation
 MAX_STACK = 16    # csrc/fused_step.cu BSTACK: a B expression's stack
 MAX_PROBES = 64   # csrc/fused_step.cu MAXPROBES: rows of the probe matrix
+MAX_TL = 8        # csrc/fused_step.cu MAXTL: transmission lines
+MAX_RING = 1024   # csrc/fused_step.cu MAXRING: Dmax x 2 nT ring waves
 THREADS = 128     # lanes per block
 LAUNCHES = 0
 
@@ -50,12 +56,14 @@ def _lane_minor(a: torch.Tensor) -> torch.Tensor:
 
 
 def run_chunk_cuda(runner, x, x_prev, vc, il, failed, step0: int,
-                   n_steps: int, threads: int = THREADS):
+                   n_steps: int, threads: int = THREADS, tlw=None):
     """One launch: advance every lane of ``runner`` n_steps from the carry
-    (x, x_prev (B, N), vc (B, nCap), il (B, nL), failed (B,) bool), all on
-    the runner's CUDA device in its dtype.  Returns (x, x_prev, vc, il,
-    failed, iters) lane-major; iters (B,) int32; with the runner's probe
-    matrix also ys (n_steps, P, B), the probe values of each step."""
+    (x, x_prev (B, N), vc (B, nCap), il (B, nL), failed (B,) bool, and for
+    a T-line deck the ring tlw (B, Dmax, 2 nT)), all on the runner's CUDA
+    device in its dtype.  Returns (x, x_prev, vc, il, failed, iters)
+    lane-major; iters (B,) int32; with the runner's probe matrix also ys
+    (n_steps, P, B), the probe values of each step; last, for a T-line
+    deck, the advanced ring (B, Dmax, 2 nT)."""
     global LAUNCHES
     dev, dtype = runner.G0invT.device, runner.dtype   # cuda:<index>
     B, N, k = runner.B, runner.N, runner.k
@@ -94,6 +102,11 @@ def run_chunk_cuda(runner, x, x_prev, vc, il, failed, step0: int,
         raise ValueError(f"run_chunk_cuda: probe_mat is {tuple(pm.shape)} "
                          f"{pm.dtype} on {pm.device}, want (P <= "
                          f"{MAX_PROBES}, {N}) {dtype} on {dev}")
+    runner.check_ring(tlw)
+    nT, Dmax = runner.nT, runner.Dmax
+    if nT and not (nT <= MAX_TL and Dmax * 2 * nT <= MAX_RING):
+        raise ValueError(f"run_chunk_cuda: {nT} lines x a ring of {Dmax} "
+                         f"steps outside {MAX_TL} lines, {MAX_RING} waves")
     fn = _fn(dtype)
     xt, xpt = _lane_minor(x), _lane_minor(x_prev)
     vct, ilt = _lane_minor(vc), _lane_minor(il)
@@ -109,19 +122,25 @@ def run_chunk_cuda(runner, x, x_prev, vc, il, failed, step0: int,
     ys = None
     if pm is not None:
         ys = torch.empty((n_steps, pm.shape[0], B), dtype=dtype, device=dev)
-        arrays += [pm, ys]
-    for a in arrays:
+    # the ring lane-minor (Dmax, 2 nT, B), a fresh copy the kernel updates
+    ring = (tlw.permute(1, 2, 0).clone(memory_format=torch.contiguous_format)
+            if nT else None)
+    tl = [runner.tl_read, runner.tl_plan, runner.tl_z0]
+    for a in arrays + tl + [t for t in (pm, ys, ring) if t is not None]:
         if not a.is_contiguous() or a.device != dev:
             raise ValueError("run_chunk_cuda: runner constants must be "
                              "contiguous on the runner's device")
-    ptrs = [a.data_ptr() for a in arrays] + ([] if ys is not None
-                                             else [None, None])
+    ptrs = ([a.data_ptr() for a in arrays]
+            + [None if a is None else a.data_ptr() for a in (pm, ys)]
+            + [a.data_ptr() for a in tl]
+            + [None if ring is None else ring.data_ptr()])
     ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
-    ints = (ctypes.c_longlong * 21)(
+    ints = (ctypes.c_longlong * 23)(
         B, N, k, runner.nS, runner.P, runner.nL, runner.nCap,
         runner.unrolled, runner.max_nr, int(runner.predictor), n_steps,
         int(step0), threads, runner.nMJ, runner.nD, runner.nQ, runner.nSw,
-        runner.W, runner.nMq, nB, 0 if pm is None else pm.shape[0])
+        runner.W, runner.nMq, nB, 0 if pm is None else pm.shape[0], nT,
+        Dmax)
     reals = (ctypes.c_double * 6)(runner.dt, runner.tol2, runner.alpha,
                                   runner.clamp, runner.off_gds,
                                   runner.inv_dt)
@@ -132,4 +151,8 @@ def run_chunk_cuda(runner, x, x_prev, vc, il, failed, step0: int,
         raise RuntimeError(f"fused_step kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
     out = (xt.t(), xpt.t(), vct.t(), ilt.t(), ft.bool(), iters)
-    return out if ys is None else out + (ys,)
+    if ys is not None:
+        out += (ys,)
+    if nT:      # physical slot p holds the wave of Engine slot p + n_steps
+        out += (torch.roll(ring, n_steps % Dmax, 0).permute(2, 0, 1),)
+    return out

@@ -1,5 +1,5 @@
-"""Fused Monte-Carlo transient chunk (K1, scopes K1a, K1b, K1c-i, K1d-i and
-K1d-ii): whole Backward-Euler timesteps per lane in one launch.
+"""Fused Monte-Carlo transient chunk (K1, scopes K1a, K1b, K1c-i, K1c-ii,
+K1d-i and K1d-ii): whole Backward-Euler timesteps per lane in one launch.
 
 Port of ``circuitsimulator_tpu/ops/pallas_step.py`` (``PallasStepRunner``)
 for R/C/L, V and I sources with every waveform kind (PULSE/SIN/PWL/EXP/SFFM,
@@ -9,7 +9,9 @@ region (K1a), JFETs, diodes with reverse breakdown, Ebers-Moll BJTs with
 Early voltage and the S/W switches (K1b), the charge rows of
 ``MOSCAP=CHARGE`` with Woodbury ranks past 16 (K1d-i), and the behavioral
 B sources (K1d-ii: at most 4 probe pairs and an expression stack of at most
-16, at rank k <= 16 and without charge rows); rank
+16, at rank k <= 16 and without charge rows) and the lossless transmission
+lines (K1c-ii: at most 8 lines, a delay ring of Dmax x 2 nT <= 1024 waves,
+Dmax the longest delay in steps); rank
 0 <= k = nM + nJ + nD + 2 nQ + nS + nB (+ 5 nM under the charge model)
 <= 32 (k = 0 is a linear deck: each Newton iteration accepts
 z0 = G0^{-1} b).
@@ -17,7 +19,10 @@ z0 = G0^{-1} b).
 Per step and lane (what the kernel and ``run_chunk_plain`` compute):
 
 - sources at t = (step0 + i + 1) dt in the working type (never t += dt);
-- b0 = [sources, -gl il, gc vc] scattered to their rows; z0 = G0^{-1} b0;
+- b0 = [sources, -gl il, gc vc, E1, E2] scattered to their rows, the
+  T-line EMFs E1_j = ring[ticks_j - 1, nT + j] (the far port's wave
+  ticks_j steps ago) on row k1_j and E2_j = ring[ticks_j - 1, j] on row
+  k2_j; z0 = G0^{-1} b0;
 - under the charge model, q_prev = q(x) of the incoming x (q is a function
   of x, so this is the non-fused state's qm; no extra carry);
 - Newton from x (or 2x - x_prev with the predictor): the device
@@ -27,7 +32,9 @@ Per step and lane (what the kernel and ``run_chunk_plain`` compute):
   z = z0 - Y c, S = I + V^T Y, vz = V^T z, the k x k solve S w = vz,
   x_raw = z - Y w, then the damped accept (clamp, alpha, err^2 < tol^2, a
   non-finite x_raw freezes the lane and raises ``failed``);
-- vc and il from the accepted x.
+- vc and il from the accepted x; with T-lines the waves
+  w = V(p) - V(n) + Z0 i of both ports of the accepted x pushed into slot
+  0 of the ring, the other slots one step older.
 
 The k x k solve is the JAX kernel's: for k <= 16 pivoted elimination with
 back substitution (first index of max |col|, a zero pivot and a zero
@@ -72,6 +79,18 @@ block that ``run_chunk`` returns as a seventh output.  The rows of
 value is exactly x[a] - x[b] in any summation order, and the kernel and
 the plain version agree bit for bit on the same x.
 
+K1c-ii, the delay ring (JAX kernel ``pallas_step.py:1181-1190``,
+``:1236-1241``): ``run_chunk(..., tlw=)`` takes the ring (B, Dmax, 2 nT) in
+the Engine's layout (``Engine.init_state``: slot 0 the newest wave) and
+returns it advanced as its last output.  The plain version shifts the ring
+every step, as the Engine does; the kernel keeps it in place and moves a
+head index (at step i of a chunk the slot d steps old is (d - i) mod Dmax;
+each step reads its EMFs before its push, so at ticks = Dmax the oldest
+wave is read before it is overwritten), and the wrapper rolls the ring
+back to the Engine's layout at chunk exit.  The kernel forms each wave
+without FMA contraction, (V(p) - V(n)) + Z0 i rounded twice as PyTorch
+does, so for the same x the two rings agree bit for bit.
+
 ``FusedStepRunner.run_chunk`` launches the CUDA kernel (``ops/cuda_step``,
 ``csrc/fused_step.cu``) on CUDA tensors and runs ``run_chunk_plain``, the
 plain PyTorch version, on CPU tensors.
@@ -103,25 +122,38 @@ MAX_PWL = 8                  # PWL breakpoints (the JAX kernel unrolls <= 8)
 MAX_B_PAIRS = cuda_step.MAX_W // 2   # probe pairs per B source
 MAX_STACK = cuda_step.MAX_STACK      # expression stack of a B source
 MAX_PROBES = cuda_step.MAX_PROBES    # rows of the probe matrix (K1c-i)
-IN_SCOPE = "RCLVIMEGFHDQJSB"  # device classes of K1a, K1b, K1d-i, K1d-ii
+MAX_TL = cuda_step.MAX_TL            # transmission lines (K1c-ii)
+MAX_RING = cuda_step.MAX_RING        # Dmax x 2 nT waves of the delay ring
+IN_SCOPE = "RCLVIMEGFHDQJSBT"  # device classes of K1a, K1b, K1c-ii, K1d
 
 
 def unsupported_reason(engine, dt=None) -> Optional[str]:
-    """Why ``engine`` is outside the K1a + K1b + K1d-i + K1d-ii scope, or
-    None when it is in.
+    """Why ``engine`` at timestep ``dt`` is outside the K1a + K1b + K1c-ii
+    + K1d-i + K1d-ii scope, or None when it is in.
 
     In scope is a subset of ``circuitsimulator_tpu/ops/pallas_step.py:
-    supported``: every condition refused there is refused here, plus
+    supported``: every condition refused there is refused here (T-lines
+    without dt, more than 8 lines, a ring of more than 1024 waves), plus
     N > 64, and for B sources an expression stack deeper than 16, charge
     rows, or a rank above 16 (no kernel instantiation has them together).
-    T-lines, TRNOISE (K1c) and mutual inductance never reach an Engine of
-    the port."""
+    TRNOISE (K1c-iii) and mutual inductance never reach an Engine of the
+    port."""
     t = engine.topo
     opts = engine.opts
     c = t.counts
     others = sorted(cls for cls, n in c.items() if n and cls not in IN_SCOPE)
     if others:
-        return f"device classes {', '.join(others)} (K1c)"
+        return f"device classes {', '.join(others)}"
+    nT = engine.n_tl
+    if nT:
+        if dt is None:
+            return "transmission lines need dt (the delay ring's length)"
+        if nT > MAX_TL:
+            return f"{nT} transmission lines > {MAX_TL}"
+        dmax = int(engine.tl_ticks(dt).max())
+        if dmax * 2 * nT > MAX_RING:
+            return (f"T-line delay ring of {dmax} steps x {2 * nT} waves > "
+                    f"{MAX_RING}")
     for bs in engine.b_sources:
         if len(bs.pairs) > MAX_B_PAIRS:
             return (f"B source {bs.name}: {len(bs.pairs)} probe pairs > "
@@ -156,8 +188,7 @@ def unsupported_reason(engine, dt=None) -> Optional[str]:
 
 
 def supported(engine, dt=None) -> bool:
-    """The K1 gate (``dt`` is accepted for the JAX signature; no device in
-    scope depends on dt)."""
+    """The K1 gate (T-line decks need ``dt``: the ring's length)."""
     return unsupported_reason(engine, dt) is None
 
 
@@ -168,7 +199,8 @@ def _lm(a: torch.Tensor) -> torch.Tensor:
 
 class FusedStepRunner:
     """Per-lane constants of the fused chunk for one batch of parameters;
-    with ``probe_mat`` (P, N) every chunk also returns its probe stream."""
+    with ``probe_mat`` (P, N) every chunk also returns its probe stream,
+    with T-lines it advances their delay ring."""
 
     def __init__(self, engine, bparams, dt: float, probe_mat=None):
         reason = unsupported_reason(engine, dt)
@@ -315,31 +347,71 @@ class FusedStepRunner:
         self.ind_k = i32(t.ind_k)
         self.cap_a, self.cap_b = i32(engine.cap_a), i32(engine.cap_b)
         self.row_cols = i32(plan.col_idx().T.reshape(W, k))     # (W, k)
+
+        # transmission lines (K1c-ii): per line its read slot ticks - 1, the
+        # index plan (ep1, em1, k1, ep2, em2, k2) and Z0 lane-minor (nT, B);
+        # without lines one dummy entry each, never read
+        self.nT = nT = engine.n_tl
+        if nT:
+            ticks = engine.tl_ticks(self.dt)
+            self.Dmax = int(ticks.max())
+            self.tl_read = i32(ticks - 1)
+            self.tl_plan = i32(np.stack([t.tl_ep1, t.tl_em1, t.tl_k1,
+                                         t.tl_ep2, t.tl_em2, t.tl_k2]))
+            self.tl_z0 = _lm(bparams["tl_z0"].expand(B, nT))
+        else:
+            self.Dmax = 0
+            self.tl_read, self.tl_plan = i32([0]), i32(np.zeros((6, 1)))
+            self.tl_z0 = torch.zeros((1, B), dtype=dtype, device=dev)
         # one scatter for the whole RHS in the plain version
         self._rhs_rows = torch.cat([self.src_pos, self.src_neg, self.ind_k,
-                                    self.cap_a, self.cap_b]).long()
+                                    self.cap_a, self.cap_b]
+                                   + ([self.tl_plan[2], self.tl_plan[5]]
+                                      if nT else [])).long()
 
     # ------------------------------------------------------------------
-    def run_chunk(self, x, x_prev, vc, il, failed, step0: int, n_steps: int):
+    def run_chunk(self, x, x_prev, vc, il, failed, step0: int, n_steps: int,
+                  tlw=None):
         """Advance every lane n_steps: x, x_prev (B, N), vc (B, nCap),
         il (B, nL), failed (B,) bool -> (x, x_prev, vc, il, failed, iters),
-        plus ys (n_steps, P, B) when the runner has a probe matrix.
+        plus ys (n_steps, P, B) when the runner has a probe matrix, plus,
+        last, the advanced delay ring when the deck has T-lines (``tlw``
+        (B, Dmax, 2 nT) in the Engine's layout, required then).
         iters is the per-lane (B,) int32 total of Newton iterations over
         the chunk (the JAX kernel reports per-128-lane-block totals).  CUDA
         tensors launch the kernel, CPU tensors take ``run_chunk_plain``."""
         if x.device.type == "cpu":
             return self.run_chunk_plain(x, x_prev, vc, il, failed, step0,
-                                        n_steps)
+                                        n_steps, tlw=tlw)
         if x.device.type != "cuda":
             raise ValueError(f"run_chunk: unsupported device {x.device}")
         return cuda_step.run_chunk_cuda(self, x, x_prev, vc, il, failed,
-                                        step0, n_steps)
+                                        step0, n_steps, tlw=tlw)
+
+    def check_ring(self, tlw):
+        """The ring a T-line deck needs (and no other takes): (B, Dmax,
+        2 nT) in the runner's dtype, on the device of its constants."""
+        if not self.nT:
+            if tlw is not None:
+                raise ValueError("run_chunk: tlw given for a deck without "
+                                 "transmission lines")
+            return
+        want = (self.B, self.Dmax, 2 * self.nT)
+        if tlw is None:
+            raise ValueError("run_chunk: a T-line deck needs its delay ring "
+                             "(tlw=, Engine.init_state)")
+        if (tuple(tlw.shape) != want or tlw.dtype != self.dtype
+                or tlw.device != self.G0invT.device):
+            raise ValueError(f"run_chunk: tlw is {tuple(tlw.shape)} "
+                             f"{tlw.dtype} on {tlw.device}, want {want} "
+                             f"{self.dtype} on {self.G0invT.device}")
 
     @torch.inference_mode()
     def run_chunk_plain(self, x, x_prev, vc, il, failed, step0: int,
-                        n_steps: int):
+                        n_steps: int, tlw=None):
         """The plain PyTorch version of the kernel, on the runner's device
         (the lane-minor constants read through transposed views)."""
+        self.check_ring(tlw)
         N, k, B = self.N, self.k, self.B
         dtype, dev = self.dtype, x.device
         zcol = torch.zeros((B, 1), dtype=dtype, device=dev)
@@ -366,6 +438,18 @@ class FusedStepRunner:
         inv_dt = self.inv_dt
         qpar = dict(zip(("mos_vth", "mos_coxwl", "mos_cj0", "mos_p"),
                         (q.T for q in self.mqp)))              # (B, nMq) each
+        nT = self.nT
+        if nT:
+            ring = tlw
+            tp = self.tl_plan.long()
+            tl_read = self.tl_read.long()
+            w_pos = torch.cat([tp[0], tp[3]])                  # (2 nT,)
+            w_neg = torch.cat([tp[1], tp[4]])
+            w_k = torch.cat([tp[2], tp[5]])
+            z0w = self.tl_z0.T.repeat(1, 2)                    # (B, 2 nT)
+            e_cols = torch.cat([torch.arange(nT, 2 * nT),      # E1 <- w2
+                                torch.arange(nT)]).to(dev)     # E2 <- w1
+            e_slots = tl_read.repeat(2)
 
         def vdgs_of(xx):
             """(B, nMq, 3) terminal voltages of the charge rows' MOS (the
@@ -475,7 +559,10 @@ class FusedStepRunner:
             sv = srcmod.eval_tran_masked(self.src_masks, dc, pulse, sin,
                                          pwl_t, pwl_v, pwl_n, t)
             h = gc * vc
-            vals = torch.cat([sv, -sv, -(gl * il), h, -h], 1)
+            parts = [sv, -sv, -(gl * il), h, -h]
+            if nT:          # the delayed waves E1 at rows k1, E2 at rows k2
+                parts.append(ring[:, e_slots, e_cols])
+            vals = torch.cat(parts, 1)
             b = torch.zeros((B, N + 1), dtype=dtype, device=dev)
             b.index_add_(1, self._rhs_rows, vals)
             z0 = torch.einsum("mnb,bm->bn", self.G0invT, b[:, :N])
@@ -500,10 +587,14 @@ class FusedStepRunner:
             xe = torch.cat([xx, zcol], 1)
             vc = xe[:, self.cap_a.long()] - xe[:, self.cap_b.long()]
             il = xe[:, self.ind_k.long()]
+            if nT:          # this step's waves into slot 0
+                w = xe[:, w_pos] - xe[:, w_neg] + z0w * xe[:, w_k]
+                ring = torch.cat([w[:, None], ring[:, :-1]], 1)
             x_prev, x, failed = x, xx, fl
+        out = (x, x_prev, vc, il, failed, iters)
         if ys is not None:
-            return x, x_prev, vc, il, failed, iters, ys
-        return x, x_prev, vc, il, failed, iters
+            out += (ys,)
+        return out + ((ring,) if nT else ())
 
 
 def gauss_jordan_plain(A, b):

@@ -7,9 +7,11 @@ dense solve run over all lanes at once (the K2 kernel on CUDA).  A
 waveform-free f32 transient on CUDA takes the fused chunk kernel (K1,
 ``ops/fused_step.py``) when the deck is in its scope (R/C/L, sources, E/G/F/H,
 Level-1 MOS with the fixed or the charge-conserving caps, JFET, diode, BJT,
-S/W switch, B sources; Woodbury rank <= 32, so inamp.sp and MOSCAP=CHARGE
-decks up to five MOSFETs run fused).  Under MOSCAP=CHARGE the non-fused
-carry's state holds the MOS charges qm.  A deck with a .NODESET card starts
+S/W switch, B sources, transmission lines; Woodbury rank <= 32, so inamp.sp
+and MOSCAP=CHARGE decks up to five MOSFETs run fused).  Under MOSCAP=CHARGE
+the non-fused carry's state holds the MOS charges qm; with T-lines the
+state holds their delay ring tlw, and the fused carry takes it as a sixth
+element, threaded through every K1 launch (K1c-ii).  A deck with a .NODESET card starts
 its lanes as ``benchmarks/bench_inamp.py`` does: the nominal DC with the
 card (``Simulator.dc``), then ``batched_dc_warm``; ``batched_dc_fast`` takes
 the card too (``nodeset=``).
@@ -117,11 +119,12 @@ def batched_dc_warm(engine: Engine, bparams, x_nom):
                      x_init=x_nom, final_only=True)
 
 
-def init_carry(engine: Engine, x0, bparams=None):
+def init_carry(engine: Engine, x0, bparams=None, dt=None):
     """Transient carry of the batched loop from a (B, N) DC solution (the
-    charge model needs ``bparams`` for the charges at x0)."""
+    charge model needs ``bparams`` for the charges at x0, T-lines
+    ``bparams`` and the timestep ``dt`` for their delay ring)."""
     failed = torch.zeros(x0.shape[:-1], dtype=torch.bool, device=x0.device)
-    state = engine.init_state(x0, bparams)
+    state = engine.init_state(x0, bparams, dt)
     if engine.opts.tran_predictor:
         return (x0, x0, state, failed)
     return (x0, state, failed)
@@ -161,20 +164,34 @@ def make_fused_transient_fn(engine: Engine, bparams, tstep, chunk: int = 2000,
     operating points ``x0`` are given, and
     ``advance(carry, step0, n=chunk) -> (carry, iters)``, which runs one
     chunk of n steps from step index step0 (iters (B,) int32).
-    Returns (carry0, advance, meta); carry = (x, x_prev, vc, il, failed)."""
-    runner = fused_step.FusedStepRunner(engine, bparams, float(tstep))
+    Returns (carry0, advance, meta); carry = (x, x_prev, vc, il, failed),
+    and for a T-line deck its delay ring (B, Dmax, 2 nT) as a sixth
+    element."""
+    dt = float(tstep)
+    runner = fused_step.FusedStepRunner(engine, bparams, dt)
     if x0 is None:
         x0 = batched_dc_fast(engine, bparams)
     x0 = x0.to(engine.dtype)
-    state0 = engine.init_state(x0, bparams)
+    state0 = engine.init_state(x0, bparams, dt)
 
     def advance(carry, step0: int, n: int = chunk):
-        out = runner.run_chunk(*carry, step0, n)
-        return out[:5], out[5]
+        out = run_fused_chunk(runner, carry, step0, n)
+        return out[0], out[1]
 
     failed0 = torch.zeros((runner.B,), dtype=torch.bool, device=x0.device)
     carry0 = (x0, x0, state0["vc"], state0["il"], failed0)
+    if runner.nT:
+        carry0 += (state0["tlw"],)
     return carry0, advance, {"chunk": chunk, "runner": runner}
+
+
+def run_fused_chunk(runner, carry, step0: int, n: int):
+    """One K1 launch on a fused carry (five tensors, plus the delay ring
+    of a T-line deck): (carry, iters, ys or None)."""
+    tlw = carry[5] if runner.nT else None
+    out = runner.run_chunk(*carry[:5], step0, n, tlw=tlw)
+    ys = out[6] if runner.probe_mat is not None else None
+    return out[:5] + ((out[-1],) if runner.nT else ()), out[5], ys
 
 
 def _fused_batched_transient(engine: Engine, bparams, tstep, tstop,
@@ -238,8 +255,8 @@ def fused_transient_measures(engine: Engine, bparams, tstep, tstop, sm,
     in the working dtype, as the JAX fused path builds it in float32.
     Failed lanes keep feeding their frozen x to the accumulators.  The
     deck must be in K1's scope (``fused_step.supported``; else
-    NotImplementedError naming the cause); TRNOISE decks are refused by
-    the Engine.  Returns (TransientResult with xs None, {name: (B,)})."""
+    NotImplementedError naming the cause); a T-line deck's delay ring
+    rides the carry (K1c-ii); TRNOISE decks are refused by the Engine.  Returns (TransientResult with xs None, {name: (B,)})."""
     dtype, dev = engine.dtype, engine.device
     dt = float(tstep)
     n_steps = n_steps_for(dt, float(tstop))
@@ -248,18 +265,19 @@ def fused_transient_measures(engine: Engine, bparams, tstep, tstop, sm,
     if x0 is None:
         x0 = batched_dc_fast(engine, bparams)
     x0 = x0.to(dtype)
-    state0 = engine.init_state(x0, bparams)
+    state0 = engine.init_state(x0, bparams, dt)
     carry = (x0, x0, state0["vc"], state0["il"],
              torch.zeros((runner.B,), dtype=torch.bool, device=dev))
+    if runner.nT:
+        carry += (state0["tlw"],)
     acc = sm.init(engine, x0)
     dt_t = torch.tensor(dt, dtype=dtype, device=dev)
     total = torch.zeros((runner.B,), dtype=torch.int32, device=dev)
     for s in range(0, n_steps, chunk):
         n = min(chunk, n_steps - s)
-        out = runner.run_chunk(*carry, s, n)
-        carry = out[:5]
-        total += out[5]
-        ys = sm.vals_from_raw(out[6].transpose(1, 2))       # (n, B, P)
+        carry, iters, raw = run_fused_chunk(runner, carry, s, n)
+        total += iters
+        ys = sm.vals_from_raw(raw.transpose(1, 2))          # (n, B, P)
         ts = (float(s) + torch.arange(1, n + 1, dtype=dtype, device=dev)) * dt
         for i in range(n):
             acc = sm.update_vals(acc, ys[i], ts[i], dt_t)

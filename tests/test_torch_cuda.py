@@ -610,3 +610,147 @@ def test_cli_run_ac_on_the_card(cuda_device, tmp_path, monkeypatch):
     xb = b[:, 1::2] * np.exp(1j * np.radians(b[:, 2::2]))
     scale = np.maximum(np.abs(xb).max(axis=0), 1e-300)
     assert (np.abs(xa - xb) / scale).max() <= 1e-9
+
+
+# transmission lines (K1c-ii): the diode-clamp deck of
+# tests/test_pallas_step.py with a second line of another delay (ticks 8
+# and 5 at dt = 0.25 ns)
+TL2_DECK = """* two lines + diode clamp
+V1 in 0 PULSE(0 1 1n 0.2n 0.2n 6n 0)
+RS in a 50
+T1 a 0 b 0 Z0=50 TD=2n
+RL b 0 200
+D1 b 0
+T2 b 0 c 0 Z0=75 TD=1.25n
+RC c 0 100
+.op
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("deck", ["two_lines", "tline_reflect"])
+def test_fused_step_delay_ring_matches_plain(cuda_device, deck, dtype):
+    """K1c-ii against the plain version on the same card and inputs: 64
+    lanes (Rs and Z0 perturbed) from the f64 batched DC, damped
+    configuration, three launches in a row (the head wraps around the
+    8-slot ring; tline_reflect's 100-slot ring is crossed once): x and the
+    ring within 1e-4 V in f32 and 1e-9 V in f64 with equal per-lane
+    iteration counts, one launch per chunk, and the ring at exit in the
+    Engine's layout (slot 0 the wave of the returned x, bit for bit)."""
+    from circuitsimulator_tpu_torch import DEFAULT_OPTIONS
+    from circuitsimulator_tpu_torch.ops import cuda_step, fused_step
+    from circuitsimulator_tpu_torch.parallel import montecarlo as mc
+    opts = DEFAULT_OPTIONS.replace(dtype=dtype)
+    if dtype == torch.float32:
+        opts = opts.replace(tran_tol=1e-5, dc_tol=1e-5)
+    if deck == "two_lines":
+        sim = Simulator.from_text(TL2_DECK, opts=opts, device=cuda_device)
+        sim64 = Simulator.from_text(TL2_DECK, device=cuda_device)
+        dt, chunks = 0.25e-9, (7, 9, 5)
+    else:
+        path = os.path.join(REPO, "examples", "tline_reflect.sp")
+        sim = Simulator.from_file(path, opts=opts, device=cuda_device)
+        sim64 = Simulator.from_file(path, device=cuda_device)
+        dt, chunks = 1e-10, (40, 40, 30)
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    bp = mc.perturb_params(sim.params, g, 64, {"res_r": 0.02,
+                                               "tl_z0": 0.02})
+    x0 = mc.batched_dc_fast(sim64.engine,
+                            {k: v.double() if v.is_floating_point() else v
+                             for k, v in bp.items()}).to(dtype)
+    runner = fused_step.FusedStepRunner(sim.engine, bp, dt)
+    st = sim.engine.init_state(x0, bp, dt)
+    kc = pc = (x0, x0, st["vc"], st["il"],
+               torch.zeros((64,), dtype=torch.bool, device=cuda_device),
+               st["tlw"])
+    tol = 1e-4 if dtype == torch.float32 else 1e-9
+    step0 = 0
+    for n in chunks:
+        before = cuda_step.LAUNCHES
+        got = runner.run_chunk(*kc[:5], step0, n, tlw=kc[5])
+        torch.cuda.synchronize()
+        assert cuda_step.LAUNCHES == before + 1
+        ref = runner.run_chunk_plain(*pc[:5], step0, n, tlw=pc[5])
+        if dtype == torch.float64:
+            assert torch.equal(got[5], ref[5])
+        kc, pc = got[:5] + got[-1:], ref[:5] + ref[-1:]
+        step0 += n
+    for a, b in zip(kc[:4] + kc[5:], pc[:4] + pc[5:]):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=0,
+                                   atol=tol)
+    assert kc[5].shape == (64, runner.Dmax, 2 * runner.nT)
+    assert torch.equal(kc[5][:, 0], sim.engine._tl_wave_now(bp, kc[0]))
+    assert not bool(kc[4].any())
+
+
+@pytest.mark.cuda
+def test_tline_monte_carlo_on_the_card(cuda_device):
+    """tline_reflect.sp, 256 lanes in f32: batched_transient_measures takes
+    K1 with its probe stream and its ring (fused="auto") and agrees with the
+    non-fused loop within rtol 2e-4, atol 2e-6; the matched line's AC over
+    8 frequencies through K2, never K3, equal to the CPU route within
+    1e-5 lane-relative."""
+    from circuitsimulator_tpu_torch import DEFAULT_OPTIONS
+    from circuitsimulator_tpu_torch.analysis.ac import ac_analysis_batched
+    from circuitsimulator_tpu_torch.ops import cuda_ac, cuda_step
+    from circuitsimulator_tpu_torch.parallel import montecarlo as mc
+    opts = DEFAULT_OPTIONS.replace(dtype=torch.float32)
+    sim = Simulator.from_file(os.path.join(REPO, "examples",
+                                           "tline_reflect.sp"),
+                              opts=opts, device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    bp = mc.perturb_params(sim.params, g, 256, {"res_r": 0.02})
+    tran, ms = sim.config.tran, sim.config.measures
+    before = cuda_step.LAUNCHES
+    res, got = mc.batched_transient_measures(sim.engine, bp, tran.tstep,
+                                             tran.tstop, ms, sim.topo)
+    torch.cuda.synchronize()
+    assert cuda_step.LAUNCHES == before + 2 and not bool(res.failed.any())
+    _, want = mc.batched_transient_measures(sim.engine, bp, tran.tstep,
+                                            tran.tstop, ms, sim.topo,
+                                            fused=False)
+    for name in ("arrival", "vpeak"):
+        np.testing.assert_allclose(got[name].cpu().numpy(),
+                                   want[name].cpu().numpy(), rtol=2e-4,
+                                   atol=2e-6, err_msg=name)
+    text = """* ac matched line
+V1 src 0 DC 0 AC 1
+Rs src in 50
+T1 in 0 out 0 Z0=50 TD=10n
+Rl out 0 50
+"""
+    cpu = Simulator.from_text(text, device="cpu")
+    gpu = Simulator.from_text(text, opts=opts, device=cuda_device)
+    bp = mc.perturb_params(cpu.params, torch.Generator().manual_seed(7), 32,
+                           {"res_r": 0.02, "tl_z0": 0.02})
+    freqs = np.logspace(6, 9, 8)
+    want = ac_analysis_batched(cpu.engine, bp, freqs)
+    before = cuda_ac.LAUNCHES
+    got = ac_analysis_batched(gpu.engine, {
+        k: (v.float() if v.is_floating_point() else v).to(cuda_device)
+        for k, v in bp.items()}, freqs)
+    assert cuda_ac.LAUNCHES == before
+    assert lane_rel_err(got.xs, want.xs, np.ones(32, bool)) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_cli_tline_reflect_on_the_card(cuda_device, tmp_path, monkeypatch,
+                                       capsys):
+    """examples/tline_reflect.sp through the CLI on the card (f64): stdout
+    byte-identical to the JAX CLI's golden, CSV within 1e-9 V."""
+    import shutil
+    from circuitsimulator_tpu_torch import cli
+    (tmp_path / "examples").mkdir()
+    shutil.copy(os.path.join(REPO, "examples", "tline_reflect.sp"),
+                tmp_path / "examples")
+    monkeypatch.chdir(tmp_path)
+    assert cli.main(["examples/tline_reflect.sp", "tline_reflect_tran.csv",
+                     "--device", "cuda"]) == 0
+    gold = os.path.join(REPO, "tests", "goldens")
+    with open(os.path.join(gold, "tline_reflect_stdout_jax.txt")) as f:
+        assert capsys.readouterr().out == f.read()
+    a = np.loadtxt("tline_reflect_tran.csv", delimiter=",", skiprows=1)
+    b = np.loadtxt(os.path.join(gold, "tline_reflect_tran_jax.csv"),
+                   delimiter=",", skiprows=1)
+    np.testing.assert_allclose(a, b, rtol=0, atol=1e-9)
