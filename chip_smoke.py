@@ -160,13 +160,34 @@ Phases (one JSON line each):
      the exact line (f32 1e-4, f64 1e-9);
  26. the CLI on tline_reflect.sp on the card (cli_tline): stdout
      byte-identical to tests/goldens/tline_reflect_stdout_jax.txt, CSV
-     within 1e-9 V of tests/goldens/tline_reflect_tran_jax.csv.
+     within 1e-9 V of tests/goldens/tline_reflect_tran_jax.csv;
+ 27. TRNOISE (trnoise_*, k1c_iii_vs_plain): the torch threefry on the card
+     against the JAX-made tests/goldens/trnoise_stream_jax.csv (lanes 0-3
+     of split(key(123), 8192), white + flicker, 64 steps: hold indices and
+     bits equal, normals within 2 ulp, the stream within 1e-5 of its
+     largest value); K1c-iii (the noise block) against the plain version
+     on benchmarks/bench_trnoise.py's noisy dbmixer from each lane's DC
+     point with the run's own noise block, B = 8192: f64 damped 25 steps
+     (1e-12 V, per-lane iteration counts equal), f32 fast 250 steps, the
+     benchmark's configuration (2e-4 V, phase 7's bar, the noise-free
+     twin's error beside; K1 with and without noise, plain, stream and
+     bound ms), and the white V + I noise deck of
+     tests/test_trnoise_fused.py in f32 damped, 100 steps (5e-5 V);
+     failed masks equal; fused against non-fused noisy runs on 1,024
+     lanes with the same keys over 400 steps on the white V + I noise deck
+     of tests/test_trnoise_fused.py (f32 damped 5e-5 V, f64 1e-9 V) and
+     on the noisy dbmixer (f64 1e-9 V; f32 over 200 steps recorded beside
+     the noise-free gap, which part by the same 2e-4 V at 400 steps on the
+     H100); the
+     noisy dbmixer at B = 8192, f32 fast, 10,000 steps against its
+     noise-free twin: lane-steps/s, K1 and stream ms per 2,000-step chunk,
+     no failed lane.
 
 Every error of K3 and of the AC path is lane-relative: for each lane
 max|x - ref| / max|ref| over its frequencies and unknowns, then the worst
 lane.  Kernel launch counts are reset just before each main-path run
-(phases 4, 7, 8, 11, 12, 13, 15, 16, 18, 22 and 25) and read just after
-it.  The
+(phases 4, 7, 8, 11, 12, 13, 15, 16, 18, 22, 25 and 27) and read just
+after it.  The
 junction decks run the damped while-loop Newton configuration at f32
 tolerances: the fast configuration (alpha 1, predictor, two unrolled
 iterations) was tuned on dbmixer and is not held to anything on
@@ -892,7 +913,9 @@ def k1_work(runner, n_steps, n_iters):
     2 nT words per lane), with Z0 per lane and the read slots and index
     plan once; per lane-step each of the 2 nT waves takes about four
     operations (the voltage difference, Z0 i, their sum, the EMF's add
-    into b0)."""
+    into b0).  A noisy run (K1c-iii) reads its noise block once, nN words
+    per lane-step, with the per-source rows once, and adds each word to
+    its source's value (one operation)."""
     B, N, k, P, W = runner.B, runner.N, runner.k, runner.P, runner.W
     size = runner.G0invT.element_size()
     nc = runner.bconsts.shape[0] if runner.nB else 0
@@ -911,9 +934,10 @@ def k1_work(runner, n_steps, n_iters):
     nbytes += size * (n_probe * N + n_steps * n_probe * B)
     nT = runner.nT
     nbytes += size * B * (2 * runner.Dmax * 2 * nT + nT) + 4 * 7 * nT
+    nbytes += size * n_steps * runner.nN * B + 4 * runner.nS * bool(runner.nN)
     per_step = (22 * runner.nS + 2 * runner.nL + 4 * runner.nCap
                 + 2 * N * N + 2 * N + CHARGE_OPS * runner.nMq
-                + 2 * n_probe * N + 4 * 2 * nT)
+                + 2 * n_probe * N + 4 * 2 * nT + runner.nN)
     dio = 32 if runner.flags["dio_bv"] else 20
     per_iter = (25 * runner.nMJ + dio * runner.nD + 75 * runner.nQ
                 + 35 * runner.nSw + (CHARGE_DUAL_OPS + 45) * runner.nMq
@@ -2393,12 +2417,16 @@ def phase_monte_carlo_tline():
     fcarry, _, fmeta = mc.make_fused_transient_fn(fsim.engine, fbp, dt)
     got = _launch(fmeta["runner"], fcarry, 0, 100)
     ref = _launch(fmeta["runner"], fcarry, 0, 100, plain=True)
+    # its bound at two Newton iterations per lane-step (the unrolled count)
+    fbytes, fflops = k1_work(fmeta["runner"], 2000, 2 * B * 2000)
+    fbms, fby = bound_ms(fbytes, fflops, torch.float32)
     m["fast_configuration"] = {
         "kernel_vs_plain_max_abs_after_100_steps": float(
             (got[0] - ref[0]).abs().max()),
         "kernel_ms_per_2000_steps": cuda_ms(
             lambda: _launch(fmeta["runner"], fcarry, 0, 2000), reps=3,
-            warmup=1)}
+            warmup=1),
+        "bound_ms": fbms, "bound_by": fby, "bytes": fbytes, "flops": fflops}
     emit("monte_carlo_tline_f32", **m)
     out["bench"], out["bench_main"] = m, main
     # fused against non-fused on 1,024 lanes over 400 steps (the damped
@@ -2521,6 +2549,299 @@ def phase_cli_tline():
     emit("cli_tline", **out)
 
 
+# ------------------------------------------------------------- phase 27
+# TRNOISE (K1c-iii): benchmarks/bench_trnoise.py's noisy dbmixer (white
+# noise on the LO+ source, 1 mV RMS per step) and the white + flicker deck
+# of tests/test_trnoise_fused.py, whose draws tests/goldens/
+# trnoise_stream_jax.csv holds as the JAX package makes them
+NOISY_DBMIXER_FROM = "Vlo+ 154 0 SIN 1 0.6 900e6 0"
+WHITE_NOISE_DECK = """* white noise, V and I sources, diode load
+V1 in 0 DC 1 TRNOISE(5m 0)
+I1 0 out 1m TRNOISE(2u 2.5e-7)
+R1 in out 1k
+R2 out 0 1k
+C1 out 0 1n
+D1 out 0
+.TRAN 1e-7 4e-6
+"""
+FLICKER_DECK = """* white + flicker, sample-hold window
+V1 in 0 DC 1 TRNOISE(2m 3e-7 1.0 1m)
+R1 in out 1k
+R2 out 0 1k
+C1 out 0 1n
+.TRAN 1e-7 3e-6
+.MEASURE TRAN vavg AVG V(out) FROM=0 TO=3e-6
+"""
+
+
+def _noisy_dbmixer():
+    with open(os.path.join(NETLISTS, "dbmixer.sp")) as f:
+        deck = f.read()
+    check(NOISY_DBMIXER_FROM in deck, "dbmixer's LO+ card")
+    return deck.replace(NOISY_DBMIXER_FROM,
+                        NOISY_DBMIXER_FROM + " TRNOISE(1m 0)")
+
+
+def _ulps32(a, b):
+    import numpy as np
+    a = np.asarray(a, np.float32).view(np.int32).astype(np.int64)
+    b = np.asarray(b, np.float32).view(np.int32).astype(np.int64)
+    return np.abs(a - b)
+
+
+def _stream_golden_check():
+    """The torch threefry on the card against the JAX-made golden: lanes
+    0-3 of split(key(123), 8192) on FLICKER_DECK in f32, 64 steps (the
+    computation of tests/test_torch_trnoise.py port_stream_table)."""
+    import numpy as np
+    import torch
+    from circuitsimulator_tpu_torch import DEFAULT_OPTIONS
+    from circuitsimulator_tpu_torch.parallel import montecarlo as mc
+    from circuitsimulator_tpu_torch.utils import prng
+    gold = np.loadtxt(os.path.join(GOLDENS, "trnoise_stream_jax.csv"),
+                      delimiter=",", skiprows=1)
+    with open(os.path.join(GOLDENS, "trnoise_stream_jax.csv")) as f:
+        cols = f.readline().strip().split(",")
+    g = {c: gold[:, i] for i, c in enumerate(cols)}
+    lanes, n, dt = 4, 64, 1e-7
+    sim = _sim(DEFAULT_OPTIONS.replace(dtype=torch.float32), FLICKER_DECK)
+    keys = prng.split(prng.key(123, "cuda"), 8192)[:lanes]
+    steps = torch.arange(1, n + 1, device="cuda")
+    j = torch.floor(steps.float() * torch.tensor(dt, device="cuda")
+                    / torch.clamp_min(sim.params["vs_tn"][0, 1], 1e-30)).long()
+    wk = prng.fold_in(prng.fold_in(prng.fold_in(keys, 0), 0)[:, None], j)
+    base = prng.fold_in(keys, 4)
+    fk = prng.fold_in(base[:, None], steps)
+    fk[:, 0] = base
+    tnv = sim.engine.trnoise_stream(mc.broadcast_params(sim.params, lanes),
+                                    keys, 0, n, dt)[0][:, :, 0].T
+    got = {"j": j.expand(lanes, -1), "white_bits": prng.bits(wk),
+           "white_z": prng.normal(wk, (), torch.float32),
+           "flicker_bits": prng.bits(fk, (1, 16))[:, :, 0],
+           "flicker_z": prng.normal(fk, (1, 16), torch.float32)[:, :, 0],
+           "tn_v": tnv}
+    got = {k: v.cpu().numpy().reshape(lanes * n, -1).squeeze(-1)
+           if v.dim() == 2 else v.cpu().numpy().reshape(lanes * n, 16)
+           for k, v in got.items()}
+    fb = np.stack([g[f"flicker_bits_{m}"] for m in range(16)], 1)
+    fz = np.stack([g[f"flicker_z_{m}"] for m in range(16)], 1)
+    r = {"lanes": lanes, "steps": n,
+         "hold_index_equal": bool(np.array_equal(got["j"], g["j"])),
+         "white_bits_equal": bool(np.array_equal(got["white_bits"],
+                                                 g["white_bits"])),
+         "flicker_bits_equal": bool(np.array_equal(got["flicker_bits"], fb)),
+         "white_z_max_ulps": int(_ulps32(got["white_z"], g["white_z"]).max()),
+         "flicker_z_max_ulps": int(_ulps32(got["flicker_z"], fz).max()),
+         "white_z_bitwise_share": float(
+             (_ulps32(got["white_z"], g["white_z"]) == 0).mean()),
+         "tn_v_max_abs_rel": float(np.abs(got["tn_v"] - g["tn_v"]).max()
+                                   / np.abs(g["tn_v"]).max())}
+    check(r["hold_index_equal"] and r["white_bits_equal"]
+          and r["flicker_bits_equal"], "threefry bits on the card vs JAX")
+    check(max(r["white_z_max_ulps"], r["flicker_z_max_ulps"]) <= 2,
+          "normals on the card within 2 ulp of JAX's")
+    check(r["tn_v_max_abs_rel"] <= 1e-5, "the stream on the card vs JAX's")
+    return r
+
+
+def _noisy_k1_vs_plain(opts, B, steps, tol, seed, deck=None,
+                       sigmas=SIGMAS):
+    """K1c-iii against its plain version on a noisy deck (the noisy dbmixer
+    by default) from each lane's DC point, the noise block of the run's
+    own stream (key 123)."""
+    import torch
+    from circuitsimulator_tpu_torch import DEFAULT_OPTIONS
+    from circuitsimulator_tpu_torch.parallel import montecarlo as mc
+    from circuitsimulator_tpu_torch.utils import prng
+    sim, bp = _mc_lanes(opts, B, seed, deck or _noisy_dbmixer(), sigmas)
+    dt = sim.config.tran.tstep
+    x0 = None
+    if deck:    # a diode deck starts from an f64 DC point (phase 10)
+        x0 = _dc_f64(_sim(DEFAULT_OPTIONS, deck), bp)[0]
+    carry, _, meta = mc.make_fused_transient_fn(
+        sim.engine, bp, dt, chunk=steps, x0=x0, noise_key=prng.key(123))
+    runner, feed = meta["runner"], meta["feed"]
+    nz, _ = feed.block(carry[-1], 0, steps)
+    got = runner.run_chunk(*carry[:5], 0, steps, noise=nz)
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    ref = runner.run_chunk_plain(*carry[:5], 0, steps, noise=nz)
+    b.record()
+    torch.cuda.synchronize()
+    err = max(float((x - y).abs().max()) for x, y in zip(got[:4], ref[:4])
+              if x.numel())
+    row = {"deck": "white" if deck else "dbmixer",
+           "dtype": str(opts.dtype)[6:], "B": B, "steps": steps,
+           "nN": runner.nN, "noise_idx": runner.noise_idx.tolist(),
+           "max_abs_err": err, "tol": tol,
+           "iters_equal": bool(torch.equal(got[5], ref[5])),
+           "failed_equal": bool(torch.equal(got[4], ref[4])),
+           "failed_lanes": int(got[4].sum()),
+           "noise_rms": float(nz.double().pow(2).mean().sqrt()),
+           "plain_ms": a.elapsed_time(b)}
+    check(err <= tol, f"K1c-iii {row['deck']} {row['dtype']}: {err} > {tol}")
+    check(row["failed_equal"] and row["failed_lanes"] == 0,
+          f"K1c-iii {row['deck']} {row['dtype']}: failed lanes")
+    if opts.dtype == torch.float64:
+        check(row["iters_equal"], "K1c-iii f64: iteration counts differ")
+    return row, (runner, feed, carry, nz, got)
+
+
+def phase_trnoise():
+    """TRNOISE on the card: the threefry against the JAX golden, K1c-iii
+    against its plain version, fused against non-fused noisy runs, and
+    the noisy dbmixer main path against its noise-free twin."""
+    import torch
+    from circuitsimulator_tpu_torch import DEFAULT_OPTIONS
+    from circuitsimulator_tpu_torch.ops import cuda_lu, cuda_step, fused_step
+    from circuitsimulator_tpu_torch.parallel import montecarlo as mc
+    from circuitsimulator_tpu_torch.utils import prng
+    t_phase = time.perf_counter()
+    out = {"golden": _stream_golden_check()}
+    emit("trnoise_threefry_vs_jax_golden", **out["golden"])
+    # (1) K1c-iii against its plain version at the main chunk shape
+    # (B = 8192): in f64 on the noisy dbmixer, damped (1e-12 V, equal
+    # iteration counts); in f32 on the white V + I noise deck, damped
+    # (5e-5 V), and on the noisy dbmixer in the benchmark's fast
+    # configuration, held to phase 7's 2e-4 V: on dbmixer K1 and its plain
+    # version part by about 9e-5 V in f32 over 250 steps with or without
+    # noise (rounding the mixer amplifies; the noise-free twin's error is
+    # recorded beside)
+    rows = [_noisy_k1_vs_plain(DEFAULT_OPTIONS, 8192, 25, 1e-12, 82)[0],
+            _noisy_k1_vs_plain(damped_f32_options(), 8192, 100, 5e-5, 84,
+                               WHITE_NOISE_DECK, {"res_r": 0.01})[0]]
+    row, (runner, feed, carry, nz, got) = _noisy_k1_vs_plain(
+        fast_f32_options(), 8192, 250, 2e-4, 81)
+    n = row["steps"]
+    quiet = fused_step.FusedStepRunner(feed.engine, feed.bparams, runner.dt)
+    qk = quiet.run_chunk(*carry[:5], 0, n)
+    qp = quiet.run_chunk_plain(*carry[:5], 0, n)
+    nbytes, flops = k1_work(runner, n, int(got[5].sum()))
+    bms, by = bound_ms(nbytes, flops, runner.dtype)
+    main = {"case": "noisy dbmixer f32 fast", "B": runner.B, "steps": n,
+            "dtype": "float32", "N": runner.N, "k": runner.k,
+            "nN": runner.nN, "max_abs_err": row["max_abs_err"],
+            "tol": row["tol"],
+            "noise_free_max_abs_err": max(
+                float((x - y).abs().max())
+                for x, y in zip(qk[:4], qp[:4]) if x.numel()),
+            "newton_iters_per_step": float(got[5].float().mean()) / n,
+            "kernel_ms": cuda_ms(lambda: runner.run_chunk(
+                *carry[:5], 0, n, noise=nz), reps=5, warmup=1),
+            "kernel_ms_noise_free": cuda_ms(lambda: quiet.run_chunk(
+                *carry[:5], 0, n), reps=5, warmup=1),
+            "plain_ms": row["plain_ms"],
+            "stream_ms": cuda_ms(lambda: feed.block(carry[-1], 0, n),
+                                 reps=5, warmup=1),
+            "bound_ms": bms, "bound_by": by, "bytes": nbytes,
+            "flops": flops}
+    emit("k1c_iii_vs_plain", cases=rows, main_shape=main)
+    out["k1_main"] = main
+    out["k1_err"] = max(r["max_abs_err"] for r in rows)
+    # (2) fused against non-fused noisy runs, 1,024 lanes, the same keys,
+    # 400 steps, from the same DC points: the white V + I noise deck of
+    # tests/test_trnoise_fused.py (its diode damped; f32 5e-5 V, f64 1e-9
+    # V) and the noisy dbmixer (f64 1e-9 V; in f32 the two paths part by
+    # about 2e-4 V over 400 damped steps with or without noise, f32
+    # rounding the mixer amplifies, so there both gaps are recorded, over
+    # 200 steps)
+    for name, deck, sig in (("white", WHITE_NOISE_DECK, {"res_r": 0.01}),
+                            ("dbmixer", _noisy_dbmixer(), SIGMAS)):
+        for opts, tol in ((damped_f32_options(), 5e-5),
+                          (DEFAULT_OPTIONS, 1e-9)):
+            held = name == "white" or opts.dtype == torch.float64
+            steps = 400 if held else 200
+            sim, bp = _mc_lanes(opts, 1024, 83, deck, sig)
+            dt = sim.config.tran.tstep
+
+            def run(fused, key):
+                return mc.batched_transient(sim.engine, bp, dt, steps * dt,
+                                            fused=fused, x0=x0,
+                                            noise_key=key)
+
+            x0 = mc.batched_dc_fast(sim.engine, bp)
+            cuda_step.LAUNCHES = 0
+            fr = run(True, prng.key(7))
+            k1 = cuda_step.LAUNCHES
+            nr, qr = run(False, prng.key(7)), run(True, None)
+            torch.cuda.synchronize()
+            r = {"deck": name, "B": 1024, "dtype": str(opts.dtype)[6:],
+                 "steps": steps, "k1_launches": k1,
+                 "tol": tol if held else None,
+                 "failed_lanes": int(fr.failed.sum() + nr.failed.sum()),
+                 "final_max_abs_vs_nonfused": float(
+                     (fr.x_final - nr.x_final).abs().max()),
+                 "final_max_abs_noisy_vs_noise_free": float(
+                     (fr.x_final - qr.x_final).abs().max())}
+            if not held:
+                qn = run(False, None)
+                r["noise_free_final_max_abs_vs_nonfused"] = float(
+                    (qr.x_final - qn.x_final).abs().max())
+            check(k1 > 0 and r["failed_lanes"] == 0,
+                  f"noisy fused vs non-fused {name}: K1, failed lanes")
+            if held:
+                check(r["final_max_abs_vs_nonfused"] <= tol,
+                      f"noisy fused vs non-fused {name} {r['dtype']}: "
+                      f"{r['final_max_abs_vs_nonfused']} > {tol}")
+                check(r["final_max_abs_noisy_vs_noise_free"]
+                      > 100 * r["final_max_abs_vs_nonfused"],
+                      f"the noise moves the {name} run")
+            emit(f"trnoise_fused_vs_nonfused_{name}_{r['dtype']}", **r)
+    # (4) the noisy main path against its noise-free twin: B = 8192, f32
+    # fast, 10,000 steps of 1e-13 s in 2,000-step chunks, warm (set-up
+    # outside the timed window, as benchmarks/bench_trnoise.py times it)
+    sim, bp = _mc_lanes(fast_f32_options(), 8192, 42, _noisy_dbmixer())
+    dt, n_steps = 1e-13, 10000
+    runs = {}
+    for name, key in (("noise_free", None), ("noisy", prng.key(123))):
+        torch.cuda.synchronize()
+        cuda_step.LAUNCHES = cuda_lu.LAUNCHES = 0
+        t0 = time.perf_counter()
+        carry, advance, meta = mc.make_fused_transient_fn(
+            sim.engine, bp, dt, noise_key=key)
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        chunk = meta["chunk"]
+        t0 = time.perf_counter()
+        for s in range(0, n_steps, chunk):
+            carry = advance(carry, s, min(chunk, n_steps - s))[0]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        m = {"B": 8192, "steps": n_steps, "dt": dt, "chunk": chunk,
+             "setup_s": setup, "wall_s": wall,
+             "lane_steps_per_s": 8192 * n_steps / wall,
+             "k1_launches": cuda_step.LAUNCHES,
+             "k2_launches": cuda_lu.LAUNCHES,
+             "failed_lanes": int(carry[4].sum())}
+        check(m["k1_launches"] == -(-n_steps // chunk) and
+              m["failed_lanes"] == 0, f"trnoise {name}: launches, failed")
+        check(bool(torch.isfinite(carry[0]).all()), f"trnoise {name}: x")
+        runner, feed = meta["runner"], meta["feed"]
+        c0 = carry if feed is None else carry[:5]
+        if feed is None:
+            m["k1_ms_per_chunk"] = cuda_ms(lambda: runner.run_chunk(
+                *c0, 0, chunk), reps=2, warmup=0)
+        else:
+            nz, _ = feed.block(carry[-1], n_steps, chunk)
+            m["k1_ms_per_chunk"] = cuda_ms(lambda: runner.run_chunk(
+                *c0, n_steps, chunk, noise=nz), reps=2, warmup=0)
+            m["stream_ms_per_chunk"] = cuda_ms(lambda: feed.block(
+                carry[-1], n_steps, chunk), reps=3, warmup=0)
+            m["noise_block_mb"] = nz.numel() * nz.element_size() / 1e6
+        runs[name] = m
+    runs["noisy_over_noise_free_lane_steps"] = (
+        runs["noisy"]["lane_steps_per_s"]
+        / runs["noise_free"]["lane_steps_per_s"])
+    runs["noisy_over_noise_free_k1"] = (runs["noisy"]["k1_ms_per_chunk"]
+                                        / runs["noise_free"]["k1_ms_per_chunk"])
+    runs["phase_seconds"] = time.perf_counter() - t_phase
+    emit("trnoise_dbmixer_f32", **runs)
+    out["main"] = runs
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2554,6 +2875,7 @@ def main():
     k1c_ii_err = phase_k1c_ii()
     tline = phase_monte_carlo_tline()
     phase_cli_tline()
+    tn = phase_trnoise()
     k3_main = k3_timings["float32"]  # B=4096, F=64, N=31: the bench shape
     k2_main = timings[0]             # B=8192, N=31, R=1, f32: batched DC
     # launches: read just after each main path's run, counts set to 0 just
@@ -2592,7 +2914,9 @@ def main():
                        "monte_carlo_tline_f32":
                            tline["bench"]["k1_launches"],
                        "monte_carlo_tline_measures_f32":
-                           tline["measures"]["k1_launches"]},
+                           tline["measures"]["k1_launches"],
+                       "trnoise_dbmixer_f32":
+                           tn["main"]["noisy"]["k1_launches"]},
         "ac_sweep": {"ac_monte_carlo_f32": ac_main["k3_launches"],
                      "ac_bjt_f32": ac_bjt["k3_launches"],
                      "ac_charge_f32": charge["ac_f32"]["k3_launches"],
@@ -2611,7 +2935,7 @@ def main():
         "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],
         "library_ms": k2_main["library_ms"]}, {
         "name": "fused_step", "route": "cuda",
-        "scope": "K1a + K1b + K1c-i + K1c-ii + K1d-i + K1d-ii",
+        "scope": "K1a + K1b + K1c-i + K1c-ii + K1c-iii + K1d-i + K1d-ii",
         "source": "circuitsimulator_tpu_torch/csrc/fused_step.cu",
         "replaces": "circuitsimulator_tpu/ops/pallas_step.py:582",
         "launches": sum(paths["fused_step"].values()),
@@ -2625,7 +2949,8 @@ def main():
                            *(meas[n]["chunk"]["max_abs_err"]
                              for n in ("mc_filter", "bjt_amp", "rc_step")),
                            k1c_ii_err, tline["bench_main"]["max_abs_err"],
-                           tline["measures"]["chunk"]["max_abs_err"]),
+                           tline["measures"]["chunk"]["max_abs_err"],
+                           tn["k1_err"], tn["k1_main"]["max_abs_err"]),
         "ms": k1_main["kernel_ms"], "plain_ms": k1_main["plain_ms"],
         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
         "library_ms": None,
@@ -2643,7 +2968,9 @@ def main():
             "K1c-ii TL_BENCH_DECK B=8192 x 2000 steps f32 damped":
                 tline["bench_main"],
             "K1c-ii + K1c-i tline_reflect B=8192 x 512 steps f32 with its "
-            "probe stream and delay ring": tline["measures"]["chunk"]}}, {
+            "probe stream and delay ring": tline["measures"]["chunk"],
+            "K1c-iii noisy dbmixer B=8192 x 250 steps f32 fast with its "
+            "noise block": tn["k1_main"]}}, {
         "name": "ac_sweep", "route": "cuda",
         "source": "circuitsimulator_tpu_torch/csrc/ac_sweep.cu",
         "replaces": "circuitsimulator_tpu/ops/pallas_ac.py:49",

@@ -313,11 +313,13 @@ class StreamingMeasures:
 
 @torch.inference_mode()
 def run_transient_streaming(engine: Engine, params, tstep, tstop,
-                            sm: StreamingMeasures, x0: Optional[Any] = None):
+                            sm: StreamingMeasures, x0: Optional[Any] = None,
+                            noise_key=None):
     """Transient with no saved waveforms plus streaming measures, natively
     batched (params and x0 may carry a leading lane axis).  Returns
     (TransientResult with xs None, {name: per-lane value}).  The time grid
-    is arange(1, n+1) * dt in the working dtype, as in run_transient."""
+    is arange(1, n+1) * dt in the working dtype, as in run_transient;
+    noise_key turns on TRNOISE as there."""
     from .dc import dc_operating_point
     from .transient import TransientResult, n_steps_for, transient_step_fn
     dtype, dev = engine.dtype, engine.device
@@ -325,7 +327,8 @@ def run_transient_streaming(engine: Engine, params, tstep, tstop,
     n_steps = n_steps_for(float(tstep), float(tstop))
     if x0 is None:
         x0 = dc_operating_point(engine, params)
-    state0 = engine.init_state(x0, params, float(tstep))
+    state0 = engine.init_state(x0, params, float(tstep),
+                               noise_key=noise_key)
     failed0 = torch.zeros(x0.shape[:-1], dtype=torch.bool, device=dev)
     predictor = engine.opts.tran_predictor
     carry = (x0, x0, state0, failed0) if predictor else (x0, state0, failed0)

@@ -3,7 +3,9 @@
 
 Reproduces src/tanalisis.cpp:83-424 (and, under ``MOSCAP=CHARGE``, the
 JAX package's charge rows with the previous step's charges in the state;
-with transmission lines, the delay ring of past waves, ``state["tlw"]``):
+with transmission lines, the delay ring of past waves, ``state["tlw"]``;
+on a noisy TRNOISE run, the source noise of the coming step, ``tn_v`` and
+``tn_i``):
 t = 0 state from the DC operating point; nSteps = floor(tstop/dt + 1e-12),
 t_k = (k+1) dt; per step a damped Newton (alpha 0.45, gmin 1e-6, tol 1e-6
 on the damped step, max 50 iterations, non-convergence is not an error);
@@ -117,15 +119,20 @@ def transient_step_fn(engine: Engine, params, dt, predictor: bool = False):
 
 @torch.inference_mode()
 def run_transient(engine: Engine, params, tstep, tstop,
-                  x0: Optional[Any] = None, save_xs: bool = True):
+                  x0: Optional[Any] = None, save_xs: bool = True,
+                  noise_key=None):
     """Full transient; x0 defaults to the DC operating point.  The time
-    grid is arange(1, n+1) * dt in the working dtype (never t += dt)."""
+    grid is arange(1, n+1) * dt in the working dtype (never t += dt).
+    noise_key (``utils/prng`` key data: (2,), or (B, 2) for one
+    realisation per lane) turns on a TRNOISE deck's source noise, drawn
+    step by step as the JAX package draws it; without one the run is
+    noise-free."""
     dtype, dev = engine.dtype, engine.device
     dt = torch.tensor(tstep, dtype=dtype, device=dev)
     n_steps = n_steps_for(float(tstep), float(tstop))
     if x0 is None:
         x0 = dc_operating_point(engine, params)
-    state = engine.init_state(x0, params, float(tstep))
+    state = engine.init_state(x0, params, float(tstep), noise_key=noise_key)
     failed = torch.zeros(x0.shape[:-1], dtype=torch.bool, device=dev)
     predictor = engine.opts.tran_predictor
     carry = (x0, x0, state, failed) if predictor else (x0, state, failed)

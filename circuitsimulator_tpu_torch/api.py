@@ -27,6 +27,7 @@ from .netlist import (expand_text, parse_netlist_text, parse_spice_number,
                       read_netlist)
 from .ops import cuda_lu
 from .ops.assemble import Engine
+from .utils import prng
 from .utils.options import DEFAULT_OPTIONS, SolverOptions
 from .utils.temp import apply_is_temp, has_is_temp
 
@@ -176,10 +177,17 @@ class Simulator:
                   tstep: Optional[float] = None,
                   tstop: Optional[float] = None,
                   save_xs: bool = True,
-                  x_op: Optional[Any] = None) -> TransientResult:
+                  x_op: Optional[Any] = None,
+                  noise_seed: Optional[int] = 0) -> TransientResult:
         """Backward-Euler transient; defaults to the netlist's .TRAN card.
         It starts from ``x_op`` when given (the DC point of ``dc()`` for the
-        same params), else it solves the DC point itself."""
+        same params), else it solves the DC point itself.
+
+        A deck with TRNOISE sources runs with its transient noise on,
+        seeded by ``noise_seed`` (default 0, the JAX package's default: the
+        same seed draws JAX's realisation, ``utils/prng.py``);
+        ``noise_seed=None`` runs it noise-free.  No effect on other
+        decks."""
         cfg = self.config.tran
         tstep = cfg.tstep if tstep is None else tstep
         tstop = cfg.tstop if tstop is None else tstop
@@ -191,8 +199,11 @@ class Simulator:
                                       "not yet ported")
         p = params if params is not None else self.params
         x0 = self.dc(p) if x_op is None else x_op
+        key = (prng.key(noise_seed, self.device)
+               if noise_seed is not None and self.engine.has_trnoise
+               else None)
         return run_transient(self.engine, p, tstep, tstop, x0=x0,
-                             save_xs=save_xs)
+                             save_xs=save_xs, noise_key=key)
 
     def ac(self, params: Optional[Any] = None, freqs=None,
            x_op: Optional[Any] = None):

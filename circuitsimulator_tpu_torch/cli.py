@@ -6,8 +6,9 @@
 
 prints the circuit summary and the DC node-voltage/branch-current tables,
 then runs the Backward-Euler transient if a .TRAN card is present and
-writes its CSV (default tran_out.csv), then its .MEASURE TRAN results and
-the .FOUR table; ``--run-ac`` also runs the .AC sweep, writes its
+writes its CSV (default tran_out.csv; a deck with TRNOISE sources runs its
+noise with seed 0, the JAX CLI's realisation), then its .MEASURE TRAN
+results and the .FOUR table; ``--run-ac`` also runs the .AC sweep, writes its
 magnitude/phase CSV (default ac_out.csv) and prints the .MEASURE AC
 results; ``--run-mc N`` runs N Monte-Carlo lanes of the deck's DEV=/LOT=
 tolerances in one batched solve (per-lane measures with .MEASURE cards,

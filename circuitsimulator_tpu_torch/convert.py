@@ -9,6 +9,8 @@ carried, so the junction and switch parameters (``dio_*``, ``bjt_*``,
 the same for a JAX transient state (``vc``, ``ic``, ``il``, ``vl``): the
 port's cap-like layout is the JAX engine's (explicit C, MOS caps, diode
 CJO, BJT CJE/CJC pairs), so ``vc`` carries over as it is.
+``key_from_numpy`` turns JAX PRNG key data (``jax.random.key_data``, uint32
+(..., 2)) into the port's int64 keys (``utils/prng.py``).
 """
 
 from __future__ import annotations
@@ -36,3 +38,9 @@ def state_from_numpy(d: Mapping[str, Any], dtype=torch.float64,
     """The JAX engine's transient state dict as the port's."""
     return {k: torch.as_tensor(np.asarray(d[k]), dtype=dtype, device=device)
             for k in ("vc", "ic", "il", "vl")}
+
+
+def key_from_numpy(key_data, device="cpu") -> torch.Tensor:
+    """JAX key data (..., 2) of uint32 words as the port's int64 key."""
+    return torch.as_tensor(np.asarray(key_data).astype(np.int64),
+                           device=device)

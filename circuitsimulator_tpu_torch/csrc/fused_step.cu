@@ -1,5 +1,5 @@
-// K1 for Hopper (scopes K1a, K1b, K1c-i, K1c-ii, K1d-i and K1d-ii): the fused Monte-Carlo
-// transient chunk.  Every lane advances n_steps whole Backward-Euler
+// K1 for Hopper (scopes K1a, K1b, K1c-i, K1c-ii, K1c-iii, K1d-i and K1d-ii):
+// the fused Monte-Carlo transient chunk.  Every lane advances n_steps whole Backward-Euler
 // timesteps in one launch.
 //
 // Replaces the TPU kernel circuitsimulator_tpu/ops/pallas_step.py:
@@ -9,12 +9,15 @@
 // (with Early voltage) and S/W switch rows (K1b), the charge rows of
 // MOSCAP=CHARGE with Woodbury ranks up to 32 (K1d-i), and the behavioral B
 // source rows (K1d-ii, rank <= 16, no charge rows) and the delay ring of the
-// lossless transmission lines (K1c-ii, nT <= 8, Dmax x 2 nT <= 1024); rank
+// lossless transmission lines (K1c-ii, nT <= 8, Dmax x 2 nT <= 1024) and the
+// TRNOISE input block (K1c-iii); rank
 // 0 <= k = nMJ + nD + 2 nQ + nSw + nB + 5 nMq <= 32 (nMq = the MOS count
 // under the charge model, else 0).  Per step it computes what the TPU kernel computes
 // (plain PyTorch version: circuitsimulator_tpu_torch/ops/fused_step.py
 // run_chunk_plain):
-//   - source values at t = (step0 + i + 1) * dt in the working type;
+//   - source values at t = (step0 + i + 1) * dt in the working type, plus on
+//     a noisy run each noisy source's value of the step from the noise
+//     block (K1c-iii);
 //   - b0 = [sources, -gl*il, gc*vc, E1, E2] scattered to their rows (the
 //     T-line EMFs: E1_j = the wave w2_j of ticks_j steps ago on row k1_j,
 //     E2_j = w1_j on row k2_j); z0 = G0^-1 b0;
@@ -99,6 +102,17 @@
 // __fadd_rn), as PyTorch computes it, so kernel and plain rings agree bit
 // for bit on the same x.  It runs behind a run-time nT test in every
 // instantiation, as the probe stream does.
+//
+// TRNOISE block (K1c-iii, the TPU kernel's noise input, pallas_step.py:
+// 1174-1179 with the row scatter of :567-575): the wrapper passes the
+// (n_steps, nN, B) block of the chunk's per-step source noise, drawn on the
+// host side by Engine.trnoise_stream, and per source the row c of the block
+// it takes (noise_col, -1 for a source without noise).  Step i adds
+// noise[(i nN + c) B + lane] to the source's value before the value is
+// scattered, so the sum is the plain version's sv + noise, one add per
+// value.  Lane-minor, the read is one coalesced word per lane and step.
+// It sits in an out-of-line function behind a run-time nN test, as the
+// ring does, and adds no registers to the Newton loop.
 //
 // Design (simple first): one thread per lane, lane-minor constants
 // (G0invT (N,N,B) [m][n][lane], YT (k,N,B), Yc3 (W,k,k,B), the device packs,
@@ -198,6 +212,10 @@ struct StepArgs {
   const T* tl_z0;      // (nT, B)
   T* ring;             // (Dmax, 2 nT, B), updated in place
   int nT, Dmax;
+  // TRNOISE (K1c-iii): nN = 0 and both null without noise
+  const int* noise_col;  // (nS) row of the noise block of each source, -1
+  const T* noise;        // (n_steps, nN, B)
+  int nN;
 };
 
 __device__ __forceinline__ float sin_(float v) { return sinf(v); }
@@ -1007,6 +1025,16 @@ __device__ __forceinline__ void newton_iter(
   fl = fl || !finite;
 }
 
+// K1c-iii: the noise value of source s at step i (0 for a source without
+// noise).  Out of line, as the ring's functions are.
+template <typename T>
+__device__ __noinline__ T tn_noise(const T* noise, const int* noise_col,
+                                   int nN, long long B, long long lane, int i,
+                                   int s) {
+  const int c = noise_col[s];
+  return c < 0 ? T(0) : noise[((long long)i * nN + c) * B + lane];
+}
+
 // K1c-ii: the EMFs of step i, E1_j <- w2_j and E2_j <- w1_j of ticks_j steps
 // ago (slot (ticks_j - 1 - i) mod Dmax), added into the RHS zb.  Out of line,
 // with the few fields it needs as arguments: the ring adds no registers to
@@ -1063,7 +1091,9 @@ __global__ void __launch_bounds__(128) fused_step_kernel(const StepArgs<T> a) {
     // RHS: sources, inductor and capacitor history
     for (int n = 0; n <= N; ++n) zb[n] = T(0);
     for (int s = 0; s < a.nS; ++s) {
-      const T v = source_value(a, s, tt, lane);
+      T v = source_value(a, s, tt, lane);
+      if (a.nN)  // this step's TRNOISE value of the source
+        v += tn_noise(a.noise, a.noise_col, a.nN, B, lane, i, s);
       zb[a.src_pos[s]] += v;
       zb[a.src_neg[s]] -= v;
     }
@@ -1147,11 +1177,12 @@ static int launch_as(const StepArgs<T>& a, int threads, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// ptrs: the 39 arrays in StepArgs order (the charge pack, then the B tapes,
+// ptrs: the 41 arrays in StepArgs order (the charge pack, then the B tapes,
 // metadata and constants, then the probe matrix and ys, null without
 // probes, then the T-line read slots, plan, Z0 and ring, the ring null
-// without lines); ints: B N k nS P nL nCap unrolled max_nr predictor
-// n_steps step0 threads nMJ nD nQ nSw W nMq nB nP nT Dmax; reals: dt tol2
+// without lines, then the noise rows and block, null without noise); ints:
+// B N k nS P nL nCap unrolled max_nr predictor n_steps step0 threads nMJ
+// nD nQ nSw W nMq nB nP nT Dmax nN; reals: dt tol2
 // alpha clamp off_gds inv_dt.  B sources launch the B instantiation (k <= 16,
 // no charge rows); otherwise k <= 16 launches the elimination instantiation,
 // 16 < k <= 32 the Gauss-Jordan one, each with the charge rows when
@@ -1200,6 +1231,8 @@ static int launch(void* const* ptrs, const long long* ints,
   a.tl_plan = (const int*)ptrs[p++];
   a.tl_z0 = (const T*)ptrs[p++];
   a.ring = (T*)ptrs[p++];
+  a.noise_col = (const int*)ptrs[p++];
+  a.noise = (const T*)ptrs[p++];
   a.B = (int)ints[0];
   a.N = (int)ints[1];
   a.k = (int)ints[2];
@@ -1223,6 +1256,7 @@ static int launch(void* const* ptrs, const long long* ints,
   a.nP = (int)ints[20];
   a.nT = (int)ints[21];
   a.Dmax = (int)ints[22];
+  a.nN = (int)ints[23];
   a.dt = (T)reals[0];
   a.tol2 = (T)reals[1];
   a.alpha = (T)reals[2];
@@ -1245,6 +1279,9 @@ static int launch(void* const* ptrs, const long long* ints,
   if (a.nT < 0 || a.nT > MAXTL ||
       (a.nT && (a.Dmax <= 0 || a.Dmax * 2 * a.nT > MAXRING ||
                 a.ring == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  if (a.nN < 0 || a.nN > a.nS ||
+      (a.nN && (a.noise == nullptr || a.noise_col == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (a.B <= 0) return 0;
   if (a.nB) return launch_as<T, UNROLL_K, false, true>(a, threads, stream);

@@ -2,7 +2,8 @@
 Monte-Carlo transient chunk on the GPU.
 
 The kernel replaces the TPU kernel ``circuitsimulator_tpu/ops/pallas_step.py:
-PallasStepRunner._kernel`` (scopes K1a, K1b, K1c-i, K1c-ii, K1d-i and K1d-ii); its plain
+PallasStepRunner._kernel`` (scopes K1a, K1b, K1c-i, K1c-ii, K1c-iii, K1d-i
+and K1d-ii); its plain
 PyTorch version is ``ops/fused_step.FusedStepRunner.run_chunk_plain``.  The
 runner holds the lane-minor constants; the wrapper lays the carry out
 lane-minor in fresh copies (the kernel updates them in place), launches on
@@ -17,7 +18,10 @@ kernel writes no probe stream.  A T-line deck (K1c-ii) passes its delay
 ring as a fresh lane-minor (Dmax, 2 nT, B) copy that the kernel updates in
 place around a head index; one ``torch.roll`` by n_steps mod Dmax slots
 brings it back to the Engine's layout (slot 0 the newest wave) at chunk
-exit.  ``LAUNCHES`` counts successful launches.
+exit.  A noisy runner (K1c-iii) passes its noise block (n_steps, nN, B),
+lane-minor as ``Engine.trnoise_stream`` lays it out for the chunk, and per
+source the row of the block that it adds (-1: none); without noise both
+pointers are null.  ``LAUNCHES`` counts successful launches.
 """
 
 from __future__ import annotations
@@ -56,11 +60,13 @@ def _lane_minor(a: torch.Tensor) -> torch.Tensor:
 
 
 def run_chunk_cuda(runner, x, x_prev, vc, il, failed, step0: int,
-                   n_steps: int, threads: int = THREADS, tlw=None):
+                   n_steps: int, threads: int = THREADS, tlw=None,
+                   noise=None):
     """One launch: advance every lane of ``runner`` n_steps from the carry
     (x, x_prev (B, N), vc (B, nCap), il (B, nL), failed (B,) bool, and for
-    a T-line deck the ring tlw (B, Dmax, 2 nT)), all on the runner's CUDA
-    device in its dtype.  Returns (x, x_prev, vc, il, failed, iters)
+    a T-line deck the ring tlw (B, Dmax, 2 nT); for a noisy runner the
+    noise block (n_steps, nN, B)), all on the runner's CUDA device in its
+    dtype.  Returns (x, x_prev, vc, il, failed, iters)
     lane-major; iters (B,) int32; with the runner's probe matrix also ys
     (n_steps, P, B), the probe values of each step; last, for a T-line
     deck, the advanced ring (B, Dmax, 2 nT)."""
@@ -103,6 +109,7 @@ def run_chunk_cuda(runner, x, x_prev, vc, il, failed, step0: int,
                          f"{pm.dtype} on {pm.device}, want (P <= "
                          f"{MAX_PROBES}, {N}) {dtype} on {dev}")
     runner.check_ring(tlw)
+    runner.check_noise(noise, n_steps)
     nT, Dmax = runner.nT, runner.Dmax
     if nT and not (nT <= MAX_TL and Dmax * 2 * nT <= MAX_RING):
         raise ValueError(f"run_chunk_cuda: {nT} lines x a ring of {Dmax} "
@@ -126,21 +133,24 @@ def run_chunk_cuda(runner, x, x_prev, vc, il, failed, step0: int,
     ring = (tlw.permute(1, 2, 0).clone(memory_format=torch.contiguous_format)
             if nT else None)
     tl = [runner.tl_read, runner.tl_plan, runner.tl_z0]
-    for a in arrays + tl + [t for t in (pm, ys, ring) if t is not None]:
+    for a in arrays + tl + [t for t in (pm, ys, ring, noise) if t is not None]:
         if not a.is_contiguous() or a.device != dev:
             raise ValueError("run_chunk_cuda: runner constants must be "
                              "contiguous on the runner's device")
+    nN = runner.nN
     ptrs = ([a.data_ptr() for a in arrays]
             + [None if a is None else a.data_ptr() for a in (pm, ys)]
             + [a.data_ptr() for a in tl]
-            + [None if ring is None else ring.data_ptr()])
+            + [None if ring is None else ring.data_ptr()]
+            + ([runner.noise_col.data_ptr(), noise.data_ptr()] if nN
+               else [None, None]))
     ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
-    ints = (ctypes.c_longlong * 23)(
+    ints = (ctypes.c_longlong * 24)(
         B, N, k, runner.nS, runner.P, runner.nL, runner.nCap,
         runner.unrolled, runner.max_nr, int(runner.predictor), n_steps,
         int(step0), threads, runner.nMJ, runner.nD, runner.nQ, runner.nSw,
         runner.W, runner.nMq, nB, 0 if pm is None else pm.shape[0], nT,
-        Dmax)
+        Dmax, nN)
     reals = (ctypes.c_double * 6)(runner.dt, runner.tol2, runner.alpha,
                                   runner.clamp, runner.off_gds,
                                   runner.inv_dt)

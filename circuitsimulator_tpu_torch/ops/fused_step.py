@@ -1,5 +1,6 @@
 """Fused Monte-Carlo transient chunk (K1, scopes K1a, K1b, K1c-i, K1c-ii,
-K1d-i and K1d-ii): whole Backward-Euler timesteps per lane in one launch.
+K1c-iii, K1d-i and K1d-ii): whole Backward-Euler timesteps per lane in one
+launch.
 
 Port of ``circuitsimulator_tpu/ops/pallas_step.py`` (``PallasStepRunner``)
 for R/C/L, V and I sources with every waveform kind (PULSE/SIN/PWL/EXP/SFFM,
@@ -11,14 +12,16 @@ Early voltage and the S/W switches (K1b), the charge rows of
 B sources (K1d-ii: at most 4 probe pairs and an expression stack of at most
 16, at rank k <= 16 and without charge rows) and the lossless transmission
 lines (K1c-ii: at most 8 lines, a delay ring of Dmax x 2 nT <= 1024 waves,
-Dmax the longest delay in steps); rank
+Dmax the longest delay in steps), and the TRNOISE sources (K1c-iii), with
+or without their noise; rank
 0 <= k = nM + nJ + nD + 2 nQ + nS + nB (+ 5 nM under the charge model)
 <= 32 (k = 0 is a linear deck: each Newton iteration accepts
 z0 = G0^{-1} b).
 
 Per step and lane (what the kernel and ``run_chunk_plain`` compute):
 
-- sources at t = (step0 + i + 1) dt in the working type (never t += dt);
+- sources at t = (step0 + i + 1) dt in the working type (never t += dt),
+  plus, on a noisy run, the step's noise value of each noisy source;
 - b0 = [sources, -gl il, gc vc, E1, E2] scattered to their rows, the
   T-line EMFs E1_j = ring[ticks_j - 1, nT + j] (the far port's wave
   ticks_j steps ago) on row k1_j and E2_j = ring[ticks_j - 1, j] on row
@@ -91,6 +94,20 @@ back to the Engine's layout at chunk exit.  The kernel forms each wave
 without FMA contraction, (V(p) - V(n)) + Z0 i rounded twice as PyTorch
 does, so for the same x the two rings agree bit for bit.
 
+K1c-iii, the TRNOISE input block (JAX kernel ``pallas_step.py:1174-1179``,
+row scatter ``:567-575``): a runner built with ``noise_idx`` (the noisy
+sources' rows in the V-then-I source order) takes ``run_chunk(...,
+noise=)``, an (n_steps, nN, B) block whose row c at step i is added to the
+value of source ``noise_idx[c]`` at step i before it is scattered.  The
+values come from ``Engine.trnoise_stream`` outside the kernel (the JAX
+package's own threefry draws, ``utils/prng.py``), so a noisy fused run
+follows the non-fused realisation; the flicker banks ride the caller's
+carry (``parallel/montecarlo.py``).  The block is lane-minor: a step's
+read of it is one coalesced word per lane.  The JAX package sizes the
+chunk so the block fits in VMEM (``noise_block_ok``); here it lies in
+HBM, and a chunk's block is kept under ``NOISE_BLOCK_BYTES``
+(``noise_chunk``).
+
 ``FusedStepRunner.run_chunk`` launches the CUDA kernel (``ops/cuda_step``,
 ``csrc/fused_step.cu``) on CUDA tensors and runs ``run_chunk_plain``, the
 plain PyTorch version, on CPU tensors.
@@ -125,6 +142,12 @@ MAX_PROBES = cuda_step.MAX_PROBES    # rows of the probe matrix (K1c-i)
 MAX_TL = cuda_step.MAX_TL            # transmission lines (K1c-ii)
 MAX_RING = cuda_step.MAX_RING        # Dmax x 2 nT waves of the delay ring
 IN_SCOPE = "RCLVIMEGFHDQJSBT"  # device classes of K1a, K1b, K1c-ii, K1d
+# HBM budget of one chunk's noise block (n_steps, nN, B) (K1c-iii): 256 MiB,
+# about 1/300 of the card's memory.  Drawing it takes int64 temporaries of
+# about ten times its words (utils/prng.py), a few GiB at the budget.  At
+# B = 8192 and nN = 1 in float32 it holds 8,192 steps, so the 2,000-step
+# chunk of the fused transient is kept (a 65.5 MB block)
+NOISE_BLOCK_BYTES = 1 << 28
 
 
 def unsupported_reason(engine, dt=None) -> Optional[str]:
@@ -136,8 +159,9 @@ def unsupported_reason(engine, dt=None) -> Optional[str]:
     without dt, more than 8 lines, a ring of more than 1024 waves), plus
     N > 64, and for B sources an expression stack deeper than 16, charge
     rows, or a rank above 16 (no kernel instantiation has them together).
-    TRNOISE (K1c-iii) and mutual inductance never reach an Engine of the
-    port."""
+    TRNOISE decks are in scope, noisy or not (K1c-iii): the kernel adds a
+    noise block of any number of noisy sources, so nothing of it is
+    refused.  Mutual inductance never reaches an Engine of the port."""
     t = engine.topo
     opts = engine.opts
     c = t.counts
@@ -192,6 +216,13 @@ def supported(engine, dt=None) -> bool:
     return unsupported_reason(engine, dt) is None
 
 
+def noise_chunk(chunk: int, n_noisy: int, B: int, dtype) -> int:
+    """The chunk length of a noisy fused run: at most ``chunk`` steps, and
+    its (n, n_noisy, B) noise block within ``NOISE_BLOCK_BYTES``."""
+    size = torch.empty((), dtype=dtype).element_size()
+    return max(1, min(chunk, NOISE_BLOCK_BYTES // (n_noisy * B * size)))
+
+
 def _lm(a: torch.Tensor) -> torch.Tensor:
     """Lane axis 0 -> last axis, contiguous."""
     return a.movedim(0, -1).contiguous()
@@ -200,9 +231,12 @@ def _lm(a: torch.Tensor) -> torch.Tensor:
 class FusedStepRunner:
     """Per-lane constants of the fused chunk for one batch of parameters;
     with ``probe_mat`` (P, N) every chunk also returns its probe stream,
-    with T-lines it advances their delay ring."""
+    with T-lines it advances their delay ring, with ``noise_idx`` (the
+    rows of the noisy sources in the V-then-I source order) every chunk
+    takes a noise block."""
 
-    def __init__(self, engine, bparams, dt: float, probe_mat=None):
+    def __init__(self, engine, bparams, dt: float, probe_mat=None,
+                 noise_idx=None):
         reason = unsupported_reason(engine, dt)
         if reason is not None:
             raise NotImplementedError(f"fused transient chunk (K1): {reason}")
@@ -363,6 +397,21 @@ class FusedStepRunner:
             self.Dmax = 0
             self.tl_read, self.tl_plan = i32([0]), i32(np.zeros((6, 1)))
             self.tl_z0 = torch.zeros((1, B), dtype=dtype, device=dev)
+        # TRNOISE (K1c-iii): the noisy sources' rows, and per source its row
+        # of the noise block (-1 for a source without noise)
+        self.nN = 0
+        self.noise_idx = self.noise_col = None
+        if noise_idx is not None:
+            ni = np.asarray(noise_idx, np.int64).reshape(-1)
+            if (not ni.size or (ni < 0).any() or (ni >= self.nS).any()
+                    or len(set(ni.tolist())) != ni.size):
+                raise ValueError(f"noise_idx {ni.tolist()}: distinct source "
+                                 f"rows in 0..{self.nS - 1} required")
+            col = np.full(self.nS, -1)
+            col[ni] = np.arange(ni.size)
+            self.nN = int(ni.size)
+            self.noise_idx = i32(ni)
+            self.noise_col = i32(col)
         # one scatter for the whole RHS in the plain version
         self._rhs_rows = torch.cat([self.src_pos, self.src_neg, self.ind_k,
                                     self.cap_a, self.cap_b]
@@ -371,22 +420,42 @@ class FusedStepRunner:
 
     # ------------------------------------------------------------------
     def run_chunk(self, x, x_prev, vc, il, failed, step0: int, n_steps: int,
-                  tlw=None):
+                  tlw=None, noise=None):
         """Advance every lane n_steps: x, x_prev (B, N), vc (B, nCap),
         il (B, nL), failed (B,) bool -> (x, x_prev, vc, il, failed, iters),
         plus ys (n_steps, P, B) when the runner has a probe matrix, plus,
         last, the advanced delay ring when the deck has T-lines (``tlw``
-        (B, Dmax, 2 nT) in the Engine's layout, required then).
+        (B, Dmax, 2 nT) in the Engine's layout, required then).  A runner
+        built with ``noise_idx`` needs ``noise`` (n_steps, nN, B), the
+        noise values of its steps (``Engine.trnoise_stream``).
         iters is the per-lane (B,) int32 total of Newton iterations over
         the chunk (the JAX kernel reports per-128-lane-block totals).  CUDA
         tensors launch the kernel, CPU tensors take ``run_chunk_plain``."""
         if x.device.type == "cpu":
             return self.run_chunk_plain(x, x_prev, vc, il, failed, step0,
-                                        n_steps, tlw=tlw)
+                                        n_steps, tlw=tlw, noise=noise)
         if x.device.type != "cuda":
             raise ValueError(f"run_chunk: unsupported device {x.device}")
         return cuda_step.run_chunk_cuda(self, x, x_prev, vc, il, failed,
-                                        step0, n_steps, tlw=tlw)
+                                        step0, n_steps, tlw=tlw, noise=noise)
+
+    def check_noise(self, noise, n_steps: int):
+        """The noise block a noisy runner needs (and no other takes):
+        (n_steps, nN, B) in the runner's dtype, on its device."""
+        if not self.nN:
+            if noise is not None:
+                raise ValueError("run_chunk: noise given to a runner built "
+                                 "without noise_idx")
+            return
+        want = (n_steps, self.nN, self.B)
+        if noise is None:
+            raise ValueError("run_chunk: a runner built with noise_idx needs "
+                             "the noise block (noise=, Engine.trnoise_stream)")
+        if (tuple(noise.shape) != want or noise.dtype != self.dtype
+                or noise.device != self.G0invT.device):
+            raise ValueError(f"run_chunk: noise is {tuple(noise.shape)} "
+                             f"{noise.dtype} on {noise.device}, want {want} "
+                             f"{self.dtype} on {self.G0invT.device}")
 
     def check_ring(self, tlw):
         """The ring a T-line deck needs (and no other takes): (B, Dmax,
@@ -408,10 +477,11 @@ class FusedStepRunner:
 
     @torch.inference_mode()
     def run_chunk_plain(self, x, x_prev, vc, il, failed, step0: int,
-                        n_steps: int, tlw=None):
+                        n_steps: int, tlw=None, noise=None):
         """The plain PyTorch version of the kernel, on the runner's device
         (the lane-minor constants read through transposed views)."""
         self.check_ring(tlw)
+        self.check_noise(noise, n_steps)
         N, k, B = self.N, self.k, self.B
         dtype, dev = self.dtype, x.device
         zcol = torch.zeros((B, 1), dtype=dtype, device=dev)
@@ -558,6 +628,8 @@ class FusedStepRunner:
                              device=dev) * self.dt_t
             sv = srcmod.eval_tran_masked(self.src_masks, dc, pulse, sin,
                                          pwl_t, pwl_v, pwl_n, t)
+            if self.nN:     # the step's noise onto the noisy sources' values
+                sv = sv.index_add(1, self.noise_idx.long(), noise[i].T)
             h = gc * vc
             parts = [sv, -sv, -(gl * il), h, -h]
             if nT:          # the delayed waves E1 at rows k1, E2 at rows k2

@@ -11,7 +11,12 @@ S/W switch, B sources, transmission lines; Woodbury rank <= 32, so inamp.sp
 and MOSCAP=CHARGE decks up to five MOSFETs run fused).  Under MOSCAP=CHARGE
 the non-fused carry's state holds the MOS charges qm; with T-lines the
 state holds their delay ring tlw, and the fused carry takes it as a sixth
-element, threaded through every K1 launch (K1c-ii).  A deck with a .NODESET card starts
+element, threaded through every K1 launch (K1c-ii).  On a TRNOISE deck a
+``noise_key`` turns the noise on: it is split into one key per lane (as the
+JAX package splits it), the non-fused loop draws each step's values in the
+state, and the fused path feeds every K1 launch the chunk's noise block from
+``Engine.trnoise_stream`` (K1c-iii), its flicker banks the last element of
+the fused carry.  A deck with a .NODESET card starts
 its lanes as ``benchmarks/bench_inamp.py`` does: the nominal DC with the
 card (``Simulator.dc``), then ``batched_dc_warm``; ``batched_dc_fast`` takes
 the card too (``nodeset=``).
@@ -36,6 +41,7 @@ from ..analysis.transient import (TransientResult, n_steps_for, run_transient,
                                   transient_step_fn)
 from ..ops import fused_step
 from ..ops.assemble import Engine
+from ..utils import prng
 
 
 def broadcast_params(params: Dict[str, torch.Tensor],
@@ -156,8 +162,34 @@ def batched_transient_chunk(engine: Engine, bparams, carry, ts, dt,
     return carry, iters
 
 
+class NoiseFeed:
+    """The TRNOISE input of the fused chunks (K1c-iii): one key per lane,
+    split from ``noise_key`` as JAX's ``jax.random.split(noise_key, B)``,
+    the rows of the noisy sources (V then I, the kernel's source order),
+    and for each chunk its (n, nN, B) noise block from
+    ``Engine.trnoise_stream``.  The flicker banks (fv, fi) of the step
+    before a chunk are the last element of the fused carry (None without
+    flicker)."""
+
+    def __init__(self, engine: Engine, bparams, noise_key, dt: float):
+        self.engine, self.bparams, self.dt = engine, bparams, dt
+        self.keys = lane_keys(engine, bparams, noise_key)
+        nV = len(engine.topo.vs_ep)
+        self.idx = np.concatenate([engine.vs_noisy, nV + engine.is_noisy])
+        self.nv = torch.as_tensor(engine.vs_noisy, device=engine.device)
+        self.ni = torch.as_tensor(engine.is_noisy, device=engine.device)
+        self.banks0 = (None, None)
+
+    def block(self, banks, step0: int, n: int):
+        """(noise (n, nN, B), the banks after the chunk)."""
+        tnv, tni, fv, fi = self.engine.trnoise_stream(
+            self.bparams, self.keys, step0, n, self.dt, *banks)
+        nz = torch.cat([tnv[..., self.nv], tni[..., self.ni]], -1)
+        return nz.transpose(1, 2).contiguous(), (fv, fi)
+
+
 def make_fused_transient_fn(engine: Engine, bparams, tstep, chunk: int = 2000,
-                            x0=None):
+                            x0=None, noise_key=None):
     """Set up the fused-kernel batched transient: the per-lane constants
     of the chunk kernel (NotImplementedError, naming the cause, for a deck
     outside its scope), the batched DC (K2 on CUDA) unless the (B, N)
@@ -166,41 +198,60 @@ def make_fused_transient_fn(engine: Engine, bparams, tstep, chunk: int = 2000,
     chunk of n steps from step index step0 (iters (B,) int32).
     Returns (carry0, advance, meta); carry = (x, x_prev, vc, il, failed),
     and for a T-line deck its delay ring (B, Dmax, 2 nT) as a sixth
-    element."""
+    element.  ``noise_key`` on a TRNOISE deck makes the run noisy
+    (``NoiseFeed``; the carry's last element is then the flicker banks,
+    and the chunk is cut to the noise block's budget,
+    ``fused_step.noise_chunk``)."""
     dt = float(tstep)
-    runner = fused_step.FusedStepRunner(engine, bparams, dt)
+    feed = None
+    if noise_key is not None and engine.has_trnoise:
+        feed = NoiseFeed(engine, bparams, noise_key, dt)
+        chunk = fused_step.noise_chunk(chunk, len(feed.idx),
+                                       lane_count(bparams), engine.dtype)
+    runner = fused_step.FusedStepRunner(
+        engine, bparams, dt, noise_idx=None if feed is None else feed.idx)
     if x0 is None:
         x0 = batched_dc_fast(engine, bparams)
     x0 = x0.to(engine.dtype)
     state0 = engine.init_state(x0, bparams, dt)
 
     def advance(carry, step0: int, n: int = chunk):
-        out = run_fused_chunk(runner, carry, step0, n)
+        out = run_fused_chunk(runner, carry, step0, n, feed)
         return out[0], out[1]
 
     failed0 = torch.zeros((runner.B,), dtype=torch.bool, device=x0.device)
     carry0 = (x0, x0, state0["vc"], state0["il"], failed0)
     if runner.nT:
         carry0 += (state0["tlw"],)
-    return carry0, advance, {"chunk": chunk, "runner": runner}
+    if feed is not None:
+        carry0 += (feed.banks0,)
+    return carry0, advance, {"chunk": chunk, "runner": runner, "feed": feed}
 
 
-def run_fused_chunk(runner, carry, step0: int, n: int):
+def run_fused_chunk(runner, carry, step0: int, n: int, feed=None):
     """One K1 launch on a fused carry (five tensors, plus the delay ring
-    of a T-line deck): (carry, iters, ys or None)."""
+    of a T-line deck, plus the flicker banks of a noisy run, whose noise
+    block ``feed`` draws): (carry, iters, ys or None)."""
     tlw = carry[5] if runner.nT else None
-    out = runner.run_chunk(*carry[:5], step0, n, tlw=tlw)
+    nz = banks = None
+    if feed is not None:
+        nz, banks = feed.block(carry[-1], step0, n)
+    out = runner.run_chunk(*carry[:5], step0, n, tlw=tlw, noise=nz)
     ys = out[6] if runner.probe_mat is not None else None
-    return out[:5] + ((out[-1],) if runner.nT else ()), out[5], ys
+    new = out[:5] + ((out[-1],) if runner.nT else ())
+    if feed is not None:
+        new += (banks,)
+    return new, out[5], ys
 
 
 def _fused_batched_transient(engine: Engine, bparams, tstep, tstop,
-                             x0=None) -> TransientResult:
+                             x0=None, noise_key=None) -> TransientResult:
     """Waveform-free batched transient on the fused chunk kernel:
     newton_iters is the per-lane (B,) total over the run."""
     n_steps = n_steps_for(float(tstep), float(tstop))
     carry, advance, meta = make_fused_transient_fn(engine, bparams, tstep,
-                                                   x0=x0)
+                                                   x0=x0,
+                                                   noise_key=noise_key)
     chunk = meta["chunk"]
     total = torch.zeros_like(carry[4], dtype=torch.int32)
     for s in range(0, n_steps, chunk):
@@ -216,7 +267,7 @@ def _fused_batched_transient(engine: Engine, bparams, tstep, tstop,
 
 def batched_transient(engine: Engine, bparams, tstep, tstop,
                       save_xs: bool = False, fused="auto",
-                      x0=None) -> TransientResult:
+                      x0=None, noise_key=None) -> TransientResult:
     """Backward-Euler transient of every lane, from the batched DC point
     (or from the (B, N) operating points ``x0``, e.g. a float64 DC for a
     float32 run: the reference's damped DC Newton with its gmin stepping
@@ -228,7 +279,11 @@ def batched_transient(engine: Engine, bparams, tstep, tstop,
     loop, which keeps xs (n_steps + 1, B, N) when save_xs is set.
     fused=True forces the fused path: on CPU tensors it runs the kernel's
     plain version; an out-of-scope deck raises NotImplementedError naming
-    what is out of scope."""
+    what is out of scope.
+
+    noise_key (a ``utils/prng`` key, (2,)): on a TRNOISE deck each lane
+    gets its own realisation, lane b the key ``prng.split(noise_key,
+    B)[b]``, as in the JAX package; omitted, the batch runs noise-free."""
     dt = float(tstep)
     if fused == "auto":
         fused = (not save_xs and engine.dtype == torch.float32
@@ -237,16 +292,26 @@ def batched_transient(engine: Engine, bparams, tstep, tstop,
     if fused:
         if save_xs:
             raise ValueError("fused=True keeps no waveforms: save_xs=False")
-        return _fused_batched_transient(engine, bparams, tstep, tstop, x0)
+        return _fused_batched_transient(engine, bparams, tstep, tstop, x0,
+                                        noise_key=noise_key)
     if x0 is None:
         x0 = batched_dc_fast(engine, bparams)
     return run_transient(engine, bparams, tstep, tstop,
-                         x0=x0.to(engine.dtype), save_xs=save_xs)
+                         x0=x0.to(engine.dtype), save_xs=save_xs,
+                         noise_key=lane_keys(engine, bparams, noise_key))
+
+
+def lane_keys(engine: Engine, bparams, noise_key):
+    """One noise key per lane (B, 2) from ``noise_key`` on a TRNOISE deck,
+    else None."""
+    if noise_key is None or not engine.has_trnoise:
+        return None
+    return prng.split(engine._key(noise_key), lane_count(bparams))
 
 
 @torch.inference_mode()
 def fused_transient_measures(engine: Engine, bparams, tstep, tstop, sm,
-                             x0=None, chunk: int = 512):
+                             x0=None, chunk: int = 512, noise_key=None):
     """Streaming-measures transient stepped by the fused chunk kernel: each
     K1 launch also writes the (chunk, P, B) probe values of its steps
     (K1c-i, ``sm.probe_matrix``), which the accumulators of ``sm`` (a
@@ -256,12 +321,21 @@ def fused_transient_measures(engine: Engine, bparams, tstep, tstop, sm,
     Failed lanes keep feeding their frozen x to the accumulators.  The
     deck must be in K1's scope (``fused_step.supported``; else
     NotImplementedError naming the cause); a T-line deck's delay ring
-    rides the carry (K1c-ii); TRNOISE decks are refused by the Engine.  Returns (TransientResult with xs None, {name: (B,)})."""
+    rides the carry (K1c-ii); with ``noise_key`` a TRNOISE deck's lanes
+    measure independent noise realisations (K1c-iii, ``NoiseFeed``; the
+    chunk is cut to the noise block's budget).  Returns (TransientResult
+    with xs None, {name: (B,)})."""
     dtype, dev = engine.dtype, engine.device
     dt = float(tstep)
     n_steps = n_steps_for(dt, float(tstop))
-    runner = fused_step.FusedStepRunner(engine, bparams, dt,
-                                        probe_mat=sm.probe_matrix)
+    feed = None
+    if noise_key is not None and engine.has_trnoise:
+        feed = NoiseFeed(engine, bparams, noise_key, dt)
+        chunk = fused_step.noise_chunk(chunk, len(feed.idx),
+                                       lane_count(bparams), dtype)
+    runner = fused_step.FusedStepRunner(
+        engine, bparams, dt, probe_mat=sm.probe_matrix,
+        noise_idx=None if feed is None else feed.idx)
     if x0 is None:
         x0 = batched_dc_fast(engine, bparams)
     x0 = x0.to(dtype)
@@ -270,12 +344,14 @@ def fused_transient_measures(engine: Engine, bparams, tstep, tstop, sm,
              torch.zeros((runner.B,), dtype=torch.bool, device=dev))
     if runner.nT:
         carry += (state0["tlw"],)
+    if feed is not None:
+        carry += (feed.banks0,)
     acc = sm.init(engine, x0)
     dt_t = torch.tensor(dt, dtype=dtype, device=dev)
     total = torch.zeros((runner.B,), dtype=torch.int32, device=dev)
     for s in range(0, n_steps, chunk):
         n = min(chunk, n_steps - s)
-        carry, iters, raw = run_fused_chunk(runner, carry, s, n)
+        carry, iters, raw = run_fused_chunk(runner, carry, s, n, feed)
         total += iters
         ys = sm.vals_from_raw(raw.transpose(1, 2))          # (n, B, P)
         ts = (float(s) + torch.arange(1, n + 1, dtype=dtype, device=dev)) * dt
@@ -290,7 +366,7 @@ def fused_transient_measures(engine: Engine, bparams, tstep, tstop, sm,
 
 def batched_transient_measures(engine: Engine, bparams, tstep, tstop,
                                measures, topo, bindings=None, fused="auto",
-                               x0=None):
+                               x0=None, noise_key=None):
     """Batched transient with STREAMING .MEASURE evaluation: per-lane
     results with O(1) waveform memory (analysis/measure_stream.py).
     Returns (TransientResult with xs None, {measure_name: (B,) values}):
@@ -302,7 +378,8 @@ def batched_transient_measures(engine: Engine, bparams, tstep, tstop,
     deck in its scope, with at most ``fused_step.MAX_PROBES`` distinct
     probes; True forces it (on CPU tensors K1's plain version; more probes
     raise NotImplementedError by name), False keeps the non-fused loop.  x0: the (B, N) operating
-    points (default: the batched DC)."""
+    points (default: the batched DC).  noise_key: on a TRNOISE deck every
+    lane measures its own noise realisation (``batched_transient``)."""
     from ..analysis.measure_stream import (StreamingMeasures,
                                            apply_derived_measures,
                                            run_transient_streaming)
@@ -316,10 +393,11 @@ def batched_transient_measures(engine: Engine, bparams, tstep, tstop,
                  and sm.probe_matrix.shape[0] <= fused_step.MAX_PROBES)
     if fused:
         res, vals = fused_transient_measures(engine, bparams, tstep, tstop,
-                                             sm, x0=x0)
+                                             sm, x0=x0, noise_key=noise_key)
     else:
-        res, vals = run_transient_streaming(engine, bparams, tstep, tstop,
-                                            sm, x0=x0.to(engine.dtype))
+        res, vals = run_transient_streaming(
+            engine, bparams, tstep, tstop, sm, x0=x0.to(engine.dtype),
+            noise_key=lane_keys(engine, bparams, noise_key))
     derived = [m for m in measures
                if m.analysis == "tran" and m.kind == "param"]
     if derived:

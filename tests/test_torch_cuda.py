@@ -754,3 +754,80 @@ def test_cli_tline_reflect_on_the_card(cuda_device, tmp_path, monkeypatch,
     b = np.loadtxt(os.path.join(gold, "tline_reflect_tran_jax.csv"),
                    delimiter=",", skiprows=1)
     np.testing.assert_allclose(a, b, rtol=0, atol=1e-9)
+
+
+WHITE_NOISE_DECK = """* white noise, V and I sources, diode load
+V1 in 0 DC 1 TRNOISE(5m 0)
+I1 0 out 1m TRNOISE(2u 2.5e-7)
+R1 in out 1k
+R2 out 0 1k
+C1 out 0 1n
+D1 out 0
+.TRAN 1e-7 4e-6
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fused_step_noise_block_matches_plain(cuda_device, dtype):
+    """K1c-iii against the plain version on the same card and inputs: the
+    white V + I noise deck of tests/test_trnoise_fused.py, 256 lanes
+    (resistors 1%) from the f64 batched DC, damped configuration, three
+    chunks in a row, each with its noise block from Engine.trnoise_stream
+    (per-lane keys split from key(3)): x within 1e-5 V in f32 and 1e-12 V
+    in f64 with equal per-lane iteration counts, one launch per chunk; a
+    runner with noise refuses a missing block."""
+    from circuitsimulator_tpu_torch import DEFAULT_OPTIONS
+    from circuitsimulator_tpu_torch.ops import cuda_step
+    from circuitsimulator_tpu_torch.parallel import montecarlo as mc
+    from circuitsimulator_tpu_torch.utils import prng
+    opts = DEFAULT_OPTIONS.replace(dtype=dtype)
+    if dtype == torch.float32:
+        opts = opts.replace(tran_tol=1e-5, dc_tol=1e-5)
+    sim = Simulator.from_text(WHITE_NOISE_DECK, opts=opts, device=cuda_device)
+    sim64 = Simulator.from_text(WHITE_NOISE_DECK, device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    bp = mc.perturb_params(sim.params, g, 256, {"res_r": 0.01})
+    x0 = mc.batched_dc_fast(sim64.engine,
+                            {k: v.double() if v.is_floating_point() else v
+                             for k, v in bp.items()}).to(dtype)
+    carry, _, meta = mc.make_fused_transient_fn(sim.engine, bp, 1e-7, x0=x0,
+                                                noise_key=prng.key(3))
+    runner, feed = meta["runner"], meta["feed"]
+    assert runner.nN == 2
+    kc = pc = carry
+    step0 = 0
+    for n in (7, 12, 5):
+        nz, banks = feed.block(kc[-1], step0, n)
+        before = cuda_step.LAUNCHES
+        got = runner.run_chunk(*kc[:5], step0, n, noise=nz)
+        torch.cuda.synchronize()
+        assert cuda_step.LAUNCHES == before + 1
+        ref = runner.run_chunk_plain(*pc[:5], step0, n, noise=nz)
+        if dtype == torch.float64:
+            assert torch.equal(got[5], ref[5])
+        kc, pc = got[:5] + (banks,), ref[:5] + (banks,)
+        step0 += n
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    for a, b in zip(kc[:4], pc[:4]):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=0,
+                                   atol=tol)
+    assert not bool(kc[4].any())
+    with pytest.raises(ValueError, match="noise"):
+        runner.run_chunk(*kc[:5], step0, 3)
+
+
+@pytest.mark.cuda
+def test_threefry_on_the_card_matches_the_cpu(cuda_device):
+    """utils/prng on CUDA gives the CPU's draws bit for bit (the uint32
+    arithmetic in int64, the normals from arithmetic alone): keys, bits and
+    f32 and f64 normals of 4 x 5,000 draws under split keys."""
+    from circuitsimulator_tpu_torch.utils import prng
+    out = {}
+    for dev in ("cpu", cuda_device):
+        keys = prng.split(prng.key(123, dev), 4)
+        out[str(dev)[:4]] = (keys, prng.bits(keys, (5000,)),
+                             prng.normal(keys, (5000,), torch.float32),
+                             prng.normal(keys, (5000,), torch.float64))
+    for a, b in zip(out["cpu"], out["cuda"]):
+        assert torch.equal(a, b.cpu())

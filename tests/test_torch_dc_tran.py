@@ -155,8 +155,6 @@ def test_perturb_params_draws_lognormal_lanes():
 
 
 @pytest.mark.parametrize("card,what", [
-    ("I2 0 2 DC 0 TRNOISE(1m 1n)\nR2 2 0 1k", "TRNOISE"),
-    ("V2 2 0 DC 0 TRNOISE(1m 1n)\nR2 2 0 1k", "TRNOISE"),
     ("L1 1 2 1u\nL2 2 0 1u\nK1 L1 L2 0.5", "mutual inductance"),
     (".OPTIONS METHOD=TRAP", "METHOD=TRAP"),
 ])
@@ -166,11 +164,32 @@ def test_unported_features_raise_by_name(card, what):
         Simulator.from_text(deck, device="cpu")
 
 
+@pytest.mark.parametrize("card,noisy", [
+    ("I2 0 2 DC 0 TRNOISE(1m 1n)\nR2 2 0 1k", ([], [0])),
+    ("V2 2 0 DC 0 TRNOISE(1m 1n)\nR2 2 0 1k", ([1], [])),
+])
+def test_trnoise_cards_construct(card, noisy):
+    """The two TRNOISE cards that were refused before the port had noise:
+    the decks now construct, report has_trnoise and the noisy source
+    (V2 is the second V source, I2 the only I source), and run noisy with
+    a seed and noise-free without one."""
+    deck = f"* t\nV1 1 0 DC 1\nR1 1 0 1k\n{card}\n.TRAN 1n 10n\n.end\n"
+    sim = Simulator.from_text(deck, device="cpu")
+    eng = sim.engine
+    assert eng.has_trnoise and not (eng.vs_flicker or eng.is_flicker)
+    assert (list(eng.vs_noisy), list(eng.is_noisy)) == noisy
+    x = sim.dc()
+    noisy_v2 = sim.transient(x_op=x, tstop=3e-9).xs[1:, 1]
+    quiet_v2 = sim.transient(x_op=x, tstop=3e-9, noise_seed=None).xs[1:, 1]
+    assert bool((quiet_v2 == 0).all()) and bool((noisy_v2 != 0).all())
+
+
 def test_port_never_imports_jax():
     code = ("import sys\n"
             "import circuitsimulator_tpu_torch\n"
             "from circuitsimulator_tpu_torch.analysis import ac\n"
             "from circuitsimulator_tpu_torch.ops import ac_sweep, cuda_ac\n"
+            "from circuitsimulator_tpu_torch.utils import prng\n"
             "from circuitsimulator_tpu_torch.netlist import "
             "parse_netlist_text, read_netlist\n"
             f"ckt, _ = parse_netlist_text(read_netlist({DBMIXER!r}))\n"
