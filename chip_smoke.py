@@ -7,8 +7,12 @@ Phases (one JSON line each):
   1. device: card, power limit, torch/CUDA versions, TF32 flags; builds the
      CUDA kernels from circuitsimulator_tpu_torch/csrc with nvcc;
   2. K2 (batched pivoted LU, csrc/lu_batched.cu) against its plain PyTorch
-     version on the card at the main path's shapes, f32 and f64, with planted
-     pivoting, singular, below-floor and NaN lanes; kernel and plain times;
+     version on the card at the main path's shapes and at each team
+     capacity's edges (N = 9, 17, 33, 64) and B = 1, f32 and f64, with
+     planted pivoting, singular, below-floor and NaN lanes; kernel, plain,
+     torch.linalg.solve_ex and bound times at (8192, 31, 1), (8192, 6, 1),
+     (8192, 31, 31), (1, 31, 1) and the T-line AC's 2N shape of phase 25
+     (their device times are phase 28's);
   3. single lane, f64: buffer.sp through the CLI (stdout byte-identical to
      the golden, CSV within 1e-9 V), dbmixer.sp DC table and its first 2,000
      transient steps within 1e-9 V of the golden;
@@ -181,7 +185,11 @@ Phases (one JSON line each):
      H100); the
      noisy dbmixer at B = 8192, f32 fast, 10,000 steps against its
      noise-free twin: lane-steps/s, K1 and stream ms per 2,000-step chunk,
-     no failed lane.
+     K1's bound at the chunk's Newton iterations, no failed lane;
+ 28. K2's and torch.linalg.solve_ex's device time at phase 2's timed
+     shapes, from a torch.profiler trace (k2_device_times).  It runs last:
+     a profiler session leaves every later launch in the process slower
+     (on the H100 a K2 call's host time went from 25 to 48 us).
 
 Every error of K3 and of the AC path is lane-relative: for each lane
 max|x - ref| / max|ref| over its frequencies and unknowns, then the worst
@@ -488,6 +496,27 @@ def cuda_ms(fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
+def device_ms(fn, reps=10):
+    """Device time per call of fn(): the kernels it launches, summed from a
+    torch.profiler (CUPTI) trace of `reps` calls; None if the trace shows
+    no device time.  Beside cuda_ms it tells the kernels' time from the
+    host's launch overhead.  Call it only after every other timing: the
+    session leaves the process's later launches slower."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):      # a session now and then reports no events
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages())
+        if us > 0:
+            return us / reps / 1e3
+    return None
+
+
 # ---------------------------------------------------------------- phase 1
 def phase_device():
     import torch
@@ -554,8 +583,14 @@ def _lane_rel_err(x, ref, good=None):
 
 def phase_k2():
     import torch
-    from circuitsimulator_tpu_torch.ops import lu
-    cases = [(8192, 31, 1), (8192, 6, 1), (1024, 31, 31), (1, 4, 1)]
+    from circuitsimulator_tpu_torch import DEFAULT_OPTIONS
+    from circuitsimulator_tpu_torch.analysis import ac as tac
+    from circuitsimulator_tpu_torch.ops import cuda_lu, lu
+    # the main path's shapes, then each team capacity's edges (N = 9: 16
+    # threads, 17: a warp, 33 and 64: two warps) and the single-lane DC
+    cases = [(8192, 31, 1), (8192, 6, 1), (1024, 31, 31), (1, 4, 1),
+             (2048, 9, 9), (2048, 17, 3), (1024, 33, 33), (512, 64, 64),
+             (1, 31, 1)]
     results = []
     max_abs = 0.0
     for B, N, R in cases:
@@ -592,15 +627,22 @@ def phase_k2():
                 check(bool(same.all()), "column bitwise == single-RHS solve")
             results.append(row)
     # times at the main path's shapes: batched DC (N=31), Woodbury k x k
-    # (k=6), the per-chunk G0 inverse (R=N=31); all B=8192
+    # (k=6), the per-chunk G0 inverse (R=N=31), all B=8192; the single-lane
+    # DC (B=1); the T-line AC's real 2N systems as phase 25 launches them
+    # (1,024 lanes x the frequencies of one block, analysis/ac._tline_sweep)
     # torch.linalg.solve_ex computes the same function (without the pivot
     # floor's fail contract; _ex: the planted singular lanes do not raise):
     # timed as a yardstick only
+    n_tl = _sim(DEFAULT_OPTIONS, TL_AC_DECK).engine.N
+    tl_lanes = 1024 * min(64, max(1, tac._TL_BLOCK_ELEMS
+                                  // (4 * n_tl * n_tl * 1024)))
     timings = []
-    for B, N, R in [(8192, 31, 1), (8192, 6, 1), (8192, 31, 31)]:
+    for B, N, R in [(8192, 31, 1), (8192, 6, 1), (8192, 31, 31), (1, 31, 1),
+                    (tl_lanes, 2 * n_tl, 1)]:
         for dtype in (torch.float32, torch.float64):
             A, b = _systems(B, N, R, dtype, seed=7)
             size = A.element_size()
+            pl = cuda_lu.plan(N, R, size)     # the launch's block shape
             # read A and b once, write x once; LU with R right-hand sides
             nbytes = B * (N * N + 2 * N * R) * size
             flops = B * sum(m + 2 * m * m + 2 * m * R + (2 * m + 1) * R
@@ -611,9 +653,29 @@ def phase_k2():
                 "kernel_ms": cuda_ms(lambda: lu.lu_solve(A, b, FLOOR)),
                 "plain_ms": cuda_ms(lambda: lu.lu_solve_plain(A, b, FLOOR)),
                 "library_ms": cuda_ms(lambda: torch.linalg.solve_ex(A, b)),
-                "bound_ms": bms, "bound_by": by})
+                "bound_ms": bms, "bound_by": by,
+                "launch": {"cap": pl.cap, "threads": pl.threads,
+                           "smem_bytes": pl.smem}})
     emit("k2_vs_plain", cases=results, timings=timings, max_abs_err=max_abs)
     return max_abs, timings
+
+
+def phase_k2_device(timings):
+    """Phase 28: device times of K2 and of the library call at phase 2's
+    timed shapes, on the same inputs."""
+    import torch
+    from circuitsimulator_tpu_torch.ops import lu
+    rows = []
+    for row in timings:
+        dtype = getattr(torch, row["dtype"])
+        A, b = _systems(row["B"], row["N"], row["R"], dtype, seed=7)
+        rows.append({**{k: row[k] for k in ("B", "N", "R", "dtype")},
+                     "kernel_device_ms": device_ms(
+                         lambda: lu.lu_solve(A, b, FLOOR)),
+                     "library_device_ms": device_ms(
+                         lambda: torch.linalg.solve_ex(A, b))})
+    emit("k2_device_times", timings=rows)
+    return rows
 
 
 # ---------------------------------------------------------------- phase 3
@@ -2820,6 +2882,7 @@ def phase_trnoise():
         check(bool(torch.isfinite(carry[0]).all()), f"trnoise {name}: x")
         runner, feed = meta["runner"], meta["feed"]
         c0 = carry if feed is None else carry[:5]
+        nz = None
         if feed is None:
             m["k1_ms_per_chunk"] = cuda_ms(lambda: runner.run_chunk(
                 *c0, 0, chunk), reps=2, warmup=0)
@@ -2830,6 +2893,12 @@ def phase_trnoise():
             m["stream_ms_per_chunk"] = cuda_ms(lambda: feed.block(
                 carry[-1], n_steps, chunk), reps=3, warmup=0)
             m["noise_block_mb"] = nz.numel() * nz.element_size() / 1e6
+        # the chunk's bound at the Newton iterations its lanes ran
+        iters = int(runner.run_chunk(*c0, n_steps, chunk, noise=nz)[5].sum())
+        m["k1_bytes"], m["k1_flops"] = k1_work(runner, chunk, iters)
+        m["k1_bound_ms"], m["k1_bound_by"] = bound_ms(
+            m["k1_bytes"], m["k1_flops"], runner.dtype)
+        m["newton_iters_per_step"] = iters / (8192 * chunk)
         runs[name] = m
     runs["noisy_over_noise_free_lane_steps"] = (
         runs["noisy"]["lane_steps_per_s"]
@@ -2876,6 +2945,7 @@ def main():
     tline = phase_monte_carlo_tline()
     phase_cli_tline()
     tn = phase_trnoise()
+    k2_device = phase_k2_device(timings)
     k3_main = k3_timings["float32"]  # B=4096, F=64, N=31: the bench shape
     k2_main = timings[0]             # B=8192, N=31, R=1, f32: batched DC
     # launches: read just after each main path's run, counts set to 0 just
@@ -2933,7 +3003,9 @@ def main():
         "launches_by_path": paths["lu_batched"], "max_abs_err": max_abs,
         "ms": k2_main["kernel_ms"], "plain_ms": k2_main["plain_ms"],
         "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],
-        "library_ms": k2_main["library_ms"]}, {
+        "library_ms": k2_main["library_ms"],
+        "shape": "B=8192 N=31 R=1 f32 (one batched-DC Newton solve)",
+        "shapes": [{**t, **d} for t, d in zip(timings, k2_device)]}, {
         "name": "fused_step", "route": "cuda",
         "scope": "K1a + K1b + K1c-i + K1c-ii + K1c-iii + K1d-i + K1d-ii",
         "source": "circuitsimulator_tpu_torch/csrc/fused_step.cu",

@@ -86,7 +86,9 @@ def lu_solve_plain(A, b, pivot_floor: float = 1e-15):
 
 def lu_solve(A, b, pivot_floor: float = 1e-15):
     """Batched solve; CPU tensors take the plain version, CUDA tensors the
-    K2 kernel (every leading axis is flattened into the kernel's lanes)."""
+    K2 kernel (every leading axis is flattened into the kernel's lanes; a
+    strided or broadcast input is made contiguous here, and the kernel
+    reads it in place without writing it)."""
     if A.device.type == "cpu" and b.device.type == "cpu":
         return lu_solve_plain(A, b, pivot_floor)
     if A.device.type != "cuda" or b.device != A.device:
@@ -94,6 +96,13 @@ def lu_solve(A, b, pivot_floor: float = 1e-15):
     N = A.shape[-1]
     if N == 0:
         return b
+    if A.dim() == 3 and b.dim() in (2, 3) and b.shape[:2] == A.shape[:2]:
+        # the batched callers' shapes: no broadcast, one lead axis
+        vec = b.dim() == 2
+        x = cuda_lu.lu_solve_cuda(
+            A.contiguous(), (b.unsqueeze(-1) if vec else b).contiguous(),
+            pivot_floor)
+        return x[..., 0] if vec else x
     A, B, vec = _as_columns(A, b)
     lead = A.shape[:-2]
     R = B.shape[-1]

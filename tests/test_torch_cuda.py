@@ -37,9 +37,12 @@ def lane_masks(x):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("B,n,R", [(1, 4, 1), (300, 6, 1), (300, 31, 1),
-                                   (64, 31, 31)])
+@pytest.mark.parametrize("B", [1, 7, 300])
+@pytest.mark.parametrize("R", ["1", "3", "N"])
+@pytest.mark.parametrize("n", [1, 8, 9, 16, 17, 31, 32, 33, 64])
 def test_lu_kernel_matches_plain(cuda_device, dtype, B, n, R):
+    # every team capacity (8, 16, 32, 64) and its edges
+    R = n if R == "N" else int(R)
     rng = np.random.default_rng(n + R)
     A = rng.standard_normal((B, n, n)) + 2.0 * np.sqrt(n) * np.eye(n)
     A = A[:, ::-1].copy()                   # every lane pivots
@@ -50,10 +53,14 @@ def test_lu_kernel_matches_plain(cuda_device, dtype, B, n, R):
         A[3, 0, 0] = np.nan                 # NaN propagates
     At = torch.as_tensor(A, dtype=dtype, device=cuda_device)
     bt = torch.as_tensor(b, dtype=dtype, device=cuda_device)
+    A0, b0 = At.cpu().numpy(), bt.cpu().numpy()
     before = cuda_lu.LAUNCHES
     x = tlu.lu_solve(At, bt, FLOOR)
     torch.cuda.synchronize()
     assert cuda_lu.LAUNCHES == before + 1
+    # the kernel reads A and b in place and writes neither
+    np.testing.assert_array_equal(At.cpu().numpy(), A0)
+    np.testing.assert_array_equal(bt.cpu().numpy(), b0)
     ref = tlu.lu_solve_plain(At, bt, FLOOR)
     x, ref = x.cpu().numpy(), ref.cpu().numpy()
     for got, want in zip(lane_masks(x), lane_masks(ref)):
@@ -67,6 +74,34 @@ def test_lu_kernel_matches_plain(cuda_device, dtype, B, n, R):
         # one factorisation, R columns: each bitwise a single-RHS solve
         one = tlu.lu_solve(At, bt[..., -1:].contiguous(), FLOOR)
         np.testing.assert_array_equal(x[..., -1:], one.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_lu_kernel_strided_and_broadcast_inputs(cuda_device, dtype):
+    # ops/lu.py makes a strided or broadcast input contiguous before the
+    # kernel reads it: the answers are the plain version's
+    rng = np.random.default_rng(5)
+    n = 13
+    A = rng.standard_normal((40, n, n)) + 2.0 * np.sqrt(n) * np.eye(n)
+    b = rng.standard_normal((40, n, 3))
+    At = torch.as_tensor(A, dtype=dtype, device=cuda_device)
+    bt = torch.as_tensor(b, dtype=dtype, device=cuda_device)
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    cases = [(At.transpose(-1, -2), bt[:, :, 1]),           # strided
+             (At[:1].expand(40, n, n), bt),                 # broadcast A
+             (At[::2], bt[::2, :, ::2]),                     # every other lane
+             (At[0], bt),                                   # one A, many b
+             (At, bt[:1].expand(40, n, 3))]                  # broadcast b
+    for Ac, bc in cases:
+        before = cuda_lu.LAUNCHES
+        x = tlu.lu_solve(Ac, bc, FLOOR)
+        torch.cuda.synchronize()
+        assert cuda_lu.LAUNCHES == before + 1
+        ref = tlu.lu_solve_plain(Ac, bc, FLOOR)
+        assert x.shape == ref.shape
+        np.testing.assert_allclose(x.cpu().numpy(), ref.cpu().numpy(),
+                                   rtol=tol, atol=tol)
 
 
 @pytest.mark.cuda

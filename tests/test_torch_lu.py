@@ -124,3 +124,36 @@ def test_cuda_wrapper_rejects_cpu_tensors():
     A, b = systems(2, 3, seed=4, R=1)
     with pytest.raises(ValueError):
         cuda_lu.lu_solve_cuda(torch.as_tensor(A), torch.as_tensor(b))
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_cuda_plan_fits_a_block(itemsize):
+    # the launcher's plan for every N the kernel takes, with one, N and 2N
+    # right-hand sides: the smallest capacity that holds N, a team of that
+    # many threads, the shared memory of the kernel's layout (factors in
+    # rows of cap + 1, the RHS tile, perm; at cap 64 the arg-max slots)
+    # within one H100 block
+    for N in range(1, cuda_lu.MAX_N + 1):
+        for R in (1, N, 2 * N):
+            p = cuda_lu.plan(N, R, itemsize)
+            assert p.cap == min(c for c in (8, 16, 32, 64) if c >= N)
+            assert p.team == p.cap
+            assert p.spb >= 1 and (p.cap < 64 or p.spb == 1)
+            assert p.threads <= (64 if p.cap == 64 else 256) <= 1024
+            assert p.threads % 32 == 0
+            assert p.rt == R
+            big = p.cap == 64
+            need = (itemsize * (N * (p.cap + 1) + N * R
+                                + (4 if big else 0))
+                    + 4 * (p.cap + (4 if big else 0)))
+            assert need <= p.team_bytes < need + 16
+            assert p.team_bytes % 16 == 0
+            assert p.smem <= 232448
+    wide = cuda_lu.plan(64, 1000, itemsize)      # tiles of 2 x cap columns
+    assert wide.rt == 128 and wide.smem <= 232448
+
+
+def test_cuda_plan_refuses_n_above_64():
+    for N in (0, cuda_lu.MAX_N + 1):
+        with pytest.raises(ValueError):
+            cuda_lu.plan(N, 1, 4)
