@@ -31,8 +31,10 @@ Phases (one JSON line each):
      configuration, batched DC then 2,000 steps of K1 in chunks of 250
      (lane 0 held to the golden at every chunk boundary, final state
      against phase 4's non-fused run on the same lanes; K1 at the chunk
-     shape also timed writing a (4, N) probe stream); then B = 1024 in
-     f64, damped, 500 steps, within 1e-9 V of phase 4's f64 run;
+     shape also timed writing a (4, N) probe stream, and on every team
+     and route its launch plan can take; the k1_plan line: the plan of
+     that launch, its registers and shared bytes); then B = 1024 in f64,
+     damped, 500 steps, within 1e-9 V of phase 4's f64 run;
   8. the AC Monte-Carlo main path (bench_ac_mc's workload): dbmixer,
      B = 4096 lanes x F = 64 frequencies (1 MHz .. 10 GHz), batched DC (K2)
      then the fused AC sweep (K3, csrc/ac_sweep.cu), f32 and f64: AC
@@ -187,7 +189,8 @@ Phases (one JSON line each):
      noise-free twin: lane-steps/s, K1 and stream ms per 2,000-step chunk,
      K1's bound at the chunk's Newton iterations, no failed lane;
  28. K2's and torch.linalg.solve_ex's device time at phase 2's timed
-     shapes, from a torch.profiler trace (k2_device_times).  It runs last:
+     shapes, from a torch.profiler trace (k2_device_times), then K1's at
+     dbmixer's main shape, phase 7's launch (k1_device_time).  It runs last:
      a profiler session leaves every later launch in the process slower
      (on the H100 a K2 call's host time went from 25 to 48 us).
 
@@ -531,8 +534,10 @@ def phase_device():
     with concurrent.futures.ThreadPoolExecutor(len(names)) as ex:
         built = dict(zip(names, ex.map(_build.load, names)))
     build_wall = time.perf_counter() - t0
-    # per kernel (and per instantiation of K1: rank capacity 16 or 32, with
-    # or without the charge rows): its properties line and registers line
+    # per kernel (and per instantiation of K1: float32 and float64 with
+    # G0^-1 in shared memory and float32 with it in registers, each for the
+    # K1a/K1b rows, the charge rows and the B rows): its properties line
+    # and registers line
     ptxas = {n: [ln.strip() for ln in b.log.splitlines()
                  if "registers" in ln or "stack frame" in ln
                  or "Function properties for" in ln]
@@ -660,9 +665,10 @@ def phase_k2():
     return max_abs, timings
 
 
-def phase_k2_device(timings):
+def phase_k2_device(timings, k1):
     """Phase 28: device times of K2 and of the library call at phase 2's
-    timed shapes, on the same inputs."""
+    timed shapes, on the same inputs; then K1's at dbmixer's main shape
+    (B = 8192, 250 steps, f32 fast, phase 7's runner and carry)."""
     import torch
     from circuitsimulator_tpu_torch.ops import lu
     rows = []
@@ -675,7 +681,12 @@ def phase_k2_device(timings):
                      "library_device_ms": device_ms(
                          lambda: torch.linalg.solve_ex(A, b))})
     emit("k2_device_times", timings=rows)
-    return rows
+    runner, carry = k1
+    k1_ms = device_ms(lambda: runner.run_chunk(*carry, 2000, 250), reps=3)
+    emit("k1_device_time", deck="dbmixer",
+         shape="B=8192 x 250 steps f32 fast", kernel_device_ms=k1_ms,
+         plan=k1_plan_row(runner))
+    return rows, k1_ms
 
 
 # ---------------------------------------------------------------- phase 3
@@ -979,7 +990,7 @@ def k1_work(runner, n_steps, n_iters):
     per lane-step, with the per-source rows once, and adds each word to
     its source's value (one operation)."""
     B, N, k, P, W = runner.B, runner.N, runner.k, runner.P, runner.W
-    size = runner.G0invT.element_size()
+    size = runner.G0inv.element_size()
     nc = runner.bconsts.shape[0] if runner.nB else 0
     nbytes = size * B * (N * N + k * N + W * k * k + 4 * runner.nMJ
                          + 5 * runner.nD + 6 * runner.nQ + 4 * runner.nSw
@@ -1007,6 +1018,22 @@ def k1_work(runner, n_steps, n_iters):
                 + 2 * k * N + 2 * W * k * k + 2 * W * k + k_solve_ops(k)
                 + 2 * k * N + 7 * N)
     return nbytes, B * n_steps * per_step + n_iters * per_iter
+
+
+def k1_plan_row(runner, route=None, team=None):
+    """K1's launch plan for `runner` (ops/cuda_step.plan: threads per lane,
+    rows of x a thread, lanes per block, the route of G0^-1, shared bytes)
+    with the registers and local bytes per thread of the instantiation it
+    launches."""
+    from circuitsimulator_tpu_torch.ops import cuda_step
+    p = cuda_step.runner_plan(runner, route, team=team)
+    mode = 2 if runner.nB else (1 if runner.nMq else 0)
+    regs, local = cuda_step.attrs(runner.dtype, p.route, mode)
+    return {"team": p.team, "rows": p.rows,
+            "lanes_per_block": p.lanes_per_block, "route": p.route,
+            "shared_bytes_per_block": p.smem, "team_bytes": p.team_bytes,
+            "blocks": p.blocks(runner.B), "registers": regs,
+            "local_bytes": local}
 
 
 def _dc_failed_lanes(engine, bp, x0, bar):
@@ -1123,12 +1150,24 @@ def phase_monte_carlo_fused(x32_nonfused, x64_nonfused):
                 reps=3, warmup=1),
             "bound_ms": bms, "bound_by": by, "bytes": nbytes,
             "flops": flops}
-    # the same launch at narrower blocks (more SMs busy at B = 8192): a
-    # measurement for later tuning, the path keeps cuda_step.THREADS
-    main["kernel_ms_by_threads"] = {
-        th: cuda_ms(lambda: cuda_step.run_chunk_cuda(runner, *carry, 2000,
-                                                     250, threads=th),
-                    reps=5, warmup=1) for th in (128, 64, 32)}
+    # the plan of this launch, and the same launch on every team and route
+    # the plan can take (a measurement for later tuning; the path keeps
+    # the plan's choice)
+    main["plan"] = k1_plan_row(runner)
+    emit("k1_plan", deck="dbmixer", shape="B=8192 x 250 steps f32 fast",
+         N=runner.N, k=runner.k, W=runner.W, **main["plan"])
+    by_plan = {}
+    for team in cuda_step.TEAMS:
+        for route in cuda_step.ROUTES:
+            try:
+                cuda_step.runner_plan(runner, route, team=team)
+            except ValueError:
+                continue
+            by_plan[f"team {team} {route}"] = cuda_ms(
+                lambda: cuda_step.run_chunk_cuda(runner, *carry, 2000, 250,
+                                                 route=route, team=team),
+                reps=5, warmup=1)
+    main["kernel_ms_by_plan"] = by_plan
     # the same launch writing a (4, N) probe stream (K1c-i): what the
     # stream costs at this shape, timed beside the launch without it
     probed = copy.copy(runner)
@@ -1143,7 +1182,7 @@ def phase_monte_carlo_fused(x32_nonfused, x64_nonfused):
     check(m64["final_max_abs_vs_nonfused"] <= 1e-9,
           "fused f64 within 1e-9 V of the non-fused run")
     emit("monte_carlo_fused_f64_reference", **m64)
-    return launches, main
+    return launches, main, (runner, carry)
 
 # ------------------------------------------------------------ phases 8, 9
 AC_FREQS = (6.0, 10.0, 64)          # np.logspace(6, 10, 64): 1 MHz .. 10 GHz
@@ -1683,7 +1722,8 @@ def _k1_at_main_shape(runner, carry, step0, chunk, tol, plain_steps=None,
                                                  chunk),
                                  reps=5, warmup=1),
             "plain_ms": a.elapsed_time(b), "plain_steps": plain_steps,
-            "bound_ms": bms, "bound_by": by, "bytes": nbytes, "flops": flops}
+            "bound_ms": bms, "bound_by": by, "bytes": nbytes, "flops": flops,
+            "plan": k1_plan_row(runner)}
 
 
 # ------------------------------------------------------------- phase 15
@@ -2472,8 +2512,10 @@ def phase_monte_carlo_tline():
     main["case"] = "TL_BENCH_DECK f32 damped"
     m["kernel_at_main_shape"] = main
     # the benchmark's own fast configuration (alpha 1, predictor, two
-    # unrolled iterations), recorded and not held: on the diode clamp two
-    # correct implementations part by volts within 100 steps
+    # unrolled iterations), recorded and not held: on the diode clamp it is
+    # chaotic, and the JAX package's own Pallas kernel (interpret mode) and
+    # XLA loop, bit-equal through step 12, part by 0.46 V at step 14 and
+    # 1.31 V within 100 steps on 128 lanes (ROADMAP queue 3)
     fsim, fbp = _mc_lanes(fast_f32_options(), B, 73, TL_BENCH_DECK,
                           TL_SIGMAS)
     fcarry, _, fmeta = mc.make_fused_transient_fn(fsim.engine, fbp, dt)
@@ -2488,7 +2530,9 @@ def phase_monte_carlo_tline():
         "kernel_ms_per_2000_steps": cuda_ms(
             lambda: _launch(fmeta["runner"], fcarry, 0, 2000), reps=3,
             warmup=1),
-        "bound_ms": fbms, "bound_by": fby, "bytes": fbytes, "flops": fflops}
+        "bound_ms": fbms, "bound_by": fby, "bytes": fbytes, "flops": fflops,
+        "not_held": "chaotic configuration: the JAX package's Pallas kernel "
+                    "and XLA loop part by 1.31 V on the same lanes"}
     emit("monte_carlo_tline_f32", **m)
     out["bench"], out["bench_main"] = m, main
     # fused against non-fused on 1,024 lanes over 400 steps (the damped
@@ -2924,7 +2968,7 @@ def main():
     launches, x32, x64 = phase_monte_carlo()
     phase_cuda_vs_cpu()
     k1_err = phase_k1()
-    k1_launches, k1_main = phase_monte_carlo_fused(x32, x64)
+    k1_launches, k1_main, k1_main_run = phase_monte_carlo_fused(x32, x64)
     ac_main, ac_lanes = phase_ac_monte_carlo()
     k3_err, k3_timings = phase_k3(ac_lanes)
     k1b_err = phase_k1b()
@@ -2945,7 +2989,7 @@ def main():
     tline = phase_monte_carlo_tline()
     phase_cli_tline()
     tn = phase_trnoise()
-    k2_device = phase_k2_device(timings)
+    k2_device, k1_device_ms = phase_k2_device(timings, k1_main_run)
     k3_main = k3_timings["float32"]  # B=4096, F=64, N=31: the bench shape
     k2_main = timings[0]             # B=8192, N=31, R=1, f32: batched DC
     # launches: read just after each main path's run, counts set to 0 just
@@ -3025,7 +3069,8 @@ def main():
                            tn["k1_err"], tn["k1_main"]["max_abs_err"]),
         "ms": k1_main["kernel_ms"], "plain_ms": k1_main["plain_ms"],
         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
-        "library_ms": None,
+        "library_ms": None, "device_ms": k1_device_ms,
+        "plan": k1_main["plan"],
         "shape": "dbmixer B=8192 x 250 steps f32 fast (K1a)",
         "scopes": {
             "K1b bjt_amp B=8192 x 250 steps f32 damped": bjt_main,

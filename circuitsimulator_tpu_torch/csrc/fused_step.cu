@@ -1,6 +1,6 @@
 // K1 for Hopper (scopes K1a, K1b, K1c-i, K1c-ii, K1c-iii, K1d-i and K1d-ii):
-// the fused Monte-Carlo transient chunk.  Every lane advances n_steps whole Backward-Euler
-// timesteps in one launch.
+// the fused Monte-Carlo transient chunk.  Every lane advances n_steps whole
+// Backward-Euler timesteps in one launch.
 //
 // Replaces the TPU kernel circuitsimulator_tpu/ops/pallas_step.py:
 // PallasStepRunner._kernel (launched by run_chunk) for R/C/L, V/I sources
@@ -12,9 +12,9 @@
 // lossless transmission lines (K1c-ii, nT <= 8, Dmax x 2 nT <= 1024) and the
 // TRNOISE input block (K1c-iii); rank
 // 0 <= k = nMJ + nD + 2 nQ + nSw + nB + 5 nMq <= 32 (nMq = the MOS count
-// under the charge model, else 0).  Per step it computes what the TPU kernel computes
-// (plain PyTorch version: circuitsimulator_tpu_torch/ops/fused_step.py
-// run_chunk_plain):
+// under the charge model, else 0).  Per step it computes what the TPU kernel
+// computes (plain PyTorch version: circuitsimulator_tpu_torch/ops/
+// fused_step.py run_chunk_plain):
 //   - source values at t = (step0 + i + 1) * dt in the working type, plus on
 //     a noisy run each noisy source's value of the step from the noise
 //     block (K1c-iii);
@@ -41,15 +41,16 @@
 // diagonal replaced by 1, no pivot floor); for 16 < k <= 32 column-pivoted
 // Gauss-Jordan (for column c the pivot is the first maximum of |col| over
 // the rows not used yet; every row but the pivot row subtracts
-// A[i][c] / A[p][c] times it, a zero pivot divides by 1; at the end
-// w[c(p)] = bb[p] / A[p][c(p)], a zero divides by 1).  In both a NaN |col|
-// counts as the largest (the first NaN wins), as torch.max and jnp.argmax
-// rank it.  The Newton loop is the fixed unrolled count, or a per-lane loop
-// up to max_nr that stops when the lane is done (the TPU kernel's
-// block-wide while loop gives the same x: accept freezes lanes that are
-// done).  The TPU kernel evaluates both BJT currents on row-duplicated lanes
-// and selects by parity; here each device is evaluated once and writes its
-// two rows.
+// A[i][c] / A[p][c] times it, the pivot row 0 times itself; a zero pivot
+// divides by 1; at the end w[c(p)] = bb[p] / A[p][c(p)], a zero divides by
+// 1).  In both a NaN |col| counts as the largest (the first NaN wins), as
+// torch.max and jnp.argmax rank it.  The Newton loop is the fixed unrolled
+// count, or a loop up to max_nr that runs while a lane of the warp is not
+// done (as the TPU kernel's block-wide while loop: accept freezes the lanes
+// that are done, which count no iteration and raise no failed flag, so
+// each lane's x and count are those of a loop of its own).  The TPU kernel
+// evaluates both BJT currents on row-duplicated lanes and selects by
+// parity; here each device is evaluated once and writes its two rows.
 //
 // Charge rows (models/moscap.py, JAX kernel pallas_step.py:997-1019): the
 // Ward-Dutton gate and depletion junction charges of each MOS are evaluated
@@ -79,11 +80,9 @@
 // time is t = (step0 + i + 1) dt.  The B instantiation has a row width
 // capacity of 8 (POLY(3) sources need 6); the others keep 4.
 //
-// Probe stream (K1c-i): every instantiation writes it when ys is not null
-// (a run-time branch after the Newton loop, outside the frames of the
-// Newton iteration).  Each lane stores its P values at ys[(i P + p) B +
-// lane], so neighbouring threads store to neighbouring addresses, and every
-// lane reads the (P, N) matrix at the same address, as it reads the B tapes.
+// Probe stream (K1c-i): every instantiation writes it when ys is not null.
+// Each lane stores its P values at ys[(i P + p) B + lane] and every lane
+// reads the (P, N) matrix at the same address, as it reads the B tapes.
 // The matrices of StreamingMeasures are +1/-1 pairs, so for a finite x the
 // sum is exactly x[a] - x[b] in any order (FMA contraction included): the
 // kernel and the plain version agree bit for bit on the same x.
@@ -91,74 +90,111 @@
 // Delay ring (K1c-ii, the TPU kernel's tlw carry, pallas_step.py:1181-1190
 // and :1236-1241): the ring (Dmax, 2 nT, B) holds the last Dmax waves of
 // each port, lane-minor, in global memory.  The TPU kernel shifts the whole
-// ring every step (Dmax x 2 nT words per lane-step, up to 1024); here it
-// stays in place and a head index moves: at step i of the launch the wave
-// d + 1 steps old sits in slot (d - i) mod Dmax, and the push writes slot
-// (-(i + 1)) mod Dmax.  A step reads its EMFs before its push, so at
-// ticks = Dmax the oldest wave is read before the push overwrites it.
-// Each lane-step reads 2 nT words and writes 2 nT words of the ring; the
-// wrapper rolls it back to slot 0 = newest at launch exit.  The wave is
-// (V(p) - V(n)) + Z0 i rounded twice (no FMA contraction, __fmul_rn and
-// __fadd_rn), as PyTorch computes it, so kernel and plain rings agree bit
-// for bit on the same x.  It runs behind a run-time nT test in every
-// instantiation, as the probe stream does.
+// ring every step; here it stays in place and a head index moves: at step
+// i of the launch the wave d + 1 steps old sits in slot (d - i) mod Dmax,
+// and the push writes slot (-(i + 1)) mod Dmax.  A step reads its EMFs
+// before its push, so at ticks = Dmax the oldest wave is read before the
+// push overwrites it.  The wrapper rolls it back to slot 0 = newest at
+// launch exit.  The wave is (V(p) - V(n)) + Z0 i rounded twice (no FMA
+// contraction, __fmul_rn and __fadd_rn), as PyTorch computes it, so kernel
+// and plain rings agree bit for bit on the same x.
 //
 // TRNOISE block (K1c-iii, the TPU kernel's noise input, pallas_step.py:
 // 1174-1179 with the row scatter of :567-575): the wrapper passes the
-// (n_steps, nN, B) block of the chunk's per-step source noise, drawn on the
-// host side by Engine.trnoise_stream, and per source the row c of the block
-// it takes (noise_col, -1 for a source without noise).  Step i adds
-// noise[(i nN + c) B + lane] to the source's value before the value is
-// scattered, so the sum is the plain version's sv + noise, one add per
-// value.  Lane-minor, the read is one coalesced word per lane and step.
-// It sits in an out-of-line function behind a run-time nN test, as the
-// ring does, and adds no registers to the Newton loop.
+// (n_steps, nN, B) block of the chunk's per-step source noise, drawn by
+// Engine.trnoise_stream, and per source the row c of the block it takes
+// (noise_col, -1 for a source without noise).  Step i adds
+// noise[(i nN + c) B + lane] to the source's value before it is scattered,
+// so the sum is the plain version's sv + noise, one add per value.
 //
-// Design (simple first): one thread per lane, lane-minor constants
-// (G0invT (N,N,B) [m][n][lane], YT (k,N,B), Yc3 (W,k,k,B), the device packs,
-// sources and companions (rows, B)), so every read of a warp is 32
-// consecutive addresses.  The TPU kernel's one-hot selection matmuls are
-// index reads here: row_cols (W, k) gives each V^T row's columns, which are
-// also the terminals its device reads (W = 4 with a switch: p, m, cp, cm;
-// else 3); index N is the ground dump slot and reads 0.  Per-lane vectors
-// live in fixed-capacity local arrays (N <= 64, k <= KCAP) indexed at run
-// time, so they sit in local memory (L1/L2), not registers.  The kernel is
-// instantiated for KCAP = 16 (elimination) and KCAP = 32 (Gauss-Jordan),
-// each with and without the charge rows, and for KCAP = 16 with the B rows,
-// so the K1a/K1b instantiation keeps its 16 x 16 frame and code.
+// Design: a team of TS = 4, 8, 16 or 32 threads owns one lane for the
+// whole launch, several teams to a block (ops/cuda_step.plan: the smallest
+// team that holds the k rows of the solve and N rows of x at most three a
+// thread, MAXROWS with an explicit team).  TS divides 32, so a team never
+// spans two warps, and the teams of a warp run in lockstep: every step and
+// every Newton iteration of the fixed count together, and the damped while
+// loop as long as one lane of the warp is not done, a done lane frozen by
+// accept and counting no iteration (four lanes a warp at TS = 8, not the
+// 32 of a thread per lane).  So every shuffle, reduction, ballot and
+// __syncwarp names the whole warp: with a run-time team mask nvcc loops
+// around each one.
+//   - On chip for the whole chunk: at launch each team stages its lane's
+//     Y (N, k) and Yc3 (k, W, k), and on the shared route G0^-1 (N, N),
+//     from the lane-major constants (a lane's block contiguous) into its
+//     shared memory with cp.async; on the registers route (float32, one
+//     row of N <= 32 a thread) thread n holds row n of G0^-1 in 32
+//     registers instead.  x, x_prev and the iterate stay in registers
+//     (thread t, rows t, t + TS, ...), vc and il in shared memory; all of
+//     them are read once at launch and written once at exit.
+//   - b0: every source, inductor, capacitor and EMF term of the step is
+//     computed by one thread into a term vector; row n sums its own terms
+//     through a host-made row plan (rhs_ptr, rhs_idx) in the order of the
+//     plain version's scatter.  z0 = G0^-1 b0, z = z0 - Y c, x_raw =
+//     z - Y w and err^2: the thread of row n sums over m (over j) in index
+//     order, its row a word a load at an odd stride, the vector 16 bytes
+//     a load (a broadcast read).
+//   - Device linearisations: thread d evaluates device d (MOS/JFET, diode,
+//     BJT with its two rows, switch, B source, charge MOS with its five
+//     rows) and writes its rows' c and V^T coefficients to shared memory,
+//     formula for formula the models/*.py linearisations.
+//   - S = I + V^T Y and vz on thread j (row j), into the team's augmented
+//     k x (k + 1) matrix in shared memory.  The solve: thread j owns row j;
+//     each column's pivot is the largest key whose unsigned order is
+//     |value| (a NaN largest), ties to the smaller position (row index for
+//     Gauss-Jordan), which is the sequential first-maximum scan: redux.sync
+//     for a whole-warp team, a shuffle butterfly in its segment for a
+//     smaller one.  The elimination pivots by position (no row moves),
+//     rows read the pivot row where it lies, 16 bytes at a time, and back
+//     substitution runs position by position, each sum over l ascending.
+//   - Accept: clamp, alpha damping and the non-finite freeze per row, the
+//     finite test by ballot, err^2 summed by every thread in index order
+//     n = 0 .. N-1 from shared memory, so done is team-uniform and the
+//     comparison with tol^2 sees the same sum on every thread.
 //
-// What bounds it on the H100: the constants are re-read every step
-// (G0invT once, then per Newton iteration 2 YT + Yc3 + the device packs:
-// 7.7 KB per lane-step in f32 at N = 31, k = 6 and two iterations; 63 MB
-// per step at B = 8192, most of it L2-resident since the unique constants
-// are ~41 MB), against ~5 kFLOP of arithmetic per lane-step; at one
-// warp-load per constant and few warps per SM it is bound by memory
-// latency.  On small junction decks (N = 7, k = 2) the per-lane chain of
-// dependent expf/divisions of the damped Newton loop (tens of iterations
-// per step) takes over; at k = 22-32 the Gauss-Jordan solve (about 2 k^3
-// operations on a local-memory A per iteration) and Yc3 (W k^2 per lane) do.
-// Staging G0invT in shared memory per lane block and wgmma for the z0
-// product are later work.  Compiled without fast math (SIN/SFFM arguments
-// reach tens of radians, the switch conductance spans nine decades through
-// exp/log); nvcc contracts a*b+c into FMAs, so results agree with the plain
-// version to rounding.
+// What bounds it on the H100: the latency of each lane's chain of
+// dependent steps (a column of the solve is a reduction, a division and a
+// row update, a Newton iteration some ten __syncwarp), with few warps to
+// hide it: G0^-1 in shared memory bounds the lanes resident on an SM (37
+// at N = 31 in float32, two waves at B = 8192), and on the junction,
+// switch and B decks the device code's exp/log/division chains run on one
+// thread of the team.  Not L2: after staging, the only device-memory
+// traffic per step is the sources' parameters and the device packs (both
+// L1-resident), the ring, the noise block and the probe stream.  wgmma
+// does not apply: G0^-1, Y and Yc3 differ per lane (the Monte-Carlo
+// perturbs the resistors), each lane multiplies its own matrices by one
+// vector per step, and the next vector depends on the x this step
+// accepts: matrix-vector products with no reuse, nothing to tile.
+// Compiled without fast math (SIN/SFFM arguments reach tens of radians,
+// the switch conductance spans nine decades through exp/log); nvcc
+// contracts a*b+c into FMAs, so results agree with the plain version to
+// rounding.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 #define MAXN 64
-#define UNROLL_K 16  // the elimination instantiation's capacity
-#define MAXK 32      // the Gauss-Jordan instantiation's capacity
+#define UNROLL_K 16  // elimination up to this rank, Gauss-Jordan above
+#define MAXK 32      // the largest rank
 #define MAXPROBES 64 // rows of the probe matrix (K1c-i)
 #define MAXTL 8        // transmission lines (K1c-ii)
 #define MAXRING 1024   // Dmax x 2 nT waves of the delay ring (K1c-ii)
+#define GREG_CAP 32    // the registers route's G0^-1 row (N <= 32)
+#define NLAY 17        // the team layout: 13 region offsets, 4 row strides
+#define MAXROWS 4      // rows of x a thread owns
+
+// the regions of a team's shared memory (ops/cuda_step.py LAYOUT)
+enum Lay {
+  L_G, L_Y, L_YC, L_A, L_X, L_Z, L_D, L_C, L_V, L_W, L_TV, L_VC, L_IL,
+  S_G, S_Y, S_YC, S_A
+};
 
 template <typename T>
 struct StepArgs {
-  // per-lane constants, lane-minor
-  const T* G0invT;   // (N, N, B)
-  const T* YT;       // (k, N, B)
-  const T* Yc3;      // (W, k, k, B)
+  // per-lane constants, lane-major (a lane's block contiguous)
+  const T* G0inv;    // (B, N, N)
+  const T* Y;        // (B, N, k)
+  const T* Yc3;      // (B, k, W, k)
+  // device packs and sources, lane-minor (read where they lie)
   const T* mosp;     // (4, nMJ, B): vth | VTO, k | 2 BETA, lambda, polarity
   const T* diop;     // (5, nD, B): is, n*vt, bv, ibv, vt
   const T* bjtp;     // (6, nQ, B): is, bf, br, polarity, vaf, vt
@@ -173,17 +209,17 @@ struct StepArgs {
   const T* gl;       // (nL, B)     L / dt
   // index plans shared by all lanes (N = ground dump slot)
   const int* kinds;     // (nS) 0 none, 1 PULSE, 2 SIN, 3 PWL, 4 EXP, 5 SFFM
-  const int* src_pos;   // (nS) row that gets +value
-  const int* src_neg;   // (nS) row that gets -value
   const int* ind_k;     // (nL) inductor branch rows
   const int* cap_a;     // (nCap) cap terminal pairs
   const int* cap_b;
   const int* row_cols;  // (W, k) columns of each V^T row
-  // carry, lane-minor, updated in place
-  T* x;              // (N, B)
-  T* xprev;          // (N, B)
-  T* vc;             // (nCap, B)
-  T* il;             // (nL, B)
+  const int* rhs_ptr;   // (N + 1) row n's terms: rhs_idx[rhs_ptr[n]:...]
+  const int* rhs_idx;   // term << 1 | negated, in scatter order
+  // carry, lane-major, updated in place
+  T* x;              // (B, N)
+  T* xprev;          // (B, N)
+  T* vc;             // (B, nCap)
+  T* il;             // (B, nL)
   int* failed;       // (B)
   int* iters;        // (B) Newton iterations over the chunk (output)
   int B, N, k, nS, P, nL, nCap, unrolled, max_nr, predictor, n_steps;
@@ -216,6 +252,10 @@ struct StepArgs {
   const int* noise_col;  // (nS) row of the noise block of each source, -1
   const T* noise;        // (n_steps, nN, B)
   int nN;
+  // the launch plan: threads per lane, rows of x per thread, lanes per
+  // block, T words of shared memory per team and the team's layout
+  int team, rows, lpb, team_words;
+  int lay[NLAY];
 };
 
 __device__ __forceinline__ float sin_(float v) { return sinf(v); }
@@ -739,461 +779,807 @@ __device__ void b_eval(const StepArgs<T>& a, long long lane, int src,
   for (int j = 0; j < BPROBES; ++j) g[j] = (dep[0] >> j & 1) ? st[0].d[j] : T(0);
 }
 
-// One Newton iteration of one lane: xx is the iterate, z0 = G0^-1 b0,
-// zb scratch (z, then x_raw, then x_new), qprev the charges of the step's
-// incoming x (CHARGE only), tt the step's time (BSRC only).  KCAP is the rank
-// capacity: 16 runs the pivoted elimination, 32 the Gauss-Jordan solve; vco
-// holds 8 rows with the B rows (BSRC), else 4.
-template <typename T, int KCAP, bool CHARGE, bool BSRC>
-__device__ __forceinline__ void newton_iter(
-    const StepArgs<T>& a, long long lane, T* xx, const T* z0, T* zb, T* cst,
-    T (*vco)[KCAP], T (*A)[KCAP], T* bb, T* w, const T* qprev, T tt,
-    bool& done, bool& fl) {
-  const int N = a.N, k = a.k, W = a.W;
+// ---- the team: TS threads of one warp that own one lane ----
+struct Team {
+  unsigned mask;  // the team's threads in its warp
+  int t;          // this thread's index in the team
+  int size;       // TS
+};
+
+// every team of the warp runs the same steps and Newton iterations, so each
+// collective (__syncwarp among them) names the whole warp (a run-time team
+// mask made nvcc loop around each shuffle); a team's own result is its
+// segment of the warp
+__device__ __forceinline__ bool team_all(const Team& tm, bool p) {
+  return (__ballot_sync(0xffffffffu, p) & tm.mask) == tm.mask;
+}
+
+// cp.async of one element, global -> shared (4 or 8 bytes)
+__device__ __forceinline__ void cp_async_el(float* s, const float* g) {
+  const unsigned sa = (unsigned)__cvta_generic_to_shared(s);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(sa),
+               "l"(g)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_el(double* s, const double* g) {
+  const unsigned sa = (unsigned)__cvta_generic_to_shared(s);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(sa),
+               "l"(g)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// a (rows, cols) block, contiguous in global memory, into shared memory at
+// row stride ld: consecutive threads copy consecutive elements
+template <typename T>
+__device__ __forceinline__ void stage(T* s, int ld, const T* g, int rows,
+                                      int cols, const Team& tm) {
+  const int n = rows * cols;
+  for (int e = tm.t; e < n; e += tm.size) {
+    const int r = e / cols;
+    cp_async_el(s + r * ld + (e - r * cols), g + e);
+  }
+}
+
+// keys whose unsigned order is |x| with every NaN largest; a double in two
+// words, high first
+__device__ __forceinline__ unsigned abs_key(float x) {
+  return x != x ? 0xffffffffu : __float_as_uint(x) & 0x7fffffffu;
+}
+__device__ __forceinline__ unsigned abs_key_hi(double x) {
+  return x != x ? 0xffffffffu
+                : (unsigned)((unsigned long long)__double_as_longlong(x) >> 32)
+                      & 0x7fffffffu;
+}
+__device__ __forceinline__ unsigned abs_key_lo(double x) {
+  return x != x ? 0xffffffffu : (unsigned)__double_as_longlong(x);
+}
+
+// a column's pivot over the team: among the candidates the largest |v| (a
+// NaN largest), ties to the smallest tag; every thread of the team gets the
+// winner's tag.  A non-candidate holds key 0 and no tag, so it loses every
+// tie.  A whole-warp team reduces with redux.sync, a smaller one with a
+// shuffle butterfly over its first `span` threads (a power of two that
+// holds every candidate; the others get no winner and need none).
+__device__ __forceinline__ unsigned team_argmax(int TS, int span, bool cand,
+                                                float v, unsigned tag) {
+  constexpr unsigned FULL = 0xffffffffu;
+  unsigned key = cand ? abs_key(v) : 0u, tg = cand ? tag : FULL;
+  if (TS == 32) {
+    const unsigned kmax = __reduce_max_sync(FULL, key);
+    return __reduce_min_sync(FULL, key == kmax ? tg : FULL);
+  }
+  for (int off = span >> 1; off > 0; off >>= 1) {
+    const unsigned ok = __shfl_xor_sync(FULL, key, off, TS);
+    const unsigned ot = __shfl_xor_sync(FULL, tg, off, TS);
+    if (ok > key || (ok == key && ot < tg)) {
+      key = ok;
+      tg = ot;
+    }
+  }
+  return tg;
+}
+__device__ __forceinline__ unsigned team_argmax(int TS, int span, bool cand,
+                                                double v, unsigned tag) {
+  constexpr unsigned FULL = 0xffffffffu;
+  unsigned hi = cand ? abs_key_hi(v) : 0u, lo = cand ? abs_key_lo(v) : 0u;
+  unsigned tg = cand ? tag : FULL;
+  if (TS == 32) {
+    const unsigned hmax = __reduce_max_sync(FULL, hi);
+    const unsigned lmax = __reduce_max_sync(FULL, hi == hmax ? lo : 0u);
+    return __reduce_min_sync(FULL, hi == hmax && lo == lmax ? tg : FULL);
+  }
+  for (int off = span >> 1; off > 0; off >>= 1) {
+    const unsigned oh = __shfl_xor_sync(FULL, hi, off, TS);
+    const unsigned ol = __shfl_xor_sync(FULL, lo, off, TS);
+    const unsigned ot = __shfl_xor_sync(FULL, tg, off, TS);
+    if (oh > hi || (oh == hi && (ol > lo || (ol == lo && ot < tg)))) {
+      hi = oh;
+      lo = ol;
+      tg = ot;
+    }
+  }
+  return tg;
+}
+
+// the regions of a team's shared memory
+template <typename T>
+struct Smem {
+  T *G, *Y, *Yc, *A, *X, *Z, *D, *C, *V, *W, *TV, *VC, *IL;
+  int sG, sY, sYc, sA;  // row strides (odd: one row per thread is
+                        // conflict-free)
+};
+
+// ---- device rows: thread d evaluates device d of the Woodbury row order
+// (MOS/JFET, diode, BJT (two rows), switch, B source, charge MOS (five
+// rows)) at the iterate xs (index N reads 0) and writes its rows' constant
+// c[j] and coefficients v[q k + j], q < W (models/mosfet.py, diode.py,
+// bjt.py, switch.py, moscap.py and utils/expr.py eval_tape, formula for
+// formula).
+template <typename T, int MODE>
+__device__ __forceinline__ void device_rows(const StepArgs<T>& a,
+                                            long long lane, int d,
+                                            const T* xs, T* cs, T* vv,
+                                            const T* qprev, T tt) {
+  const int k = a.k, W = a.W;
   const long long B = a.B;
-  // terminal q of row j (the ground slot reads 0)
-  auto rd = [&](int q, int j) -> T {
-    const int c = a.row_cols[q * k + j];
-    return c < N ? xx[c] : T(0);
+  auto rd = [&](int q, int j) -> T { return xs[a.row_cols[q * k + j]]; };
+  auto put = [&](int j, T c, T v0, T v1, T v2, T v3) {
+    cs[j] = c;
+    vv[j] = v0;
+    vv[k + j] = v1;
+    vv[2 * k + j] = v2;
+    for (int q = 3; q < W; ++q) vv[q * k + j] = q == 3 ? v3 : T(0);
   };
-  if (k > 0) {
-    if constexpr (BSRC) {
-      for (int q = 3; q < W; ++q)
-        for (int j = 0; j < k; ++j) vco[q][j] = T(0);
-    } else if (W > 3) {
-      for (int j = 0; j < k; ++j) vco[3][j] = T(0);
+  const int nMJ = a.nMJ, nD = a.nD, nQ = a.nQ, nSw = a.nSw;
+  if (d < nMJ) {  // Level-1 MOS and JFET rows
+    const int j = d;
+    const T vd = rd(0, j), vg = rd(1, j), vs = rd(2, j);
+    const T vth = a.mosp[(0LL * nMJ + j) * B + lane];
+    const T kk = a.mosp[(1LL * nMJ + j) * B + lane];
+    const T lam = a.mosp[(2LL * nMJ + j) * B + lane];
+    const T pp = a.mosp[(3LL * nMJ + j) * B + lane];
+    const T vgs = pp * (vg - vs), vds = pp * (vd - vs);
+    const bool on = (vgs > vth) && (vds >= T(0));
+    const T vov = vgs - vth;
+    const bool tri = vds < vov;
+    const T ids0 = on ? (tri ? kk * (vov * vds - T(0.5) * vds * vds)
+                             : T(0.5) * kk * vov * vov)
+                      : T(0);
+    const T gds0 = on ? (tri ? kk * (vov - vds) : T(0)) : a.off_gds;
+    const T gm0 = on ? (tri ? kk * vds : kk * vov) : T(0);
+    T fac = T(1) + lam * vds;
+    fac = fac < T(0) ? T(0) : fac;
+    const T gd = gds0 * fac + ids0 * lam;
+    const T gg = gm0 * fac;
+    const T gs = -(gd + gg);
+    put(j, pp * ids0 * fac - gd * vd - gg * vg - gs * vs, gd, gg, gs, T(0));
+    return;
+  }
+  d -= nMJ;
+  if (d < nD) {  // diode rows: Shockley + breakdown
+    const int j = nMJ + d;
+    const T isat = a.diop[(0LL * nD + d) * B + lane];
+    const T nvt = a.diop[(1LL * nD + d) * B + lane];
+    const T bv = a.diop[(2LL * nD + d) * B + lane];
+    const T v = rd(0, j) - rd(1, j);
+    T e, de;
+    exp_lim(v / nvt, e, de);
+    T i = isat * (e - T(1));
+    T g = isat * de / nvt;
+    if (bv > T(0)) {
+      const T ibv = a.diop[(3LL * nD + d) * B + lane];
+      const T vt = a.diop[(4LL * nD + d) * B + lane];
+      exp_lim(-(v + bv) / vt, e, de);
+      i -= ibv * e;
+      g += ibv * de / vt;
     }
-    const int nMJ = a.nMJ, nD = a.nD, nQ = a.nQ, nSw = a.nSw;
-    for (int j = 0; j < nMJ; ++j) {  // Level-1 MOS and JFET rows
-      const T vd = rd(0, j), vg = rd(1, j), vs = rd(2, j);
-      const T vth = a.mosp[(0LL * nMJ + j) * B + lane];
-      const T kk = a.mosp[(1LL * nMJ + j) * B + lane];
-      const T lam = a.mosp[(2LL * nMJ + j) * B + lane];
-      const T pp = a.mosp[(3LL * nMJ + j) * B + lane];
-      const T vgs = pp * (vg - vs), vds = pp * (vd - vs);
-      const bool on = (vgs > vth) && (vds >= T(0));
-      const T vov = vgs - vth;
-      const bool tri = vds < vov;
-      const T ids0 = on ? (tri ? kk * (vov * vds - T(0.5) * vds * vds)
-                               : T(0.5) * kk * vov * vov)
-                        : T(0);
-      const T gds0 = on ? (tri ? kk * (vov - vds) : T(0)) : a.off_gds;
-      const T gm0 = on ? (tri ? kk * vds : kk * vov) : T(0);
-      T fac = T(1) + lam * vds;
-      fac = fac < T(0) ? T(0) : fac;
-      const T gd = gds0 * fac + ids0 * lam;
-      const T gg = gm0 * fac;
-      const T gs = -(gd + gg);
-      cst[j] = pp * ids0 * fac - gd * vd - gg * vg - gs * vs;
-      vco[0][j] = gd;
-      vco[1][j] = gg;
-      vco[2][j] = gs;
+    put(j, i - g * v, g, -g, T(0), T(0));
+    return;
+  }
+  d -= nD;
+  if (d < nQ) {  // BJT: Ebers-Moll, Ic row then Ib row
+    const int j = nMJ + nD + 2 * d;
+    const T vc = rd(0, j), vb = rd(1, j), ve = rd(2, j);
+    const T isat = a.bjtp[(0LL * nQ + d) * B + lane];
+    const T bf = a.bjtp[(1LL * nQ + d) * B + lane];
+    const T br = a.bjtp[(2LL * nQ + d) * B + lane];
+    const T pq = a.bjtp[(3LL * nQ + d) * B + lane];
+    const T vaf = a.bjtp[(4LL * nQ + d) * B + lane];
+    const T vt = a.bjtp[(5LL * nQ + d) * B + lane];
+    const T vbe = pq * (vb - ve), vbc = pq * (vb - vc);
+    T ef, def, er, der;
+    exp_lim(vbe / vt, ef, def);
+    exp_lim(vbc / vt, er, der);
+    const T i_f = isat * (ef - T(1)), i_r = isat * (er - T(1));
+    const T gf = isat * def / vt, gr = isat * der / vt;
+    T kq = T(1), dkq = T(0);
+    if (vaf > T(0)) {  // Early voltage, clamped for a large forward Vbc
+      const T raw = T(1) - vbc / vaf;
+      kq = raw > T(0.05) ? raw : T(0.05);
+      dkq = raw > T(0.05) ? T(-1) / vaf : T(0);
     }
-    for (int d = 0; d < nD; ++d) {  // diode rows: Shockley + breakdown
-      const int j = nMJ + d;
-      const T isat = a.diop[(0LL * nD + d) * B + lane];
-      const T nvt = a.diop[(1LL * nD + d) * B + lane];
-      const T bv = a.diop[(2LL * nD + d) * B + lane];
-      const T v = rd(0, j) - rd(1, j);
-      T e, de;
-      exp_lim(v / nvt, e, de);
-      T i = isat * (e - T(1));
-      T g = isat * de / nvt;
-      if (bv > T(0)) {
-        const T ibv = a.diop[(3LL * nD + d) * B + lane];
-        const T vt = a.diop[(4LL * nD + d) * B + lane];
-        exp_lim(-(v + bv) / vt, e, de);
-        i -= ibv * e;
-        g += ibv * de / vt;
-      }
-      cst[j] = i - g * v;
-      vco[0][j] = g;
-      vco[1][j] = -g;
-      vco[2][j] = T(0);
+    const T ic_eff = (i_f - i_r) * kq - i_r / br;
+    const T ib_eff = i_f / bf + i_r / br;
+    const T dic_dvbe = gf * kq;
+    const T dic_dvbc = -gr * kq + (i_f - i_r) * dkq - gr / br;
+    const T dib_dvbe = gf / bf, dib_dvbc = gr / br;
+    const T gc_c = -dic_dvbc, gc_b = dic_dvbe + dic_dvbc, gc_e = -dic_dvbe;
+    const T gb_c = -dib_dvbc, gb_b = dib_dvbe + dib_dvbc, gb_e = -dib_dvbe;
+    put(j, pq * ic_eff - gc_c * vc - gc_b * vb - gc_e * ve, gc_c, gc_b, gc_e,
+        T(0));
+    put(j + 1, pq * ib_eff - gb_c * vc - gb_b * vb - gb_e * ve, gb_c, gb_b,
+        gb_e, T(0));
+    return;
+  }
+  d -= nQ;
+  if (d < nSw) {  // switch: log-smoothstep conductance
+    const int j = nMJ + nD + 2 * nQ + d;
+    const T vd = rd(0, j) - rd(1, j), vc = rd(2, j) - rd(3, j);
+    const T ron = a.swp[(0LL * nSw + d) * B + lane];
+    const T roff = a.swp[(1LL * nSw + d) * B + lane];
+    const T svt = a.swp[(2LL * nSw + d) * B + lane];
+    const T svh = a.swp[(3LL * nSw + d) * B + lane];
+    const T l_on = log_(T(1) / ron), l_off = log_(T(1) / roff);
+    const bool has_win = svh > T(0);
+    const T width = has_win ? T(2) * svh : T(1);
+    const T u = has_win ? clamp01((vc - (svt - svh)) / width)
+                        : (vc > svt ? T(1) : T(0));
+    const T sm = u * u * (T(3) - T(2) * u);
+    const T G = exp_(l_off + (l_on - l_off) * sm);
+    const T dsdu = T(6) * u * (T(1) - u);
+    const T dG = has_win ? G * (l_on - l_off) * dsdu / width : T(0);
+    const T gc = dG * vd;
+    const T i0 = G * vd;  // the current is exactly G vd: i0 - gd vd == 0
+    put(j, (i0 - i0) - gc * vc, G, -G, gc, -gc);
+    return;
+  }
+  d -= nSw;
+  if constexpr (MODE == 2) {  // B rows: the expression's value and gradient
+    if (d < a.nB) {
+      const int j = nMJ + nD + 2 * nQ + nSw + d;
+      const int m = a.b_meta[6 * d + 3];
+      const T sig = a.b_meta[6 * d + 4] ? T(-1) : T(1);
+      T vals[BPROBES], g[BPROBES], e0;
+      for (int i = 0; i < m; ++i) vals[i] = rd(2 * i, j) - rd(2 * i + 1, j);
+      b_eval(a, lane, d, vals, tt, e0, g);
+      T gv = T(0);
+      for (int i = 0; i < m; ++i) gv += g[i] * vals[i];
+      cs[j] = sig * (e0 - gv);
+      for (int q = 0; q < W; ++q)
+        vv[q * k + j] = q < 2 * m ? (q & 1 ? -sig * g[q >> 1] : sig * g[q >> 1])
+                                  : T(0);
     }
-    for (int d = 0; d < nQ; ++d) {  // BJT: Ebers-Moll, Ic row then Ib row
-      const int j = nMJ + nD + 2 * d;
-      const T vc = rd(0, j), vb = rd(1, j), ve = rd(2, j);
-      const T isat = a.bjtp[(0LL * nQ + d) * B + lane];
-      const T bf = a.bjtp[(1LL * nQ + d) * B + lane];
-      const T br = a.bjtp[(2LL * nQ + d) * B + lane];
-      const T pq = a.bjtp[(3LL * nQ + d) * B + lane];
-      const T vaf = a.bjtp[(4LL * nQ + d) * B + lane];
-      const T vt = a.bjtp[(5LL * nQ + d) * B + lane];
-      const T vbe = pq * (vb - ve), vbc = pq * (vb - vc);
-      T ef, def, er, der;
-      exp_lim(vbe / vt, ef, def);
-      exp_lim(vbc / vt, er, der);
-      const T i_f = isat * (ef - T(1)), i_r = isat * (er - T(1));
-      const T gf = isat * def / vt, gr = isat * der / vt;
-      T kq = T(1), dkq = T(0);
-      if (vaf > T(0)) {  // Early voltage, clamped for a large forward Vbc
-        const T raw = T(1) - vbc / vaf;
-        kq = raw > T(0.05) ? raw : T(0.05);
-        dkq = raw > T(0.05) ? T(-1) / vaf : T(0);
-      }
-      const T ic_eff = (i_f - i_r) * kq - i_r / br;
-      const T ib_eff = i_f / bf + i_r / br;
-      const T dic_dvbe = gf * kq;
-      const T dic_dvbc = -gr * kq + (i_f - i_r) * dkq - gr / br;
-      const T dib_dvbe = gf / bf, dib_dvbc = gr / br;
-      const T gc_c = -dic_dvbc, gc_b = dic_dvbe + dic_dvbc, gc_e = -dic_dvbe;
-      const T gb_c = -dib_dvbc, gb_b = dib_dvbe + dib_dvbc, gb_e = -dib_dvbe;
-      cst[j] = pq * ic_eff - gc_c * vc - gc_b * vb - gc_e * ve;
-      cst[j + 1] = pq * ib_eff - gb_c * vc - gb_b * vb - gb_e * ve;
-      vco[0][j] = gc_c;
-      vco[1][j] = gc_b;
-      vco[2][j] = gc_e;
-      vco[0][j + 1] = gb_c;
-      vco[1][j + 1] = gb_b;
-      vco[2][j + 1] = gb_e;
-    }
-    for (int d = 0; d < nSw; ++d) {  // switch: log-smoothstep conductance
-      const int j = nMJ + nD + 2 * nQ + d;
-      const T vd = rd(0, j) - rd(1, j), vc = rd(2, j) - rd(3, j);
-      const T ron = a.swp[(0LL * nSw + d) * B + lane];
-      const T roff = a.swp[(1LL * nSw + d) * B + lane];
-      const T svt = a.swp[(2LL * nSw + d) * B + lane];
-      const T svh = a.swp[(3LL * nSw + d) * B + lane];
-      const T l_on = log_(T(1) / ron), l_off = log_(T(1) / roff);
-      const bool has_win = svh > T(0);
-      const T width = has_win ? T(2) * svh : T(1);
-      const T u = has_win ? clamp01((vc - (svt - svh)) / width)
-                          : (vc > svt ? T(1) : T(0));
-      const T sm = u * u * (T(3) - T(2) * u);
-      const T G = exp_(l_off + (l_on - l_off) * sm);
-      const T dsdu = T(6) * u * (T(1) - u);
-      const T dG = has_win ? G * (l_on - l_off) * dsdu / width : T(0);
-      const T gc = dG * vd;
-      const T i0 = G * vd;  // the current is exactly G vd: i0 - gd vd == 0
-      cst[j] = (i0 - i0) - gc * vc;
-      vco[0][j] = G;
-      vco[1][j] = -G;
-      vco[2][j] = gc;
-      vco[3][j] = -gc;
-    }
-    if constexpr (BSRC) {  // B rows: the expression's value and gradient
-      for (int b = 0; b < a.nB; ++b) {
-        const int j = nMJ + nD + 2 * nQ + nSw + b;
-        const int m = a.b_meta[6 * b + 3];
-        const T sig = a.b_meta[6 * b + 4] ? T(-1) : T(1);
-        T vals[BPROBES], g[BPROBES], e0;
-        for (int i = 0; i < m; ++i) vals[i] = rd(2 * i, j) - rd(2 * i + 1, j);
-        b_eval(a, lane, b, vals, tt, e0, g);
-        T gv = T(0);
-        for (int i = 0; i < m; ++i) gv += g[i] * vals[i];
-        cst[j] = sig * (e0 - gv);
-        for (int i = 0; i < m; ++i) {
-          vco[2 * i][j] = sig * g[i];
-          vco[2 * i + 1][j] = -sig * g[i];
-        }
-        for (int q = 2 * m; q < 3; ++q) vco[q][j] = T(0);
-      }
-    }
-    if constexpr (CHARGE) {  // charge rows: five per MOS, device-major
-      const int o_c = nMJ + nD + 2 * nQ + nSw;  // no B rows with CHARGE
-      for (int m = 0; m < a.nMq; ++m) {
-        const int j0 = o_c + 5 * m;
-        const T vd = rd(0, j0), vg = rd(1, j0), vs = rd(2, j0);
-        Dual<T> q[5];
-        mos_charges_at(a, lane, m, vd, vg, vs, q);
-        for (int r = 0; r < 5; ++r) {
-          const int j = j0 + r;
-          const T gd = q[r].d[0] * a.inv_dt, gg = q[r].d[1] * a.inv_dt;
-          const T gs = q[r].d[2] * a.inv_dt;
-          cst[j] = (q[r].v - qprev[5 * m + r]) * a.inv_dt - gd * vd - gg * vg -
-                   gs * vs;
-          vco[0][j] = gd;
-          vco[1][j] = gg;
-          vco[2][j] = gs;
-        }
+  }
+  if constexpr (MODE == 1) {  // charge rows: five per MOS, device-major
+    if (d < a.nMq) {
+      const int j0 = nMJ + nD + 2 * nQ + nSw + 5 * d;  // no B rows
+      const T vd = rd(0, j0), vg = rd(1, j0), vs = rd(2, j0);
+      Dual<T> q[5];
+      mos_charges_at(a, lane, d, vd, vg, vs, q);
+      for (int r = 0; r < 5; ++r) {
+        const T gd = q[r].d[0] * a.inv_dt, gg = q[r].d[1] * a.inv_dt;
+        const T gs = q[r].d[2] * a.inv_dt;
+        put(j0 + r,
+            (q[r].v - qprev[r]) * a.inv_dt - gd * vd - gg * vg - gs * vs, gd,
+            gg, gs, T(0));
       }
     }
-    for (int n = 0; n < N; ++n) {  // z = z0 - Y c
-      T acc = z0[n];
-      for (int j = 0; j < k; ++j)
-        acc -= a.YT[((long long)j * N + n) * B + lane] * cst[j];
-      zb[n] = acc;
+  }
+}
+
+// a[l] -= f p[l] for l from l0, rounded down to a 16-byte boundary, to l1,
+// 16 bytes a load and a store: the rows of the solve are 16-byte aligned,
+// padded to a whole number of 16 bytes, and every column below l0 that it
+// also updates is one the solve never reads again.  With self0 each a[l]
+// first subtracts 0 times itself (a pivot row's own step of Gauss-Jordan,
+// which turns a -0 into +0 and an infinity into NaN), in the same pass.
+__device__ __forceinline__ void row_axpy(float* a, const float* p, float f,
+                                         int l0, int l1, bool self0) {
+  for (int l = l0 & ~3; l <= l1; l += 4) {
+    float4 av = *reinterpret_cast<float4*>(a + l);
+    const float4 pv = *reinterpret_cast<const float4*>(p + l);
+    if (self0) {
+      av.x -= 0.0f * av.x;
+      av.y -= 0.0f * av.y;
+      av.z -= 0.0f * av.z;
+      av.w -= 0.0f * av.w;
     }
-    for (int j = 0; j < k; ++j) {  // S = I + V^T Y, vz = V^T z
-      for (int l = 0; l < k; ++l) {
-        T s = (j == l) ? T(1) : T(0);
-        for (int q = 0; q < W; ++q)
-          s += vco[q][j] * a.Yc3[(((long long)q * k + j) * k + l) * B + lane];
-        A[j][l] = s;
-      }
-      T s = T(0);
-      for (int q = 0; q < W; ++q) {
-        const int c = a.row_cols[q * k + j];
-        s += vco[q][j] * (c < N ? zb[c] : T(0));
-      }
-      bb[j] = s;
+    av.x -= f * pv.x;
+    av.y -= f * pv.y;
+    av.z -= f * pv.z;
+    av.w -= f * pv.w;
+    *reinterpret_cast<float4*>(a + l) = av;
+  }
+}
+__device__ __forceinline__ void row_axpy(double* a, const double* p,
+                                         double f, int l0, int l1,
+                                         bool self0) {
+  for (int l = l0 & ~1; l <= l1; l += 2) {
+    double2 av = *reinterpret_cast<double2*>(a + l);
+    const double2 pv = *reinterpret_cast<const double2*>(p + l);
+    if (self0) {
+      av.x -= 0.0 * av.x;
+      av.y -= 0.0 * av.y;
     }
-    if constexpr (KCAP <= UNROLL_K) {
-      for (int c = 0; c < k; ++c) {  // pivoted elimination
-        int p = c;
-        T best = absval(A[c][c]);
-        for (int i = c + 1; i < k; ++i) {
-          const T v = absval(A[i][c]);
-          if (v > best || (isnan_(v) && !isnan_(best))) {
-            best = v;
-            p = i;
-          }
-        }
-        if (p != c) {
-          for (int l = c; l < k; ++l) {
-            const T t = A[c][l];
-            A[c][l] = A[p][l];
-            A[p][l] = t;
-          }
-          const T t = bb[c];
-          bb[c] = bb[p];
-          bb[p] = t;
-        }
-        const T piv = A[c][c];
-        const T safe = piv != T(0) ? piv : T(1);
-        for (int i = c + 1; i < k; ++i) {
-          const T f = A[i][c] / safe;
-          for (int l = c + 1; l < k; ++l) A[i][l] -= f * A[c][l];
-          bb[i] -= f * bb[c];
-        }
+    av.x -= f * pv.x;
+    av.y -= f * pv.y;
+    *reinterpret_cast<double2*>(a + l) = av;
+  }
+}
+
+// acc + a[0] b[0] + ... + a[n-1] b[n-1] (SUB: acc - ...), the terms added
+// in index order: a is this thread's row (odd stride, one word a load, no
+// bank conflict across the team), b the team's vector, 16-byte aligned
+// and read 16 bytes a load (a broadcast)
+template <bool SUB>
+__device__ __forceinline__ float row_dot(float acc, const float* a,
+                                         const float* b, int n) {
+  int m = 0;
+  for (; m + 4 <= n; m += 4) {
+    const float4 bv = *reinterpret_cast<const float4*>(b + m);
+    if constexpr (SUB) {
+      acc -= a[m] * bv.x;
+      acc -= a[m + 1] * bv.y;
+      acc -= a[m + 2] * bv.z;
+      acc -= a[m + 3] * bv.w;
+    } else {
+      acc += a[m] * bv.x;
+      acc += a[m + 1] * bv.y;
+      acc += a[m + 2] * bv.z;
+      acc += a[m + 3] * bv.w;
+    }
+  }
+  for (; m < n; ++m) {
+    if constexpr (SUB) acc -= a[m] * b[m];
+    else acc += a[m] * b[m];
+  }
+  return acc;
+}
+template <bool SUB>
+__device__ __forceinline__ double row_dot(double acc, const double* a,
+                                          const double* b, int n) {
+  int m = 0;
+  for (; m + 2 <= n; m += 2) {
+    const double2 bv = *reinterpret_cast<const double2*>(b + m);
+    if constexpr (SUB) {
+      acc -= a[m] * bv.x;
+      acc -= a[m + 1] * bv.y;
+    } else {
+      acc += a[m] * bv.x;
+      acc += a[m + 1] * bv.y;
+    }
+  }
+  if (m < n) {
+    if constexpr (SUB) acc -= a[m] * b[m];
+    else acc += a[m] * b[m];
+  }
+  return acc;
+}
+
+// the k x k solve of the augmented rows A (k rows of k + 1 at stride sA,
+// thread j owns row j) into w; A is overwritten
+template <typename T>
+__device__ __forceinline__ void team_solve(const Team& tm, int k, T* A,
+                                           int sA, T* w) {
+  const int t = tm.t;
+  T* const Ar = A + t * sA;
+  int span = 1;  // the threads that hold rows of the solve, a power of two
+  while (span < k) span <<= 1;
+  if (k <= UNROLL_K) {  // pivoted elimination by position, no row moves
+    int pos = t;
+    for (int c = 0; c < k; ++c) {
+      const bool cand = t < k && pos >= c;
+      const unsigned win = team_argmax(tm.size, span, cand,
+                                       cand ? Ar[c] : T(0),
+                                       ((unsigned)pos << 5) | (unsigned)t);
+      const int pr = (int)(win & 31u), pp = (int)(win >> 5);
+      if (pos == c) pos = pp;       // the swap of positions c and pp
+      else if (pos == pp) pos = c;
+      if (t < k && pos > c) {       // the rows below read the pivot row
+        const T* const Ap = A + pr * sA;
+        const T piv = Ap[c];
+        row_axpy(Ar, Ap, Ar[c] / (piv != T(0) ? piv : T(1)), c + 1, k,
+                 false);
       }
-      for (int j = k - 1; j >= 0; --j) {  // back substitution
+      __syncwarp();
+    }
+    for (int j = k - 1; j >= 0; --j) {  // back substitution
+      if (t < k && pos == j) {
         T acc = T(0);
-        for (int l = j + 1; l < k; ++l) acc += A[j][l] * w[l];
-        const T d = A[j][j];
-        w[j] = (bb[j] - acc) / (d != T(0) ? d : T(1));
+        for (int l = j + 1; l < k; ++l) acc += Ar[l] * w[l];
+        const T d = Ar[j];
+        w[j] = (Ar[k] - acc) / (d != T(0) ? d : T(1));
       }
-    } else {  // column-pivoted Gauss-Jordan (pallas_step.py:1126-1160)
-      bool used[KCAP];
-      int colof[KCAP];
-      T rowp[KCAP];
-      for (int i = 0; i < k; ++i) used[i] = false;
-      for (int c = 0; c < k; ++c) {
-        int p = 0;
-        T best = used[0] ? T(-1) : absval(A[0][c]);
-        for (int i = 1; i < k; ++i) {
-          const T v = used[i] ? T(-1) : absval(A[i][c]);
-          if (v > best || (isnan_(v) && !isnan_(best))) {
-            best = v;
-            p = i;
-          }
-        }
-        for (int l = 0; l < k; ++l) rowp[l] = A[p][l];
-        const T bp = bb[p];
-        const T piv = rowp[c];
-        const T safe = piv != T(0) ? piv : T(1);
-        for (int i = 0; i < k; ++i) {  // the pivot row subtracts 0 x itself
-          const T f = i == p ? T(0) : A[i][c] / safe;
-          for (int l = 0; l < k; ++l) A[i][l] -= f * rowp[l];
-          bb[i] -= f * bp;
-        }
-        used[p] = true;
-        colof[p] = c;
+      __syncwarp();
+    }
+  } else {  // column-pivoted Gauss-Jordan (pallas_step.py:1126-1160)
+    bool used = false, pend = false;
+    int colof = 0;
+    for (int c = 0; c < k; ++c) {
+      const bool cand = t < k && !used;
+      const int pr = (int)team_argmax(tm.size, span, cand,
+                                      cand ? Ar[c] : T(0),
+                                      (unsigned)t);
+      if (t < k && t != pr) {  // last column's pivot row: first itself x 0
+        const T* const Ap = A + pr * sA;
+        const T piv = Ap[c];
+        T f = Ar[c];
+        if (pend) f -= T(0) * f;
+        row_axpy(Ar, Ap, f / (piv != T(0) ? piv : T(1)), 0, k, pend);
+        pend = false;
       }
-      for (int p = 0; p < k; ++p) {  // w[c(p)] = bb[p] / A[p][c(p)]
-        const T d = A[p][colof[p]];
-        w[colof[p]] = bb[p] / (d != T(0) ? d : T(1));
+      if (t == pr) {
+        used = pend = true;
+        colof = c;
+      }
+      __syncwarp();
+    }
+    if (t < k) {
+      if (pend) row_axpy(Ar, Ar, T(0), 0, k, false);
+      const T d = Ar[colof];  // w[c(p)] = bb[p] / A[p][c(p)]
+      w[colof] = Ar[k] / (d != T(0) ? d : T(1));
+    }
+    __syncwarp();
+  }
+}
+
+// One Newton iteration of the team's lane: xx (this thread's rows) the
+// iterate, z0 = G0^-1 b0, zr scratch (z), qprev the charges of the step's
+// incoming x (the charge thread's), tt the step's time (B rows).  A lane
+// that is not active (done before a damped iteration that its warp runs
+// for other lanes) changes nothing: accept freezes it, and it raises no
+// failed flag.
+template <typename T, int MODE>
+__device__ __forceinline__ void team_iter(const StepArgs<T>& a,
+                                          const Team& tm, long long lane,
+                                          const Smem<T>& s, T (&xx)[MAXROWS],
+                                          const T (&z0)[MAXROWS], T (&zr)[MAXROWS],
+                                          const T* qprev, T tt, bool active,
+                                          bool& done, bool& fl) {
+  const int N = a.N, k = a.k, W = a.W, t = tm.t, TS = tm.size;
+  T xraw[MAXROWS];
+  if (k > 0) {
+    const int nDev = a.nMJ + a.nD + a.nQ + a.nSw + a.nB + a.nMq;
+    if (t < nDev) device_rows<T, MODE>(a, lane, t, s.X, s.C, s.V, qprev, tt);
+    __syncwarp();
+#pragma unroll
+    for (int r = 0; r < MAXROWS; ++r) {  // z = z0 - Y c
+      const int n = t + r * TS;
+      if (r < a.rows && n < N) {
+        zr[r] = row_dot<true>(z0[r], s.Y + n * s.sY, s.C, k);
+        s.Z[n] = zr[r];
       }
     }
-    for (int n = 0; n < N; ++n) {  // x_raw = z - Y w
-      T acc = zb[n];
-      for (int j = 0; j < k; ++j)
-        acc -= a.YT[((long long)j * N + n) * B + lane] * w[j];
-      zb[n] = acc;
+    __syncwarp();
+    if (t < k) {  // row j of S = I + V^T Y and vz_j = (V^T z)_j
+      const int j = t;
+      T vq[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) vq[q] = q < W ? s.V[q * k + j] : T(0);
+      T* const Aj = s.A + j * s.sA;
+      const T* const yc = s.Yc + j * s.sYc;
+      for (int l = 0; l < k; ++l) {
+        T acc = (j == l) ? T(1) : T(0);
+#pragma unroll
+        for (int q = 0; q < 8; ++q)
+          if (q < W) acc += vq[q] * yc[q * k + l];
+        Aj[l] = acc;
+      }
+      T acc = T(0);
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        if (q < W) acc += vq[q] * s.Z[a.row_cols[q * k + j]];
+      Aj[k] = acc;
+    }
+    __syncwarp();
+    team_solve(tm, k, s.A, s.sA, s.W);
+#pragma unroll
+    for (int r = 0; r < MAXROWS; ++r) {  // x_raw = z - Y w
+      const int n = t + r * TS;
+      xraw[r] = zr[r];
+      if (r < a.rows && n < N)
+        xraw[r] = row_dot<true>(zr[r], s.Y + n * s.sY, s.W, k);
     }
   } else {
-    for (int n = 0; n < N; ++n) zb[n] = z0[n];  // linear deck: x_raw = z0
+#pragma unroll
+    for (int r = 0; r < MAXROWS; ++r) xraw[r] = z0[r];  // linear deck: x_raw = z0
   }
   // accept: clamp, damping, tolerance on the damped step, freeze
-  bool finite = true;
-  T err2 = T(0);
-  for (int n = 0; n < N; ++n) {
-    const T xr = zb[n];
-    finite = finite && finite_(xr);
-    T u = xr - xx[n];
-    if (a.clamp > T(0)) u = u < -a.clamp ? -a.clamp : (u > a.clamp ? a.clamp : u);
-    const T xn = xx[n] + a.alpha * u;
-    const T d = xn - xx[n];
-    err2 += d * d;
-    zb[n] = xn;
+  bool fin = true;
+  T xn[MAXROWS];
+#pragma unroll
+  for (int r = 0; r < MAXROWS; ++r) {
+    const int n = t + r * TS;
+    xn[r] = xx[r];
+    if (r < a.rows && n < N) {
+      fin = fin && finite_(xraw[r]);
+      T u = xraw[r] - xx[r];
+      if (a.clamp > T(0))
+        u = u < -a.clamp ? -a.clamp : (u > a.clamp ? a.clamp : u);
+      xn[r] = xx[r] + a.alpha * u;
+      s.D[n] = xn[r] - xx[r];
+    }
   }
+  const bool finite = team_all(tm, fin);
+  __syncwarp();
+  // err^2 by every thread, in index order: team-uniform
+  const T err2 = row_dot<false>(T(0), s.D, s.D, N);
   const bool upd = finite && !done;
-  if (upd)
-    for (int n = 0; n < N; ++n) xx[n] = zb[n];
+  if (upd) {
+#pragma unroll
+    for (int r = 0; r < MAXROWS; ++r) {
+      const int n = t + r * TS;
+      xx[r] = xn[r];
+      if (r < a.rows && n < N) s.X[n] = xn[r];
+    }
+  }
   done = done || (upd && err2 < a.tol2) || !finite;
-  fl = fl || !finite;
+  fl = fl || (!finite && active);
+  __syncwarp();
 }
 
-// K1c-iii: the noise value of source s at step i (0 for a source without
-// noise).  Out of line, as the ring's functions are.
-template <typename T>
-__device__ __noinline__ T tn_noise(const T* noise, const int* noise_col,
-                                   int nN, long long B, long long lane, int i,
-                                   int s) {
-  const int c = noise_col[s];
-  return c < 0 ? T(0) : noise[((long long)i * nN + c) * B + lane];
-}
+// blocks of 256 threads an SM the registers must allow: three (85
+// registers) for the float32 K1a/K1b rows with G0^-1 in shared memory,
+// whose residency its shared memory bounds first; two (128) for the
+// others, whose G0^-1 row, float64 words or device code would spill
+#define K1_MIN_BLOCKS(T, GREG, MODE) \
+  ((sizeof(T) == 4 && !(GREG) && (MODE) == 0) ? 3 : 2)
 
-// K1c-ii: the EMFs of step i, E1_j <- w2_j and E2_j <- w1_j of ticks_j steps
-// ago (slot (ticks_j - 1 - i) mod Dmax), added into the RHS zb.  Out of line,
-// with the few fields it needs as arguments: the ring adds no registers to
-// the allocation of the Newton loop.
-template <typename T>
-__device__ __noinline__ void tl_emfs(const T* ring, const int* tl_read,
-                                     const int* tl_plan, int nT, int Dmax,
-                                     long long B, long long lane, int i,
-                                     T* zb) {
-  const int head = i % Dmax;
-  for (int j = 0; j < nT; ++j) {
-    int slot = tl_read[j] - head;
-    if (slot < 0) slot += Dmax;
-    const T* r = ring + (long long)slot * 2 * nT * B + lane;
-    zb[tl_plan[2 * nT + j]] += r[(long long)(nT + j) * B];
-    zb[tl_plan[5 * nT + j]] += r[(long long)j * B];
-  }
-}
-
-// K1c-ii: push the waves of the accepted x of step i into slot
-// (-(i + 1)) mod Dmax, w1 of every line then w2.
-template <typename T>
-__device__ __noinline__ void tl_push(T* ring, const int* tl_plan,
-                                     const T* tl_z0, int nT, int Dmax,
-                                     long long B, int N, long long lane,
-                                     int i, const T* xx) {
-  T* r = ring + (long long)(Dmax - 1 - i % Dmax) * 2 * nT * B + lane;
-  for (int q = 0; q < 2 * nT; ++q) {
-    const int j = q < nT ? q : q - nT;
-    const int* pl = tl_plan + (q < nT ? 0 : 3) * nT + j;
-    const int ep = pl[0], em = pl[nT], kk = pl[2 * nT];
-    const T d = (ep < N ? xx[ep] : T(0)) - (em < N ? xx[em] : T(0));
-    r[(long long)q * B] = add_mul_rn(d, tl_z0[j * B + lane], xx[kk]);
-  }
-}
-
-template <typename T, int KCAP, bool CHARGE, bool BSRC>
-__global__ void __launch_bounds__(128) fused_step_kernel(const StepArgs<T> a) {
-  const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= a.B) return;
+// the kernel: one team per lane, lpb teams per block.  GREG: thread n holds
+// row n of G0^-1 in registers (float32, N <= 32); MODE 0: the K1a/K1b rows,
+// 1: with the charge rows, 2: with the B rows.
+template <typename T, bool GREG, int MODE>
+__global__ void __launch_bounds__(256, K1_MIN_BLOCKS(T, GREG, MODE))
+    fused_step_team(const StepArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int TS = a.team;
+  const int team = threadIdx.x / TS;
+  // a team past the last lane runs lane B - 1's arithmetic beside the
+  // others of its warp (their collectives name the whole warp), done from
+  // the start, and stores nothing
+  const long long lane0 = (long long)blockIdx.x * a.lpb + team;
+  const bool live = lane0 < a.B;
+  const long long lane = live ? lane0 : a.B - 1;
+  Team tm;
+  tm.t = threadIdx.x - team * TS;
+  tm.size = TS;
+  const int base = (threadIdx.x & 31) - tm.t;
+  tm.mask = TS == 32 ? 0xffffffffu : ((1u << TS) - 1u) << base;
+  const int t = tm.t;
+  const int N = a.N, k = a.k, W = a.W;
   const long long B = a.B;
-  const int N = a.N;
-  T x[MAXN], xp[MAXN], xx[MAXN], z0[MAXN], zb[MAXN + 1];
-  T cst[KCAP], vco[BSRC ? 8 : 4][KCAP], A[KCAP][KCAP], bb[KCAP], w[KCAP];
-  T qprev[CHARGE ? KCAP : 1];
-  for (int n = 0; n < N; ++n) {
-    x[n] = a.x[n * B + lane];
-    xp[n] = a.xprev[n * B + lane];
+  T* const sm = reinterpret_cast<T*>(smem_raw) + (long long)team * a.team_words;
+  Smem<T> s;
+  s.G = sm + a.lay[L_G];
+  s.Y = sm + a.lay[L_Y];
+  s.Yc = sm + a.lay[L_YC];
+  s.A = sm + a.lay[L_A];
+  s.X = sm + a.lay[L_X];
+  s.Z = sm + a.lay[L_Z];
+  s.D = sm + a.lay[L_D];
+  s.C = sm + a.lay[L_C];
+  s.V = sm + a.lay[L_V];
+  s.W = sm + a.lay[L_W];
+  s.TV = sm + a.lay[L_TV];
+  s.VC = sm + a.lay[L_VC];
+  s.IL = sm + a.lay[L_IL];
+  s.sG = a.lay[S_G];
+  s.sY = a.lay[S_Y];
+  s.sYc = a.lay[S_YC];
+  s.sA = a.lay[S_A];
+  // the lane's constants on chip for the whole launch
+  if constexpr (!GREG) stage(s.G, s.sG, a.G0inv + lane * N * N, N, N, tm);
+  if (k > 0) {
+    stage(s.Y, s.sY, a.Y + lane * N * k, N, k, tm);
+    stage(s.Yc, s.sYc, a.Yc3 + lane * k * W * k, k, W * k, tm);
   }
-  bool failed = a.failed[lane] != 0;
+  T g[GREG ? GREG_CAP : 1];
+  if constexpr (GREG) {
+    const T* gr = a.G0inv + (lane * N + (t < N ? t : 0)) * N;
+#pragma unroll
+    for (int m = 0; m < GREG_CAP; ++m) g[m] = (m < N && t < N) ? gr[m] : T(0);
+  }
+  // the carry: x and x_prev in registers, vc and il in shared memory
+  T xr[MAXROWS], xpr[MAXROWS], xx[MAXROWS], z0[MAXROWS], zr[MAXROWS];
+#pragma unroll
+  for (int r = 0; r < MAXROWS; ++r) {
+    const int n = t + r * TS;
+    const bool own = r < a.rows && n < N;
+    xr[r] = own ? a.x[lane * N + n] : T(0);
+    xpr[r] = own ? a.xprev[lane * N + n] : T(0);
+    xx[r] = z0[r] = zr[r] = T(0);
+  }
+  const int nS = a.nS, nL = a.nL, nCap = a.nCap, nT = a.nT;
+  for (int j = t; j < nCap; j += TS) s.VC[j] = a.vc[lane * nCap + j];
+  for (int j = t; j < nL; j += TS) s.IL[j] = a.il[lane * nL + j];
+  if (t == 0) {
+    s.X[N] = T(0);  // the ground slot
+    s.Z[N] = T(0);
+  }
+  // the charge thread: device index t is its MOS's
+  const int o_q = a.nMJ + a.nD + a.nQ + a.nSw;
+  const int mq = t - o_q;
+  T qp[MODE == 1 ? 5 : 1];
+  qp[0] = T(0);
+  const int o_l = nS, o_c = nS + nL, o_e = nS + nL + nCap;
+  bool failed = !live || a.failed[lane] != 0;
   int it_total = 0;
+  cp_async_wait_all();
+  __syncwarp();
   for (int i = 0; i < a.n_steps; ++i) {
     const T tt = T(a.step0 + i + 1) * a.dt;
-    // RHS: sources, inductor and capacitor history
-    for (int n = 0; n <= N; ++n) zb[n] = T(0);
-    for (int s = 0; s < a.nS; ++s) {
-      T v = source_value(a, s, tt, lane);
-      if (a.nN)  // this step's TRNOISE value of the source
-        v += tn_noise(a.noise, a.noise_col, a.nN, B, lane, i, s);
-      zb[a.src_pos[s]] += v;
-      zb[a.src_neg[s]] -= v;
+    // the step's terms: sources, inductor and capacitor history, EMFs
+    for (int sI = t; sI < nS; sI += TS) {
+      T v = source_value(a, sI, tt, lane);
+      if (a.nN) {  // this step's TRNOISE value of the source
+        const int c = a.noise_col[sI];
+        if (c >= 0) v += a.noise[((long long)i * a.nN + c) * B + lane];
+      }
+      s.TV[sI] = v;
     }
-    for (int j = 0; j < a.nL; ++j)
-      zb[a.ind_k[j]] += -(a.gl[j * B + lane] * a.il[j * B + lane]);
-    for (int j = 0; j < a.nCap; ++j) {
-      const T h = a.gc[j * B + lane] * a.vc[j * B + lane];
-      zb[a.cap_a[j]] += h;
-      zb[a.cap_b[j]] -= h;
-    }
-    if (a.nT)  // the EMFs of ticks steps ago, read before this step's push
-      tl_emfs(a.ring, a.tl_read, a.tl_plan, a.nT, a.Dmax, B, lane, i, zb);
-    for (int n = 0; n < N; ++n) {  // z0 = G0^-1 b0, contraction-major reads
-      T acc = T(0);
-      for (int m = 0; m < N; ++m)
-        acc += a.G0invT[((long long)m * N + n) * B + lane] * zb[m];
-      z0[n] = acc;
-    }
-    for (int n = 0; n < N; ++n)
-      xx[n] = a.predictor ? T(2) * x[n] - xp[n] : x[n];
-    if constexpr (CHARGE) {  // q_prev = q(x of the previous step)
-      const int o_c = a.nMJ + a.nD + 2 * a.nQ + a.nSw;
-      for (int m = 0; m < a.nMq; ++m) {
-        T v[3];
-        for (int q = 0; q < 3; ++q) {
-          const int c = a.row_cols[q * a.k + o_c + 5 * m];
-          v[q] = c < N ? x[c] : T(0);
-        }
-        Dual<T> qm[5];
-        mos_charges_at(a, lane, m, v[0], v[1], v[2], qm);
-        for (int r = 0; r < 5; ++r) qprev[5 * m + r] = qm[r].v;
+    for (int j = t; j < nL; j += TS)
+      s.TV[o_l + j] = -(a.gl[j * B + lane] * s.IL[j]);
+    for (int j = t; j < nCap; j += TS)
+      s.TV[o_c + j] = a.gc[j * B + lane] * s.VC[j];
+    if (nT) {  // E1_j <- w2_j, E2_j <- w1_j of ticks_j steps ago
+      const int head = i % a.Dmax;
+      for (int q = t; q < 2 * nT; q += TS) {
+        const int j = q >> 1;
+        int slot = a.tl_read[j] - head;
+        if (slot < 0) slot += a.Dmax;
+        s.TV[o_e + q] = a.ring[((long long)slot * 2 * nT +
+                                ((q & 1) ? j : nT + j)) * B + lane];
       }
     }
+    __syncwarp();
+#pragma unroll
+    for (int r = 0; r < MAXROWS; ++r) {  // b0: row n's terms in scatter order
+      const int n = t + r * TS;
+      if (r < a.rows && n < N) {
+        T acc = T(0);
+        for (int e = a.rhs_ptr[n]; e < a.rhs_ptr[n + 1]; ++e) {
+          const int c = a.rhs_idx[e];
+          const T v = s.TV[c >> 1];
+          acc = (c & 1) ? acc - v : acc + v;
+        }
+        s.Z[n] = acc;
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int r = 0; r < MAXROWS; ++r) {  // z0 = G0^-1 b0, m in order
+      const int n = t + r * TS;
+      T acc = T(0);
+      if (r < a.rows && n < N) {
+        if constexpr (GREG) {  // float32: b0 16 bytes a load
+#pragma unroll
+          for (int m = 0; m < GREG_CAP; m += 4) {
+            if (m < N) {
+              const float4 zv = *reinterpret_cast<const float4*>(s.Z + m);
+              acc += g[m] * zv.x;
+              if (m + 1 < N) acc += g[m + 1] * zv.y;
+              if (m + 2 < N) acc += g[m + 2] * zv.z;
+              if (m + 3 < N) acc += g[m + 3] * zv.w;
+            }
+          }
+        } else {
+          acc = row_dot<false>(acc, s.G + n * s.sG, s.Z, N);
+        }
+      }
+      z0[r] = acc;
+      xx[r] = a.predictor ? T(2) * xr[r] - xpr[r] : xr[r];
+    }
+    if constexpr (MODE == 1) {  // q_prev = q(x of the previous step)
+#pragma unroll
+      for (int r = 0; r < MAXROWS; ++r) {
+        const int n = t + r * TS;
+        if (r < a.rows && n < N) s.X[n] = xr[r];
+      }
+      __syncwarp();
+      if (mq >= 0 && mq < a.nMq) {
+        const int j0 = a.nMJ + a.nD + 2 * a.nQ + a.nSw + 5 * mq;  // its rows
+        Dual<T> qm[5];
+        mos_charges_at(a, lane, mq, s.X[a.row_cols[j0]],
+                       s.X[a.row_cols[k + j0]], s.X[a.row_cols[2 * k + j0]],
+                       qm);
+        for (int r = 0; r < 5; ++r) qp[r] = qm[r].v;
+      }
+      __syncwarp();
+    }
+#pragma unroll
+    for (int r = 0; r < MAXROWS; ++r) {
+      const int n = t + r * TS;
+      if (r < a.rows && n < N) s.X[n] = xx[r];
+    }
+    __syncwarp();  // also orders the z0 reads of Z before z is written
     bool done = failed, fl = failed;
     int its = 0;
     if (a.unrolled > 0) {
       for (; its < a.unrolled; ++its)
-        newton_iter<T, KCAP, CHARGE, BSRC>(a, lane, xx, z0, zb, cst, vco, A,
-                                           bb, w, qprev, tt, done, fl);
-    } else {
-      for (; !done && its < a.max_nr; ++its)
-        newton_iter<T, KCAP, CHARGE, BSRC>(a, lane, xx, z0, zb, cst, vco, A,
-                                           bb, w, qprev, tt, done, fl);
+        team_iter<T, MODE>(a, tm, lane, s, xx, z0, zr, qp, tt, true, done,
+                           fl);
+    } else {  // the warp iterates while one of its lanes is not done
+      for (int w = 0; w < a.max_nr; ++w) {
+        const bool active = !done;
+        if (!__any_sync(0xffffffffu, active)) break;
+        team_iter<T, MODE>(a, tm, lane, s, xx, z0, zr, qp, tt, active, done,
+                           fl);
+        its += active;
+      }
     }
     it_total += its;
-    if (a.ys != nullptr) {  // the probe stream: probe_mat @ x, lane-minor
+    if (live && a.ys != nullptr) {  // the probe stream: probe_mat @ x
       T* yi = a.ys + (long long)i * a.nP * B + lane;
-      for (int p = 0; p < a.nP; ++p) {
+      for (int p = t; p < a.nP; p += TS) {
         T acc = T(0);
-        for (int n = 0; n < N; ++n) acc += a.probe_mat[p * N + n] * xx[n];
+        for (int n = 0; n < N; ++n) acc += a.probe_mat[p * N + n] * s.X[n];
         yi[(long long)p * B] = acc;
       }
     }
     // history from the accepted x
-    for (int j = 0; j < a.nCap; ++j) {
-      const int ca = a.cap_a[j], cb = a.cap_b[j];
-      a.vc[j * B + lane] = (ca < N ? xx[ca] : T(0)) - (cb < N ? xx[cb] : T(0));
+    for (int j = t; j < nCap; j += TS)
+      s.VC[j] = s.X[a.cap_a[j]] - s.X[a.cap_b[j]];
+    for (int j = t; j < nL; j += TS) s.IL[j] = s.X[a.ind_k[j]];
+    if (live && nT) {  // push this step's waves into slot -(i + 1) mod Dmax
+      T* rg = a.ring + (long long)(a.Dmax - 1 - i % a.Dmax) * 2 * nT * B +
+              lane;
+      for (int q = t; q < 2 * nT; q += TS) {
+        const int j = q < nT ? q : q - nT;
+        const int* pl = a.tl_plan + (q < nT ? 0 : 3) * nT + j;
+        const T d = s.X[pl[0]] - s.X[pl[nT]];
+        rg[(long long)q * B] = add_mul_rn(d, a.tl_z0[j * B + lane],
+                                          s.X[pl[2 * nT]]);
+      }
     }
-    for (int j = 0; j < a.nL; ++j) a.il[j * B + lane] = xx[a.ind_k[j]];
-    if (a.nT)  // push this step's waves
-      tl_push(a.ring, a.tl_plan, a.tl_z0, a.nT, a.Dmax, B, N, lane, i, xx);
-    for (int n = 0; n < N; ++n) {
-      xp[n] = x[n];
-      x[n] = xx[n];
+    __syncwarp();
+#pragma unroll
+    for (int r = 0; r < MAXROWS; ++r) {
+      xpr[r] = xr[r];
+      xr[r] = xx[r];
     }
     failed = fl;
   }
-  for (int n = 0; n < N; ++n) {
-    a.x[n * B + lane] = x[n];
-    a.xprev[n * B + lane] = xp[n];
+  if (!live) return;
+#pragma unroll
+  for (int r = 0; r < MAXROWS; ++r) {
+    const int n = t + r * TS;
+    if (r < a.rows && n < N) {
+      a.x[lane * N + n] = xr[r];
+      a.xprev[lane * N + n] = xpr[r];
+    }
   }
-  a.failed[lane] = failed ? 1 : 0;
-  a.iters[lane] = it_total;
+  for (int j = t; j < nCap; j += TS) a.vc[lane * nCap + j] = s.VC[j];
+  for (int j = t; j < nL; j += TS) a.il[lane * nL + j] = s.IL[j];
+  if (t == 0) {
+    a.failed[lane] = failed ? 1 : 0;
+    a.iters[lane] = it_total;
+  }
 }
 
-template <typename T, int KCAP, bool CHARGE, bool BSRC>
-static int launch_as(const StepArgs<T>& a, int threads, void* stream) {
-  const int blocks = (a.B + threads - 1) / threads;
-  fused_step_kernel<T, KCAP, CHARGE, BSRC>
-      <<<blocks, threads, 0, (cudaStream_t)stream>>>(a);
+template <typename T, bool GREG, int MODE>
+static int launch_as(const StepArgs<T>& a, void* stream) {
+  const size_t smem = (size_t)a.lpb * a.team_words * sizeof(T);
+  auto kern = fused_step_team<T, GREG, MODE>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int blocks = (a.B + a.lpb - 1) / a.lpb;
+  kern<<<blocks, a.lpb * a.team, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int pick(const StepArgs<T>& a, bool greg, void* stream) {
+  const int mode = a.nB ? 2 : (a.nMq ? 1 : 0);
+  if constexpr (sizeof(T) == 4) {
+    if (greg)
+      return mode == 2   ? launch_as<T, true, 2>(a, stream)
+             : mode == 1 ? launch_as<T, true, 1>(a, stream)
+                         : launch_as<T, true, 0>(a, stream);
+  }
+  return mode == 2   ? launch_as<T, false, 2>(a, stream)
+         : mode == 1 ? launch_as<T, false, 1>(a, stream)
+                     : launch_as<T, false, 0>(a, stream);
 }
 
 // ptrs: the 41 arrays in StepArgs order (the charge pack, then the B tapes,
 // metadata and constants, then the probe matrix and ys, null without
 // probes, then the T-line read slots, plan, Z0 and ring, the ring null
 // without lines, then the noise rows and block, null without noise); ints:
-// B N k nS P nL nCap unrolled max_nr predictor n_steps step0 threads nMJ
-// nD nQ nSw W nMq nB nP nT Dmax nN; reals: dt tol2
-// alpha clamp off_gds inv_dt.  B sources launch the B instantiation (k <= 16,
-// no charge rows); otherwise k <= 16 launches the elimination instantiation,
-// 16 < k <= 32 the Gauss-Jordan one, each with the charge rows when
-// nMq > 0.
+// B N k nS P nL nCap unrolled max_nr predictor n_steps step0 route nMJ nD
+// nQ nSw W nMq nB nP nT Dmax nN, then the plan: team rows lpb team_words
+// and the 17 layout entries (ops/cuda_step.py LAYOUT); route 1 holds G0^-1
+// in registers (float32 only); reals: dt tol2 alpha clamp off_gds inv_dt.
 template <typename T>
 static int launch(void* const* ptrs, const long long* ints,
                   const double* reals, void* stream) {
   StepArgs<T> a;
   int p = 0;
-  a.G0invT = (const T*)ptrs[p++];
-  a.YT = (const T*)ptrs[p++];
+  a.G0inv = (const T*)ptrs[p++];
+  a.Y = (const T*)ptrs[p++];
   a.Yc3 = (const T*)ptrs[p++];
   a.mosp = (const T*)ptrs[p++];
   a.diop = (const T*)ptrs[p++];
@@ -1208,12 +1594,12 @@ static int launch(void* const* ptrs, const long long* ints,
   a.gc = (const T*)ptrs[p++];
   a.gl = (const T*)ptrs[p++];
   a.kinds = (const int*)ptrs[p++];
-  a.src_pos = (const int*)ptrs[p++];
-  a.src_neg = (const int*)ptrs[p++];
   a.ind_k = (const int*)ptrs[p++];
   a.cap_a = (const int*)ptrs[p++];
   a.cap_b = (const int*)ptrs[p++];
   a.row_cols = (const int*)ptrs[p++];
+  a.rhs_ptr = (const int*)ptrs[p++];
+  a.rhs_idx = (const int*)ptrs[p++];
   a.x = (T*)ptrs[p++];
   a.xprev = (T*)ptrs[p++];
   a.vc = (T*)ptrs[p++];
@@ -1245,7 +1631,7 @@ static int launch(void* const* ptrs, const long long* ints,
   a.predictor = (int)ints[9];
   a.n_steps = (int)ints[10];
   a.step0 = ints[11];
-  const int threads = (int)ints[12];
+  const bool greg = ints[12] != 0;
   a.nMJ = (int)ints[13];
   a.nD = (int)ints[14];
   a.nQ = (int)ints[15];
@@ -1257,6 +1643,11 @@ static int launch(void* const* ptrs, const long long* ints,
   a.nT = (int)ints[21];
   a.Dmax = (int)ints[22];
   a.nN = (int)ints[23];
+  a.team = (int)ints[24];
+  a.rows = (int)ints[25];
+  a.lpb = (int)ints[26];
+  a.team_words = (int)ints[27];
+  for (int i = 0; i < NLAY; ++i) a.lay[i] = (int)ints[28 + i];
   a.dt = (T)reals[0];
   a.tol2 = (T)reals[1];
   a.alpha = (T)reals[2];
@@ -1270,8 +1661,13 @@ static int launch(void* const* ptrs, const long long* ints,
       (a.nB ? (a.W < w0 || a.W > 8 || a.k > UNROLL_K || a.nMq)
             : a.W != w0))
     return (int)cudaErrorInvalidValue;
-  if (a.N > MAXN || a.k > MAXK || a.N <= 0 || a.k < 0 || threads <= 0 ||
-      threads > 128)
+  if (a.N > MAXN || a.k > MAXK || a.N <= 0 || a.k < 0)
+    return (int)cudaErrorInvalidValue;
+  if (a.team < 2 || a.team > 32 || (a.team & (a.team - 1)) || a.rows < 1 ||
+      a.rows > MAXROWS || a.team * a.rows < a.N || a.team < a.k || a.lpb <= 0 ||
+      a.lpb * a.team > 256 || (a.lpb * a.team) % 32 || a.team_words <= 0 ||
+      (size_t)a.lpb * a.team_words * sizeof(T) > 232448 ||
+      (greg && (sizeof(T) != 4 || a.rows != 1 || a.N > GREG_CAP)))
     return (int)cudaErrorInvalidValue;
   if (a.nP < 0 || a.nP > MAXPROBES ||
       (a.ys != nullptr && (a.probe_mat == nullptr || a.nP == 0)))
@@ -1284,12 +1680,7 @@ static int launch(void* const* ptrs, const long long* ints,
       (a.nN && (a.noise == nullptr || a.noise_col == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (a.B <= 0) return 0;
-  if (a.nB) return launch_as<T, UNROLL_K, false, true>(a, threads, stream);
-  if (a.k <= UNROLL_K)
-    return a.nMq ? launch_as<T, UNROLL_K, true, false>(a, threads, stream)
-                 : launch_as<T, UNROLL_K, false, false>(a, threads, stream);
-  return a.nMq ? launch_as<T, MAXK, true, false>(a, threads, stream)
-               : launch_as<T, MAXK, false, false>(a, threads, stream);
+  return pick(a, greg, stream);
 }
 
 extern "C" int csim_fused_step_f32(void* const* ptrs, const long long* ints,
@@ -1300,4 +1691,28 @@ extern "C" int csim_fused_step_f32(void* const* ptrs, const long long* ints,
 extern "C" int csim_fused_step_f64(void* const* ptrs, const long long* ints,
                                    const double* reals, void* stream) {
   return launch<double>(ptrs, ints, reals, stream);
+}
+
+// registers and local (stack) bytes per thread of the instantiation that a
+// launch of this type, route and mode takes (0 on success)
+extern "C" int csim_fused_step_attrs(int f64, int greg, int mode,
+                                     int* regs, int* local_bytes) {
+  cudaFuncAttributes at;
+  cudaError_t e;
+  if (f64)
+    e = mode == 2   ? cudaFuncGetAttributes(&at, fused_step_team<double, false, 2>)
+        : mode == 1 ? cudaFuncGetAttributes(&at, fused_step_team<double, false, 1>)
+                    : cudaFuncGetAttributes(&at, fused_step_team<double, false, 0>);
+  else if (greg)
+    e = mode == 2   ? cudaFuncGetAttributes(&at, fused_step_team<float, true, 2>)
+        : mode == 1 ? cudaFuncGetAttributes(&at, fused_step_team<float, true, 1>)
+                    : cudaFuncGetAttributes(&at, fused_step_team<float, true, 0>);
+  else
+    e = mode == 2   ? cudaFuncGetAttributes(&at, fused_step_team<float, false, 2>)
+        : mode == 1 ? cudaFuncGetAttributes(&at, fused_step_team<float, false, 1>)
+                    : cudaFuncGetAttributes(&at, fused_step_team<float, false, 0>);
+  if (e != cudaSuccess) return (int)e;
+  *regs = at.numRegs;
+  *local_bytes = (int)at.localSizeBytes;
+  return 0;
 }

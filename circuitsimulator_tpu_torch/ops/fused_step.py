@@ -63,13 +63,15 @@ sig = -1 for a V=expr source (its row is the branch row) and +1 for I=expr.
 The kernel interprets the same opcodes (one build serves every deck); the
 JAX kernel traces the expression's vjp instead.
 
-Constants are lane-minor and contraction-major, as in the JAX kernel:
-G0invT (N, N, B) [m, n, lane] = G0inv[lane, n, m], YT (k, N, B), Yc3
-(W, k, k, B) with W = 4 when a switch is present, else 3, widened to
-2 max(m) by B sources of m probe pairs.  The one-hot
-selection matmuls of the TPU kernel are index plans here (source rows,
-inductor rows, cap terminal pairs, the (W, k) column plan of the V^T rows,
-which is also where each row's device reads its terminal voltages); index N
+G0^-1, Y and Yc3 are lane-major, a lane's block contiguous (the kernel's
+teams stage one lane's block each): G0inv (B, N, N), Y (B, N, k), Yc3
+(B, k, W, k) [lane, j, q, l] = Y[lane, col_q(j), l], with W = 4 when a
+switch is present, else 3, widened to 2 max(m) by B sources of m probe
+pairs; the device packs, sources and companions are lane-minor (rows, B).
+The one-hot selection matmuls of the TPU kernel are index plans here
+(source rows, inductor rows, cap terminal pairs, the (W, k) column plan of
+the V^T rows, which is also where each row's device reads its terminal
+voltages, and the kernel's b0 row plan ``rhs_ptr``/``rhs_idx``); index N
 is the ground dump slot and reads 0.  Exponential-device decks must start
 from the DC operating point: from x = 0 a junction at 1e5 S amplifies a
 rounding difference to volts.
@@ -132,7 +134,7 @@ from . import cuda_step
 from .lu import lu_solve_plain
 from .woodbury import WoodburySolver
 
-MAX_N = cuda_step.MAX_N      # unknowns per lane (the kernel's local arrays)
+MAX_N = cuda_step.MAX_N      # unknowns per lane
 MAX_K = cuda_step.MAX_K      # Woodbury rank (the JAX kernel's MAX_K)
 UNROLL_K_MAX = cuda_step.UNROLL_K_MAX  # elimination up to here, then GJ
 MAX_PWL = 8                  # PWL breakpoints (the JAX kernel unrolls <= 8)
@@ -280,9 +282,9 @@ class FusedStepRunner:
         self.nCq = plan.nCq
         self.nMq = plan.nCq // 5                # MOS with charge rows
         self.nB = plan.nB
-        self.G0invT = wb.G0inv.permute(2, 1, 0).contiguous()   # (N, N, B)
-        self.YT = wb.Y.permute(2, 1, 0).contiguous()           # (k, N, B)
-        self.Yc3 = wb.Y_cols.permute(2, 1, 3, 0).contiguous()  # (W, k, k, B)
+        self.G0inv = wb.G0inv.expand(B, N, N).contiguous()      # (B, N, N)
+        self.Y = wb.Y.expand(B, N, k).contiguous()              # (B, N, k)
+        self.Yc3 = wb.Y_cols.expand(B, k, W, k).contiguous()    # (B, k, W, k)
 
         def pack(*leaves):
             """(B, n) leaves -> lane-minor (len(leaves), n, B)."""
@@ -417,6 +419,11 @@ class FusedStepRunner:
                                     self.cap_a, self.cap_b]
                                    + ([self.tl_plan[2], self.tl_plan[5]]
                                       if nT else [])).long()
+        # the kernel's b0 row plan (the same sums, row by row)
+        self.n_terms = self.nS + self.nL + self.nCap + 2 * nT
+        rp, ri = rhs_plan(N, pos, neg, t.ind_k, engine.cap_a, engine.cap_b,
+                          (t.tl_k1, t.tl_k2) if nT else None)
+        self.rhs_ptr, self.rhs_idx = i32(rp), i32(ri)
 
     # ------------------------------------------------------------------
     def run_chunk(self, x, x_prev, vc, il, failed, step0: int, n_steps: int,
@@ -452,10 +459,10 @@ class FusedStepRunner:
             raise ValueError("run_chunk: a runner built with noise_idx needs "
                              "the noise block (noise=, Engine.trnoise_stream)")
         if (tuple(noise.shape) != want or noise.dtype != self.dtype
-                or noise.device != self.G0invT.device):
+                or noise.device != self.G0inv.device):
             raise ValueError(f"run_chunk: noise is {tuple(noise.shape)} "
                              f"{noise.dtype} on {noise.device}, want {want} "
-                             f"{self.dtype} on {self.G0invT.device}")
+                             f"{self.dtype} on {self.G0inv.device}")
 
     def check_ring(self, tlw):
         """The ring a T-line deck needs (and no other takes): (B, Dmax,
@@ -470,16 +477,16 @@ class FusedStepRunner:
             raise ValueError("run_chunk: a T-line deck needs its delay ring "
                              "(tlw=, Engine.init_state)")
         if (tuple(tlw.shape) != want or tlw.dtype != self.dtype
-                or tlw.device != self.G0invT.device):
+                or tlw.device != self.G0inv.device):
             raise ValueError(f"run_chunk: tlw is {tuple(tlw.shape)} "
                              f"{tlw.dtype} on {tlw.device}, want {want} "
-                             f"{self.dtype} on {self.G0invT.device}")
+                             f"{self.dtype} on {self.G0inv.device}")
 
     @torch.inference_mode()
     def run_chunk_plain(self, x, x_prev, vc, il, failed, step0: int,
                         n_steps: int, tlw=None, noise=None):
         """The plain PyTorch version of the kernel, on the runner's device
-        (the lane-minor constants read through transposed views)."""
+        (the lane-minor packs read through transposed views)."""
         self.check_ring(tlw)
         self.check_noise(noise, n_steps)
         N, k, B = self.N, self.k, self.B
@@ -602,13 +609,13 @@ class FusedStepRunner:
             count (the per-lane while loop), None runs it ungated."""
             if k:
                 v, cst = nl_rows(xx, qprev, t)                 # (W, B, k)
-                z = z0 - torch.einsum("jnb,bj->bn", self.YT, cst)
-                S = eye + torch.einsum("sbj,sjlb->bjl", v, self.Yc3)
+                z = z0 - torch.einsum("bnj,bj->bn", self.Y, cst)
+                S = eye + torch.einsum("sbj,bjsl->bjl", v, self.Yc3)
                 ze = torch.cat([z, zcol], 1)
                 vz = (v * ze[:, cols].movedim(1, 0)).sum(0)
                 w = (lu_solve_plain(S, vz, 0.0) if k <= UNROLL_K_MAX
                      else gauss_jordan_plain(S, vz))
-                x_raw = z - torch.einsum("jnb,bj->bn", self.YT, w)
+                x_raw = z - torch.einsum("bnj,bj->bn", self.Y, w)
             else:
                 x_raw = z0
             finite = torch.isfinite(x_raw).all(1)
@@ -637,7 +644,7 @@ class FusedStepRunner:
             vals = torch.cat(parts, 1)
             b = torch.zeros((B, N + 1), dtype=dtype, device=dev)
             b.index_add_(1, self._rhs_rows, vals)
-            z0 = torch.einsum("mnb,bm->bn", self.G0invT, b[:, :N])
+            z0 = torch.einsum("bnm,bm->bn", self.G0inv, b[:, :N])
             xx = 2.0 * x - x_prev if self.predictor else x
             # q_prev = q(x of the previous step): the state's qm
             qprev = charges_of_x(vdgs_of(x), qpar) if self.nCq else None
@@ -667,6 +674,36 @@ class FusedStepRunner:
         if ys is not None:
             out += (ys,)
         return out + ((ring,) if nT else ())
+
+
+def rhs_plan(N, pos, neg, ind_k, cap_a, cap_b, tl_rows=None):
+    """The kernel's b0 row plan: row n of b0 is the sum of its terms
+    rhs_idx[rhs_ptr[n]:rhs_ptr[n + 1]], each term << 1 | negated, in the
+    order of the plain version's one scatter (``_rhs_rows``: +value of
+    every source at its pos row, -value at its neg row, -gl il of every
+    inductor, +gc vc of every capacitor at a, -gc vc at b, E1 of every line
+    at k1, E2 at k2), so that each row sums its terms in the order a
+    sequential scatter adds them.  Terms: the sources (nS), inductors,
+    capacitors, then the 2 nT EMFs (E1_j = 2 j, E2_j = 2 j + 1);
+    ``tl_rows`` is (k1, k2) or None.  Rows >= N (ground) are dropped."""
+    nS, nL = len(pos), len(ind_k)
+    o_c, o_e = nS + nL, nS + nL + len(cap_a)
+    adds = ([(pos[s], s, 0) for s in range(nS)]      # (row, term, negated)
+            + [(neg[s], s, 1) for s in range(nS)]
+            + [(r, nS + j, 0) for j, r in enumerate(ind_k)]
+            + [(r, o_c + j, 0) for j, r in enumerate(cap_a)]
+            + [(r, o_c + j, 1) for j, r in enumerate(cap_b)])
+    if tl_rows is not None:
+        k1, k2 = tl_rows
+        adds += ([(r, o_e + 2 * j, 0) for j, r in enumerate(k1)]
+                 + [(r, o_e + 2 * j + 1, 0) for j, r in enumerate(k2)])
+    rows = [[] for _ in range(N)]
+    for r, term, negated in adds:
+        if int(r) < N:
+            rows[int(r)].append(term << 1 | negated)
+    ptr = np.cumsum([0] + [len(r) for r in rows])
+    idx = np.asarray([c for r in rows for c in r] or [0], np.int64)
+    return ptr.astype(np.int32), idx.astype(np.int32)
 
 
 def gauss_jordan_plain(A, b):

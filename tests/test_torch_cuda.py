@@ -866,3 +866,99 @@ def test_threefry_on_the_card_matches_the_cpu(cuda_device):
                              prng.normal(keys, (5000,), torch.float64))
     for a, b in zip(out["cpu"], out["cuda"]):
         assert torch.equal(a, b.cpu())
+
+
+def edge_deck(N, k):
+    """A deck of N unknowns at Woodbury rank k: a current source into an RC
+    ladder (one unknown a node; with a voltage source, one more for its
+    branch) and k weak MOS, device j from ladder node j to ground (even j,
+    on) or to node j + 1 (odd j), gated by node j + 2 (wrapping), each its
+    own Woodbury row."""
+    nodes = N - 1 if N > 1 else 1
+    lines = ["* K1 launch-plan edge deck",
+             ".MODEL 2 VT 0.4 MU 3e-2 COX 6e-3 LAMBDA 0.05"]
+    if N > 1:
+        lines.append("V1 n1 0 SIN 0.9 0.3 5e6")
+    else:
+        lines.append("I1 0 n1 SIN 0.5m 0.2m 5e6")
+    for i in range(1, nodes + 1):
+        lines.append(f"RG{i} n{i} 0 {10e3 + 100 * i:g}")
+        lines.append(f"CG{i} n{i} 0 {1e-12 + 1e-14 * i:g}")
+        if i > 1:
+            lines.append(f"RS{i} n{i - 1} n{i} 1k")
+    for j in range(k):
+        d, g = (j % nodes) + 1, ((j + 2) % nodes) + 1
+        src = "0" if j % 2 == 0 else f"n{((j + 1) % nodes) + 1}"
+        lines.append(f"M{j} n{d} n{g} {src} n 1e-6 4e-6 2")
+    return "\n".join(lines + [".op", ""])
+
+
+def _edge_case(cuda_device, N, k, dtype, B, route=None, team=None,
+               steps=30):
+    """K1 on the edge deck against its plain version from the batched DC
+    point: f64 within 1e-9 V with equal per-lane iteration counts, f32
+    within 1e-4 V, failed masks equal (damped configuration)."""
+    from circuitsimulator_tpu_torch import DEFAULT_OPTIONS
+    from circuitsimulator_tpu_torch.ops import cuda_step
+    from circuitsimulator_tpu_torch.parallel import montecarlo as mc
+    opts = DEFAULT_OPTIONS.replace(dtype=dtype)
+    if dtype == torch.float32:
+        opts = opts.replace(tran_tol=1e-5, dc_tol=1e-5)
+    sim = Simulator.from_text(edge_deck(N, k), opts=opts, device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(N * 64 + k)
+    bp = mc.perturb_params(sim.params, g, B,
+                           {"res_r": 0.02, "cap_c": 0.02, "mos_vth": 0.02})
+    carry, _, meta = mc.make_fused_transient_fn(sim.engine, bp, 2e-9)
+    runner = meta["runner"]
+    assert (runner.N, runner.k) == (N, k)
+    p = cuda_step.runner_plan(runner, route, team=team)
+    before = cuda_step.LAUNCHES
+    got = cuda_step.run_chunk_cuda(runner, *carry, 0, steps, route=route,
+                                   team=team)
+    torch.cuda.synchronize()
+    assert cuda_step.LAUNCHES == before + 1
+    ref = runner.run_chunk_plain(*carry, 0, steps)
+    tol = 1e-4 if dtype == torch.float32 else 1e-9
+    for a, b in zip(got[:4], ref[:4]):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=0,
+                                   atol=tol)
+    np.testing.assert_array_equal(got[4].cpu().numpy(), ref[4].cpu().numpy())
+    if dtype == torch.float64:
+        np.testing.assert_array_equal(got[5].cpu().numpy(),
+                                      ref[5].cpu().numpy())
+    assert int(got[5].min()) > 0
+    return p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B", [1, 7, 300])
+@pytest.mark.parametrize("N,k", [(8, 2), (9, 2), (16, 2), (17, 2), (32, 2),
+                                 (33, 2), (64, 2), (20, 0), (20, 16),
+                                 (20, 17), (20, 32), (64, 32)])
+def test_fused_step_kernel_at_the_plan_edges(cuda_device, N, k, dtype, B):
+    """K1 at every edge of its launch plan (team 4/8/16/32 from max(k,
+    ceil(N / 3)), rows of x a thread, elimination for k <= 16 and
+    Gauss-Jordan above) against the plain version, at lane counts that are
+    not multiples of the lanes per block."""
+    p = _edge_case(cuda_device, N, k, dtype, B)
+    assert p.team >= k and p.team * p.rows >= N
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("team,route", [(4, "shared"), (8, "shared"),
+                                        (16, "shared"), (32, "shared"),
+                                        (32, "registers")])
+def test_fused_step_kernel_by_team_and_route(cuda_device, team, route,
+                                             dtype):
+    """One deck (N = 16, k = 4) on every team the plan can take, four rows
+    a thread down to one, and on both routes (G0^-1 rows in shared memory
+    or in registers), against the plain version."""
+    if route == "registers" and dtype == torch.float64:
+        with pytest.raises(ValueError, match="registers route"):
+            _edge_case(cuda_device, 16, 4, dtype, 300, route, team)
+        return
+    p = _edge_case(cuda_device, 16, 4, dtype, 300, route, team)
+    assert (p.team, p.route) == (team, route)
+    assert p.rows == -(-16 // team)

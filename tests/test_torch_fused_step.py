@@ -504,7 +504,7 @@ def test_k1a_plain_output_is_unchanged_by_the_row_plan():
     assert (r.W, r.k, r.nMJ, r.nD, r.nQ, r.nSw) == (3, 6, 6, 0, 0, 0)
     np.testing.assert_array_equal(
         r.row_cols.numpy(), np.stack([t.mos_ed, t.mos_eg, t.mos_es]))
-    assert tuple(r.Yc3.shape) == (3, 6, 6, 4)
+    assert tuple(r.Yc3.shape) == (4, 6, 3, 6)
     assert r.diop.numel() == r.bjtp.numel() == r.swp.numel() == 0
     x = torch.zeros((4, r.N), dtype=torch.float32)
     st = sim.engine.init_state(x)
@@ -521,17 +521,17 @@ def test_k1a_plain_output_is_unchanged_by_the_row_plan():
     h = r.gc.T * st["vc"]
     b.index_add_(1, r._rhs_rows,
                  torch.cat([sv, -sv, -(r.gl.T * st["il"]), h, -h], 1))
-    z0 = torch.einsum("mnb,bm->bn", r.G0invT, b[:, :r.N])
+    z0 = torch.einsum("bnm,bm->bn", r.G0inv, b[:, :r.N])
     xx = x
     for _ in range(2):
         xe = torch.cat([xx, zcol], 1)
         gd, gg, gs, cst = mos_linearize(vth, kk, lam, pp, xe[:, cols[0]],
                                         xe[:, cols[1]], xe[:, cols[2]],
                                         r.off_gds)
-        z = z0 - torch.einsum("jnb,bj->bn", r.YT, cst)
+        z = z0 - torch.einsum("bnj,bj->bn", r.Y, cst)
         v = torch.stack([gd, gg, gs])
-        S = torch.eye(6) + torch.einsum("sbj,sjlb->bjl", v, r.Yc3)
+        S = torch.eye(6) + torch.einsum("sbj,bjsl->bjl", v, r.Yc3)
         ze = torch.cat([z, zcol], 1)
         vz = (v * torch.stack([ze[:, c] for c in cols])).sum(0)
-        xx = z - torch.einsum("jnb,bj->bn", r.YT, lu_solve_plain(S, vz, 0.0))
+        xx = z - torch.einsum("bnj,bj->bn", r.Y, lu_solve_plain(S, vz, 0.0))
     assert torch.equal(got[0], xx)
