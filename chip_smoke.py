@@ -41,12 +41,24 @@ Phases (one JSON line each):
      solves/s, one K3 launch per sweep call, no failed lane, f32 within
      1e-3 of f64, f64 within 1e-9 of the real 2N reference route on 64
      lanes; then the CLI's --run-ac on examples/cs_amp.sp and
-     examples/feedback_loop.sp against the committed JAX goldens (1e-9);
-  9. K3 against its plain PyTorch version on the card: random lanes at
-     N = 5, 31, 64 in f32 and f64 with a singular and a NaN lane (fail
-     masks identical, lane-relative error <= 1e-12 in f64, <= 1e-4 in
-     f32), and phase 8's dbmixer systems; kernel, plain,
-     torch.linalg.solve_ex and bound times at the main shape;
+     examples/feedback_loop.sp against the committed JAX goldens (1e-9;
+     one K3 launch each);
+  9. K3 against its plain PyTorch version on the card (k3_vs_plain): random
+     lanes at every team capacity's edges (N = 1, 8, 9, 16, 17, 31, 32, 33,
+     64; B x F = 1 x 1, 7 x 3, 300 x 8), MNA-style lanes of small integers
+     and +-1 source rows where ties in |a|^2 decide the pivots (N = 4, 7,
+     10, 17, 31, 40), every team capacity forced on N = 5, 9, 17, 31, and
+     phase 8's dbmixer systems, f32 and f64, with a singular
+     and a NaN lane (fail masks identical, lane-relative error <= 1e-12 in
+     f64, <= 1e-4 in f32).  Its timings (k3_timings) run after phase 27,
+     once every AC path has kept its systems: at each main-path shape
+     (dbmixer 4096 x 64 x 31 of phase 8, bjt_amp 4096 x 71 x 7 of phase
+     13, the charge stage 4096 x 64 x 5 of phase 16, opamp_filter 4096 x
+     201 x 10 of phase 22, cs_amp's --run-ac lane 1 x 121 x 5) and on
+     random lanes at N = 64: the plan (with its kernel's registers from
+     the library), the plan's launch and PR 3's warp-per-system code (the
+     wide route forced), both through cuda_ac.ac_sweep_cuda, plain,
+     torch.linalg.solve_ex and bound times, the launches on its path;
  10. K1's junction and switch rows (K1b) against the plain version on the
      card, from each lane's batched DC point: a diode rectifier with a
      zener, an NPN + PNP deck with Early voltage, a MOS + JFET + BJT +
@@ -190,9 +202,11 @@ Phases (one JSON line each):
      K1's bound at the chunk's Newton iterations, no failed lane;
  28. K2's and torch.linalg.solve_ex's device time at phase 2's timed
      shapes, from a torch.profiler trace (k2_device_times), then K1's at
-     dbmixer's main shape, phase 7's launch (k1_device_time).  It runs last:
-     a profiler session leaves every later launch in the process slower
-     (on the H100 a K2 call's host time went from 25 to 48 us).
+     dbmixer's main shape, phase 7's launch (k1_device_time), then K3's and
+     PR 3's code's at every shape of k3_timings and solve_ex's at the main
+     one (k3_device_times).  It runs last: a profiler session leaves every
+     later launch in the process slower (on the H100 a K2 call's host time
+     went from 25 to 48 us).
 
 Every error of K3 and of the AC path is lane-relative: for each lane
 max|x - ref| / max|ref| over its frequencies and unknowns, then the worst
@@ -687,6 +701,39 @@ def phase_k2_device(timings, k1):
          shape="B=8192 x 250 steps f32 fast", kernel_device_ms=k1_ms,
          plan=k1_plan_row(runner))
     return rows, k1_ms
+
+
+def phase_k3_device(k3_rows):
+    """Phase 28, last: K3's device time at every shape of k3_timings, PR
+    3's code's (the wide route forced) where the plan takes a team, and
+    torch.linalg.solve_ex's at the main one."""
+    import torch
+    from circuitsimulator_tpu_torch.ops import cuda_ac
+    t0 = time.perf_counter()
+    out = []
+    for row in k3_rows:
+        G, B1, br, bi, om = K3_SHAPES[row["shape"]]["inputs"]
+        d = {"kernel_device_ms": device_ms(
+            lambda: cuda_ac.ac_sweep_cuda(G, B1, br, bi, om, FLOOR))}
+        if row["plan"]["cap"] < 64:
+            d["pr3_warp_per_system_device_ms"] = device_ms(
+                lambda: cuda_ac.ac_sweep_cuda(G, B1, br, bi, om, FLOOR,
+                                              team=64))
+        if row["shape"] == K3_MAIN:
+            B, n, F = G.shape[0], G.shape[1], om.shape[0]
+            A = torch.complex(G[:, None].expand(B, F, n, n),
+                              om[None, :, None, None] * B1[:, None]).reshape(
+                                  B * F, n, n)
+            rhs = torch.complex(br, bi)[:, None].expand(B, F, n).reshape(
+                B * F, n, 1)
+            d["library_device_ms"] = device_ms(
+                lambda: torch.linalg.solve_ex(A, rhs))
+            del A, rhs
+        out.append(d)
+    emit("k3_device_times", shapes=[{"shape": r["shape"], **d}
+                                    for r, d in zip(k3_rows, out)],
+         seconds=time.perf_counter() - t0)
+    return out
 
 
 # ---------------------------------------------------------------- phase 3
@@ -1186,6 +1233,10 @@ def phase_monte_carlo_fused(x32_nonfused, x64_nonfused):
 
 # ------------------------------------------------------------ phases 8, 9
 AC_FREQS = (6.0, 10.0, 64)          # np.logspace(6, 10, 64): 1 MHz .. 10 GHz
+# K3's inputs at each main path's shape, kept by _k3_shape for the
+# timings after phase 27 and the device times of phase 28
+K3_SHAPES = {}
+K3_MAIN = "dbmixer float32"         # B = 4096, F = 64, N = 31: the bench shape
 
 
 def _zero_lanes(xr, xi):
@@ -1304,6 +1355,7 @@ def phase_ac_monte_carlo():
     from circuitsimulator_tpu_torch import cli
     from circuitsimulator_tpu_torch.analysis.ac import (ac_system_real,
                                                         solve_ac_real)
+    from circuitsimulator_tpu_torch.ops import cuda_ac
     freqs = np.logspace(*AC_FREQS)
     (sim32, bp32), (sim64, bp64) = _ac_mc_lanes(4096, seed=44)
     m32, x32, xr32, xi32 = _ac_run(sim32, bp32, freqs)
@@ -1336,133 +1388,247 @@ def phase_ac_monte_carlo():
             out = os.path.join(tmp, f"{deck}_ac.csv")
             buf = io.StringIO()
             t0 = time.perf_counter()
+            cuda_ac.LAUNCHES = 0
             with contextlib.redirect_stdout(buf):
                 rc = cli.main([os.path.join(REPO, "examples", f"{deck}.sp"),
                                "--no-tran", "--run-ac", out])
+            k3 = cuda_ac.LAUNCHES
             check(rc == 0, f"{deck} --run-ac exit code")
+            check(k3 == 1, f"{deck} --run-ac: one K3 launch ({k3})")
             check(f"Results written to '{out}'." in buf.getvalue(),
                   f"{deck} --run-ac stdout")
             err, flips = _ac_csv_err(
                 out, os.path.join(GOLDENS, f"{deck}_ac_jax.csv"))
             cli_rows[deck] = {"rel_err_vs_jax_golden": err,
-                              "print_flips": flips,
+                              "print_flips": flips, "k3_launches": k3,
                               "cli_s": time.perf_counter() - t0}
             check(err <= 1e-9, f"{deck} --run-ac CSV within 1e-9: {err}")
     finally:
         shutil.rmtree(tmp)
     emit("ac_cli_vs_jax_goldens", decks=cli_rows)
-    return m32, {"float32": (sim32, bp32, x32), "float64": (sim64, bp64, x64)}
+    return m32, {"float32": (sim32, bp32, x32, m32["k3_launches"]),
+                 "float64": (sim64, bp64, x64, m64["k3_launches"])}, \
+        cli_rows["cs_amp"]["k3_launches"]
 
 
 def _ac_random(B, n, dtype, seed):
-    """Diagonally dominant lanes (tests/test_pallas_ac.py); lane 1 exactly
-    singular, lane 2 holds a NaN."""
+    """Diagonally dominant lanes (tests/test_pallas_ac.py); with B > 2 lane
+    1 exactly singular, lane 2 holds a NaN."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
     arrays = [rng.standard_normal((B, n, n)) + n * np.eye(n),
               rng.standard_normal((B, n, n)), rng.standard_normal((B, n)),
               rng.standard_normal((B, n))]
-    arrays[0][1] = 0.0
-    arrays[1][1] = 0.0
-    arrays[0][2, n // 2, 1] = np.nan
+    if B > 2:
+        arrays[0][1] = 0.0
+        arrays[1][1] = 0.0
+        arrays[0][2, n // 2, min(1, n - 1)] = np.nan
     return [torch.as_tensor(a, dtype=dtype, device="cuda") for a in arrays]
 
 
-def phase_k3(lanes):
+def _ac_mna(B, n, dtype, seed):
+    """MNA-style lanes of small integers (tests/test_torch_cuda.py's
+    mna_lanes): a grounded chain of integer conductances, random branches
+    and capacitances, voltage-source rows of +-1 with a zero diagonal, the
+    equations in a random order per lane, so that exact ties in |a|^2
+    decide pivots; lane 1 singular, lane 2 holds a NaN."""
     import numpy as np
     import torch
-    from circuitsimulator_tpu_torch.analysis.ac import ac_system_real
-    from circuitsimulator_tpu_torch.ops import ac_sweep
-    rows, max_abs = [], 0.0
-    for n in (5, 31, 64):
-        for dtype in (torch.float64, torch.float32):
-            G, B1, br, bi = _ac_random(300, n, dtype, seed=n)
-            # omega <= 1 keeps G + n I dominant (at omega = 100 the random
-            # w B1 sets the conditioning, and f32 rounding with it)
-            om = torch.logspace(-1, 0, 8, dtype=dtype, device="cuda")
-            xr, xi = ac_sweep.ac_sweep(G, B1, br, bi, om, FLOOR)
-            pr, pi = ac_sweep.ac_sweep_plain(G, B1, br, bi, om, FLOOR)
-            torch.cuda.synchronize()
-            zk, zp = _zero_lanes(xr, xi), _zero_lanes(pr, pi)
-            check(torch.equal(zk, zp), f"K3 fail masks N={n} {dtype}")
-            check(bool(zk[1] and zk[2]), "singular and NaN lanes zeroed")
-            rel = _lane_rel_err(torch.complex(xr, xi), torch.complex(pr, pi),
-                            ~zp)
-            tol = 1e-12 if dtype == torch.float64 else 1e-4
-            check(rel <= tol, f"K3 vs plain N={n} {dtype}: {rel} > {tol}")
-            good = ~zp
-            max_abs = max(max_abs, float((xr - pr).abs()[good].max()),
-                          float((xi - pi).abs()[good].max()))
-            rows.append({"case": "random", "B": 300, "F": 8, "N": n,
-                         "dtype": str(dtype)[6:], "lane_rel_err": rel,
-                         "tol": tol, "zero_lanes": int(zk.sum())})
-    freqs = np.logspace(*AC_FREQS)
-    timings = {}
-    for name, (sim, bp, x_ops) in lanes.items():
-        eng = sim.engine
-        G, B1, br, bi = ac_system_real(eng, bp, x_ops, 1.0)
-        om = 2.0 * np.pi * torch.as_tensor(freqs, dtype=eng.dtype,
-                                           device="cuda")
+    rng = np.random.default_rng(seed)
+    m = n // 4
+    nv = n - m
+    G = np.zeros((B, n, n))
+    C = np.zeros((B, n, n))
+
+    def branch(M, b, a, c, v):
+        M[b, a, a] += v
+        if c is not None:
+            M[b, c, c] += v
+            M[b, a, c] -= v
+            M[b, c, a] -= v
+
+    for b in range(B):
+        branch(G, b, 0, None, 1.0)
+        for a in range(nv - 1):
+            branch(G, b, a, a + 1, float(rng.integers(1, 4)))
+        for _ in range(nv // 2):
+            a, c = rng.choice(nv, 2, replace=False)
+            branch(G, b, a, c, float(rng.integers(1, 3)))
+            branch(C, b, a, c, float(rng.integers(0, 3)))
+        for k in range(m):
+            r, a, c = nv + k, 2 * k, 2 * k + 1
+            G[b, a, r] = G[b, r, a] = 1.0
+            if c < nv:
+                G[b, c, r] = G[b, r, c] = -1.0
+        perm = rng.permutation(n)
+        G[b], C[b] = G[b, perm], C[b, perm]
+    br = rng.integers(-2, 3, (B, n)).astype(float)
+    bi = rng.integers(-2, 3, (B, n)).astype(float)
+    G[1] = 0.0
+    C[1] = 0.0
+    G[2, n // 2, min(1, n - 1)] = np.nan
+    return [torch.as_tensor(a, dtype=dtype, device="cuda")
+            for a in (G, C, br, bi)]
+
+
+def _k3_vs_plain(arrays, om, dtype, what, **override):
+    """K3 (the dispatch, or cuda_ac.ac_sweep_cuda with a team override)
+    against its plain version: identical fail masks, the
+    planted lanes zeroed, lane-relative error <= 1e-12 (f64), <= 1e-4
+    (f32).  Returns (lane-relative error, max abs error, zero lanes)."""
+    import torch
+    from circuitsimulator_tpu_torch.ops import ac_sweep, cuda_ac
+    G, B1, br, bi = arrays
+    if override:
+        xr, xi = cuda_ac.ac_sweep_cuda(G, B1, br, bi, om, FLOOR, **override)
+    else:
         xr, xi = ac_sweep.ac_sweep(G, B1, br, bi, om, FLOOR)
-        pr, pi = ac_sweep.ac_sweep_plain(G, B1, br, bi, om, FLOOR)
-        torch.cuda.synchronize()
-        zk, zp = _zero_lanes(xr, xi), _zero_lanes(pr, pi)
-        check(torch.equal(zk, zp) and not bool(zp.any()),
-              f"dbmixer K3 fail masks {name}")
-        rel = _lane_rel_err(torch.complex(xr, xi), torch.complex(pr, pi))
-        tol = 1e-12 if eng.dtype == torch.float64 else 1e-4
-        check(rel <= tol, f"dbmixer K3 vs plain {name}: {rel} > {tol}")
-        max_abs = max(max_abs, float((xr - pr).abs().max()),
-                      float((xi - pi).abs().max()))
-        B, n = G.shape[0], G.shape[-1]
-        F = len(freqs)
-        rows.append({"case": "dbmixer unit-omega systems", "B": B, "F": F,
-                     "N": n, "dtype": name, "lane_rel_err": rel,
-                     "tol": tol, "zero_lanes": int(zk.sum())})
-        # the library yardstick: one complex solve of the pre-formed
-        # (B * F, N, N) systems (formation excluded; its fail semantics
-        # differ, so it is timed only)
-        A = torch.complex(G[:, None].expand(B, F, n, n),
-                          om[None, :, None, None] * B1[:, None])
-        A = A.reshape(B * F, n, n)
-        rhs = torch.complex(br, bi)[:, None].expand(B, F, n).reshape(
-            B * F, n, 1)
-        bms, by = bound_ms(ac_bytes(B, F, n, G.element_size()),
-                           ac_flops(B, F, n), eng.dtype)
-        timings[name] = {
-            "B": B, "F": F, "N": n,
-            "kernel_ms": cuda_ms(lambda: ac_sweep.ac_sweep(
-                G, B1, br, bi, om, FLOOR)),
-            "plain_ms": cuda_ms(lambda: ac_sweep.ac_sweep_plain(
-                G, B1, br, bi, om, FLOOR), reps=3, warmup=1),
-            "library_ms": cuda_ms(lambda: torch.linalg.solve_ex(A, rhs)),
-            "bound_ms": bms, "bound_by": by,
-            "flops": ac_flops(B, F, n),
-            "bytes": ac_bytes(B, F, n, G.element_size())}
-        del A, rhs
-    # N = 64, the kernel's largest size: random lanes, B = 1024 x F = 64
+    pr, pi = ac_sweep.ac_sweep_plain(G, B1, br, bi, om, FLOOR)
+    torch.cuda.synchronize()
+    zk, zp = _zero_lanes(xr, xi), _zero_lanes(pr, pi)
+    check(torch.equal(zk, zp), f"K3 fail masks {what}")
+    if G.shape[0] > 2 and bool(G[1].eq(0).all()):
+        check(bool(zk[1] and zk[2]), f"singular and NaN lanes zeroed {what}")
+    good = ~zp
+    rel = _lane_rel_err(torch.complex(xr, xi), torch.complex(pr, pi), good)
+    tol = 1e-12 if dtype == torch.float64 else 1e-4
+    check(rel <= tol, f"K3 vs plain {what}: {rel} > {tol}")
+    err = max(float((xr - pr).abs()[good].max()),
+              float((xi - pi).abs()[good].max())) if bool(good.any()) else 0.0
+    return rel, err, int(zk.sum())
+
+
+def _k3_shape(name, sim, bp, x_ops, freqs, launches, path):
+    """Keep a main path's K3 inputs, the unit-omega systems and omegas its
+    sweep call passes, for the timings after phase 27 (k3_timings) and
+    phase 28."""
+    from circuitsimulator_tpu_torch.analysis.ac import (_omegas,
+                                                        ac_system_real)
+    G, B1, br, bi = ac_system_real(sim.engine, bp, x_ops, 1.0)
+    if G.dim() == 2:      # a single lane, as ac_analysis passes it
+        G, B1, br, bi = G[None], B1[None], br[None], bi[None]
+    K3_SHAPES[name] = {
+        "inputs": [a.contiguous() for a in (G, B1, br, bi)]
+        + [_omegas(sim.engine, freqs)[1].contiguous()],
+        "launches": launches, "path": path}
+
+
+def phase_k3(lanes, cli_k3):
+    """K3 against its plain version at every team capacity's edges, on
+    random and MNA lanes, on each team capacity, and on phase 8's dbmixer
+    systems; keeps the main paths' shapes for k3_timings."""
+    import numpy as np
+    import torch
+    from circuitsimulator_tpu_torch import Simulator
+    from circuitsimulator_tpu_torch.analysis.ac import sweep_frequencies
+    from circuitsimulator_tpu_torch.ops import cuda_ac
+    t0 = time.perf_counter()
+    rows, max_abs = [], 0.0
+
+    def held(case, arrays, om, dtype, **override):
+        nonlocal max_abs
+        B, n = arrays[0].shape[:2]
+        what = f"{case} B={B} F={om.shape[0]} N={n} {dtype} {override}"
+        rel, err, zeros = _k3_vs_plain(arrays, om, dtype, what, **override)
+        max_abs = max(max_abs, err)
+        rows.append({"case": case, "B": B, "F": om.shape[0], "N": n,
+                     "dtype": str(dtype)[6:], **override,
+                     "lane_rel_err": rel, "zero_lanes": zeros})
+
+    for dtype in (torch.float64, torch.float32):
+        # every team capacity's edges (8, 16, 32 threads; 33 and 64 the
+        # wide route); omega <= 1 keeps the random lanes dominant
+        for n in (1, 8, 9, 16, 17, 31, 32, 33, 64):
+            for B, F in ((1, 1), (7, 3), (300, 8)):
+                om = torch.logspace(-1, 0, F, dtype=dtype, device="cuda")
+                held("random", _ac_random(B, n, dtype, seed=n + F), om,
+                     dtype)
+        # ties in |a|^2 decide the pivots: omegas powers of two
+        om2 = 2.0 ** torch.arange(-3, 5, dtype=dtype, device="cuda")
+        for n in (4, 7, 10, 17, 31, 40):
+            held("mna", _ac_mna(300, n, dtype, seed=n), om2, dtype)
+        # every team capacity that holds N
+        for n in (5, 9, 17, 31):
+            for cap in (c for c in cuda_ac.CAPACITIES if c >= n):
+                held("mna", _ac_mna(40, n, dtype, seed=n), om2[:5], dtype,
+                     team=cap)
+    freqs = np.logspace(*AC_FREQS)
+    for name, (sim, bp, x_ops, launches) in lanes.items():
+        _k3_shape(f"dbmixer {name}", sim, bp, x_ops, freqs, launches,
+                  f"ac_monte_carlo_f{name[5:]}")
+        G, B1, br, bi, om = K3_SHAPES[f"dbmixer {name}"]["inputs"]
+        held("dbmixer unit-omega systems", [G, B1, br, bi], om,
+             sim.engine.dtype)
+        check(rows[-1]["zero_lanes"] == 0, f"dbmixer {name}: no zero lane")
+    # one --run-ac lane as the CLI runs it (f64, Simulator.ac)
+    sim = Simulator.from_file(os.path.join(EXAMPLES, "cs_amp.sp"),
+                              device="cuda")
+    cfg = sim.config.ac
+    _k3_shape("cs_amp --run-ac float64", sim, sim.params, sim.dc(),
+              sweep_frequencies(cfg.sweep_type, cfg.n_points, cfg.fstart,
+                                cfg.fstop), cli_k3, "ac_cli_vs_jax_goldens")
+    emit("k3_vs_plain", cases=rows, max_abs_err=max_abs,
+         seconds=time.perf_counter() - t0)
+    return max_abs
+
+
+def phase_k3_timings():
+    """K3 at every main-path shape kept by _k3_shape, and at N = 64 on
+    random lanes: the plan, its launch and PR 3's warp-per-system code
+    (the wide route forced by team=64), both through cuda_ac.ac_sweep_cuda,
+    the plain version, torch.linalg.solve_ex on the pre-formed complex
+    systems (timed only: its fail semantics differ) and the bound."""
+    import torch
+    from circuitsimulator_tpu_torch.ops import ac_sweep, cuda_ac
+    t0 = time.perf_counter()
     for dtype in (torch.float32, torch.float64):
         G, B1, br, bi = _ac_random(1024, 64, dtype, seed=65)
         om = torch.logspace(-1, 0, 64, dtype=dtype, device="cuda")
-        bms, by = bound_ms(ac_bytes(1024, 64, 64, G.element_size()),
-                           ac_flops(1024, 64, 64), dtype)
-        A = torch.complex(G[:, None].expand(1024, 64, 64, 64),
+        K3_SHAPES[f"random N=64 {str(dtype)[6:]}"] = {
+            "inputs": [G, B1, br, bi, om], "launches": 0, "path": None}
+    rows = []
+    for name, case in K3_SHAPES.items():
+        G, B1, br, bi, om = case["inputs"]
+        B, n = G.shape[:2]
+        F = om.shape[0]
+        size = G.element_size()
+        pl = cuda_ac.plan(n, size)
+        teams, chunks = cuda_ac.launch_shape(pl, F)
+        bms, by = bound_ms(ac_bytes(B, F, n, size), ac_flops(B, F, n),
+                           G.dtype)
+        row = {"shape": name, "B": B, "F": F, "N": n,
+               "dtype": str(G.dtype)[6:], "k3_launches": case["launches"],
+               "path": case["path"],
+               "plan": {"team": pl.team, "cap": pl.cap, "rows": pl.rows,
+                        "systems_per_block": pl.spb,
+                        "teams_per_block": teams, "blocks_per_lane": chunks,
+                        "threads": teams * pl.team, "smem_bytes": pl.smem,
+                        "registers": pl.regs,
+                        "local_bytes": cuda_ac.attrs(size, pl.cap)[1],
+                        "resident_per_sm": pl.resident},
+               "kernel_ms": cuda_ms(lambda: cuda_ac.ac_sweep_cuda(
+                   G, B1, br, bi, om, FLOOR))}
+        if pl.cap < 64:
+            row["pr3_warp_per_system_ms"] = cuda_ms(
+                lambda: cuda_ac.ac_sweep_cuda(G, B1, br, bi, om, FLOOR,
+                                              team=64), reps=10, warmup=2)
+        row["plain_ms"] = cuda_ms(lambda: ac_sweep.ac_sweep_plain(
+            G, B1, br, bi, om, FLOOR), reps=3, warmup=1)
+        A = torch.complex(G[:, None].expand(B, F, n, n),
                           om[None, :, None, None] * B1[:, None]).reshape(
-                              -1, 64, 64)
-        rhs = torch.complex(br, bi)[:, None].expand(1024, 64, 64).reshape(
-            -1, 64, 1)
-        timings[f"{str(dtype)[6:]} N=64"] = {
-            "library_ms": cuda_ms(lambda: torch.linalg.solve_ex(A, rhs)),
-            "B": 1024, "F": 64, "N": 64,
-            "kernel_ms": cuda_ms(lambda: ac_sweep.ac_sweep(
-                G, B1, br, bi, om, FLOOR)),
-            "plain_ms": cuda_ms(lambda: ac_sweep.ac_sweep_plain(
-                G, B1, br, bi, om, FLOOR), reps=3, warmup=1),
-            "bound_ms": bms, "bound_by": by}
+                              B * F, n, n)
+        rhs = torch.complex(br, bi)[:, None].expand(B, F, n).reshape(
+            B * F, n, 1)
+        row["library_ms"] = cuda_ms(lambda: torch.linalg.solve_ex(A, rhs),
+                                    reps=10, warmup=2)
         del A, rhs
-    emit("k3_vs_plain", cases=rows, timings=timings, max_abs_err=max_abs)
-    return max_abs, timings
+        row.update(bound_ms=bms, bound_by=by, flops=ac_flops(B, F, n),
+                   bytes=ac_bytes(B, F, n, size))
+        rows.append(row)
+    emit("k3_timings", card=card_line(), shapes=rows,
+         seconds=time.perf_counter() - t0)
+    return rows
 
 
 # ------------------------------------------------------------- phase 10
@@ -1603,6 +1769,10 @@ def phase_ac_bjt():
     m32, _, xr32, xi32 = _ac_run(sim32, bp32, freqs, x_ops=x64.float())
     m32["dc_dtype"] = "float64"
     emit("ac_bjt_f32", deck="bjt_amp", **m32)
+    _k3_shape("bjt_amp float32", sim32, bp32, x64.float(), freqs,
+              m32["k3_launches"], "ac_bjt_f32")
+    _k3_shape("bjt_amp float64", sim64, bp64, x64, freqs,
+              m64["k3_launches"], "ac_bjt_f64")
     x64c = torch.complex(xr64, xi64)
     m64["f32_vs_f64_lane_rel"] = _lane_rel_err(
         torch.complex(xr32.double(), xi32.double()), x64c)
@@ -1830,6 +2000,10 @@ def phase_monte_carlo_fused_charge():
     m32, _, xr32, xi32 = _ac_run(sim32, bp32, freqs, x_ops=x64.float())
     m32["dc_dtype"] = "float64"
     emit("ac_charge_f32", deck="charge stage", **m32)
+    _k3_shape("charge stage float32", sim32, bp32, x64.float(), freqs,
+              m32["k3_launches"], "ac_charge_f32")
+    _k3_shape("charge stage float64", sim64, bp64, x64, freqs,
+              m64["k3_launches"], "ac_charge_f64")
     x64c = torch.complex(xr64, xi64)
     m64["f32_vs_f64_lane_rel"] = _lane_rel_err(
         torch.complex(xr32.double(), xi32.double()), x64c)
@@ -2320,6 +2494,9 @@ def phase_monte_carlo_measures():
     check(m["f3db_lane0_rel"] <= 1e-3, "opamp_filter nominal f3db")
     emit("monte_carlo_measures_ac_opamp_filter_f32", **m)
     out["ac"] = m
+    _k3_shape("opamp_filter float32", sim, bp,
+              mc.batched_dc_fast(sim.engine, bp), freqs, k3,
+              "monte_carlo_measures_ac_opamp_filter_f32")
     # the CLI's --run-mc 8192 on mc_filter, f32 (the fused path)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_mc_")
     try:
@@ -2969,8 +3146,8 @@ def main():
     phase_cuda_vs_cpu()
     k1_err = phase_k1()
     k1_launches, k1_main, k1_main_run = phase_monte_carlo_fused(x32, x64)
-    ac_main, ac_lanes = phase_ac_monte_carlo()
-    k3_err, k3_timings = phase_k3(ac_lanes)
+    ac_main, ac_lanes, cli_k3 = phase_ac_monte_carlo()
+    k3_err = phase_k3(ac_lanes, cli_k3)
     k1b_err = phase_k1b()
     bjt, bjt_main = phase_monte_carlo_fused_bjt()
     switch = phase_monte_carlo_fused_switch()
@@ -2989,8 +3166,11 @@ def main():
     tline = phase_monte_carlo_tline()
     phase_cli_tline()
     tn = phase_trnoise()
+    k3_rows = phase_k3_timings()
     k2_device, k1_device_ms = phase_k2_device(timings, k1_main_run)
-    k3_main = k3_timings["float32"]  # B=4096, F=64, N=31: the bench shape
+    k3_device = phase_k3_device(k3_rows)
+    k3_shapes = [{**t, **d} for t, d in zip(k3_rows, k3_device)]
+    k3_main = next(r for r in k3_shapes if r["shape"] == K3_MAIN)
     k2_main = timings[0]             # B=8192, N=31, R=1, f32: batched DC
     # launches: read just after each main path's run, counts set to 0 just
     # before it; every path of every kernel must have launched it
@@ -3035,7 +3215,9 @@ def main():
                      "ac_bjt_f32": ac_bjt["k3_launches"],
                      "ac_charge_f32": charge["ac_f32"]["k3_launches"],
                      "monte_carlo_measures_ac_opamp_filter_f32":
-                         meas["ac"]["k3_launches"]}}
+                         meas["ac"]["k3_launches"],
+                     **{c["path"]: c["launches"] for c in K3_SHAPES.values()
+                        if c["path"]}}}
     for kernel, by_path in paths.items():
         for path, n in by_path.items():
             check(n > 0, f"{kernel} launched on {path}")
@@ -3095,7 +3277,10 @@ def main():
         "launches_by_path": paths["ac_sweep"], "max_abs_err": k3_err,
         "ms": k3_main["kernel_ms"], "plain_ms": k3_main["plain_ms"],
         "bound_ms": k3_main["bound_ms"], "bound_by": k3_main["bound_by"],
-        "library_ms": k3_main["library_ms"]}]}), flush=True)
+        "library_ms": k3_main["library_ms"],
+        "device_ms": k3_main["kernel_device_ms"], "plan": k3_main["plan"],
+        "shape": "dbmixer B=4096 F=64 N=31 f32 (one AC Monte-Carlo sweep)",
+        "shapes": k3_shapes}]}), flush=True)
     emit("total", seconds=time.perf_counter() - t_start)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

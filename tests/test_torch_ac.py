@@ -4,6 +4,7 @@ of K3 against the JAX Pallas kernel (interpret mode) and complex128 numpy,
 rtol 1e-9, atol 1e-12), the CSV writer, the CLI ``--run-ac`` and the
 committed JAX goldens that ``chip_smoke.py`` reads."""
 
+import dataclasses
 import functools
 import os
 import shutil
@@ -182,6 +183,90 @@ def test_dispatch_on_cpu_and_gate(no_cuda_kernel):
         ac_sweep.ac_sweep(G.float(), B1, br, bi, om)
     with pytest.raises(ValueError, match="shapes"):
         ac_sweep.ac_sweep(G, B1, br[:, :2], bi, om)
+
+
+# registers a thread of each K3 kernel by (itemsize, team capacity; 64 the
+# wide route): the built library's counts on the H100 (chip_smoke.py's
+# k3_timings), which the plan reads there; the CPU tests pass them in
+PTXAS_REGS = {(4, 8): 64, (4, 16): 97, (4, 32): 90, (4, 64): 56,
+              (8, 8): 122, (8, 16): 183, (8, 32): 163, (8, 64): 72}
+
+
+def cuda_plan(N, itemsize, team=None):
+    cap = team or min(c for c in cuda_ac.CAPACITIES if c >= N)
+    return cuda_ac.plan(N, itemsize, team, PTXAS_REGS[(itemsize, cap)])
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_cuda_plan_fits_a_block(itemsize):
+    # the launcher's plan for every N the kernel takes: the smallest team
+    # capacity that holds N (33..64: the wide route) and its rows a thread,
+    # blocks of whole warps within one H100 block, the shared memory of the
+    # kernel's layout, and the systems per block of the residency rule
+    for N in range(1, cuda_ac.MAX_N + 1):
+        cap = min(c for c in (8, 16, 32, 64) if c >= N)
+        p = cuda_plan(N, itemsize)
+        assert p.cap == cap and p.rows == (2 if cap < 32 else 1)
+        assert p.regs == PTXAS_REGS[(itemsize, cap)]
+        assert p.threads % 32 == 0 and p.smem <= cuda_ac.SMEM_PER_BLOCK
+        if p.cap == 64:
+            assert p.team == 32
+            assert 1 <= p.spb <= 4 and p.resident >= 1
+            assert p.smem == p.spb * itemsize * (2 * N * (N | 1) + 2 * N)
+            continue
+        assert p.team == cap // p.rows and p.threads <= 256
+        need = itemsize * 2 * N * (N | 1)
+        assert need <= p.smem < need + 16 and p.smem % 16 == 0
+        # a power of two; no larger one within a warp of the most resident
+        # systems of any block size
+        step = 32 // p.team
+        assert p.spb in cuda_ac.SPB_SIZES and p.spb >= step
+        others = [dataclasses.replace(p, spb=s)
+                  for s in range(step, 256 // p.team + 1, step)]
+        most = max(o.resident for o in others)
+        assert most - step <= p.resident and p.resident >= 1
+        assert not any(o.spb > p.spb and o.resident >= most - step
+                       and o.spb in cuda_ac.SPB_SIZES for o in others)
+
+
+def test_cuda_plan_overrides_and_refusals():
+    for N in (1, 5, 8, 9, 17, 31, 32):
+        for cap in (c for c in cuda_ac.CAPACITIES if c >= N):
+            for itemsize in (4, 8):
+                p = cuda_plan(N, itemsize, team=cap)
+                assert (p.cap, p.rows) == (cap, cuda_ac.ROWS[cap])
+        for cap in (c for c in cuda_ac.CAPACITIES if c < N):
+            with pytest.raises(ValueError, match="does not hold"):
+                cuda_ac.plan(N, 4, team=cap, regs=64)
+    for bad in (0, cuda_ac.MAX_N + 1):
+        with pytest.raises(ValueError, match="outside"):
+            cuda_ac.plan(bad, 4, regs=64)
+    with pytest.raises(ValueError):
+        cuda_ac.plan(5, 4, team=12, regs=64)
+    with pytest.raises(ValueError):
+        cuda_ac.plan(5, 2, regs=64)
+    # more registers a thread never raises the systems resident
+    lean, fat = (cuda_ac.plan(31, 4, regs=r) for r in (40, 200))
+    assert fat.resident < lean.resident
+
+
+@pytest.mark.parametrize("N", [1, 5, 7, 10, 31, 40])
+def test_cuda_launch_shape_covers_every_frequency(N):
+    # each lane's frequencies in ceil(F / spb) blocks of whole warps whose
+    # teams cover F with less than a warp's teams of slack a block
+    for itemsize in (4, 8):
+        for team in [None] + [c for c in cuda_ac.CAPACITIES if c >= N]:
+            p = cuda_plan(N, itemsize, team)
+            for F in (1, 3, 8, 64, 71, 201, 1000):
+                teams, chunks = cuda_ac.launch_shape(p, F)
+                if p.cap == 64:
+                    assert (teams, chunks) == (p.spb, 0)
+                    continue
+                step = 32 // p.team
+                assert 1 <= teams <= p.spb and (teams * p.team) % 32 == 0
+                assert chunks == -(-F // p.spb)
+                assert chunks * teams >= F > (chunks - 1) * teams
+                assert chunks * teams - F < chunks * step
 
 
 # ---------------------------------------------------------------- AC path

@@ -566,23 +566,63 @@ def lane_rel_err(x, ref, good):
     return float((d / np.maximum(s, 1e-300)).max())
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("B,n,F", [(1, 1, 3), (7, 5, 4), (300, 31, 8),
-                                   (40, 64, 3)])
-def test_ac_sweep_kernel_matches_plain(cuda_device, dtype, B, n, F):
-    """K3 against its plain version on the card: identical fail masks,
-    lane-relative error <= 1e-12 (f64) and <= 1e-4 (f32)."""
+def mna_lanes(B, n, seed):
+    """MNA-style lanes of small integers: node rows of integer conductances
+    (a grounded chain and random branches) and capacitances, and
+    voltage-source rows of +-1 with a zero diagonal, the equations in a
+    random order per lane, so that exact ties in |a|^2 decide pivots; with
+    B > 2 lane 1 is singular and lane 2 holds a NaN."""
+    rng = np.random.default_rng(seed)
+    m = n // 4                                  # voltage sources
+    nv = n - m
+    G = np.zeros((B, n, n))
+    C = np.zeros((B, n, n))
+
+    def branch(M, b, a, c, v):
+        M[b, a, a] += v
+        if c is not None:
+            M[b, c, c] += v
+            M[b, a, c] -= v
+            M[b, c, a] -= v
+
+    for b in range(B):
+        branch(G, b, 0, None, 1.0)              # node 0 to ground
+        for a in range(nv - 1):
+            branch(G, b, a, a + 1, float(rng.integers(1, 4)))
+        for _ in range(nv // 2):
+            a, c = rng.choice(nv, 2, replace=False)
+            branch(G, b, a, c, float(rng.integers(1, 3)))
+            branch(C, b, a, c, float(rng.integers(0, 3)))
+        for k in range(m):                      # disjoint node pairs
+            r, a, c = nv + k, 2 * k, 2 * k + 1
+            G[b, a, r] = G[b, r, a] = 1.0
+            if c < nv:
+                G[b, c, r] = G[b, r, c] = -1.0
+        perm = rng.permutation(n)
+        G[b], C[b] = G[b, perm], C[b, perm]
+    br = rng.integers(-2, 3, (B, n)).astype(float)
+    bi = rng.integers(-2, 3, (B, n)).astype(float)
+    if B > 2:
+        G[1] = 0.0
+        C[1] = 0.0
+        G[2, n // 2, min(1, n - 1)] = np.nan
+    return G, C, br, bi
+
+
+def check_ac_sweep(device, arrays, om, dtype, **override):
+    """K3 (plan, or ``override`` of the team capacity) against its plain
+    version: one launch, identical fail masks, the singular and NaN lanes
+    zeroed, lane-relative error <= 1e-12 (f64) and <= 1e-4 (f32)."""
     from circuitsimulator_tpu_torch.ops import ac_sweep, cuda_ac
-    arrays = ac_lanes(max(B, 3), n, seed=n + F)
-    arrays = [a[:B] for a in arrays]
-    G, B1, br, bi = (torch.as_tensor(a, dtype=dtype, device=cuda_device)
+    G, B1, br, bi = (torch.as_tensor(a, dtype=dtype, device=device)
                      for a in arrays)
-    # omega <= 1 keeps the lanes diagonally dominant for the f32 bar
-    om = torch.as_tensor(np.logspace(-1, 0, F), dtype=dtype,
-                         device=cuda_device)
+    om = torch.as_tensor(om, dtype=dtype, device=device)
+    B = G.shape[0]
     before = cuda_ac.LAUNCHES
-    xr, xi = ac_sweep.ac_sweep(G, B1, br, bi, om, FLOOR)
+    if override:
+        xr, xi = cuda_ac.ac_sweep_cuda(G, B1, br, bi, om, FLOOR, **override)
+    else:
+        xr, xi = ac_sweep.ac_sweep(G, B1, br, bi, om, FLOOR)
     torch.cuda.synchronize()
     assert cuda_ac.LAUNCHES == before + 1
     pr, pi = ac_sweep.ac_sweep_plain(G, B1, br, bi, om, FLOOR)
@@ -594,8 +634,50 @@ def test_ac_sweep_kernel_matches_plain(cuda_device, dtype, B, n, F):
     if B > 2:
         assert zero_k[1] and zero_k[2]
     good = ~zero_p
+    assert good.any()
     tol = 1e-12 if dtype == torch.float64 else 1e-4
     assert lane_rel_err(x, ref, good) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("F", [1, 3, 8])
+@pytest.mark.parametrize("B", [1, 7, 300])
+@pytest.mark.parametrize("n", [1, 8, 9, 16, 17, 31, 32, 33, 64])
+def test_ac_sweep_kernel_matches_plain(cuda_device, dtype, B, n, F):
+    """K3 against its plain version on the card at every team capacity's
+    edges (8, 16, 32 threads, the wide route), one lane to 300, one to
+    eight frequencies."""
+    arrays = ac_lanes(max(B, 3), n, seed=n + F)
+    # omega <= 1 keeps the lanes diagonally dominant for the f32 bar
+    check_ac_sweep(cuda_device, [a[:B] for a in arrays],
+                   np.logspace(-1, 0, F), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [4, 7, 10, 17, 31, 40])
+def test_ac_sweep_kernel_ties_on_mna_lanes(cuda_device, dtype, n):
+    """Small-integer MNA lanes with +-1 source rows (omegas powers of two,
+    so w B1 is exact): ties in |a|^2 decide the pivots, the first position
+    wins in both versions."""
+    check_ac_sweep(cuda_device, mna_lanes(300, n, seed=n),
+                   2.0 ** np.arange(-3, 5), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 5, 8, 9, 16, 17, 31, 32])
+def test_ac_sweep_every_team(cuda_device, dtype, n):
+    """Every team capacity that holds N (two rows a thread at 8 and 16, one
+    at 32, and the wide route at 64), forced through the wrapper: the same
+    fail masks and values within the bars, on random and on MNA lanes."""
+    from circuitsimulator_tpu_torch.ops import cuda_ac
+    for cap in (c for c in cuda_ac.CAPACITIES if c >= n):
+        check_ac_sweep(cuda_device, ac_lanes(40, n, seed=n),
+                       np.logspace(-1, 0, 5), dtype, team=cap)
+        check_ac_sweep(cuda_device, mna_lanes(40, n, seed=n),
+                       2.0 ** np.arange(-2, 3), dtype, team=cap)
 
 
 @pytest.mark.cuda
