@@ -207,12 +207,44 @@ Phases (one JSON line each):
      one (k3_device_times).  It runs last: a profiler session leaves every
      later launch in the process slower (on the H100 a K2 call's host time
      went from 25 to 48 us).
+ 29. mutual inductance (K1e, mutual_*, monte_carlo_fused_{xfmr,rectifier}_*,
+     k1e_vs_plain, ac_xfmr_*): examples/xfmr.sp's single lane in f64 on
+     the card (DC, 500 transient steps, its .AC sweep on K3) within 1e-9
+     V of the port on the CPU; the fused Monte-Carlo main path
+     (batched_transient, f32 damped from an f64 batched DC) at B = 8192
+     over the deck's whole .TRAN (5,000 steps, chunks of 2,000) on xfmr
+     (k = 0) and on a transformer-coupled half-wave rectifier (the
+     secondary with a diode and an RC load, k = 1), inductors, couplings
+     and resistors perturbed from a numpy seed: lane-steps/s, K1 launches,
+     failed lanes, K1 at the chunk shape against its plain version (2e-4
+     V over 250 steps on xfmr, 100 on the rectifier) with its times and
+     bound; K1e against its plain version at 256 lanes (f32 2e-4 V over
+     100 steps, f64 1e-9 V over 200 with equal iteration counts); the f64
+     fused run within 1e-9 V of the non-fused loop on 1,024 lanes x 300
+     steps; xfmr's AC Monte-Carlo at 4096 x 41 on K3, f32 within 1e-3 of
+     f64 (its shape joins k3_timings);
+ 30. the .DC sweep (dc_sweep_*): --run-dc-sweep on mos_family.sp (the
+     nested grid) and on diode_temp.sp (with --run-step, as the golden was
+     made) against the JAX CLI's stdout and CSVs (1e-9); dbmixer's Vdd over
+     8,192 points from 0 to 3.3 V through Simulator.dc_sweep, one batched
+     DC on K2 at (8192, 31, 1) in f64: points/s, Newton iterations (one K2
+     launch each), K2's share of the wall, failed points, every 64th point
+     within 1e-9 V of the port's f64 sweep on the CPU with equal fail
+     masks;
+ 31. .STEP (step_*): --run-step on rc_step.sp against the JAX CLI's stdout
+     and CSV (1e-9), and the same sweep waveform-free in f32
+     (Simulator.step(save_xs=False): K1 with its probe stream) against the
+     CSV (rtol 1e-4);
+ 32. .IC / UIC (ic_transients_f64): the UIC and .IC decks of
+     tests/test_torch_ic.py (tests/test_ic.py's decks but the adaptive
+     one) in f64 on the card, within 1e-12 V of the port on the CPU.
+     Phases 29-32 run after phase 27 and before k3_timings and phase 28.
 
 Every error of K3 and of the AC path is lane-relative: for each lane
 max|x - ref| / max|ref| over its frequencies and unknowns, then the worst
 lane.  Kernel launch counts are reset just before each main-path run
-(phases 4, 7, 8, 11, 12, 13, 15, 16, 18, 22, 25 and 27) and read just
-after it.  The
+(phases 4, 7, 8, 11, 12, 13, 15, 16, 18, 22, 25, 27 and 29-32) and read
+just after it.  The
 junction decks run the damped while-loop Newton configuration at f32
 tolerances: the fast configuration (alpha 1, predictor, two unrolled
 iterations) was tuned on dbmixer and is not held to anything on
@@ -1035,7 +1067,9 @@ def k1_work(runner, n_steps, n_iters):
     operations (the voltage difference, Z0 i, their sum, the EMF's add
     into b0).  A noisy run (K1c-iii) reads its noise block once, nN words
     per lane-step, with the per-source rows once, and adds each word to
-    its source's value (one operation)."""
+    its source's value (one operation).  A deck with mutual inductance
+    (K1e) reads gm once per lane and the K plan once, and per lane-step
+    forms and adds its 2 nK history terms (two operations each)."""
     B, N, k, P, W = runner.B, runner.N, runner.k, runner.P, runner.W
     size = runner.G0inv.element_size()
     nc = runner.bconsts.shape[0] if runner.nB else 0
@@ -1055,9 +1089,11 @@ def k1_work(runner, n_steps, n_iters):
     nT = runner.nT
     nbytes += size * B * (2 * runner.Dmax * 2 * nT + nT) + 4 * 7 * nT
     nbytes += size * n_steps * runner.nN * B + 4 * runner.nS * bool(runner.nN)
+    nbytes += size * B * runner.nK + 4 * 2 * runner.nK
     per_step = (22 * runner.nS + 2 * runner.nL + 4 * runner.nCap
                 + 2 * N * N + 2 * N + CHARGE_OPS * runner.nMq
-                + 2 * n_probe * N + 4 * 2 * nT + runner.nN)
+                + 2 * n_probe * N + 4 * 2 * nT + runner.nN
+                + 2 * 2 * runner.nK)
     dio = 32 if runner.flags["dio_bv"] else 20
     per_iter = (25 * runner.nMJ + dio * runner.nD + 75 * runner.nQ
                 + 35 * runner.nSw + (CHARGE_DUAL_OPS + 45) * runner.nMq
@@ -1083,10 +1119,10 @@ def k1_plan_row(runner, route=None, team=None):
             "local_bytes": local}
 
 
-def _dc_failed_lanes(engine, bp, x0, bar):
-    """Lanes whose batched DC point is not one: non-finite, or one more
-    undamped Newton solve at the final gmin moves it by more than `bar`
-    volts."""
+def _dc_fail_mask(engine, bp, x0, bar):
+    """(mask, move): the lanes whose batched DC point is not one
+    (non-finite, or one more undamped Newton solve at the final gmin moves
+    it by more than `bar` volts), and that move per lane."""
     import torch
     from circuitsimulator_tpu_torch.ops import lu
     N, opts = engine.N, engine.opts
@@ -1094,7 +1130,12 @@ def _dc_failed_lanes(engine, bp, x0, bar):
     G, I = engine.assemble_dc_iter(G_s, I_s, bp, x0, opts.gmin_low_base)
     x_raw = lu.lu_solve(G[..., :N, :N], I[..., :N], opts.lu_pivot_floor)
     move = (x_raw - x0).abs().amax(-1)
-    bad = ~torch.isfinite(x0).all(-1) | ~(move <= bar)
+    return ~torch.isfinite(x0).all(-1) | ~(move <= bar), move
+
+
+def _dc_failed_lanes(engine, bp, x0, bar):
+    """(count, largest move of the good lanes) of ``_dc_fail_mask``."""
+    bad, move = _dc_fail_mask(engine, bp, x0, bar)
     return int(bad.sum()), float(move[~bad].max()) if (~bad).any() else None
 
 
@@ -3132,6 +3173,418 @@ def phase_trnoise():
     return out
 
 
+# ------------------------------------------------------------- phase 29
+# mutual inductance (K1e): examples/xfmr.sp (k = 0) and its secondary with
+# a diode and an RC load (k = 1), the decks of tests/test_torch_mutual.py;
+# their lanes vary the inductors, the couplings and the resistors
+RECTIFIER_DECK = """* transformer-coupled half-wave rectifier
+V1 src 0 SIN 0 1 1e5
+Rs src p 10
+L1 p 0 1m
+L2 s 0 4m
+K1 L1 L2 0.98
+D1 s out
+Rl out 0 1k
+Cl out 0 100n
+.TRAN 1e-8 5e-5
+"""
+K_SIGMAS = (("ind_l", 0.05), ("mut_k", 0.01), ("res_r", 0.02))
+
+
+def _as64(bp):
+    return {k: (v.double() if v.is_floating_point() else v)
+            for k, v in bp.items()}
+
+
+def _k_lanes(sim, B, seed):
+    """B lanes of a K deck drawn from a numpy seed: lognormal factors on
+    K_SIGMAS' leaves, lane 0 nominal, every coupling at most 0.999."""
+    import numpy as np
+    import torch
+    from circuitsimulator_tpu_torch.parallel import montecarlo as mc
+    rng = np.random.default_rng(seed)
+    bp = dict(mc.broadcast_params(sim.params, B))
+    for key, sigma in K_SIGMAS:
+        p = sim.params[key]
+        f = np.exp(sigma * rng.standard_normal((B,) + tuple(p.shape)))
+        f[0] = 1.0
+        bp[key] = p[None] * torch.as_tensor(f, dtype=p.dtype,
+                                            device=p.device)
+    bp["mut_k"] = bp["mut_k"].clamp(max=0.999)
+    return bp
+
+
+def _k1e_deck(name, deck, seed):
+    """One K deck: the fused Monte-Carlo main path at B = 8192 in f32
+    (batched_transient from an f64 batched DC; counts reset just before
+    and read just after), K1 at its 2,000-step chunk against the plain
+    version, K1e against the plain version at B = 256 in f32 and f64, and
+    the f64 fused run against the non-fused loop at B = 1024."""
+    import torch
+    from circuitsimulator_tpu_torch import DEFAULT_OPTIONS
+    from circuitsimulator_tpu_torch.analysis.transient import n_steps_for
+    from circuitsimulator_tpu_torch.ops import cuda_lu, cuda_step, fused_step
+    from circuitsimulator_tpu_torch.parallel import montecarlo as mc
+    opts = damped_f32_options()
+    sim32, sim64 = _sim(opts, deck), _sim(DEFAULT_OPTIONS, deck)
+    cfg = sim32.config.tran
+    dt, n_steps, chunk = cfg.tstep, n_steps_for(cfg.tstep, cfg.tstop), 2000
+    bp = _k_lanes(sim32, 8192, seed)
+    torch.cuda.synchronize()
+    cuda_lu.LAUNCHES = 0
+    cuda_step.LAUNCHES = 0
+    t0 = time.perf_counter()
+    x0 = mc.batched_dc_fast(sim64.engine, _as64(bp))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = mc.batched_transient(sim32.engine, bp, dt, cfg.tstop, x0=x0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    m = {"deck": name, "B": 8192, "steps": n_steps, "dt": dt,
+         "chunk": chunk, "dc_dtype": "float64", "setup_s": setup_s,
+         "transient_s": wall, "k2_launches": cuda_lu.LAUNCHES,
+         "k1_launches": cuda_step.LAUNCHES,
+         "lane_steps_per_s": 8192 * n_steps / wall,
+         "failed_lanes": int(res.failed.sum()),
+         "newton_iters_per_step": float(res.newton_iters.float().mean())
+         / n_steps}
+    check(m["k1_launches"] == -(-n_steps // chunk),
+          f"{name}: one K1 launch per chunk")
+    check(m["k2_launches"] > 0, f"{name}: DC and G0 inverse on K2")
+    check(m["failed_lanes"] == 0, f"{name}: failed lanes")
+    check(bool(torch.isfinite(res.x_final).all()), f"{name}: non-finite x")
+    runner = fused_step.FusedStepRunner(sim32.engine, bp, dt)
+    check(runner.nK == 1, f"{name}: one K element in the runner")
+    x = x0.float()
+    st = sim32.engine.init_state(x, bp, dt)
+    start = (x, x, st["vc"], st["il"], torch.zeros_like(res.failed))
+    main = _k1_at_main_shape(runner, start, 0, chunk, 2e-4,
+                             plain_steps=250 if name == "xfmr" else 100)
+    main["deck"], main["nK"] = name, runner.nK
+    m["kernel_at_main_shape"] = main
+    emit(f"monte_carlo_fused_{name}_f32", **m)
+    # K1e against its plain version, 256 lanes from the f64 DC: 100 steps
+    # in f32 (the decks' branch rows cancel L/dt i terms of about 1e3 V to
+    # volts, so two correct summation orders drift apart once the
+    # rectifier's diode conducts: 3e-5 V after 100 steps, 3e-4 V after
+    # 250), 200 in f64
+    rows = []
+    for o, tol, steps in ((opts, 2e-4, 100), (DEFAULT_OPTIONS, 1e-9, 200)):
+        sim = _sim(o, deck)
+        lanes = _k_lanes(sim, 256, seed + 1)
+        x = mc.batched_dc_fast(sim64.engine, _as64(lanes)).to(o.dtype)
+        r = fused_step.FusedStepRunner(sim.engine, lanes, dt)
+        st = sim.engine.init_state(x, lanes, dt)
+        carry = (x, x, st["vc"], st["il"],
+                 torch.zeros((256,), dtype=torch.bool, device="cuda"))
+        got = r.run_chunk(*carry, 0, steps)
+        ref = r.run_chunk_plain(*carry, 0, steps)
+        torch.cuda.synchronize()
+        err = max(float((a - b).abs().max()) for a, b in zip(got[:4],
+                                                              ref[:4])
+                  if a.numel())
+        row = {"deck": name, "dtype": str(o.dtype)[6:], "B": 256,
+               "steps": steps, "N": r.N, "k": r.k, "nK": r.nK,
+               "max_abs_err": err, "tol": tol,
+               "failed_lanes": int(got[4].sum()),
+               "failed_equal": bool(torch.equal(got[4], ref[4])),
+               "iters_equal": bool(torch.equal(got[5], ref[5]))}
+        check(err <= tol, f"K1e {name} {row['dtype']}: {err} > {tol}")
+        check(row["failed_equal"] and not row["failed_lanes"],
+              f"K1e {name}: failed lanes")
+        if o.dtype == torch.float64:
+            check(row["iters_equal"], f"K1e {name}: iteration counts")
+        rows.append(row)
+    # the f64 fused run against the non-fused loop, 1,024 lanes x 300 steps
+    lanes = _k_lanes(sim64, 1024, seed + 2)
+    x = mc.batched_dc_fast(sim64.engine, lanes)
+    t0 = time.perf_counter()
+    fz = mc.batched_transient(sim64.engine, lanes, dt, 300 * dt, x0=x,
+                              fused=True)
+    torch.cuda.synchronize()
+    fused_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nf = mc.batched_transient(sim64.engine, lanes, dt, 300 * dt, x0=x,
+                              fused=False)
+    torch.cuda.synchronize()
+    f64 = {"deck": name, "B": 1024, "steps": 300, "fused_s": fused_s,
+           "nonfused_s": time.perf_counter() - t0,
+           "final_max_abs_vs_nonfused": float(
+               (fz.x_final - nf.x_final).abs().max())}
+    check(not bool(fz.failed.any() or nf.failed.any()),
+          f"{name} f64: failed lanes")
+    check(f64["final_max_abs_vs_nonfused"] <= 1e-9,
+          f"{name}: fused f64 within 1e-9 V of the non-fused loop")
+    emit(f"monte_carlo_fused_{name}_f64", **f64)
+    return m, main, rows
+
+
+def phase_mutual():
+    """Mutual inductance on the card: xfmr.sp's single lane in f64 (DC,
+    500 transient steps, the .AC sweep) against the port on the CPU; the
+    K1e decks (``_k1e_deck``); xfmr's AC Monte-Carlo at 4096 x 41 on K3
+    (the -wM entries in B1), f32 against f64 on the same lanes."""
+    import numpy as np
+    import torch
+    from circuitsimulator_tpu_torch import DEFAULT_OPTIONS, Simulator
+    from circuitsimulator_tpu_torch.analysis.ac import sweep_frequencies
+    from circuitsimulator_tpu_torch.ops import cuda_ac
+    t_phase = time.perf_counter()
+    xfmr = os.path.join(EXAMPLES, "xfmr.sp")
+    gpu = Simulator.from_file(xfmr, device="cuda")
+    cpu = Simulator.from_file(xfmr, device="cpu")
+    n = 500
+    xg, xc = gpu.dc(), cpu.dc()
+    row = {"dc_max_abs": float((xg.cpu() - xc).abs().max()), "steps": n}
+    t0 = time.perf_counter()
+    rg = gpu.transient(tstop=n * gpu.config.tran.tstep, x_op=xg)
+    torch.cuda.synchronize()
+    row["transient_s"] = time.perf_counter() - t0
+    rc = cpu.transient(tstop=n * cpu.config.tran.tstep, x_op=xc)
+    row["transient_max_abs"] = float((rg.xs.cpu() - rc.xs).abs().max())
+    s_eq = gpu.circuit.nodes[gpu.circuit.node_name_to_id["s"]].eq_index
+    row["secondary_peak_v"] = float(rg.xs[:, s_eq].abs().max())
+    cuda_ac.LAUNCHES = 0
+    ag = gpu.ac(x_op=xg)
+    row["ac_k3_launches"] = cuda_ac.LAUNCHES
+    row["ac_max_abs"] = float(np.abs(ag.xs - cpu.ac(x_op=xc).xs).max())
+    for key in ("dc_max_abs", "transient_max_abs", "ac_max_abs"):
+        check(row[key] <= 1e-9, f"xfmr single lane {key} {row[key]}")
+    check(row["ac_k3_launches"] == 1, "xfmr .AC: one K3 launch")
+    emit("mutual_single_lane_f64", **row)
+    decks = {name: _k1e_deck(name, deck, seed) for name, deck, seed in (
+        ("xfmr", xfmr, 91), ("rectifier", RECTIFIER_DECK, 94))}
+    emit("k1e_vs_plain", cases=[r for d in decks.values() for r in d[2]])
+    # xfmr's AC Monte-Carlo: its .AC card's 41 points at 4096 lanes
+    cfg = gpu.config.ac
+    freqs = sweep_frequencies(cfg.sweep_type, cfg.n_points, cfg.fstart,
+                              cfg.fstop)
+    sim32 = _sim(damped_f32_options(), xfmr)
+    bp = _k_lanes(sim32, 4096, 97)
+    m32, x32, xr32, xi32 = _ac_run(sim32, bp, freqs)
+    _k3_shape("xfmr float32", sim32, bp, x32, freqs, m32["k3_launches"],
+              "ac_xfmr_f32")
+    emit("ac_xfmr_f32", **m32)
+    m64, _, xr64, xi64 = _ac_run(_sim(DEFAULT_OPTIONS, xfmr), _as64(bp),
+                                 freqs)
+    m64["f32_vs_f64_lane_rel"] = _lane_rel_err(
+        torch.complex(xr32.double(), xi32.double()),
+        torch.complex(xr64, xi64))
+    check(m64["f32_vs_f64_lane_rel"] <= 1e-3, "xfmr AC f32 within 1e-3")
+    m64["phase_seconds"] = time.perf_counter() - t_phase
+    emit("ac_xfmr_f64", **m64)
+    return {"single": row, "decks": decks, "ac": m32}
+
+
+# ------------------------------------------------------- phases 30, 31
+def _cli_vs_goldens(deck, args, stdout_golden, csvs):
+    """The CLI on examples/<deck>.sp on the card, run from a directory
+    holding examples/ (the goldens name the deck and the CSVs relative to
+    it): stdout byte-identical to the JAX CLI's, each CSV's header equal
+    and its values within 1e-9.  K1 and K2 counts are reset just before
+    and read just after."""
+    import numpy as np
+    from circuitsimulator_tpu_torch.ops import cuda_lu, cuda_step
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_s_")
+    here = os.getcwd()
+    try:
+        os.makedirs(os.path.join(tmp, "examples"))
+        shutil.copy(os.path.join(EXAMPLES, f"{deck}.sp"),
+                    os.path.join(tmp, "examples"))
+        os.chdir(tmp)
+        cuda_lu.LAUNCHES = 0
+        cuda_step.LAUNCHES = 0
+        rc, text, out["cli_s"] = _cli([f"examples/{deck}.sp", *args,
+                                       "--device", "cuda"])
+        out["k2_launches"] = cuda_lu.LAUNCHES
+        out["k1_launches"] = cuda_step.LAUNCHES
+        check(rc == 0 and text == read_golden(stdout_golden),
+              f"{deck} stdout byte-identical to the JAX CLI's")
+        for got_name, gold in csvs:
+            with open(got_name) as f:
+                check(f.readline() == read_golden(gold).splitlines(True)[0],
+                      f"{got_name}: CSV header")
+            got = np.loadtxt(got_name, delimiter=",", skiprows=1, ndmin=2)
+            ref = np.loadtxt(os.path.join(GOLDENS, gold), delimiter=",",
+                             skiprows=1, ndmin=2)
+            check(got.shape == ref.shape, f"{got_name}: CSV shape")
+            out[f"{got_name}_max_abs"] = float(np.abs(got - ref).max())
+            check(out[f"{got_name}_max_abs"] <= 1e-9,
+                  f"{got_name} within 1e-9 of the JAX CLI's")
+    finally:
+        os.chdir(here)
+        shutil.rmtree(tmp)
+    return out
+
+
+def phase_dc_sweep():
+    """The .DC sweep on the card: --run-dc-sweep on mos_family.sp (the
+    nested grid) and diode_temp.sp (with its .MEASURE DC and --run-step, the
+    golden's command) against the JAX CLI's goldens; dbmixer's Vdd over
+    8,192 points from 0 to 3.3 V through Simulator.dc_sweep, one batched
+    DC (K2 at (8192, 31, 1) in f64): points/s, the shared loop's Newton
+    iterations (one K2 launch each), K2's share of the wall at its timed
+    cost, failed points; every 64th point against the port's f64 sweep on
+    the CPU (1e-9 V, equal fail masks)."""
+    import numpy as np
+    import torch
+    from circuitsimulator_tpu_torch import Simulator
+    from circuitsimulator_tpu_torch.analysis.sweep import set_source_lanes
+    from circuitsimulator_tpu_torch.ops import cuda_lu, lu
+    from circuitsimulator_tpu_torch.parallel import montecarlo as mc
+    t_phase = time.perf_counter()
+    cli = {"mos_family": _cli_vs_goldens(
+        "mos_family", ["--run-dc-sweep", "mos_family_dcsweep.csv"],
+        "mos_family_dcsweep_stdout_jax.txt",
+        [("mos_family_dcsweep.csv", "mos_family_dcsweep_jax.csv")]),
+        "diode_temp": _cli_vs_goldens(
+        "diode_temp", ["--run-dc-sweep", "diode_temp_dcsweep.csv",
+                       "--run-step", "diode_temp_step.csv"],
+        "diode_temp_stdout_jax.txt",
+        [("diode_temp_dcsweep.csv", "diode_temp_dcsweep_jax.csv"),
+         ("diode_temp_step.csv", "diode_temp_step_jax.csv")])}
+    for deck, row in cli.items():
+        check(row["k2_launches"] > 0, f"{deck} sweep on K2")
+    emit("dc_sweep_cli", decks=cli)
+    dbmixer = os.path.join(NETLISTS, "dbmixer.sp")
+    sim = Simulator.from_file(dbmixer, device="cuda")
+    values = np.linspace(0.0, 3.3, 8192)
+    torch.cuda.synchronize()
+    cuda_lu.LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = sim.dc_sweep(source="Vdd", values=values)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k2 = cuda_lu.LAUNCHES
+    A, b = _systems(8192, sim.engine.N, 1, torch.float64, seed=9)
+    k2_ms = cuda_ms(lambda: lu.lu_solve(A, b, FLOOR))
+    bp = set_source_lanes(sim.engine, mc.broadcast_params(sim.params, 8192),
+                          sim.circuit, "Vdd", values)
+    fail, move = _dc_fail_mask(sim.engine, bp, res.xs, 1e-6)
+    m = {"points": 8192, "N": sim.engine.N, "dtype": "float64",
+         "wall_s": wall, "points_per_s": 8192 / wall, "k2_launches": k2,
+         "newton_iterations": k2, "k2_ms_per_launch": k2_ms,
+         "k2_share": k2 * k2_ms / (1e3 * wall),
+         "failed_points": int(fail.sum()),
+         "newton_move_max": float(move[~fail].max())}
+    check(k2 > 0, "dbmixer sweep on K2")
+    # every 64th point through the port on the CPU
+    cpu = Simulator.from_file(dbmixer, device="cpu")
+    t0 = time.perf_counter()
+    ref = cpu.dc_sweep(source="Vdd", values=values[::64])
+    m["cpu_points"], m["cpu_s"] = len(values[::64]), time.perf_counter() - t0
+    bpc = set_source_lanes(cpu.engine, mc.broadcast_params(cpu.params,
+                                                           m["cpu_points"]),
+                           cpu.circuit, "Vdd", values[::64])
+    fail_c = _dc_fail_mask(cpu.engine, bpc, ref.xs, 1e-6)[0]
+    check(torch.equal(fail[::64].cpu(), fail_c), "sweep fail masks equal")
+    good = ~fail_c
+    m["max_abs_vs_cpu"] = float(
+        (res.xs[::64].cpu()[good] - ref.xs[good]).abs().max())
+    check(m["max_abs_vs_cpu"] <= 1e-9, "sweep within 1e-9 V of the CPU")
+    m["phase_seconds"] = time.perf_counter() - t_phase
+    emit("dc_sweep_dbmixer_f64", **m)
+    return {"cli": cli, "dbmixer": m}
+
+
+def phase_step():
+    """.STEP on the card: --run-step on rc_step.sp (.STEP PARAM with its
+    .MEASURE TRAN cards, the non-fused f64 loop) against the JAX CLI's
+    goldens; then the same sweep waveform-free in f32 (Simulator.step(
+    save_xs=False): the streaming measures, K1 with its probe stream),
+    its measures against the golden CSV (rtol 1e-4)."""
+    import numpy as np
+    import torch
+    from circuitsimulator_tpu_torch import Simulator
+    from circuitsimulator_tpu_torch.ops import cuda_step
+    t_phase = time.perf_counter()
+    cli = _cli_vs_goldens("rc_step", ["--no-tran", "--run-step",
+                                      "rc_step_step.csv"],
+                          "rc_step_run_step_stdout_jax.txt",
+                          [("rc_step_step.csv", "rc_step_step_jax.csv")])
+    emit("step_cli", **cli)
+    sim = Simulator.from_file(os.path.join(EXAMPLES, "rc_step.sp"),
+                              opts=ref_f32_options(), device="cuda")
+    torch.cuda.synchronize()
+    cuda_step.LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = sim.step(save_xs=False)
+    torch.cuda.synchronize()
+    m = {"lanes": len(res.values), "wall_s": time.perf_counter() - t0,
+         "k1_launches": cuda_step.LAUNCHES}
+    gold = golden_rows("rc_step_step_jax.csv", None)
+    got = np.stack([np.asarray(res.values)]
+                   + [np.asarray(v, np.float64) for _, v in res.measures], 1)
+    m["max_rel_vs_golden"] = float(np.abs(got / gold - 1.0).max())
+    check(m["k1_launches"] > 0, "rc_step .STEP ran K1")
+    check(m["max_rel_vs_golden"] <= 1e-4, "rc_step f32 .STEP measures")
+    m["phase_seconds"] = time.perf_counter() - t_phase
+    emit("step_rc_step_f32", **m)
+    return {"cli": cli, "f32": m}
+
+
+# ------------------------------------------------------------- phase 32
+# the decks of tests/test_torch_ic.py: tests/test_ic.py's UIC, .IC and
+# element IC= decks merged into one under UIC and one without
+IC_UIC_DECK = """* UIC starts
+R1 a 0 1k
+C1 a 0 1u
+C2 b 0 1u IC=2
+R2 b 0 1k
+L1 c 0 1m IC=3m
+R3 c 0 1
+C3 d e 1u IC=1.5
+R4 d 0 1k
+R5 e 0 1k
+C4 f 0 1u IC=0.7
+R6 f 0 1k
+.IC V(a)=2 V(f)=0.9
+.IC V(zzz)=5
+.TRAN 10u 2m UIC
+"""
+IC_DECK = """* .IC over the DC point
+V1 in 0 1
+R1 in a 1k
+C1 a 0 1u
+R2 in b 1k
+C2 b 0 1u IC=0.25
+R3 in c 1k
+C3 c 0 1u
+.IC V(a)=3
+.TRAN 1e-4 4e-3
+"""
+
+
+def phase_ic():
+    """.IC / UIC on the card in f64: the UIC deck, the .IC deck and the
+    .IC deck with uic=True, each within 1e-12 V of the port on the CPU."""
+    import contextlib as cl
+    import torch
+    from circuitsimulator_tpu_torch import Simulator
+    from circuitsimulator_tpu_torch.ops import cuda_lu
+    rows = {}
+    torch.cuda.synchronize()
+    cuda_lu.LAUNCHES = 0
+    for name, deck, kw in (("uic", IC_UIC_DECK, {}), ("ic", IC_DECK, {}),
+                           ("ic_uic_override", IC_DECK, {"uic": True})):
+        # the UIC deck's .IC V(zzz) warns on stderr, on both devices
+        with cl.redirect_stderr(io.StringIO()):
+            g = Simulator.from_text(deck, device="cuda").transient(**kw)
+            c = Simulator.from_text(deck, device="cpu").transient(**kw)
+        rows[name] = {"steps": int(g.n_steps),
+                      "max_abs_vs_cpu": float((g.xs.cpu() - c.xs).abs().max()),
+                      "x0_v": float(g.xs[0].abs().max())}
+        check(not bool(g.failed), f"IC {name}: failed")
+        check(rows[name]["max_abs_vs_cpu"] <= 1e-12,
+              f"IC {name} within 1e-12 V of the CPU")
+    k2 = cuda_lu.LAUNCHES
+    check(k2 > 0, "the IC transients' solves on K2")
+    emit("ic_transients_f64", decks=rows, k2_launches=k2)
+    return k2
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3166,6 +3619,10 @@ def main():
     tline = phase_monte_carlo_tline()
     phase_cli_tline()
     tn = phase_trnoise()
+    mut = phase_mutual()
+    sweep = phase_dc_sweep()
+    step = phase_step()
+    ic_k2 = phase_ic()
     k3_rows = phase_k3_timings()
     k2_device, k1_device_ms = phase_k2_device(timings, k1_main_run)
     k3_device = phase_k3_device(k3_rows)
@@ -3189,7 +3646,13 @@ def main():
                            meas["mc_filter"]["k2_launches"],
                        "monte_carlo_tline_f32":
                            tline["bench"]["k2_launches"],
-                       "ac_tline_f32": tline["ac_float32"]["k2_launches"]},
+                       "ac_tline_f32": tline["ac_float32"]["k2_launches"],
+                       **{f"monte_carlo_fused_{n}_f32": d[0]["k2_launches"]
+                          for n, d in mut["decks"].items()},
+                       **{f"dc_sweep_cli_{n}_f64": r["k2_launches"]
+                          for n, r in sweep["cli"].items()},
+                       "dc_sweep_dbmixer_f64": sweep["dbmixer"]["k2_launches"],
+                       "ic_transients_f64": ic_k2},
         "fused_step": {"monte_carlo_fused_f32_fast": k1_launches,
                        "monte_carlo_fused_bjt_f32": bjt["k1_launches"],
                        **{f"monte_carlo_fused_{n}_f32": m["k1_launches"]
@@ -3210,12 +3673,16 @@ def main():
                        "monte_carlo_tline_measures_f32":
                            tline["measures"]["k1_launches"],
                        "trnoise_dbmixer_f32":
-                           tn["main"]["noisy"]["k1_launches"]},
+                           tn["main"]["noisy"]["k1_launches"],
+                       **{f"monte_carlo_fused_{n}_f32": d[0]["k1_launches"]
+                          for n, d in mut["decks"].items()},
+                       "step_rc_step_f32": step["f32"]["k1_launches"]},
         "ac_sweep": {"ac_monte_carlo_f32": ac_main["k3_launches"],
                      "ac_bjt_f32": ac_bjt["k3_launches"],
                      "ac_charge_f32": charge["ac_f32"]["k3_launches"],
                      "monte_carlo_measures_ac_opamp_filter_f32":
                          meas["ac"]["k3_launches"],
+                     "ac_xfmr_single_f64": mut["single"]["ac_k3_launches"],
                      **{c["path"]: c["launches"] for c in K3_SHAPES.values()
                         if c["path"]}}}
     for kernel, by_path in paths.items():
@@ -3233,7 +3700,8 @@ def main():
         "shape": "B=8192 N=31 R=1 f32 (one batched-DC Newton solve)",
         "shapes": [{**t, **d} for t, d in zip(timings, k2_device)]}, {
         "name": "fused_step", "route": "cuda",
-        "scope": "K1a + K1b + K1c-i + K1c-ii + K1c-iii + K1d-i + K1d-ii",
+        "scope": "K1a + K1b + K1c-i + K1c-ii + K1c-iii + K1d-i + K1d-ii"
+                 " + K1e",
         "source": "circuitsimulator_tpu_torch/csrc/fused_step.cu",
         "replaces": "circuitsimulator_tpu/ops/pallas_step.py:582",
         "launches": sum(paths["fused_step"].values()),
@@ -3248,7 +3716,11 @@ def main():
                              for n in ("mc_filter", "bjt_amp", "rc_step")),
                            k1c_ii_err, tline["bench_main"]["max_abs_err"],
                            tline["measures"]["chunk"]["max_abs_err"],
-                           tn["k1_err"], tn["k1_main"]["max_abs_err"]),
+                           tn["k1_err"], tn["k1_main"]["max_abs_err"],
+                           *(d[1]["max_abs_err"]
+                             for d in mut["decks"].values()),
+                           *(r["max_abs_err"] for d in mut["decks"].values()
+                             for r in d[2])),
         "ms": k1_main["kernel_ms"], "plain_ms": k1_main["plain_ms"],
         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
         "library_ms": None, "device_ms": k1_device_ms,
@@ -3269,7 +3741,9 @@ def main():
             "K1c-ii + K1c-i tline_reflect B=8192 x 512 steps f32 with its "
             "probe stream and delay ring": tline["measures"]["chunk"],
             "K1c-iii noisy dbmixer B=8192 x 250 steps f32 fast with its "
-            "noise block": tn["k1_main"]}}, {
+            "noise block": tn["k1_main"],
+            **{f"K1e {n} B=8192 x 2000 steps f32 damped": d[1]
+               for n, d in mut["decks"].items()}}}, {
         "name": "ac_sweep", "route": "cuda",
         "source": "circuitsimulator_tpu_torch/csrc/ac_sweep.cu",
         "replaces": "circuitsimulator_tpu/ops/pallas_ac.py:49",

@@ -7,6 +7,7 @@ port of ``circuitsimulator_tpu/analysis/ac.py``.
 3. for each frequency solve Y(w) X = J with
      R: 1/R          C (and the MOS junction caps): jwC
      L: branch rows +/-1 with Y[k,k] = -jwL
+     K: Y[k_a, k_b] = Y[k_b, k_a] = -jwM, M = k sqrt(L_a L_b)
      V: branch rows +/-1, J[k] = acMag e^{j phase}
      I: J[p] -= Iac, J[m] += Iac
      E/G/F/H: their static stamps;    MOS: DC-point conductances;
@@ -28,10 +29,8 @@ w: as in the JAX package, each frequency is assembled on its own and the
 2N <= 64 there), never by K3.  ``solve_ac_real`` is also the reference
 route of the other decks.
 
-Mutual inductance, whose AC stamps the port has not ported, raises
-NotImplementedError.  Sweep conventions: lin = n
-points total; dec = n points per decade; oct = n points per octave
-(endpoints included).
+Sweep conventions: lin = n points total; dec = n points per decade; oct =
+n points per octave (endpoints included).
 """
 
 from __future__ import annotations
@@ -75,16 +74,6 @@ def sweep_frequencies(sweep_type: str, n_points: int,
         fstart * (fstop / fstart) ** (np.arange(total) / max(total - 1, 1)))
 
 
-def _check_ac_scope(engine: Engine) -> None:
-    """Refuse, by name, devices whose AC stamps are not ported, so that an
-    Engine that admits them (a later transient slice) cannot have them
-    silently dropped here."""
-    counts = engine.topo.counts
-    if counts["K"]:
-        raise NotImplementedError("mutual inductance (K) in AC: not yet "
-                                  "ported")
-
-
 def _scatter(engine: Engine, rows, cols, vals, lead):
     """(..., N+1, N+1) matrix of the COO entries (rows, cols, vals)."""
     N1 = engine.N + 1
@@ -100,7 +89,6 @@ def ac_system_real(engine: Engine, params, x_op, omega):
     """Real/imaginary split of the AC MNA system at angular frequency
     omega: Y = G + jB, J = Jr + jJi, returned as (G, B, Jr, Ji) of shapes
     (..., N, N) and (..., N); params and x_op may carry leading lane axes."""
-    _check_ac_scope(engine)
     t = engine.topo
     N = engine.N
     dtype, dev = engine.dtype, engine.device
@@ -121,8 +109,11 @@ def ac_system_real(engine: Engine, params, x_op, omega):
                                  engine.nl_cols]), gv, lead)
     C = engine._caplike_C(params)
     L = params["ind_l"]
-    bparts = [_two_terminal_vals(omega * C), -omega * L]
-    brows, bcols = [engine.cap_rows, t.ind_k], [engine.cap_cols, t.ind_k]
+    M = engine._mutual_M(params)
+    bparts = [_two_terminal_vals(omega * C), -omega * L,
+              -omega * torch.cat([M, M], -1)]
+    brows = [engine.cap_rows, t.ind_k, engine.mut_rows]
+    bcols = [engine.cap_cols, t.ind_k, engine.mut_cols]
     if engine.mos_charge:
         # charge model: the trans-capacitances dq_t/dv_j at the operating
         # point (bias-dependent and non-reciprocal; _caplike_C zeroes the

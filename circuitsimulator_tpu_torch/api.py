@@ -1,12 +1,15 @@
-"""High-level simulator API (the main-path subset of
+"""High-level simulator API (the ported subset of
 ``circuitsimulator_tpu/api.Simulator``):
 
     sim = Simulator.from_file("tests/netlists/buffer.sp", device="cuda")
     x = sim.dc()                      # DC operating point, (N,)
-    res = sim.transient()             # Backward-Euler transient
+    res = sim.transient()             # Backward-Euler transient (.IC/UIC)
     sim.write_transient_csv("out.csv", res)
     ac = sim.ac()                     # .AC small-signal sweep (K3)
+    sw = sim.dc_sweep()               # .DC sweep, one batched DC (K2)
+    st = sim.step()                   # .STEP grid as one batch
     sim.measure(res)                  # .MEASURE TRAN cards, [(name, value)]
+    sim.measure(sw, "dc")             # .MEASURE DC over the swept value
     bp, vals = sim.monte_carlo(8192)  # DEV=/LOT= lanes, per-lane measures
 """
 
@@ -23,13 +26,13 @@ from .analysis.transient import TransientResult, run_transient
 from .io.csvout import write_transient_csv
 from .io.table import circuit_summary, dc_table
 from .ir.lower import LoweredCircuit, lower
-from .netlist import (expand_text, parse_netlist_text, parse_spice_number,
-                      read_netlist)
+from .netlist import (KIND_C, KIND_L, expand_text, parse_netlist_text,
+                      parse_spice_number, read_netlist)
 from .ops import cuda_lu
 from .ops.assemble import Engine
 from .utils import prng
 from .utils.options import DEFAULT_OPTIONS, SolverOptions
-from .utils.temp import apply_is_temp, has_is_temp
+from .utils.temp import apply_is_temp, has_is_temp, thermal_params
 
 # the JAX package switches to structure-exploiting solvers above this many
 # node equations (api.py auto_backend); the port has only the dense path
@@ -92,6 +95,7 @@ class Simulator:
                 "torch.backends.cuda.matmul.allow_tf32 is True: the one-hot "
                 "assembly and Woodbury matmuls must be exact; set it False")
         opts = opts if opts is not None else DEFAULT_OPTIONS
+        self.netlist_text: Optional[str] = None   # set by from_file/from_text
         self.circuit = circuit
         self.config = sim_config
         circuit.assign_equation_indices()
@@ -103,12 +107,8 @@ class Simulator:
             # .TEMP: rescale the thermal voltage kT/q and the resistor TC
             # temperature offset; with EG/XTI given, the diode/BJT
             # saturation currents too
-            k_b, q_e = 1.380649e-23, 1.602176634e-19
-            temp_c = float(sim_config.temp_c)
-            self.params["vt_thermal"] = torch.tensor(
-                k_b * (273.15 + temp_c) / q_e, dtype=opts.dtype, device=device)
-            self.params["temp_delta_c"] = torch.tensor(
-                temp_c - 27.0, dtype=opts.dtype, device=device)
+            self.params.update(thermal_params(float(sim_config.temp_c),
+                                              opts.dtype, device))
             if has_is_temp(self.params):
                 self.params = apply_is_temp(self.params)
         if opts.auto_backend and self.topo.n_node_eq > MAX_DENSE_NODE_EQS:
@@ -137,13 +137,18 @@ class Simulator:
             print(f"cannot open netlist file {path}", file=sys.stderr)
             raise FileNotFoundError(path)
         ckt, sim = parse_netlist_text(text)
-        return cls(ckt, sim, opts, device)
+        inst = cls(ckt, sim, opts, device)
+        inst.netlist_text = text          # .STEP PARAM re-parses it
+        return inst
 
     @classmethod
     def from_text(cls, text: str, opts: Optional[SolverOptions] = None,
                   device="cuda"):
-        ckt, sim = parse_netlist_text(expand_text(text))
-        return cls(ckt, sim, opts, device)
+        text = expand_text(text)
+        ckt, sim = parse_netlist_text(text)
+        inst = cls(ckt, sim, opts, device)
+        inst.netlist_text = text
+        return inst
 
     # ---- analyses ----
     def _nodeset(self):
@@ -173,15 +178,55 @@ class Simulator:
         p = params if params is not None else self.params
         return dc_operating_point(self.engine, p, nodeset=self._nodeset())
 
+    def _initial_conditions_x0(self, uic: bool, params=None):
+        """The transient's x0 under .IC / UIC: with UIC, zeros with the
+        element IC= values of C and L cards set (the cap's terminal
+        difference, the inductor's branch current, so ``init_state``
+        derives vc / il = IC), then the .IC node voltages; without UIC, the
+        DC point with the .IC nodes overridden.  None when neither applies
+        (no .IC card, no UIC): the transient starts from the DC point."""
+        ics = self.config.ics
+        if not ics and not uic:
+            return None
+        if uic:
+            x0 = torch.zeros((self.topo.n_unknowns,), dtype=self.opts.dtype,
+                             device=self.device)
+            for e in self.circuit.elements:
+                if not e.has_ic:
+                    continue
+                if e.kind == KIND_L and e.branch_eq >= 0:
+                    x0[e.branch_eq] = e.ic
+                elif e.kind == KIND_C:
+                    eqs = [self.circuit.nodes[nid].eq_index
+                           for nid in e.node_ids[:2]]
+                    if eqs[0] >= 0:
+                        base = x0[eqs[1]] if eqs[1] >= 0 else 0.0
+                        x0[eqs[0]] = base + e.ic
+                    elif eqs[1] >= 0:       # n+ grounded: v(n-) = -IC
+                        x0[eqs[1]] = -e.ic
+        else:
+            x0 = self.dc(params).clone()
+        for node, val in ics:
+            nid = self.circuit.node_name_to_id.get(node)
+            if nid is None or self.circuit.nodes[nid].eq_index < 0:
+                print(f".IC: unknown or ground node {node!r}; ignored",
+                      file=sys.stderr)
+                continue
+            x0[self.circuit.nodes[nid].eq_index] = val
+        return x0
+
     def transient(self, params: Optional[Any] = None,
                   tstep: Optional[float] = None,
                   tstop: Optional[float] = None,
                   save_xs: bool = True,
                   x_op: Optional[Any] = None,
+                  uic: Optional[bool] = None,
                   noise_seed: Optional[int] = 0) -> TransientResult:
         """Backward-Euler transient; defaults to the netlist's .TRAN card.
         It starts from ``x_op`` when given (the DC point of ``dc()`` for the
-        same params), else it solves the DC point itself.
+        same params); else from the .IC / UIC start
+        (``_initial_conditions_x0``: ``uic`` overrides the .TRAN card's UIC
+        flag); else it solves the DC point itself.
 
         A deck with TRNOISE sources runs with its transient noise on,
         seeded by ``noise_seed`` (default 0, the JAX package's default: the
@@ -194,11 +239,13 @@ class Simulator:
         if tstep is None or tstep <= 0 or tstop is None or tstop <= 0:
             raise ValueError(".TRAN card missing or invalid "
                              "(tstep and tstop must be > 0)")
-        if self.config.ics or cfg.uic:
-            raise NotImplementedError(".IC / UIC initial conditions: "
-                                      "not yet ported")
         p = params if params is not None else self.params
-        x0 = self.dc(p) if x_op is None else x_op
+        x0 = x_op
+        if x0 is None:
+            x0 = self._initial_conditions_x0(cfg.uic if uic is None else uic,
+                                             p)
+        if x0 is None:
+            x0 = self.dc(p)
         key = (prng.key(noise_seed, self.device)
                if noise_seed is not None and self.engine.has_trnoise
                else None)
@@ -275,21 +322,59 @@ class Simulator:
                 bindings=self.config.param_values, x_ops=dc_init())
         return bp, dc_init()
 
+    def dc_sweep(self, sweep_index: int = 0, params: Optional[Any] = None,
+                 values=None, source: Optional[str] = None):
+        """DC sweep (analysis/sweep.py): the whole grid as one batched DC
+        (K2 on the card).  Defaults to the netlist's .DC card(s);
+        ``source`` + ``values`` override."""
+        from .analysis.sweep import dc_sweep, sweep_values
+        source2, values2 = "", None
+        if source is None:
+            if not self.config.dc_sweeps:
+                raise ValueError(".DC card missing")
+            cfg = self.config.dc_sweeps[sweep_index]
+            source = cfg.source_name
+            if values is None:
+                values = sweep_values(cfg.start, cfg.stop, cfg.step)
+                if cfg.source2:
+                    source2 = cfg.source2
+                    values2 = sweep_values(cfg.start2, cfg.stop2, cfg.step2)
+        elif values is None:
+            raise ValueError("explicit `source` requires `values`")
+        p = params if params is not None else self.params
+        return dc_sweep(self.engine, p, self.circuit, source, values,
+                        source2=source2, values2=values2)
+
+    def step(self, step_index: Optional[int] = None, save_xs: bool = True):
+        """.STEP sweep (analysis/step.py): the step values run as one batch,
+        the transient if a .TRAN card is present (with per-step .MEASURE
+        results), else the DC operating point.  Several .STEP cards form a
+        cartesian grid in the same batch; ``step_index`` selects one card.
+        Returns a StepResult."""
+        from .analysis.step import run_step
+        if not self.config.steps:
+            raise ValueError(".STEP card missing")
+        cfgs = (self.config.steps if step_index is None
+                else self.config.steps[step_index])
+        return run_step(self, cfgs, save_xs=save_xs)
+
     # ---- post-processing ----
     def measure(self, result, analysis: str = "tran"):
         """.MEASURE evaluation on the host (analysis/measure.py): a
-        TransientResult ("tran", axis = time) or an ACResult ("ac", axis =
-        frequency; complex data reduces per the VDB/VP/... modifiers).
-        Returns [(name, value)] with NaN for failed measurements.  The DC
-        sweep ("dc") is not yet ported."""
+        TransientResult ("tran", axis = time), an ACResult ("ac", axis =
+        frequency; complex data reduces per the VDB/VP/... modifiers) or a
+        DCSweepResult ("dc", axis = the swept value).  Returns [(name,
+        value)] with NaN for failed measurements."""
         from .analysis.measure import run_measures
         if result.xs is None:
             raise ValueError(".MEASURE needs saved waveforms "
                              "(save_xs=True)")
-        if analysis == "dc":
-            raise NotImplementedError(".MEASURE DC: the .DC sweep is not "
-                                      "yet ported")
-        axis = result.freqs if analysis == "ac" else result.times
+        if analysis == "ac":
+            axis = result.freqs
+        elif analysis == "dc":
+            axis = result.values
+        else:
+            axis = result.times
         return run_measures(self.config.measures, self.topo, _host(axis),
                             _host(result.xs), analysis=analysis,
                             bindings=self.config.param_values)

@@ -2,19 +2,24 @@
 
     python -m circuitsimulator_tpu_torch <netlist.sp> [tran_out.csv]
         [--device cuda|cpu] [--dtype f64|f32] [--no-tran] [--run-ac [CSV]]
-        [--run-mc N [--run-mc-out CSV] [--mc-sampler mc]]
+        [--run-dc-sweep [CSV]] [--run-mc N [--run-mc-out CSV]
+        [--mc-sampler mc]] [--run-step [CSV]]
 
 prints the circuit summary and the DC node-voltage/branch-current tables,
-then runs the Backward-Euler transient if a .TRAN card is present and
-writes its CSV (default tran_out.csv; a deck with TRNOISE sources runs its
-noise with seed 0, the JAX CLI's realisation), then its .MEASURE TRAN
-results and the .FOUR table; ``--run-ac`` also runs the .AC sweep, writes its
-magnitude/phase CSV (default ac_out.csv) and prints the .MEASURE AC
-results; ``--run-mc N`` runs N Monte-Carlo lanes of the deck's DEV=/LOT=
+then runs the Backward-Euler transient if a .TRAN card is present (from
+the .IC / UIC start when the deck has one) and writes its CSV (default
+tran_out.csv; a deck with TRNOISE sources runs its noise with seed 0, the
+JAX CLI's realisation), then its .MEASURE TRAN results and the .FOUR
+table; ``--run-ac`` also runs the .AC sweep, writes its magnitude/phase CSV
+(default ac_out.csv) and prints the .MEASURE AC results;
+``--run-dc-sweep`` runs the .DC sweep card(s) as one batched DC, writes
+the CSV (default dcsweep_out.csv) and prints the .MEASURE DC results;
+``--run-mc N`` runs N Monte-Carlo lanes of the deck's DEV=/LOT=
 tolerances in one batched solve (per-lane measures with .MEASURE cards,
-else DC points) and writes them to a CSV (default mc_out.csv).  With
-``--dtype f32`` on cuda the Monte-Carlo transient takes the fused chunk
-kernel and its probe stream.  .MEASURE DC cards need the .DC sweep, and
+else DC points) and writes them to a CSV (default mc_out.csv);
+``--run-step`` runs the .STEP card(s) as one batch and writes one row per
+step value (default step_out.csv).  With ``--dtype f32`` on cuda the
+Monte-Carlo transient takes the fused chunk kernel and its probe stream.
 .PZ, .SENS and .TF are not yet ported: each is named on stderr and
 skipped.
 ``--device`` defaults to cuda; on a machine without a GPU the run stops
@@ -42,6 +47,14 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="skip the transient analysis even if .TRAN present")
     p.add_argument("--run-ac", metavar="CSV", nargs="?", const="ac_out.csv",
                    help="run the .AC small-signal sweep, write mag/phase CSV")
+    p.add_argument("--run-dc-sweep", metavar="CSV", nargs="?",
+                   const="dcsweep_out.csv",
+                   help="run the .DC sweep card(s), write CSV")
+    p.add_argument("--run-step", metavar="CSV", nargs="?",
+                   const="step_out.csv",
+                   help="run the .STEP sweep as one batch; CSV has one row "
+                        "per step value (.MEASURE columns for transient "
+                        "steps, node voltages for .OP steps)")
     p.add_argument("--run-mc", metavar="N", type=int, default=None,
                    help="Monte-Carlo over the netlist's DEV=/LOT= "
                         "tolerances: N lanes, one batched solve")
@@ -130,7 +143,8 @@ def main(argv=None) -> int:
     print(sim.dc_report(x))
     print("\nDC analysis finished.")
 
-    tran = sim.config.tran
+    cfg = sim.config
+    tran = cfg.tran
     if tran.enabled and not args.no_tran:
         print("\nRunning transient analysis (Backward Euler)...")
         print(f"  .TRAN: tstep={tran.tstep:.6e}, tstop={tran.tstop:.6e}, "
@@ -140,7 +154,8 @@ def main(argv=None) -> int:
               f"tstart={tran.tstart:.6e}")
         print(f"[TRAN] total steps = {n_steps_for(tran.tstep, tran.tstop)}")
         try:
-            res = sim.transient(x_op=x)
+            # a deck with .IC / UIC starts from its initial conditions
+            res = sim.transient(x_op=None if cfg.ics or tran.uic else x)
             sim.write_transient_csv(args.tran_out, res)
         except Exception as e:  # noqa: BLE001
             print(f"Transient failed: {e}", file=sys.stderr)
@@ -177,15 +192,40 @@ def main(argv=None) -> int:
         except Exception as e:  # noqa: BLE001
             print(f"AC failed: {e}", file=sys.stderr)
             return 1
-    cfg = sim.config
     for card, on in ((".PZ", cfg.pz.enabled), (".SENS", cfg.sens.enabled),
                      (".TF", cfg.tf.enabled)):
         if on:
             print(f"note: {card} is not yet ported; skipped", file=sys.stderr)
-    for m in cfg.measures:
-        if m.analysis == "dc":
-            print(f".MEASURE DC {m.name}: needs the .DC sweep, which is not "
-                  f"yet ported; skipped", file=sys.stderr)
+    if args.run_dc_sweep:
+        from .analysis.sweep import write_sweep_csv
+        print("\nRunning DC sweep...")
+        try:
+            swres = sim.dc_sweep()
+            write_sweep_csv(args.run_dc_sweep, sim.topo, swres)
+            print(f"DC sweep of {swres.source} finished "
+                  f"({len(swres.values)} points). "
+                  f"Results written to '{args.run_dc_sweep}'.")
+            if any(m.analysis == "dc" for m in cfg.measures):
+                print()
+                print(measure_report(sim.measure(swres, analysis="dc")))
+        except Exception as e:  # noqa: BLE001
+            print(f"DC sweep failed: {e}", file=sys.stderr)
+            return 1
     if args.run_mc:
-        return _run_mc(sim, args)
+        rc = _run_mc(sim, args)
+        if rc:
+            return rc
+    if args.run_step:
+        from .analysis.step import write_step_csv
+        # the JAX CLI's words, stdout byte-identical
+        print("\nRunning .STEP sweep (vmapped batch)...")
+        try:
+            sres = sim.step()
+            write_step_csv(args.run_step, sim.topo, sres)
+            print(f".STEP {sres.kind} {sres.name} finished "
+                  f"({len(sres.values)} values, analysis={sres.analysis}). "
+                  f"Results written to '{args.run_step}'.")
+        except Exception as e:  # noqa: BLE001
+            print(f".STEP failed: {e}", file=sys.stderr)
+            return 1
     return 0

@@ -1,4 +1,5 @@
-// K1 for Hopper (scopes K1a, K1b, K1c-i, K1c-ii, K1c-iii, K1d-i and K1d-ii):
+// K1 for Hopper (scopes K1a, K1b, K1c-i, K1c-ii, K1c-iii, K1d-i, K1d-ii and
+// K1e):
 // the fused Monte-Carlo transient chunk.  Every lane advances n_steps whole
 // Backward-Euler timesteps in one launch.
 //
@@ -10,7 +11,8 @@
 // MOSCAP=CHARGE with Woodbury ranks up to 32 (K1d-i), and the behavioral B
 // source rows (K1d-ii, rank <= 16, no charge rows) and the delay ring of the
 // lossless transmission lines (K1c-ii, nT <= 8, Dmax x 2 nT <= 1024) and the
-// TRNOISE input block (K1c-iii); rank
+// TRNOISE input block (K1c-iii) and the mutual-inductance history (K1e);
+// rank
 // 0 <= k = nMJ + nD + 2 nQ + nSw + nB + 5 nMq <= 32 (nMq = the MOS count
 // under the charge model, else 0).  Per step it computes what the TPU kernel
 // computes (plain PyTorch version: circuitsimulator_tpu_torch/ops/
@@ -18,9 +20,12 @@
 //   - source values at t = (step0 + i + 1) * dt in the working type, plus on
 //     a noisy run each noisy source's value of the step from the noise
 //     block (K1c-iii);
-//   - b0 = [sources, -gl*il, gc*vc, E1, E2] scattered to their rows (the
-//     T-line EMFs: E1_j = the wave w2_j of ticks_j steps ago on row k1_j,
-//     E2_j = w1_j on row k2_j); z0 = G0^-1 b0;
+//   - b0 = [sources, -gl*il, gc*vc, E1, E2, -gm*il_b, -gm*il_a] scattered
+//     to their rows (the T-line EMFs: E1_j = the wave w2_j of ticks_j steps
+//     ago on row k1_j, E2_j = w1_j on row k2_j; K1e: per K element m with
+//     gm_m = M_m / dt, -gm_m il[b_m] on the branch row of inductor a_m and
+//     -gm_m il[a_m] on b_m's, the -M/dt cross terms being in G0);
+//     z0 = G0^-1 b0;
 //   - under the charge model q_prev = q(x) of the incoming x;
 //   - Newton from x (or 2x - x_prev): the device linearisations in Woodbury
 //     row order (MOS then JFET rows from one pack, diode rows, an Ic and an
@@ -252,6 +257,10 @@ struct StepArgs {
   const int* noise_col;  // (nS) row of the noise block of each source, -1
   const T* noise;        // (n_steps, nN, B)
   int nN;
+  // mutual inductance (K1e): nK = 0 and both null without K elements
+  const int* mut_plan;   // (2, nK): the coupled inductors a, b
+  const T* gm;           // (nK, B)  M / dt
+  int nK;
   // the launch plan: threads per lane, rows of x per thread, lanes per
   // block, T words of shared memory per team and the team's layout
   int team, rows, lpb, team_words;
@@ -1385,6 +1394,7 @@ __global__ void __launch_bounds__(256, K1_MIN_BLOCKS(T, GREG, MODE))
   T qp[MODE == 1 ? 5 : 1];
   qp[0] = T(0);
   const int o_l = nS, o_c = nS + nL, o_e = nS + nL + nCap;
+  const int nK = a.nK, o_m = o_e + 2 * nT;
   bool failed = !live || a.failed[lane] != 0;
   int it_total = 0;
   cp_async_wait_all();
@@ -1402,6 +1412,12 @@ __global__ void __launch_bounds__(256, K1_MIN_BLOCKS(T, GREG, MODE))
     }
     for (int j = t; j < nL; j += TS)
       s.TV[o_l + j] = -(a.gl[j * B + lane] * s.IL[j]);
+    // K1e: term 2m, -gm_m il[b_m] (row k_a), term 2m + 1, -gm_m il[a_m]
+    for (int q = t; q < 2 * nK; q += TS) {
+      const int m = q >> 1;
+      const int other = a.mut_plan[(q & 1) ? m : nK + m];
+      s.TV[o_m + q] = -(a.gm[m * B + lane] * s.IL[other]);
+    }
     for (int j = t; j < nCap; j += TS)
       s.TV[o_c + j] = a.gc[j * B + lane] * s.VC[j];
     if (nT) {  // E1_j <- w2_j, E2_j <- w1_j of ticks_j steps ago
@@ -1565,14 +1581,15 @@ static int pick(const StepArgs<T>& a, bool greg, void* stream) {
                      : launch_as<T, false, 0>(a, stream);
 }
 
-// ptrs: the 41 arrays in StepArgs order (the charge pack, then the B tapes,
+// ptrs: the 43 arrays in StepArgs order (the charge pack, then the B tapes,
 // metadata and constants, then the probe matrix and ys, null without
 // probes, then the T-line read slots, plan, Z0 and ring, the ring null
-// without lines, then the noise rows and block, null without noise); ints:
-// B N k nS P nL nCap unrolled max_nr predictor n_steps step0 route nMJ nD
-// nQ nSw W nMq nB nP nT Dmax nN, then the plan: team rows lpb team_words
-// and the 17 layout entries (ops/cuda_step.py LAYOUT); route 1 holds G0^-1
-// in registers (float32 only); reals: dt tol2 alpha clamp off_gds inv_dt.
+// without lines, then the noise rows and block, null without noise, then
+// the K plan and gm, null without K); ints: B N k nS P nL nCap unrolled
+// max_nr predictor n_steps step0 route nMJ nD nQ nSw W nMq nB nP nT Dmax
+// nN, then the plan: team rows lpb team_words and the 17 layout entries
+// (ops/cuda_step.py LAYOUT), then nK; route 1 holds G0^-1 in registers
+// (float32 only); reals: dt tol2 alpha clamp off_gds inv_dt.
 template <typename T>
 static int launch(void* const* ptrs, const long long* ints,
                   const double* reals, void* stream) {
@@ -1619,6 +1636,8 @@ static int launch(void* const* ptrs, const long long* ints,
   a.ring = (T*)ptrs[p++];
   a.noise_col = (const int*)ptrs[p++];
   a.noise = (const T*)ptrs[p++];
+  a.mut_plan = (const int*)ptrs[p++];
+  a.gm = (const T*)ptrs[p++];
   a.B = (int)ints[0];
   a.N = (int)ints[1];
   a.k = (int)ints[2];
@@ -1648,6 +1667,7 @@ static int launch(void* const* ptrs, const long long* ints,
   a.lpb = (int)ints[26];
   a.team_words = (int)ints[27];
   for (int i = 0; i < NLAY; ++i) a.lay[i] = (int)ints[28 + i];
+  a.nK = (int)ints[28 + NLAY];
   a.dt = (T)reals[0];
   a.tol2 = (T)reals[1];
   a.alpha = (T)reals[2];
@@ -1678,6 +1698,9 @@ static int launch(void* const* ptrs, const long long* ints,
     return (int)cudaErrorInvalidValue;
   if (a.nN < 0 || a.nN > a.nS ||
       (a.nN && (a.noise == nullptr || a.noise_col == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  if (a.nK < 0 ||
+      (a.nK && (a.nL < 2 || a.mut_plan == nullptr || a.gm == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (a.B <= 0) return 0;
   return pick(a, greg, stream);

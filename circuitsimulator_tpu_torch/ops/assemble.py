@@ -4,8 +4,10 @@ Port of the part of ``circuitsimulator_tpu/ops/assemble.Engine`` that the
 DC, Backward-Euler and AC paths run, for R, C, L, V, I, Level-1 MOS, JFET,
 diode, BJT, the S/W switches, the linear controlled sources E/G/F/H, the
 behavioral B sources (``utils/expr.eval_tape``: value and gradient of the
-compiled expression) and the lossless transmission lines (T: the Branin
-method of characteristics, a delay ring of past waves in the state), with
+compiled expression), the lossless transmission lines (T: the Branin
+method of characteristics, a delay ring of past waves in the state) and
+mutual inductance (K: the -M/dt branch-row cross terms and their history
+currents, Backward Euler only), with
 the fixed MOS caps or the charge-conserving model (``MOSCAP=CHARGE``: five
 injection rows per MOS, ``models/moscap.py``).
 The stamp *pattern* (row/col index lists) is built once per circuit in
@@ -44,10 +46,6 @@ from ..utils import prng
 from ..utils.expr import eval_tape
 from ..utils.options import SolverOptions
 
-# device classes of the JAX engine that the port does not stamp yet
-_UNPORTED = {"K": "mutual inductance (K)"}
-
-
 def _two_terminal_pattern(a: np.ndarray, b: np.ndarray):
     """rows [a,b,a,b], cols [a,b,b,a], value pattern [+g,+g,-g,-g]."""
     rows = np.stack([a, b, a, b], axis=1).ravel()
@@ -68,10 +66,6 @@ def _branch_pattern(ep: np.ndarray, em: np.ndarray, k: np.ndarray):
 
 def check_supported(low: LoweredCircuit, opts: SolverOptions) -> None:
     """Raise NotImplementedError naming what this port does not run yet."""
-    counts = low.topo.counts
-    for cls, name in _UNPORTED.items():
-        if counts[cls]:
-            raise NotImplementedError(f"{name}: not yet ported")
     if opts.mos_cap_model not in ("fixed", "charge"):
         raise ValueError(f"unknown mos_cap_model {opts.mos_cap_model!r} "
                          "(fixed|charge)")
@@ -246,6 +240,22 @@ class Engine:
             self.mq_rhs_rows = inj.ravel().astype(np.int64)       # (5 nM,)
             self._mq_flat = flat(self.mq_rows, self.mq_cols)
             self._mq_rhs = idx(self.mq_rhs_rows)
+
+        # ---- mutual inductance (K): branch-row cross terms, row k_a gets
+        # -M/dt at column k_b and vice versa (the BE companion of
+        # v_a = L_a di_a/dt + M di_b/dt); the history currents gather il at
+        # the coupled inductors and scatter through one-hot selectors
+        nK = len(t.mut_a)
+        ka, kb = t.ind_k[t.mut_a], t.ind_k[t.mut_b]
+        self.mut_rows = np.concatenate([ka, kb]).astype(np.int64)
+        self.mut_cols = np.concatenate([kb, ka]).astype(np.int64)
+        self._mut_a, self._mut_b = idx(t.mut_a), idx(t.mut_b)
+        nL = len(t.ind_k)
+        sel_a, sel_b = np.zeros((nK, nL)), np.zeros((nK, nL))
+        sel_a[np.arange(nK), t.mut_a] = 1.0
+        sel_b[np.arange(nK), t.mut_b] = 1.0
+        self.mut_sel_a = torch.as_tensor(sel_a, dtype=dt_, device=dev)
+        self.mut_sel_b = torch.as_tensor(sel_b, dtype=dt_, device=dev)
         self._tran_flat = flat(*self._tran_pattern())
 
         def any_nz(key):
@@ -400,6 +410,14 @@ class Engine:
         lead = torch.broadcast_shapes(*(p.shape[:-1] for p in parts))
         return torch.cat([p.expand(lead + p.shape[-1:]) for p in parts],
                          dim=-1)
+
+    def _mutual_M(self, params):
+        """M = k sqrt(L_a L_b) per K element, from the live ``ind_l``: a
+        Monte-Carlo or .STEP lane that perturbs an inductor keeps its
+        coupling consistent."""
+        L = params["ind_l"]
+        return params["mut_k"] * torch.sqrt(L[..., self._mut_a]
+                                             * L[..., self._mut_b])
 
     def _res_vals(self, params):
         r = params["res_r"]
@@ -575,18 +593,20 @@ class Engine:
         """(rows, cols) of ``tran_static_entries``."""
         t, nV = self.topo, len(self.topo.vs_ep)
         rows = np.concatenate([self.res_rows, self.dc_const_rows[:4 * nV],
-                               self.ind_rows, self.cap_rows, t.node_eqs,
-                               self.ctrl_rows, self.tl_kcl_rows,
+                               self.ind_rows, self.mut_rows, self.cap_rows,
+                               t.node_eqs, self.ctrl_rows, self.tl_kcl_rows,
                                self.tl_tran_rows, self.b_static_rows])
         cols = np.concatenate([self.res_cols, self.dc_const_cols[:4 * nV],
-                               self.ind_cols, self.cap_cols, t.node_eqs,
+                               self.ind_cols, self.mut_cols, self.cap_cols,
+                               t.node_eqs,
                                self.ctrl_cols, self.tl_kcl_cols,
                                self.tl_tran_cols, self.b_static_cols])
         return rows, cols
 
     def tran_static_entries(self, params, dt, gmin):
         """Static COO entries of the BE transient matrix: R, V couplings,
-        L and C/MOS-cap companions (G_C = C/dt, R_L = L/dt), gmin, E/G/F/H,
+        L and C/MOS-cap companions (G_C = C/dt, R_L = L/dt), the K cross
+        terms (-M/dt), gmin, E/G/F/H,
         the T-line KCL couplings and Thevenin branch rows (+1, -1, -Z0 per
         port), the B V-form couplings."""
         rvals = self._res_vals(params)
@@ -601,6 +621,8 @@ class Engine:
         pat = (pat * lmask[..., None]).flatten(-2)
         diag = torch.where(lmask, -L / dt, 0.0)
         ind_vals = torch.cat([pat, diag], dim=-1)
+        mv = -self._mutual_M(params) / dt
+        mut_vals = torch.cat([mv, mv], dim=-1)
         C = self._caplike_C(params)
         gc = torch.where(C > 0.0, C / dt, 0.0)
         cap_vals = _two_terminal_vals(gc)
@@ -610,7 +632,7 @@ class Engine:
         o = torch.ones_like(z0)
         tl_branch = torch.stack([o, -o, -z0, o, -o, -z0], dim=-1).flatten(-2)
         rows, cols = self._tran_pattern()
-        parts = [rvals, vs_vals, ind_vals, cap_vals, gm, cvals,
+        parts = [rvals, vs_vals, ind_vals, mut_vals, cap_vals, gm, cvals,
                  self.tl_kcl_vals, tl_branch, self.b_static_vals]
         lead = torch.broadcast_shapes(lead, *(p.shape[:-1] for p in parts))
         vals = torch.cat([p.expand(lead + p.shape[-1:]) for p in parts], -1)
@@ -629,11 +651,12 @@ class Engine:
         at t plus history currents, as one one-hot matmul.
 
             cap:  I(a) += (C/dt) v_prev,    L: I(k) += -(L/dt) i_prev
+            K:    I(k_a) += -(M/dt) i_b_prev, I(k_b) += -(M/dt) i_a_prev
             T:    I(k1) += E1 = w2 of ticks steps ago, I(k2) += E2 = w1
 
         ``dt`` is the timestep as a Python float (the T-line delays are
         counted in steps from it, ``tl_ticks``) or a tensor."""
-        nT = self.n_tl
+        nT, nK = self.n_tl, len(self.topo.mut_a)
         if nT:
             dev = self.device
             tl_read = torch.as_tensor(self.tl_ticks(dt) - 1, device=dev)
@@ -656,6 +679,12 @@ class Engine:
             L = params["ind_l"]
             C = self._caplike_C(params)
             vhist = torch.where(L > 0.0, -(L / dt) * state["il"], 0.0)
+            if nK:
+                il = state["il"]
+                coef = -(1.0 / dt) * self._mutual_M(params)
+                vhist = (vhist
+                         + (coef * il[..., self._mut_b]) @ self.mut_sel_a
+                         + (coef * il[..., self._mut_a]) @ self.mut_sel_b)
             gc = torch.where(C > 0.0, C / dt, 0.0)
             h = gc * state["vc"]
             parts = [vval, ival, vhist, h]

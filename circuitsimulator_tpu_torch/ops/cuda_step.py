@@ -2,8 +2,8 @@
 Monte-Carlo transient chunk on the GPU.
 
 The kernel replaces the TPU kernel ``circuitsimulator_tpu/ops/pallas_step.py:
-PallasStepRunner._kernel`` (scopes K1a, K1b, K1c-i, K1c-ii, K1c-iii, K1d-i
-and K1d-ii); its plain PyTorch version is
+PallasStepRunner._kernel`` (scopes K1a, K1b, K1c-i, K1c-ii, K1c-iii, K1d-i,
+K1d-ii and K1e); its plain PyTorch version is
 ``ops/fused_step.FusedStepRunner.run_chunk_plain``.  A team of 4, 8, 16 or
 32 threads owns each lane for the whole launch (``plan``): it stages the lane's
 Y and Yc3, and on the shared route G0^-1, into shared memory once, or on
@@ -23,7 +23,9 @@ mod Dmax slots brings it back to the Engine's layout (slot 0 the newest
 wave) at chunk exit.  A noisy runner (K1c-iii) passes its noise block
 (n_steps, nN, B), lane-minor as ``Engine.trnoise_stream`` lays it out for
 the chunk, and per source the row of the block that it adds (-1: none).
-``LAUNCHES`` counts successful launches.
+A deck with mutual inductance (K1e) passes the coupled inductors of each K
+element (2, nK) and gm = M / dt lane-minor (nK, B); the kernel adds their
+2 nK history terms to b0.  ``LAUNCHES`` counts successful launches.
 """
 
 from __future__ import annotations
@@ -132,7 +134,7 @@ def plan(N: int, k: int, W: int, n_terms: int, nCap: int, nL: int,
          team: int | None = None) -> Plan:
     """The launch of K1 for a lane of N unknowns, Woodbury rank k at row
     width W, n_terms b0 terms a step (sources, inductors, capacitors, 2 nT
-    EMFs), nCap capacitors and nL inductors, in a dtype of `itemsize`
+    EMFs, 2 nK mutual terms), nCap capacitors and nL inductors, in a dtype of `itemsize`
     bytes, at `regs` registers a thread: the team (``default_team`` unless
     given) and the rows of x each thread owns, the route
     (``default_route`` unless given), the team's shared memory and the
@@ -309,7 +311,9 @@ def run_chunk_cuda(runner, x, x_prev, vc, il, failed, step0: int,
     ring = (tlw.permute(1, 2, 0).clone(memory_format=torch.contiguous_format)
             if nT else None)
     tl = [runner.tl_read, runner.tl_plan, runner.tl_z0]
-    for a in arrays + tl + [t for t in (pm, ys, ring, noise) if t is not None]:
+    mut = [runner.mut_plan, runner.gm] if runner.nK else []
+    for a in arrays + tl + mut + [t for t in (pm, ys, ring, noise)
+                                  if t is not None]:
         if not a.is_contiguous() or a.device != dev:
             raise ValueError("run_chunk_cuda: runner constants must be "
                              "contiguous on the runner's device")
@@ -319,14 +323,17 @@ def run_chunk_cuda(runner, x, x_prev, vc, il, failed, step0: int,
             + [a.data_ptr() for a in tl]
             + [None if ring is None else ring.data_ptr()]
             + ([runner.noise_col.data_ptr(), noise.data_ptr()] if nN
-               else [None, None]))
+               else [None, None])
+            + ([runner.mut_plan.data_ptr(), runner.gm.data_ptr()]
+               if runner.nK else [None, None]))
     ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
     ints = [B, N, k, runner.nS, runner.P, runner.nL, runner.nCap,
             runner.unrolled, runner.max_nr, int(runner.predictor), n_steps,
             int(step0), int(p.route == "registers"), runner.nMJ, runner.nD,
             runner.nQ, runner.nSw, runner.W, runner.nMq, nB,
             0 if pm is None else pm.shape[0], nT, Dmax, nN,
-            p.team, p.rows, p.lanes_per_block, p.team_words, *p.layout]
+            p.team, p.rows, p.lanes_per_block, p.team_words, *p.layout,
+            runner.nK]
     ints = (ctypes.c_longlong * len(ints))(*ints)
     reals = (ctypes.c_double * 6)(runner.dt, runner.tol2, runner.alpha,
                                   runner.clamp, runner.off_gds,

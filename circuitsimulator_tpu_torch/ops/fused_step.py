@@ -1,6 +1,6 @@
 """Fused Monte-Carlo transient chunk (K1, scopes K1a, K1b, K1c-i, K1c-ii,
-K1c-iii, K1d-i and K1d-ii): whole Backward-Euler timesteps per lane in one
-launch.
+K1c-iii, K1d-i, K1d-ii and K1e): whole Backward-Euler timesteps per lane in
+one launch.
 
 Port of ``circuitsimulator_tpu/ops/pallas_step.py`` (``PallasStepRunner``)
 for R/C/L, V and I sources with every waveform kind (PULSE/SIN/PWL/EXP/SFFM,
@@ -12,8 +12,9 @@ Early voltage and the S/W switches (K1b), the charge rows of
 B sources (K1d-ii: at most 4 probe pairs and an expression stack of at most
 16, at rank k <= 16 and without charge rows) and the lossless transmission
 lines (K1c-ii: at most 8 lines, a delay ring of Dmax x 2 nT <= 1024 waves,
-Dmax the longest delay in steps), and the TRNOISE sources (K1c-iii), with
-or without their noise; rank
+Dmax the longest delay in steps), the TRNOISE sources (K1c-iii), with
+or without their noise, and mutual inductance (K1e: the -M/dt cross terms
+live in G0, their history currents in b0); rank
 0 <= k = nM + nJ + nD + 2 nQ + nS + nB (+ 5 nM under the charge model)
 <= 32 (k = 0 is a linear deck: each Newton iteration accepts
 z0 = G0^{-1} b).
@@ -22,10 +23,12 @@ Per step and lane (what the kernel and ``run_chunk_plain`` compute):
 
 - sources at t = (step0 + i + 1) dt in the working type (never t += dt),
   plus, on a noisy run, the step's noise value of each noisy source;
-- b0 = [sources, -gl il, gc vc, E1, E2] scattered to their rows, the
-  T-line EMFs E1_j = ring[ticks_j - 1, nT + j] (the far port's wave
-  ticks_j steps ago) on row k1_j and E2_j = ring[ticks_j - 1, j] on row
-  k2_j; z0 = G0^{-1} b0;
+- b0 = [sources, -gl il, gc vc, E1, E2, -gm il_b, -gm il_a] scattered to
+  their rows, the T-line EMFs E1_j = ring[ticks_j - 1, nT + j] (the far
+  port's wave ticks_j steps ago) on row k1_j and E2_j = ring[ticks_j - 1,
+  j] on row k2_j, and per K element m (K1e) with gm_m = M_m / dt the
+  mutual history -(gm_m il[b_m]) on inductor a_m's branch row and
+  -(gm_m il[a_m]) on b_m's; z0 = G0^{-1} b0;
 - under the charge model, q_prev = q(x) of the incoming x (q is a function
   of x, so this is the non-fused state's qm; no extra carry);
 - Newton from x (or 2x - x_prev with the predictor): the device
@@ -143,7 +146,7 @@ MAX_STACK = cuda_step.MAX_STACK      # expression stack of a B source
 MAX_PROBES = cuda_step.MAX_PROBES    # rows of the probe matrix (K1c-i)
 MAX_TL = cuda_step.MAX_TL            # transmission lines (K1c-ii)
 MAX_RING = cuda_step.MAX_RING        # Dmax x 2 nT waves of the delay ring
-IN_SCOPE = "RCLVIMEGFHDQJSBT"  # device classes of K1a, K1b, K1c-ii, K1d
+IN_SCOPE = "RCLVIMEGFHDQJSBTK"  # device classes of K1a, K1b, K1c-ii, K1d, K1e
 # HBM budget of one chunk's noise block (n_steps, nN, B) (K1c-iii): 256 MiB,
 # about 1/300 of the card's memory.  Drawing it takes int64 temporaries of
 # about ten times its words (utils/prng.py), a few GiB at the budget.  At
@@ -154,7 +157,7 @@ NOISE_BLOCK_BYTES = 1 << 28
 
 def unsupported_reason(engine, dt=None) -> Optional[str]:
     """Why ``engine`` at timestep ``dt`` is outside the K1a + K1b + K1c-ii
-    + K1d-i + K1d-ii scope, or None when it is in.
+    + K1d-i + K1d-ii + K1e scope, or None when it is in.
 
     In scope is a subset of ``circuitsimulator_tpu/ops/pallas_step.py:
     supported``: every condition refused there is refused here (T-lines
@@ -163,7 +166,11 @@ def unsupported_reason(engine, dt=None) -> Optional[str]:
     rows, or a rank above 16 (no kernel instantiation has them together).
     TRNOISE decks are in scope, noisy or not (K1c-iii): the kernel adds a
     noise block of any number of noisy sources, so nothing of it is
-    refused.  Mutual inductance never reaches an Engine of the port."""
+    refused.  Mutual inductance is in scope (K1e): its cross terms are
+    part of G0 and its history currents are 2 nK more b0 terms.  The JAX
+    kernel admits K too but leaves the history out of its right-hand side
+    (``pallas_step.py:1180``), so on K decks K1e is held to the non-fused
+    loop, not to that kernel."""
     t = engine.topo
     opts = engine.opts
     c = t.counts
@@ -367,6 +374,19 @@ class FusedStepRunner:
         self.gc = _lm(torch.where(C > 0.0, C / dt_t, 0.0))
         self.gl = _lm(torch.where(L > 0.0, L / dt_t, 0.0))
         self.nCap, self.nL = self.gc.shape[0], self.gl.shape[0]
+        # mutual inductance (K1e): gm = M / dt lane-minor (nK, B) and the
+        # coupled inductors (a, b) of each K element; one dummy entry each
+        # without K, never read
+        self.nK = nK = len(t.mut_a)
+        if nK:
+            M = engine._mutual_M(bparams)
+            self.gm = _lm((M / dt_t).expand(B, nK))
+            self.mut_plan = torch.as_tensor(np.stack(
+                [t.mut_a, t.mut_b]).astype(np.int32), device=dev)
+        else:
+            self.gm = torch.zeros((1, B), dtype=dtype, device=dev)
+            self.mut_plan = torch.zeros((2, 1), dtype=torch.int32,
+                                        device=dev)
 
         # index plans shared by all lanes (N = ground dump slot): a source
         # adds its value at src_pos and subtracts it at src_neg
@@ -415,14 +435,18 @@ class FusedStepRunner:
             self.noise_idx = i32(ni)
             self.noise_col = i32(col)
         # one scatter for the whole RHS in the plain version
+        ka, kb = t.ind_k[t.mut_a], t.ind_k[t.mut_b]
         self._rhs_rows = torch.cat([self.src_pos, self.src_neg, self.ind_k,
                                     self.cap_a, self.cap_b]
                                    + ([self.tl_plan[2], self.tl_plan[5]]
-                                      if nT else [])).long()
+                                      if nT else [])
+                                   + ([i32(ka), i32(kb)] if nK else [])
+                                   ).long()
         # the kernel's b0 row plan (the same sums, row by row)
-        self.n_terms = self.nS + self.nL + self.nCap + 2 * nT
+        self.n_terms = self.nS + self.nL + self.nCap + 2 * nT + 2 * nK
         rp, ri = rhs_plan(N, pos, neg, t.ind_k, engine.cap_a, engine.cap_b,
-                          (t.tl_k1, t.tl_k2) if nT else None)
+                          (t.tl_k1, t.tl_k2) if nT else None,
+                          (ka, kb) if nK else None)
         self.rhs_ptr, self.rhs_idx = i32(rp), i32(ri)
 
     # ------------------------------------------------------------------
@@ -493,6 +517,8 @@ class FusedStepRunner:
         dtype, dev = self.dtype, x.device
         zcol = torch.zeros((B, 1), dtype=dtype, device=dev)
         gc, gl = self.gc.T, self.gl.T                          # (B, n)
+        gm = self.gm.T                                         # (B, nK)
+        mut_a, mut_b = self.mut_plan.long()
         dc, pwl_n = self.src[0].T, self.src[5].T               # (B, nS)
         pulse, sin, pwl_t, pwl_v = (a.permute(2, 1, 0)         # (B, nS, q)
                                     for a in self.src[1:5])
@@ -641,6 +667,8 @@ class FusedStepRunner:
             parts = [sv, -sv, -(gl * il), h, -h]
             if nT:          # the delayed waves E1 at rows k1, E2 at rows k2
                 parts.append(ring[:, e_slots, e_cols])
+            if self.nK:     # K1e: row k_a gets -gm il_b, row k_b -gm il_a
+                parts += [-(gm * il[:, mut_b]), -(gm * il[:, mut_a])]
             vals = torch.cat(parts, 1)
             b = torch.zeros((B, N + 1), dtype=dtype, device=dev)
             b.index_add_(1, self._rhs_rows, vals)
@@ -676,16 +704,20 @@ class FusedStepRunner:
         return out + ((ring,) if nT else ())
 
 
-def rhs_plan(N, pos, neg, ind_k, cap_a, cap_b, tl_rows=None):
+def rhs_plan(N, pos, neg, ind_k, cap_a, cap_b, tl_rows=None, mut_rows=None):
     """The kernel's b0 row plan: row n of b0 is the sum of its terms
     rhs_idx[rhs_ptr[n]:rhs_ptr[n + 1]], each term << 1 | negated, in the
     order of the plain version's one scatter (``_rhs_rows``: +value of
     every source at its pos row, -value at its neg row, -gl il of every
     inductor, +gc vc of every capacitor at a, -gc vc at b, E1 of every line
-    at k1, E2 at k2), so that each row sums its terms in the order a
-    sequential scatter adds them.  Terms: the sources (nS), inductors,
-    capacitors, then the 2 nT EMFs (E1_j = 2 j, E2_j = 2 j + 1);
-    ``tl_rows`` is (k1, k2) or None.  Rows >= N (ground) are dropped."""
+    at k1, E2 at k2, then the mutual history of every K element at k_a and
+    at k_b), so that each row sums its terms in the order a sequential
+    scatter adds them.  Terms: the sources (nS), inductors, capacitors,
+    the 2 nT EMFs (E1_j = 2 j, E2_j = 2 j + 1), then the 2 nK mutual terms
+    (-gm_m il[b_m] = 2 m at row k_a[m], -gm_m il[a_m] = 2 m + 1 at row
+    k_b[m]); ``tl_rows`` is (k1, k2), ``mut_rows`` (k_a, k_b) the branch
+    rows of each K element's inductors, or None.  Rows >= N (ground) are
+    dropped."""
     nS, nL = len(pos), len(ind_k)
     o_c, o_e = nS + nL, nS + nL + len(cap_a)
     adds = ([(pos[s], s, 0) for s in range(nS)]      # (row, term, negated)
@@ -697,6 +729,11 @@ def rhs_plan(N, pos, neg, ind_k, cap_a, cap_b, tl_rows=None):
         k1, k2 = tl_rows
         adds += ([(r, o_e + 2 * j, 0) for j, r in enumerate(k1)]
                  + [(r, o_e + 2 * j + 1, 0) for j, r in enumerate(k2)])
+    if mut_rows is not None:
+        o_m = o_e + 2 * (0 if tl_rows is None else len(tl_rows[0]))
+        ka, kb = mut_rows
+        adds += ([(r, o_m + 2 * m, 0) for m, r in enumerate(ka)]
+                 + [(r, o_m + 2 * m + 1, 0) for m, r in enumerate(kb)])
     rows = [[] for _ in range(N)]
     for r, term, negated in adds:
         if int(r) < N:

@@ -16,6 +16,16 @@ from __future__ import annotations
 import torch
 
 VT_NOMINAL = 0.025852   # models/diode.py VT_THERMAL
+K_B, Q_E = 1.380649e-23, 1.602176634e-19
+
+
+def thermal_params(temp_c: float, dtype, device):
+    """The params at temperature ``temp_c`` (C): the thermal voltage kT/q
+    and the offset from 27 C, as ``vt_thermal`` and ``temp_delta_c``."""
+    return {"vt_thermal": torch.tensor(K_B * (273.15 + temp_c) / Q_E,
+                                       dtype=dtype, device=device),
+            "temp_delta_c": torch.tensor(temp_c - 27.0, dtype=dtype,
+                                         device=device)}
 
 
 def has_is_temp(params) -> bool:

@@ -405,13 +405,26 @@ def test_reference_routes_agree():
                                    rtol=1e-10, atol=1e-14)
 
 
-def test_ac_refuses_unported_stamps_by_name(monkeypatch):
-    from circuitsimulator_tpu_torch.ops import assemble
-    monkeypatch.setattr(assemble, "check_supported", lambda *a: None)
+def test_ac_refuses_unported_stamps_by_name():
+    """AC refused mutual inductance by name until its stamps were ported;
+    every device class of the Engine now has its AC stamps, so the deck
+    that was refused runs: B1 carries -M = -k sqrt(L1 L2) at the two
+    branch rows' cross entries, and K3's sweep equals the real 2N
+    reference route."""
+    from circuitsimulator_tpu_torch.analysis import ac
     ts = Simulator.from_text(RC_DECK + "L1 in x 1u\nL2 x 0 1u\n"
                              "K1 L1 L2 0.5\n", device="cpu")
-    with pytest.raises(NotImplementedError, match="mutual inductance"):
-        ts.ac()
+    x_op = ts.dc()
+    _, B1, _, _ = ac.ac_system_real(ts.engine, ts.params, x_op, 1.0)
+    ka, kb = ts.engine.mut_rows
+    assert float(B1[ka, kb]) == float(B1[kb, ka]) == -0.5e-6
+    freqs = np.logspace(2, 7, 4)
+    res = ts.ac(freqs=freqs)
+    solve_one = ac._make_solve_sweep(ts.engine, ts.params, x_op)
+    for f, want in zip(freqs, res.xs):
+        xr, xi = solve_one(f)
+        np.testing.assert_allclose(xr.numpy() + 1j * xi.numpy(), want,
+                                   rtol=1e-10, atol=1e-14)
 
 
 # ---------------------------------------------------------------- output

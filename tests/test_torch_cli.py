@@ -1,5 +1,6 @@
 """The port's CLI (``python -m circuitsimulator_tpu_torch``) on the CPU:
-stdout byte-identical to the reference goldens, the CSV within 1e-9 V."""
+stdout byte-identical to the reference goldens, the CSV within 1e-9 V; the
+.DC sweep, .STEP and mutual-inductance decks against the JAX CLI's."""
 
 import os
 import shutil
@@ -63,6 +64,53 @@ def test_dbmixer_cli_dc_table_matches_golden(tmp_path, monkeypatch, capsys):
     cut = ref.index("DC analysis finished.\n") + len("DC analysis finished.\n")
     assert capsys.readouterr().out == (
         ref[:cut] + "\nNo .TRAN card; transient analysis skipped.\n")
+
+
+# (deck, arguments, stdout golden, [(CSV written, its JAX-made golden)]):
+# the JAX CLI's runs of the .DC sweep, .STEP and mutual-inductance decks,
+# made from a directory holding examples/ (CHANGES.md has the commands)
+SWEEP_STEP_K = {
+    "mos_family": (["--run-dc-sweep", "mos_family_dcsweep.csv"],
+                   "mos_family_dcsweep_stdout_jax.txt",
+                   [("mos_family_dcsweep.csv", "mos_family_dcsweep_jax.csv")]),
+    "diode_temp": (["--run-dc-sweep", "diode_temp_dcsweep.csv",
+                    "--run-step", "diode_temp_step.csv"],
+                   "diode_temp_stdout_jax.txt",
+                   [("diode_temp_dcsweep.csv", "diode_temp_dcsweep_jax.csv"),
+                    ("diode_temp_step.csv", "diode_temp_step_jax.csv")]),
+    "rc_step": (["--no-tran", "--run-step", "rc_step_step.csv"],
+                "rc_step_run_step_stdout_jax.txt",
+                [("rc_step_step.csv", "rc_step_step_jax.csv")]),
+    "xfmr": (["xfmr_tran.csv", "--run-ac", "xfmr_ac.csv"],
+             "xfmr_stdout_jax.txt",
+             [("xfmr_tran.csv", "xfmr_tran_jax.csv"),
+              ("xfmr_ac.csv", "xfmr_ac_jax.csv")]),
+}
+
+
+@pytest.mark.parametrize("deck", list(SWEEP_STEP_K))
+def test_sweep_step_and_mutual_cli_match_jax_goldens(deck, tmp_path,
+                                                     monkeypatch, capsys):
+    """--run-dc-sweep (with its .MEASURE DC report), --run-step and
+    xfmr.sp's transient and --run-ac: stdout byte-identical to the JAX
+    CLI's, every CSV's header equal and its values within 1e-9."""
+    args, stdout, csvs = SWEEP_STEP_K[deck]
+    (tmp_path / "examples").mkdir()
+    shutil.copy(os.path.join(REPO, "examples", f"{deck}.sp"),
+                tmp_path / "examples")
+    monkeypatch.chdir(tmp_path)
+    assert main([f"examples/{deck}.sp", *args, "--device", "cpu"]) == 0
+    assert capsys.readouterr().out == read_golden(stdout)
+    for got_name, gold in csvs:
+        with open(tmp_path / got_name) as f:
+            assert f.readline() == read_golden(gold).splitlines(True)[0]
+        got = np.loadtxt(tmp_path / got_name, delimiter=",", skiprows=1,
+                         ndmin=2)
+        ref = np.loadtxt(os.path.join(GOLDENS, gold), delimiter=",",
+                         skiprows=1, ndmin=2)
+        assert got.shape == ref.shape
+        err = np.abs(got - ref).max()
+        assert err <= 1e-9, (gold, err)
 
 
 def test_module_entry_point_runs():

@@ -1044,3 +1044,130 @@ def test_fused_step_kernel_by_team_and_route(cuda_device, team, route,
     p = _edge_case(cuda_device, 16, 4, dtype, 300, route, team)
     assert (p.team, p.route) == (team, route)
     assert p.rows == -(-16 // team)
+
+
+# K1e, the mutual-inductance history: examples/xfmr.sp (k = 0), its
+# secondary with a diode and an RC load (k = 1), and three windings under
+# two K cards (one inductor in both)
+RECTIFIER_DECK = """* transformer-coupled half-wave rectifier
+V1 src 0 SIN 0 1 1e5
+Rs src p 10
+L1 p 0 1m
+L2 s 0 4m
+K1 L1 L2 0.98
+D1 s out
+Rl out 0 1k
+Cl out 0 100n
+.TRAN 1e-8 5e-5
+"""
+THREE_WINDINGS_DECK = """* three coupled windings
+V1 src 0 SIN 0 1 1e5
+Rs src p 10
+L1 p 0 1m
+L2 s 0 4m
+L3 t 0 2m
+K1 L1 L2 0.8
+K2 L2 L3 0.5
+Rl s 0 1k
+R3 t 0 500
+.TRAN 1e-8 5e-5
+"""
+
+
+def k_deck(deck, opts, device):
+    if deck == "xfmr":
+        return Simulator.from_file(os.path.join(REPO, "examples", "xfmr.sp"),
+                                   opts=opts, device=device)
+    return Simulator.from_text(RECTIFIER_DECK if deck == "rectifier"
+                               else THREE_WINDINGS_DECK, opts=opts,
+                               device=device)
+
+
+def k_lanes(sim, B, seed):
+    """B lanes with ind_l (5%), mut_k (1%, at most 0.999) and res_r (2%)
+    perturbed, drawn with numpy."""
+    from circuitsimulator_tpu_torch.parallel import montecarlo as mc
+    rng = np.random.default_rng(seed)
+    bp = dict(mc.broadcast_params(sim.params, B))
+    for key, sigma in (("ind_l", 0.05), ("mut_k", 0.01), ("res_r", 0.02)):
+        p = sim.params[key]
+        f = np.exp(sigma * rng.standard_normal((B,) + tuple(p.shape)))
+        bp[key] = p[None] * torch.as_tensor(f, dtype=p.dtype,
+                                            device=p.device)
+    bp["mut_k"] = bp["mut_k"].clamp(max=0.999)
+    return bp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("deck", ["xfmr", "rectifier", "three_windings"])
+def test_fused_step_mutual_history_matches_plain(cuda_device, deck, dtype):
+    """K1e against the plain version on the same card and inputs: 300 lanes
+    from the f64 batched DC, damped configuration, two launches in a row
+    (f32 within 2e-4 V over 100 steps, f64 within 1e-9 V with equal
+    per-lane iteration counts over 250), one launch per chunk; in f64 the
+    fused run within 1e-9 V of the non-fused loop.  In f32 the branch rows
+    of these decks cancel terms of L/dt i (about 1e3 V at dt = 10 ns) down
+    to volts, so two correct orders of summation drift apart as the
+    rectifier's diode conducts: about 3e-5 V after 100 steps, 3e-4 V after
+    250 (the plain version against the non-fused loop on the CPU)."""
+    from circuitsimulator_tpu_torch import DEFAULT_OPTIONS
+    from circuitsimulator_tpu_torch.ops import cuda_step, fused_step
+    from circuitsimulator_tpu_torch.parallel import montecarlo as mc
+    opts = DEFAULT_OPTIONS.replace(dtype=dtype)
+    if dtype == torch.float32:
+        opts = opts.replace(tran_tol=1e-5, dc_tol=1e-5)
+    sim = k_deck(deck, opts, cuda_device)
+    bp = k_lanes(sim, 300, 6)
+    bp64 = {k: v.double() if v.is_floating_point() else v
+            for k, v in bp.items()}
+    x0 = mc.batched_dc_fast(k_deck(deck, DEFAULT_OPTIONS,
+                                   cuda_device).engine, bp64).to(dtype)
+    dt = 1e-8
+    runner = fused_step.FusedStepRunner(sim.engine, bp, dt)
+    assert runner.nK == (2 if deck == "three_windings" else 1)
+    st = sim.engine.init_state(x0, bp, dt)
+    kc = pc = (x0, x0, st["vc"], st["il"],
+               torch.zeros((300,), dtype=torch.bool, device=cuda_device))
+    step0, iters, ref_iters = 0, 0, 0
+    for n in ((150, 100) if dtype == torch.float64 else (60, 40)):
+        before = cuda_step.LAUNCHES
+        got = runner.run_chunk(*kc, step0, n)
+        torch.cuda.synchronize()
+        assert cuda_step.LAUNCHES == before + 1
+        ref = runner.run_chunk_plain(*pc, step0, n)
+        kc, pc = got[:5], ref[:5]
+        iters, ref_iters = iters + got[5], ref_iters + ref[5]
+        step0 += n
+    tol = 2e-4 if dtype == torch.float32 else 1e-9
+    for a, b in zip(kc[:4], pc[:4]):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=0,
+                                   atol=tol)
+    assert not bool(kc[4].any()) and not bool(pc[4].any())
+    if dtype == torch.float64:
+        np.testing.assert_array_equal(iters.cpu().numpy(),
+                                      ref_iters.cpu().numpy())
+        loop = mc.batched_transient(sim.engine, bp, dt, step0 * dt, x0=x0,
+                                    fused=False)
+        np.testing.assert_allclose(kc[0].cpu().numpy(),
+                                   loop.x_final.cpu().numpy(), rtol=0,
+                                   atol=1e-9)
+
+
+@pytest.mark.cuda
+def test_dc_sweep_on_the_card_matches_cpu(cuda_device):
+    """mos_family.sp's nested .DC sweep (255 points, one batched DC on K2)
+    on the card within 1e-9 V of the CPU, with the same points failing
+    (none)."""
+    from circuitsimulator_tpu_torch.ops import cuda_lu
+    path = os.path.join(REPO, "examples", "mos_family.sp")
+    before = cuda_lu.LAUNCHES
+    got = Simulator.from_file(path, device=cuda_device).dc_sweep()
+    torch.cuda.synchronize()
+    assert cuda_lu.LAUNCHES > before
+    ref = Simulator.from_file(path, device="cpu").dc_sweep()
+    np.testing.assert_array_equal(got.values, ref.values)
+    np.testing.assert_array_equal(got.values2, ref.values2)
+    x, xr = got.xs.cpu().numpy(), ref.xs.numpy()
+    assert np.isfinite(x).all() and np.isfinite(xr).all()
+    np.testing.assert_allclose(x, xr, rtol=0, atol=1e-9)
