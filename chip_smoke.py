@@ -11,17 +11,18 @@ Phases (one JSON line each):
      capacity's edges (N = 9, 17, 33, 64) and B = 1, f32 and f64, with
      planted pivoting, singular, below-floor and NaN lanes; kernel, plain,
      torch.linalg.solve_ex and bound times at (8192, 31, 1), (8192, 6, 1),
-     (8192, 31, 31), (1, 31, 1) and the T-line AC's 2N shape of phase 25
-     (their device times are phase 28's);
+     (8192, 31, 31), (1, 31, 1), the T-line AC's 2N shape of phase 25 and
+     the adaptive ladder's stacked G0 inverses at (9216, 31, 31) of phase
+     35 (their device times are phase 28's);
   3. single lane, f64: buffer.sp through the CLI (stdout byte-identical to
-     the golden, CSV within 1e-9 V), dbmixer.sp DC table and its first 2,000
+     the golden, CSV within 1e-9 V), dbmixer.sp DC table and its first 1,000
      transient steps within 1e-9 V of the golden;
   4. the batched Monte-Carlo main path: dbmixer.sp, B = 8192 lanes, f32 fast
      configuration, batched DC then 2,000 Backward-Euler Woodbury steps in
      chunks of 500 (lane 0 nominal, held to the golden within 1e-3 V); then
      B = 1024 in f64 with the damped reference configuration;
   5. the same 64 lanes through CUDA (the kernel) and the CPU (the plain
-     version), 500 f64 steps, trajectories within 1e-9 V;
+     version), 250 f64 steps, trajectories within 1e-9 V;
   6. K1 (fused transient chunk, csrc/fused_step.cu) against its plain
      PyTorch version on the card: dbmixer 256 lanes f32 fast from x = 0
      (200 steps, 2e-4 V) and f64 damped from the DC point (100 steps,
@@ -100,10 +101,10 @@ Phases (one JSON line each):
      .TRAN, 300 steps in chunks of 100, from x = 0: the power-up
      transient; its failed lanes are counted, not held to zero, see phase
      14), B = 8192 f32 damped; then B = 1024 in f64 against the non-fused
-     loop (1e-9 V; the 2-MOS stage 120 steps from its DC point, buffer.sp
-     60 steps from x = 0 at tran_tol 1e-13); then the AC of the 2-MOS
-     stage at B = 4096 x F = 64 (its charge trans-caps in B1), f32 and
-     f64, f64 against the real 2N route (1e-9);
+     loop (1e-9 V; the 2-MOS stage 60 steps from its DC point, buffer.sp
+     30 steps from x = 0 at tran_tol 1e-13); then
+     the AC of the 2-MOS stage at B = 4096 x F = 64 (its charge trans-caps
+     in B1), f32 and f64, f64 against the real 2N route (1e-9);
  17. K1d-ii, the B-source rows, against the plain version on the card
      (k1d_ii_vs_plain): the B deck of tests/test_pallas_step.py (an I-form
      source with a .PARAM, a V-form source with a time term, a diode),
@@ -118,8 +119,10 @@ Phases (one JSON line each):
  19. the CLI on B-source decks (cli_bsource): behavioral.sp in f64 on the
      card, its DC table byte-identical to the JAX CLI's
      (tests/goldens/behavioral_stdout_jax.txt) and its CSV within 1e-9 V of
-     tests/goldens/behavioral_tran_jax.csv; then --no-tran --run-ac on
-     sdomain_filter.sp against tests/goldens/sdomain_filter_ac_jax.csv
+     the first 1,001 rows of tests/goldens/behavioral_tran_jax.csv (its
+     .TRAN cut to 1,000 of its 5,000 steps in a staged copy); then
+     --no-tran --run-ac on sdomain_filter.sp against
+     tests/goldens/sdomain_filter_ac_jax.csv
      (1e-9);
  20. .NODESET (nodeset): inamp.sp's f64 CLI DC (--no-tran) runs to its end
      on the card.  Phase 15's float32 lanes start as
@@ -238,12 +241,41 @@ Phases (one JSON line each):
  32. .IC / UIC (ic_transients_f64): the UIC and .IC decks of
      tests/test_torch_ic.py (tests/test_ic.py's decks but the adaptive
      one) in f64 on the card, within 1e-12 V of the port on the CPU.
-     Phases 29-32 run after phase 27 and before k3_timings and phase 28.
+ 33. METHOD=TRAP (trap_*): buffer.sp through the CLI with --method trap in
+     f64 against the JAX CLI's goldens (stdout byte-identical, CSV within
+     1e-9 V); dbmixer at B = 8192, f32 damped, trapezoidal: the batched DC
+     (K2) then 2,000 non-fused Woodbury steps in chunks of 500
+     (ChunkedTransient's loop): lane-steps/s, K2 launches, failed lanes,
+     and the Backward-Euler rate of the same lanes over 250 steps before
+     and after it; B =
+     1024 in f64 over 500 steps, 64 of the lanes within 1e-9 V of the
+     CPU at every 100th step; tests/test_trap.py's MOS + L + C deck under
+     MOSCAP=CHARGE (the trapezoidal charge currents) within 1e-9 V of the
+     CPU over 100 steps;
+ 34. the dense lu transient solver (lu_solver_*): dbmixer at B = 8192 f32
+     damped, BE and TRAP, 200 steps, K2 at (8192, 31, 1) on every Newton
+     iteration (launches and ms per step); B = 1024 f64 TRAP, lu within
+     1e-9 V of woodbury on the same lanes, the mixed refinement (f32 K2
+     around an f64 residual) within 1e-6 V of the f64 lu run (its gap);
+ 35. the adaptive dyadic-LTE integrator (adaptive_*): dbmixer's single
+     lane in f64, Simulator.transient(adaptive=True) over 500 output
+     intervals, on the card and on the CPU (equal substep, rejection and
+     Newton counts, rows within 1e-9 V); B = 1024 perturbed f64 lanes over
+     200 intervals (the 9 levels' G0 inverses as one K2 launch at (9216,
+     31, 31), timed in phase 2), lanes 0 and 1 within 1e-12 V of their own
+     single-lane runs with equal counts;
+ 36. checkpoint/resume (checkpoint_*): phase 33's dbmixer run and the noisy
+     dbmixer (TRNOISE, one key per lane; its uninterrupted run here), each
+     run again stopped after the first 500-step chunk, written to .npz and
+     resumed by a new ChunkedTransient: torch.equal on x, failed and every
+     state entry; file size, save and load times.
+     Phases 29-36 run after phase 27 and before k3_timings and phase 28;
+     the total line gives each phase's wall seconds.
 
 Every error of K3 and of the AC path is lane-relative: for each lane
 max|x - ref| / max|ref| over its frequencies and unknowns, then the worst
 lane.  Kernel launch counts are reset just before each main-path run
-(phases 4, 7, 8, 11, 12, 13, 15, 16, 18, 22, 25, 27 and 29-32) and read
+(phases 4, 7, 8, 11, 12, 13, 15, 16, 18, 22, 25, 27 and 29-36) and read
 just after it.  The
 junction decks run the damped while-loop Newton configuration at f32
 tolerances: the fast configuration (alpha 1, predictor, two unrolled
@@ -638,10 +670,11 @@ def phase_k2():
     from circuitsimulator_tpu_torch.analysis import ac as tac
     from circuitsimulator_tpu_torch.ops import cuda_lu, lu
     # the main path's shapes, then each team capacity's edges (N = 9: 16
-    # threads, 17: a warp, 33 and 64: two warps) and the single-lane DC
+    # threads, 17: a warp, 33 and 64: two warps), the single-lane DC and
+    # the adaptive ladder's stacked G0 inverses
     cases = [(8192, 31, 1), (8192, 6, 1), (1024, 31, 31), (1, 4, 1),
              (2048, 9, 9), (2048, 17, 3), (1024, 33, 33), (512, 64, 64),
-             (1, 31, 1)]
+             (1, 31, 1), (9216, 31, 31)]
     results = []
     max_abs = 0.0
     for B, N, R in cases:
@@ -687,9 +720,11 @@ def phase_k2():
     n_tl = _sim(DEFAULT_OPTIONS, TL_AC_DECK).engine.N
     tl_lanes = 1024 * min(64, max(1, tac._TL_BLOCK_ELEMS
                                   // (4 * n_tl * n_tl * 1024)))
+    # (9216, 31, 31): the adaptive ladder's 9 levels x 1,024 lanes of G0
+    # inverses in one launch (phase 35)
     timings = []
     for B, N, R in [(8192, 31, 1), (8192, 6, 1), (8192, 31, 31), (1, 31, 1),
-                    (tl_lanes, 2 * n_tl, 1)]:
+                    (tl_lanes, 2 * n_tl, 1), (9216, 31, 31)]:
         for dtype in (torch.float32, torch.float64):
             A, b = _systems(B, N, R, dtype, seed=7)
             size = A.element_size()
@@ -812,17 +847,17 @@ def phase_single_lane():
         shutil.rmtree(tmp)
     sim = Simulator.from_file(os.path.join(NETLISTS, "dbmixer.sp"),
                               device="cuda")
-    n = 2000
+    n = 1000
     t0 = time.perf_counter()
     res = sim.transient(tstop=n * sim.config.tran.tstep)
     torch.cuda.synchronize()
-    out["dbmixer_2000_steps_s"] = time.perf_counter() - t0
+    out["dbmixer_1000_steps_s"] = time.perf_counter() - t0
     check(not bool(res.failed), "dbmixer single lane failed")
     cols = np.concatenate([sim.topo.volt_col_eqs, sim.topo.branch_col_eqs])
     ref = golden_rows("dbmixer_tran.csv", n + 1)
     out["dbmixer_max_abs"] = float(
         np.abs(res.xs.cpu().numpy()[:, cols] - ref[:, 1:]).max())
-    check(out["dbmixer_max_abs"] <= 1e-9, "dbmixer 2000 steps within 1e-9 V")
+    check(out["dbmixer_max_abs"] <= 1e-9, "dbmixer 1000 steps within 1e-9 V")
     out["dbmixer_mean_newton_iters"] = float(res.newton_iters.float().mean())
     emit("single_lane_f64", **out)
 
@@ -930,7 +965,7 @@ def phase_cuda_vs_cpu():
         x0 = mc.batched_dc_fast(sim.engine, p)
         carry = mc.init_carry(sim.engine, x0, p, dt)
         finals = [x0]
-        for c in range(10):
+        for c in range(5):
             ts = torch.arange(c * 50 + 1, c * 50 + 51, dtype=torch.float64,
                               device=dev) * dt
             carry, _ = mc.batched_transient_chunk(sim.engine, p, carry, ts, dt)
@@ -938,7 +973,7 @@ def phase_cuda_vs_cpu():
         runs[dev] = (torch.stack(finals).cpu(), time.perf_counter() - t0)
     err = float((runs["cuda"][0] - runs["cpu"][0]).abs().max())
     check(err <= 1e-9, f"CUDA vs CPU trajectories {err}")
-    emit("cuda_vs_cpu_f64", lanes=64, steps=500, checkpoints=11,
+    emit("cuda_vs_cpu_f64", lanes=64, steps=250, checkpoints=6,
          max_abs=err, cuda_s=runs["cuda"][1], cpu_s=runs["cpu"][1])
 
 
@@ -2012,8 +2047,8 @@ def phase_monte_carlo_fused_charge():
     # from the DC point, buffer.sp from x = 0 at tran_tol 1e-13 (see phase
     # 14)
     for name, deck, n_steps, opts, x_zero in (
-            ("charge_stage", CHARGE_DECK, 120, f64, False),
-            ("buffer_charge", buf, 60,
+            ("charge_stage", CHARGE_DECK, 60, f64, False),
+            ("buffer_charge", buf, 30,
              f64.replace(tran_tol=1e-13, tran_max_newton_iters=100), True)):
         m64, carry64, _, _, _, (sim, bp) = _fused_run(
             opts, 1024, n_steps, n_steps, seed=51, deck=deck, dt=1e-9,
@@ -2142,6 +2177,10 @@ def phase_monte_carlo_fused_behavioral():
 
 
 # ------------------------------------------------------- phases 19, 20
+# behavioral.sp's .TRAN card: 5,000 steps of 2 ns
+BEHAVIORAL_TRAN = ".TRAN 2n 10u"
+
+
 def _cli(args):
     """(exit code, stdout, seconds) of the port's CLI run in-process."""
     from circuitsimulator_tpu_torch import cli
@@ -2154,7 +2193,10 @@ def _cli(args):
 
 def phase_cli_bsource():
     """The CLI on behavioral.sp (transient) and sdomain_filter.sp (AC) in
-    f64 on the card against the JAX CLI's goldens."""
+    f64 on the card against the JAX CLI's goldens.  behavioral.sp runs
+    with its .TRAN cut to the first 1,000 of its 5,000 steps (a staged
+    copy; the DC table it prints does not depend on the card), its CSV
+    held to the golden's first 1,001 rows."""
     import numpy as np
     out = {}
     tmp = tempfile.mkdtemp(prefix="chip_smoke_b_")
@@ -2165,6 +2207,12 @@ def phase_cli_bsource():
         for deck in ("behavioral", "sdomain_filter"):
             shutil.copy(os.path.join(EXAMPLES, f"{deck}.sp"),
                         os.path.join(tmp, "examples"))
+        beh = os.path.join(tmp, "examples", "behavioral.sp")
+        with open(beh) as f:
+            text = f.read()
+        check(BEHAVIORAL_TRAN in text, "behavioral.sp's .TRAN card")
+        with open(beh, "w") as f:
+            f.write(text.replace(BEHAVIORAL_TRAN, ".TRAN 2n 2u"))
         os.chdir(tmp)
         rc, text, out["behavioral_cli_s"] = _cli(
             ["examples/behavioral.sp", "behavioral_tran.csv", "--device",
@@ -2174,7 +2222,7 @@ def phase_cli_bsource():
         check(text[:len(gold)] == gold,
               "behavioral DC table byte-identical to the JAX CLI's")
         got = np.loadtxt("behavioral_tran.csv", delimiter=",", skiprows=1)
-        ref = golden_rows("behavioral_tran_jax.csv", None)
+        ref = golden_rows("behavioral_tran_jax.csv", 1001)
         check(got.shape == ref.shape, "behavioral CSV shape")
         out["behavioral_csv_max_abs"] = float(np.abs(got - ref).max())
         check(out["behavioral_csv_max_abs"] <= 1e-9,
@@ -3378,25 +3426,25 @@ def phase_mutual():
 
 
 # ------------------------------------------------------- phases 30, 31
-def _cli_vs_goldens(deck, args, stdout_golden, csvs):
-    """The CLI on examples/<deck>.sp on the card, run from a directory
-    holding examples/ (the goldens name the deck and the CSVs relative to
-    it): stdout byte-identical to the JAX CLI's, each CSV's header equal
-    and its values within 1e-9.  K1 and K2 counts are reset just before
-    and read just after."""
+def _cli_vs_goldens(deck, args, stdout_golden, csvs, where="examples"):
+    """The CLI on <where>/<deck>.sp (examples/ or tests/netlists/) on the
+    card, run from a directory holding <where>/ (the goldens name the deck
+    and the CSVs relative to it): stdout byte-identical to the JAX CLI's,
+    each CSV's header equal and its values within 1e-9.  K1 and K2 counts
+    are reset just before and read just after."""
     import numpy as np
     from circuitsimulator_tpu_torch.ops import cuda_lu, cuda_step
     out = {}
     tmp = tempfile.mkdtemp(prefix="chip_smoke_s_")
     here = os.getcwd()
     try:
-        os.makedirs(os.path.join(tmp, "examples"))
-        shutil.copy(os.path.join(EXAMPLES, f"{deck}.sp"),
-                    os.path.join(tmp, "examples"))
+        os.makedirs(os.path.join(tmp, where))
+        shutil.copy(os.path.join(REPO, where, f"{deck}.sp"),
+                    os.path.join(tmp, where))
         os.chdir(tmp)
         cuda_lu.LAUNCHES = 0
         cuda_step.LAUNCHES = 0
-        rc, text, out["cli_s"] = _cli([f"examples/{deck}.sp", *args,
+        rc, text, out["cli_s"] = _cli([f"{where}/{deck}.sp", *args,
                                        "--device", "cuda"])
         out["k2_launches"] = cuda_lu.LAUNCHES
         out["k1_launches"] = cuda_step.LAUNCHES
@@ -3585,6 +3633,371 @@ def phase_ic():
     return k2
 
 
+# ------------------------------------------------------- phases 33-36
+# tests/test_trap.py's MOS + L + C deck under MOSCAP=CHARGE: the charge
+# currents qi of the trapezoidal state
+TRAP_CHARGE_DECK = """* MOS + L + C, charge model
+.MODEL 2 VT 0.4 MU 1e-2 COX 1e-3 LAMBDA 0.05 CJ0 1e-13
+VDD 1 0 3
+Vin 2 0 SIN 1 0.5 1e8
+RD 1 3 1k
+M1 3 2 0 n 10e-6 1e-6 2
+C1 3 0 2e-13
+L1 3 4 1e-9
+C2 4 0 1e-13
+.OPTIONS MOSCAP=CHARGE
+.TRAN 1e-11 2e-8
+"""
+
+
+def _lanes_of(bp):
+    """The lane count of batched params."""
+    return int(bp["vt_thermal"].shape[0])
+
+
+def _chunked_run(sim, bp, n_steps, chunk, noise_key=None):
+    """ChunkedTransient's run without a file, timed: the batched DC (K2),
+    then the non-fused steps chunk by chunk (``_run_chunk``, what ``run``
+    calls).  K2 counts are reset just before and read just after.
+    Returns (measurements, final carry)."""
+    import torch
+    from circuitsimulator_tpu_torch.ops import cuda_lu
+    from circuitsimulator_tpu_torch.parallel.checkpoint import \
+        ChunkedTransient
+    eng = sim.engine
+    dt = sim.config.tran.tstep
+    B = _lanes_of(bp)
+    ck = ChunkedTransient(eng, bp, dt, n_steps * dt, chunk_steps=chunk,
+                          noise_key=noise_key)
+    torch.cuda.synchronize()
+    cuda_lu.LAUNCHES = 0
+    t0 = time.perf_counter()
+    carry = ck.initial_carry()
+    torch.cuda.synchronize()
+    dc_s = time.perf_counter() - t0
+    dc_k2 = cuda_lu.LAUNCHES
+    walls, iters = [], 0
+    for c in range(n_steps // chunk):
+        ts = (torch.arange(c * chunk + 1, (c + 1) * chunk + 1,
+                           dtype=eng.dtype, device="cuda")
+              * torch.tensor(dt, dtype=eng.dtype, device="cuda"))
+        t0 = time.perf_counter()
+        carry, it = ck._run_chunk(carry, ts)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        iters = iters + it.sum(0)
+    m = {"B": B, "dtype": str(eng.dtype)[6:], "method": eng.opts.tran_method,
+         "solver": eng.opts.tran_solver, "steps": n_steps, "chunk": chunk,
+         "dc_s": dc_s, "dc_k2_launches": dc_k2,
+         "tran_k2_launches": cuda_lu.LAUNCHES - dc_k2,
+         "k2_launches": cuda_lu.LAUNCHES,
+         "steps_per_s": B * n_steps / sum(walls),
+         "ms_per_step": 1e3 * sum(walls) / n_steps,
+         "chunk_seconds": walls,
+         "failed_lanes": int(carry[2].sum()),
+         "mean_newton_iters": float(iters.float().mean()) / n_steps}
+    return m, carry
+
+
+def phase_trap():
+    """Phase 33: METHOD=TRAP on the card.  buffer.sp through the CLI with
+    --method trap in f64 against the JAX CLI's goldens; dbmixer at B =
+    8192, f32 damped, trapezoidal: batched DC then 2,000 non-fused
+    Woodbury steps (ChunkedTransient's loop, chunks of 500), and the same
+    lanes' Backward-Euler rate over 250 steps before and after it; B =
+    1024 in f64 over 500 trapezoidal steps, 64 of the lanes against the
+    CPU (the plain version) within 1e-9 V at every 100th step;
+    tests/test_trap.py's MOS + L + C deck under MOSCAP=CHARGE, single lane
+    f64, 100 steps, against the CPU within 1e-9 V."""
+    import torch
+    from circuitsimulator_tpu_torch import DEFAULT_OPTIONS, Simulator
+    from circuitsimulator_tpu_torch.ops import cuda_lu
+    from circuitsimulator_tpu_torch.parallel import montecarlo as mc
+    t_phase = time.perf_counter()
+    cli = _cli_vs_goldens(
+        "buffer", ["buffer_trap_tran.csv", "--method", "trap"],
+        "buffer_trap_stdout_jax.txt",
+        [("buffer_trap_tran.csv", "buffer_trap_tran_jax.csv")],
+        where=os.path.join("tests", "netlists"))
+    check(cli["k2_launches"] > 0, "buffer --method trap on K2")
+    emit("trap_cli_buffer_f64", **cli)
+    opts = damped_f32_options().replace(tran_method="trap")
+    sim, bp = _mc_lanes(opts, 8192, seed=61)
+    sim_be = _sim(damped_f32_options(), os.path.join(NETLISTS, "dbmixer.sp"))
+    # in turns: BE, TRAP, BE (host-bound rates drift within a call)
+    be = [_chunked_run(sim_be, bp, 250, 250)[0]]
+    main, carry = _chunked_run(sim, bp, 2000, 500)
+    be.append(_chunked_run(sim_be, bp, 250, 250)[0])
+    check(main["failed_lanes"] == 0, "TRAP dbmixer: no failed lanes")
+    check(main["tran_k2_launches"] > 0, "TRAP dbmixer's steps on K2")
+    main["k2_launches_per_step"] = main["tran_k2_launches"] / 2000
+    main["be_same_lanes"] = [
+        {k: r[k] for k in ("steps_per_s", "mean_newton_iters",
+                           "tran_k2_launches", "failed_lanes")} for r in be]
+    main["trap_over_be_rate"] = main["steps_per_s"] / statistics.mean(
+        r["steps_per_s"] for r in be)
+    emit("trap_dbmixer_f32", **main)
+    # f64, 1024 lanes on the card, 64 of them on the CPU
+    sim64, bp64 = _mc_lanes(DEFAULT_OPTIONS.replace(tran_method="trap"),
+                            1024, seed=62)
+    cpu = Simulator.from_file(os.path.join(NETLISTS, "dbmixer.sp"),
+                              opts=sim64.opts, device="cpu")
+    dt = sim64.config.tran.tstep
+    runs = {}
+    bp_cpu = {k: v[:64].cpu() for k, v in bp64.items()}
+    for dev, s, p in (("cuda", sim64, bp64), ("cpu", cpu, bp_cpu)):
+        t0 = time.perf_counter()
+        x0 = mc.batched_dc_fast(s.engine, p)
+        carry64 = mc.init_carry(s.engine, x0, p, dt)
+        marks = [x0[:64].cpu()]
+        for c in range(5):
+            ts = torch.arange(c * 100 + 1, c * 100 + 101,
+                              dtype=torch.float64, device=dev) * dt
+            carry64, _ = mc.batched_transient_chunk(s.engine, p, carry64, ts,
+                                                    dt)
+            marks.append(carry64[0][:64].cpu())
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        runs[dev] = (torch.stack(marks), time.perf_counter() - t0,
+                     int(carry64[-1].sum()))
+    m64 = {"B": 1024, "steps": 500, "cuda_s": runs["cuda"][1],
+           "cpu_lanes": 64, "cpu_s": runs["cpu"][1],
+           "failed_lanes": runs["cuda"][2],
+           "max_abs_vs_cpu": float((runs["cuda"][0]
+                                    - runs["cpu"][0]).abs().max())}
+    check(m64["failed_lanes"] == 0, "TRAP f64: no failed lanes")
+    check(m64["max_abs_vs_cpu"] <= 1e-9, "TRAP f64 CUDA within 1e-9 V of CPU")
+    emit("trap_dbmixer_f64_vs_cpu", **m64)
+    # the charge model's trapezoidal currents
+    torch.cuda.synchronize()
+    cuda_lu.LAUNCHES = 0
+    g = Simulator.from_text(TRAP_CHARGE_DECK, device="cuda",
+                            opts=DEFAULT_OPTIONS.replace(tran_method="trap"))
+    t0 = time.perf_counter()
+    rg = g.transient(tstop=100e-11)
+    torch.cuda.synchronize()
+    mq = {"steps": 100, "cuda_s": time.perf_counter() - t0,
+          "k2_launches": cuda_lu.LAUNCHES}
+    c = Simulator.from_text(TRAP_CHARGE_DECK, device="cpu",
+                            opts=DEFAULT_OPTIONS.replace(tran_method="trap"))
+    rc = c.transient(tstop=100e-11)
+    mq["max_abs_vs_cpu"] = float((rg.xs.cpu() - rc.xs).abs().max())
+    check(not bool(rg.failed), "TRAP charge deck failed")
+    check(mq["max_abs_vs_cpu"] <= 1e-9, "TRAP charge deck within 1e-9 V")
+    mq["phase_seconds"] = time.perf_counter() - t_phase
+    emit("trap_charge_f64_vs_cpu", **mq)
+    return {"cli": cli, "main": main, "be": be, "carry": carry, "bp": bp,
+            "sim": sim, "charge": mq}
+
+
+def phase_lu_solver():
+    """Phase 34: the dense ``lu`` transient solver on the card.  dbmixer at
+    B = 8192, f32 damped, BE and TRAP, 200 steps: every Newton iteration
+    assembles the (B, 32, 32) system and solves it with K2 at (8192, 31,
+    1): K2 launches, ms per step, failed lanes; B = 1024 f64 TRAP, 200
+    steps, lu against woodbury on the same lanes within 1e-9 V; the mixed
+    refinement (f64 residual, f32 K2 correction) against the f64 lu run:
+    the gap."""
+    from circuitsimulator_tpu_torch import DEFAULT_OPTIONS
+    t_phase = time.perf_counter()
+    rows = {}
+    for method in ("be", "trap"):
+        opts = damped_f32_options().replace(tran_solver="lu",
+                                            tran_method=method)
+        sim, bp = _mc_lanes(opts, 8192, seed=63)
+        m, _ = _chunked_run(sim, bp, 200, 200)
+        check(m["failed_lanes"] == 0, f"lu {method}: no failed lanes")
+        check(m["tran_k2_launches"] >= 200, f"lu {method}: K2 every iteration")
+        m["k2_launches_per_step"] = m["tran_k2_launches"] / 200
+        rows[method] = m
+        emit(f"lu_solver_dbmixer_{method}_f32", **m)
+    finals = {}
+    for name, kw in (("woodbury", {}), ("lu", {"tran_solver": "lu"}),
+                     ("lu_mixed", {"tran_solver": "lu",
+                                   "tran_mixed_refine": True})):
+        opts = DEFAULT_OPTIONS.replace(tran_method="trap", **kw)
+        sim, bp = _mc_lanes(opts, 1024, seed=64)
+        m, carry = _chunked_run(sim, bp, 200, 200)
+        check(m["failed_lanes"] == 0, f"f64 {name}: no failed lanes")
+        finals[name] = (carry[0], m)
+    gap = {"lu_vs_woodbury_max_abs": float(
+        (finals["lu"][0] - finals["woodbury"][0]).abs().max()),
+        "mixed_vs_lu_max_abs": float(
+        (finals["lu_mixed"][0] - finals["lu"][0]).abs().max()),
+        "ms_per_step": {k: v[1]["ms_per_step"] for k, v in finals.items()},
+        "mean_newton_iters": {k: v[1]["mean_newton_iters"]
+                              for k, v in finals.items()}}
+    check(gap["lu_vs_woodbury_max_abs"] <= 1e-9, "f64 lu within 1e-9 V of "
+          "woodbury")
+    check(gap["mixed_vs_lu_max_abs"] <= 1e-6, "mixed refinement within "
+          "1e-6 V of f64 lu")
+    gap["phase_seconds"] = time.perf_counter() - t_phase
+    emit("lu_solver_dbmixer_f64", B=1024, steps=200, **gap)
+    return rows
+
+
+def phase_adaptive():
+    """Phase 35: the adaptive dyadic-LTE integrator on the card.  dbmixer's
+    single lane in f64 through Simulator.transient(adaptive=True) over 500
+    output intervals (tstop 5e-11): substeps, rejections, Newton
+    iterations, wall, against the same run on the CPU (equal counts, rows
+    within 1e-9 V); then B = 1024 perturbed f64 lanes through
+    run_transient_adaptive over 200 intervals: the L + 1 = 9 G0 inverses
+    as one K2 launch at (9216, 31, 31), then the k x k solves; lanes 0
+    and 1 against their own single-lane runs within 1e-12 V with equal
+    counts."""
+    import torch
+    from circuitsimulator_tpu_torch import DEFAULT_OPTIONS, Simulator
+    from circuitsimulator_tpu_torch.analysis.adaptive import \
+        run_transient_adaptive
+    from circuitsimulator_tpu_torch.ops import cuda_lu
+    from circuitsimulator_tpu_torch.parallel import montecarlo as mc
+    t_phase = time.perf_counter()
+    path = os.path.join(NETLISTS, "dbmixer.sp")
+    out = {}
+    x_op = Simulator.from_file(path, device="cpu").dc()
+    for dev in ("cuda", "cpu"):
+        sim = Simulator.from_file(path, device=dev)
+        x0 = x_op.to(dev)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            cuda_lu.LAUNCHES = 0
+        t0 = time.perf_counter()
+        r = sim.transient(tstop=5e-11, x_op=x0, adaptive=True)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        out[dev] = (r, time.perf_counter() - t0, cuda_lu.LAUNCHES)
+    rg, rc = out["cuda"][0], out["cpu"][0]
+    single = {"intervals": rg.n_steps, "n_substeps": int(rg.n_substeps),
+              "n_rejected": int(rg.n_rejected),
+              "newton_iters": int(rg.newton_iters),
+              "substeps_per_interval": int(rg.n_substeps) / rg.n_steps,
+              "cuda_s": out["cuda"][1], "cpu_s": out["cpu"][1],
+              "k2_launches": out["cuda"][2],
+              "lte_exceeded": bool(rg.lte_exceeded),
+              "max_abs_vs_cpu": float((rg.xs.cpu() - rc.xs).abs().max())}
+    for key in ("n_substeps", "n_rejected", "newton_iters"):
+        check(int(getattr(rg, key)) == int(getattr(rc, key)),
+              f"adaptive {key} equal on CUDA and CPU")
+    check(not bool(rg.failed), "adaptive dbmixer failed")
+    check(single["max_abs_vs_cpu"] <= 1e-9, "adaptive within 1e-9 V of CPU")
+    check(single["k2_launches"] > 0, "adaptive single lane on K2")
+    emit("adaptive_dbmixer_single_f64", **single)
+    sim, bp = _mc_lanes(DEFAULT_OPTIONS, 1024, seed=65)
+    x0 = mc.batched_dc_fast(sim.engine, bp)
+    torch.cuda.synchronize()
+    cuda_lu.LAUNCHES = 0
+    t0 = time.perf_counter()
+    rb = run_transient_adaptive(sim.engine, bp, 1e-13, 2e-11, x0=x0)
+    torch.cuda.synchronize()
+    batch = {"B": 1024, "intervals": rb.n_steps,
+             "wall_s": time.perf_counter() - t0,
+             "k2_launches": cuda_lu.LAUNCHES,
+             "n_substeps_mean": float(rb.n_substeps.float().mean()),
+             "n_substeps_max": int(rb.n_substeps.max()),
+             "n_rejected_mean": float(rb.n_rejected.float().mean()),
+             "newton_iters_mean": float(rb.newton_iters.float().mean()),
+             "failed_lanes": int(rb.failed.sum()),
+             "lte_exceeded_lanes": int(rb.lte_exceeded.sum())}
+    batch["lane_substeps_per_s"] = (float(rb.n_substeps.sum())
+                                    / batch["wall_s"])
+    # the stacked inverse is the first launch; each later one a k x k
+    # solve of a Newton iteration of the shared loop
+    batch["k2_stacked_inverse_launches"] = 1
+    batch["k2_kxk_launches"] = batch["k2_launches"] - 1
+    check(batch["failed_lanes"] == 0, "batched adaptive: no failed lanes")
+    errs = []
+    for lane in (0, 1):
+        r = run_transient_adaptive(sim.engine, {k: v[lane]
+                                                for k, v in bp.items()},
+                                   1e-13, 2e-11, x0=x0[lane])
+        errs.append(float((rb.xs[:, lane] - r.xs).abs().max()))
+        for key in ("n_substeps", "n_rejected", "newton_iters"):
+            check(int(getattr(rb, key)[lane]) == int(getattr(r, key)),
+                  f"batched adaptive lane {lane} {key}")
+    batch["lanes01_max_abs_vs_single"] = max(errs)
+    check(max(errs) <= 1e-12, "batched adaptive lanes within 1e-12 V")
+    batch["phase_seconds"] = time.perf_counter() - t_phase
+    emit("adaptive_dbmixer_batched_f64", **batch)
+    return {"single": single, "batch": batch}
+
+
+def phase_checkpoint(trap):
+    """Phase 36: ChunkedTransient's checkpoint/resume on the card.  Phase
+    33's dbmixer run (B = 8192, f32 damped TRAP, chunks of 500 of 2,000
+    steps) is the uninterrupted run; the same lanes run again stopped
+    after the first chunk (the .npz written) and resumed from the file by
+    a new object: torch.equal on x, failed and every state entry.  Then the
+    noisy dbmixer (TRNOISE state, one key per lane) the same way, its
+    uninterrupted run here.  File size, save and load times."""
+    import torch
+    from circuitsimulator_tpu_torch.ops import cuda_lu
+    from circuitsimulator_tpu_torch.parallel import montecarlo as mc
+    from circuitsimulator_tpu_torch.parallel.checkpoint import (
+        ChunkedTransient, load_carry, save_carry)
+    from circuitsimulator_tpu_torch.utils import prng
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ck_")
+    rows = {}
+    try:
+        cases = [("dbmixer", trap["sim"], trap["bp"], None, trap["carry"])]
+        opts = damped_f32_options().replace(tran_method="trap")
+        nsim, nbp = _mc_lanes(opts, 8192, seed=61, deck=_noisy_dbmixer())
+        key = mc.lane_keys(nsim.engine, nbp, prng.key(3, "cuda"))
+        nm, ncarry = _chunked_run(nsim, nbp, 2000, 500, noise_key=key)
+        check(nm["failed_lanes"] == 0, "noisy TRAP dbmixer: no failed lanes")
+        emit("checkpoint_noisy_dbmixer_uninterrupted_f32", **nm)
+        cases.append(("noisy_dbmixer", nsim, nbp, key, ncarry))
+        for name, sim, bp, nkey, full in cases:
+            eng = sim.engine
+            dt = sim.config.tran.tstep
+            path = os.path.join(tmp, f"{name}.npz")
+            torch.cuda.synchronize()
+            cuda_lu.LAUNCHES = 0
+            t0 = time.perf_counter()
+            ChunkedTransient(eng, bp, dt, 500 * dt, ckpt_path=path,
+                             chunk_steps=500, noise_key=nkey).run()
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            resumed, iters = ChunkedTransient(
+                eng, bp, dt, 2000 * dt, ckpt_path=path, chunk_steps=500,
+                noise_key=nkey).run()
+            torch.cuda.synchronize()
+            m = {"B": _lanes_of(bp), "steps": 2000, "chunk": 500,
+                 "first_chunk_s": first_s,
+                 "resume_s": time.perf_counter() - t0,
+                 "k2_launches": cuda_lu.LAUNCHES,
+                 "file_bytes": os.path.getsize(path),
+                 "state_keys": sorted(resumed[1])}
+            same = (torch.equal(resumed[0], full[0])
+                    and torch.equal(resumed[2], full[2])
+                    and set(resumed[1]) == set(full[1])
+                    and all(resumed[1][k] == full[1][k]
+                            if isinstance(full[1][k], int)
+                            else torch.equal(resumed[1][k], full[1][k])
+                            for k in full[1]))
+            check(same, f"{name}: resumed carry bit-equal to the "
+                  "uninterrupted run")
+            m["bitwise_equal"] = same
+            # save and load of the final carry, each timed alone
+            t0 = time.perf_counter()
+            save_carry(path, resumed, 2000)
+            m["save_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back, step = load_carry(path, eng)
+            torch.cuda.synchronize()
+            m["load_s"] = time.perf_counter() - t0
+            check(step == 2000 and torch.equal(back[0], resumed[0]),
+                  f"{name}: load_carry round trip")
+            rows[name] = m
+            emit(f"checkpoint_{name}_f32", **m)
+    finally:
+        shutil.rmtree(tmp)
+    rows["phase_seconds"] = time.perf_counter() - t_phase
+    return rows
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3592,40 +4005,54 @@ def main():
         return 1
     sys.path.insert(0, REPO)
     t_start = time.perf_counter()
-    card = phase_device()
-    max_abs, timings = phase_k2()
-    phase_single_lane()
-    launches, x32, x64 = phase_monte_carlo()
-    phase_cuda_vs_cpu()
-    k1_err = phase_k1()
-    k1_launches, k1_main, k1_main_run = phase_monte_carlo_fused(x32, x64)
-    ac_main, ac_lanes, cli_k3 = phase_ac_monte_carlo()
-    k3_err = phase_k3(ac_lanes, cli_k3)
-    k1b_err = phase_k1b()
-    bjt, bjt_main = phase_monte_carlo_fused_bjt()
-    switch = phase_monte_carlo_fused_switch()
-    ac_bjt = phase_ac_bjt()
-    k1d_err = phase_k1d()
-    inamp, inamp_main = phase_monte_carlo_fused_inamp()
-    charge = phase_monte_carlo_fused_charge()
-    k1d_ii_err = phase_k1d_ii()
-    beh, beh_main = phase_monte_carlo_fused_behavioral()
-    phase_cli_bsource()
-    phase_nodeset()
-    k1c_err = phase_k1c_i()
-    meas = phase_monte_carlo_measures()
-    phase_cli_measures()
-    k1c_ii_err = phase_k1c_ii()
-    tline = phase_monte_carlo_tline()
-    phase_cli_tline()
-    tn = phase_trnoise()
-    mut = phase_mutual()
-    sweep = phase_dc_sweep()
-    step = phase_step()
-    ic_k2 = phase_ic()
-    k3_rows = phase_k3_timings()
-    k2_device, k1_device_ms = phase_k2_device(timings, k1_main_run)
-    k3_device = phase_k3_device(k3_rows)
+    walls = {}
+
+    def timed(fn, *args):
+        """fn(*args), its wall seconds kept under its name."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[fn.__name__] = time.perf_counter() - t0
+        return out
+
+    card = timed(phase_device)
+    max_abs, timings = timed(phase_k2)
+    timed(phase_single_lane)
+    launches, x32, x64 = timed(phase_monte_carlo)
+    timed(phase_cuda_vs_cpu)
+    k1_err = timed(phase_k1)
+    k1_launches, k1_main, k1_main_run = timed(phase_monte_carlo_fused,
+                                              x32, x64)
+    ac_main, ac_lanes, cli_k3 = timed(phase_ac_monte_carlo)
+    k3_err = timed(phase_k3, ac_lanes, cli_k3)
+    k1b_err = timed(phase_k1b)
+    bjt, bjt_main = timed(phase_monte_carlo_fused_bjt)
+    switch = timed(phase_monte_carlo_fused_switch)
+    ac_bjt = timed(phase_ac_bjt)
+    k1d_err = timed(phase_k1d)
+    inamp, inamp_main = timed(phase_monte_carlo_fused_inamp)
+    charge = timed(phase_monte_carlo_fused_charge)
+    k1d_ii_err = timed(phase_k1d_ii)
+    beh, beh_main = timed(phase_monte_carlo_fused_behavioral)
+    timed(phase_cli_bsource)
+    timed(phase_nodeset)
+    k1c_err = timed(phase_k1c_i)
+    meas = timed(phase_monte_carlo_measures)
+    timed(phase_cli_measures)
+    k1c_ii_err = timed(phase_k1c_ii)
+    tline = timed(phase_monte_carlo_tline)
+    timed(phase_cli_tline)
+    tn = timed(phase_trnoise)
+    mut = timed(phase_mutual)
+    sweep = timed(phase_dc_sweep)
+    step = timed(phase_step)
+    ic_k2 = timed(phase_ic)
+    trap = timed(phase_trap)
+    lu_rows = timed(phase_lu_solver)
+    adap = timed(phase_adaptive)
+    ckpt = timed(phase_checkpoint, trap)
+    k3_rows = timed(phase_k3_timings)
+    k2_device, k1_device_ms = timed(phase_k2_device, timings, k1_main_run)
+    k3_device = timed(phase_k3_device, k3_rows)
     k3_shapes = [{**t, **d} for t, d in zip(k3_rows, k3_device)]
     k3_main = next(r for r in k3_shapes if r["shape"] == K3_MAIN)
     k2_main = timings[0]             # B=8192, N=31, R=1, f32: batched DC
@@ -3652,7 +4079,16 @@ def main():
                        **{f"dc_sweep_cli_{n}_f64": r["k2_launches"]
                           for n, r in sweep["cli"].items()},
                        "dc_sweep_dbmixer_f64": sweep["dbmixer"]["k2_launches"],
-                       "ic_transients_f64": ic_k2},
+                       "ic_transients_f64": ic_k2,
+                       "trap_cli_buffer_f64": trap["cli"]["k2_launches"],
+                       "trap_dbmixer_f32": trap["main"]["k2_launches"],
+                       "trap_charge_f64": trap["charge"]["k2_launches"],
+                       **{f"lu_solver_dbmixer_{m}_f32": r["k2_launches"]
+                          for m, r in lu_rows.items()},
+                       **{f"adaptive_dbmixer_{n}_f64": adap[n]["k2_launches"]
+                          for n in ("single", "batch")},
+                       **{f"checkpoint_{n}_f32": ckpt[n]["k2_launches"]
+                          for n in ("dbmixer", "noisy_dbmixer")}},
         "fused_step": {"monte_carlo_fused_f32_fast": k1_launches,
                        "monte_carlo_fused_bjt_f32": bjt["k1_launches"],
                        **{f"monte_carlo_fused_{n}_f32": m["k1_launches"]
@@ -3755,7 +4191,7 @@ def main():
         "device_ms": k3_main["kernel_device_ms"], "plan": k3_main["plan"],
         "shape": "dbmixer B=4096 F=64 N=31 f32 (one AC Monte-Carlo sweep)",
         "shapes": k3_shapes}]}), flush=True)
-    emit("total", seconds=time.perf_counter() - t_start)
+    emit("total", seconds=time.perf_counter() - t_start, phases=walls)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

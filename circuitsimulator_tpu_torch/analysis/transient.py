@@ -1,5 +1,6 @@
-"""Backward-Euler transient on the Woodbury backend (port of
-``circuitsimulator_tpu/analysis/transient.py``).
+"""Fixed-step transient, Backward Euler or trapezoidal, on the Woodbury
+or the dense LU backend (port of ``circuitsimulator_tpu/analysis/
+transient.py``).
 
 Reproduces src/tanalisis.cpp:83-424 (and, under ``MOSCAP=CHARGE``, the
 JAX package's charge rows with the previous step's charges in the state;
@@ -11,6 +12,16 @@ t_k = (k+1) dt; per step a damped Newton (alpha 0.45, gmin 1e-6, tol 1e-6
 on the damped step, max 50 iterations, non-convergence is not an error);
 element history updates from the accepted x.  A non-finite solve freezes the lane and raises its
 ``failed`` flag instead of aborting the batch.
+
+``SolverOptions.tran_method`` picks the companions ("be", the reference's,
+or "trap", the JAX package's trapezoidal extension: twice the companion
+conductances, the element currents and voltages in the state) and
+``tran_solver`` the linear solve: "woodbury" (G_static inverted once, a
+rank-k update per Newton iteration) or "lu" (the whole system assembled
+and solved every iteration, the reference's algorithm; with
+``tran_mixed_refine`` in float64, the residual in float64 and the
+correction solved in float32).  Every solve goes through
+``ops/lu.lu_solve``: the K2 kernel on CUDA.
 
 The JAX ``lax.scan`` over steps is a Python loop; the per-step Newton is
 either ``tran_unrolled_iters`` fixed iterations (no host sync: the
@@ -27,6 +38,7 @@ from typing import Any, Optional
 import torch
 
 from ..ops.assemble import Engine
+from ..ops.lu import lu_solve
 from ..ops.woodbury import WoodburySolver
 from .dc import dc_operating_point
 
@@ -55,15 +67,36 @@ def transient_step_fn(engine: Engine, params, dt, predictor: bool = False):
     counted in steps from ``float(dt)`` (``Engine.tl_ticks``)."""
     opts = engine.opts
     N = engine.N
+    method = opts.tran_method
     dt_host = float(dt)
     dt = torch.as_tensor(dt, dtype=engine.dtype, device=engine.device)
-    static_I = engine.make_tran_static_I(dt_host)
-    update_state = engine.make_update_state(dt)
-    G_static = engine.tran_static_G(params, dt, opts.tran_gmin)
-    wb = WoodburySolver(engine, params, G_static[..., :N, :N])
+    static_I = engine.make_tran_static_I(dt_host, method)
+    update_state = engine.make_update_state(dt, method)
+    G_static = engine.tran_static_G(params, dt, opts.tran_gmin, method)
+    floor = opts.lu_pivot_floor
+    if opts.tran_solver == "woodbury":
+        wb = WoodburySolver(engine, params, G_static[..., :N, :N])
+        solve = wb.solve
+    else:
+        mixed = (bool(opts.tran_mixed_refine)
+                 and engine.dtype == torch.float64)
+
+        def solve(params, x, z0, qex, t):
+            """x_raw of one iteration of the dense LU solver."""
+            G, I = engine.assemble_tran_iter(G_static, z0, params, x, t, qex)
+            Gn = G[..., :N, :N]
+            if not mixed:
+                return lu_solve(Gn, I[..., :N], floor)
+            # f64 residual around the iterate, f32 solve of the correction:
+            # Newton is the refinement loop, so the damped fixpoint is the
+            # f64 one while every factorisation runs in f32
+            r = I[..., :N] - (Gn @ x[..., None])[..., 0]
+            d = lu_solve(Gn.to(torch.float32), r.to(torch.float32), floor)
+            return x + d.to(engine.dtype)
     unrolled = int(opts.tran_unrolled_iters)
     alpha, tol, clamp = opts.tran_alpha, opts.tran_tol, opts.tran_newton_clamp
-    # the charge rows' BE companion reads the previous step's charges
+    # the charge rows' companion reads the previous step's charges (and,
+    # under trap, their currents)
     inv_dt = 1.0 / dt if engine.mos_charge else None
 
     def body(c, z0, qex, t, masked: bool):
@@ -71,7 +104,7 @@ def transient_step_fn(engine: Engine, params, dt, predictor: bool = False):
         done before it (the while-loop form: a vmapped while_loop does not
         touch the carry of a lane whose condition is false)."""
         x, done, failed, it = c
-        x_raw = wb.solve(params, x, z0, qex, t)
+        x_raw = solve(params, x, z0, qex, t)
         finite = torch.isfinite(x_raw).all(-1)
         upd_vec = x_raw - x
         if clamp > 0.0:
@@ -97,8 +130,12 @@ def transient_step_fn(engine: Engine, params, dt, predictor: bool = False):
             x, state, failed = carry
             x_init = x
         I_s = static_I(params, state, t)
-        z0 = wb.z0(I_s[..., :N])
-        qex = (state["qm"], inv_dt) if engine.mos_charge else None
+        # the Woodbury solve takes G0^-1 I_s, the dense one I_s itself
+        z0 = wb.z0(I_s[..., :N]) if opts.tran_solver == "woodbury" else I_s
+        qex = None
+        if engine.mos_charge:
+            qex = ((state["qm"], inv_dt, state["qi"]) if method == "trap"
+                   else (state["qm"], inv_dt))
         c = (x_init, failed, failed, torch.zeros_like(failed, dtype=torch.int32))
         if unrolled > 0:
             for _ in range(unrolled):

@@ -3,7 +3,8 @@
 
     sim = Simulator.from_file("tests/netlists/buffer.sp", device="cuda")
     x = sim.dc()                      # DC operating point, (N,)
-    res = sim.transient()             # Backward-Euler transient (.IC/UIC)
+    res = sim.transient()             # BE or TRAP transient (.IC/UIC)
+    res = sim.transient(adaptive=True)  # the dyadic LTE-controlled ladder
     sim.write_transient_csv("out.csv", res)
     ac = sim.ac()                     # .AC small-signal sweep (K3)
     sw = sim.dc_sweep()               # .DC sweep, one batched DC (K2)
@@ -220,19 +221,28 @@ class Simulator:
                   tstop: Optional[float] = None,
                   save_xs: bool = True,
                   x_op: Optional[Any] = None,
+                  adaptive: bool = False,
                   uic: Optional[bool] = None,
-                  noise_seed: Optional[int] = 0) -> TransientResult:
-        """Backward-Euler transient; defaults to the netlist's .TRAN card.
+                  noise_seed: Optional[int] = 0):
+        """Backward-Euler or trapezoidal transient (``METHOD``, the
+        ``tran_method`` option); defaults to the netlist's .TRAN card.
         It starts from ``x_op`` when given (the DC point of ``dc()`` for the
         same params); else from the .IC / UIC start
         (``_initial_conditions_x0``: ``uic`` overrides the .TRAN card's UIC
         flag); else it solves the DC point itself.
 
+        adaptive=True runs the LTE-controlled dyadic-refinement integrator
+        (``analysis/adaptive.py``, an ``AdaptiveTransientResult``): the
+        rows stay on the .TRAN grid, the internal dt refines down to
+        tstep / 2**``tran_max_refine_levels`` where the local truncation
+        error demands it.
+
         A deck with TRNOISE sources runs with its transient noise on,
         seeded by ``noise_seed`` (default 0, the JAX package's default: the
         same seed draws JAX's realisation, ``utils/prng.py``);
         ``noise_seed=None`` runs it noise-free.  No effect on other
-        decks."""
+        decks.  The adaptive integrator runs noise-free (the noise draw
+        grid depends on dt); it says so on stderr once."""
         cfg = self.config.tran
         tstep = cfg.tstep if tstep is None else tstep
         tstop = cfg.tstop if tstop is None else tstop
@@ -246,6 +256,16 @@ class Simulator:
                                              p)
         if x0 is None:
             x0 = self.dc(p)
+        if adaptive:
+            from .analysis.adaptive import run_transient_adaptive
+            if (noise_seed is not None and self.engine.has_trnoise
+                    and not getattr(self, "_warned_adaptive_noise", False)):
+                print("note: the adaptive integrator runs TRNOISE decks "
+                      "noise-free (dt-dependent draw grid); use the "
+                      "fixed-step transient for noise", file=sys.stderr)
+                self._warned_adaptive_noise = True
+            return run_transient_adaptive(self.engine, p, tstep, tstop,
+                                          x0=x0, save_xs=save_xs)
         key = (prng.key(noise_seed, self.device)
                if noise_seed is not None and self.engine.has_trnoise
                else None)
@@ -405,8 +425,10 @@ class Simulator:
                                 sel, n_harm=n_harm)
 
     # ---- output ----
-    def write_transient_csv(self, path: str, result: TransientResult,
+    def write_transient_csv(self, path: str, result,
                             tstart: Optional[float] = None) -> None:
+        """The CSV of a TransientResult or an AdaptiveTransientResult (its
+        rows: the .TRAN grid)."""
         if tstart is None:
             tstart = self.config.tran.tstart or 0.0
         if bool(result.failed):

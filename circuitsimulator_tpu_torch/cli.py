@@ -1,13 +1,16 @@
 """Command-line entry point mirroring the reference CLI (src/main.cpp):
 
     python -m circuitsimulator_tpu_torch <netlist.sp> [tran_out.csv]
-        [--device cuda|cpu] [--dtype f64|f32] [--no-tran] [--run-ac [CSV]]
-        [--run-dc-sweep [CSV]] [--run-mc N [--run-mc-out CSV]
-        [--mc-sampler mc]] [--run-step [CSV]]
+        [--device cuda|cpu] [--dtype f64|f32] [--no-tran] [--adaptive]
+        [--method be|trap] [--run-ac [CSV]] [--run-dc-sweep [CSV]]
+        [--run-mc N [--run-mc-out CSV] [--mc-sampler mc]] [--run-step [CSV]]
 
 prints the circuit summary and the DC node-voltage/branch-current tables,
-then runs the Backward-Euler transient if a .TRAN card is present (from
-the .IC / UIC start when the deck has one) and writes its CSV (default
+then runs the transient if a .TRAN card is present (Backward Euler, or
+trapezoidal with ``--method trap``; on the adaptive dyadic ladder with
+``--adaptive``; from the .IC / UIC start when the deck has one; the
+banner says "Backward Euler" either way, as the JAX CLI's does) and
+writes its CSV (default
 tran_out.csv; a deck with TRNOISE sources runs its noise with seed 0, the
 JAX CLI's realisation), then its .MEASURE TRAN results and the .FOUR
 table; ``--run-ac`` also runs the .AC sweep, writes its magnitude/phase CSV
@@ -45,6 +48,12 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="working precision (default f64, reference parity)")
     p.add_argument("--no-tran", action="store_true",
                    help="skip the transient analysis even if .TRAN present")
+    p.add_argument("--adaptive", action="store_true",
+                   help="LTE-controlled adaptive timestep refinement "
+                        "(dyadic dt ladder; output stays on the .TRAN grid)")
+    p.add_argument("--method", choices=["be", "trap"], default="be",
+                   help="transient integration: Backward Euler (reference "
+                        "behavior, default) or trapezoidal (2nd order)")
     p.add_argument("--run-ac", metavar="CSV", nargs="?", const="ac_out.csv",
                    help="run the .AC small-signal sweep, write mag/phase CSV")
     p.add_argument("--run-dc-sweep", metavar="CSV", nargs="?",
@@ -124,7 +133,7 @@ def main(argv=None) -> int:
               "available (use --device cpu)", file=sys.stderr)
         return 2
     dtype = torch.float64 if args.dtype == "f64" else torch.float32
-    opts = DEFAULT_OPTIONS.replace(dtype=dtype)
+    opts = DEFAULT_OPTIONS.replace(dtype=dtype, tran_method=args.method)
 
     print(f"Reading netlist: {args.netlist}")
     try:
@@ -155,7 +164,8 @@ def main(argv=None) -> int:
         print(f"[TRAN] total steps = {n_steps_for(tran.tstep, tran.tstop)}")
         try:
             # a deck with .IC / UIC starts from its initial conditions
-            res = sim.transient(x_op=None if cfg.ics or tran.uic else x)
+            res = sim.transient(x_op=None if cfg.ics or tran.uic else x,
+                                adaptive=args.adaptive)
             sim.write_transient_csv(args.tran_out, res)
         except Exception as e:  # noqa: BLE001
             print(f"Transient failed: {e}", file=sys.stderr)

@@ -1,13 +1,14 @@
 """MNA assembly: precomputed stamp patterns, per-call values.
 
 Port of the part of ``circuitsimulator_tpu/ops/assemble.Engine`` that the
-DC, Backward-Euler and AC paths run, for R, C, L, V, I, Level-1 MOS, JFET,
-diode, BJT, the S/W switches, the linear controlled sources E/G/F/H, the
-behavioral B sources (``utils/expr.eval_tape``: value and gradient of the
-compiled expression), the lossless transmission lines (T: the Branin
-method of characteristics, a delay ring of past waves in the state) and
-mutual inductance (K: the -M/dt branch-row cross terms and their history
-currents, Backward Euler only), with
+DC, transient (Backward Euler and trapezoidal) and AC paths run, for R, C,
+L, V, I, Level-1 MOS, JFET, diode, BJT, the S/W switches, the linear
+controlled sources E/G/F/H, the behavioral B sources
+(``utils/expr.eval_tape``: value and gradient of the compiled expression),
+the lossless transmission lines (T: the Branin method of characteristics,
+a delay ring of past waves in the state) and mutual inductance (K: the
+-M/dt branch-row cross terms, -2M/dt under trap, and their history
+currents), with
 the fixed MOS caps or the charge-conserving model (``MOSCAP=CHARGE``: five
 injection rows per MOS, ``models/moscap.py``).
 The stamp *pattern* (row/col index lists) is built once per circuit in
@@ -23,9 +24,11 @@ numpy; only the *values* are recomputed, split by how often they change:
 
 Ground is the dump slot N of an (N+1)-sized system.  Parameters, x and the
 transient state may carry leading lane axes; the index patterns are shared.
-Scatter-adds are ``index_add_`` on the flattened (N+1)^2 matrix; the
-per-timestep RHS and the state read are one-hot matmuls (exact: keep TF32
-off).
+Scatter-adds are ``index_add_`` on the flattened (N+1)^2 matrix, one launch
+per occurrence rank of a position (``ScatterPlan``), so a CUDA run sums
+every element's stamps in the same order as the CPU and is bit for bit
+repeatable; the per-timestep RHS and the state read are one-hot matmuls
+(exact: keep TF32 off).
 """
 
 from __future__ import annotations
@@ -64,18 +67,59 @@ def _branch_pattern(ep: np.ndarray, em: np.ndarray, k: np.ndarray):
     return rows.astype(np.int64), cols.astype(np.int64)
 
 
+class ScatterPlan:
+    """``index_add_`` of values at fixed positions, the k-th occurrence of
+    every position in the k-th launch.  CUDA's ``index_add_`` adds with
+    atomics in no fixed order, so a position stamped more than once can
+    take other bits from run to run; with one add per element a launch is
+    exact, and every element sums its values in their given order, as the
+    CPU's sequential ``index_add_`` does (the CPU's bits are unchanged).
+    Positions that occur once take one launch, as before."""
+
+    def __init__(self, flat, device):
+        flat = np.asarray(flat, np.int64).ravel()
+        n = len(flat)
+        order = np.argsort(flat, kind="stable")
+        srt = flat[order]
+        start = np.r_[0, np.flatnonzero(srt[1:] != srt[:-1]) + 1] \
+            if n else np.zeros(0, np.int64)
+        group = np.cumsum(np.r_[0, srt[1:] != srt[:-1]]) if n else start
+        rank = np.empty(n, np.int64)
+        rank[order] = np.arange(n) - start[group]
+        self.idx = torch.as_tensor(flat, device=device)
+        self.layers = None
+        if n and rank.max() > 0:
+            perm = np.lexsort((np.arange(n), rank))     # by rank, in order
+            self.perm = torch.as_tensor(perm, device=device)
+            counts = np.bincount(rank)
+            offs = np.r_[0, np.cumsum(counts)[:-1]]
+            self.layers = [(torch.as_tensor(flat[perm[o:o + c]],
+                                            device=device), int(o), int(c))
+                           for o, c in zip(offs, counts)]
+
+    def add_(self, target, vals):
+        """target (..., M) += vals (..., n) at the positions; in place."""
+        if self.layers is None:
+            return target.index_add_(-1, self.idx, vals)
+        v = vals.index_select(-1, self.perm)
+        for idx, off, cnt in self.layers:
+            target.index_add_(-1, idx, v.narrow(-1, off, cnt))
+        return target
+
+
 def check_supported(low: LoweredCircuit, opts: SolverOptions) -> None:
     """Raise NotImplementedError naming what this port does not run yet."""
     if opts.mos_cap_model not in ("fixed", "charge"):
         raise ValueError(f"unknown mos_cap_model {opts.mos_cap_model!r} "
                          "(fixed|charge)")
-    if opts.dc_solver != "lu" or opts.tran_solver != "woodbury":
+    if opts.dc_solver != "lu" or opts.tran_solver not in ("woodbury", "lu"):
         raise NotImplementedError(
             f"dc_solver={opts.dc_solver!r}, tran_solver={opts.tran_solver!r}: "
-            "only the 'lu' DC and 'woodbury' transient solvers are ported")
-    if opts.tran_method != "be":
-        raise NotImplementedError(f"METHOD={opts.tran_method.upper()}: "
-                                  "not yet ported (BE only)")
+            "only the 'lu' DC and the 'woodbury' and 'lu' transient solvers "
+            "are ported")
+    if opts.tran_method not in ("be", "trap"):
+        raise ValueError(f"unknown tran_method {opts.tran_method!r} "
+                         "(be|trap)")
 
 
 class Engine:
@@ -94,8 +138,8 @@ class Engine:
             return torch.as_tensor(np.asarray(a, np.int64), device=dev)
 
         def flat(rows, cols):
-            return idx(np.asarray(rows, np.int64) * (N + 1)
-                       + np.asarray(cols, np.int64))
+            return ScatterPlan(np.asarray(rows, np.int64) * (N + 1)
+                               + np.asarray(cols, np.int64), dev)
 
         # ---- DC G pattern: R conductances + V/L +-1 couplings ----
         self.res_rows, self.res_cols = _two_terminal_pattern(t.res_e1, t.res_e2)
@@ -239,7 +283,7 @@ class Engine:
             self.mq_cols = np.tile(term, (1, 5)).ravel().astype(np.int64)
             self.mq_rhs_rows = inj.ravel().astype(np.int64)       # (5 nM,)
             self._mq_flat = flat(self.mq_rows, self.mq_cols)
-            self._mq_rhs = idx(self.mq_rhs_rows)
+            self._mq_rhs = ScatterPlan(self.mq_rhs_rows, dev)
 
         # ---- mutual inductance (K): branch-row cross terms, row k_a gets
         # -M/dt at column k_b and vice versa (the BE companion of
@@ -311,11 +355,11 @@ class Engine:
             np.concatenate([c[i] for c in classes]).astype(np.int64)
             for i in range(3))
         self._nl_flat = flat(self.nl_rows, self.nl_cols)
-        self._nl_rhs = idx(self.nl_rhs_rows)
+        self._nl_rhs = ScatterPlan(self.nl_rhs_rows, dev)
         self._gmin_flat = flat(t.node_eqs, t.node_eqs)
-        self._vs_k = idx(t.vs_k)
+        self._vs_k = ScatterPlan(t.vs_k, dev)
         self.is_rhs_rows = np.stack([t.is_ep, t.is_em], 1).ravel()
-        self._is_rhs = idx(self.is_rhs_rows)
+        self._is_rhs = ScatterPlan(self.is_rhs_rows, dev)
         self._mos_term = (idx(t.mos_ed), idx(t.mos_eg), idx(t.mos_es))
         self._jf_term = (idx(t.jf_ed), idx(t.jf_eg), idx(t.jf_es))
         self._dio_term = (idx(t.dio_ep), idx(t.dio_em))
@@ -560,16 +604,16 @@ class Engine:
                               params["is_sin"], scale, pulse=params["is_pulse"])
         lead = torch.broadcast_shapes(vval.shape[:-1], ival.shape[:-1])
         I = self._zeros_I(lead)
-        I.index_add_(-1, self._vs_k, vval.expand(lead + vval.shape[-1:]))
+        self._vs_k.add_(I, vval.expand(lead + vval.shape[-1:]))
         irhs = torch.stack([-ival, ival], dim=-1).flatten(-2)
-        I.index_add_(-1, self._is_rhs, irhs.expand(lead + irhs.shape[-1:]))
+        self._is_rhs.add_(I, irhs.expand(lead + irhs.shape[-1:]))
         return I
 
     def dc_static(self, params, scale):
         """G/I parts constant across the Newton iterations of a ramp step."""
         _, _, vals = self.dc_static_entries(params)
         Gf = self._zeros_G(vals.shape[:-1])
-        Gf.index_add_(-1, self._dc_flat, vals)
+        self._dc_flat.add_(Gf, vals)
         return self._as_matrix(Gf), self.dc_rhs(params, scale)
 
     def assemble_dc_iter(self, G_static, I_static, params, x, gmin):
@@ -578,16 +622,17 @@ class Engine:
         lead = torch.broadcast_shapes(G_static.shape[:-2], gvals.shape[:-1])
         Gf = G_static.reshape(G_static.shape[:-2] + (-1,))
         Gf = Gf.expand(lead + Gf.shape[-1:]).clone()
-        Gf.index_add_(-1, self._nl_flat, gvals.expand(lead + gvals.shape[-1:]))
+        self._nl_flat.add_(Gf, gvals.expand(lead + gvals.shape[-1:]))
         gm = self._scalar(gmin)[..., None].expand(
             lead + (len(self.topo.node_eqs),))
-        Gf.index_add_(-1, self._gmin_flat, gm)
+        self._gmin_flat.add_(Gf, gm)
         I = I_static.expand(lead + I_static.shape[-1:]).clone()
-        I.index_add_(-1, self._nl_rhs, rvals.expand(lead + rvals.shape[-1:]))
+        self._nl_rhs.add_(I, rvals.expand(lead + rvals.shape[-1:]))
         return self._as_matrix(Gf), I
 
     # ------------------------------------------------------------------
-    # Transient assembly (Backward Euler companions, tanalisis.cpp:255-356)
+    # Transient assembly (Backward Euler companions, tanalisis.cpp:255-356;
+    # method "trap": the trapezoidal companions, twice the conductances)
     # ------------------------------------------------------------------
     def _tran_pattern(self):
         """(rows, cols) of ``tran_static_entries``."""
@@ -603,12 +648,13 @@ class Engine:
                                self.tl_tran_cols, self.b_static_cols])
         return rows, cols
 
-    def tran_static_entries(self, params, dt, gmin):
-        """Static COO entries of the BE transient matrix: R, V couplings,
-        L and C/MOS-cap companions (G_C = C/dt, R_L = L/dt), the K cross
-        terms (-M/dt), gmin, E/G/F/H,
-        the T-line KCL couplings and Thevenin branch rows (+1, -1, -Z0 per
-        port), the B V-form couplings."""
+    def tran_static_entries(self, params, dt, gmin, method: str = "be"):
+        """Static COO entries of the transient matrix: R, V couplings, L and
+        C/MOS-cap companions (BE: G_C = C/dt, R_L = L/dt; trap: G_C =
+        2C/dt, R_L = 2L/dt), the K cross terms (-M/dt, trap -2M/dt), gmin,
+        E/G/F/H, the T-line KCL couplings and Thevenin branch rows (+1, -1,
+        -Z0 per port), the B V-form couplings."""
+        fac = 2.0 if method == "trap" else 1.0
         rvals = self._res_vals(params)
         cvals = self._ctrl_vals(params)
         lead = torch.broadcast_shapes(rvals.shape[:-1], cvals.shape[:-1])
@@ -619,12 +665,12 @@ class Engine:
         ones = torch.ones_like(L)
         pat = torch.stack([ones, -ones, ones, -ones], dim=-1)
         pat = (pat * lmask[..., None]).flatten(-2)
-        diag = torch.where(lmask, -L / dt, 0.0)
+        diag = torch.where(lmask, -fac * L / dt, 0.0)
         ind_vals = torch.cat([pat, diag], dim=-1)
-        mv = -self._mutual_M(params) / dt
+        mv = -fac * self._mutual_M(params) / dt
         mut_vals = torch.cat([mv, mv], dim=-1)
         C = self._caplike_C(params)
-        gc = torch.where(C > 0.0, C / dt, 0.0)
+        gc = torch.where(C > 0.0, fac * C / dt, 0.0)
         cap_vals = _two_terminal_vals(gc)
         gm = self._scalar(gmin)[..., None].expand(
             lead + (len(self.topo.node_eqs),))
@@ -638,24 +684,30 @@ class Engine:
         vals = torch.cat([p.expand(lead + p.shape[-1:]) for p in parts], -1)
         return rows, cols, vals
 
-    def tran_static_G(self, params, dt, gmin):
-        """The whole BE matrix except the nonlinear devices' entries: constant
-        for the entire transient (fixed dt, fixed gmin)."""
-        _, _, vals = self.tran_static_entries(params, dt, gmin)
+    def tran_static_G(self, params, dt, gmin, method: str = "be"):
+        """The whole transient matrix except the nonlinear devices' entries:
+        constant for the entire transient (fixed dt, fixed gmin)."""
+        _, _, vals = self.tran_static_entries(params, dt, gmin, method)
         Gf = self._zeros_G(vals.shape[:-1])
-        Gf.index_add_(-1, self._tran_flat, vals)
+        self._tran_flat.add_(Gf, vals)
         return self._as_matrix(Gf)
 
-    def make_tran_static_I(self, dt):
-        """f(params, state, t) -> (..., N+1) RHS of one BE timestep: sources
+    def make_tran_static_I(self, dt, method: str = "be"):
+        """f(params, state, t) -> (..., N+1) RHS of one timestep: sources
         at t plus history currents, as one one-hot matmul.
 
-            cap:  I(a) += (C/dt) v_prev,    L: I(k) += -(L/dt) i_prev
+            BE    cap:  I(a) += (C/dt) v_prev,    L: I(k) += -(L/dt) i_prev
+            trap  cap:  I(a) += (2C/dt) v_prev + i_prev
+                  L:    I(k) += -(2L/dt) i_prev - v_prev
             K:    I(k_a) += -(M/dt) i_b_prev, I(k_b) += -(M/dt) i_a_prev
+                  (2M/dt under trap)
             T:    I(k1) += E1 = w2 of ticks steps ago, I(k2) += E2 = w1
 
         ``dt`` is the timestep as a Python float (the T-line delays are
-        counted in steps from it, ``tl_ticks``) or a tensor."""
+        counted in steps from it, ``tl_ticks``) or a tensor (one per lane,
+        (B, 1), on the adaptive ladder)."""
+        trap = method == "trap"
+        fac = 2.0 if trap else 1.0
         nT, nK = self.n_tl, len(self.topo.mut_a)
         if nT:
             dev = self.device
@@ -678,15 +730,22 @@ class Engine:
                 ival = ival + state["tn_i"]
             L = params["ind_l"]
             C = self._caplike_C(params)
-            vhist = torch.where(L > 0.0, -(L / dt) * state["il"], 0.0)
+            if trap:
+                vhist = torch.where(
+                    L > 0.0, -(2.0 * L / dt) * state["il"] - state["vl"],
+                    0.0)
+                gc = torch.where(C > 0.0, 2.0 * C / dt, 0.0)
+                h = gc * state["vc"] + torch.where(C > 0.0, state["ic"], 0.0)
+            else:
+                vhist = torch.where(L > 0.0, -(L / dt) * state["il"], 0.0)
+                gc = torch.where(C > 0.0, C / dt, 0.0)
+                h = gc * state["vc"]
             if nK:
                 il = state["il"]
-                coef = -(1.0 / dt) * self._mutual_M(params)
+                coef = -(fac / dt) * self._mutual_M(params)
                 vhist = (vhist
                          + (coef * il[..., self._mut_b]) @ self.mut_sel_a
                          + (coef * il[..., self._mut_a]) @ self.mut_sel_b)
-            gc = torch.where(C > 0.0, C / dt, 0.0)
-            h = gc * state["vc"]
             parts = [vval, ival, vhist, h]
             if nT:
                 # the ring (..., Dmax, 2 nT): slot d is the wave d + 1 steps
@@ -707,34 +766,40 @@ class Engine:
         xe = self.x_ext(x)
         return torch.stack([xe[..., i] for i in self._mos_term], dim=-1)
 
-    def mosq_linearize(self, params, vdgs, qprev, inv_dt):
-        """Backward-Euler companion of the charge currents i = dq/dt:
-        (g (..., nM, 5, 3), cst (..., nM, 5)) with i ~= g (vd, vg, vs) + cst,
-        g = (dq/dv)/dt, cst = (q(v) - q_prev)/dt - g v; qprev (..., nM, 5)
-        are the accepted charges of the previous step."""
+    def mosq_linearize(self, params, vdgs, qprev, inv_dt, iprev=None):
+        """Companion of the charge currents i = dq/dt: (g (..., nM, 5, 3),
+        cst (..., nM, 5)) with i ~= g (vd, vg, vs) + cst; qprev (..., nM,
+        5) are the accepted charges of the previous step.
+        BE (iprev None): g = (dq/dv)/dt, cst = (q(v) - q_prev)/dt - g v.
+        Trapezoidal (iprev: the accepted charge currents of the previous
+        step, i' = 2(q' - q)/dt - i): g = 2(dq/dv)/dt,
+        cst = 2(q(v) - q_prev)/dt - g v - i_prev."""
         q, J = charge_jacobian(vdgs, params)
-        g = J * inv_dt
-        cst = (q - qprev) * inv_dt - (g * vdgs[..., None, :]).sum(-1)
-        return g, cst
+        if iprev is None:
+            g = J * inv_dt
+            return g, (q - qprev) * inv_dt - (g * vdgs[..., None, :]).sum(-1)
+        g = 2.0 * J * inv_dt
+        cst = 2.0 * (q - qprev) * inv_dt - (g * vdgs[..., None, :]).sum(-1)
+        return g, cst - iprev
 
     def assemble_tran_iter(self, G_static, I_static, params, x, t=0.0,
                            qex=None):
-        """Dense BE system of one Newton iteration: the static G and RHS
+        """Dense system of one Newton iteration: the static G and RHS
         (both (..., N+1, ...)) plus the device linearisation at x; qex =
-        (qprev, inv_dt) adds the 15 Jacobian and 5 RHS entries per MOS of
-        the charge model."""
+        (qprev, inv_dt), or (qprev, inv_dt, iprev) under trap, adds the 15
+        Jacobian and 5 RHS entries per MOS of the charge model."""
         gvals, rvals = self._nl_vals(params, x, t)
         lead = torch.broadcast_shapes(G_static.shape[:-2], gvals.shape[:-1])
         Gf = G_static.reshape(G_static.shape[:-2] + (-1,))
         Gf = Gf.expand(lead + Gf.shape[-1:]).clone()
-        Gf.index_add_(-1, self._nl_flat, gvals.expand(lead + gvals.shape[-1:]))
+        self._nl_flat.add_(Gf, gvals.expand(lead + gvals.shape[-1:]))
         I = I_static.expand(lead + I_static.shape[-1:]).clone()
-        I.index_add_(-1, self._nl_rhs, rvals.expand(lead + rvals.shape[-1:]))
+        self._nl_rhs.add_(I, rvals.expand(lead + rvals.shape[-1:]))
         if qex is not None:
             gq, cq = self.mosq_linearize(params, self.mos_vdgs(x), *qex)
             gq, cq = gq.flatten(-3), -cq.flatten(-2)
-            Gf.index_add_(-1, self._mq_flat, gq.expand(lead + gq.shape[-1:]))
-            I.index_add_(-1, self._mq_rhs, cq.expand(lead + cq.shape[-1:]))
+            self._mq_flat.add_(Gf, gq.expand(lead + gq.shape[-1:]))
+            self._mq_rhs.add_(I, cq.expand(lead + cq.shape[-1:]))
         return self._as_matrix(Gf), I
 
     # ------------------------------------------------------------------
@@ -929,7 +994,8 @@ class Engine:
         """TranState from a DC solution (tanalisis.cpp:139-180); x may carry
         leading lane axes.  ic/vl are the trapezoidal extras (zero at DC).
         The charge model adds the MOS charges qm (..., nM, 5) at x, which
-        needs ``params``; transmission lines add the delay ring tlw
+        needs ``params``, and their trapezoidal currents qi (zero at DC);
+        transmission lines add the delay ring tlw
         (..., Dmax, 2 nT) filled with the DC wave, which needs ``params``
         and the timestep ``dt`` (a Python float: Dmax = max ticks).
 
@@ -948,6 +1014,7 @@ class Engine:
                 raise ValueError("the charge cap model needs "
                                  "init_state(x, params)")
             state["qm"] = charges_of_x(self.mos_vdgs(x), params)
+            state["qi"] = torch.zeros_like(state["qm"])
         if self.n_tl:
             if params is None or dt is None:
                 raise ValueError("transmission lines need init_state(x, "
@@ -965,17 +1032,31 @@ class Engine:
                 params, self._noise_keys(noise_key), 1, dt))
         return state
 
-    def make_update_state(self, dt):
-        """Post-step BE state update: voltages and currents of the accepted x
+    def make_update_state(self, dt, method: str = "be"):
+        """Post-step state update: voltages and currents of the accepted x
         (tanalisis.cpp:379-417), the charges under the charge model, the
         T-line ring (this step's waves into slot 0, the others shifted one
-        slot older) and, on a noisy run, the next step's noise values."""
+        slot older) and, on a noisy run, the next step's noise values.
+        Trapezoidal also carries the element currents and voltages:
+        i_C' = (2C/dt)(v' - v) - i_C, v_L' = V(p) - V(m), and the charge
+        currents qi' = (2/dt)(q' - q) - qi; under BE they stay zero."""
+        trap = method == "trap"
+
         def f(params, x, state):
-            vc, il, _ = self._state_parts(x)
-            new = {"vc": vc, "ic": torch.zeros_like(vc),
-                   "il": il, "vl": torch.zeros_like(il)}
+            vc, il, vl = self._state_parts(x)
+            if trap:
+                C = self._caplike_C(params)
+                gc2 = torch.where(C > 0.0, 2.0 * C / dt, 0.0)
+                new = {"vc": vc, "ic": gc2 * (vc - state["vc"]) - state["ic"],
+                       "il": il, "vl": vl}
+            else:
+                new = {"vc": vc, "ic": torch.zeros_like(vc),
+                       "il": il, "vl": torch.zeros_like(il)}
             if self.mos_charge:
                 new["qm"] = charges_of_x(self.mos_vdgs(x), params)
+                new["qi"] = ((2.0 / dt) * (new["qm"] - state["qm"])
+                             - state["qi"] if trap
+                             else torch.zeros_like(new["qm"]))
             if self.n_tl:
                 w = self._tl_wave_now(params, x)
                 ring = state["tlw"]

@@ -3,9 +3,10 @@
 Port of ``circuitsimulator_tpu/ops/woodbury.py`` for Level-1 MOS, JFET,
 diode, BJT, switch and behavioral B-source rows and the charge rows of
 ``MOSCAP=CHARGE``.  Each MOSFET's conduction stamp is a rank-one update
-(e_D - e_S) v^T of the otherwise constant BE matrix G0 (fixed dt); JFETs,
-diodes and switches are rank one too, a BJT is rank two ((e_C - e_E) for
-Ic, (e_B - e_E) for Ib), a B source is one row over its probe pairs
+(e_D - e_S) v^T of the otherwise constant BE or trapezoidal matrix G0
+(fixed dt); JFETs, diodes and switches are rank one too, a BJT is rank
+two ((e_C - e_E) for Ic, (e_B - e_E) for Ib), a B source is one row over
+its probe pairs
 (applied at e_p - e_m for I=expr, at the branch row e_k for V=expr), and
 the charge model adds five node-to-ground rows per MOS (i_d, i_g, i_s,
 i_sb, i_db at d, g, s, s, d, each over (vd, vg, vs)).  With G0 inverted
@@ -156,8 +157,8 @@ class WoodburySolver:
 
     def nl_coeffs(self, params, x, qex=None, t=0.0):
         """Per-row V^T values (..., k, W) and Newton constants (..., k);
-        qex = (qprev, inv_dt) for the charge rows, t the time that B
-        expressions read."""
+        qex = (qprev, inv_dt) for the charge rows, (qprev, inv_dt, iprev)
+        under trap, t the time that B expressions read."""
         plan, eng = self.plan, self.engine
         opts = eng.opts
         W = plan.W
@@ -257,8 +258,8 @@ class WoodburySolver:
 
     def solve(self, params, x, z0, qex=None, t=0.0):
         """One Newton linear solve: x_raw with A(x) x_raw = b(x); qex =
-        (qprev, inv_dt) under the charge model, t the step time (B
-        expressions that read ``time``)."""
+        (qprev, inv_dt), or (qprev, inv_dt, iprev) under trap, for the
+        charge model, t the step time (B expressions that read ``time``)."""
         plan = self.plan
         if plan.k == 0:
             return z0

@@ -268,14 +268,16 @@ def _fused_batched_transient(engine: Engine, bparams, tstep, tstop,
 def batched_transient(engine: Engine, bparams, tstep, tstop,
                       save_xs: bool = False, fused="auto",
                       x0=None, noise_key=None) -> TransientResult:
-    """Backward-Euler transient of every lane, from the batched DC point
+    """Transient of every lane (Backward Euler or trapezoidal, the
+    Woodbury or the dense LU solver), from the batched DC point
     (or from the (B, N) operating points ``x0``, e.g. a float64 DC for a
     float32 run: the reference's damped DC Newton with its gmin stepping
     leaves about 1% of the lanes of a BJT deck unconverged in float32).
 
     fused="auto" takes the fused chunk kernel (K1) for a waveform-free
     (save_xs=False) float32 run on CUDA whose deck is in the kernel's
-    scope (``fused_step.supported``); anything else runs the non-fused
+    scope (``fused_step.supported``: Backward Euler only, so a trapezoidal
+    deck runs non-fused); anything else runs the non-fused
     loop, which keeps xs (n_steps + 1, B, N) when save_xs is set.
     fused=True forces the fused path: on CPU tensors it runs the kernel's
     plain version; an out-of-scope deck raises NotImplementedError naming

@@ -5,11 +5,15 @@ Every knob the reference hard-codes keeps the reference value as its
 default (DC ramp and ConvController constants, transient Newton constants,
 the LU pivot floor), so the default configuration reproduces reference
 numerics.  ``mos_cap_model`` is "fixed" (the reference's lumped MOS caps)
-or "charge" (the charge-conserving model, ``models/moscap.py``).  The fields
-of backends the port does not have yet (gs, tridiag, blockband, adaptive,
-mixed refinement) are kept so that option sets carry over unchanged;
-selecting such a backend or ``tran_method="trap"`` raises
-``NotImplementedError`` in the engine.
+or "charge" (the charge-conserving model, ``models/moscap.py``).
+``tran_method`` is "be" or "trap" (the trapezoidal companions),
+``tran_solver`` "woodbury" or "lu" (with ``tran_mixed_refine``, its
+float32 correction solve around a float64 residual); the adaptive ladder
+reads ``tran_max_refine_levels``, ``tran_lte_rtol``, ``tran_lte_atol`` and
+``tran_adaptive_alpha`` (``analysis/adaptive.py``).  The fields of
+backends the port does not have yet (gs, tridiag, blockband, blockwb) are
+kept so that option sets carry over unchanged; selecting such a backend
+raises ``NotImplementedError`` in the engine.
 """
 
 from __future__ import annotations

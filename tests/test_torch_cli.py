@@ -1,6 +1,7 @@
 """The port's CLI (``python -m circuitsimulator_tpu_torch``) on the CPU:
 stdout byte-identical to the reference goldens, the CSV within 1e-9 V; the
-.DC sweep, .STEP and mutual-inductance decks against the JAX CLI's."""
+.DC sweep, .STEP and mutual-inductance decks and buffer.sp's ``--method
+trap`` and ``--adaptive`` runs against the JAX CLI's."""
 
 import os
 import shutil
@@ -111,6 +112,31 @@ def test_sweep_step_and_mutual_cli_match_jax_goldens(deck, tmp_path,
         assert got.shape == ref.shape
         err = np.abs(got - ref).max()
         assert err <= 1e-9, (gold, err)
+
+
+@pytest.mark.parametrize("flag", ["trap", "adaptive"])
+def test_buffer_method_trap_and_adaptive_match_jax_goldens(
+        flag, tmp_path, monkeypatch, capsys):
+    """buffer.sp with ``--method trap`` and with ``--adaptive``: stdout
+    byte-identical to the JAX CLI's (its "(Backward Euler)" banner
+    included), the CSV within 1e-9 V of the JAX CLI's (made with the JAX
+    CLI from a directory holding tests/netlists/buffer.sp: `--engine jax
+    --method trap` and `--engine jax --adaptive`)."""
+    deck = stage_deck(tmp_path, "buffer")
+    monkeypatch.chdir(tmp_path)
+    args = ["--method", "trap"] if flag == "trap" else ["--adaptive"]
+    csv = f"buffer_{flag}_tran.csv"
+    assert main([deck, csv, *args, "--device", "cpu"]) == 0
+    assert capsys.readouterr().out == read_golden(
+        f"buffer_{flag}_stdout_jax.txt")
+    gold = f"buffer_{flag}_tran_jax.csv"
+    with open(tmp_path / csv) as f:
+        assert f.readline() == read_golden(gold).splitlines(True)[0]
+    got = np.loadtxt(tmp_path / csv, delimiter=",", skiprows=1)
+    ref = np.loadtxt(os.path.join(GOLDENS, gold), delimiter=",", skiprows=1)
+    assert got.shape == ref.shape == (301, 14)
+    err = np.abs(got - ref).max()
+    assert err <= 1e-9, err
 
 
 def test_module_entry_point_runs():

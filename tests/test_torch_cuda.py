@@ -1171,3 +1171,88 @@ def test_dc_sweep_on_the_card_matches_cpu(cuda_device):
     x, xr = got.xs.cpu().numpy(), ref.xs.numpy()
     assert np.isfinite(x).all() and np.isfinite(xr).all()
     np.testing.assert_allclose(x, xr, rtol=0, atol=1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_adaptive_stacked_level_inverse_matches_plain(cuda_device, dtype):
+    """The adaptive ladder's G0 inverses, dbmixer at L + 1 = 9 levels x 64
+    lanes: one K2 launch with the levels folded into the lanes, against the
+    plain version of the same (576, 31, 31) solve on the card."""
+    from circuitsimulator_tpu_torch import DEFAULT_OPTIONS
+    from circuitsimulator_tpu_torch.ops.woodbury import WoodburySolver
+    opts = DEFAULT_OPTIONS.replace(dtype=dtype)
+    sim = Simulator.from_file(os.path.join(REPO, "tests", "netlists",
+                                           "dbmixer.sp"), opts=opts,
+                              device=cuda_device)
+    eng, N = sim.engine, sim.engine.N
+    bp = k_lanes_res(sim, 64, 3)
+    L = opts.tran_max_refine_levels
+    Gs = torch.stack([eng.tran_static_G(bp, 1e-13 / (1 << lv),
+                                        opts.tran_gmin)
+                      for lv in range(L + 1)])[..., :N, :N]
+    before = cuda_lu.LAUNCHES
+    wb = WoodburySolver(eng, bp, Gs)
+    torch.cuda.synchronize()
+    assert cuda_lu.LAUNCHES == before + 1
+    assert wb.G0inv.shape == (L + 1, 64, N, N)
+    eye = torch.eye(N, dtype=dtype, device=cuda_device)
+    ref = tlu.lu_solve_plain(Gs, eye.expand(Gs.shape), FLOOR)
+    rel = ((wb.G0inv - ref).abs().amax(dim=(-2, -1))
+           / ref.abs().amax(dim=(-2, -1)))
+    assert float(rel.max()) <= (1e-4 if dtype == torch.float32 else 1e-12)
+
+
+def k_lanes_res(sim, B, seed):
+    """B lanes with res_r (2%) perturbed, drawn with numpy."""
+    from circuitsimulator_tpu_torch.parallel import montecarlo as mc
+    rng = np.random.default_rng(seed)
+    bp = dict(mc.broadcast_params(sim.params, B))
+    p = sim.params["res_r"]
+    f = np.exp(0.02 * rng.standard_normal((B,) + tuple(p.shape)))
+    bp["res_r"] = p[None] * torch.as_tensor(f, dtype=p.dtype,
+                                            device=p.device)
+    return bp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["be", "trap"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_lu_solver_step_matches_plain(cuda_device, method, dtype):
+    """The dense ``lu`` transient solver on the card, dbmixer at 256 lanes,
+    20 steps: K2 at (256, 31, 1) on every Newton iteration, against the
+    same loop on the CPU (the plain version), f64 within 1e-9 V, f32 within
+    1e-4 V; in f64 also the mixed refinement (f32 K2 around an f64
+    residual) within 1e-6 V of the f64 run."""
+    from circuitsimulator_tpu_torch import DEFAULT_OPTIONS
+    from circuitsimulator_tpu_torch.parallel import montecarlo as mc
+    opts = DEFAULT_OPTIONS.replace(dtype=dtype, tran_solver="lu",
+                                   tran_method=method)
+    if dtype == torch.float32:
+        opts = opts.replace(tran_tol=1e-5, dc_tol=1e-5)
+    path = os.path.join(REPO, "tests", "netlists", "dbmixer.sp")
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        sim = Simulator.from_file(path, opts=opts, device=dev)
+        bp = k_lanes_res(sim, 256, 4)
+        x0 = mc.batched_dc_fast(sim.engine, bp)
+        before = cuda_lu.LAUNCHES
+        res = mc.batched_transient(sim.engine, bp, 1e-13, 20e-13, x0=x0,
+                                   fused=False)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            # one launch per Newton iteration of the shared loop
+            assert cuda_lu.LAUNCHES - before >= 20
+        out[dev.type] = res.x_final.cpu()
+        assert not bool(res.failed.any())
+    tol = 1e-4 if dtype == torch.float32 else 1e-9
+    np.testing.assert_allclose(out["cuda"].numpy(), out["cpu"].numpy(),
+                               rtol=0, atol=tol)
+    if dtype == torch.float64:
+        sim = Simulator.from_file(path, opts=opts.replace(
+            tran_mixed_refine=True), device=cuda_device)
+        bp = k_lanes_res(sim, 256, 4)
+        res = mc.batched_transient(sim.engine, bp, 1e-13, 20e-13,
+                                   fused=False)
+        np.testing.assert_allclose(res.x_final.cpu().numpy(),
+                                   out["cpu"].numpy(), rtol=0, atol=1e-6)

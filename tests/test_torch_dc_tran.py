@@ -159,12 +159,16 @@ def test_perturb_params_draws_lognormal_lanes():
     # ladder past 128 node equations needs the large-circuit backends
     ("\n".join(f"RL{i} {i} {i + 1} 1" for i in range(1, 131)),
      "large-circuit backends"),
+    # METHOD=TRAP runs since the trapezoidal companions were ported; the
+    # fused chunk (K1) stays Backward Euler only, as JAX's kernel does
     (".OPTIONS METHOD=TRAP", "METHOD=TRAP"),
 ])
 def test_unported_features_raise_by_name(card, what):
     deck = f"* t\nV1 1 0 DC 1\nR1 1 0 1k\n{card}\n.TRAN 1n 10n\n.end\n"
     with pytest.raises(NotImplementedError, match=what):
-        Simulator.from_text(deck, device="cpu")
+        sim = Simulator.from_text(deck, device="cpu")
+        tmc.batched_transient(sim.engine, tmc.broadcast_params(sim.params, 2),
+                              1e-9, 1e-8, fused=True)
 
 
 @pytest.mark.parametrize("card,noisy", [
