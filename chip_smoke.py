@@ -148,12 +148,10 @@ Phases (one JSON line each):
      crossings at B = 8192 over 2,000 steps; batched_ac_measures on
      examples/opamp_filter.sp at B = 4096 (K3); and the CLI's --run-mc
      8192 --dtype f32 on mc_filter;
- 23. the CLI's .MEASURE output on the card (cli_measures): rc_step.sp and
-     mc_filter.sp byte-identical to the JAX CLI's stdout
-     (tests/goldens/{rc_step,mc_filter}_stdout_jax.txt), bjt_amp.sp with
-     --run-ac through its .MEASURE AC block
-     (tests/goldens/bjt_amp_run_ac_stdout_jax.txt, whose .TF block the
-     port does not print yet);
+ 23. the CLI's .MEASURE output on the card (cli_measures): rc_step.sp,
+     mc_filter.sp and bjt_amp.sp with --run-ac (its .MEASURE TRAN, AC and
+     .TF blocks) byte-identical to the JAX CLI's stdout
+     (tests/goldens/{rc_step,mc_filter,bjt_amp_run_ac}_stdout_jax.txt);
  24. K1c-ii, K1's delay ring, against the plain version on the card
      (k1c_ii_vs_plain): the diode-clamp T-line deck of
      tests/test_pallas_step.py (K1b), examples/tline_reflect.sp (k = 0),
@@ -269,13 +267,32 @@ Phases (one JSON line each):
      run again stopped after the first 500-step chunk, written to .npz and
      resumed by a new ChunkedTransient: torch.equal on x, failed and every
      state entry; file size, save and load times.
-     Phases 29-36 run after phase 27 and before k3_timings and phase 28;
+ 37. the small-signal stack (small_signal_*): the JAX CLI's three
+     small-signal runs on the card (bjt_amp.sp --no-tran --run-ac
+     --run-noise --run-noise-figure Rs --run-group-delay c --raw;
+     cs_amp.sp --run-ac --connectivity --run-sparams d@50, its .TF and
+     .SENS blocks; feedback_loop.sp --run-loop-gain E1 --run-group-delay
+     out) with stdout byte-identical to the goldens and every CSV, the
+     rawfile and the Touchstone file within 1e-9 of each column's peak
+     (1e-8 for the group delay); every API analysis in f64 on the card
+     against the port on the CPU, 1e-9 relative (1e-8 for the group
+     delay): noise, noise figure, loop gain, group delay, S-parameters
+     (the 10 dB pad's two ports as two K3 lanes, cs_amp's one port),
+     the stability metrics, .TF, .SENS (the adjoint on K2 and autograd
+     on CUDA tensors), .PZ, and noise, loop gain and group delay on
+     T-line decks (K2; dY/dw by forward-mode AD on the card); K3 launches
+     per analysis held (noise 1, loop gain 1, S-parameters 1, group delay
+     2, none on T-line decks) and K2's counted; K3 against its plain
+     version at the adjoint (1, F, N) and n-port (2, F, N) shapes (fail
+     masks identical, f64 lane-relative error <= 1e-12), their timings in
+     k3_timings and phase 28.
+     Phases 29-37 run after phase 27 and before k3_timings and phase 28;
      the total line gives each phase's wall seconds.
 
 Every error of K3 and of the AC path is lane-relative: for each lane
 max|x - ref| / max|ref| over its frequencies and unknowns, then the worst
 lane.  Kernel launch counts are reset just before each main-path run
-(phases 4, 7, 8, 11, 12, 13, 15, 16, 18, 22, 25, 27 and 29-36) and read
+(phases 4, 7, 8, 11, 12, 13, 15, 16, 18, 22, 25, 27 and 29-37) and read
 just after it.  The
 junction decks run the damped while-loop Newton configuration at f32
 tolerances: the fast configuration (alpha 1, predictor, two unrolled
@@ -2633,11 +2650,10 @@ def phase_cli_measures():
         rc, text, out["bjt_amp_run_ac_cli_s"] = _cli(
             ["examples/bjt_amp.sp", "bjt_amp_tran.csv", "--device", "cuda",
              "--run-ac", "bjt_amp_ac.csv"])
-        gold = read_golden("bjt_amp_run_ac_stdout_jax.txt")
-        check(rc == 0 and gold.startswith(text) and gold[len(text):]
-              .startswith("\n==== Transfer function ===="),
-              "bjt_amp --run-ac stdout byte-identical to the JAX CLI's "
-              "through its .MEASURE AC block")
+        check(rc == 0 and text == read_golden(
+            "bjt_amp_run_ac_stdout_jax.txt"),
+              "bjt_amp --run-ac stdout byte-identical to the JAX CLI's, its "
+              ".TF block included")
     finally:
         os.chdir(here)
         shutil.rmtree(tmp)
@@ -3997,6 +4013,337 @@ def phase_checkpoint(trap):
     rows["phase_seconds"] = time.perf_counter() - t_phase
     return rows
 
+# ------------------------------------------------------------- phase 37
+# (deck, arguments, stdout golden, [(file written, its JAX-made golden,
+# bar over each column's peak)]): the JAX CLI's small-signal runs
+SMALL_SIGNAL_CLI = {
+    "bjt_amp": (["bjt_amp_tran.csv", "--no-tran", "--run-ac",
+                 "bjt_amp_ac.csv", "--run-noise", "bjt_amp_noise.csv",
+                 "--run-noise-figure", "Rs", "--run-group-delay", "c",
+                 "--raw", "bjt_amp.raw"],
+                "bjt_amp_smallsig_stdout_jax.txt",
+                [("bjt_amp_ac.csv", "bjt_amp_smallsig_ac_jax.csv", 1e-9),
+                 ("bjt_amp_noise.csv", "bjt_amp_noise_jax.csv", 1e-9),
+                 ("nf.csv", "bjt_amp_nf_jax.csv", 1e-9),
+                 ("groupdelay.csv", "bjt_amp_groupdelay_jax.csv", 1e-8),
+                 ("bjt_amp.raw", "bjt_amp_smallsig_jax.raw", 1e-9)]),
+    "cs_amp": (["cs_amp_tran.csv", "--run-ac", "cs_amp_ac.csv",
+                "--connectivity", "--run-sparams", "d@50", "--sparams-out",
+                "cs_amp.s1p"],
+               "cs_amp_smallsig_stdout_jax.txt",
+               [("cs_amp_ac.csv", "cs_amp_ac_jax.csv", 1e-9),
+                ("cs_amp.s1p", "cs_amp_jax.s1p", 1e-9)]),
+    "feedback_loop": (["feedback_loop_tran.csv", "--run-loop-gain", "E1",
+                       "--run-group-delay", "out"],
+                      "feedback_loop_smallsig_stdout_jax.txt",
+                      [("loopgain.csv", "feedback_loop_loopgain_jax.csv",
+                        1e-9),
+                       ("groupdelay.csv", "feedback_loop_groupdelay_jax.csv",
+                        1e-8)]),
+}
+
+# the 10 dB pi pad of tests/test_sparams.py; T-line decks of
+# tests/test_torch_smallsig.py for the K2 routes
+PAD_DECK = "R1 p1 0 96.2478\nR2 p1 p2 71.1512\nR3 p2 0 96.2478\n.op\n"
+TLINE_NOISE_DECK = """* T-line noise deck
+V1 in 0 DC 1 AC 1
+Iin 0 a DC 0 AC 0
+R1 in a 50
+T1 a 0 b 0 Z0=50 TD=1n
+R2 b 0 75
+C1 b 0 1p
+.NOISE V(b) Iin lin 7 1e6 1e9
+"""
+TLINE_LOOP_DECK = """* loop through a line
+Vref in 0 DC 0 AC 1
+E1 a 0 in out 20
+R1 a b 50
+T1 b 0 c 0 Z0=50 TD=100n
+R2 c out 10
+C1 out 0 1n
+Rl out 0 1k
+.AC DEC 5 1e4 1e7
+.end
+"""
+
+
+def _peak_rel(got, ref):
+    """Largest |got - ref| over each column's peak |ref| (a column of
+    zeros is held absolutely)."""
+    import numpy as np
+    got, ref = np.asarray(got), np.asarray(ref)
+    if ref.ndim < 2:
+        got, ref = got.reshape(-1, 1), ref.reshape(-1, 1)
+    got, ref = got.reshape(len(ref), -1), ref.reshape(len(ref), -1)
+    peak = np.abs(ref).max(axis=0)
+    peak = np.where(peak > 0, peak, 1.0)
+    return float((np.abs(got - ref) / peak).max()) if ref.size else 0.0
+
+
+def _file_err(path, gold):
+    """(text lines equal, largest error over each column's peak) of a CSV,
+    a Touchstone file or a rawfile against its golden."""
+    import numpy as np
+
+    def table(p):
+        text, rows = [], []
+        with open(p) as f:
+            lines = f.read().splitlines()
+        if p.endswith(".raw"):
+            # headers as text; every value (re, im) in file order
+            i = 0
+            while i < len(lines):
+                nvars = int(lines[i + 4].split(": ", 1)[1])
+                npts = int(lines[i + 5].split(": ", 1)[1])
+                text += lines[i:i + 8 + nvars]
+                i += 8 + nvars
+                for _ in range(npts):
+                    row = []
+                    for k in range(nvars):
+                        v = lines[i + k].split("\t")[-1].split(",")
+                        row += [float(v[0]), float(v[1]) if len(v) > 1
+                                else 0.0]
+                    rows.append(row)
+                    i += nvars
+            return text, rows
+        for line in lines:
+            try:
+                rows.append([float(v) for v in
+                             line.replace(",", " ").split()])
+            except ValueError:
+                text.append(line)
+        return text, rows
+
+    t1, r1 = table(path)
+    t2, r2 = table(os.path.join(GOLDENS, gold))
+    same = t1 == t2 and [len(r) for r in r1] == [len(r) for r in r2]
+    if not same:
+        return False, float("inf")
+    if path.endswith(".raw"):
+        # each plot's rows may differ in width: compare plot by plot
+        errs, start = [], 0
+        for k in range(1, len(r2) + 1):
+            if k == len(r2) or len(r2[k]) != len(r2[start]):
+                errs.append(_peak_rel(np.array(r1[start:k]),
+                                      np.array(r2[start:k])))
+                start = k
+        return True, max(errs)
+    return True, _peak_rel(np.array(r1), np.array(r2))
+
+
+def _small_signal_cli():
+    """The three JAX CLI small-signal runs on the card."""
+    from circuitsimulator_tpu_torch.ops import cuda_ac, cuda_lu
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ss_")
+    here = os.getcwd()
+    try:
+        for deck, (args, stdout, files) in SMALL_SIGNAL_CLI.items():
+            d = os.path.join(tmp, deck)
+            os.makedirs(os.path.join(d, "examples"))
+            shutil.copy(os.path.join(EXAMPLES, f"{deck}.sp"),
+                        os.path.join(d, "examples"))
+            os.chdir(d)
+            cuda_ac.LAUNCHES = cuda_lu.LAUNCHES = 0
+            rc, text, secs = _cli([f"examples/{deck}.sp", *args, "--device",
+                                   "cuda"])
+            m = {"cli_s": secs, "k3_launches": cuda_ac.LAUNCHES,
+                 "k2_launches": cuda_lu.LAUNCHES}
+            check(rc == 0 and text == read_golden(stdout),
+                  f"{deck} small-signal stdout byte-identical to the JAX "
+                  "CLI's")
+            for got, gold, bar in files:
+                same, err = _file_err(got, gold)
+                m[f"{got}_peak_rel"] = err
+                check(same and err <= bar,
+                      f"{deck}: {got} within {bar} of {gold}: {err}")
+            out[deck] = m
+            emit(f"small_signal_cli_{deck}", **m)
+            os.chdir(here)
+    finally:
+        os.chdir(here)
+        shutil.rmtree(tmp)
+    return out
+
+
+def _as_arrays(res):
+    """The numbers of a small-signal result as a dict of numpy arrays."""
+    import numpy as np
+    import torch
+    if isinstance(res, tuple) and len(res) == 2 and isinstance(res[1], list):
+        return {r[0]: np.array(r[1:]) for r in res[1]}      # .SENS rows
+    if isinstance(res, tuple):
+        return {f"out{i}": np.asarray(v) for i, v in enumerate(res)}
+    if isinstance(res, dict):
+        return {k: np.asarray(v, dtype=complex) for k, v in res.items()
+                if v is not None and k != "freqs"}
+    out = {}
+    for k, v in vars(res).items():
+        if k == "x_op":       # the operating point is held by phase 3
+            continue
+        if isinstance(v, dict):
+            out.update({f"{k}_{c}": np.asarray(a) for c, a in v.items()})
+        elif isinstance(v, torch.Tensor):
+            out[k] = v.detach().cpu().numpy()
+        elif v is not None and not isinstance(v, (str, list, float)):
+            out[k] = np.asarray(v)
+    return out
+
+
+def phase_small_signal():
+    """Phase 37: the CLI runs, every API analysis on the card against the
+    port on the CPU with its K3 and K2 launches, K3 against its plain
+    version at the new shapes (their timings join k3_timings)."""
+    import numpy as np
+    import torch
+    from circuitsimulator_tpu_torch import Simulator
+    from circuitsimulator_tpu_torch.analysis.ac import (_omegas,
+                                                        ac_system_real)
+    from circuitsimulator_tpu_torch.ops import cuda_ac, cuda_lu
+    t_phase = time.perf_counter()
+    out = {"cli": _small_signal_cli(), "api": {}}
+    pad_ports = [("p1", None, 50.0), ("p2", None, 50.0)]
+    pad_freqs = np.logspace(6, 9, 31)
+    # (name, deck, analysis, K3 launches per call (None: not held), bar)
+    cases = [
+        ("noise_bjt_amp", "bjt_amp", lambda s, x: s.noise(x_op=x), 1, 1e-9),
+        ("noise_figure_bjt_amp", "bjt_amp",
+         lambda s, x: s.noise_figure("Rs", x_op=x), 1, 1e-9),
+        ("tf_bjt_amp", "bjt_amp", lambda s, x: s.tf(x_op=x), 0, 1e-9),
+        ("loop_gain_feedback_loop", "feedback_loop",
+         lambda s, x: s.loop_gain("E1", x_op=x), 1, 1e-9),
+        ("group_delay_feedback_loop", "feedback_loop",
+         lambda s, x: s.group_delay("out", x_op=x), 2, 1e-8),
+        ("sparams_pad", PAD_DECK,
+         lambda s, x: s.sparams(pad_ports, freqs=pad_freqs, x_op=x), 1,
+         1e-9),
+        ("stability_pad", PAD_DECK,
+         lambda s, x: s.stability(pad_ports, freqs=pad_freqs, x_op=x), 1,
+         1e-9),
+        ("sparams_cs_amp", "cs_amp",
+         lambda s, x: s.sparams([("d", None, 50.0)], x_op=x), 1, 1e-9),
+        ("tf_cs_amp", "cs_amp", lambda s, x: s.tf(x_op=x), 0, 1e-9),
+        ("sensitivity_cs_amp", "cs_amp",
+         lambda s, x: s.sensitivity(x_op=x), 0, 1e-9),
+        ("pole_zero_cs_amp", "cs_amp",
+         lambda s, x: s.pole_zero(out_node="d", input_source="Vin", x_op=x),
+         0, 1e-9),
+        ("noise_tline", TLINE_NOISE_DECK, lambda s, x: s.noise(x_op=x), 0,
+         1e-9),
+        ("loop_gain_tline", TLINE_LOOP_DECK,
+         lambda s, x: s.loop_gain("E1", x_op=x), 0, 1e-9),
+        ("group_delay_tline", TLINE_LOOP_DECK,
+         lambda s, x: s.group_delay("out", x_op=x), 0, 1e-8),
+    ]
+    sims = {}
+
+    def sim_pair(deck):
+        if deck not in sims:
+            if "\n" in deck:
+                mk = [Simulator.from_text(deck, device=d)
+                      for d in ("cuda", "cpu")]
+            else:
+                path = os.path.join(EXAMPLES, f"{deck}.sp")
+                mk = [Simulator.from_file(path, device=d)
+                      for d in ("cuda", "cpu")]
+            sims[deck] = [(s, s.dc()) for s in mk]
+        return sims[deck]
+
+    for name, deck, fn, k3_want, bar in cases:
+        (gs, gx), (cs, cx) = sim_pair(deck)
+        torch.cuda.synchronize()
+        cuda_ac.LAUNCHES = cuda_lu.LAUNCHES = 0
+        t0 = time.perf_counter()
+        got = fn(gs, gx)
+        torch.cuda.synchronize()
+        m = {"deck": deck if "\n" not in deck else name.split("_")[-1],
+             "wall_s": time.perf_counter() - t0,
+             "k3_launches": cuda_ac.LAUNCHES,
+             "k2_launches": cuda_lu.LAUNCHES}
+        want = fn(cs, cx)
+        g, w = _as_arrays(got), _as_arrays(want)
+        check(set(g) == set(w), f"{name}: the same outputs on both devices")
+        if name.startswith("sensitivity"):
+            # p dV/dp in volts; a row zero in exact arithmetic may come out
+            # at roundoff
+            floor = 1e-13 * max(abs(v[1]) for v in w.values())
+            m["rows"] = len(w)
+            m["max_rel_err"] = max(
+                float(abs(g[k][0] - v[0]) / abs(v[0])) for k, v in w.items()
+                if abs(v[1]) > floor)
+            check(all(abs(g[k][1] - v[1]) <= bar * abs(v[1]) + floor
+                      for k, v in w.items()), f"{name}: rows within {bar}")
+        else:
+            errs = {}
+            for k in w:
+                a, b = np.asarray(g[k]), np.asarray(w[k])
+                if b.dtype == bool:
+                    check(np.array_equal(a, b), f"{name}: {k} equal")
+                    continue
+                if name.startswith("pole_zero"):
+                    a, b = np.sort_complex(a), np.sort_complex(b)
+                fin = np.isfinite(b)
+                check(np.array_equal(fin, np.isfinite(a)),
+                      f"{name}: {k} finite where the CPU's is")
+                a, b = a[fin], b[fin]
+                if not b.size:
+                    errs[k] = 0.0
+                elif name.startswith(("sparams", "stability")):
+                    peak = float(np.abs(b).max())    # 0: held absolutely
+                    errs[k] = float(np.abs(a - b).max()) / (peak or 1.0)
+                else:
+                    errs[k] = float(np.max(np.abs(a - b) / np.maximum(
+                        np.abs(b), 1e-300)))
+            m["max_rel_err"] = max(errs.values()) if errs else 0.0
+            m["errors"] = errs
+            check(m["max_rel_err"] <= bar,
+                  f"{name}: card vs CPU {m['max_rel_err']} > {bar}")
+        if k3_want is not None:
+            check(m["k3_launches"] == k3_want,
+                  f"{name}: {m['k3_launches']} K3 launches, not {k3_want}")
+        if name.startswith(("tf", "sensitivity", "pole_zero")) \
+                or "tline" in name:
+            check(m["k2_launches"] > 0, f"{name}: K2 launched")
+        out["api"][name] = m
+        emit(f"small_signal_{name}", **m)
+
+    # K3 against its plain version at the adjoint and n-port shapes; kept
+    # for k3_timings and phase 28
+    (gs, gx), _ = sim_pair("bjt_amp")
+    cfg = gs.config.noise
+    om = _omegas(gs.engine, gs._noise_freqs(""))[1].contiguous()
+    G, B1, _, _ = ac_system_real(gs.engine, gs.params, gx, 1.0)
+    e = torch.zeros((1, gs.engine.N), dtype=G.dtype, device="cuda")
+    e[0, gs._node_eq(cfg.out_node)] = 1.0
+    adj = [G.mT[None].contiguous(), B1.mT[None].contiguous(), e,
+           torch.zeros_like(e)]
+    (ps, px), _ = sim_pair(PAD_DECK)
+    Gp, Bp, _, _ = ac_system_real(ps.engine, ps.params, px, 1.0)
+    n = ps.engine.N
+    rhs = torch.zeros((2, n), dtype=Gp.dtype, device="cuda")
+    rhs[0, ps._node_eq("p1")] = rhs[1, ps._node_eq("p2")] = 1.0
+    nport = [Gp.expand(2, n, n).contiguous(), Bp.expand(2, n, n).contiguous(),
+             rhs, torch.zeros_like(rhs)]
+    om_pad = _omegas(ps.engine, pad_freqs)[1].contiguous()
+    rows = []
+    for shape, arrays, omg, launches, path in (
+            ("bjt_amp noise adjoint float64", adj, om, 1,
+             "small_signal_noise_bjt_amp"),
+            ("pad 2-port float64", nport, om_pad, 1,
+             "small_signal_sparams_pad")):
+        rel, err, zeros = _k3_vs_plain(arrays, omg, torch.float64, shape)
+        check(zeros == 0, f"{shape}: no zero lane")
+        rows.append({"shape": shape, "B": arrays[0].shape[0],
+                     "F": omg.shape[0], "N": arrays[0].shape[1],
+                     "lane_rel_err": rel, "max_abs_err": err})
+        K3_SHAPES[shape] = {"inputs": arrays + [omg], "launches": launches,
+                            "path": path}
+    emit("small_signal_k3_vs_plain", cases=rows, card=card_line())
+    out["k3_max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    emit("small_signal", seconds=out["phase_seconds"])
+    return out
+
 
 def main():
     import torch
@@ -4050,6 +4397,7 @@ def main():
     lu_rows = timed(phase_lu_solver)
     adap = timed(phase_adaptive)
     ckpt = timed(phase_checkpoint, trap)
+    ss = timed(phase_small_signal)
     k3_rows = timed(phase_k3_timings)
     k2_device, k1_device_ms = timed(phase_k2_device, timings, k1_main_run)
     k3_device = timed(phase_k3_device, k3_rows)
@@ -4088,7 +4436,12 @@ def main():
                        **{f"adaptive_dbmixer_{n}_f64": adap[n]["k2_launches"]
                           for n in ("single", "batch")},
                        **{f"checkpoint_{n}_f32": ckpt[n]["k2_launches"]
-                          for n in ("dbmixer", "noisy_dbmixer")}},
+                          for n in ("dbmixer", "noisy_dbmixer")},
+                       **{f"small_signal_{n}_f64": ss["api"][n]["k2_launches"]
+                          for n in ("tf_bjt_amp", "tf_cs_amp",
+                                    "sensitivity_cs_amp", "pole_zero_cs_amp",
+                                    "noise_tline", "loop_gain_tline",
+                                    "group_delay_tline")}},
         "fused_step": {"monte_carlo_fused_f32_fast": k1_launches,
                        "monte_carlo_fused_bjt_f32": bjt["k1_launches"],
                        **{f"monte_carlo_fused_{n}_f32": m["k1_launches"]
@@ -4119,6 +4472,13 @@ def main():
                      "monte_carlo_measures_ac_opamp_filter_f32":
                          meas["ac"]["k3_launches"],
                      "ac_xfmr_single_f64": mut["single"]["ac_k3_launches"],
+                     **{f"small_signal_{n}": ss["api"][n]["k3_launches"]
+                        for n in ("noise_bjt_amp", "noise_figure_bjt_amp",
+                                  "loop_gain_feedback_loop",
+                                  "group_delay_feedback_loop", "sparams_pad",
+                                  "sparams_cs_amp")},
+                     **{f"small_signal_cli_{n}": ss["cli"][n]["k3_launches"]
+                        for n in SMALL_SIGNAL_CLI},
                      **{c["path"]: c["launches"] for c in K3_SHAPES.values()
                         if c["path"]}}}
     for kernel, by_path in paths.items():
@@ -4184,7 +4544,8 @@ def main():
         "source": "circuitsimulator_tpu_torch/csrc/ac_sweep.cu",
         "replaces": "circuitsimulator_tpu/ops/pallas_ac.py:49",
         "launches": sum(paths["ac_sweep"].values()),
-        "launches_by_path": paths["ac_sweep"], "max_abs_err": k3_err,
+        "launches_by_path": paths["ac_sweep"],
+        "max_abs_err": max(k3_err, ss["k3_max_abs_err"]),
         "ms": k3_main["kernel_ms"], "plain_ms": k3_main["plain_ms"],
         "bound_ms": k3_main["bound_ms"], "bound_by": k3_main["bound_by"],
         "library_ms": k3_main["library_ms"],

@@ -208,12 +208,15 @@ def _omegas(engine: Engine, freqs):
     return f, 2.0 * math.pi * f
 
 
-def _tline_sweep(engine: Engine, params, x_op, om):
+def _tline_sweep(engine: Engine, params, x_op, om, rhs=None,
+                 transpose: bool = False):
     """The sweep of a T-line deck: (xr, xi), each lead + (F, N), where lead
     is the lanes' shape.  Every frequency is assembled on its own
     (``ac_system_real`` at omega) and the real 2N systems of a block of
     frequencies times every lane go to one ``solve_ac_real`` (K2 on CUDA
-    tensors); K3's hoisted G + wB1 does not hold for them."""
+    tensors); K3's hoisted G + wB1 does not hold for them.  ``rhs`` = (br,
+    bi), each lead + (N,), replaces the assembled sources at every
+    frequency; ``transpose`` solves Y^T instead of Y (the adjoint)."""
     N = engine.N
     if engine.device.type == "cuda" and 2 * N > cuda_lu.MAX_N:
         raise NotImplementedError(
@@ -221,6 +224,8 @@ def _tline_sweep(engine: Engine, params, x_op, om):
             f"above the CUDA LU kernel's {cuda_lu.MAX_N}")
     first = ac_system_real(engine, params, x_op, om[0])
     lanes = first[0].numel() // (N * N)
+    if rhs is not None:
+        lanes = max(lanes, rhs[0].numel() // N)
     blk = max(1, _TL_BLOCK_ELEMS // (4 * N * N * lanes))
     xr, xi = [], []
     for f0 in range(0, len(om), blk):
@@ -229,10 +234,94 @@ def _tline_sweep(engine: Engine, params, x_op, om):
                    for f in range(f0, min(f0 + blk, len(om)))]
         G, B, br, bi = (torch.stack([sy[q] for sy in systems], -3 + (q > 1))
                         for q in range(4))
+        if rhs is not None:
+            lead = torch.broadcast_shapes(G.shape[:-2],
+                                          rhs[0].shape[:-1] + (1,))
+            G, B = G.expand(lead + (N, N)), B.expand(lead + (N, N))
+            br, bi = (b.unsqueeze(-2).expand(lead + (N,)) for b in rhs)
+        if transpose:
+            G, B = G.mT, B.mT
         r, i = solve_ac_real(engine, G, B, br, bi)
         xr.append(r)
         xi.append(i)
     return torch.cat(xr, -2), torch.cat(xi, -2)
+
+
+@torch.inference_mode()
+def rhs_sweep(engine: Engine, params, x_op, om, b, transpose: bool = False):
+    """Y(w) x = b (or Y(w)^T x = b, ``transpose``) over every omega of
+    ``om`` for one lane's params and operating point, with real right-hand
+    sides that do not depend on w: b (..., N), each leading index one
+    system.  Returns (xr, xi), each (..., F, N).  Without T-lines this is
+    one K3 launch (every right-hand side a lane of the unit-w G and B1); a
+    T-line deck takes ``_tline_sweep`` (K2)."""
+    N = engine.N
+    zero = torch.zeros_like(b)
+    if engine.n_tl:
+        return _tline_sweep(engine, params, x_op, om, rhs=(b, zero),
+                            transpose=transpose)
+    G, B1, _, _ = ac_system_real(engine, params, x_op, 1.0)
+    if transpose:
+        G, B1 = G.mT, B1.mT
+    n = b.numel() // N
+    xr, xi = ac_sweep(G.expand(n, N, N), B1.expand(n, N, N),
+                      b.reshape(n, N), zero.reshape(n, N), om,
+                      engine.opts.lu_pivot_floor)
+    lead = b.shape[:-1]
+    return (xr.reshape(lead + xr.shape[-2:]),
+            xi.reshape(lead + xi.shape[-2:]))
+
+
+def _d_omega(engine: Engine, params, x_op, om):
+    """(dG/dw, dB/dw) of a T-line deck at every omega of ``om``, each
+    (F, N, N): forward-mode AD (``torch.func.jvp``) of the per-frequency
+    assembly in omega."""
+    def gb(w):
+        G, B, _, _ = ac_system_real(engine, params, x_op, w)
+        return G, B
+
+    one = torch.ones((), dtype=engine.dtype, device=engine.device)
+    ds = [torch.func.jvp(gb, (w,), (one,))[1] for w in om]
+    return (torch.stack([d[0] for d in ds]), torch.stack([d[1] for d in ds]))
+
+
+def group_delay(engine: Engine, params, x_op, om, eq: int):
+    """Exact group delay tau(w) = -d arg x_eq / dw, (F,) on the engine's
+    device.  With Y x = b and Y^T z = e_eq (b does not depend on w),
+    dx_eq/dw = -z^T (dY/dw) x, and tau = -Im((dx_eq/dw) / x_eq).  Without
+    T-lines dY/dw = j B1: the forward and the adjoint sweep are two K3
+    launches.  A T-line deck takes dY/dw from forward-mode AD of its
+    per-frequency assembly and solves both systems on K2."""
+    e = torch.zeros((engine.N,), dtype=engine.dtype, device=engine.device)
+    e[eq] = 1.0
+    with torch.inference_mode():
+        if engine.n_tl:
+            xr, xi = _tline_sweep(engine, params, x_op, om)
+            zr, zi = _tline_sweep(engine, params, x_op, om,
+                                  rhs=(e, torch.zeros_like(e)),
+                                  transpose=True)
+        else:
+            floor = engine.opts.lu_pivot_floor
+            G, B1, br, bi = ac_system_real(engine, params, x_op, 1.0)
+            (xr,), (xi,) = ac_sweep(G[None], B1[None], br[None], bi[None],
+                                    om, floor)
+            (zr,), (zi,) = ac_sweep(G.mT[None], B1.mT[None], e[None],
+                                    torch.zeros_like(e)[None], om, floor)
+    if engine.n_tl:
+        # outside inference mode: forward-mode AD records tangents
+        dG, dB = _d_omega(engine, params, x_op, om)
+    else:
+        dG, dB = torch.zeros_like(B1), B1
+
+    def mv(M, v):
+        return (M @ v.unsqueeze(-1)).squeeze(-1)
+
+    # w = (dY/dw) x with dY/dw = dG + j dB; s = z^T w = -dx_eq/dw
+    wr, wi = mv(dG, xr) - mv(dB, xi), mv(dG, xi) + mv(dB, xr)
+    sr = (zr * wr - zi * wi).sum(-1)
+    si = (zr * wi + zi * wr).sum(-1)
+    x_r, x_i = xr[:, eq], xi[:, eq]
+    return (si * x_r - sr * x_i) / (x_r * x_r + x_i * x_i)      # Im(s/x)
 
 
 def make_ac_batched_fn(engine: Engine, freqs):

@@ -12,6 +12,11 @@
     sim.measure(res)                  # .MEASURE TRAN cards, [(name, value)]
     sim.measure(sw, "dc")             # .MEASURE DC over the swept value
     bp, vals = sim.monte_carlo(8192)  # DEV=/LOT= lanes, per-lane measures
+    sim.tf(); sim.sensitivity(); sim.pole_zero()   # .TF, .SENS, .PZ (K2)
+    sim.noise(); sim.noise_figure("Rs")            # adjoint sweep (K3)
+    sim.loop_gain("E1"); sim.group_delay("out")    # K3, one / two launches
+    sim.sparams([("p1", None, 50.0)]); sim.stability(ports)   # K3 lanes
+    sim.write_raw("out.raw", res)      # ngspice ASCII rawfile
 """
 
 from __future__ import annotations
@@ -27,8 +32,8 @@ from .analysis.transient import TransientResult, run_transient
 from .io.csvout import write_transient_csv
 from .io.table import circuit_summary, dc_table
 from .ir.lower import LoweredCircuit, lower
-from .netlist import (KIND_C, KIND_L, expand_text, parse_netlist_text,
-                      parse_spice_number, read_netlist)
+from .netlist import (KIND_C, KIND_E, KIND_L, KIND_R, KIND_V, expand_text,
+                      parse_netlist_text, parse_spice_number, read_netlist)
 from .ops import cuda_lu
 from .ops.assemble import Engine
 from .utils import prng
@@ -378,6 +383,287 @@ class Simulator:
                 else self.config.steps[step_index])
         return run_step(self, cfgs, save_xs=save_xs)
 
+    # ---- small-signal analyses ----
+    def _ac_freqs(self):
+        from .analysis.ac import sweep_frequencies
+        ac = self.config.ac
+        if not ac.enabled:
+            raise ValueError("deck has no .AC card")
+        return sweep_frequencies(ac.sweep_type, ac.n_points,
+                                 ac.fstart, ac.fstop)
+
+    def _node_eq(self, name: str) -> int:
+        nid = self.circuit.node_name_to_id.get(name)
+        if nid is None:
+            raise KeyError(f"unknown node {name!r}")
+        return self.circuit.nodes[nid].eq_index
+
+    def _input_ref(self, source: str):
+        """("v", branch_eq) of a V source or ("i", ep, em) of an I source:
+        the input of .TF, .NOISE and .PZ."""
+        from .analysis.sweep import find_source
+        kind, idx = find_source(self.circuit, source)
+        if kind == KIND_V:
+            return ("v", int(self.topo.vs_k[idx]))
+        return ("i", int(self.topo.is_ep[idx]), int(self.topo.is_em[idx]))
+
+    def _noise_freqs(self, missing: str):
+        """The .NOISE card's sweep, else the .AC card's."""
+        from .analysis.ac import sweep_frequencies
+        cfg = self.config.noise
+        if cfg.enabled and cfg.sweep_type:
+            return sweep_frequencies(cfg.sweep_type, cfg.n_points,
+                                     cfg.fstart, cfg.fstop)
+        if self.config.ac.enabled:
+            ac = self.config.ac
+            return sweep_frequencies(ac.sweep_type, ac.n_points,
+                                     ac.fstart, ac.fstop)
+        raise ValueError(missing)
+
+    def group_delay(self, probe: str, params: Optional[Any] = None,
+                    freqs=None, x_op: Optional[Any] = None):
+        """Exact group delay tau_g(f) = -d phase / d omega of V(probe) from
+        the adjoint of the small-signal solve (analysis/ac.group_delay:
+        two K3 sweeps; a T-line deck on K2).  Defaults to the .AC card's
+        sweep; returns (freqs, tau_g) numpy arrays."""
+        from .analysis.ac import _omegas, group_delay
+        if freqs is None:
+            freqs = self._ac_freqs()
+        eqi = self._node_eq(probe)
+        p = params if params is not None else self.params
+        if x_op is None:
+            x_op = self.dc(params=params)
+        _, om = _omegas(self.engine, freqs)
+        tau = group_delay(self.engine, p, x_op, om, eqi)
+        return np.asarray(freqs), tau.cpu().numpy()
+
+    def loop_gain(self, source: str, params: Optional[Any] = None,
+                  freqs=None, x_op: Optional[Any] = None):
+        """Bode's return ratio of the named E (VCVS) source
+        (analysis/loopgain.py): the source nulled, its branch driven with
+        a unit test voltage, one K3 sweep.  Returns a dict: freqs, T
+        (complex), f_unity, phase_margin_deg, f_180, gain_margin_db."""
+        from .analysis.loopgain import loop_gain, margins
+        idx = None
+        j = 0
+        for e in self.circuit.elements:
+            if e.kind == KIND_E:
+                if e.name.upper() == source.upper():
+                    idx = j
+                    break
+                j += 1
+        if idx is None:
+            raise KeyError(f"no VCVS named {source!r}")
+        if freqs is None:
+            freqs = self._ac_freqs()
+        p = params if params is not None else self.params
+        if x_op is None:
+            x_op = self.dc(params=params)
+        T = loop_gain(self.engine, p, idx, freqs, x_op)
+        out = {"freqs": freqs, "T": T}
+        out.update(margins(freqs, T))
+        return out
+
+    def pole_zero(self, params: Optional[Any] = None,
+                  out_node: Optional[str] = None,
+                  ref_node: Optional[str] = None,
+                  input_source: Optional[str] = None,
+                  x_op: Optional[Any] = None):
+        """.PZ pole-zero analysis (analysis/pz.py) of the circuit
+        linearized at the DC operating point; zeros require an input
+        source."""
+        from .analysis.pz import pole_zero
+        cfg = self.config.pz
+        if out_node is None:
+            if not cfg.enabled:
+                raise ValueError(".PZ card missing")
+            out_node = cfg.out_node
+            ref_node = ref_node or (cfg.ref_node or None)
+            input_source = input_source or (cfg.input_source or None)
+        out_eq = self._node_eq(out_node)
+        if out_eq < 0:
+            raise ValueError(f".PZ output node {out_node!r} is ground")
+        ref_eq = self._node_eq(ref_node) if ref_node else -1
+        input_ref = self._input_ref(input_source) if input_source else None
+        p = params if params is not None else self.params
+        return pole_zero(self.engine, p, out_eq, ref_eq, input_ref,
+                         x_op=x_op)
+
+    def sensitivity(self, params: Optional[Any] = None,
+                    out_node: Optional[str] = None,
+                    ref_node: Optional[str] = None,
+                    x_op: Optional[Any] = None):
+        """.SENS DC sensitivity (analysis/sensitivity.py): the gradient of
+        V(out[,ref]) with respect to every circuit parameter by implicit
+        differentiation at the operating point (one adjoint K2 solve, one
+        autograd pass).  Returns (grads, rows): grads matches the params
+        dict, rows is the sorted report [(label, dV/dp, p*dV/dp)]."""
+        from .analysis.sensitivity import dc_sensitivity, sensitivity_report
+        cfg = self.config.sens
+        if out_node is None:
+            if not cfg.enabled:
+                raise ValueError(".SENS card missing")
+            out_node = cfg.out_node
+            ref_node = ref_node or (cfg.ref_node or None)
+        out_eq = self._node_eq(out_node)
+        if out_eq < 0:
+            raise ValueError(f".SENS output node {out_node!r} is ground")
+        ref_eq = self._node_eq(ref_node) if ref_node else -1
+        p = params if params is not None else self.params
+        grads, _, _ = dc_sensitivity(self.engine, p, out_eq, ref_eq, x=x_op)
+        rows = sensitivity_report(self.circuit, grads, normalize_params=p)
+        return grads, rows
+
+    def tf(self, params: Optional[Any] = None, x_op: Optional[Any] = None):
+        """.TF DC transfer function (analysis/tf.py): small-signal DC gain
+        d out/d in, the input resistance seen by the input source and the
+        output resistance at the output probe, from one linearization at
+        the (polished) operating point."""
+        from .analysis.tf import dc_transfer_function
+        cfg = self.config.tf
+        if not cfg.enabled:
+            raise ValueError(".TF card missing")
+        input_ref = self._input_ref(cfg.input_source)
+        if cfg.out_kind == "v":
+            out_a = self._node_eq(cfg.out_node)
+            if out_a < 0:
+                raise ValueError(f".TF output node {cfg.out_node!r} "
+                                 "is ground")
+            out_b = self._node_eq(cfg.ref_node) if cfg.ref_node else -1
+        else:
+            out_a = out_b = -1
+            for e in self.circuit.elements:
+                if (e.name.lower() == cfg.out_element.lower()
+                        and getattr(e, "branch_eq", -1) >= 0):
+                    out_a = e.branch_eq
+                    break
+            if out_a < 0:
+                raise ValueError(f".TF current output {cfg.out_element!r}: "
+                                 "no such branch-current unknown (only "
+                                 "V sources and inductors carry one)")
+        p = params if params is not None else self.params
+        return dc_transfer_function(self.engine, p, cfg.out_kind,
+                                    out_a, out_b, input_ref, x=x_op)
+
+    def noise(self, params: Optional[Any] = None, freqs=None,
+              out_node: Optional[str] = None, ref_node: Optional[str] = None,
+              input_source: Optional[str] = None,
+              x_op: Optional[Any] = None):
+        """Small-signal noise analysis (.NOISE card, analysis/noise.py):
+        the output PSD at V(out_node[, ref_node]), with input_source also
+        the gain-referred input noise.  The sweep defaults to the .NOISE
+        card's, or to the .AC card's if the .NOISE card has none."""
+        from .analysis.noise import noise_analysis
+        cfg = self.config.noise
+        if out_node is None:
+            if not cfg.enabled:
+                raise ValueError(".NOISE card missing")
+            out_node = cfg.out_node
+            ref_node = ref_node or (cfg.ref_node or None)
+            input_source = input_source or (cfg.input_source or None)
+        if freqs is None:
+            freqs = self._noise_freqs(
+                "no frequency sweep: give freqs, a .NOISE sweep, or a .AC "
+                "card")
+        out_eq = self._node_eq(out_node)
+        if out_eq < 0:
+            raise ValueError(f".NOISE output node {out_node!r} is ground")
+        ref_eq = self._node_eq(ref_node) if ref_node else -1
+        input_ref = self._input_ref(input_source) if input_source else None
+        p = params if params is not None else self.params
+        return noise_analysis(self.engine, p, freqs, out_eq, ref_eq,
+                              input_ref, x_op=x_op)
+
+    def noise_figure(self, source_resistor: str,
+                     params: Optional[Any] = None, freqs=None,
+                     out_node: Optional[str] = None,
+                     ref_node: Optional[str] = None,
+                     x_op: Optional[Any] = None):
+        """Noise figure referred to the named source resistor: F(f) = the
+        total output noise PSD over the PSD that ``source_resistor``'s 4kT/R
+        generator alone contributes through the same adjoint transfer, NF =
+        10 log10 F.  The output node defaults to the .NOISE card's.
+        Returns (freqs, nf_db)."""
+        from .analysis.noise import noise_analysis
+        cfg = self.config.noise
+        if out_node is None:
+            if not cfg.enabled:
+                raise ValueError("give out_node or a .NOISE card")
+            out_node = cfg.out_node
+            ref_node = ref_node or (cfg.ref_node or None)
+        if freqs is None:
+            freqs = self._noise_freqs("no frequency sweep available")
+        # the source resistor's generator column: resistors lead the
+        # concatenation in _device_noise_currents, in element order
+        ridx = None
+        j = 0
+        for e in self.circuit.elements:
+            if e.kind == KIND_R:
+                if e.name.upper() == source_resistor.upper():
+                    ridx = j
+                    break
+                j += 1
+        if ridx is None:
+            raise KeyError(f"no resistor named {source_resistor!r}")
+        out_eq = self._node_eq(out_node)
+        ref_eq = self._node_eq(ref_node) if ref_node else -1
+        p = params if params is not None else self.params
+        res = noise_analysis(self.engine, p, freqs, out_eq, ref_eq,
+                             None, x_op=x_op, per_device=True)
+        rs_psd = res.s_dev[:, ridx]
+        if not np.all(rs_psd > 0):
+            raise ValueError(f"{source_resistor!r} contributes no noise "
+                             "at the output (zero transfer or zero R)")
+        nf_db = 10.0 * np.log10(res.onoise / rs_psd)
+        return np.asarray(freqs), nf_db
+
+    def sparams(self, ports, freqs=None, params: Optional[Any] = None,
+                x_op: Optional[Any] = None):
+        """N-port S-parameters (analysis/sparams.py) of the circuit
+        linearized at the DC operating point: the n port excitations are n
+        lanes of one K3 sweep.  ``ports`` is a list of (node_p,
+        node_m_or_None, z0) tuples (None = ground); ``freqs`` defaults to
+        the .AC card's sweep.  Port terminations must not be in the
+        netlist (matched loading is implicit)."""
+        from .analysis.ac import sweep_frequencies
+        from .analysis.sparams import s_parameters
+        if freqs is None:
+            ac = self.config.ac
+            if not ac.enabled:
+                raise ValueError("no frequency sweep: give freqs or a "
+                                 ".AC card")
+            freqs = sweep_frequencies(ac.sweep_type, ac.n_points,
+                                      ac.fstart, ac.fstop)
+        dump = self.topo.n_unknowns
+
+        def node_eq(name):
+            if name is None or str(name).lower() in ("0", "gnd"):
+                return dump
+            eqi = self._node_eq(name)
+            return eqi if eqi >= 0 else dump
+        port_eqs = [(node_eq(p), node_eq(m)) for (p, m, _) in ports]
+        z0s = [z for (_, _, z) in ports]
+        p = params if params is not None else self.params
+        if x_op is None:
+            x_op = self.dc(params=params)
+        return s_parameters(self.engine, p, port_eqs, z0s, freqs, x_op)
+
+    def stability(self, ports=None, freqs=None, sres=None,
+                  params: Optional[Any] = None, x_op: Optional[Any] = None):
+        """Two-port stability and gain metrics (analysis/sparams.py
+        two_port_metrics): Rollett K, delta, Edwards-Sinsky mu/mu', MSG,
+        MAG, Mason's U and the unconditional-stability verdict per
+        frequency.  Pass ``ports`` (two (node_p, node_m, z0) tuples, as
+        for sparams) to extract S first, or ``sres`` to reuse an
+        SParamResult."""
+        from .analysis.sparams import two_port_metrics
+        if sres is None:
+            if ports is None or len(ports) != 2:
+                raise ValueError("stability needs two ports (or sres=)")
+            sres = self.sparams(ports, freqs=freqs, params=params,
+                                x_op=x_op)
+        return two_port_metrics(sres)
+
     # ---- post-processing ----
     def measure(self, result, analysis: str = "tran"):
         """.MEASURE evaluation on the host (analysis/measure.py): a
@@ -425,16 +711,48 @@ class Simulator:
                                 sel, n_harm=n_harm)
 
     # ---- output ----
+    def write_raw(self, path: str, result, mode: str = "w",
+                  title: Optional[str] = None) -> None:
+        """ngspice/SPICE3 ASCII rawfile (io/rawfile.py) of a transient, AC
+        or DC-sweep result; mode="a" appends a further plot to the same
+        file.  The default title is the JAX package's, so both write the
+        same file."""
+        from .io import rawfile
+        t = title if title is not None else "circuitsimulator_tpu"
+        if hasattr(result, "times"):
+            if bool(result.failed):
+                raise RuntimeError("Transient: LU produced NaN/Inf.")
+            rawfile.write_raw_transient(
+                path, self.topo, _host(result.times), _host(result.xs),
+                title=t, tstart=self.config.tran.tstart or 0.0, mode=mode)
+        elif hasattr(result, "freqs"):
+            rawfile.write_raw_ac(path, self.topo, _host(result.freqs),
+                                 _host(result.xs), title=t, mode=mode)
+        elif hasattr(result, "values"):
+            rawfile.write_raw_dc_sweep(path, self.topo, _host(result.values),
+                                       _host(result.xs), result.source,
+                                       title=t, mode=mode)
+        else:
+            raise TypeError(f"cannot write {type(result).__name__} "
+                            "as a rawfile")
+
     def write_transient_csv(self, path: str, result,
-                            tstart: Optional[float] = None) -> None:
+                            tstart: Optional[float] = None,
+                            probes_only: bool = False) -> None:
         """The CSV of a TransientResult or an AdaptiveTransientResult (its
-        rows: the .TRAN grid)."""
+        rows: the .TRAN grid); ``probes_only`` keeps the columns the
+        .PLOTNV/.PLOTNC/.PRINT cards name."""
         if tstart is None:
             tstart = self.config.tran.tstart or 0.0
         if bool(result.failed):
             raise RuntimeError("Transient: LU produced NaN/Inf.")
+        selection = None
+        if probes_only:
+            from .io.csvout import probe_selection
+            selection = probe_selection(self.topo, self.config.print_commands)
         write_transient_csv(path, self.topo, result.times.cpu().numpy(),
-                            result.xs.cpu().numpy(), tstart)
+                            result.xs.cpu().numpy(), tstart,
+                            selection=selection)
 
     def summary(self) -> str:
         return circuit_summary(self.topo)

@@ -67,13 +67,27 @@ def probe_selection(topo: Topology, print_commands, analysis=None):
 
 
 def write_transient_csv(path: str, topo: Topology, times, xs,
-                        tstart: float = 0.0) -> None:
+                        tstart: float = 0.0, selection=None) -> None:
+    """Reference-schema CSV; ``selection`` (from ``probe_selection``, the
+    CLI's ``--probes-only``) restricts and re-orders the columns: an eq
+    index, or an (eq_a, eq_b) pair for V(a, b); ground (eq -1 or the dump
+    slot) reads 0."""
     times = np.asarray(times)
     xs = np.asarray(xs)
-    col_eqs = np.concatenate([topo.volt_col_eqs,
-                              topo.branch_col_eqs]).astype(int)
+    if selection is None:
+        header = format_header(topo)
+        col_eqs = np.concatenate([topo.volt_col_eqs,
+                                  topo.branch_col_eqs]).astype(int)
+        data = xs[:, col_eqs]
+    else:
+        header = ",".join(["time"] + [lbl for lbl, _ in selection])
+        xs0 = np.concatenate([xs, np.zeros_like(xs[:, :1])], axis=1)
+        cols = [xs0[:, spec[0]] - xs0[:, spec[1]]
+                if isinstance(spec, tuple) else xs0[:, spec]
+                for _, spec in selection]
+        data = np.stack(cols, axis=1) if cols else np.zeros((len(xs), 0))
     keep = times >= tstart
-    out = np.column_stack([times[keep], xs[:, col_eqs][keep]])
+    out = np.column_stack([times[keep], data[keep]])
     with open(path, "w") as f:
-        f.write(format_header(topo) + "\n")
+        f.write(header + "\n")
         np.savetxt(f, out, fmt="%.9e", delimiter=",")

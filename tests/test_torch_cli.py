@@ -155,3 +155,115 @@ def test_cli_refuses_cuda_without_a_gpu(capsys):
                  "--device", "cuda"]) == 2
     out = capsys.readouterr()
     assert out.out == "" and "no CUDA device" in out.err
+
+
+def _peak_rel_err(got, ref):
+    """Largest |got - ref| over each column's peak |ref| (a column of zeros
+    is held absolutely)."""
+    peak = np.abs(ref).max(axis=0)
+    peak = np.where(peak > 0, peak, 1.0)
+    return float((np.abs(got - ref) / peak).max())
+
+
+def _numeric_lines(path):
+    """(text lines that hold no number, the numeric rows as an array): a
+    Touchstone file's comment and option lines, then its data."""
+    text, rows = [], []
+    with open(path) as f:
+        for line in f:
+            try:
+                rows.append([float(v) for v in line.split()])
+            except ValueError:
+                text.append(line)
+    return text, np.asarray(rows)
+
+
+def _raw_plots(path):
+    """[(header lines, (points, variables) complex values)] of an ASCII
+    rawfile (``io/rawfile.py``'s layout)."""
+    with open(path) as f:
+        lines = f.read().splitlines()
+    plots, i = [], 0
+    while i < len(lines):
+        nvars = int(lines[i + 4].split(": ", 1)[1])
+        npts = int(lines[i + 5].split(": ", 1)[1])
+        head = lines[i:i + 8 + nvars]
+        i += 8 + nvars
+        vals = []
+        for _ in range(npts * nvars):
+            v = lines[i].split("\t")[-1].split(",")
+            vals.append(complex(float(v[0]), float(v[1]) if len(v) > 1
+                                else 0.0))
+            i += 1
+        plots.append((head, np.asarray(vals).reshape(npts, nvars)))
+    return plots
+
+
+# (deck, arguments, stdout golden, [(file written, its JAX-made golden,
+# relative bar over each column's peak)]): the JAX CLI's small-signal runs
+# from a directory holding examples/ (CHANGES.md has the commands)
+SMALL_SIGNAL = {
+    "bjt_amp": (["bjt_amp_tran.csv", "--no-tran", "--run-ac",
+                 "bjt_amp_ac.csv",
+                 "--run-noise", "bjt_amp_noise.csv", "--run-noise-figure",
+                 "Rs", "--run-group-delay", "c", "--raw", "bjt_amp.raw"],
+                "bjt_amp_smallsig_stdout_jax.txt",
+                [("bjt_amp_ac.csv", "bjt_amp_smallsig_ac_jax.csv", 1e-9),
+                 ("bjt_amp_noise.csv", "bjt_amp_noise_jax.csv", 1e-9),
+                 ("nf.csv", "bjt_amp_nf_jax.csv", 1e-9),
+                 ("groupdelay.csv", "bjt_amp_groupdelay_jax.csv", 1e-8),
+                 ("bjt_amp.raw", "bjt_amp_smallsig_jax.raw", 1e-9)]),
+    "cs_amp": (["cs_amp_tran.csv", "--run-ac", "cs_amp_ac.csv",
+                "--connectivity", "--run-sparams", "d@50", "--sparams-out",
+                "cs_amp.s1p"],
+               "cs_amp_smallsig_stdout_jax.txt",
+               [("cs_amp_ac.csv", "cs_amp_ac_jax.csv", 1e-9),
+                ("cs_amp.s1p", "cs_amp_jax.s1p", 1e-9)]),
+    "feedback_loop": (["feedback_loop_tran.csv", "--run-loop-gain", "E1",
+                       "--run-group-delay", "out"],
+                      "feedback_loop_smallsig_stdout_jax.txt",
+                      [("loopgain.csv", "feedback_loop_loopgain_jax.csv",
+                        1e-9),
+                       ("groupdelay.csv", "feedback_loop_groupdelay_jax.csv",
+                        1e-8)]),
+}
+
+
+@pytest.mark.parametrize("deck", list(SMALL_SIGNAL))
+def test_small_signal_cli_matches_jax_goldens(deck, tmp_path, monkeypatch,
+                                              capsys):
+    """The .TF/.SENS blocks, --run-noise, --run-noise-figure,
+    --run-group-delay, --raw, --connectivity, --run-sparams and
+    --run-loop-gain: stdout byte-identical to the JAX CLI's, every CSV's
+    and the Touchstone file's text lines equal and their numbers within
+    the bar of each column's peak (1e-8 for the group delay, a
+    derivative), the rawfile's headers equal and its values within 1e-9
+    of each variable's peak."""
+    args, stdout, files = SMALL_SIGNAL[deck]
+    (tmp_path / "examples").mkdir()
+    shutil.copy(os.path.join(REPO, "examples", f"{deck}.sp"),
+                tmp_path / "examples")
+    monkeypatch.chdir(tmp_path)
+    assert main([f"examples/{deck}.sp", *args, "--device", "cpu"]) == 0
+    out = capsys.readouterr()
+    assert out.out == read_golden(stdout) and out.err == ""
+    for got_name, gold, bar in files:
+        ref_path = os.path.join(GOLDENS, gold)
+        if got_name.endswith(".raw"):
+            got, ref = _raw_plots(got_name), _raw_plots(ref_path)
+            assert [h for h, _ in got] == [h for h, _ in ref]
+            errs = [_peak_rel_err(g, r) for (_, g), (_, r) in zip(got, ref)]
+        else:
+            if got_name.endswith(".csv"):
+                got_text = [open(got_name).readline()]
+                ref_text = [open(ref_path).readline()]
+                got = np.loadtxt(got_name, delimiter=",", skiprows=1,
+                                 ndmin=2)
+                ref = np.loadtxt(ref_path, delimiter=",", skiprows=1,
+                                 ndmin=2)
+            else:
+                got_text, got = _numeric_lines(got_name)
+                ref_text, ref = _numeric_lines(ref_path)
+            assert got_text == ref_text and got.shape == ref.shape
+            errs = [_peak_rel_err(got, ref)]
+        assert max(errs) <= bar, (gold, errs)

@@ -1256,3 +1256,70 @@ def test_lu_solver_step_matches_plain(cuda_device, method, dtype):
                                    fused=False)
         np.testing.assert_allclose(res.x_final.cpu().numpy(),
                                    out["cpu"].numpy(), rtol=0, atol=1e-6)
+
+
+def _small_signal_systems(sim, x):
+    """The noise adjoint's (1, N, N) transposed unit-omega system of
+    ``sim`` at its .AC card's frequencies, and a 2-port excitation of the
+    same G and B1 as two lanes: [(G, B1, br, bi), omegas] twice."""
+    from circuitsimulator_tpu_torch.analysis.ac import (_omegas,
+                                                        ac_system_real)
+    G, B1, _, _ = ac_system_real(sim.engine, sim.params, x, 1.0)
+    N = sim.engine.N
+    om = _omegas(sim.engine, sim._ac_freqs())[1]
+    e = torch.zeros((1, N), dtype=G.dtype, device=G.device)
+    e[0, N // 2] = 1.0
+    adj = [G.mT[None].contiguous(), B1.mT[None].contiguous(), e,
+           torch.zeros_like(e)]
+    rhs = torch.zeros((2, N), dtype=G.dtype, device=G.device)
+    rhs[0, 0] = rhs[1, N - 1] = 1.0
+    nport = [G.expand(2, N, N).contiguous(), B1.expand(2, N, N).contiguous(),
+             rhs, torch.zeros_like(rhs)]
+    return (adj, om), (nport, om)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deck", ["bjt_amp", "cs_amp", "feedback_loop"])
+def test_k3_adjoint_and_nport_shapes_match_plain(cuda_device, deck):
+    """K3 at the small-signal shapes: the adjoint sweep (1, F, N) on the
+    transposed G and B1 and the n-port sweep (2, F, N), each one launch,
+    against the plain version: fail masks identical, f64 lane-relative
+    error <= 1e-12."""
+    from circuitsimulator_tpu_torch.ops import ac_sweep, cuda_ac
+    sim = Simulator.from_file(os.path.join(REPO, "examples", f"{deck}.sp"),
+                              device=cuda_device)
+    for arrays, om in _small_signal_systems(sim, sim.dc()):
+        before = cuda_ac.LAUNCHES
+        xr, xi = ac_sweep.ac_sweep(*arrays, om, FLOOR)
+        torch.cuda.synchronize()
+        assert cuda_ac.LAUNCHES == before + 1
+        pr, pi = ac_sweep.ac_sweep_plain(*arrays, om, FLOOR)
+        x = torch.complex(xr, xi).cpu().numpy()
+        p = torch.complex(pr, pi).cpu().numpy()
+        assert np.array_equal(lane_masks(x)[0], lane_masks(p)[0])
+        scale = np.abs(p).reshape(len(p), -1).max(axis=1)
+        err = np.abs(x - p).reshape(len(p), -1).max(axis=1) / scale
+        assert err.max() <= 1e-12, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deck", ["bjt_amp", "feedback_loop"])
+def test_group_delay_two_sweeps_match_cpu(cuda_device, deck):
+    """Simulator.group_delay on the card: the forward and the adjoint
+    sweep are two K3 launches, and tau is within 1e-8 relative of the
+    port's run on the CPU."""
+    from circuitsimulator_tpu_torch.ops import cuda_ac
+    path = os.path.join(REPO, "examples", f"{deck}.sp")
+    node = {"bjt_amp": "c", "feedback_loop": "out"}[deck]
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        sim = Simulator.from_file(path, device=dev)
+        x = sim.dc()
+        before = cuda_ac.LAUNCHES
+        f, tau = sim.group_delay(node, x_op=x)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert cuda_ac.LAUNCHES == before + 2
+        out[dev.type] = tau
+    assert np.all(np.isfinite(out["cuda"]))
+    np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=1e-8, atol=0)

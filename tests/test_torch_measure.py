@@ -446,16 +446,14 @@ def test_cli_prints_measures_and_fourier(tmp_path, monkeypatch, capsys):
 
 
 def test_cli_bjt_amp_run_ac_measures(tmp_path, monkeypatch, capsys):
-    """examples/bjt_amp.sp with --run-ac: the .MEASURE TRAN and .MEASURE AC
-    blocks byte-identical to the JAX CLI's stdout
-    (tests/goldens/bjt_amp_run_ac_stdout_jax.txt), which then prints the
-    .TF block; the port names .TF on stderr instead (not yet ported)."""
+    """examples/bjt_amp.sp with --run-ac: the whole stdout, its .MEASURE
+    TRAN and .MEASURE AC blocks and the .TF block after them,
+    byte-identical to the JAX CLI's
+    (tests/goldens/bjt_amp_run_ac_stdout_jax.txt), and nothing on stderr."""
     deck = stage(tmp_path, "bjt_amp")
     monkeypatch.chdir(tmp_path)
     assert main([deck, "bjt_amp_tran.csv", "--device", "cpu", "--run-ac",
                  "bjt_amp_ac.csv"]) == 0
     out = capsys.readouterr()
-    gold = read_golden("bjt_amp_run_ac_stdout_jax.txt")
-    assert gold.startswith(out.out)
-    assert gold[len(out.out):].startswith("\n==== Transfer function ====")
-    assert "f3db = " in out.out and "note: .TF is not yet ported" in out.err
+    assert out.out == read_golden("bjt_amp_run_ac_stdout_jax.txt")
+    assert "==== Transfer function ====" in out.out and out.err == ""
