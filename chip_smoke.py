@@ -66,7 +66,7 @@ Phases (one JSON line each):
      diode deck and a switch + MOS + diode deck (W = 4), 256 lanes, 6-12
      steps, damped configuration, f32 (1e-4 V) and f64 (1e-9 V, per-lane
      iteration counts equal); failed masks identical; kernel and plain
-     times of the mixed deck at B = 8192 x 100 steps;
+     times of the mixed deck at B = 8192 x 100 steps (plain: 25 steps);
  11. the fused Monte-Carlo path on a BJT deck: examples/bjt_amp.sp over its
      own .TRAN (dt 2 us, 250 steps), B = 8192 lanes f32 (resistors, bjt_is
      and bjt_bf perturbed), batched DC on K2 then one K1 chunk: lane-steps
@@ -242,11 +242,11 @@ Phases (one JSON line each):
  33. METHOD=TRAP (trap_*): buffer.sp through the CLI with --method trap in
      f64 against the JAX CLI's goldens (stdout byte-identical, CSV within
      1e-9 V); dbmixer at B = 8192, f32 damped, trapezoidal: the batched DC
-     (K2) then 2,000 non-fused Woodbury steps in chunks of 500
+     (K2) then 1,000 non-fused Woodbury steps in chunks of 500
      (ChunkedTransient's loop): lane-steps/s, K2 launches, failed lanes,
      and the Backward-Euler rate of the same lanes over 250 steps before
      and after it; B =
-     1024 in f64 over 500 steps, 64 of the lanes within 1e-9 V of the
+     1024 in f64 over 200 steps, 64 of the lanes within 1e-9 V of the
      CPU at every 100th step; tests/test_trap.py's MOS + L + C deck under
      MOSCAP=CHARGE (the trapezoidal charge currents) within 1e-9 V of the
      CPU over 100 steps;
@@ -263,10 +263,10 @@ Phases (one JSON line each):
      31, 31), timed in phase 2), lanes 0 and 1 within 1e-12 V of their own
      single-lane runs with equal counts;
  36. checkpoint/resume (checkpoint_*): phase 33's dbmixer run and the noisy
-     dbmixer (TRNOISE, one key per lane; its uninterrupted run here), each
-     run again stopped after the first 500-step chunk, written to .npz and
-     resumed by a new ChunkedTransient: torch.equal on x, failed and every
-     state entry; file size, save and load times.
+     dbmixer (TRNOISE, one key per lane; its uninterrupted run here), 1,000
+     steps each, each run again stopped after the first 500-step chunk,
+     written to .npz and resumed by a new ChunkedTransient: torch.equal on
+     x, failed and every state entry; file size, save and load times.
  37. the small-signal stack (small_signal_*): the JAX CLI's three
      small-signal runs on the card (bjt_amp.sp --no-tran --run-ac
      --run-noise --run-noise-figure Rs --run-group-delay c --raw;
@@ -286,13 +286,36 @@ Phases (one JSON line each):
      version at the adjoint (1, F, N) and n-port (2, F, N) shapes (fail
      masks identical, f64 lane-relative error <= 1e-12), their timings in
      k3_timings and phase 28.
-     Phases 29-37 run after phase 27 and before k3_timings and phase 28;
+ 38. the statistical and differentiation stacks (statistics_*), through
+     Simulator's entry points: examples/mc_filter.sp's yield (R 5%, C 10%,
+     specs on settle and vfinal, about 70% passing) under the four
+     sampling plans in f32 at B = 8192 (K1 with its probe stream) and
+     under "mc" in f64 (the non-fused loop), each held against the port's
+     f64 CPU run of its first 256 lanes (f64: measures 1e-9 relative and
+     pass masks equal; f32: rtol 2e-4, atol 2e-6 against f64 in the same
+     configuration); examples/high_sigma.py's flow on its inverter: LHS
+     yield, scaled-sigma IS (s = 2.5) and IS centred on z* in f32 on K1,
+     FORM on the f64 adjoint (K2), beta within 1e-8 of the CPU's; Sobol
+     indices of mc_filter at n = 1024 (6,144 lanes on K1) and of
+     bjt_amp's .MEASURE AC f3db at n = 512 (K3; the lanes' sweep and the
+     host's per-lane measures timed apart); inamp.sp's DC worst case
+     (VT of its 22 MOSFETs, output within 1.0-1.9 V) and bjt_amp's AC one
+     (f3db above 134.5 MHz; the differentiable 2N solve on K2 at (71, 14,
+     1)) with their mismatch budgets, beta within 1e-8 of the CPU's and
+     the top five contributions equal; five Adam steps of calibrate and
+     fit_measures on mc_filter (a 250-step adjoint each), the loss history
+     within 1e-8 of the CPU's; the adjoint's ms a step forward and
+     backward; K2 against its plain version at (1, 28, 1) transposed and
+     (71, 14, 1) forward and backward, with per call, plain, solve_ex and
+     bound times.  The CPU references run in worker processes beside the
+     card's work.
+     Phases 29-38 run after phase 27 and before k3_timings and phase 28;
      the total line gives each phase's wall seconds.
 
 Every error of K3 and of the AC path is lane-relative: for each lane
 max|x - ref| / max|ref| over its frequencies and unknowns, then the worst
 lane.  Kernel launch counts are reset just before each main-path run
-(phases 4, 7, 8, 11, 12, 13, 15, 16, 18, 22, 25, 27 and 29-37) and read
+(phases 4, 7, 8, 11, 12, 13, 15, 16, 18, 22, 25, 27 and 29-38) and read
 just after it.  The
 junction decks run the damped while-loop Newton configuration at f32
 tolerances: the fast configuration (alpha 1, predictor, two unrolled
@@ -1758,8 +1781,9 @@ def phase_k1b():
               "kernel_ms": cuda_ms(lambda: runner.run_chunk(*carry, 0, 100),
                                    reps=5, warmup=1),
               "plain_ms": cuda_ms(
-                  lambda: runner.run_chunk_plain(*carry, 0, 100),
+                  lambda: runner.run_chunk_plain(*carry, 0, 25),
                   reps=1, warmup=0),
+              "plain_steps": 25,
               "bound_ms": bms, "bound_by": by, "bytes": nbytes,
               "flops": flops}
     emit("k1b_vs_plain", cases=rows, timing_per_chunk=timing)
@@ -3718,10 +3742,10 @@ def _chunked_run(sim, bp, n_steps, chunk, noise_key=None):
 def phase_trap():
     """Phase 33: METHOD=TRAP on the card.  buffer.sp through the CLI with
     --method trap in f64 against the JAX CLI's goldens; dbmixer at B =
-    8192, f32 damped, trapezoidal: batched DC then 2,000 non-fused
+    8192, f32 damped, trapezoidal: batched DC then 1,000 non-fused
     Woodbury steps (ChunkedTransient's loop, chunks of 500), and the same
     lanes' Backward-Euler rate over 250 steps before and after it; B =
-    1024 in f64 over 500 trapezoidal steps, 64 of the lanes against the
+    1024 in f64 over 200 trapezoidal steps, 64 of the lanes against the
     CPU (the plain version) within 1e-9 V at every 100th step;
     tests/test_trap.py's MOS + L + C deck under MOSCAP=CHARGE, single lane
     f64, 100 steps, against the CPU within 1e-9 V."""
@@ -3742,11 +3766,11 @@ def phase_trap():
     sim_be = _sim(damped_f32_options(), os.path.join(NETLISTS, "dbmixer.sp"))
     # in turns: BE, TRAP, BE (host-bound rates drift within a call)
     be = [_chunked_run(sim_be, bp, 250, 250)[0]]
-    main, carry = _chunked_run(sim, bp, 2000, 500)
+    main, carry = _chunked_run(sim, bp, 1000, 500)
     be.append(_chunked_run(sim_be, bp, 250, 250)[0])
     check(main["failed_lanes"] == 0, "TRAP dbmixer: no failed lanes")
     check(main["tran_k2_launches"] > 0, "TRAP dbmixer's steps on K2")
-    main["k2_launches_per_step"] = main["tran_k2_launches"] / 2000
+    main["k2_launches_per_step"] = main["tran_k2_launches"] / 1000
     main["be_same_lanes"] = [
         {k: r[k] for k in ("steps_per_s", "mean_newton_iters",
                            "tran_k2_launches", "failed_lanes")} for r in be]
@@ -3766,7 +3790,7 @@ def phase_trap():
         x0 = mc.batched_dc_fast(s.engine, p)
         carry64 = mc.init_carry(s.engine, x0, p, dt)
         marks = [x0[:64].cpu()]
-        for c in range(5):
+        for c in range(2):
             ts = torch.arange(c * 100 + 1, c * 100 + 101,
                               dtype=torch.float64, device=dev) * dt
             carry64, _ = mc.batched_transient_chunk(s.engine, p, carry64, ts,
@@ -3776,7 +3800,7 @@ def phase_trap():
             torch.cuda.synchronize()
         runs[dev] = (torch.stack(marks), time.perf_counter() - t0,
                      int(carry64[-1].sum()))
-    m64 = {"B": 1024, "steps": 500, "cuda_s": runs["cuda"][1],
+    m64 = {"B": 1024, "steps": 200, "cuda_s": runs["cuda"][1],
            "cpu_lanes": 64, "cpu_s": runs["cpu"][1],
            "failed_lanes": runs["cuda"][2],
            "max_abs_vs_cpu": float((runs["cuda"][0]
@@ -3940,7 +3964,7 @@ def phase_adaptive():
 
 def phase_checkpoint(trap):
     """Phase 36: ChunkedTransient's checkpoint/resume on the card.  Phase
-    33's dbmixer run (B = 8192, f32 damped TRAP, chunks of 500 of 2,000
+    33's dbmixer run (B = 8192, f32 damped TRAP, chunks of 500 of 1,000
     steps) is the uninterrupted run; the same lanes run again stopped
     after the first chunk (the .npz written) and resumed from the file by
     a new object: torch.equal on x, failed and every state entry.  Then the
@@ -3960,7 +3984,7 @@ def phase_checkpoint(trap):
         opts = damped_f32_options().replace(tran_method="trap")
         nsim, nbp = _mc_lanes(opts, 8192, seed=61, deck=_noisy_dbmixer())
         key = mc.lane_keys(nsim.engine, nbp, prng.key(3, "cuda"))
-        nm, ncarry = _chunked_run(nsim, nbp, 2000, 500, noise_key=key)
+        nm, ncarry = _chunked_run(nsim, nbp, 1000, 500, noise_key=key)
         check(nm["failed_lanes"] == 0, "noisy TRAP dbmixer: no failed lanes")
         emit("checkpoint_noisy_dbmixer_uninterrupted_f32", **nm)
         cases.append(("noisy_dbmixer", nsim, nbp, key, ncarry))
@@ -3977,10 +4001,10 @@ def phase_checkpoint(trap):
             first_s = time.perf_counter() - t0
             t0 = time.perf_counter()
             resumed, iters = ChunkedTransient(
-                eng, bp, dt, 2000 * dt, ckpt_path=path, chunk_steps=500,
+                eng, bp, dt, 1000 * dt, ckpt_path=path, chunk_steps=500,
                 noise_key=nkey).run()
             torch.cuda.synchronize()
-            m = {"B": _lanes_of(bp), "steps": 2000, "chunk": 500,
+            m = {"B": _lanes_of(bp), "steps": 1000, "chunk": 500,
                  "first_chunk_s": first_s,
                  "resume_s": time.perf_counter() - t0,
                  "k2_launches": cuda_lu.LAUNCHES,
@@ -3998,13 +4022,13 @@ def phase_checkpoint(trap):
             m["bitwise_equal"] = same
             # save and load of the final carry, each timed alone
             t0 = time.perf_counter()
-            save_carry(path, resumed, 2000)
+            save_carry(path, resumed, 1000)
             m["save_s"] = time.perf_counter() - t0
             t0 = time.perf_counter()
             back, step = load_carry(path, eng)
             torch.cuda.synchronize()
             m["load_s"] = time.perf_counter() - t0
-            check(step == 2000 and torch.equal(back[0], resumed[0]),
+            check(step == 1000 and torch.equal(back[0], resumed[0]),
                   f"{name}: load_carry round trip")
             rows[name] = m
             emit(f"checkpoint_{name}_f32", **m)
@@ -4345,6 +4369,418 @@ def phase_small_signal():
     return out
 
 
+# --------------------------------------------------------------- phase 38
+# examples/high_sigma.py's inverter: V(out) at 3.5 ns must stay below 1.27
+# V; 30 mV of VT mismatch (4.3% lognormal)
+HIGH_SIGMA_DECK = """* inverter settle-time yield
+.MODEL mn VT 0.7 MU 5e-2 COX 2e-3
+VDD vdd 0 3
+VIN in 0 PULSE(0 3 1n 0.8n 0.8n 20n 40n)
+RD vdd out 20k
+M1 out in 0 0 mn W=0.8u L=1u
+CL out 0 150f
+.TRAN 5e-11 8e-9
+.MEASURE TRAN vset FIND V(out) AT=3.5e-9
+.end
+"""
+HIGH_SIGMA = {"mos_vth": 0.043}
+HIGH_SIGMA_SPECS = {"vset": (None, 1.27)}
+# mc_filter.sp's settle time and final level: about 70% of the lanes pass
+MC_FILTER_SIGMA = {"res_r": 0.05, "cap_c": 0.10}
+MC_FILTER_SPECS = {"settle": (None, 1.18e-3), "vfinal": (0.9948, None)}
+# bjt_amp.sp's -3 dB frequency: 153.8 MHz nominal, 6.45 MHz of sigma
+BJT_AC_SIGMA = {"res_r": 0.05, "bjt_bf": 0.10, "bjt_is": 0.10}
+BJT_F3DB_LOW = 1.345e8
+# inamp.sp's output (node 54, 1.5 V) within 1.0-1.9 V under 2% of VT
+INAMP_SIGMA = {"mos_vth": 0.02}
+INAMP_WINDOW = (1.0, 1.9)
+# fit_measures' targets on mc_filter: a settle time 15% over the nominal
+# 1.065 ms, the nominal final level
+FIT_TARGETS = {"settle": 1.225e-3, "vfinal": 0.9951}
+
+
+def _statistics_cpu(task, lanes=None, f32_config=False):
+    """One CPU reference of phase 38, run in a worker process beside the
+    card's work (the same deck, options and inputs as the card's run);
+    "yield_lanes": mc_filter's measures and failed mask of the given
+    lanes, f64, in the f32 runs' configuration if ``f32_config``."""
+    import torch
+    sys.path.insert(0, REPO)
+    torch.set_num_threads(2)
+    from circuitsimulator_tpu_torch import DEFAULT_OPTIONS, Simulator
+    from circuitsimulator_tpu_torch.parallel import montecarlo as tmc
+    mcf = os.path.join(EXAMPLES, "mc_filter.sp")
+    if task == "yield_lanes":
+        opts = (damped_f32_options().replace(dtype=torch.float64)
+                if f32_config else DEFAULT_OPTIONS)
+        sim = Simulator.from_file(mcf, opts=opts, device="cpu")
+        tran = sim.config.tran
+        vals, failed = tmc._lane_measures(
+            sim.engine, sim.topo, lanes, sim.config.measures, tran.tstep,
+            tran.tstop, "tran", None, None)
+        return {"measures": vals, "failed": failed}
+    if task == "high_sigma_form":
+        r = Simulator.from_text(HIGH_SIGMA_DECK, device="cpu").worst_case(
+            HIGH_SIGMA, measure="vset", high=1.27)
+        return {"beta": r["beta"]}
+    if task == "inamp_dc":
+        sim = Simulator.from_file(os.path.join(REPO, "tests", "netlists",
+                                               "inamp.sp"), device="cpu")
+        r = sim.worst_case(INAMP_SIGMA, analysis="dc", probe="54",
+                           low=INAMP_WINDOW[0], high=INAMP_WINDOW[1])
+        b = sim.mismatch_budget(INAMP_SIGMA, analysis="dc", probe="54")
+        return {"beta": r["beta"], "contributions": b["contributions"],
+                "sigma_m": b["sigma_m"]}
+    if task == "bjt_ac":
+        sim = Simulator.from_file(os.path.join(EXAMPLES, "bjt_amp.sp"),
+                                  device="cpu")
+        r = sim.worst_case(BJT_AC_SIGMA, analysis="ac", measure="f3db",
+                           low=BJT_F3DB_LOW)
+        b = sim.mismatch_budget(BJT_AC_SIGMA, analysis="ac", measure="f3db")
+        return {"beta": r["beta"], "contributions": b["contributions"],
+                "sigma_m": b["sigma_m"]}
+    sim = Simulator.from_file(mcf, device="cpu")
+    if task == "calibrate":
+        target, p0 = _calibrate_inputs(sim)
+        _, hist = sim.calibrate(target, "out", ["res_r", "cap_c"], steps=5,
+                                lr=0.05, params=p0)
+        return {"history": hist, "target": target}
+    if task == "fit_measures":
+        _, hist = sim.fit_measures(FIT_TARGETS, ["res_r", "cap_c"],
+                                   steps=5, lr=0.05)
+        return {"history": hist}
+    raise ValueError(task)
+
+
+def _calibrate_inputs(sim):
+    """calibrate's target (V(out) of mc_filter's nominal run on the CPU)
+    and its start from sim's parameters (R 20% high, C 15% low)."""
+    from circuitsimulator_tpu_torch import Simulator
+    cpu = Simulator.from_file(os.path.join(EXAMPLES, "mc_filter.sp"),
+                              device="cpu")
+    target = cpu.transient().xs[:, cpu._node_eq("out")].numpy()
+    p0 = dict(sim.params)
+    p0["res_r"] = sim.params["res_r"] * 1.2
+    p0["cap_c"] = sim.params["cap_c"] * 0.85
+    return target, p0
+
+
+def _counted(fn):
+    """fn() on the card with the kernel counts set to 0 just before and
+    read just after: (result, {wall_s, k1/k2/k3_launches})."""
+    import torch
+    from circuitsimulator_tpu_torch.ops import cuda_ac, cuda_lu, cuda_step
+    torch.cuda.synchronize()
+    cuda_step.LAUNCHES = cuda_lu.LAUNCHES = cuda_ac.LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {"wall_s": time.perf_counter() - t0,
+                 "k1_launches": cuda_step.LAUNCHES,
+                 "k2_launches": cuda_lu.LAUNCHES,
+                 "k3_launches": cuda_ac.LAUNCHES}
+
+
+def _lanes_cpu(bp, n):
+    """The first n lanes of a lane dict, float64 on the CPU."""
+    import torch
+    return {k: (v[:n].cpu().double() if v.is_floating_point()
+                else v[:n].cpu()) for k, v in bp.items()}
+
+
+def _yield_vs_cpu(ref, out, n, rtol, atol):
+    """The worst ratio |card - cpu| / (atol + rtol |cpu|) over the measures
+    of the first n lanes of a card yield run against the CPU's run of
+    them (``ref``), and whether the pass masks agree."""
+    import numpy as np
+    vals = ref["measures"]
+    ratio = max(float(np.max(np.abs(out["measures"][k][:n] - v)
+                             / (atol + rtol * np.abs(v))))
+                for k, v in vals.items())
+    ok = np.ones(n, dtype=bool)
+    for name, (low, high) in MC_FILTER_SPECS.items():
+        v = vals[name]
+        m = np.isfinite(v)
+        if low is not None:
+            m &= v >= low
+        if high is not None:
+            m &= v <= high
+        ok &= m
+    ok &= ~ref["failed"]
+    return ratio, bool(np.array_equal(ok, out["pass"][:n]))
+
+
+def _k2_slice_timings():
+    """K2 at the slice's shapes, f64 (the adjoint's dtype): the inamp DC
+    adjoint's transposed solve (1, 28, 1) and bjt_amp's differentiable 2N
+    AC solve (71, 14, 1), forward and backward (lu_solve_diff): the kernel
+    against its plain version (max abs error), per call, plain, solve_ex
+    and bound."""
+    import torch
+    from circuitsimulator_tpu_torch.ops import lu
+    rows = []
+    for B, N, what in ((1, 28, "inamp DC adjoint, transposed"),
+                       (71, 14, "bjt_amp 2N AC solve, forward"),
+                       (71, 14, "bjt_amp 2N AC solve, backward")):
+        A, b = _systems(B, N, 1, torch.float64, seed=B + N)
+        A[1:4], b[1:4] = A[0], b[0]       # no planted lanes: all regular
+        b = b[..., 0].contiguous()
+        nbytes = B * (N * N + 2 * N) * 8
+        flops = B * sum(m + 2 * m * m + 2 * m + (2 * m + 1)
+                        for m in range(N))
+        if what.endswith("backward"):
+            At = A.clone().requires_grad_()
+            x = lu.lu_solve_diff(At, b)
+            xbar = torch.ones_like(x)
+
+            def kern():
+                return torch.autograd.grad(x, At, xbar,
+                                           retain_graph=True)[0]
+
+            def plain():
+                lam = lu.lu_solve_plain(A.mT, xbar, FLOOR)
+                return -(lam[..., None] @ x.detach()[..., None, :])
+
+            def lib():
+                return torch.linalg.solve_ex(A.mT, xbar)
+            nbytes += B * N * (N + 2) * 8    # x read, Abar and bbar written
+            flops += B * N * N               # the outer product
+        else:
+            M = A.mT if what.endswith("transposed") else A
+
+            def kern():
+                return lu.lu_solve(M, b, FLOOR)
+
+            def plain():
+                return lu.lu_solve_plain(M, b, FLOOR)
+
+            def lib():
+                return torch.linalg.solve_ex(M, b)
+        err = float((kern() - plain()).abs().max())
+        check(err <= 1e-12, f"K2 at {what} vs plain: {err}")
+        bms, by = bound_ms(nbytes, flops, torch.float64)
+        rows.append({"shape": what, "B": B, "N": N, "R": 1,
+                     "dtype": "float64", "max_abs_err": err,
+                     "kernel_ms": cuda_ms(kern),
+                     "plain_ms": cuda_ms(plain, reps=5),
+                     "library_ms": cuda_ms(lib), "bound_ms": bms,
+                     "bound_by": by})
+    return rows
+
+
+def phase_statistics():
+    """Phase 38: the statistical and differentiation stacks on the card,
+    through Simulator's entry points: mc_filter's yield under the four
+    sampling plans (f32, K1 with its probe stream) and in f64 (the
+    non-fused loop), each against the port's f64 CPU run of its first 256
+    lanes; the four stages of examples/high_sigma.py (LHS yield, scaled-
+    sigma IS, FORM on the f64 adjoint, IS centred on z*), beta against the
+    CPU's; Sobol indices of mc_filter (6,144 lanes on K1) and of bjt_amp's
+    f3db (K3); inamp.sp's DC worst case and budget over its 22 MOSFETs
+    and bjt_amp's AC ones (the 2N solve on K2), against the CPU; five Adam
+    steps of calibrate and fit_measures (the loss history against the
+    CPU's, 1e-8); K2 at the slice's shapes.  The CPU references run in
+    worker processes beside the card's work."""
+    import multiprocessing
+    import numpy as np
+    import torch
+    from circuitsimulator_tpu_torch import Simulator
+    from circuitsimulator_tpu_torch.analysis.adjoint import diff_transient
+    from circuitsimulator_tpu_torch.analysis.ac import ac_analysis_batched
+    from circuitsimulator_tpu_torch.analysis.measure import run_measures
+    from circuitsimulator_tpu_torch.parallel import montecarlo as tmc
+    t_phase = time.perf_counter()
+    mcf = os.path.join(EXAMPLES, "mc_filter.sp")
+    bjt = os.path.join(EXAMPLES, "bjt_amp.sp")
+    out = {"runs": {}}
+    runs = out["runs"]
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(4, mp_context=ctx) as pool:
+        refs = {t: pool.submit(_statistics_cpu, t)
+                for t in ("high_sigma_form", "inamp_dc", "bjt_ac",
+                          "calibrate", "fit_measures")}
+        # 1. mc_filter's yield: four plans in f32 on K1, mc in f64; each
+        # against the CPU's f64 run of its first 256 lanes in the same
+        # configuration (the f32 lanes' tran_tol is 1e-5), run by the pool
+        sim32 = _sim(damped_f32_options(), mcf)
+        sim64 = Simulator.from_file(mcf, device="cuda")
+        yields = {}
+        for sampler in ("mc", "lhs", "sobol", "antithetic"):
+            r, m = _counted(lambda: sim32.yield_analysis(
+                38, 8192, MC_FILTER_SIGMA, MC_FILTER_SPECS, sampler=sampler))
+            check(m["k1_launches"] > 0, f"yield {sampler}: K1 launched")
+            m["yield"], m["ci95"] = r["yield"], r["ci95"]
+            m["failing_lanes"] = int((~r["pass"]).sum())
+            check(0.5 <= r["yield"] <= 0.99, f"yield {sampler} {r['yield']}")
+            yields[f"{sampler}_f32"] = (r, m, pool.submit(
+                _statistics_cpu, "yield_lanes", _lanes_cpu(r["params"], 256),
+                True))
+        r, m = _counted(lambda: sim64.yield_analysis(
+            38, 8192, MC_FILTER_SIGMA, MC_FILTER_SPECS))
+        check(m["k1_launches"] == 0 and m["k2_launches"] > 0,
+              "yield f64: the non-fused loop")
+        m["yield"] = r["yield"]
+        yields["mc_f64"] = (r, m, pool.submit(
+            _statistics_cpu, "yield_lanes", _lanes_cpu(r["params"], 256)))
+        # 2. the high-sigma flow on the inverter
+        inv32 = _sim(damped_f32_options(), HIGH_SIGMA_DECK)
+        inv64 = Simulator.from_text(HIGH_SIGMA_DECK, device="cuda")
+        hs = {}
+        r, m = _counted(lambda: inv32.yield_analysis(
+            0, 8192, HIGH_SIGMA, HIGH_SIGMA_SPECS, sampler="lhs"))
+        m["yield"], m["ci95"] = r["yield"], r["ci95"]
+        hs["lhs"] = m
+        r, m = _counted(lambda: inv32.yield_analysis(
+            1, 8192, HIGH_SIGMA, HIGH_SIGMA_SPECS, sigma_scale=2.5))
+        m.update({k: r[k] for k in ("p_fail", "p_fail_se", "n_eff")})
+        hs["scaled_is"] = m
+        form, m = _counted(lambda: inv64.worst_case(HIGH_SIGMA,
+                                                     measure="vset",
+                                                     high=1.27))
+        m.update({"beta": form["beta"], "p_fail": form["p_fail"],
+                  "n_iter": form["n_iter"], "converged": form["converged"]})
+        hs["form"] = m
+        r, m = _counted(lambda: inv32.yield_analysis(
+            2, 8192, HIGH_SIGMA, HIGH_SIGMA_SPECS, shift=form["z_star"]))
+        m.update({k: r[k] for k in ("p_fail", "p_fail_se", "n_eff")})
+        hs["mpp_is"] = m
+        for k in ("lhs", "scaled_is", "mpp_is"):
+            check(hs[k]["k1_launches"] > 0, f"high sigma {k}: K1")
+        check(hs["form"]["k2_launches"] > 0 and form["converged"],
+              "high sigma FORM on K2, converged")
+        ref = refs["high_sigma_form"].result()
+        hs["form"]["beta_vs_cpu_rel"] = abs(form["beta"] / ref["beta"] - 1)
+        check(hs["form"]["beta_vs_cpu_rel"] <= 1e-8, "FORM beta vs CPU")
+        check(hs["mpp_is"]["n_eff"] > 0 and hs["mpp_is"]["p_fail"] > 0,
+              "MPP-centred IS saw failures")
+        out["high_sigma"] = hs
+        emit("statistics_high_sigma", card=card_line(), **hs)
+        # 3. Sobol: mc_filter on K1, bjt_amp's f3db on K3
+        so, m = _counted(lambda: sim32.sobol_indices(3, 1024,
+                                                     MC_FILTER_SIGMA))
+        m["lanes"] = (len(so["settle"]["S1"]) + 2) * 1024
+        check(m["k1_launches"] > 0 and m["lanes"] == 6144, "Sobol on K1")
+        m["indices"] = {k: {"S1": v["S1"].tolist(), "ST": v["ST"].tolist()}
+                        for k, v in so.items()}
+        runs["sobol_mc_filter_f32"] = m
+        emit("statistics_sobol_mc_filter_f32", **m)
+        # (Simulator.sobol_indices would score bjt_amp's .MEASURE TRAN
+        # card: the deck has a .TRAN card too)
+        bsim = Simulator.from_file(bjt, device="cuda")
+        so, m = _counted(lambda: tmc.sobol_indices(
+            bsim.engine, bsim.topo, bsim.params,
+            torch.Generator(device="cuda").manual_seed(4), 512, BJT_AC_SIGMA,
+            [x for x in bsim.config.measures if x.analysis == "ac"], 0.0,
+            0.0, analysis="ac", freqs=bsim._ac_freqs(),
+            bindings=bsim.config.param_values))
+        check(m["k3_launches"] > 0, "AC Sobol on K3")
+        dims = len(so["f3db"]["S1"])
+        m["lanes"] = (dims + 2) * 512
+        m["indices"] = {"S1": so["f3db"]["S1"].tolist(),
+                        "ST": so["f3db"]["ST"].tolist()}
+        # the host's share: the lanes' sweep alone, then the measures
+        bp = tmc._params_from_Z(bsim.params, BJT_AC_SIGMA, torch.zeros(
+            (m["lanes"], dims), dtype=torch.float64, device="cuda"))
+        freqs = bsim._ac_freqs()
+        res, ma = _counted(lambda: ac_analysis_batched(bsim.engine, bp,
+                                                       freqs))
+        ms = [x for x in bsim.config.measures if x.analysis == "ac"]
+        t0 = time.perf_counter()
+        for lane_xs in res.xs:
+            run_measures(ms, bsim.topo, np.asarray(freqs), lane_xs, "ac")
+        m["sweep_wall_s"], m["host_measures_s"] = (
+            ma["wall_s"], time.perf_counter() - t0)
+        runs["sobol_bjt_amp_ac_f64"] = m
+        emit("statistics_sobol_bjt_amp_ac_f64", **m)
+        # 4. inamp's DC worst case and budget; 5. bjt_amp's AC ones
+        isim = Simulator.from_file(os.path.join(REPO, "tests", "netlists",
+                                                "inamp.sp"), device="cuda")
+        for name, sim, kw, bkw in (
+                ("inamp_dc", isim,
+                 dict(rel_sigma=INAMP_SIGMA, analysis="dc", probe="54",
+                      low=INAMP_WINDOW[0], high=INAMP_WINDOW[1]),
+                 dict(rel_sigma=INAMP_SIGMA, analysis="dc", probe="54")),
+                ("bjt_ac", bsim,
+                 dict(rel_sigma=BJT_AC_SIGMA, analysis="ac", measure="f3db",
+                      low=BJT_F3DB_LOW),
+                 dict(rel_sigma=BJT_AC_SIGMA, analysis="ac",
+                      measure="f3db"))):
+            wc, m = _counted(lambda: sim.worst_case(**kw))
+            b, mb = _counted(lambda: sim.mismatch_budget(**bkw))
+            ref = refs[name].result()
+            m.update({"beta": wc["beta"], "n_iter": wc["n_iter"],
+                      "beta_vs_cpu_rel": abs(wc["beta"] / ref["beta"] - 1),
+                      "budget": mb, "sigma_m": b["sigma_m"],
+                      "top5": [c[:2] for c in b["contributions"][:5]]})
+            check(m["k2_launches"] > 0 and mb["k2_launches"] > 0,
+                  f"{name}: K2 launched")
+            check(2.0 <= wc["beta"] <= 6.0 and wc["converged"],
+                  f"{name}: beta {wc['beta']} in [2, 6], converged")
+            check(m["beta_vs_cpu_rel"] <= 1e-8, f"{name}: beta vs CPU")
+            check(m["top5"] == [tuple(c[:2]) for c in
+                                ref["contributions"][:5]],
+                  f"{name}: the top 5 contributions equal the CPU's")
+            runs[f"worst_case_{name}_f64"] = m
+            emit(f"statistics_worst_case_{name}_f64", **m)
+        # the yields' lanes against the CPU: f64 1e-9 with equal pass
+        # masks, f32 the fused-measure bar (its masks reported)
+        for name, (r, m, ref) in yields.items():
+            f64 = name.endswith("f64")
+            ratio, same = _yield_vs_cpu(ref.result(), r, 256,
+                                        1e-9 if f64 else 2e-4,
+                                        0.0 if f64 else 2e-6)
+            m["vs_cpu_ratio"], m["pass_equal_256"] = ratio, same
+            check(ratio <= 1.0 and (same or not f64),
+                  f"yield {name} vs the CPU's f64 lanes: {ratio}, {same}")
+            runs[f"yield_mc_filter_{name}"] = m
+            emit(f"statistics_yield_mc_filter_{name}", **m)
+        # 6. the optimisers, and the adjoint's ms a step
+        target, p0 = _calibrate_inputs(sim64)
+        (_, hist), m = _counted(lambda: sim64.calibrate(
+            target, "out", ["res_r", "cap_c"], steps=5, lr=0.05,
+            params=p0))
+        ref = refs["calibrate"].result()
+        check(np.array_equal(ref["target"], target), "calibrate: target")
+        m["history"] = hist
+        m["vs_cpu_rel"] = float(np.max(np.abs(np.asarray(hist)
+                                              / ref["history"] - 1)))
+        check(m["vs_cpu_rel"] <= 1e-8 and m["k2_launches"] > 0,
+              "calibrate: loss history vs CPU, K2")
+        runs["calibrate_mc_filter_f64"] = m
+        emit("statistics_calibrate_mc_filter_f64", **m)
+        (_, hist), m = _counted(lambda: sim64.fit_measures(
+            FIT_TARGETS, ["res_r", "cap_c"], steps=5, lr=0.05))
+        ref = refs["fit_measures"].result()
+        m["history"] = hist
+        m["vs_cpu_rel"] = float(np.max(np.abs(np.asarray(hist)
+                                              / ref["history"] - 1)))
+        check(m["vs_cpu_rel"] <= 1e-8 and m["k2_launches"] > 0,
+              "fit_measures: loss history vs CPU, K2")
+        runs["fit_measures_mc_filter_f64"] = m
+        emit("statistics_fit_measures_mc_filter_f64", **m)
+    leaves = {k: sim64.params[k].clone().requires_grad_()
+              for k in ("res_r", "cap_c")}
+    tran = sim64.config.tran
+    (t, xs), mf = _counted(lambda: diff_transient(
+        sim64.engine, {**sim64.params, **leaves}, tran.tstep, tran.tstop))
+    _, mbk = _counted(lambda: torch.autograd.grad(
+        xs[:, sim64._node_eq("out")].sum(), list(leaves.values())))
+    n = xs.shape[0] - 1
+    out["adjoint"] = {"deck": "mc_filter", "steps": n,
+                      "forward_ms_per_step": 1e3 * mf["wall_s"] / n,
+                      "backward_ms_per_step": 1e3 * mbk["wall_s"] / n,
+                      "forward_k2_launches": mf["k2_launches"],
+                      "backward_k2_launches": mbk["k2_launches"]}
+    emit("statistics_adjoint_ms_per_step", card=card_line(),
+         **out["adjoint"])
+    out["k2_shapes"] = _k2_slice_timings()
+    emit("statistics_k2_shapes", rows=out["k2_shapes"], card=card_line())
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    emit("statistics", seconds=out["phase_seconds"],
+         walls={k: v["wall_s"] for k, v in runs.items()})
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4398,6 +4834,7 @@ def main():
     adap = timed(phase_adaptive)
     ckpt = timed(phase_checkpoint, trap)
     ss = timed(phase_small_signal)
+    stats = timed(phase_statistics)
     k3_rows = timed(phase_k3_timings)
     k2_device, k1_device_ms = timed(phase_k2_device, timings, k1_main_run)
     k3_device = timed(phase_k3_device, k3_rows)
@@ -4441,7 +4878,24 @@ def main():
                           for n in ("tf_bjt_amp", "tf_cs_amp",
                                     "sensitivity_cs_amp", "pole_zero_cs_amp",
                                     "noise_tline", "loop_gain_tline",
-                                    "group_delay_tline")}},
+                                    "group_delay_tline")},
+                       **{f"statistics_{n}": stats["runs"][n]["k2_launches"]
+                          for n in ("yield_mc_filter_mc_f64",
+                                    "sobol_bjt_amp_ac_f64",
+                                    "worst_case_inamp_dc_f64",
+                                    "worst_case_bjt_ac_f64",
+                                    "calibrate_mc_filter_f64",
+                                    "fit_measures_mc_filter_f64")},
+                       **{f"statistics_high_sigma_{n}":
+                          stats["high_sigma"][n]["k2_launches"]
+                          for n in ("lhs", "scaled_is", "form", "mpp_is")},
+                       **{f"statistics_budget_{n}":
+                          stats["runs"][f"worst_case_{n}_f64"]["budget"][
+                              "k2_launches"] for n in ("inamp_dc", "bjt_ac")},
+                       "statistics_adjoint_forward_mc_filter_f64":
+                           stats["adjoint"]["forward_k2_launches"],
+                       "statistics_adjoint_backward_mc_filter_f64":
+                           stats["adjoint"]["backward_k2_launches"]},
         "fused_step": {"monte_carlo_fused_f32_fast": k1_launches,
                        "monte_carlo_fused_bjt_f32": bjt["k1_launches"],
                        **{f"monte_carlo_fused_{n}_f32": m["k1_launches"]
@@ -4465,7 +4919,17 @@ def main():
                            tn["main"]["noisy"]["k1_launches"],
                        **{f"monte_carlo_fused_{n}_f32": d[0]["k1_launches"]
                           for n, d in mut["decks"].items()},
-                       "step_rc_step_f32": step["f32"]["k1_launches"]},
+                       "step_rc_step_f32": step["f32"]["k1_launches"],
+                       **{f"statistics_yield_mc_filter_{n}_f32":
+                          stats["runs"][f"yield_mc_filter_{n}_f32"][
+                              "k1_launches"]
+                          for n in ("mc", "lhs", "sobol", "antithetic")},
+                       **{f"statistics_high_sigma_{n}":
+                          stats["high_sigma"][n]["k1_launches"]
+                          for n in ("lhs", "scaled_is", "mpp_is")},
+                       "statistics_sobol_mc_filter_f32":
+                           stats["runs"]["sobol_mc_filter_f32"][
+                               "k1_launches"]},
         "ac_sweep": {"ac_monte_carlo_f32": ac_main["k3_launches"],
                      "ac_bjt_f32": ac_bjt["k3_launches"],
                      "ac_charge_f32": charge["ac_f32"]["k3_launches"],
@@ -4479,6 +4943,8 @@ def main():
                                   "sparams_cs_amp")},
                      **{f"small_signal_cli_{n}": ss["cli"][n]["k3_launches"]
                         for n in SMALL_SIGNAL_CLI},
+                     "statistics_sobol_bjt_amp_ac_f64":
+                         stats["runs"]["sobol_bjt_amp_ac_f64"]["k3_launches"],
                      **{c["path"]: c["launches"] for c in K3_SHAPES.values()
                         if c["path"]}}}
     for kernel, by_path in paths.items():
@@ -4489,12 +4955,15 @@ def main():
         "source": "circuitsimulator_tpu_torch/csrc/lu_batched.cu",
         "replaces": "circuitsimulator_tpu/ops/pallas_lu.py:35",
         "launches": sum(paths["lu_batched"].values()),
-        "launches_by_path": paths["lu_batched"], "max_abs_err": max_abs,
+        "launches_by_path": paths["lu_batched"],
+        "max_abs_err": max(max_abs, *(r["max_abs_err"]
+                                      for r in stats["k2_shapes"])),
         "ms": k2_main["kernel_ms"], "plain_ms": k2_main["plain_ms"],
         "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],
         "library_ms": k2_main["library_ms"],
         "shape": "B=8192 N=31 R=1 f32 (one batched-DC Newton solve)",
-        "shapes": [{**t, **d} for t, d in zip(timings, k2_device)]}, {
+        "shapes": [{**t, **d} for t, d in zip(timings, k2_device)],
+        "slice_shapes": stats["k2_shapes"]}, {
         "name": "fused_step", "route": "cuda",
         "scope": "K1a + K1b + K1c-i + K1c-ii + K1c-iii + K1d-i + K1d-ii"
                  " + K1e",

@@ -40,9 +40,12 @@ def dc_linear(engine: Engine, params):
 
 @torch.inference_mode()
 def dc_newton(engine: Engine, params, batch: int = 0, x_init=None,
-              final_only: bool = False, nodeset=None):
+              final_only: bool = False, nodeset=None,
+              return_gmin: bool = False):
     """dcSolveNewtonLU: source ramp + damped Newton.  x_init warm-starts
     Newton; final_only skips the ramp and runs only the scale = 1 step.
+    return_gmin: also return the gmin of each lane's last accepted solve
+    (the shunt of the fixed point that x approximates).
 
     nodeset = (eqs, vals) (``Simulator._nodeset``, the .NODESET card):
     Newton starts from x[eqs] = vals, and every ramp step but the last
@@ -81,6 +84,7 @@ def dc_newton(engine: Engine, params, batch: int = 0, x_init=None,
         prev_err = torch.full(lane_shape, math.inf, dtype=dtype, device=dev)
         alpha_c = torch.full(lane_shape, 0.5, dtype=dtype, device=dev)
         done = torch.zeros(lane_shape, dtype=torch.bool, device=dev)
+        gmin_used = gmin
         it = 0
         while it < opts.dc_max_newton_iters and bool((~done).any()):
             G, I = engine.assemble_dc_iter(G_s, I_s, params, x, gmin)
@@ -120,6 +124,7 @@ def dc_newton(engine: Engine, params, batch: int = 0, x_init=None,
             gmin_nf = torch.clamp_max(gmin * opts.gmin_nonfinite_factor,
                                       opts.gmin_nonfinite_max)
             upd = finite & ~done
+            gmin_used = torch.where(upd, gmin, gmin_used)
             x = torch.where(upd[..., None], x_new, x)
             prev_err = torch.where(upd, err, prev_err)
             gmin = torch.where(done, gmin,
@@ -127,7 +132,7 @@ def dc_newton(engine: Engine, params, batch: int = 0, x_init=None,
             alpha_c = torch.where(upd, alpha_next, alpha_c)
             done = done | (upd & converged)
             it += 1
-    return x
+    return (x, gmin_used) if return_gmin else x
 
 
 def dc_operating_point(engine: Engine, params, nodeset=None):

@@ -159,3 +159,151 @@ def sensitivity_report(circuit, grads: Dict[str, Any],
         rows.append(tuple(row))
     rows.sort(key=lambda r: -abs(r[1]))
     return rows
+
+
+def unit_tangent(params, key: str, idx=None):
+    """A params-shaped tangent: 1.0 at params[key][idx] (every entry of the
+    leaf when idx is None), zeros elsewhere (integer leaves too: they are
+    structural and take no tangent)."""
+    t = {k: torch.zeros_like(v) for k, v in params.items()}
+    t[key][... if idx is None else idx] = 1.0
+    return t
+
+
+def _jvp(fn, primals, tangents):
+    """(fn(*primals), its tangent along ``tangents``) for pytrees of
+    tensors in and out, by two reverse passes: u(v) = (dfn)^T v with the
+    graph kept, then d<u(v), tangent>/dv = dfn . tangent.  (Eager forward
+    mode of this PyTorch takes a Python path for every broadcasting
+    operator and costs twice as much on the assembly.)  An output that
+    does not depend on the primals gets a zero tangent."""
+    from torch.utils import _pytree as pytree
+    p_leaves, spec = pytree.tree_flatten(primals)
+    t_leaves = pytree.tree_leaves(tangents)
+    with torch.enable_grad():
+        live = [p.detach().requires_grad_() for p in p_leaves]
+        out = fn(*pytree.tree_unflatten(live, spec))
+        o_leaves, o_spec = pytree.tree_flatten(out)
+        idx = [i for i, o in enumerate(o_leaves) if o.requires_grad]
+        vs = [torch.zeros_like(o_leaves[i], requires_grad=True)
+              for i in idx]
+        tan = [torch.zeros_like(o) for o in o_leaves]
+        if idx:
+            us = torch.autograd.grad([o_leaves[i] for i in idx], live, vs,
+                                     create_graph=True, allow_unused=True)
+            tot = sum((u * t).sum() for u, t in zip(us, t_leaves)
+                      if u is not None)
+            if isinstance(tot, torch.Tensor) and tot.requires_grad:
+                got = torch.autograd.grad(tot, vs, allow_unused=True)
+                for i, g in zip(idx, got):
+                    if g is not None:
+                        tan[i] = g
+    prim = [o.detach() for o in o_leaves]
+    return (pytree.tree_unflatten(prim, o_spec),
+            pytree.tree_unflatten(tan, o_spec))
+
+
+def transient_sensitivity(engine: Engine, params, tangent, tstep, tstop,
+                          **tran_kw):
+    """Waveform sensitivity d x(t) / d p in the direction ``tangent`` (a
+    params-shaped dict, e.g. from ``unit_tangent``): returns (xs, dxs),
+    the transient and its tangent, each (n_steps + 1, N).
+
+    The JAX package pushes ``jax.jvp`` through the DC and every Newton
+    iteration of ``run_transient``; so does this, iteration by iteration:
+    each iteration's tangent is dx_raw = A^-1 (dI - dA x_raw) (a second
+    ``lu_solve``: K2 on CUDA) with (dA, dI) the assembly's own tangent
+    (``torch.func.jvp``), carried through the damping, the clamp, the
+    predictor and the stopping rule of ``analysis/transient.py``.  The
+    iterate solves the whole dense system (the fixed point of every
+    transient solver).  The DC point's tangent is the implicit one at the
+    gmin of its last Newton solve (the reference's shunt, which the JAX
+    tangent carries), J dx0 = -(dr_dc/dp) p'.  ``tran_kw`` is accepted and
+    ignored, as in the JAX package."""
+    from .dc import dc_linear, dc_newton
+    from .transient import n_steps_for
+    opts, N = engine.opts, engine.N
+    floor, method = opts.lu_pivot_floor, opts.tran_method
+    jvp = _jvp
+    # the leaves that the tangent moves carry it; the others are constants
+    fkeys = [k for k, v in params.items() if v.is_floating_point()
+             and bool((tangent[k] != 0).any())]
+    rest = {k: v for k, v in params.items() if k not in fkeys}
+    pf = {k: params[k].detach() for k in fkeys}
+    tp = {k: tangent[k].to(params[k].dtype) for k in fkeys}
+
+    def solve(A, b):
+        return lu_solve(A, b, floor).clone()
+
+    if engine.topo.has_nonlinear:
+        x, g0 = dc_newton(engine, params, return_gmin=True)
+        x, g0 = x.clone(), g0.clone()
+    else:
+        x, g0 = dc_linear(engine, params).clone(), 0.0
+
+    def dc_system(p):
+        G_s, I_s = engine.dc_static({**rest, **p}, engine._scalar(1.0))
+        G, I = engine.assemble_dc_iter(G_s, I_s, {**rest, **p}, x, g0)
+        J = G[..., :N, :N]
+        return (J @ x[..., None])[..., 0] - I[..., :N], J
+    (_, J), (dr, _) = jvp(dc_system, (pf,), (tp,))
+    xd = -solve(J, dr)
+    xs, dxs = [x], [xd]
+
+    dt = float(tstep)
+    dt_t = torch.tensor(dt, dtype=engine.dtype, device=engine.device)
+    static_I = engine.make_tran_static_I(dt, method)
+    update = engine.make_update_state(dt_t, method)
+    inv_dt = 1.0 / dt_t if engine.mos_charge else None
+
+    G_s, G_sd = jvp(lambda p: engine.tran_static_G(
+        {**rest, **p}, dt_t, opts.tran_gmin, method), (pf,), (tp,))
+
+    def system(p, s, x_, G_s, I_s, t):
+        qex = None
+        if engine.mos_charge:
+            qex = ((s["qm"], inv_dt, s["qi"]) if method == "trap"
+                   else (s["qm"], inv_dt))
+        G, I = engine.assemble_tran_iter(G_s, I_s, {**rest, **p}, x_, t, qex)
+        return G[..., :N, :N], I[..., :N]
+
+    state, sd = jvp(lambda p, x_: engine.init_state(x_, {**rest, **p}, dt),
+                    (pf, x), (tp, xd))
+    x_prev, xd_prev = x, xd
+    n_steps = n_steps_for(dt, float(tstop))
+    ts = torch.arange(1, n_steps + 1, dtype=engine.dtype,
+                      device=engine.device) * dt_t
+    alpha, tol, clamp = opts.tran_alpha, opts.tran_tol, opts.tran_newton_clamp
+    unrolled = int(opts.tran_unrolled_iters)
+    for k in range(n_steps):
+        t = ts[k]
+        I_s, I_sd = jvp(lambda p, s: static_I({**rest, **p}, s, t),
+                        (pf, state), (tp, sd))
+        if opts.tran_predictor:
+            x_new, xd_new = 2.0 * x - x_prev, 2.0 * xd - xd_prev
+            x_prev, xd_prev = x, xd
+            x, xd = x_new, xd_new
+        done = torch.zeros(x.shape[:-1], dtype=torch.bool, device=x.device)
+        for _ in range(unrolled or opts.tran_max_newton_iters):
+            if not unrolled and bool(done.all()):
+                break
+            (G, I), (Gd, Id) = jvp(
+                lambda p, s, x_, a, b: system(p, s, x_, a, b, t),
+                (pf, state, x, G_s, I_s), (tp, sd, xd, G_sd, I_sd))
+            x_raw = solve(G, I)
+            xd_raw = solve(G, Id - (Gd @ x_raw[..., None])[..., 0])
+            finite = torch.isfinite(x_raw).all(-1)
+            u, ud = x_raw - x, xd_raw - xd
+            if clamp > 0.0:
+                ud = torch.where(u.abs() < clamp, ud, 0.0)
+                u = torch.clamp(u, -clamp, clamp)
+            x_new, xd_new = x + alpha * u, xd + alpha * ud
+            err = torch.linalg.vector_norm(x_new - x, dim=-1)
+            upd = (finite & ~done)[..., None]
+            x, xd = torch.where(upd, x_new, x), torch.where(upd, xd_new, xd)
+            done = done | (upd[..., 0] & (err < tol)) | ~finite
+        xs.append(x)
+        dxs.append(xd)
+        state, sd = jvp(lambda p, x_, s: update({**rest, **p}, x_, s),
+                        (pf, x, state), (tp, xd, sd))
+    return torch.stack(xs), torch.stack(dxs)

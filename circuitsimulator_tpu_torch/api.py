@@ -17,6 +17,11 @@
     sim.loop_gain("E1"); sim.group_delay("out")    # K3, one / two launches
     sim.sparams([("p1", None, 50.0)]); sim.stability(ports)   # K3 lanes
     sim.write_raw("out.raw", res)      # ngspice ASCII rawfile
+    sim.yield_analysis(0, 8192, {"mos_vth": 0.04}, {"vset": (None, 1.27)})
+    sim.sobol_indices(0, 1024, {"res_r": 0.05})    # Saltelli, one batch
+    form = sim.worst_case(sig, measure="vset", high=1.27)   # FORM, adjoint
+    sim.mismatch_budget(sig, measure="vset"); sim.center_design(...)
+    sim.calibrate(target, "out", ["res_r"]); sim.fit_measures(...)   # Adam
 """
 
 from __future__ import annotations
@@ -316,9 +321,8 @@ class Simulator:
         if not self.lowered.mc_tols:
             raise ValueError("no DEV=/LOT= tolerances in the netlist")
         p = params if params is not None else self.params
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        bp = perturb_params_netlist(p, gen, n, self.lowered.mc_tols,
-                                    sampler=sampler)
+        bp = perturb_params_netlist(p, self._generator(seed), n,
+                                    self.lowered.mc_tols, sampler=sampler)
         warm = warm_start and self.topo.has_nonlinear
 
         def dc_init():
@@ -346,6 +350,308 @@ class Simulator:
                 [m for m in ms if m.analysis == "ac"],
                 bindings=self.config.param_values, x_ops=dc_init())
         return bp, dc_init()
+
+    # ---- statistics, worst case and fitting ----
+    def _generator(self, seed: int) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(seed)
+
+    def _measures_of(self, analysis: str):
+        return [m for m in self.config.measures if m.analysis == analysis]
+
+    def _stat_analysis(self, what: str):
+        """("tran", measures, tstep, tstop, {}) for a deck with .TRAN and
+        .MEASURE TRAN cards, else ("ac", measures, 0, 0, {freqs,
+        bindings}) for .AC and .MEASURE AC cards."""
+        tran = self.config.tran
+        if tran.enabled and self._measures_of("tran"):
+            return ("tran", self._measures_of("tran"), tran.tstep,
+                    tran.tstop, {})
+        if self.config.ac.enabled and self._measures_of("ac"):
+            return ("ac", self._measures_of("ac"), 0.0, 0.0,
+                    {"freqs": self._ac_freqs(),
+                     "bindings": self.config.param_values})
+        raise ValueError(f"{what}: the deck needs .TRAN + .MEASURE TRAN "
+                         "cards or .AC + .MEASURE AC cards")
+
+    def yield_analysis(self, seed: int, batch: int, rel_sigma, specs,
+                       params: Optional[Any] = None, sampler: str = "mc",
+                       sigma_scale: float = 1.0, shift=None):
+        """Monte-Carlo yield (parallel/montecarlo.yield_analysis): ``batch``
+        lognormal lanes of ``rel_sigma`` (relative sigmas by leaf name),
+        drawn from a ``torch.Generator`` seeded with ``seed`` under
+        ``sampler`` ("mc" | "lhs" | "sobol" | "antithetic"), scored
+        against ``specs`` {measure: (low, high)}.  sigma_scale > 1:
+        scaled-sigma importance sampling with per-lane likelihood-ratio
+        weights; shift= (e.g. worst_case()'s z_star): MPP-centred IS.
+        Decks with .TRAN + .MEASURE TRAN cards score on the streaming
+        transient (K1 with its probe stream on a float32 CUDA run), else
+        .AC + .MEASURE AC cards on the batched sweep (K3)."""
+        from .parallel.montecarlo import yield_analysis
+        if not self.config.measures:
+            raise ValueError("yield analysis needs .MEASURE cards")
+        ana, ms, t0, t1, kw = self._stat_analysis("yield analysis")
+        p = params if params is not None else self.params
+        return yield_analysis(self.engine, self.topo, p,
+                              self._generator(seed), batch, rel_sigma, ms,
+                              specs, t0, t1, sampler=sampler,
+                              sigma_scale=sigma_scale, shift=shift,
+                              analysis=ana, **kw)
+
+    def sobol_indices(self, seed: int, n: int, rel_sigma,
+                      params: Optional[Any] = None, sampler: str = "lhs"):
+        """First-order (S1) and total-effect (ST) Sobol indices of every
+        .MEASURE value over the mismatch space
+        (parallel/montecarlo.sobol_indices): all (dims + 2) n Saltelli
+        lanes as ONE batched solve, on the transient or the AC sweep as
+        ``yield_analysis`` chooses."""
+        from .parallel.montecarlo import sobol_indices
+        ana, ms, t0, t1, kw = self._stat_analysis("Sobol indices")
+        p = params if params is not None else self.params
+        return sobol_indices(self.engine, self.topo, p,
+                             self._generator(seed), n, rel_sigma, ms, t0, t1,
+                             sampler=sampler, analysis=ana, **kw)
+
+    def _measure_card(self, name: str, analysis: str):
+        ms = [m for m in self._measures_of(analysis) if m.name == name]
+        if not ms:
+            raise KeyError(f"no .MEASURE {analysis.upper()} card named "
+                           f"{name!r}")
+        return ms[0]
+
+    def _diff_measure_fn(self, name: str):
+        """Differentiable fn(times, xs) of the named .MEASURE TRAN card."""
+        from .analysis.measure_diff import diff_measure
+        return diff_measure(self._measure_card(name, "tran"), self.topo)
+
+    def _limit_state(self, analysis: str, g_fn=None, probe=None, at=None,
+                     low=None, high=None, measure=None):
+        """(g_fn, the mpp_search keywords it implies) of the worst_case and
+        center_design shorthands."""
+        from .analysis import form
+        if g_fn is not None:
+            return g_fn, {}
+        if measure is not None and analysis != "dc":
+            mk = (form.limit_state_measure_ac if analysis == "ac"
+                  else form.limit_state_measure)
+            g = mk(self._measure_card(measure, analysis), self.topo,
+                   low=low, high=high)
+            return g, ({"freqs": self._ac_freqs()} if analysis == "ac"
+                       else {})
+        if analysis == "dc":
+            if probe is None:
+                raise ValueError("pass g_fn or probe/low/high")
+            return form.limit_state_dc(self._node_eq(probe), low=low,
+                                       high=high), {}
+        if probe is None or at is None:
+            raise ValueError("pass g_fn, measure=, or probe/at/low/high")
+        if analysis == "ac":
+            return form.limit_state_ac_mag(self._node_eq(probe), low=low,
+                                           high=high), {"freqs": [at]}
+        return form.limit_state_find_at(self._node_eq(probe), at, low=low,
+                                        high=high), {}
+
+    def worst_case(self, rel_sigma, g_fn=None, probe: str = None,
+                   at: float = None, low=None, high=None,
+                   params: Optional[Any] = None, analysis: str = "tran",
+                   measure: str = None, **kw):
+        """FORM worst-case analysis (analysis/form.mpp_search): the most
+        probable failure point in the standard-normal mismatch space of
+        ``rel_sigma`` by adjoint-gradient HL-RF iterations.  Returns beta,
+        the FORM p_fail = Phi(-beta), the worst-case parameters and the
+        importance direction alpha.
+
+        analysis="tran" (needs a .TRAN card): ``g_fn(times, xs)`` (g < 0 =
+        failure), or ``measure=`` to bound one of the deck's .MEASURE TRAN
+        cards, or probe/at/low/high for a FIND V(probe) AT=at window.
+        analysis="dc": ``g_fn(x_op)`` or probe/low/high on the polished DC
+        point.  analysis="ac": ``g_fn(freqs, xr, xi)`` with ``freqs=`` in
+        kw, a .MEASURE AC card, or probe/at/low/high where ``at`` is the
+        frequency and the bounds hold |V(probe)|."""
+        from .analysis.form import mpp_search
+        p = params if params is not None else self.params
+        if analysis == "tran" and not self.config.tran.enabled:
+            raise ValueError("worst-case analysis needs a .TRAN card")
+        g_fn, implied = self._limit_state(analysis, g_fn, probe, at, low,
+                                          high, measure)
+        for k, v in implied.items():
+            kw.setdefault(k, v)
+        tran = self.config.tran
+        ts = (tran.tstep, tran.tstop) if analysis == "tran" else (0.0, 0.0)
+        return mpp_search(self.engine, p, rel_sigma, *ts, g_fn,
+                          analysis=analysis, **kw)
+
+    def mismatch_budget(self, rel_sigma, m_fn=None, probe: str = None,
+                        at: float = None, params: Optional[Any] = None,
+                        analysis: str = "tran", measure: str = None):
+        """Linearised mismatch variance budget (analysis/form.
+        mismatch_budget): one adjoint pass ranks every mismatch dimension's
+        share of the metric's variance.  ``m_fn(times, xs)``, ``measure=``
+        (a .MEASURE card of the analysis), or probe/at: V(probe) at time
+        ``at`` (.TRAN), |V(probe)| at the frequency ``at`` (analysis="ac";
+        an m_fn or a measure there runs over the .AC card's sweep), or
+        V(probe) at the DC point (analysis="dc")."""
+        from .analysis.form import mismatch_budget
+        from .analysis.measure_diff import diff_measure_ac, interp
+        p = params if params is not None else self.params
+        freqs = None
+        if measure is not None and m_fn is None:
+            m_fn = (diff_measure_ac(self._measure_card(measure, "ac"),
+                                    self.topo) if analysis == "ac"
+                    else self._diff_measure_fn(measure))
+        if analysis == "ac":
+            freqs = self._ac_freqs() if m_fn is not None else [at]
+            if m_fn is None:
+                if probe is None or at is None:
+                    raise ValueError("pass m_fn or probe/at")
+                eqi = self._node_eq(probe)
+
+                def m_fn(freqs, xr, xi):
+                    return torch.sqrt(xr[0, eqi] ** 2 + xi[0, eqi] ** 2)
+            return mismatch_budget(self.engine, p, rel_sigma, 0.0, 0.0,
+                                   m_fn, analysis="ac", freqs=freqs)
+        if analysis == "dc":
+            if m_fn is None:
+                if probe is None:
+                    raise ValueError("pass m_fn or probe")
+                eqi = self._node_eq(probe)
+                m_fn = lambda x_op: x_op[eqi]                # noqa: E731
+            return mismatch_budget(self.engine, p, rel_sigma, 0.0, 0.0,
+                                   m_fn, analysis="dc")
+        tran = self.config.tran
+        if not tran.enabled:
+            raise ValueError("mismatch budget needs a .TRAN card")
+        if m_fn is None:
+            if probe is None or at is None:
+                raise ValueError("pass m_fn or probe/at")
+            eqi = self._node_eq(probe)
+
+            def m_fn(times, xs):
+                return interp(at, times, xs[:, eqi])
+        return mismatch_budget(self.engine, p, rel_sigma, tran.tstep,
+                               tran.tstop, m_fn)
+
+    def center_design(self, rel_sigma, specs, design_names,
+                      target_beta: float = 4.0, steps: int = 15,
+                      lr: float = 0.1, params: Optional[Any] = None,
+                      verbose: bool = False):
+        """Yield-driven design centering: move the named design leaves until
+        every spec's FORM reliability index reaches target_beta.  specs:
+        dicts {probe, at, low?, high?} (the worst_case shorthand),
+        {measure: name} or {g_fn}, each with an optional analysis
+        ("tran" default, "dc", "ac"; an AC spec's ``at`` is the frequency,
+        or it gives ``freqs``).  Each iteration runs a FORM search per
+        spec with design_grads and steps the WORST spec's beta up in log
+        space along p dbeta/dp (a fixed relative step lr).  Returns
+        (centered params, history rows {betas, worst, step})."""
+        from .analysis.form import mpp_search
+        tran = self.config.tran
+        entries = []
+        for sp in specs:
+            ana = sp.get("analysis", "tran")
+            kwargs = {"analysis": ana}
+            if ana == "ac":
+                kwargs["freqs"] = sp.get(
+                    "freqs", [sp["at"]] if "at" in sp else self._ac_freqs())
+            g, _ = self._limit_state(ana, sp.get("g_fn"), sp.get("probe"),
+                                     sp.get("at"), sp.get("low"),
+                                     sp.get("high"), sp.get("measure"))
+            entries.append((g, kwargs))
+        if any(kw["analysis"] == "tran" for _, kw in entries) \
+                and not tran.enabled:
+            raise ValueError("transient specs need a .TRAN card")
+        ts = (tran.tstep, tran.tstop) if tran.enabled else (0.0, 0.0)
+        p = dict(params if params is not None else self.params)
+        history = []
+        for it in range(steps):
+            results = [mpp_search(self.engine, p, rel_sigma, *ts, g,
+                                  design_grads=design_names, **kw)
+                       for g, kw in entries]
+            betas = [r["beta"] for r in results]
+            worst = int(np.argmin(betas))
+            history.append({"betas": betas, "worst": worst, "step": it})
+            if verbose:
+                print(f"  center step {it}: betas "
+                      f"{['%.2f' % b for b in betas]}")
+            if betas[worst] >= target_beta:
+                break
+            db = results[worst]["dbeta"]
+            d = {k: p[k] * db[k] for k in design_names}
+            norm = float(torch.sqrt(sum((v ** 2).sum() for v in d.values())))
+            if norm == 0.0:
+                break
+            for k in design_names:
+                p[k] = p[k] * torch.exp(lr * d[k] / norm)
+        return p, history
+
+    def _fit(self, loss_of, param_names, steps, lr, params, verbose, what):
+        """Adam (torch.optim.Adam: optax.adam's defaults) on the logs of the
+        named leaves; loss_of(times, xs) of the differentiable transient.
+        Returns (fitted params, loss history)."""
+        from .analysis.adjoint import diff_transient
+        tran = self.config.tran
+        p0 = dict(params if params is not None else self.params)
+        for k in param_names:
+            if k not in p0:
+                raise KeyError(f"unknown parameter leaf {k!r}")
+        theta = {k: torch.log(p0[k]).detach().clone().requires_grad_()
+                 for k in param_names}
+        rest = {k: v for k, v in p0.items() if k not in param_names}
+        opt = torch.optim.Adam(list(theta.values()), lr=lr)
+        history = []
+        for i in range(steps):
+            opt.zero_grad()
+            p = {**rest, **{k: torch.exp(v) for k, v in theta.items()}}
+            loss = loss_of(*diff_transient(self.engine, p, tran.tstep,
+                                           tran.tstop))
+            loss.backward()
+            history.append(float(loss.detach()))
+            opt.step()
+            if verbose and i % 20 == 0:
+                print(f"  {what} step {i}: loss {history[-1]:.3e}")
+        return ({**rest, **{k: torch.exp(v).detach()
+                            for k, v in theta.items()}}, history)
+
+    def calibrate(self, target, probe: str, param_names,
+                  steps: int = 200, lr: float = 0.05,
+                  params: Optional[Any] = None, verbose: bool = False):
+        """Fit the named parameter leaves so V(probe)'s transient waveform
+        matches ``target`` ((n_steps + 1,) on the .TRAN grid): the mean
+        squared error through the reverse-mode adjoint, Adam in log space
+        (positivity kept).  Returns (fitted params, loss history); each
+        step is one forward transient and one adjoint sweep."""
+        if not self.config.tran.enabled:
+            raise ValueError("calibration needs a .TRAN card")
+        eqi = self._node_eq(probe)
+        tgt = torch.as_tensor(_host(target), dtype=self.opts.dtype,
+                              device=self.device)
+        return self._fit(lambda t, xs: ((xs[:, eqi] - tgt) ** 2).mean(),
+                         param_names, steps, lr, params, verbose,
+                         "calibrate")
+
+    def fit_measures(self, targets, param_names, steps: int = 150,
+                     lr: float = 0.05, params: Optional[Any] = None,
+                     verbose: bool = False):
+        """Fit the named leaves until each of the deck's .MEASURE TRAN
+        values hits its target (``targets`` {measure: value}): the sum of
+        squared relative errors through the adjoint and the differentiable
+        measure layer, Adam in log space.  Returns (fitted params, loss
+        history)."""
+        if not self.config.tran.enabled:
+            raise ValueError("fit_measures needs a .TRAN card")
+        fns = {k: self._diff_measure_fn(k) for k in targets}
+        tv = {k: torch.as_tensor(v, dtype=self.opts.dtype,
+                                 device=self.device)
+              for k, v in targets.items()}
+
+        def loss(t, xs):
+            err = 0.0
+            for k, f in fns.items():
+                scale = torch.clamp_min(tv[k].abs(), 1e-30)
+                err = err + ((f(t, xs) - tv[k]) / scale) ** 2
+            return err
+
+        return self._fit(loss, param_names, steps, lr, params, verbose,
+                         "fit")
 
     def dc_sweep(self, sweep_index: int = 0, params: Optional[Any] = None,
                  values=None, source: Optional[str] = None):

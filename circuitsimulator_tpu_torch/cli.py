@@ -6,7 +6,8 @@
         [--stats JSON] [--profile DIR] [--run-ac [CSV]]
         [--run-dc-sweep [CSV]] [--run-noise [CSV]]
         [--run-loop-gain E] [--run-noise-figure R] [--run-group-delay NODE]
-        [--run-mc N [--run-mc-out CSV] [--mc-sampler mc]] [--run-step [CSV]]
+        [--run-mc N [--run-mc-out CSV] [--mc-sampler mc|lhs|sobol|antithetic]]
+        [--run-step [CSV]]
         [--run-sparams PORTS [--sparams-out FILE]]
 
 prints the circuit summary and the DC node-voltage/branch-current tables,
@@ -121,10 +122,12 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--run-mc-out", metavar="CSV", default="mc_out.csv",
                    help="per-lane Monte-Carlo results CSV "
                         "(default mc_out.csv)")
-    p.add_argument("--mc-sampler", default="mc", choices=["mc"],
-                   help="Monte-Carlo sampling plan: mc, independent draws "
-                        "(the stratified lhs, sobol and antithetic plans "
-                        "are not yet ported)")
+    p.add_argument("--mc-sampler", default="mc",
+                   choices=["mc", "lhs", "sobol", "antithetic"],
+                   help="Monte-Carlo sampling plan: independent draws "
+                        "(mc, default), Latin hypercube, scrambled "
+                        "Sobol, or antithetic pairs; the stratified "
+                        "plans cut estimator variance at the same N")
     return p
 
 

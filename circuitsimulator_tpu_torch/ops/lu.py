@@ -118,3 +118,37 @@ def lu_inverse(A, pivot_floor: float = 1e-15):
     N = A.shape[-1]
     eye = torch.eye(N, dtype=A.dtype, device=A.device)
     return lu_solve(A, eye.expand(A.shape[:-2] + (N, N)), pivot_floor)
+
+
+class _LUSolveDiff(torch.autograd.Function):
+    """x = A^-1 b with the implicit reverse rule: lambda = A^-T xbar (a
+    second ``lu_solve``: K2 on CUDA tensors), bbar = lambda, Abar =
+    -lambda x^T.  A lane that the forward zeroed by the fail contract (a
+    zero x from a non-zero b) gets zero cotangents, as JAX's ``jnp.where``
+    gives them when it differentiates ``_lu_solve_unrolled``."""
+
+    @staticmethod
+    def forward(ctx, A, b, pivot_floor):
+        x = lu_solve(A, b, pivot_floor).clone()    # not an inference tensor
+        ctx.pivot_floor = pivot_floor
+        ctx.save_for_backward(A, b, x)
+        return x
+
+    @staticmethod
+    def backward(ctx, xbar):
+        A, b, x = ctx.saved_tensors
+        vec = b.dim() == A.dim() - 1
+        lam = lu_solve(A.mT, xbar, ctx.pivot_floor).clone()
+        xm, bm, lm = ((v.unsqueeze(-1) if vec else v) for v in (x, b, lam))
+        zeroed = (xm == 0).all(-1).all(-1) & (bm != 0).any(-1).any(-1)
+        lm = lm.masked_fill(zeroed[..., None, None], 0.0)
+        Abar = -(lm @ xm.mT)
+        bbar = lm[..., 0] if vec else lm
+        # summed over any axis that an input was broadcast along
+        return Abar.sum_to_size(A.shape), bbar.sum_to_size(b.shape), None
+
+
+def lu_solve_diff(A, b, pivot_floor: float = 1e-15):
+    """``lu_solve`` that autograd differentiates (the differentiable AC
+    solve's route): forward and backward each one ``lu_solve``."""
+    return _LUSolveDiff.apply(A, b, pivot_floor)

@@ -26,11 +26,15 @@ The measurement entries (``batched_transient_measures``,
 (B, T, N) waveform: on the fused path K1 streams the probe values of every
 step (K1c-i) into the accumulators of ``analysis/measure_stream.py``.
 ``perturb_params_netlist`` draws the lanes of the deck's DEV=/LOT=
-tolerances.
+tolerances.  ``normal_draws`` holds the sampling plans (mc, lhs, sobol,
+antithetic) and ``_z_layout`` the joint z-space of a ``rel_sigma`` map,
+which ``yield_analysis`` (plain and importance-sampled yield),
+``sobol_indices`` and ``analysis/form.py`` share.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
@@ -50,16 +54,115 @@ def broadcast_params(params: Dict[str, torch.Tensor],
     return {k: v.expand((batch,) + v.shape) for k, v in params.items()}
 
 
+def sobol_normals(seed: int, batch: int, dims: int) -> np.ndarray:
+    """(batch, dims) float32 normals of a scrambled Sobol sequence seeded
+    with the integer ``seed`` (scipy.stats.qmc on the host): the inverse
+    CDF in float64 of u clipped to [1e-12, 1 - 1e-12] (the Sobol grid is
+    2^-30-spaced, so u can sit within float32 rounding of 1.0), then the
+    cast."""
+    import warnings
+    from scipy.special import ndtri
+    from scipy.stats import qmc
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")             # non-2^k batch note
+        u = qmc.Sobol(d=dims, scramble=True, seed=seed).random(batch)
+    return ndtri(np.clip(u, 1e-12, 1.0 - 1e-12)).astype(np.float32)
+
+
+def normal_draws(generator: torch.Generator, batch: int, dims: int,
+                 sampler: str = "mc") -> torch.Tensor:
+    """(batch, dims) standard-normal draws under a sampling plan, on the
+    generator's device:
+
+      "mc"         independent draws (float64);
+      "antithetic" mirrored pairs: lane i and lane (batch + 1) // 2 + i
+                   carry z and -z (float64);
+      "lhs"        Latin hypercube (float32): each column's values fall in
+                   distinct equiprobable strata (a random permutation of
+                   the strata, from the argsort of uniforms, jittered
+                   uniformly inside each), mapped through the normal
+                   inverse CDF of p clipped to [1e-6, 1 - 1e-6] (float32
+                   rounding can land p on 0 or 1);
+      "sobol"      scrambled Sobol low-discrepancy points (float32,
+                   ``sobol_normals``), seeded with an integer drawn from
+                   the generator; best balanced at a power-of-two batch.
+
+    Every plan has N(0, 1) marginals; only the joint layout across the
+    batch differs."""
+    dev = generator.device
+    if sampler == "mc":
+        return torch.randn((batch, dims), generator=generator,
+                           dtype=torch.float64, device=dev)
+    if sampler == "antithetic":
+        half = (batch + 1) // 2
+        z = torch.randn((half, dims), generator=generator,
+                        dtype=torch.float64, device=dev)
+        return torch.cat([z, -z], 0)[:batch]
+    if sampler == "lhs":
+        perm = torch.argsort(torch.rand((dims, batch), generator=generator,
+                                        device=dev), dim=1)
+        u = torch.rand((dims, batch), generator=generator, device=dev)
+        p = (perm.to(torch.float32) + u) / batch
+        return torch.special.ndtri(p.clamp(1e-6, 1.0 - 1e-6)).T
+    if sampler == "sobol":
+        seed = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
+                                 device=dev))
+        return torch.as_tensor(sobol_normals(seed, batch, dims), device=dev)
+    raise ValueError(f"unknown sampler {sampler!r}; expected "
+                     "'mc' | 'lhs' | 'sobol' | 'antithetic'")
+
+
+def _z_layout(params, rel_sigma):
+    """Column layout of the joint z-space: the perturbable names in sorted
+    order, one column per scalar of each leaf.  Returns (names, sizes,
+    dims)."""
+    names = [n for n in sorted(rel_sigma)
+             if n in params and params[n].is_floating_point()
+             and params[n].numel()]
+    sizes = [int(params[n].numel()) for n in names]
+    return names, sizes, sum(sizes)
+
+
+def _z_columns(params, names, sizes, Z, off: int = 0):
+    """{name: its block of Z's columns from ``off`` on, shaped (batch,) +
+    the leaf's shape}, in the _z_layout order."""
+    cols = {}
+    for n, sz in zip(names, sizes):
+        cols[n] = Z[:, off:off + sz].reshape((Z.shape[0],) + params[n].shape)
+        off += sz
+    return cols
+
+
+def _params_from_Z(params, rel_sigma, Z):
+    """The lognormal mismatch map p * exp(sigma z) of a (batch, dims) z
+    matrix in the _z_layout column order; other leaves are broadcast."""
+    names, sizes, _ = _z_layout(params, rel_sigma)
+    cols = _z_columns(params, names, sizes, Z)
+    out = broadcast_params(params, Z.shape[0])
+    for name, col in cols.items():
+        arr = params[name]
+        out[name] = arr[None] * torch.exp(rel_sigma[name]
+                                          * col.to(arr.dtype))
+    return out
+
+
 def perturb_params(params: Dict[str, torch.Tensor], generator: torch.Generator,
-                   batch: int,
-                   rel_sigma: Mapping[str, float]) -> Dict[str, torch.Tensor]:
-    """Lognormal lanes p * exp(sigma * z), z ~ N(0, 1) drawn from
-    ``generator`` (on the parameters' device) in sorted-name order;
-    parameters not in ``rel_sigma`` are broadcast unperturbed."""
+                   batch: int, rel_sigma: Mapping[str, float],
+                   sampler: str = "mc") -> Dict[str, torch.Tensor]:
+    """Lognormal lanes p * exp(sigma * z); parameters not in ``rel_sigma``
+    are broadcast unperturbed.  "mc" draws z ~ N(0, 1) from ``generator``
+    (on the parameters' device) leaf by leaf in sorted-name order, in the
+    leaf's dtype; the other plans (``normal_draws``) make every scalar of
+    every named leaf one column of a joint (batch, dims) draw in the
+    _z_layout order."""
+    if sampler != "mc":
+        _, _, dims = _z_layout(params, rel_sigma)
+        Z = normal_draws(generator, batch, max(dims, 1), sampler)[:, :dims]
+        return _params_from_Z(params, rel_sigma, Z)
     out = broadcast_params(params, batch)
     for name in sorted(rel_sigma):
-        arr = params[name]
-        if not (arr.is_floating_point() and arr.numel()):
+        arr = params.get(name)
+        if arr is None or not (arr.is_floating_point() and arr.numel()):
             continue
         z = torch.randn((batch,) + arr.shape, generator=generator,
                         dtype=arr.dtype, device=arr.device)
@@ -74,28 +177,35 @@ def perturb_params_netlist(params: Dict[str, torch.Tensor],
     """Lanes from the netlist's DEV=/LOT= tolerances
     (``LoweredCircuit.mc_tols``): value * exp(dev * z_dev + lot * z_lot),
     z_dev drawn per device per lane and z_lot ONE draw per lane shared by
-    every element with a LOT tolerance (same production lot).  Draw order
-    from ``generator`` (on the parameters' device): z_lot (batch, 1) in
+    every element with a LOT tolerance (same production lot).  "mc" draws
+    from ``generator`` (on the parameters' device) z_lot (batch, 1) in
     float64, then z_dev per leaf in sorted-name order in the leaf's dtype.
-    Only the independent-draw plan "mc" is ported."""
-    if sampler != "mc":
-        raise NotImplementedError(
-            f"sampler {sampler!r}: the stratified plans (lhs, sobol, "
-            f"antithetic) are not yet ported (ROADMAP queue 1 item 11)")
+    The other plans stratify one joint draw (``normal_draws``): the shared
+    lot dimension is column 0, the per-device columns follow in the
+    _z_layout order."""
     out = broadcast_params(params, batch)
-    dev = next(iter(params.values())).device
-    lot_z = torch.randn((batch, 1), generator=generator, dtype=torch.float64,
-                        device=dev)
-    for name in sorted(mc_tols):
+    if sampler != "mc":
+        names, sizes, ndev = _z_layout(params, mc_tols)
+        Z = normal_draws(generator, batch, 1 + ndev, sampler)
+        lot_z = Z[:, :1]
+        cols = _z_columns(params, names, sizes, Z, off=1)
+    else:
+        dev = next(iter(params.values())).device
+        lot_z = torch.randn((batch, 1), generator=generator,
+                            dtype=torch.float64, device=dev)
+        cols = {}
+        for name in sorted(mc_tols):
+            arr = params[name]
+            if arr.is_floating_point() and arr.numel():
+                cols[name] = torch.randn((batch,) + arr.shape,
+                                         generator=generator,
+                                         dtype=arr.dtype, device=arr.device)
+    for name, z in cols.items():
         arr = params[name]
-        if not (arr.is_floating_point() and arr.numel()):
-            continue
         dtol, ltol = (torch.as_tensor(np.asarray(v), dtype=arr.dtype,
                                       device=arr.device)
                       for v in mc_tols[name])
-        z = torch.randn((batch,) + arr.shape, generator=generator,
-                        dtype=arr.dtype, device=arr.device)
-        out[name] = arr[None] * torch.exp(dtol * z
+        out[name] = arr[None] * torch.exp(dtol * z.to(arr.dtype)
                                           + ltol * lot_z.to(arr.dtype))
     return out
 
@@ -423,3 +533,154 @@ def batched_ac_measures(engine: Engine, topo, bparams, freqs, measures,
                               bindings=bindings)) for lane_xs in res.xs]
     return {m.name: np.asarray([r[m.name] for r in rows])
             for m in measures if m.analysis == "ac"}
+
+
+def _host(v) -> np.ndarray:
+    return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) \
+        else np.asarray(v)
+
+
+def _lane_measures(engine: Engine, topo, bparams, measures, tstep, tstop,
+                   analysis: str, freqs, bindings):
+    """Per-lane measures {name: (B,) numpy} and the failed mask (B,): the
+    streaming transient (K1 with its probe stream on a float32 CUDA run of
+    a deck in its scope), or for analysis="ac" one lanes x frequencies
+    sweep (K3) with the ``.MEASURE AC`` cards evaluated per lane on the
+    host (no lane fails there)."""
+    B = lane_count(bparams)
+    if analysis == "ac":
+        if freqs is None:
+            raise ValueError("analysis='ac' needs freqs")
+        vals = batched_ac_measures(engine, topo, bparams, freqs, measures,
+                                   bindings=bindings)
+        return vals, np.zeros(B, dtype=bool)
+    res, vals = batched_transient_measures(engine, bparams, tstep, tstop,
+                                           measures, topo)
+    return {k: _host(v) for k, v in vals.items()}, _host(res.failed)
+
+
+def yield_analysis(engine: Engine, topo, params, generator: torch.Generator,
+                   batch: int, rel_sigma: Mapping[str, float], measures,
+                   specs, tstep, tstop, sampler: str = "mc",
+                   sigma_scale: float = 1.0, shift=None,
+                   analysis: str = "tran", freqs=None, bindings=None):
+    """Monte-Carlo yield, waveform-free: ``batch`` lognormal lanes
+    (``rel_sigma``, drawn from ``generator`` under ``sampler``), the
+    streaming ``.MEASURE`` run, and each lane scored against ``specs``
+    {measure: (low, high)} (either bound None; a NaN measure fails, and
+    so does a failed lane).  Returns a dict: pass (B,), measures, n,
+    params (the lanes), failed, yield and its 95% Wilson interval ci95.
+
+    sigma_scale > 1 (scaled-sigma importance sampling) draws z ~ N(shift,
+    sigma_scale^2) (shift: a dims-long vector in the _z_layout order,
+    e.g. ``form.mpp_search``'s z_star, for MPP-centred IS) and weights
+    each lane by the likelihood ratio of N(0, 1)^dims over the sampling
+    density, computed on the host in float64; p_fail is then the weighted
+    mean of the failures, with p_fail_se, the normal-approximation ci95,
+    the weights and n_eff = (sum of the failing weights)^2 / (sum of their
+    squares).  analysis="ac" scores ``.MEASURE AC`` cards on the batched
+    small-signal sweep at ``freqs`` (tstep, tstop ignored)."""
+    if sigma_scale != 1.0 or shift is not None:
+        _, _, dims = _z_layout(params, rel_sigma)
+        Z = normal_draws(generator, batch, max(dims, 1), sampler)[:, :dims]
+        mu = (torch.zeros((dims,), dtype=Z.dtype, device=Z.device)
+              if shift is None else
+              torch.as_tensor(_host(shift), dtype=Z.dtype,
+                              device=Z.device).reshape(dims))
+        Y = mu[None, :] + sigma_scale * Z
+        bparams = _params_from_Z(params, rel_sigma, Y)
+        # log-likelihood ratio of N(0, 1)^dims over N(mu, s^2)^dims at y:
+        # sum_j [log s - y_j^2 / 2 + (y_j - mu_j)^2 / (2 s^2)]
+        s = sigma_scale
+        Yn, mun = _host(Y), _host(mu)
+        logw = (dims * math.log(s) - (Yn ** 2).sum(axis=1) / 2.0
+                + ((Yn - mun[None, :]) ** 2).sum(axis=1) / (2.0 * s * s))
+        weights = np.exp(logw)
+    else:
+        bparams = perturb_params(params, generator, batch, rel_sigma,
+                                 sampler=sampler)
+        weights = None
+    vals, failed = _lane_measures(engine, topo, bparams, measures, tstep,
+                                  tstop, analysis, freqs, bindings)
+    ok = np.ones(batch, dtype=bool)
+    for name, (low, high) in specs.items():
+        v = np.asarray(vals[name])
+        m = np.isfinite(v)
+        if low is not None:
+            m &= v >= low
+        if high is not None:
+            m &= v <= high
+        ok &= m
+    ok &= ~failed
+    n = batch
+    z = 1.959963984540054          # 95%
+    out = {"pass": ok, "measures": vals, "n": n, "params": bparams,
+           "failed": failed}
+    if weights is None:
+        p = float(ok.mean())
+        den = 1 + z * z / n
+        center = (p + z * z / (2 * n)) / den
+        half = z * math.sqrt(p * (1 - p) / n + z * z / (4 * n * n)) / den
+        out["yield"] = p
+        out["ci95"] = (max(0.0, center - half), min(1.0, center + half))
+        return out
+    wf = weights * (~ok)                           # weighted failures
+    p_fail = float(wf.mean())
+    se = float(wf.std(ddof=1)) / math.sqrt(n)
+    out["yield"] = 1.0 - p_fail
+    out["p_fail"] = p_fail
+    out["p_fail_se"] = se
+    out["ci95"] = (max(0.0, 1.0 - (p_fail + z * se)),
+                   min(1.0, 1.0 - max(0.0, p_fail - z * se)))
+    out["weights"] = weights
+    # the effective number of FAILURE samples: only failing lanes' weights
+    # enter the estimator
+    wsum = float(wf.sum())
+    w2sum = float((wf ** 2).sum())
+    out["n_eff"] = wsum * wsum / w2sum if w2sum > 0 else 0.0
+    return out
+
+
+def sobol_indices(engine: Engine, topo, params, generator: torch.Generator,
+                  n: int, rel_sigma: Mapping[str, float], measures, tstep,
+                  tstop, sampler: str = "lhs", analysis: str = "tran",
+                  freqs=None, bindings=None):
+    """First-order and total-effect Sobol indices of every measure over the
+    mismatch space (Saltelli's scheme): ``generator`` draws A, then B
+    (n x dims each, under ``sampler``); the d hybrids AB_j are A with
+    column j from B; all (d + 2) n lanes run as ONE batched solve, and the
+    estimators finish on the host:
+
+        S_j = mean(f_B (f_ABj - f_A)) / Var(f)      (Saltelli 2010)
+        T_j = mean((f_A - f_ABj)^2) / (2 Var(f))    (Jansen)
+
+    Returns {measure: {"S1": (dims,), "ST": (dims,), "dims": [(name,
+    index), ...], "var": float}}."""
+    names, sizes, dims = _z_layout(params, rel_sigma)
+    if dims == 0:
+        raise ValueError("rel_sigma names no perturbable parameter")
+    A = normal_draws(generator, n, dims, sampler)
+    Bm = normal_draws(generator, n, dims, sampler)
+    blocks = [A, Bm]
+    for j in range(dims):
+        ABj = A.clone()
+        ABj[:, j] = Bm[:, j]
+        blocks.append(ABj)
+    bparams = _params_from_Z(params, rel_sigma, torch.cat(blocks, 0))
+    vals, _ = _lane_measures(engine, topo, bparams, measures, tstep, tstop,
+                             analysis, freqs, bindings)
+    labels = [(nm, i) for nm, sz in zip(names, sizes) for i in range(sz)]
+    out = {}
+    for name, v in vals.items():
+        f = np.asarray(v).reshape(dims + 2, n)
+        fA, fB = f[0], f[1]
+        var = float(np.concatenate([fA, fB]).var())
+        S1 = np.zeros(dims)
+        ST = np.zeros(dims)
+        if var > 0.0:            # a mismatch-independent measure gets 0s
+            for j in range(dims):
+                fABj = f[2 + j]
+                S1[j] = float((fB * (fABj - fA)).mean()) / var
+                ST[j] = float(((fA - fABj) ** 2).mean()) / (2 * var)
+        out[name] = {"S1": S1, "ST": ST, "dims": labels, "var": var}
+    return out

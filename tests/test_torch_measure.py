@@ -344,7 +344,8 @@ def test_mc_tols_match_jax():
 def test_perturb_params_netlist():
     """The lanes are value * exp(dev z + lot z_lot) exactly under the
     documented draw order; LOT is one draw per lane shared by every
-    element; the stratified samplers are refused by name."""
+    element, under the stratified samplers too (column 0 of their joint
+    draw)."""
     sim = Simulator.from_text(DEVICE_DECK.replace(
         "RD vdd d 10k", "RD vdd d 10k LOT=10%").replace(
         "RE e 0 1k", "RE e 0 1k LOT=10%"), device="cpu")
@@ -368,9 +369,12 @@ def test_perturb_params_netlist():
     assert float(r[:, rd].std()) > 0.0
     assert torch.equal(bp["mos_k"], sim.params["mos_k"].expand(B, -1))
     assert bool((bp["jf_vto"] < 0).all())
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        tmc.perturb_params_netlist(sim.params, torch.Generator(), 4, tols,
-                                   sampler="lhs")
+    lhs = tmc.perturb_params_netlist(sim.params, torch.Generator(
+        ).manual_seed(4), B, tols, sampler="lhs")["res_r"]
+    ratio = lhs[:, rd] / lhs[:, re] / (sim.params["res_r"][rd]
+                                       / sim.params["res_r"][re])
+    np.testing.assert_allclose(ratio.numpy(), 1.0, rtol=1e-12)
+    assert float(lhs[:, rd].std()) > 0.0
 
 
 def stage(tmp_path, deck):

@@ -1,8 +1,9 @@
-"""Two float32 traces of the port against the JAX package, run as a script
-(they take minutes, so they hold no Tier-1 test):
+"""Three float32 traces of the port against the JAX package, run as a
+script (they take minutes, so they hold no Tier-1 test):
 
     JAX_PLATFORMS=cpu python tests/test_torch_trace_f32.py tline
     JAX_PLATFORMS=cpu python tests/test_torch_trace_f32.py dc [seeds...]
+    JAX_PLATFORMS=cpu python tests/test_torch_trace_f32.py xfmr [steps]
 
 ``tline``: benchmarks/bench_tline_fused.py's diode clamp in the fast
 configuration (alpha 1, the predictor, two unrolled iterations, tol 1e-5),
@@ -19,6 +20,13 @@ when it ends more than 1e-3 V from the port's float64 point.  Per draw: the
 JAX package, the port, the port with its assembly computed in float64 and
 rounded to float32, the port with only the exponential taken in float64,
 and (on the first draw) the port with JAX's LU solve.
+
+``xfmr``: examples/xfmr.sp (K = 0.98, dt = 10 ns) over its first ``steps``
+steps (default 2,000), 64 lanes with L1, L2 and the resistors perturbed 2%
+(numpy), in the default damped configuration: the port's non-fused loop
+and the JAX package's XLA loop, each in float32 and float64 from its own
+DC point.  Prints, per package, the largest |V(s)_f32 - V(s)_f64| over the
+lanes and steps, over the peak |V(s)|, and the digits that leaves.
 """
 
 import json
@@ -209,9 +217,52 @@ def trace_dc(seeds=(7, 1, 2, 3, 4), B=512):
         print(json.dumps(row), flush=True)
 
 
+def trace_xfmr(steps=2000, B=64):
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "examples", "xfmr.sp")
+    with open(path) as f:
+        text = f.read()
+    dt = 1e-8
+    js64 = JaxSimulator.from_text(text, opts=JAX_OPTIONS.replace(
+        dtype=jnp.float64))
+    jp = draw_lanes(js64.params, B, sigmas=(("ind_l", 0.02),
+                                            ("res_r", 0.02)))
+    node = js64.circuit.nodes[js64.circuit.node_name_to_id["s"]].eq_index
+    runs = {}
+    for name, jdt, tdt in (("f64", jnp.float64, torch.float64),
+                           ("f32", jnp.float32, torch.float32)):
+        js = JaxSimulator.from_text(text, opts=JAX_OPTIONS.replace(dtype=jdt))
+        lanes = {k: (v.astype(jdt) if jnp.issubdtype(v.dtype, jnp.floating)
+                     else v) for k, v in jp.items()}
+        res = jmc.batched_transient(js.engine, lanes, dt, steps * dt,
+                                    save_xs=True, fused=False)
+        runs[("jax", name)] = np.asarray(res.xs)[:, :, node].T   # (T, B)
+        ts = Simulator.from_text(text, device="cpu",
+                                 opts=DEFAULT_OPTIONS.replace(dtype=tdt))
+        tp = params_from_numpy({k: np.array(v) for k, v in jp.items()},
+                               dtype=tdt)
+        res = tmc.batched_transient(ts.engine, tp, dt, steps * dt,
+                                    save_xs=True, fused=False)
+        runs[("port", name)] = res.xs[:, :, node].numpy()
+    for pkg in ("port", "jax"):
+        ref = runs[(pkg, "f64")]
+        gap = np.abs(runs[(pkg, "f32")].astype(np.float64) - ref)
+        rel = float(gap.max() / np.abs(ref).max())
+        print(json.dumps({
+            "package": pkg, "steps": steps, "lanes": B,
+            "max_abs_V": float(gap.max()), "peak_V": float(np.abs(ref).max()),
+            "max_rel_of_peak": rel, "digits_kept": -math.log10(rel),
+            "step_of_max": int(np.unravel_index(gap.argmax(),
+                                                gap.shape)[0])}))
+    d = np.abs(runs[("port", "f64")] - runs[("jax", "f64")]).max()
+    print(json.dumps({"port_f64_vs_jax_f64_max_abs_V": float(d)}))
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["tline"]:
         trace_tline()
+    elif sys.argv[1:2] == ["xfmr"]:
+        trace_xfmr(*(int(s) for s in sys.argv[2:3]))
     elif sys.argv[1:2] == ["dc"]:
         trace_dc(tuple(int(s) for s in sys.argv[2:]) or (7, 1, 2, 3, 4))
     else:
