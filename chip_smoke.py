@@ -15,14 +15,14 @@ Phases (one JSON line each):
      the adaptive ladder's stacked G0 inverses at (9216, 31, 31) of phase
      35 (their device times are phase 28's);
   3. single lane, f64: buffer.sp through the CLI (stdout byte-identical to
-     the golden, CSV within 1e-9 V), dbmixer.sp DC table and its first 1,000
+     the golden, CSV within 1e-9 V), dbmixer.sp DC table and its first 500
      transient steps within 1e-9 V of the golden;
   4. the batched Monte-Carlo main path: dbmixer.sp, B = 8192 lanes, f32 fast
      configuration, batched DC then 2,000 Backward-Euler Woodbury steps in
      chunks of 500 (lane 0 nominal, held to the golden within 1e-3 V); then
      B = 1024 in f64 with the damped reference configuration;
   5. the same 64 lanes through CUDA (the kernel) and the CPU (the plain
-     version), 250 f64 steps, trajectories within 1e-9 V;
+     version), 125 f64 steps, trajectories within 1e-9 V;
   6. K1 (fused transient chunk, csrc/fused_step.cu) against its plain
      PyTorch version on the card: dbmixer 256 lanes f32 fast from x = 0
      (200 steps, 2e-4 V) and f64 damped from the DC point (100 steps,
@@ -66,12 +66,14 @@ Phases (one JSON line each):
      diode deck and a switch + MOS + diode deck (W = 4), 256 lanes, 6-12
      steps, damped configuration, f32 (1e-4 V) and f64 (1e-9 V, per-lane
      iteration counts equal); failed masks identical; kernel and plain
-     times of the mixed deck at B = 8192 x 100 steps (plain: 25 steps);
+     times of the mixed deck at B = 8192 x 100 steps (plain: 25 steps),
+     held to its plain version over 50 steps;
  11. the fused Monte-Carlo path on a BJT deck: examples/bjt_amp.sp over its
      own .TRAN (dt 2 us, 250 steps), B = 8192 lanes f32 (resistors, bjt_is
      and bjt_bf perturbed), batched DC on K2 then one K1 chunk: lane-steps
      per second, K1 ms per chunk against plain and bound, failed lanes;
-     then B = 1024 in f64 against the non-fused f64 run (1e-9 V);
+     then B = 1024 in f64 against the non-fused f64 run (1e-9 V, 125
+     steps);
  12. the same on switches and a diode: examples/chopper.sp (S and W
      switches, dt 5 ns, 600 steps in chunks of 200) and examples/
      mixer_rf.sp (dt 1 ns, 2,000 steps in chunks of 500), B = 8192 f32;
@@ -94,15 +96,15 @@ Phases (one JSON line each):
  15. the fused Monte-Carlo path on inamp.sp (22 MOS, N = 28, k = 22): B =
      8192 f32, fast configuration, f64 batched DC, its .TRAN (1 ns, 2,000
      steps) in chunks of 250: lane-steps/s, K1 ms per chunk against plain
-     and bound, failed lanes; then B = 1024 in f64, damped, one chunk
-     against the non-fused loop (1e-9 V);
+     and bound, failed lanes; then B = 1024 in f64, damped, one chunk of
+     125 steps against the non-fused loop (1e-9 V);
  16. the fused Monte-Carlo path on the charge decks: the 2-MOS stage (1 ns,
      1,000 steps in chunks of 250) and buffer.sp under MOSCAP=CHARGE (its
      .TRAN, 300 steps in chunks of 100, from x = 0: the power-up
      transient; its failed lanes are counted, not held to zero, see phase
      14), B = 8192 f32 damped; then B = 1024 in f64 against the non-fused
-     loop (1e-9 V; the 2-MOS stage 60 steps from its DC point, buffer.sp
-     30 steps from x = 0 at tran_tol 1e-13); then
+     loop (1e-9 V; the 2-MOS stage 30 steps from its DC point, buffer.sp
+     15 steps from x = 0 at tran_tol 1e-13); then
      the AC of the 2-MOS stage at B = 4096 x F = 64 (its charge trans-caps
      in B1), f32 and f64, f64 against the real 2N route (1e-9);
  17. K1d-ii, the B-source rows, against the plain version on the card
@@ -115,12 +117,13 @@ Phases (one JSON line each):
  18. the fused Monte-Carlo path on behavioral.sp over its own .TRAN (2 ns,
      5,000 steps in chunks of 250), B = 8192 f32 damped from an f64 DC:
      lane-steps/s, K1 ms per chunk against plain (25 steps) and bound,
-     failed lanes; then B = 1024 in f64 against the non-fused loop (1e-9 V);
+     failed lanes; then B = 1024 in f64 against the non-fused loop (1e-9 V,
+     100 steps);
  19. the CLI on B-source decks (cli_bsource): behavioral.sp in f64 on the
      card, its DC table byte-identical to the JAX CLI's
      (tests/goldens/behavioral_stdout_jax.txt) and its CSV within 1e-9 V of
-     the first 1,001 rows of tests/goldens/behavioral_tran_jax.csv (its
-     .TRAN cut to 1,000 of its 5,000 steps in a staged copy); then
+     the first 501 rows of tests/goldens/behavioral_tran_jax.csv (its
+     .TRAN cut to 500 of its 5,000 steps in a staged copy); then
      --no-tran --run-ac on sdomain_filter.sp against
      tests/goldens/sdomain_filter_ac_jax.csv
      (1e-9);
@@ -193,9 +196,10 @@ Phases (one JSON line each):
      bound ms), and the white V + I noise deck of
      tests/test_trnoise_fused.py in f32 damped, 100 steps (5e-5 V);
      failed masks equal; fused against non-fused noisy runs on 1,024
-     lanes with the same keys over 400 steps on the white V + I noise deck
+     lanes with the same keys over 200 steps on the white V + I noise
+     deck
      of tests/test_trnoise_fused.py (f32 damped 5e-5 V, f64 1e-9 V) and
-     on the noisy dbmixer (f64 1e-9 V; f32 over 200 steps recorded beside
+     on the noisy dbmixer (f64 1e-9 V; f32 over 100 steps recorded beside
      the noise-free gap, which part by the same 2e-4 V at 400 steps on the
      H100); the
      noisy dbmixer at B = 8192, f32 fast, 10,000 steps against its
@@ -242,14 +246,14 @@ Phases (one JSON line each):
  33. METHOD=TRAP (trap_*): buffer.sp through the CLI with --method trap in
      f64 against the JAX CLI's goldens (stdout byte-identical, CSV within
      1e-9 V); dbmixer at B = 8192, f32 damped, trapezoidal: the batched DC
-     (K2) then 1,000 non-fused Woodbury steps in chunks of 500
+     (K2) then 500 non-fused Woodbury steps in chunks of 250
      (ChunkedTransient's loop): lane-steps/s, K2 launches, failed lanes,
-     and the Backward-Euler rate of the same lanes over 250 steps before
+     and the Backward-Euler rate of the same lanes over 125 steps before
      and after it; B =
-     1024 in f64 over 200 steps, 64 of the lanes within 1e-9 V of the
-     CPU at every 100th step; tests/test_trap.py's MOS + L + C deck under
+     1024 in f64 over 100 steps, 64 of the lanes within 1e-9 V of the
+     CPU at every 50th step; tests/test_trap.py's MOS + L + C deck under
      MOSCAP=CHARGE (the trapezoidal charge currents) within 1e-9 V of the
-     CPU over 100 steps;
+     CPU over 50 steps;
  34. the dense lu transient solver (lu_solver_*): dbmixer at B = 8192 f32
      damped, BE and TRAP, 200 steps, K2 at (8192, 31, 1) on every Newton
      iteration (launches and ms per step); B = 1024 f64 TRAP, lu within
@@ -263,8 +267,8 @@ Phases (one JSON line each):
      31, 31), timed in phase 2), lanes 0 and 1 within 1e-12 V of their own
      single-lane runs with equal counts;
  36. checkpoint/resume (checkpoint_*): phase 33's dbmixer run and the noisy
-     dbmixer (TRNOISE, one key per lane; its uninterrupted run here), 1,000
-     steps each, each run again stopped after the first 500-step chunk,
+     dbmixer (TRNOISE, one key per lane; its uninterrupted run here), 500
+     steps each, each run again stopped after the first 250-step chunk,
      written to .npz and resumed by a new ChunkedTransient: torch.equal on
      x, failed and every state entry; file size, save and load times.
  37. the small-signal stack (small_signal_*): the JAX CLI's three
@@ -302,7 +306,7 @@ Phases (one JSON line each):
      (VT of its 22 MOSFETs, output within 1.0-1.9 V) and bjt_amp's AC one
      (f3db above 134.5 MHz; the differentiable 2N solve on K2 at (71, 14,
      1)) with their mismatch budgets, beta within 1e-8 of the CPU's and
-     the top five contributions equal; five Adam steps of calibrate and
+     the top five contributions equal; three Adam steps of calibrate and
      fit_measures on mc_filter (a 250-step adjoint each), the loss history
      within 1e-8 of the CPU's; the adjoint's ms a step forward and
      backward; K2 against its plain version at (1, 28, 1) transposed and
@@ -311,11 +315,23 @@ Phases (one JSON line each):
      card's work.
      Phases 29-38 run after phase 27 and before k3_timings and phase 28;
      the total line gives each phase's wall seconds.
+ 39. large_circuit: the large-circuit backends through Simulator's entry
+     points in bench_ladder.py's fast f32 configuration: the 10,000-node
+     RC ladder with 1,000 diodes (tridiag, PCR) single lane for 500 steps
+     and over 256 Monte-Carlo lanes for 100 (the batched DC on the ladder's
+     CR, the non-fused batched transient: K1 refuses N > 64), the 100 x
+     100 grid through blockband and blockwb (Woodbury rank 500, its k x k
+     solve on the large-N route) for 100 steps each: steps/s, Newton
+     iterations a step, K2 launches and large-N route calls; a 2,000-node
+     ladder and a 30 x 30 grid (blockband and blockwb) in f64 within 1e-9
+     V of the port's CPU runs (worker processes); the large-N route
+     (lu_solve_large) against lu_solve_plain at (64, 130, 1) and (1, 500,
+     1) with a singular lane; K2 at the Schur corner's shapes.
 
 Every error of K3 and of the AC path is lane-relative: for each lane
 max|x - ref| / max|ref| over its frequencies and unknowns, then the worst
 lane.  Kernel launch counts are reset just before each main-path run
-(phases 4, 7, 8, 11, 12, 13, 15, 16, 18, 22, 25, 27 and 29-38) and read
+(phases 4, 7, 8, 11, 12, 13, 15, 16, 18, 22, 25, 27 and 29-39) and read
 just after it.  The
 junction decks run the damped while-loop Newton configuration at f32
 tolerances: the fast configuration (alpha 1, predictor, two unrolled
@@ -887,17 +903,18 @@ def phase_single_lane():
         shutil.rmtree(tmp)
     sim = Simulator.from_file(os.path.join(NETLISTS, "dbmixer.sp"),
                               device="cuda")
-    n = 1000
+    n = 500
     t0 = time.perf_counter()
     res = sim.transient(tstop=n * sim.config.tran.tstep)
     torch.cuda.synchronize()
-    out["dbmixer_1000_steps_s"] = time.perf_counter() - t0
+    out["dbmixer_steps"] = n
+    out["dbmixer_steps_s"] = time.perf_counter() - t0
     check(not bool(res.failed), "dbmixer single lane failed")
     cols = np.concatenate([sim.topo.volt_col_eqs, sim.topo.branch_col_eqs])
     ref = golden_rows("dbmixer_tran.csv", n + 1)
     out["dbmixer_max_abs"] = float(
         np.abs(res.xs.cpu().numpy()[:, cols] - ref[:, 1:]).max())
-    check(out["dbmixer_max_abs"] <= 1e-9, "dbmixer 1000 steps within 1e-9 V")
+    check(out["dbmixer_max_abs"] <= 1e-9, f"dbmixer {n} steps within 1e-9 V")
     out["dbmixer_mean_newton_iters"] = float(res.newton_iters.float().mean())
     emit("single_lane_f64", **out)
 
@@ -1006,14 +1023,14 @@ def phase_cuda_vs_cpu():
         carry = mc.init_carry(sim.engine, x0, p, dt)
         finals = [x0]
         for c in range(5):
-            ts = torch.arange(c * 50 + 1, c * 50 + 51, dtype=torch.float64,
+            ts = torch.arange(c * 25 + 1, c * 25 + 26, dtype=torch.float64,
                               device=dev) * dt
             carry, _ = mc.batched_transient_chunk(sim.engine, p, carry, ts, dt)
             finals.append(carry[0])
         runs[dev] = (torch.stack(finals).cpu(), time.perf_counter() - t0)
     err = float((runs["cuda"][0] - runs["cpu"][0]).abs().max())
     check(err <= 1e-9, f"CUDA vs CPU trajectories {err}")
-    emit("cuda_vs_cpu_f64", lanes=64, steps=250, checkpoints=6,
+    emit("cuda_vs_cpu_f64", lanes=64, steps=125, checkpoints=6,
          max_abs=err, cuda_s=runs["cuda"][1], cpu_s=runs["cpu"][1])
 
 
@@ -1769,7 +1786,7 @@ def phase_k1b():
     sim = Simulator.from_text(MIXED_DECK, opts=damped_f32_options(),
                               device="cuda")
     row, runner, carry = _k1_case(
-        "mixed deck f32 damped, main width", sim, 8192, 100, True, 1e-4,
+        "mixed deck f32 damped, main width", sim, 8192, 50, True, 1e-4,
         sigmas=JUNCTION_SIGMAS, dt=1e-9,
         sim64=Simulator.from_text(MIXED_DECK, device="cuda"))
     rows.append(row)
@@ -1831,11 +1848,11 @@ def phase_monte_carlo_fused_bjt():
     emit("monte_carlo_fused_bjt_f32", **m)
     # f64, B = 1024: the fused run against the non-fused loop, same lanes
     m64, carry64, _, _, _, (sim, bp) = _fused_run(
-        DEFAULT_OPTIONS, 1024, 250, 250, seed=46, deck=deck,
+        DEFAULT_OPTIONS, 1024, 125, 125, seed=46, deck=deck,
         sigmas=JUNCTION_SIGMAS)
     cfg = sim.config.tran
     t0 = time.perf_counter()
-    ref = mc.batched_transient(sim.engine, bp, cfg.tstep, cfg.tstop,
+    ref = mc.batched_transient(sim.engine, bp, cfg.tstep, 125 * cfg.tstep,
                                fused=False)
     torch.cuda.synchronize()
     m64["nonfused_s"] = time.perf_counter() - t0
@@ -2032,9 +2049,9 @@ def phase_monte_carlo_fused_inamp():
     m["ms_per_chunk"] = main["kernel_ms"]
     emit("monte_carlo_fused_inamp_f32", **m)
     m64, carry64, _, _, _, (sim, bp) = _fused_run(
-        DEFAULT_OPTIONS, 1024, 250, 250, seed=49, deck=deck)
+        DEFAULT_OPTIONS, 1024, 125, 125, seed=49, deck=deck)
     t0 = time.perf_counter()
-    ref = mc.batched_transient(sim.engine, bp, 1e-9, 250e-9, fused=False)
+    ref = mc.batched_transient(sim.engine, bp, 1e-9, 125e-9, fused=False)
     torch.cuda.synchronize()
     m64["nonfused_s"] = time.perf_counter() - t0
     m64["final_max_abs_vs_nonfused"] = float(
@@ -2088,8 +2105,8 @@ def phase_monte_carlo_fused_charge():
     # from the DC point, buffer.sp from x = 0 at tran_tol 1e-13 (see phase
     # 14)
     for name, deck, n_steps, opts, x_zero in (
-            ("charge_stage", CHARGE_DECK, 60, f64, False),
-            ("buffer_charge", buf, 30,
+            ("charge_stage", CHARGE_DECK, 30, f64, False),
+            ("buffer_charge", buf, 15,
              f64.replace(tran_tol=1e-13, tran_max_newton_iters=100), True)):
         m64, carry64, _, _, _, (sim, bp) = _fused_run(
             opts, 1024, n_steps, n_steps, seed=51, deck=deck, dt=1e-9,
@@ -2200,7 +2217,7 @@ def phase_monte_carlo_fused_behavioral():
     m["kernel_at_main_shape"] = main
     m["ms_per_chunk"] = main["kernel_ms"]
     emit("monte_carlo_fused_behavioral_f32", **m)
-    n = 200
+    n = 100
     m64, carry64, _, _, _, (sim, bp) = _fused_run(
         DEFAULT_OPTIONS, 1024, n, n, seed=54, deck=deck, sigmas=B_SIGMAS)
     dt = sim.config.tran.tstep
@@ -2235,9 +2252,9 @@ def _cli(args):
 def phase_cli_bsource():
     """The CLI on behavioral.sp (transient) and sdomain_filter.sp (AC) in
     f64 on the card against the JAX CLI's goldens.  behavioral.sp runs
-    with its .TRAN cut to the first 1,000 of its 5,000 steps (a staged
+    with its .TRAN cut to the first 500 of its 5,000 steps (a staged
     copy; the DC table it prints does not depend on the card), its CSV
-    held to the golden's first 1,001 rows."""
+    held to the golden's first 501 rows."""
     import numpy as np
     out = {}
     tmp = tempfile.mkdtemp(prefix="chip_smoke_b_")
@@ -2253,7 +2270,7 @@ def phase_cli_bsource():
             text = f.read()
         check(BEHAVIORAL_TRAN in text, "behavioral.sp's .TRAN card")
         with open(beh, "w") as f:
-            f.write(text.replace(BEHAVIORAL_TRAN, ".TRAN 2n 2u"))
+            f.write(text.replace(BEHAVIORAL_TRAN, ".TRAN 2n 1u"))
         os.chdir(tmp)
         rc, text, out["behavioral_cli_s"] = _cli(
             ["examples/behavioral.sp", "behavioral_tran.csv", "--device",
@@ -2263,7 +2280,7 @@ def phase_cli_bsource():
         check(text[:len(gold)] == gold,
               "behavioral DC table byte-identical to the JAX CLI's")
         got = np.loadtxt("behavioral_tran.csv", delimiter=",", skiprows=1)
-        ref = golden_rows("behavioral_tran_jax.csv", 1001)
+        ref = golden_rows("behavioral_tran_jax.csv", 501)
         check(got.shape == ref.shape, "behavioral CSV shape")
         out["behavioral_csv_max_abs"] = float(np.abs(got - ref).max())
         check(out["behavioral_csv_max_abs"] <= 1e-9,
@@ -3153,18 +3170,18 @@ def phase_trnoise():
     out["k1_main"] = main
     out["k1_err"] = max(r["max_abs_err"] for r in rows)
     # (2) fused against non-fused noisy runs, 1,024 lanes, the same keys,
-    # 400 steps, from the same DC points: the white V + I noise deck of
+    # 200 steps, from the same DC points: the white V + I noise deck of
     # tests/test_trnoise_fused.py (its diode damped; f32 5e-5 V, f64 1e-9
     # V) and the noisy dbmixer (f64 1e-9 V; in f32 the two paths part by
     # about 2e-4 V over 400 damped steps with or without noise, f32
     # rounding the mixer amplifies, so there both gaps are recorded, over
-    # 200 steps)
+    # 100 steps)
     for name, deck, sig in (("white", WHITE_NOISE_DECK, {"res_r": 0.01}),
                             ("dbmixer", _noisy_dbmixer(), SIGMAS)):
         for opts, tol in ((damped_f32_options(), 5e-5),
                           (DEFAULT_OPTIONS, 1e-9)):
             held = name == "white" or opts.dtype == torch.float64
-            steps = 400 if held else 200
+            steps = 200 if held else 100
             sim, bp = _mc_lanes(opts, 1024, 83, deck, sig)
             dt = sim.config.tran.tstep
 
@@ -3739,16 +3756,20 @@ def _chunked_run(sim, bp, n_steps, chunk, noise_key=None):
     return m, carry
 
 
+TRAP_STEPS = 250      # phase 33's TRAP dbmixer run, phase 36's resume
+
+
 def phase_trap():
     """Phase 33: METHOD=TRAP on the card.  buffer.sp through the CLI with
     --method trap in f64 against the JAX CLI's goldens; dbmixer at B =
-    8192, f32 damped, trapezoidal: batched DC then 1,000 non-fused
-    Woodbury steps (ChunkedTransient's loop, chunks of 500), and the same
-    lanes' Backward-Euler rate over 250 steps before and after it; B =
-    1024 in f64 over 200 trapezoidal steps, 64 of the lanes against the
-    CPU (the plain version) within 1e-9 V at every 100th step;
+    8192, f32 damped, trapezoidal: batched DC then TRAP_STEPS non-fused
+    Woodbury steps (ChunkedTransient's loop, two chunks), and the same
+    lanes' Backward-Euler rate over a quarter of that before and after it;
+    B = 1024 in f64 over 100 trapezoidal steps, 64 of the lanes against
+    the CPU (the plain version) within 1e-9 V at every 50th step;
     tests/test_trap.py's MOS + L + C deck under MOSCAP=CHARGE, single lane
-    f64, 100 steps, against the CPU within 1e-9 V."""
+    f64, 50 steps, against the CPU within 1e-9 V (the run lengths keep
+    the script inside its time limit)."""
     import torch
     from circuitsimulator_tpu_torch import DEFAULT_OPTIONS, Simulator
     from circuitsimulator_tpu_torch.ops import cuda_lu
@@ -3765,12 +3786,13 @@ def phase_trap():
     sim, bp = _mc_lanes(opts, 8192, seed=61)
     sim_be = _sim(damped_f32_options(), os.path.join(NETLISTS, "dbmixer.sp"))
     # in turns: BE, TRAP, BE (host-bound rates drift within a call)
-    be = [_chunked_run(sim_be, bp, 250, 250)[0]]
-    main, carry = _chunked_run(sim, bp, 1000, 500)
-    be.append(_chunked_run(sim_be, bp, 250, 250)[0])
+    quarter = TRAP_STEPS // 4
+    be = [_chunked_run(sim_be, bp, quarter, quarter)[0]]
+    main, carry = _chunked_run(sim, bp, TRAP_STEPS, TRAP_STEPS // 2)
+    be.append(_chunked_run(sim_be, bp, quarter, quarter)[0])
     check(main["failed_lanes"] == 0, "TRAP dbmixer: no failed lanes")
     check(main["tran_k2_launches"] > 0, "TRAP dbmixer's steps on K2")
-    main["k2_launches_per_step"] = main["tran_k2_launches"] / 1000
+    main["k2_launches_per_step"] = main["tran_k2_launches"] / TRAP_STEPS
     main["be_same_lanes"] = [
         {k: r[k] for k in ("steps_per_s", "mean_newton_iters",
                            "tran_k2_launches", "failed_lanes")} for r in be]
@@ -3791,7 +3813,7 @@ def phase_trap():
         carry64 = mc.init_carry(s.engine, x0, p, dt)
         marks = [x0[:64].cpu()]
         for c in range(2):
-            ts = torch.arange(c * 100 + 1, c * 100 + 101,
+            ts = torch.arange(c * 50 + 1, c * 50 + 51,
                               dtype=torch.float64, device=dev) * dt
             carry64, _ = mc.batched_transient_chunk(s.engine, p, carry64, ts,
                                                     dt)
@@ -3800,7 +3822,7 @@ def phase_trap():
             torch.cuda.synchronize()
         runs[dev] = (torch.stack(marks), time.perf_counter() - t0,
                      int(carry64[-1].sum()))
-    m64 = {"B": 1024, "steps": 200, "cuda_s": runs["cuda"][1],
+    m64 = {"B": 1024, "steps": 100, "cuda_s": runs["cuda"][1],
            "cpu_lanes": 64, "cpu_s": runs["cpu"][1],
            "failed_lanes": runs["cuda"][2],
            "max_abs_vs_cpu": float((runs["cuda"][0]
@@ -3814,13 +3836,13 @@ def phase_trap():
     g = Simulator.from_text(TRAP_CHARGE_DECK, device="cuda",
                             opts=DEFAULT_OPTIONS.replace(tran_method="trap"))
     t0 = time.perf_counter()
-    rg = g.transient(tstop=100e-11)
+    rg = g.transient(tstop=50e-11)
     torch.cuda.synchronize()
-    mq = {"steps": 100, "cuda_s": time.perf_counter() - t0,
+    mq = {"steps": 50, "cuda_s": time.perf_counter() - t0,
           "k2_launches": cuda_lu.LAUNCHES}
     c = Simulator.from_text(TRAP_CHARGE_DECK, device="cpu",
                             opts=DEFAULT_OPTIONS.replace(tran_method="trap"))
-    rc = c.transient(tstop=100e-11)
+    rc = c.transient(tstop=50e-11)
     mq["max_abs_vs_cpu"] = float((rg.xs.cpu() - rc.xs).abs().max())
     check(not bool(rg.failed), "TRAP charge deck failed")
     check(mq["max_abs_vs_cpu"] <= 1e-9, "TRAP charge deck within 1e-9 V")
@@ -3964,8 +3986,8 @@ def phase_adaptive():
 
 def phase_checkpoint(trap):
     """Phase 36: ChunkedTransient's checkpoint/resume on the card.  Phase
-    33's dbmixer run (B = 8192, f32 damped TRAP, chunks of 500 of 1,000
-    steps) is the uninterrupted run; the same lanes run again stopped
+    33's dbmixer run (B = 8192, f32 damped TRAP, TRAP_STEPS in two chunks)
+    is the uninterrupted run; the same lanes run again stopped
     after the first chunk (the .npz written) and resumed from the file by
     a new object: torch.equal on x, failed and every state entry.  Then the
     noisy dbmixer (TRNOISE state, one key per lane) the same way, its
@@ -3984,7 +4006,8 @@ def phase_checkpoint(trap):
         opts = damped_f32_options().replace(tran_method="trap")
         nsim, nbp = _mc_lanes(opts, 8192, seed=61, deck=_noisy_dbmixer())
         key = mc.lane_keys(nsim.engine, nbp, prng.key(3, "cuda"))
-        nm, ncarry = _chunked_run(nsim, nbp, 1000, 500, noise_key=key)
+        n, half = TRAP_STEPS, TRAP_STEPS // 2
+        nm, ncarry = _chunked_run(nsim, nbp, n, half, noise_key=key)
         check(nm["failed_lanes"] == 0, "noisy TRAP dbmixer: no failed lanes")
         emit("checkpoint_noisy_dbmixer_uninterrupted_f32", **nm)
         cases.append(("noisy_dbmixer", nsim, nbp, key, ncarry))
@@ -3995,16 +4018,16 @@ def phase_checkpoint(trap):
             torch.cuda.synchronize()
             cuda_lu.LAUNCHES = 0
             t0 = time.perf_counter()
-            ChunkedTransient(eng, bp, dt, 500 * dt, ckpt_path=path,
-                             chunk_steps=500, noise_key=nkey).run()
+            ChunkedTransient(eng, bp, dt, half * dt, ckpt_path=path,
+                             chunk_steps=half, noise_key=nkey).run()
             torch.cuda.synchronize()
             first_s = time.perf_counter() - t0
             t0 = time.perf_counter()
             resumed, iters = ChunkedTransient(
-                eng, bp, dt, 1000 * dt, ckpt_path=path, chunk_steps=500,
+                eng, bp, dt, n * dt, ckpt_path=path, chunk_steps=half,
                 noise_key=nkey).run()
             torch.cuda.synchronize()
-            m = {"B": _lanes_of(bp), "steps": 1000, "chunk": 500,
+            m = {"B": _lanes_of(bp), "steps": n, "chunk": half,
                  "first_chunk_s": first_s,
                  "resume_s": time.perf_counter() - t0,
                  "k2_launches": cuda_lu.LAUNCHES,
@@ -4022,13 +4045,13 @@ def phase_checkpoint(trap):
             m["bitwise_equal"] = same
             # save and load of the final carry, each timed alone
             t0 = time.perf_counter()
-            save_carry(path, resumed, 1000)
+            save_carry(path, resumed, n)
             m["save_s"] = time.perf_counter() - t0
             t0 = time.perf_counter()
             back, step = load_carry(path, eng)
             torch.cuda.synchronize()
             m["load_s"] = time.perf_counter() - t0
-            check(step == 1000 and torch.equal(back[0], resumed[0]),
+            check(step == n and torch.equal(back[0], resumed[0]),
                   f"{name}: load_carry round trip")
             rows[name] = m
             emit(f"checkpoint_{name}_f32", **m)
@@ -4442,12 +4465,12 @@ def _statistics_cpu(task, lanes=None, f32_config=False):
     sim = Simulator.from_file(mcf, device="cpu")
     if task == "calibrate":
         target, p0 = _calibrate_inputs(sim)
-        _, hist = sim.calibrate(target, "out", ["res_r", "cap_c"], steps=5,
+        _, hist = sim.calibrate(target, "out", ["res_r", "cap_c"], steps=3,
                                 lr=0.05, params=p0)
         return {"history": hist, "target": target}
     if task == "fit_measures":
         _, hist = sim.fit_measures(FIT_TARGETS, ["res_r", "cap_c"],
-                                   steps=5, lr=0.05)
+                                   steps=3, lr=0.05)
         return {"history": hist}
     raise ValueError(task)
 
@@ -4577,7 +4600,7 @@ def phase_statistics():
     sigma IS, FORM on the f64 adjoint, IS centred on z*), beta against the
     CPU's; Sobol indices of mc_filter (6,144 lanes on K1) and of bjt_amp's
     f3db (K3); inamp.sp's DC worst case and budget over its 22 MOSFETs
-    and bjt_amp's AC ones (the 2N solve on K2), against the CPU; five Adam
+    and bjt_amp's AC ones (the 2N solve on K2), against the CPU; three Adam
     steps of calibrate and fit_measures (the loss history against the
     CPU's, 1e-8); K2 at the slice's shapes.  The CPU references run in
     worker processes beside the card's work."""
@@ -4737,7 +4760,7 @@ def phase_statistics():
         # 6. the optimisers, and the adjoint's ms a step
         target, p0 = _calibrate_inputs(sim64)
         (_, hist), m = _counted(lambda: sim64.calibrate(
-            target, "out", ["res_r", "cap_c"], steps=5, lr=0.05,
+            target, "out", ["res_r", "cap_c"], steps=3, lr=0.05,
             params=p0))
         ref = refs["calibrate"].result()
         check(np.array_equal(ref["target"], target), "calibrate: target")
@@ -4749,7 +4772,7 @@ def phase_statistics():
         runs["calibrate_mc_filter_f64"] = m
         emit("statistics_calibrate_mc_filter_f64", **m)
         (_, hist), m = _counted(lambda: sim64.fit_measures(
-            FIT_TARGETS, ["res_r", "cap_c"], steps=5, lr=0.05))
+            FIT_TARGETS, ["res_r", "cap_c"], steps=3, lr=0.05))
         ref = refs["fit_measures"].result()
         m["history"] = hist
         m["vs_cpu_rel"] = float(np.max(np.abs(np.asarray(hist)
@@ -4779,6 +4802,220 @@ def phase_statistics():
     emit("statistics", seconds=out["phase_seconds"],
          walls={k: v["wall_s"] for k, v in runs.items()})
     return out
+
+
+# ---------------------------------------------------------------- phase 39
+# the synthetic large circuits' f64 checks against the CPU: a 2,000-node
+# ladder (tridiag) and a 30 x 30 grid through blockband (a diode every 10
+# nodes: rank 90 > N/16) and blockwb (every 20: rank 45 <= 56)
+LARGE_CHECKS = {"ladder2000": ("ladder", 2000, 10),
+                "grid30_blockband": ("grid", 30, 10),
+                "grid30_blockwb": ("grid", 30, 20)}
+LARGE_CHECK_STEPS = 20
+
+
+def _large_deck(kind, n, diode_every, steps, tstep=1e-11):
+    from circuitsimulator_tpu_torch.synthetic import (rc_grid_netlist,
+                                                      rc_ladder_netlist)
+    if kind == "ladder":
+        return rc_ladder_netlist(n, diode_every=diode_every, tstep=tstep,
+                                 tstop=steps * tstep)
+    return rc_grid_netlist(n, n, diode_every=diode_every, tstep=tstep,
+                           tstop=steps * tstep)
+
+
+def _large_run(name, device):
+    """One f64 check run of phase 39 (the CPU's in a worker process): the
+    DC point and the transient's final state, as numpy."""
+    import torch
+    sys.path.insert(0, REPO)
+    torch.set_num_threads(2)
+    from circuitsimulator_tpu_torch import Simulator
+    sim = Simulator.from_text(_large_deck(*LARGE_CHECKS[name],
+                                          LARGE_CHECK_STEPS), device=device)
+    x = sim.dc()
+    res = sim.transient(x_op=x, save_xs=False)
+    return {"solver": sim.opts.tran_solver, "dc": x.cpu().numpy(),
+            "final": res.x_final.cpu().numpy(),
+            "failed": bool(res.failed)}
+
+
+def _large_route_rows():
+    """The large-N route (lu_solve_large, above K2's 64 unknowns) against
+    lu_solve_plain on the card at (64, 130, 1) and (1, 500, 1), f32 and
+    f64, with a singular lane: the zeroed lanes equal, lane-relative error
+    (1e-10 in f64, 1e-3 in f32), per call, plain, solve_ex and bound."""
+    import torch
+    from circuitsimulator_tpu_torch.ops import lu
+    rows = []
+    for B, N in ((64, 130), (1, 500)):
+        for dtype in (torch.float32, torch.float64):
+            A, b = _systems(B, N, 1, torch.float64, seed=B + N)
+            if B > 4:
+                A[2:4], b[2:4] = A[0], b[0]   # lane 1 singular, no others
+            A, b = A.to(dtype), b[..., 0].to(dtype).contiguous()
+            got = lu.lu_solve_large(A, b, FLOOR)
+            want = lu.lu_solve_plain(A, b, FLOOR)
+            zg, zw = (got == 0).all(-1), (want == 0).all(-1)
+            check(torch.equal(zg, zw), f"large route {B, N}: zeroed lanes")
+            if B > 4:
+                check(bool(zg[1]), "large route: the singular lane is zero")
+            err = _lane_rel_err(got[..., None], want[..., None], ~zw)
+            tol = 1e-10 if dtype == torch.float64 else 1e-3
+            check(err <= tol, f"large route {B, N} {dtype}: {err}")
+            size = A.element_size()
+            nbytes = B * (N * N + 2 * N) * size
+            flops = B * sum(m + 2 * m * m + 2 * m + (2 * m + 1)
+                            for m in range(N))
+            bms, by = bound_ms(nbytes, flops, dtype)
+            rows.append({
+                "B": B, "N": N, "R": 1, "dtype": str(dtype)[6:],
+                "lane_rel_err": err,
+                "ms": cuda_ms(lambda: lu.lu_solve_large(A, b, FLOOR)),
+                "plain_ms": cuda_ms(lambda: lu.lu_solve_plain(A, b, FLOOR),
+                                    reps=3, warmup=1),
+                "library_ms": cuda_ms(lambda: torch.linalg.solve_ex(A, b)),
+                "bound_ms": bms, "bound_by": by})
+    return rows
+
+
+def _k2_large_timings(shapes):
+    """K2 at the slice's Schur shapes (the bordered solves' m x m corner,
+    one per Newton iteration): kernel against plain (max abs error), per
+    call, plain, solve_ex and bound."""
+    import torch
+    from circuitsimulator_tpu_torch.ops import lu
+    rows = []
+    for (B, N, dtype), what in shapes.items():
+        g = torch.Generator().manual_seed(7 + B)
+        A = (torch.randn(B, N, N, generator=g, dtype=torch.float64)
+             + 2.0 * torch.eye(N, dtype=torch.float64)).to(dtype).cuda()
+        b = torch.randn(B, N, generator=g, dtype=torch.float64).to(
+            dtype).cuda()
+        err = float((lu.lu_solve(A, b, FLOOR)
+                     - lu.lu_solve_plain(A, b, FLOOR)).abs().max())
+        check(err <= (1e-12 if dtype == torch.float64 else 1e-5),
+              f"K2 at {what}: {err}")
+        size = A.element_size()
+        bms, by = bound_ms(B * (N * N + 2 * N) * size,
+                           B * sum(m + 2 * m * m + 2 * m + (2 * m + 1)
+                                   for m in range(N)), dtype)
+        rows.append({"shape": what, "B": B, "N": N, "R": 1,
+                     "dtype": str(dtype)[6:], "max_abs_err": err,
+                     "kernel_ms": cuda_ms(lambda: lu.lu_solve(A, b, FLOOR)),
+                     "plain_ms": cuda_ms(lambda: lu.lu_solve_plain(A, b,
+                                                                   FLOOR)),
+                     "library_ms": cuda_ms(lambda: torch.linalg.solve_ex(A,
+                                                                         b)),
+                     "bound_ms": bms, "bound_by": by})
+    return rows
+
+
+def phase_large_circuit():
+    """Phase 39: the large-circuit stack on the card through Simulator's
+    entry points, in bench_ladder.py's and bench_grid.py's fast f32
+    configuration (alpha 1, the predictor, one unrolled iteration): the
+    10,000-node RC ladder with 1,000 diodes (tridiag, PCR) single lane,
+    500 steps, and over 256 Monte-Carlo lanes (the batched DC, then the
+    non-fused batched transient: K1's gate refuses N > 64), 100 steps; the
+    100 x 100 grid through blockband (a diode every 10 nodes) and blockwb
+    (every 20: Woodbury rank 500, its k x k solve on the large-N route),
+    100 steps each.  Each run: steps/s, Newton iterations a step, K2
+    launches and large-N route calls, counts reset just before it.  Then
+    the f64 checks against the port's CPU runs (worker processes), the
+    large-N route against lu_solve_plain, and K2 at the Schur shapes."""
+    import multiprocessing
+    import torch
+    from circuitsimulator_tpu_torch import DEFAULT_OPTIONS, Simulator
+    from circuitsimulator_tpu_torch.ops import cuda_lu, lu
+    from circuitsimulator_tpu_torch.parallel import montecarlo as tmc
+    t_phase = time.perf_counter()
+    fast = DEFAULT_OPTIONS.replace(dtype=torch.float32, dc_tol=1e-5,
+                                   tran_tol=1e-4, tran_alpha=1.0,
+                                   tran_predictor=True, tran_unrolled_iters=1)
+    tstep = 1e-11
+    out = {"runs": {}}
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(3, mp_context=ctx) as pool:
+        cpu = {n: pool.submit(_large_run, n, "cpu") for n in LARGE_CHECKS}
+        runs = (("ladder10k_f32", "ladder", 10000, 10, 500, 0, "tridiag"),
+                ("ladder10k_lanes256_f32", "ladder", 10000, 10, 100, 256,
+                 "tridiag"),
+                ("grid100_blockband_f32", "grid", 100, 10, 100, 0,
+                 "blockband"),
+                ("grid100_blockwb_f32", "grid", 100, 20, 100, 0, "blockwb"))
+        for name, kind, n, every, steps, lanes, solver in runs:
+            sim = Simulator.from_text(_large_deck(kind, n, every, steps),
+                                      opts=fast, device="cuda")
+            check(sim.opts.tran_solver == solver,
+                  f"{name}: backend {sim.opts.tran_solver}")
+            bp = (tmc.perturb_params(sim.params, torch.Generator(
+                      device="cuda").manual_seed(39),
+                                     lanes, {"res_r": 0.01, "cap_c": 0.02})
+                  if lanes else None)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            cuda_lu.LAUNCHES = lu.LARGE_CALLS = 0
+            t0 = time.perf_counter()
+            x0 = tmc.batched_dc_fast(sim.engine, bp) if lanes else sim.dc()
+            torch.cuda.synchronize()
+            dc_s = time.perf_counter() - t0
+            k2_dc = cuda_lu.LAUNCHES
+            t0 = time.perf_counter()
+            res = (tmc.batched_transient(sim.engine, bp, tstep, steps * tstep,
+                                         x0=x0) if lanes
+                   else sim.transient(x_op=x0, save_xs=False))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            iters = float(res.newton_iters.double().sum()) / steps \
+                / max(lanes, 1)
+            check(bool(torch.isfinite(res.x_final).all()),
+                  f"{name}: finite")
+            check(not bool(res.failed.any()), f"{name}: no failed lane")
+            lay = sim.engine._blockband_layout
+            m = {"N": sim.topo.n_unknowns, "lanes": max(lanes, 1),
+                 "steps": steps, "solver": solver,
+                 "layout": None if lay is None else {
+                     "h": lay.h, "k": lay.k, "nb": lay.nb, "mb": lay.mb},
+                 "dc_seconds": dc_s, "tran_seconds": wall,
+                 "steps_per_s": steps / wall,
+                 "lane_steps_per_s": steps * max(lanes, 1) / wall,
+                 "newton_iters_per_step": iters,
+                 "k2_launches": cuda_lu.LAUNCHES, "k2_launches_dc": k2_dc,
+                 "large_route_calls": lu.LARGE_CALLS,
+                 "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20}
+            check(m["k2_launches"] > 0, f"{name}: K2 launched")
+            out["runs"][name] = m
+            emit(f"large_circuit_{name}", **m)
+            del sim, bp, x0, res
+            torch.cuda.empty_cache()
+        checks = {}
+        for name in LARGE_CHECKS:
+            card = _large_run(name, "cuda")
+            ref = cpu[name].result()
+            check(card["solver"] == ref["solver"], f"{name}: backend")
+            check(not card["failed"] and not ref["failed"], f"{name}: failed")
+            checks[name] = {
+                "solver": card["solver"],
+                "dc_max_abs": float(abs(card["dc"] - ref["dc"]).max()),
+                "final_max_abs": float(abs(card["final"]
+                                           - ref["final"]).max())}
+            check(max(checks[name]["dc_max_abs"],
+                      checks[name]["final_max_abs"]) <= 1e-9,
+                  f"{name}: card within 1e-9 V of the CPU")
+        out["f64_vs_cpu"] = checks
+        emit("large_circuit_f64_vs_cpu", steps=LARGE_CHECK_STEPS, **checks)
+    out["large_route"] = _large_route_rows()
+    emit("large_circuit_large_route", rows=out["large_route"])
+    out["k2_shapes"] = _k2_large_timings({
+        (1, 1, torch.float32): "the ladder's and the grids' Schur corner "
+                               "(m = 1), single lane",
+        (256, 1, torch.float32): "the ladder's Schur corner, 256 lanes"})
+    emit("large_circuit_k2_shapes", rows=out["k2_shapes"])
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    emit("large_circuit", phase_seconds=out["phase_seconds"])
+    return out
+
 
 
 def main():
@@ -4835,6 +5072,7 @@ def main():
     ckpt = timed(phase_checkpoint, trap)
     ss = timed(phase_small_signal)
     stats = timed(phase_statistics)
+    large = timed(phase_large_circuit)
     k3_rows = timed(phase_k3_timings)
     k2_device, k1_device_ms = timed(phase_k2_device, timings, k1_main_run)
     k3_device = timed(phase_k3_device, k3_rows)
@@ -4895,7 +5133,9 @@ def main():
                        "statistics_adjoint_forward_mc_filter_f64":
                            stats["adjoint"]["forward_k2_launches"],
                        "statistics_adjoint_backward_mc_filter_f64":
-                           stats["adjoint"]["backward_k2_launches"]},
+                           stats["adjoint"]["backward_k2_launches"],
+                       **{f"large_circuit_{n}": r["k2_launches"]
+                          for n, r in large["runs"].items()}},
         "fused_step": {"monte_carlo_fused_f32_fast": k1_launches,
                        "monte_carlo_fused_bjt_f32": bjt["k1_launches"],
                        **{f"monte_carlo_fused_{n}_f32": m["k1_launches"]
@@ -4963,7 +5203,14 @@ def main():
         "library_ms": k2_main["library_ms"],
         "shape": "B=8192 N=31 R=1 f32 (one batched-DC Newton solve)",
         "shapes": [{**t, **d} for t, d in zip(timings, k2_device)],
-        "slice_shapes": stats["k2_shapes"]}, {
+        "slice_shapes": stats["k2_shapes"] + large["k2_shapes"],
+        "large_route": {
+            "what": "lu_solve_large (torch.linalg.lu_factor_ex + lu_solve "
+                    "with the fail contract) above N = 64 on CUDA: a "
+                    "library call in place of XLA's looped LU, no kernel",
+            "calls_by_path": {n: r["large_route_calls"]
+                              for n, r in large["runs"].items()},
+            "rows": large["large_route"]}}, {
         "name": "fused_step", "route": "cuda",
         "scope": "K1a + K1b + K1c-i + K1c-ii + K1c-iii + K1d-i + K1d-ii"
                  " + K1e",

@@ -43,11 +43,11 @@ import numpy as np
 import torch
 
 from ..models.moscap import charge_jacobian
-from ..ops import cuda_lu
 from ..ops.ac_sweep import ac_sweep
 from ..ops.assemble import Engine, _two_terminal_vals
 from ..ops.lu import lu_solve
 from .dc import dc_operating_point
+from ..utils.shapes import broadcast_shapes
 
 # entries of the (lanes x frequencies) real 2N systems of a T-line sweep
 # that are assembled and solved at once
@@ -98,7 +98,7 @@ def ac_system_real(engine: Engine, params, x_op, omega):
     # the linearisation at the operating point (gvals)
     parts = [engine._res_vals(params), engine.dc_const_vals,
              engine._ctrl_vals(params), engine.b_static_vals, gvals]
-    lead = torch.broadcast_shapes(*(p.shape[:-1] for p in parts))
+    lead = broadcast_shapes(*(p.shape[:-1] for p in parts))
     gv = torch.cat([p.expand(lead + p.shape[-1:]) for p in parts], -1)
     G = _scatter(engine,
                  np.concatenate([engine.res_rows, engine.dc_const_rows,
@@ -141,12 +141,12 @@ def ac_system_real(engine: Engine, params, x_op, omega):
                                    -1).flatten(-2),
                        torch.stack([-cth, cth, -z0 * cth, -cth, cth,
                                     -z0 * cth], -1).flatten(-2)], -1),
-            torch.broadcast_shapes(lead, z0.shape[:-1], th.shape[:-1]))
+            broadcast_shapes(lead, z0.shape[:-1], th.shape[:-1]))
         bparts.append(torch.stack([sth, -sth, z0 * sth, sth, -sth, z0 * sth],
                                   -1).flatten(-2))
         brows.append(engine.tl_tran_rows)
         bcols.append(engine._tl_other_cols)
-    blead = torch.broadcast_shapes(lead, *(p.shape[:-1] for p in bparts))
+    blead = broadcast_shapes(lead, *(p.shape[:-1] for p in bparts))
     bv = torch.cat([p.expand(blead + p.shape[-1:]) for p in bparts], -1)
     B = _scatter(engine, np.concatenate(brows), np.concatenate(bcols), bv,
                  blead)
@@ -161,7 +161,7 @@ def ac_system_real(engine: Engine, params, x_op, omega):
     J = []
     for v, i in ((vmag * torch.cos(vph), ir), (vmag * torch.sin(vph), ii)):
         vals = torch.cat([v, torch.stack([-i, i], -1).flatten(-2)], -1)
-        jlead = torch.broadcast_shapes(blead, vals.shape[:-1])
+        jlead = broadcast_shapes(blead, vals.shape[:-1])
         Jp = torch.zeros(jlead + (N + 1,), dtype=dtype, device=dev)
         Jp.index_add_(-1, rows, vals.expand(jlead + vals.shape[-1:]))
         J.append(Jp[..., :N])
@@ -214,14 +214,11 @@ def _tline_sweep(engine: Engine, params, x_op, om, rhs=None,
     is the lanes' shape.  Every frequency is assembled on its own
     (``ac_system_real`` at omega) and the real 2N systems of a block of
     frequencies times every lane go to one ``solve_ac_real`` (K2 on CUDA
-    tensors); K3's hoisted G + wB1 does not hold for them.  ``rhs`` = (br,
+    tensors, ``lu_solve_large`` above its 64 unknowns); K3's hoisted
+    G + wB1 does not hold for them.  ``rhs`` = (br,
     bi), each lead + (N,), replaces the assembled sources at every
     frequency; ``transpose`` solves Y^T instead of Y (the adjoint)."""
     N = engine.N
-    if engine.device.type == "cuda" and 2 * N > cuda_lu.MAX_N:
-        raise NotImplementedError(
-            f"T-line AC of {N} unknowns: its real 2N = {2 * N} system is "
-            f"above the CUDA LU kernel's {cuda_lu.MAX_N}")
     first = ac_system_real(engine, params, x_op, om[0])
     lanes = first[0].numel() // (N * N)
     if rhs is not None:
@@ -235,8 +232,7 @@ def _tline_sweep(engine: Engine, params, x_op, om, rhs=None,
         G, B, br, bi = (torch.stack([sy[q] for sy in systems], -3 + (q > 1))
                         for q in range(4))
         if rhs is not None:
-            lead = torch.broadcast_shapes(G.shape[:-2],
-                                          rhs[0].shape[:-1] + (1,))
+            lead = broadcast_shapes(G.shape[:-2], rhs[0].shape[:-1] + (1,))
             G, B = G.expand(lead + (N, N)), B.expand(lead + (N, N))
             br, bi = (b.unsqueeze(-2).expand(lead + (N,)) for b in rhs)
         if transpose:

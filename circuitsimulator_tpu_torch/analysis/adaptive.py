@@ -1,6 +1,8 @@
 """Adaptive-timestep transient on the dyadic refinement ladder (port of
-``circuitsimulator_tpu/analysis/adaptive.py``, the ``woodbury`` and ``lu``
-backends).
+``circuitsimulator_tpu/analysis/adaptive.py``: the ``woodbury`` and ``lu``
+backends, and the ``tridiag`` and ``blockband`` ones with their scattered
+statics stacked per level; ``blockwb`` takes the dense statics, as in the
+JAX package).
 
 The internal step is ``tstep / 2**lvl`` for an integer level ``lvl`` in
 [0, L], L = ``tran_max_refine_levels``.  Every candidate dt is known up
@@ -42,8 +44,8 @@ import torch
 from ..ops.assemble import Engine
 from ..ops.lu import lu_solve
 from ..ops.woodbury import WoodburySolver
-from .dc import dc_linear, dc_newton
-from .transient import n_steps_for
+from .dc import dc_operating_point
+from .transient import n_steps_for, sparse_tran_backend
 
 
 @dataclasses.dataclass
@@ -99,6 +101,9 @@ def run_transient_adaptive(engine: Engine, params, tstep, tstop,
     if engine.n_tl:
         raise NotImplementedError(TLINE_MESSAGE)
     woodbury = opts.tran_solver == "woodbury"
+    # blockwb has no ladder form: like the JAX package's, it takes the
+    # dense per-level statics below
+    sparse = opts.tran_solver in ("tridiag", "blockband")
 
     # the lanes: a single circuit runs as a batch of one
     single = not _lanes(params) and (x0 is None or x0.dim() == 1)
@@ -109,17 +114,23 @@ def run_transient_adaptive(engine: Engine, params, tstep, tstop,
         params = {k: v.expand((B,) + v.shape) for k, v in params.items()}
     lanes = torch.arange(B, device=dev)
 
-    # per-level statics, (L + 1, B, N + 1, N + 1)
+    # per-level statics, (L + 1, B, N + 1, N + 1), or the sparse backends'
+    # scattered statics stacked the same way
     dts = [tstep_f / (1 << lv) for lv in range(L + 1)]
-    Gs = torch.stack([engine.tran_static_G(params, d, opts.tran_gmin, method)
-                      for d in dts])
+    if sparse:
+        statics, sparse_solve = sparse_tran_backend(engine, params, dts,
+                                                    method)
+        stack = {k: torch.stack([st[k] for st in statics])
+                 for k in statics[0]}
+    else:
+        Gs = torch.stack([engine.tran_static_G(params, d, opts.tran_gmin,
+                                               method) for d in dts])
     if woodbury:
         # the L + 1 G0 inverses in one solve: levels x lanes systems
         wb = WoodburySolver(engine, params, Gs[..., :N, :N])
 
     if x0 is None:
-        x0 = (dc_newton(engine, params, batch=B)
-              if engine.topo.has_nonlinear else dc_linear(engine, params))
+        x0 = dc_operating_point(engine, params, batch=B)
     else:
         x0 = torch.as_tensor(x0, dtype=dtype, device=dev)
         if single:
@@ -137,6 +148,8 @@ def run_transient_adaptive(engine: Engine, params, tstep, tstop,
             wv.Y = wb.Y[lvl, lanes]
             wv.Y_cols = wb.Y_cols[lvl, lanes]
             z0 = wv.z0(I_s[..., :N])
+        elif sparse:
+            static = {k: v[lvl, lanes] for k, v in stack.items()}
         else:
             G_static = Gs[lvl, lanes]
         x = x_init
@@ -150,6 +163,8 @@ def run_transient_adaptive(engine: Engine, params, tstep, tstop,
             act = ~done
             if woodbury:
                 x_raw = wv.solve(params, x, z0, None, t_new)
+            elif sparse:
+                x_raw = sparse_solve(params, x, I_s, None, t_new, static)
             else:
                 G, I = engine.assemble_tran_iter(G_static, I_s, params, x,
                                                  t_new)

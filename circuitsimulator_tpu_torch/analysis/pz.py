@@ -32,6 +32,7 @@ from ..models.moscap import charge_jacobian
 from ..ops.assemble import Engine
 from .dc import dc_operating_point
 from .sensitivity import _polish, dc_jacobian
+from ..utils.shapes import broadcast_shapes
 
 
 @dataclasses.dataclass
@@ -72,7 +73,7 @@ def reactive_structure(engine: Engine, params, x_op=None):
         parts.append(Jq.flatten(-3))
         rows.append(engine.mq_rows)
         cols.append(engine.mq_cols)
-    lead = torch.broadcast_shapes(lead, *(p.shape[:-1] for p in parts))
+    lead = broadcast_shapes(lead, *(p.shape[:-1] for p in parts))
     vals = torch.cat([p.expand(lead + p.shape[-1:]) for p in parts], -1)
     N1 = N + 1
     flat = torch.as_tensor(

@@ -20,8 +20,14 @@ conductances, the element currents and voltages in the state) and
 rank-k update per Newton iteration) or "lu" (the whole system assembled
 and solved every iteration, the reference's algorithm; with
 ``tran_mixed_refine`` in float64, the residual in float64 and the
-correction solved in float32).  Every solve goes through
-``ops/lu.lu_solve``: the K2 kernel on CUDA.
+correction solved in float32); for large circuits, on the stamp entries
+and never a dense matrix, "tridiag" (bordered cyclic reduction of a
+ladder, ``tridiag_algo`` PCR or CR), "blockband" (the RCM block-banded
+block CR, re-eliminated every iteration) or "blockwb" (that block CR
+factored once, the nonlinear devices as Woodbury rows over it).  Under
+MOSCAP=CHARGE the sparse solves scatter the charge rows' entries too.
+Every dense and Schur solve goes through ``ops/lu.lu_solve``: the K2
+kernel on CUDA (above its 64 unknowns, ``lu_solve_large``).
 
 The JAX ``lax.scan`` over steps is a Python loop; the per-step Newton is
 either ``tran_unrolled_iters`` fixed iterations (no host sync: the
@@ -39,6 +45,7 @@ import torch
 
 from ..ops.assemble import Engine
 from ..ops.lu import lu_solve
+from ..ops.sparse_system import SparseSystem, cat_lanes
 from ..ops.woodbury import WoodburySolver
 from .dc import dc_operating_point
 
@@ -72,12 +79,24 @@ def transient_step_fn(engine: Engine, params, dt, predictor: bool = False):
     dt = torch.as_tensor(dt, dtype=engine.dtype, device=engine.device)
     static_I = engine.make_tran_static_I(dt_host, method)
     update_state = engine.make_update_state(dt, method)
-    G_static = engine.tran_static_G(params, dt, opts.tran_gmin, method)
     floor = opts.lu_pivot_floor
-    if opts.tran_solver == "woodbury":
+    woodbury = opts.tran_solver in ("woodbury", "blockwb")
+    if opts.tran_solver in ("tridiag", "blockband"):
+        (static,), sparse = sparse_tran_backend(engine, params, [dt], method)
+
+        def solve(params, x, I_s, qex, t):
+            return sparse(params, x, I_s, qex, t, static)
+    elif opts.tran_solver == "blockwb":
+        wb = WoodburySolver(engine, params,
+                            solve_op=_blockwb_solve_op(engine, params, dt,
+                                                       method))
+        solve = wb.solve
+    elif opts.tran_solver == "woodbury":
+        G_static = engine.tran_static_G(params, dt, opts.tran_gmin, method)
         wb = WoodburySolver(engine, params, G_static[..., :N, :N])
         solve = wb.solve
     else:
+        G_static = engine.tran_static_G(params, dt, opts.tran_gmin, method)
         mixed = (bool(opts.tran_mixed_refine)
                  and engine.dtype == torch.float64)
 
@@ -130,8 +149,8 @@ def transient_step_fn(engine: Engine, params, dt, predictor: bool = False):
             x, state, failed = carry
             x_init = x
         I_s = static_I(params, state, t)
-        # the Woodbury solve takes G0^-1 I_s, the dense one I_s itself
-        z0 = wb.z0(I_s[..., :N]) if opts.tran_solver == "woodbury" else I_s
+        # the Woodbury solves take G0^-1 I_s, the others I_s itself
+        z0 = wb.z0(I_s[..., :N]) if woodbury else I_s
         qex = None
         if engine.mos_charge:
             qex = ((state["qm"], inv_dt, state["qi"]) if method == "trap"
@@ -152,6 +171,60 @@ def transient_step_fn(engine: Engine, params, dt, predictor: bool = False):
         return (x_new, state, failed_new), (x_new, iters)
 
     return step
+
+
+def sparse_tran_backend(engine: Engine, params, dts, method: str):
+    """The ``tridiag`` or ``blockband`` backend: (statics, solve) with
+    statics the static companion matrices scattered once for each timestep
+    of ``dts``, and solve(params, x, I_s, qex, t, static) -> x_raw: the
+    device linearisation (and the charge rows) scattered onto ``static``,
+    then the bordered (block) cyclic reduction."""
+    opts = engine.opts
+    entries = [engine.tran_static_entries(params, d, opts.tran_gmin, method)
+               for d in dts]
+    pats = [(engine.nl_rows, engine.nl_cols)]
+    if engine.mos_charge:
+        pats.append((engine.mq_rows, engine.mq_cols))
+    system = SparseSystem(engine, opts.tran_solver, *entries[0][:2], pats,
+                          algo=opts.tridiag_algo)
+    statics = [system.scatter(e[2]) for e in entries]
+
+    def solve(params, x, I_s, qex, t, static):
+        gvals, rvals = engine._nl_vals(params, x, t)
+        I = engine.add_rhs(I_s, engine._nl_rhs, rvals)
+        if qex is not None:
+            # the charge rows: 15 Jacobian and 5 RHS entries per MOS
+            gq, cq = engine.mosq_linearize(params, engine.mos_vdgs(x), *qex)
+            gvals = cat_lanes(gvals, gq.flatten(-3))
+            I = engine.add_rhs(I, engine._mq_rhs, -cq.flatten(-2))
+        return system.solve(static, I, gvals)
+
+    return statics, solve
+
+
+def _blockwb_solve_op(engine: Engine, params, dt, method: str):
+    """The ``blockwb`` base: the static companion matrix in the RCM block
+    band, factored once (``bordered_block_factor``); returns solve_op(B)
+    applying its inverse to (..., N, q) original-order right-hand sides."""
+    from ..ops.blockcr import (bordered_block_apply_cols,
+                               bordered_block_factor)
+    opts = engine.opts
+    srows, scols, svals = engine.tran_static_entries(params, dt,
+                                                     opts.tran_gmin, method)
+    system = SparseSystem(engine, "blockband", srows, scols)
+    layout = system.layout
+    m = system.scatter(svals)
+    bfac = bordered_block_factor(m["L"], m["D"], m["U"], m["Ub"], m["Wb"],
+                                 m["Db"], opts.lu_pivot_floor)
+
+    def solve_op(B):
+        f, g = layout.gather_rhs(B.transpose(-1, -2))     # (..., q, n_pad)
+        X, Y = bordered_block_apply_cols(bfac, f.transpose(-1, -2),
+                                         g.transpose(-1, -2))
+        return layout.gather_solution(X.transpose(-1, -2),
+                                      Y.transpose(-1, -2)).transpose(-1, -2)
+
+    return solve_op
 
 
 @torch.inference_mode()

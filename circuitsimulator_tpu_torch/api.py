@@ -22,6 +22,12 @@
     form = sim.worst_case(sig, measure="vset", high=1.27)   # FORM, adjoint
     sim.mismatch_budget(sig, measure="vset"); sim.center_design(...)
     sim.calibrate(target, "out", ["res_r"]); sim.fit_measures(...)   # Adam
+
+Above 128 node equations ``Simulator`` picks a large-circuit backend, as
+the JAX package does: ``tridiag`` for a ladder (``synthetic.
+rc_ladder_netlist``), else the RCM block band (``synthetic.
+rc_grid_netlist``), ``blockwb`` when the Woodbury rank is at most N/16 and
+``blockband`` above it.
 """
 
 from __future__ import annotations
@@ -39,14 +45,13 @@ from .io.table import circuit_summary, dc_table
 from .ir.lower import LoweredCircuit, lower
 from .netlist import (KIND_C, KIND_E, KIND_L, KIND_R, KIND_V, expand_text,
                       parse_netlist_text, parse_spice_number, read_netlist)
-from .ops import cuda_lu
 from .ops.assemble import Engine
 from .utils import prng
 from .utils.options import DEFAULT_OPTIONS, SolverOptions
 from .utils.temp import apply_is_temp, has_is_temp, thermal_params
 
-# the JAX package switches to structure-exploiting solvers above this many
-# node equations (api.py auto_backend); the port has only the dense path
+# above this many node equations ``auto_backend`` switches to a
+# structure-exploiting backend (the JAX package's threshold, api.py)
 MAX_DENSE_NODE_EQS = 128
 
 
@@ -122,21 +127,37 @@ class Simulator:
                                               opts.dtype, device))
             if has_is_temp(self.params):
                 self.params = apply_is_temp(self.params)
-        if opts.auto_backend and self.topo.n_node_eq > MAX_DENSE_NODE_EQS:
-            raise NotImplementedError(
-                f"{self.topo.n_node_eq} node equations: the large-circuit "
-                f"backends (tridiag/blockband/blockwb) are not yet ported")
-        c = self.topo.counts                # Woodbury k x k solve size
-        rank = (c["M"] + c["J"] + c["D"] + 2 * c["Q"] + c["S"]
-                + len(self.lowered.b_sources))
-        if opts.mos_cap_model == "charge":
-            rank += 5 * c["M"]              # the charge rows
-        if device.type == "cuda" and max(self.topo.n_unknowns,
-                                         rank) > cuda_lu.MAX_N:
-            raise NotImplementedError(
-                f"{self.topo.n_unknowns} unknowns / Woodbury rank {rank}: "
-                f"the CUDA LU kernel takes N <= {cuda_lu.MAX_N}")
         self.engine = Engine(self.lowered, opts, device)
+        if opts.auto_backend and self.topo.n_node_eq > MAX_DENSE_NODE_EQS:
+            self._large_circuit_backend()
+
+    def _large_circuit_backend(self):
+        """Dense O(N^2) assembly and O(N^3) LU are unusable on a large
+        circuit: take bordered cyclic reduction for a strict ladder, else
+        the RCM block band when the topology reduces to one (grids, trees,
+        meshes), pre-factored under Woodbury rows (``blockwb``) when the
+        nonlinear rank is small against the network (k <= N/16: the JAX
+        package's measured crossover) and re-eliminated (``blockband``)
+        above it.  A circuit that fits neither keeps the dense backends."""
+        from .ops.banded import is_ladder
+        from .ops.blockband import try_layout
+        from .ops.woodbury import WoodburyPlan
+        opts = self.opts
+        if is_ladder(self.engine):
+            opts = opts.replace(tran_solver="tridiag", dc_solver="tridiag")
+            layout = None
+        else:
+            layout = try_layout(self.engine)
+            if layout is None:
+                return
+            k_wb = WoodburyPlan(self.engine).k
+            opts = opts.replace(
+                tran_solver=("blockwb" if k_wb <= self.topo.n_unknowns // 16
+                             else "blockband"),
+                dc_solver="blockband")
+        self.opts = opts
+        self.engine = Engine(self.lowered, opts, self.device)
+        self.engine._blockband_layout = layout
 
     # ---- constructors ----
     @classmethod
@@ -182,12 +203,25 @@ class Simulator:
                 torch.as_tensor(vals, dtype=self.opts.dtype,
                                 device=self.device))
 
-    def dc(self, params: Optional[Any] = None):
-        """DC operating point -> (N,) solution vector.  A .NODESET card
-        steers Newton toward the wanted solution branch (hold, then
-        release on the last ramp step)."""
+    def dc(self, params: Optional[Any] = None,
+           linear_solver: Optional[str] = None, polish: bool = False):
+        """DC operating point -> (N,) solution vector.
+
+        linear_solver: "lu" (the reference's dcSolveLU), "gs"
+        (dcSolveGaussSeidel), "tridiag" (ladders) or "blockband" (grids,
+        trees, meshes); defaults to the engine's ``dc_solver``.  A .NODESET
+        card steers Newton toward the wanted solution branch (hold, then
+        release on the last ramp step).  polish=True follows the ramped
+        solve with three undamped Newton refinements at gmin = 0 (the step
+        .SENS and .TF use), removing the gmin leak of the reference's
+        solution: for accuracy, not for parity."""
         p = params if params is not None else self.params
-        return dc_operating_point(self.engine, p, nodeset=self._nodeset())
+        x = dc_operating_point(self.engine, p, nodeset=self._nodeset(),
+                               linear_solver=linear_solver)
+        if polish:
+            from .analysis.sensitivity import _polish
+            x = _polish(self.engine, p, x)
+        return x
 
     def _initial_conditions_x0(self, uic: bool, params=None):
         """The transient's x0 under .IC / UIC: with UIC, zeros with the

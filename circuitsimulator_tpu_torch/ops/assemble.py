@@ -48,6 +48,7 @@ from ..models.switch import switch_stamp_vals
 from ..utils import prng
 from ..utils.expr import eval_tape
 from ..utils.options import SolverOptions
+from ..utils.shapes import broadcast_shapes
 
 def _two_terminal_pattern(a: np.ndarray, b: np.ndarray):
     """rows [a,b,a,b], cols [a,b,b,a], value pattern [+g,+g,-g,-g]."""
@@ -74,10 +75,16 @@ class ScatterPlan:
     take other bits from run to run; with one add per element a launch is
     exact, and every element sums its values in their given order, as the
     CPU's sequential ``index_add_`` does (the CPU's bits are unchanged).
-    Positions that occur once take one launch, as before."""
+    Positions that occur once take one launch, as before.  Entries at
+    ``size`` or past it (an RHS's ground slot) are left out."""
 
-    def __init__(self, flat, device):
+    def __init__(self, flat, device, size=None):
         flat = np.asarray(flat, np.int64).ravel()
+        self.sel = None
+        if size is not None and np.any(flat >= size):
+            kept = np.flatnonzero(flat < size)
+            self.sel = torch.as_tensor(kept, device=device)
+            flat = flat[kept]
         n = len(flat)
         order = np.argsort(flat, kind="stable")
         srt = flat[order]
@@ -90,16 +97,21 @@ class ScatterPlan:
         self.layers = None
         if n and rank.max() > 0:
             perm = np.lexsort((np.arange(n), rank))     # by rank, in order
-            self.perm = torch.as_tensor(perm, device=device)
             counts = np.bincount(rank)
             offs = np.r_[0, np.cumsum(counts)[:-1]]
             self.layers = [(torch.as_tensor(flat[perm[o:o + c]],
                                             device=device), int(o), int(c))
                            for o, c in zip(offs, counts)]
+            if self.sel is not None:
+                perm = kept[perm]
+                self.sel = None
+            self.perm = torch.as_tensor(perm, device=device)
 
     def add_(self, target, vals):
         """target (..., M) += vals (..., n) at the positions; in place."""
         if self.layers is None:
+            if self.sel is not None:
+                vals = vals.index_select(-1, self.sel)
             return target.index_add_(-1, self.idx, vals)
         v = vals.index_select(-1, self.perm)
         for idx, off, cnt in self.layers:
@@ -107,16 +119,25 @@ class ScatterPlan:
         return target
 
 
+DC_SOLVERS = ("lu", "gs", "tridiag", "blockband")
+# the largest N x (RHS terms) assembled by one-hot matmuls (the JAX
+# Engine's bar); above it the Engine scatters and gathers
+MATMUL_HOTPATH_BAR = 2_000_000
+TRAN_SOLVERS = ("woodbury", "lu", "tridiag", "blockband", "blockwb")
+
+
 def check_supported(low: LoweredCircuit, opts: SolverOptions) -> None:
-    """Raise NotImplementedError naming what this port does not run yet."""
+    """Raise ValueError on an option value the engine does not know (the
+    JAX package's words and choices, ``utils/options.py``)."""
     if opts.mos_cap_model not in ("fixed", "charge"):
         raise ValueError(f"unknown mos_cap_model {opts.mos_cap_model!r} "
                          "(fixed|charge)")
-    if opts.dc_solver != "lu" or opts.tran_solver not in ("woodbury", "lu"):
-        raise NotImplementedError(
-            f"dc_solver={opts.dc_solver!r}, tran_solver={opts.tran_solver!r}: "
-            "only the 'lu' DC and the 'woodbury' and 'lu' transient solvers "
-            "are ported")
+    if opts.dc_solver not in DC_SOLVERS:
+        raise ValueError(f"unknown dc_solver {opts.dc_solver!r} "
+                         f"({'|'.join(DC_SOLVERS)})")
+    if opts.tran_solver not in TRAN_SOLVERS:
+        raise ValueError(f"unknown tran_solver {opts.tran_solver!r} "
+                         f"({'|'.join(TRAN_SOLVERS)})")
     if opts.tran_method not in ("be", "trap"):
         raise ValueError(f"unknown tran_method {opts.tran_method!r} "
                          "(be|trap)")
@@ -140,6 +161,11 @@ class Engine:
         def flat(rows, cols):
             return ScatterPlan(np.asarray(rows, np.int64) * (N + 1)
                                + np.asarray(cols, np.int64), dev)
+
+        def rhs(rows):
+            """An RHS plan: no solve reads the ground's slot I[N], which
+            every grounded device would stamp at a launch per device."""
+            return ScatterPlan(rows, dev, size=N)
 
         # ---- DC G pattern: R conductances + V/L +-1 couplings ----
         self.res_rows, self.res_cols = _two_terminal_pattern(t.res_e1, t.res_e2)
@@ -283,7 +309,7 @@ class Engine:
             self.mq_cols = np.tile(term, (1, 5)).ravel().astype(np.int64)
             self.mq_rhs_rows = inj.ravel().astype(np.int64)       # (5 nM,)
             self._mq_flat = flat(self.mq_rows, self.mq_cols)
-            self._mq_rhs = ScatterPlan(self.mq_rhs_rows, dev)
+            self._mq_rhs = rhs(self.mq_rhs_rows)
 
         # ---- mutual inductance (K): branch-row cross terms, row k_a gets
         # -M/dt at column k_b and vice versa (the BE companion of
@@ -355,11 +381,11 @@ class Engine:
             np.concatenate([c[i] for c in classes]).astype(np.int64)
             for i in range(3))
         self._nl_flat = flat(self.nl_rows, self.nl_cols)
-        self._nl_rhs = ScatterPlan(self.nl_rhs_rows, dev)
+        self._nl_rhs = rhs(self.nl_rhs_rows)
         self._gmin_flat = flat(t.node_eqs, t.node_eqs)
-        self._vs_k = ScatterPlan(t.vs_k, dev)
+        self._vs_k = rhs(t.vs_k)
         self.is_rhs_rows = np.stack([t.is_ep, t.is_em], 1).ravel()
-        self._is_rhs = ScatterPlan(self.is_rhs_rows, dev)
+        self._is_rhs = rhs(self.is_rhs_rows)
         self._mos_term = (idx(t.mos_ed), idx(t.mos_eg), idx(t.mos_es))
         self._jf_term = (idx(t.jf_ed), idx(t.jf_eg), idx(t.jf_es))
         self._dio_term = (idx(t.dio_ep), idx(t.dio_em))
@@ -370,40 +396,51 @@ class Engine:
         # ---- one-hot hot-path operators ----
         #   RHS assembly:  I = [vval | ival | vhist | cap_hist | E1 | E2] @ rhs_mat
         #   state read:    [vc | il | vl] = x @ state_mat
+        # The matmuls are O(N nterms) a step: a large circuit (N nterms above
+        # MATMUL_HOTPATH_BAR) scatters the terms and gathers the state at
+        # static indices instead.
         ncap = self.n_caplike
         nterms = nV + nI + nL + ncap + 2 * nT
-        M = np.zeros((N, nterms))
-        for j in range(nV):
-            M[t.vs_k[j], j] += 1.0
-        for j in range(nI):
-            if t.is_ep[j] < N:
-                M[t.is_ep[j], nV + j] -= 1.0
-            if t.is_em[j] < N:
-                M[t.is_em[j], nV + j] += 1.0
-        for j in range(nL):
-            M[t.ind_k[j], nV + nI + j] += 1.0
-        for j in range(ncap):
-            if self.cap_a[j] < N:
-                M[self.cap_a[j], nV + nI + nL + j] += 1.0
-            if self.cap_b[j] < N:
-                M[self.cap_b[j], nV + nI + nL + j] -= 1.0
-        for j in range(nT):     # the delayed-wave Thevenin EMFs E1, E2
-            M[t.tl_k1[j], nV + nI + nL + ncap + j] += 1.0
-            M[t.tl_k2[j], nV + nI + nL + ncap + nT + j] += 1.0
-        self.rhs_mat = torch.as_tensor(M.T.copy(), dtype=dt_, device=dev)
-        S = np.zeros((N, ncap + 2 * nL))
-        for j in range(ncap):
-            if self.cap_a[j] < N:
-                S[self.cap_a[j], j] += 1.0
-            if self.cap_b[j] < N:
-                S[self.cap_b[j], j] -= 1.0
-        for j in range(nL):
-            S[t.ind_k[j], ncap + j] += 1.0
-            if t.ind_ep[j] < N:
-                S[t.ind_ep[j], ncap + nL + j] += 1.0
-            if t.ind_em[j] < N:
-                S[t.ind_em[j], ncap + nL + j] -= 1.0
-        self.state_mat = torch.as_tensor(S, dtype=dt_, device=dev)
+        self.use_matmul_hotpath = N * max(nterms, 1) <= MATMUL_HOTPATH_BAR
+        # (row, term, sign) of every RHS term, ground rows dropped
+        off_c, off_t = nV + nI + nL, nV + nI + nL + ncap
+        rhs_row = np.concatenate([t.vs_k, t.is_ep, t.is_em, t.ind_k,
+                                  self.cap_a, self.cap_b, t.tl_k1, t.tl_k2])
+        rhs_term = np.concatenate([
+            np.arange(nV), nV + np.arange(nI), nV + np.arange(nI),
+            nV + nI + np.arange(nL), off_c + np.arange(ncap),
+            off_c + np.arange(ncap), off_t + np.arange(nT),
+            off_t + nT + np.arange(nT)]).astype(np.int64)
+        rhs_sign = np.concatenate([
+            np.ones(nV), -np.ones(nI), np.ones(nI), np.ones(nL),
+            np.ones(ncap), -np.ones(ncap), np.ones(2 * nT)])
+        real = rhs_row < N
+        rhs_row, rhs_term, rhs_sign = (rhs_row[real].astype(np.int64),
+                                       rhs_term[real], rhs_sign[real])
+        if self.use_matmul_hotpath:
+            M = np.zeros((N, nterms))
+            np.add.at(M, (rhs_row, rhs_term), rhs_sign)
+            self.rhs_mat = torch.as_tensor(M.T.copy(), dtype=dt_, device=dev)
+            S = np.zeros((N, ncap + 2 * nL))
+            for j in range(ncap):
+                if self.cap_a[j] < N:
+                    S[self.cap_a[j], j] += 1.0
+                if self.cap_b[j] < N:
+                    S[self.cap_b[j], j] -= 1.0
+            for j in range(nL):
+                S[t.ind_k[j], ncap + j] += 1.0
+                if t.ind_ep[j] < N:
+                    S[t.ind_ep[j], ncap + nL + j] += 1.0
+                if t.ind_em[j] < N:
+                    S[t.ind_em[j], ncap + nL + j] -= 1.0
+            self.state_mat = torch.as_tensor(S, dtype=dt_, device=dev)
+        else:
+            self.rhs_mat = self.state_mat = None
+            self._rhs_term = idx(rhs_term)
+            self._rhs_sign = torch.as_tensor(rhs_sign, dtype=dt_, device=dev)
+            self._rhs_plan = rhs(rhs_row)
+            self._state_idx = tuple(idx(a) for a in (
+                self.cap_a, self.cap_b, t.ind_k, t.ind_ep, t.ind_em))
         # waveform kinds are structural: only present formulas are evaluated
         self.vs_kinds = np.asarray(low.params["vs_kind"].cpu())
         self.is_kinds = np.asarray(low.params["is_kind"].cpu())
@@ -451,7 +488,7 @@ class Engine:
         qc = torch.stack([params["bjt_cje"], params["bjt_cjc"]],
                          dim=-1).flatten(-2)
         parts = [params["cap_c"], mc, params["dio_cjo"], qc]
-        lead = torch.broadcast_shapes(*(p.shape[:-1] for p in parts))
+        lead = broadcast_shapes(*(p.shape[:-1] for p in parts))
         return torch.cat([p.expand(lead + p.shape[-1:]) for p in parts],
                          dim=-1)
 
@@ -485,7 +522,7 @@ class Engine:
                  torch.stack([a, -a], dim=-1).flatten(-2),
                  torch.stack([oe, -oe, oe, -oe, -e, e], dim=-1).flatten(-2),
                  torch.stack([orr, -orr, orr, -orr, -r], dim=-1).flatten(-2)]
-        lead = torch.broadcast_shapes(*(p.shape[:-1] for p in parts))
+        lead = broadcast_shapes(*(p.shape[:-1] for p in parts))
         return torch.cat([p.expand(lead + p.shape[-1:]) for p in parts], -1)
 
     def _zeros_G(self, lead):
@@ -495,6 +532,15 @@ class Engine:
     def _zeros_I(self, lead):
         return torch.zeros(lead + (self.N + 1,), dtype=self.dtype,
                            device=self.device)
+
+    @staticmethod
+    def add_rhs(I_s, plan, vals):
+        """A copy of I_s (..., N+1) plus ``vals`` at ``plan``'s rows,
+        broadcast over the lanes of both."""
+        lead = broadcast_shapes(I_s.shape[:-1], vals.shape[:-1])
+        I = I_s.expand(lead + I_s.shape[-1:]).clone()
+        plan.add_(I, vals.expand(lead + vals.shape[-1:]))
+        return I
 
     def _as_matrix(self, Gf):
         return Gf.reshape(Gf.shape[:-1] + (self.N + 1, self.N + 1))
@@ -571,7 +617,7 @@ class Engine:
         if not gv:
             z = x.new_zeros(x.shape[:-1] + (0,))
             return z, z
-        lead = torch.broadcast_shapes(*(g.shape[:-1] for g in gv))
+        lead = broadcast_shapes(*(g.shape[:-1] for g in gv))
         return (torch.cat([g.expand(lead + g.shape[-1:]) for g in gv], -1),
                 torch.cat([r.expand(lead + r.shape[-1:]) for r in rv], -1))
 
@@ -582,7 +628,7 @@ class Engine:
         """Static COO entries of the DC matrix: (rows, cols, vals)."""
         rvals = self._res_vals(params)
         cvals = self._ctrl_vals(params)
-        lead = torch.broadcast_shapes(rvals.shape[:-1], cvals.shape[:-1])
+        lead = broadcast_shapes(rvals.shape[:-1], cvals.shape[:-1])
         const = torch.cat([self.dc_const_vals, self.tl_kcl_vals,
                            self.tl_dc_vals, self.b_static_vals])
         rows = np.concatenate([self.res_rows, self.dc_const_rows,
@@ -602,7 +648,7 @@ class Engine:
                               params["vs_sin"], scale, pulse=params["vs_pulse"])
         ival = srcmod.eval_dc(params["is_dc"], params["is_kind"],
                               params["is_sin"], scale, pulse=params["is_pulse"])
-        lead = torch.broadcast_shapes(vval.shape[:-1], ival.shape[:-1])
+        lead = broadcast_shapes(vval.shape[:-1], ival.shape[:-1])
         I = self._zeros_I(lead)
         self._vs_k.add_(I, vval.expand(lead + vval.shape[-1:]))
         irhs = torch.stack([-ival, ival], dim=-1).flatten(-2)
@@ -619,15 +665,15 @@ class Engine:
     def assemble_dc_iter(self, G_static, I_static, params, x, gmin):
         """Add the device linearization and the adaptive gmin diagonal."""
         gvals, rvals = self._nl_vals(params, x)
-        lead = torch.broadcast_shapes(G_static.shape[:-2], gvals.shape[:-1])
+        lead = broadcast_shapes(G_static.shape[:-2], gvals.shape[:-1])
         Gf = G_static.reshape(G_static.shape[:-2] + (-1,))
         Gf = Gf.expand(lead + Gf.shape[-1:]).clone()
         self._nl_flat.add_(Gf, gvals.expand(lead + gvals.shape[-1:]))
         gm = self._scalar(gmin)[..., None].expand(
             lead + (len(self.topo.node_eqs),))
         self._gmin_flat.add_(Gf, gm)
-        I = I_static.expand(lead + I_static.shape[-1:]).clone()
-        self._nl_rhs.add_(I, rvals.expand(lead + rvals.shape[-1:]))
+        I = self.add_rhs(I_static, self._nl_rhs,
+                         rvals.expand(lead + rvals.shape[-1:]))
         return self._as_matrix(Gf), I
 
     # ------------------------------------------------------------------
@@ -657,7 +703,7 @@ class Engine:
         fac = 2.0 if method == "trap" else 1.0
         rvals = self._res_vals(params)
         cvals = self._ctrl_vals(params)
-        lead = torch.broadcast_shapes(rvals.shape[:-1], cvals.shape[:-1])
+        lead = broadcast_shapes(rvals.shape[:-1], cvals.shape[:-1])
         nV = len(self.topo.vs_ep)
         vs_vals = self.dc_const_vals[:4 * nV]
         L = params["ind_l"]
@@ -680,7 +726,7 @@ class Engine:
         rows, cols = self._tran_pattern()
         parts = [rvals, vs_vals, ind_vals, mut_vals, cap_vals, gm, cvals,
                  self.tl_kcl_vals, tl_branch, self.b_static_vals]
-        lead = torch.broadcast_shapes(lead, *(p.shape[:-1] for p in parts))
+        lead = broadcast_shapes(lead, *(p.shape[:-1] for p in parts))
         vals = torch.cat([p.expand(lead + p.shape[-1:]) for p in parts], -1)
         return rows, cols, vals
 
@@ -753,9 +799,14 @@ class Engine:
                 ring = state["tlw"]
                 parts += [ring[..., tl_read, tl_cols1],
                           ring[..., tl_read, tl_cols2]]
-            lead = torch.broadcast_shapes(*(p.shape[:-1] for p in parts))
+            lead = broadcast_shapes(*(p.shape[:-1] for p in parts))
             terms = torch.cat([p.expand(lead + p.shape[-1:]) for p in parts],
                               dim=-1)
+            if self.rhs_mat is None:
+                I = terms.new_zeros(lead + (self.N + 1,))
+                return self._rhs_plan.add_(
+                    I, terms.index_select(-1, self._rhs_term)
+                    * self._rhs_sign)
             I = terms @ self.rhs_mat
             return torch.cat([I, torch.zeros_like(I[..., :1])], dim=-1)
 
@@ -789,12 +840,12 @@ class Engine:
         (qprev, inv_dt), or (qprev, inv_dt, iprev) under trap, adds the 15
         Jacobian and 5 RHS entries per MOS of the charge model."""
         gvals, rvals = self._nl_vals(params, x, t)
-        lead = torch.broadcast_shapes(G_static.shape[:-2], gvals.shape[:-1])
+        lead = broadcast_shapes(G_static.shape[:-2], gvals.shape[:-1])
         Gf = G_static.reshape(G_static.shape[:-2] + (-1,))
         Gf = Gf.expand(lead + Gf.shape[-1:]).clone()
         self._nl_flat.add_(Gf, gvals.expand(lead + gvals.shape[-1:]))
-        I = I_static.expand(lead + I_static.shape[-1:]).clone()
-        self._nl_rhs.add_(I, rvals.expand(lead + rvals.shape[-1:]))
+        I = self.add_rhs(I_static, self._nl_rhs,
+                         rvals.expand(lead + rvals.shape[-1:]))
         if qex is not None:
             gq, cq = self.mosq_linearize(params, self.mos_vdgs(x), *qex)
             gq, cq = gq.flatten(-3), -cq.flatten(-2)
@@ -809,6 +860,11 @@ class Engine:
         """(cap-like voltage diffs, inductor currents, inductor voltages)."""
         ncap = self.n_caplike
         nL = len(self.topo.ind_k)
+        if self.state_mat is None:
+            ca, cb, k, ep, em = self._state_idx
+            xe = self.x_ext(x)
+            return (xe[..., ca] - xe[..., cb], x[..., k],
+                    xe[..., ep] - xe[..., em])
         s = x @ self.state_mat
         return s[..., :ncap], s[..., ncap:ncap + nL], s[..., ncap + nL:]
 

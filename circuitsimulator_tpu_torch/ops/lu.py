@@ -12,7 +12,9 @@ Behavioral contract (reference include/solver.hpp:30-131, JAX twin
 
 ``lu_solve_plain`` is the plain PyTorch version (any device);
 ``lu_solve`` dispatches a CPU tensor to it and a CUDA tensor to the
-hand-written kernel (``ops/cuda_lu.py``), or raises.
+hand-written kernel (``ops/cuda_lu.py``) for N <= ``cuda_lu.MAX_N``, or
+raises.  Above that size a CUDA tensor takes ``lu_solve_large``, chosen
+by N alone and never on a failure of the kernel.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from . import cuda_lu
+from ..utils.shapes import broadcast_shapes
 
 
 def _as_columns(A, b):
@@ -30,7 +33,7 @@ def _as_columns(A, b):
     N = A.shape[-1]
     lead = A.shape[:-2]
     if bm.shape[:-2] != lead:
-        lead = torch.broadcast_shapes(lead, bm.shape[:-2])
+        lead = broadcast_shapes(lead, bm.shape[:-2])
     return (A.expand(lead + (N, N)), bm.expand(lead + bm.shape[-2:]), vec)
 
 
@@ -84,11 +87,39 @@ def lu_solve_plain(A, b, pivot_floor: float = 1e-15):
     return x[..., 0] if vec else x
 
 
+LARGE_CALLS = 0     # lu_solve_large calls made by lu_solve on CUDA tensors
+
+
+@torch.inference_mode()
+def lu_solve_large(A, b, pivot_floor: float = 1e-15):
+    """The solve of systems above K2's size: A (..., N, N), b (..., N) or
+    (..., N, R), any device.  ``torch.linalg.lu_factor_ex`` (partial
+    pivoting) and ``torch.linalg.lu_solve``, with the fail contract applied
+    from U's diagonal: a lane whose smallest |U_jj| (its smallest pivot) is
+    below ``pivot_floor`` returns the zero vector; a NaN pivot is not below
+    it, so a NaN in A goes through as in ``lu_solve_plain``.
+
+    A library call in place of a library call: what this replaces in the
+    JAX package, ``circuitsimulator_tpu/ops/lu.py:_lu_solve_looped``, is
+    XLA code, not a Pallas kernel (the Pallas LU takes N <= 64)."""
+    N = A.shape[-1]
+    if N == 0:
+        return b
+    A, B, vec = _as_columns(A, b)
+    LU, piv, _ = torch.linalg.lu_factor_ex(A)
+    x = torch.linalg.lu_solve(LU, piv, B)
+    minpiv = LU.diagonal(dim1=-2, dim2=-1).abs().amin(-1)
+    x = x.masked_fill((minpiv < pivot_floor)[..., None, None], 0.0)
+    return x[..., 0] if vec else x
+
+
 def lu_solve(A, b, pivot_floor: float = 1e-15):
     """Batched solve; CPU tensors take the plain version, CUDA tensors the
     K2 kernel (every leading axis is flattened into the kernel's lanes; a
     strided or broadcast input is made contiguous here, and the kernel
-    reads it in place without writing it)."""
+    reads it in place without writing it), or ``lu_solve_large`` when N is
+    above the kernel's ``cuda_lu.MAX_N``."""
+    global LARGE_CALLS
     if A.device.type == "cpu" and b.device.type == "cpu":
         return lu_solve_plain(A, b, pivot_floor)
     if A.device.type != "cuda" or b.device != A.device:
@@ -96,6 +127,9 @@ def lu_solve(A, b, pivot_floor: float = 1e-15):
     N = A.shape[-1]
     if N == 0:
         return b
+    if N > cuda_lu.MAX_N:
+        LARGE_CALLS += 1
+        return lu_solve_large(A, b, pivot_floor)
     if A.dim() == 3 and b.dim() in (2, 3) and b.shape[:2] == A.shape[:2]:
         # the batched callers' shapes: no broadcast, one lead axis
         vec = b.dim() == 2
@@ -150,5 +184,6 @@ class _LUSolveDiff(torch.autograd.Function):
 
 def lu_solve_diff(A, b, pivot_floor: float = 1e-15):
     """``lu_solve`` that autograd differentiates (the differentiable AC
-    solve's route): forward and backward each one ``lu_solve``."""
+    solve's route): forward and backward each one ``lu_solve`` (so above
+    ``cuda_lu.MAX_N`` on CUDA, each one ``lu_solve_large``)."""
     return _LUSolveDiff.apply(A, b, pivot_floor)

@@ -18,7 +18,10 @@ once:
 Per Newton iteration: matvecs plus one k x k pivoted solve, which goes
 through ``ops/lu.lu_solve`` (the K2 kernel on CUDA).  Terminal-voltage
 reads are one-hot matmuls; rows of grounded terminals (dump index) are all
-zero, which reproduces the x_ext ground convention.
+zero, which reproduces the x_ext ground convention.  With ``solve_op=``
+(the ``blockwb`` backend) G0^-1 is applied by the pre-factored block CR
+instead of a dense inverse, and the k x k solve goes through
+``lu_solve`` all the same (K2 for k <= 64, ``lu_solve_large`` above).
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from ..models.mosfet import mos_linearize
 from ..models.switch import switch_linearize
 from ..utils.expr import eval_tape
 from .lu import lu_inverse, lu_solve
+from ..utils.shapes import broadcast_shapes
 
 
 class WoodburyPlan:
@@ -120,17 +124,25 @@ class WoodburyPlan:
 class WoodburySolver:
     """Per-transient factorisation state and the per-iteration solve."""
 
-    def __init__(self, engine, params, G0):
+    def __init__(self, engine, params, G0=None, solve_op=None):
         """G0: (..., N, N) static BE matrix (tran_static_G without the dump
-        row/column), inverted once with the pivoted LU."""
+        row/column), inverted once with the pivoted LU.  Or ``solve_op(B)``,
+        which applies G0^-1 to (..., N, q) right-hand sides without a dense
+        inverse (the pre-factored block CR of ``ops/blockcr``, where an N x
+        N inverse would take N^2 memory)."""
         self.engine = engine
         self.plan = plan = WoodburyPlan(engine)
         opts = engine.opts
         N, dev, dt_ = engine.N, engine.device, engine.dtype
         self.pivot_floor = opts.lu_pivot_floor
         U = plan.build_U(dt_, dev)
-        self.G0inv = lu_inverse(G0, opts.lu_pivot_floor)
-        self.Y = self.G0inv @ U                                 # (..., N, k)
+        self._solve_op = solve_op
+        if solve_op is None:
+            self.G0inv = lu_inverse(G0, opts.lu_pivot_floor)
+            self.Y = self.G0inv @ U                             # (..., N, k)
+        else:
+            self.G0inv = None
+            self.Y = solve_op(U)
         cols = torch.as_tensor(plan.col_idx(), device=dev)      # (k, W)
         Y_ext = torch.cat([self.Y, torch.zeros_like(self.Y[..., :1, :])],
                           dim=-2)                               # dump row = 0
@@ -153,6 +165,8 @@ class WoodburySolver:
 
     def z0(self, b0):
         """G0^{-1} b0, once per timestep (b0 = sources + history)."""
+        if self._solve_op is not None:
+            return self._solve_op(b0[..., None])[..., 0]
         return (self.G0inv @ b0[..., None])[..., 0]
 
     def nl_coeffs(self, params, x, qex=None, t=0.0):
@@ -250,7 +264,7 @@ class WoodburySolver:
             parts_c.append(cq.flatten(-2))
         if len(parts_v) == 1:
             return parts_v[0], parts_c[0]
-        lead = torch.broadcast_shapes(*(c.shape[:-1] for c in parts_c))
+        lead = broadcast_shapes(*(c.shape[:-1] for c in parts_c))
         return (torch.cat([v.expand(lead + v.shape[-2:]) for v in parts_v],
                           dim=-2),
                 torch.cat([c.expand(lead + c.shape[-1:]) for c in parts_c],

@@ -27,7 +27,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..analysis.dc import dc_linear, dc_newton
+from ..analysis.dc import dc_operating_point
 from ..analysis.transient import n_steps_for, transient_step_fn
 from ..ops.assemble import Engine
 
@@ -107,10 +107,7 @@ class ChunkedTransient:
         state the transient starts from."""
         eng, p = self.engine, self.params
         lanes = tuple(p["vt_thermal"].shape)
-        if eng.topo.has_nonlinear:
-            x0 = dc_newton(eng, p, batch=lanes[0] if lanes else 0)
-        else:
-            x0 = dc_linear(eng, p)
+        x0 = dc_operating_point(eng, p, batch=lanes[0] if lanes else 0)
         state = eng.init_state(x0, p, self.tstep, noise_key=self.noise_key)
         failed = torch.zeros(x0.shape[:-1], dtype=torch.bool,
                              device=x0.device)

@@ -40,7 +40,7 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from ..analysis.dc import dc_linear, dc_newton
+from ..analysis.dc import dc_newton, dc_operating_point
 from ..analysis.transient import (TransientResult, n_steps_for, run_transient,
                                   transient_step_fn)
 from ..ops import fused_step
@@ -216,12 +216,12 @@ def lane_count(bparams: Dict[str, torch.Tensor]) -> int:
 
 def batched_dc_fast(engine: Engine, bparams, nodeset=None):
     """Natively batched DC operating point (B, N): one Newton loop with
-    per-lane masks, every iteration's solve batched over all lanes.
+    per-lane masks, every iteration's solve batched over all lanes, by the
+    engine's ``dc_solver`` (a large circuit's sparse solve takes the lanes
+    too; the JAX function always takes the dense LU).
     nodeset: the (eqs, vals) Newton aid of ``Simulator._nodeset()``."""
-    if not engine.topo.has_nonlinear:
-        return dc_linear(engine, bparams)
-    return dc_newton(engine, bparams, batch=lane_count(bparams),
-                     nodeset=nodeset)
+    return dc_operating_point(engine, bparams, nodeset=nodeset,
+                              batch=lane_count(bparams))
 
 
 def batched_dc_warm(engine: Engine, bparams, x_nom):
@@ -230,7 +230,7 @@ def batched_dc_warm(engine: Engine, bparams, x_nom):
     step, not the whole source ramp.  Same tolerance and gmin schedule at
     scale 1 as ``batched_dc_fast``; the trajectories differ."""
     if not engine.topo.has_nonlinear:
-        return dc_linear(engine, bparams)
+        return dc_operating_point(engine, bparams, batch=lane_count(bparams))
     return dc_newton(engine, bparams, batch=lane_count(bparams),
                      x_init=x_nom, final_only=True)
 
@@ -378,8 +378,10 @@ def _fused_batched_transient(engine: Engine, bparams, tstep, tstop,
 def batched_transient(engine: Engine, bparams, tstep, tstop,
                       save_xs: bool = False, fused="auto",
                       x0=None, noise_key=None) -> TransientResult:
-    """Transient of every lane (Backward Euler or trapezoidal, the
-    Woodbury or the dense LU solver), from the batched DC point
+    """Transient of every lane (Backward Euler or trapezoidal, on the
+    engine's ``tran_solver``: Woodbury, dense LU, or a large circuit's
+    tridiag, blockband or blockwb with the lanes on the leading axis),
+    from the batched DC point
     (or from the (B, N) operating points ``x0``, e.g. a float64 DC for a
     float32 run: the reference's damped DC Newton with its gmin stepping
     leaves about 1% of the lanes of a BJT deck unconverged in float32).

@@ -41,6 +41,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from .numbers import parse_spice_number
+from .shapes import broadcast_shapes
 
 _FUNCS1 = {
     "sin": math.sin, "cos": math.cos, "tan": math.tan,
@@ -586,7 +587,7 @@ def eval_tape(tape: Tape, vals, t, consts):
     e0 = ten(e0).to(dev)
     lead = vals.shape[:-1]
     if e0.dim() and e0.shape != lead:
-        lead = torch.broadcast_shapes(e0.shape, lead)
+        lead = broadcast_shapes(e0.shape, lead)
     grads = [d[j].to(dev).expand(lead) if isinstance(d.get(j), torch.Tensor)
              else torch.full(lead, d.get(j, 0.0), dtype=dtype, device=dev)
              for j in range(vals.shape[-1])]

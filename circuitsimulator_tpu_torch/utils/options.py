@@ -7,13 +7,16 @@ the LU pivot floor), so the default configuration reproduces reference
 numerics.  ``mos_cap_model`` is "fixed" (the reference's lumped MOS caps)
 or "charge" (the charge-conserving model, ``models/moscap.py``).
 ``tran_method`` is "be" or "trap" (the trapezoidal companions),
-``tran_solver`` "woodbury" or "lu" (with ``tran_mixed_refine``, its
-float32 correction solve around a float64 residual); the adaptive ladder
+``tran_solver`` "woodbury", "lu" (with ``tran_mixed_refine``, its float32
+correction solve around a float64 residual), or one of the large-circuit
+backends "tridiag" (bordered cyclic reduction, ``tridiag_algo`` "pcr" or
+"cr"), "blockband" (RCM block-banded block CR) and "blockwb" (the
+pre-factored block CR under Woodbury rows); ``dc_solver`` "lu", "gs"
+(Gauss-Seidel, ``gs_*``), "tridiag" (always CR: the DC can be
+near-singular) or "blockband".  ``auto_backend`` lets ``Simulator`` pick
+the large-circuit backend above 128 node equations.  The adaptive ladder
 reads ``tran_max_refine_levels``, ``tran_lte_rtol``, ``tran_lte_atol`` and
-``tran_adaptive_alpha`` (``analysis/adaptive.py``).  The fields of
-backends the port does not have yet (gs, tridiag, blockband, blockwb) are
-kept so that option sets carry over unchanged; selecting such a backend
-raises ``NotImplementedError`` in the engine.
+``tran_adaptive_alpha`` (``analysis/adaptive.py``).
 """
 
 from __future__ import annotations

@@ -3,9 +3,13 @@ the compiled expressions (``utils/expr.compile_tape``/``eval_tape``) against
 ``jax.value_and_grad(compile_jax(...))``, the B-source decks through DC,
 transient and AC, and K1d-ii, the B rows of the fused chunk: its plain
 version against the JAX kernel in interpret mode and against the port's
-non-fused loop, and its gate against the JAX gate."""
+non-fused loop, and its gate against the JAX gate.  The example decks'
+JAX DC, transient and AC matrices (about 30 s of compiles on the CPU)
+are ``tests/goldens/bsource_jax.json``; ``PYTHONPATH=. JAX_PLATFORMS=cpu
+python tests/test_torch_bsource.py`` remakes it with the JAX package."""
 
 import functools
+import json
 import os
 import re
 
@@ -25,6 +29,7 @@ from circuitsimulator_tpu_torch.convert import params_from_numpy
 from circuitsimulator_tpu_torch.ops import fused_step
 from circuitsimulator_tpu_torch.parallel import montecarlo as tmc
 from circuitsimulator_tpu_torch.utils import expr as texpr
+from test_torch_fused_step import RECORD, jax_chunk, kernel_chunk, outputs
 
 # one intra-op thread: the tensors are small, and under pytest-xdist
 # several workers and JAX's own threads share the cores, where torch's
@@ -33,6 +38,10 @@ torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXAMPLES = os.path.join(REPO, "examples")
+GOLDEN = os.path.join(REPO, "tests", "goldens", "bsource_jax.json")
+# K1d-ii's chunk of the JAX kernel in interpret mode (test_torch_fused_step
+# .jax_chunk; the same ``__main__`` remakes it)
+K1_GOLDEN = os.path.join(REPO, "tests", "goldens", "bsource_k1_jax.npz")
 J64 = JAX_OPTIONS.replace(dtype=jnp.float64)
 
 # every operator and function of the expression language
@@ -164,30 +173,49 @@ D1 q 0 IS=1e-14
 """
 
 
-@functools.lru_cache(maxsize=None)
-def _deck_runs(deck):
-    """DC, a transient and (but for am_envelope) the AC matrices of one
-    example deck in both packages, f64: (jax, port) result pairs."""
-    path = os.path.join(EXAMPLES, f"{deck}.sp")
-    js = JaxSimulator.from_file(path, opts=J64)
-    ts = Simulator.from_file(path, device="cpu")
-    n = 50 if deck == "am_envelope" else 200
-    tstop = n * js.config.tran.tstep
-    # JAX's transient solves its DC point inside its one jitted run and
-    # keeps it as the t = 0 row: the DC is compared there
-    rj = js.transient(tstop=tstop)
+DECK_STEPS = {"behavioral": 200, "sdomain_filter": 200, "am_envelope": 50}
+
+
+def jax_deck_runs(deck):
+    """The JAX package's DC, transient and (but for am_envelope) AC
+    matrices of one example deck, f64.  JAX's transient solves its DC
+    point inside its one jitted run and keeps it as the t = 0 row: the DC
+    is compared there."""
+    js = JaxSimulator.from_file(os.path.join(EXAMPLES, f"{deck}.sp"),
+                                opts=J64)
+    rj = js.transient(tstop=DECK_STEPS[deck] * js.config.tran.tstep)
     xj = rj.xs[0]
-    xt = ts.dc()
-    rt = ts.transient(tstop=tstop, x_op=xt)
-    out = {"dc": (np.asarray(xj), xt.numpy()),
-           "tran": (np.asarray(rj.xs), rt.xs.numpy())}
+    out = {"dc": np.asarray(xj), "tran": np.asarray(rj.xs)}
     if deck != "am_envelope":
         from circuitsimulator_tpu.analysis.ac import ac_system_real as jac
         Gj = jax.jit(lambda p, x: jac(js.engine, p, x, 1.0))(js.params, xj)
+        out["ac_system"] = np.concatenate([np.asarray(a).ravel()
+                                           for a in Gj])
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _golden():
+    with open(GOLDEN) as f:
+        return json.load(f)
+
+
+@functools.lru_cache(maxsize=None)
+def _deck_runs(deck):
+    """DC, a transient and (but for am_envelope) the AC matrices of one
+    example deck, f64: (jax, port) result pairs."""
+    path = os.path.join(EXAMPLES, f"{deck}.sp")
+    ts = Simulator.from_file(path, device="cpu")
+    tstop = DECK_STEPS[deck] * ts.config.tran.tstep
+    xt = ts.dc()
+    rt = ts.transient(tstop=tstop, x_op=xt)
+    want = {k: np.asarray(v) for k, v in _golden()[deck].items()}
+    out = {"dc": (want["dc"], xt.numpy()),
+           "tran": (want["tran"], rt.xs.numpy())}
+    if deck != "am_envelope":
         Gt = ac_system_real(ts.engine, ts.params, xt, 1.0)
-        out["ac_system"] = (np.concatenate([np.asarray(a).ravel()
-                                            for a in Gj]),
-                            np.concatenate([a.numpy().ravel() for a in Gt]))
+        out["ac_system"] = (want["ac_system"], np.concatenate(
+            [a.numpy().ravel() for a in Gt]))
     return out
 
 
@@ -247,15 +275,15 @@ def test_plain_matches_jax_pallas_kernel_k1d_ii():
     ts = Simulator.from_text(B_DECK, opts=to, device="cpu")
     tp = params_from_numpy(lanes, dtype=torch.float32)
     st = ts.engine.init_state(x0)
-    runner = jax_runner(js.engine, {k: jnp.asarray(v)
-                                    for k, v in lanes.items()}, dt)
     xj = jnp.asarray(x0.numpy())
-    want = runner.run_chunk(xj, xj, jnp.asarray(st["vc"].numpy()),
-                            jnp.asarray(st["il"].numpy()),
-                            jnp.zeros((B,), bool), 0, steps, interpret=True)
-    want = [np.asarray(a) for a in want]
+    rec = jax_chunk("k1d_ii", lambda: kernel_chunk(
+        jax_runner(js.engine, {k: jnp.asarray(v) for k, v in lanes.items()},
+                   dt), xj, xj, jnp.asarray(st["vc"].numpy()),
+        jnp.asarray(st["il"].numpy()), jnp.zeros((B,), bool), 0, steps),
+        K1_GOLDEN)
+    want = outputs(rec)
     tr = fused_step.FusedStepRunner(ts.engine, tp, dt)
-    assert (tr.k, tr.W, tr.nB) == (runner.k, runner.W, 2)
+    assert (tr.k, tr.W, tr.nB) == (rec["k"], rec["W"], 2)
     got = tr.run_chunk_plain(x0, x0, st["vc"], st["il"],
                              torch.zeros((B,), dtype=torch.bool), 0, steps)
     xo, _, vco, ilo, fo, iters = (a.numpy() for a in got)
@@ -336,3 +364,14 @@ def test_gate_implies_jax_gate_k1d_ii(deck):
         assert why in reason
         assert pallas_step.supported(js.engine, 1e-9) == (
             deck != "five_probes")
+
+
+if __name__ == "__main__":
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", True)
+    RECORD["on"] = True
+    test_plain_matches_jax_pallas_kernel_k1d_ii()
+    np.savez_compressed(K1_GOLDEN, **RECORD[K1_GOLDEN])
+    with open(GOLDEN, "w") as fh:
+        json.dump({d: {k: v.tolist() for k, v in jax_deck_runs(d).items()}
+                   for d in DECK_STEPS}, fh)

@@ -5,6 +5,7 @@ table text against the JAX package's, a 200-step f64 transient within
 deck with E/G/F/H."""
 
 import functools
+import json
 import os
 
 import numpy as np
@@ -26,6 +27,10 @@ from circuitsimulator_tpu_torch.parallel import montecarlo as tmc
 torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the JAX package's summaries, DC reports and mos_ctrl's 200-step
+# transient (about 10 s of compiles on the CPU); ``PYTHONPATH=.
+# JAX_PLATFORMS=cpu python tests/test_torch_ctrl.py`` remakes the file
+GOLDEN = os.path.join(REPO, "tests", "goldens", "ctrl_jax.json")
 RTOL = 1e-12
 
 # every linear controlled source, a reactive load on each, and a MOS stage
@@ -109,36 +114,62 @@ def test_assembly_and_state_match_jax(deck):
         close(g, w)
 
 
+TRAN_N, TRAN_DT = 200, 2e-11
+
+
+def jax_results():
+    """Each deck's JAX summary and DC report (the DC point of a nonlinear
+    deck is its transient's first row, one Newton compile for both), and
+    mos_ctrl's f64 transient of TRAN_N steps."""
+    out = {}
+    for deck in sorted(DECKS):
+        js = simulators(deck)[0]
+        r = {"summary": js.summary()}
+        if js.topo.has_nonlinear:
+            res = js.transient(tstep=TRAN_DT, tstop=TRAN_N * TRAN_DT)
+            r.update(xs=np.asarray(res.xs).tolist(),
+                     newton_iters=np.asarray(res.newton_iters).tolist())
+            r["dc_report"] = js.dc_report(res.xs[0])
+        else:
+            r["dc_report"] = js.dc_report(js.dc())
+        out[deck] = r
+    return out
+
+
 @functools.lru_cache(maxsize=None)
-def transients(deck, n=200, dt=2e-11):
-    """(JAX, port) f64 transients of n steps; row 0 is the DC point."""
-    js, ts = simulators(deck)
-    return (js.transient(tstep=dt, tstop=n * dt),
-            ts.transient(tstep=dt, tstop=n * dt))
+def golden():
+    with open(GOLDEN) as f:
+        return json.load(f)
+
+
+@functools.lru_cache(maxsize=None)
+def port_transient(deck):
+    return simulators(deck)[1].transient(tstep=TRAN_DT,
+                                         tstop=TRAN_N * TRAN_DT)
 
 
 @pytest.mark.parametrize("deck", sorted(DECKS))
 def test_dc_table_text_matches_jax(deck):
-    js, ts = simulators(deck)
-    assert ts.summary() == js.summary()
-    if js.topo.has_nonlinear:
-        # the transients' first rows are the DC points (one JAX Newton
-        # compile for both tests)
-        jres, tres = transients(deck)
-        np.testing.assert_array_equal(tres.xs[0].numpy(), ts.dc().numpy())
-        jx, tx = np.asarray(jres.xs[0]), tres.xs[0]
+    ts = simulators(deck)[1]
+    want = golden()[deck]
+    assert ts.summary() == want["summary"]
+    if ts.topo.has_nonlinear:
+        # the transient's first row is the DC point
+        tx = port_transient(deck).xs[0]
+        np.testing.assert_array_equal(tx.numpy(), ts.dc().numpy())
     else:
-        jx, tx = js.dc(), ts.dc()
-    assert ts.dc_report(tx) == js.dc_report(jx)
+        tx = ts.dc()
+    assert ts.dc_report(tx) == want["dc_report"]
 
 
 def test_transient_200_steps_match_jax():
-    jres, tres = transients("mos_ctrl")
+    want = golden()["mos_ctrl"]
+    tres = port_transient("mos_ctrl")
     assert not bool(tres.failed)
-    np.testing.assert_allclose(tres.xs.numpy(), np.asarray(jres.xs),
-                               rtol=0, atol=1e-9)
+    np.testing.assert_allclose(tres.xs.numpy(), want["xs"], rtol=0,
+                               atol=1e-9)
     np.testing.assert_array_equal(tres.newton_iters.numpy(),
-                                  np.asarray(jres.newton_iters))
+                                  want["newton_iters"])
 
 
 def test_fused_gate_admits_ctrl_and_plain_matches_nonfused():
@@ -165,3 +196,10 @@ def test_fused_gate_admits_ctrl_and_plain_matches_nonfused():
                                atol=1e-9)
     np.testing.assert_array_equal(failed.numpy(), ref[-1].numpy())
     np.testing.assert_array_equal(iters.numpy(), ref_iters.numpy())
+
+
+if __name__ == "__main__":
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", True)
+    with open(GOLDEN, "w") as fh:
+        json.dump(jax_results(), fh)

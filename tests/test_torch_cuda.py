@@ -1393,3 +1393,60 @@ B1 a 0 I=0.1m*v(a)*sin(6.283e6*time)
         if want.size and np.abs(want).max() > 0:
             got = out["cuda"][1][k]
             assert np.abs(got - want).max() <= 1e-8 * np.abs(want).max(), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,n,R", [(64, 130, 1), (1, 500, 1), (8, 65, 3)])
+def test_large_route_matches_plain(cuda_device, dtype, B, n, R):
+    """Above K2's 64 unknowns ``lu_solve`` takes ``lu_solve_large`` (chosen
+    by N, never on a failure; K2 does not launch): against the plain
+    version, a singular lane zeroed in both, lane-relative 1e-10 in f64
+    and 1e-3 in f32."""
+    rng = np.random.default_rng(n + B)
+    A = rng.standard_normal((B, n, n)) + 2.0 * np.sqrt(n) * np.eye(n)
+    b = rng.standard_normal((B, n, R))
+    if B > 1:
+        A[1] = 0.0
+    At = torch.as_tensor(A, dtype=dtype, device=cuda_device)
+    bt = torch.as_tensor(b, dtype=dtype, device=cuda_device)
+    before, calls = cuda_lu.LAUNCHES, tlu.LARGE_CALLS
+    x = tlu.lu_solve(At, bt, FLOOR)
+    torch.cuda.synchronize()
+    assert (cuda_lu.LAUNCHES, tlu.LARGE_CALLS) == (before, calls + 1)
+    ref = tlu.lu_solve_plain(At, bt, FLOOR)
+    zx, _ = lane_masks(x.cpu().numpy())
+    zr, _ = lane_masks(ref.cpu().numpy())
+    assert np.array_equal(zx, zr) and (B == 1 or zx[1])
+    d = (x - ref).abs().flatten(1).amax(1)
+    s = ref.abs().flatten(1).amax(1).clamp_min(1e-30)
+    tol = 1e-10 if dtype == torch.float64 else 1e-3
+    assert float((d / s)[torch.as_tensor(~zr)].max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deck", ["ladder", "grid_blockband", "grid_blockwb"])
+def test_large_circuit_backends_match_cpu(cuda_device, deck):
+    """The large-circuit backends on the card against the port's CPU run
+    of the same deck, f64: the DC point and 10 transient steps within
+    1e-9 V; K2 solves the Schur corner (it launches)."""
+    from circuitsimulator_tpu_torch.synthetic import (rc_grid_netlist,
+                                                      rc_ladder_netlist)
+    text = {"ladder": rc_ladder_netlist(600, tstop=1e-10),
+            "grid_blockband": rc_grid_netlist(20, 20, tstop=1e-10),
+            "grid_blockwb": rc_grid_netlist(20, 20, diode_every=30,
+                                            tstop=1e-10)}[deck]
+    out = {}
+    for dev in ("cpu", cuda_device):
+        sim = Simulator.from_text(text, device=dev)
+        before = cuda_lu.LAUNCHES
+        x = sim.dc()
+        res = sim.transient(x_op=x)
+        out[str(dev)[:4]] = (sim.opts.tran_solver, x.cpu(), res.xs.cpu(),
+                             cuda_lu.LAUNCHES - before)
+    assert out["cpu"][0] == out["cuda"][0] == {
+        "ladder": "tridiag", "grid_blockband": "blockband",
+        "grid_blockwb": "blockwb"}[deck]
+    assert out["cuda"][3] > 0
+    for i in (1, 2):
+        assert float((out["cuda"][i] - out["cpu"][i]).abs().max()) <= 1e-9

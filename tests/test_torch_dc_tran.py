@@ -156,9 +156,10 @@ def test_perturb_params_draws_lognormal_lanes():
 
 @pytest.mark.parametrize("card,what", [
     # mutual inductance (K) was refused here until the port stamped it; a
-    # ladder past 128 node equations needs the large-circuit backends
+    # ladder past 128 node equations runs on the large-circuit backends,
+    # and the fused chunk (K1) refuses it by its size
     ("\n".join(f"RL{i} {i} {i + 1} 1" for i in range(1, 131)),
-     "large-circuit backends"),
+     r"N = 132 > 64 unknowns"),
     # METHOD=TRAP runs since the trapezoidal companions were ported; the
     # fused chunk (K1) stays Backward Euler only, as JAX's kernel does
     (".OPTIONS METHOD=TRAP", "METHOD=TRAP"),

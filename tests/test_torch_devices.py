@@ -4,6 +4,7 @@ CPU: the model functions on bias grids that cross every branch, the
 engine's assembly and Woodbury solve on four decks, DC, a 100-step
 transient, AC of a BJT amplifier, IS(T) scaling, the batched DC."""
 
+import json
 import os
 
 import numpy as np
@@ -34,6 +35,10 @@ torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXAMPLES = os.path.join(REPO, "examples")
+# the JAX package's whole-deck results (DC, transients, bjt_amp's AC):
+# each compiles for 2-10 s on the CPU; ``PYTHONPATH=. JAX_PLATFORMS=cpu
+# python tests/test_torch_devices.py`` remakes the file
+GOLDEN = os.path.join(REPO, "tests", "goldens", "devices_jax.json")
 RTOL = 1e-12
 
 # the decks of tests/test_pallas_step.py with a .TRAN card each: a rectifier
@@ -315,7 +320,8 @@ def test_assembly_matches_jax(pair):
     tG, tI = te.dc_static(tp, t64(0.3))
     tG, tI = te.assemble_dc_iter(tG, tI, tp, xt, 2.5e-6)
     close(tG, jG)
-    close(tI, jI)
+    # up to the RHS's ground slot I[N], which no solve reads (the port's 0)
+    close(tI[..., :te.N], jI[..., :te.N])
     for g, w in zip(te._nl_vals(tp, xt), jnl):
         close(g, w)
     close(te.tran_static_G(tp, d, 1e-6), jGt)
@@ -363,64 +369,7 @@ def test_woodbury_solve_matches_jax(pair):
     close(tw.solve(tp, t64(x), tz0), jx, rtol=1e-10)
 
 
-@pytest.mark.parametrize("deck", ["diode", "mixed"])
-def test_dc_matches_jax(deck):
-    js = JaxSimulator.from_text(DECKS[deck])
-    ts = Simulator.from_text(DECKS[deck], device="cpu")
-    np.testing.assert_allclose(ts.dc().numpy(), np.asarray(js.dc()), rtol=0,
-                               atol=1e-9)
-
-
-@pytest.mark.parametrize("deck,steps", [("bjt", 100), ("switch", 40)])
-def test_transient_matches_jax(deck, steps):
-    """DC (row 0) and the deck's Backward-Euler steps: 100 on two BJTs of
-    opposite polarity with junction caps; 40 (the control pulse's rise and
-    plateau) on S and W switches with a MOS and a diode on the width-4
-    plan."""
-    jres = JaxSimulator.from_text(DECKS[deck]).transient()
-    res = Simulator.from_text(DECKS[deck], device="cpu").transient()
-    assert res.n_steps == steps and not bool(res.failed)
-    assert not bool(np.asarray(jres.failed))
-    np.testing.assert_allclose(res.xs.numpy(), np.asarray(jres.xs), rtol=0,
-                               atol=1e-9)
-    np.testing.assert_array_equal(res.newton_iters.numpy(),
-                                  np.asarray(jres.newton_iters))
-
-
-# ------------------------------------------------------------- whole decks
-@pytest.mark.parametrize("deck", ["bjt_amp", "chopper", "mixer_rf",
-                                  "diode_temp"])
-def test_example_deck_loads(deck):
-    """The four example decks the port refused before load and reach a
-    finite operating point; chopper's (an S and a current-controlled W
-    switch) is held to the JAX package's."""
-    path = os.path.join(EXAMPLES, f"{deck}.sp")
-    ts = Simulator.from_file(path, device="cpu")
-    x = ts.dc()
-    assert bool(torch.isfinite(x).all())
-    if deck == "chopper":
-        assert ts.topo.counts["S"] == 2
-        np.testing.assert_allclose(
-            x.numpy(), np.asarray(JaxSimulator.from_file(path).dc()), rtol=0,
-            atol=1e-9)
-
-
-def test_ac_bjt_amp_matches_jax():
-    """The DC point, its linearisation (the BJT's Early conductance and
-    junction caps) and the K3 sweep over the deck's .AC card."""
-    path = os.path.join(EXAMPLES, "bjt_amp.sp")
-    want = JaxSimulator.from_file(path).ac()
-    got = Simulator.from_file(path, device="cpu").ac()
-    np.testing.assert_allclose(got.freqs, np.asarray(want.freqs), rtol=1e-15)
-    w = np.asarray(want.xs)
-    assert got.xs.shape == w.shape == (71, 7)
-    assert np.abs(got.xs - w).max() <= 1e-9 * np.abs(w).max()
-
-
-def test_temp_card_scales_saturation_currents():
-    """.TEMP with EG/XTI on the models: the port applies IS(T) as the JAX
-    package does, so the operating points agree."""
-    text = """* hot junctions
+TEMP_DECK = """* hot junctions
 .MODEL qn NPN IS=1e-15 BF=100 EG=1.11 XTI=3
 V1 1 0 DC 5
 R1 1 2 10k
@@ -431,12 +380,75 @@ Q1 4 3 0 qn
 .TEMP 85
 .op
 """
-    js = JaxSimulator.from_text(text)
-    ts = Simulator.from_text(text, device="cpu")
-    close(ts.params["dio_is"], js.params["dio_is"])
-    close(ts.params["bjt_is"], js.params["bjt_is"])
+
+
+@pytest.fixture(scope="module")
+def golden():
+    with open(GOLDEN) as f:
+        return json.load(f)
+
+
+@pytest.mark.parametrize("deck", ["diode", "mixed"])
+def test_dc_matches_jax(golden, deck):
+    ts = Simulator.from_text(DECKS[deck], device="cpu")
+    np.testing.assert_allclose(ts.dc().numpy(), golden[f"dc_{deck}"],
+                               rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize("deck,steps", [("bjt", 100), ("switch", 40)])
+def test_transient_matches_jax(golden, deck, steps):
+    """DC (row 0) and the deck's Backward-Euler steps: 100 on two BJTs of
+    opposite polarity with junction caps; 40 (the control pulse's rise and
+    plateau) on S and W switches with a MOS and a diode on the width-4
+    plan."""
+    want = golden[f"tran_{deck}"]
+    res = Simulator.from_text(DECKS[deck], device="cpu").transient()
+    assert res.n_steps == steps and not bool(res.failed)
+    assert not want["failed"]
+    np.testing.assert_allclose(res.xs.numpy(), want["xs"], rtol=0,
+                               atol=1e-9)
+    np.testing.assert_array_equal(res.newton_iters.numpy(),
+                                  want["newton_iters"])
+
+
+# ------------------------------------------------------------- whole decks
+@pytest.mark.parametrize("deck", ["bjt_amp", "chopper", "mixer_rf",
+                                  "diode_temp"])
+def test_example_deck_loads(golden, deck):
+    """The four example decks the port refused before load and reach a
+    finite operating point; chopper's (an S and a current-controlled W
+    switch) is held to the JAX package's."""
+    path = os.path.join(EXAMPLES, f"{deck}.sp")
+    ts = Simulator.from_file(path, device="cpu")
+    x = ts.dc()
+    assert bool(torch.isfinite(x).all())
+    if deck == "chopper":
+        assert ts.topo.counts["S"] == 2
+        np.testing.assert_allclose(x.numpy(), golden["dc_chopper"], rtol=0,
+                                   atol=1e-9)
+
+
+def test_ac_bjt_amp_matches_jax(golden):
+    """The DC point, its linearisation (the BJT's Early conductance and
+    junction caps) and the K3 sweep over the deck's .AC card."""
+    path = os.path.join(EXAMPLES, "bjt_amp.sp")
+    want = golden["ac_bjt_amp"]
+    got = Simulator.from_file(path, device="cpu").ac()
+    np.testing.assert_allclose(got.freqs, want["freqs"], rtol=1e-15)
+    w = np.asarray(want["re"]) + 1j * np.asarray(want["im"])
+    assert got.xs.shape == w.shape == (71, 7)
+    assert np.abs(got.xs - w).max() <= 1e-9 * np.abs(w).max()
+
+
+def test_temp_card_scales_saturation_currents(golden):
+    """.TEMP with EG/XTI on the models: the port applies IS(T) as the JAX
+    package does, so the operating points agree."""
+    want = golden["temp"]
+    ts = Simulator.from_text(TEMP_DECK, device="cpu")
+    close(ts.params["dio_is"], np.asarray(want["dio_is"]))
+    close(ts.params["bjt_is"], np.asarray(want["bjt_is"]))
     assert float(ts.params["dio_is"][0]) > 1e-12      # 1e-14 at 27 C
-    np.testing.assert_allclose(ts.dc().numpy(), np.asarray(js.dc()), rtol=0,
+    np.testing.assert_allclose(ts.dc().numpy(), want["dc"], rtol=0,
                                atol=1e-9)
 
 
@@ -457,3 +469,35 @@ def test_batched_dc_converges_every_lane(deck):
         one = ts.dc({k: v[lane] for k, v in bp.items()})
         np.testing.assert_allclose(xb[lane].numpy(), one.numpy(), rtol=0,
                                    atol=1e-9)
+
+
+def make_golden():
+    """Write the JAX package's whole-deck results (float64 on the CPU)
+    into tests/goldens/devices_jax.json."""
+    def lst(a):
+        return np.asarray(a).tolist()
+
+    out = {f"dc_{d}": lst(JaxSimulator.from_text(DECKS[d]).dc())
+           for d in ("diode", "mixed")}
+    for d in ("bjt", "switch"):
+        r = JaxSimulator.from_text(DECKS[d]).transient()
+        out[f"tran_{d}"] = {"xs": lst(r.xs),
+                            "newton_iters": lst(r.newton_iters),
+                            "failed": bool(np.asarray(r.failed))}
+    out["dc_chopper"] = lst(JaxSimulator.from_file(
+        os.path.join(EXAMPLES, "chopper.sp")).dc())
+    ac = JaxSimulator.from_file(os.path.join(EXAMPLES, "bjt_amp.sp")).ac()
+    xs = np.asarray(ac.xs)
+    out["ac_bjt_amp"] = {"freqs": lst(ac.freqs), "re": lst(xs.real),
+                         "im": lst(xs.imag)}
+    js = JaxSimulator.from_text(TEMP_DECK)
+    out["temp"] = {"dio_is": lst(js.params["dio_is"]),
+                   "bjt_is": lst(js.params["bjt_is"]), "dc": lst(js.dc())}
+    with open(GOLDEN, "w") as fh:
+        json.dump(out, fh)
+
+
+if __name__ == "__main__":
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", True)
+    make_golden()

@@ -3,8 +3,13 @@ port on the CPU: its plain version against the JAX Pallas kernel
 (interpret mode) and against the port's own non-fused loop, on MOS decks,
 on the junction and switch decks, on the charge-model decks and on the
 rank-22 inamp (the Gauss-Jordan branch); the gate against the JAX gate; the
-``batched_transient`` dispatch."""
+``batched_transient`` dispatch.  The JAX kernel's chunks in interpret mode
+(each 5-10 s of compiles on the CPU) are ``tests/goldens/
+fused_step_jax.npz``, keyed by case; ``PYTHONPATH=. JAX_PLATFORMS=cpu
+python tests/test_torch_fused_step.py`` reruns those cases against the JAX
+kernel itself and remakes the file."""
 
+import functools
 import os
 
 import numpy as np
@@ -28,6 +33,10 @@ torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NETLISTS = os.path.join(REPO, "tests", "netlists")
+GOLDEN = os.path.join(REPO, "tests", "goldens", "fused_step_jax.npz")
+# set by a ``__main__`` ("on"): the cases run the JAX kernel and record its
+# chunks here, golden path -> {"case/output": array}
+RECORD = {}
 SIGMAS = {"res_r": 0.01, "mos_vth": 0.02, "cap_c": 0.02}
 
 # the decks of tests/test_pallas_step.py: every waveform kind with a MOS
@@ -197,6 +206,40 @@ def jax_runner(engine, bparams, dt, **kw):
     return made[-1]
 
 
+@functools.lru_cache(maxsize=None)
+def _golden(path):
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def jax_chunk(case, make, golden=GOLDEN):
+    """The JAX kernel's chunk of one case, a dict of arrays: ``make()``
+    runs the kernel in interpret mode when recording (a ``__main__``),
+    otherwise the golden file gives what it recorded."""
+    if RECORD.get("on"):
+        out = {k: np.asarray(v) for k, v in make().items()}
+        RECORD.setdefault(golden, {}).update(
+            {f"{case}/{k}": v for k, v in out.items()})
+        return out
+    pre = f"{case}/"
+    return {k[len(pre):]: v for k, v in _golden(golden).items()
+            if k.startswith(pre)}
+
+
+def kernel_chunk(runner, *args, **kw):
+    """A ``run_chunk`` of the JAX kernel in interpret mode, with the
+    runner's static plan, as ``jax_chunk`` records it."""
+    out = runner.run_chunk(*args, interpret=True, **kw)
+    rec = {str(i): np.asarray(a) for i, a in enumerate(out)}
+    rec.update(k=runner.k, W=runner.W, nCq=getattr(runner, "nCq", 0))
+    return rec
+
+
+def outputs(rec):
+    """``run_chunk``'s outputs, in order, from a recorded chunk."""
+    return [rec[k] for k in sorted((k for k in rec if k.isdigit()), key=int)]
+
+
 @pytest.mark.parametrize("config", ["fast", "damped"])
 def test_plain_matches_jax_pallas_kernel(config):
     """dbmixer, B = 128, 4 steps from x = 0 (tests/test_pallas_step.py
@@ -208,12 +251,13 @@ def test_plain_matches_jax_pallas_kernel(config):
     js = JaxSimulator.from_file(path, opts=make(JAX_OPTIONS, jnp.float32))
     jp = draw_lanes(js.params, B)
     je = js.engine
-    x0 = jnp.zeros((B, je.N), jnp.float32)
-    st0 = jax.jit(jax.vmap(je.init_state))(x0)
-    runner = jax_runner(je, jp, dt)
-    want = runner.run_chunk(x0, x0, st0["vc"], st0["il"],
-                            jnp.zeros((B,), bool), 0, steps, interpret=True)
-    want = [np.asarray(a) for a in want]
+
+    def run():
+        x0 = jnp.zeros((B, je.N), jnp.float32)
+        st0 = jax.jit(jax.vmap(je.init_state))(x0)
+        return kernel_chunk(jax_runner(je, jp, dt), x0, x0, st0["vc"],
+                            st0["il"], jnp.zeros((B,), bool), 0, steps)
+    want = outputs(jax_chunk(f"dbmixer_{config}", run))
 
     ts = Simulator.from_file(path, device="cpu",
                              opts=make(DEFAULT_OPTIONS, torch.float32))
@@ -260,22 +304,26 @@ def test_plain_matches_jax_pallas_kernel_k1b(deck):
     jp = draw_lanes(js.params, B)
     je = js.engine
     x0 = jnp.asarray(dc_points(text, jp))
-    st0 = jax.jit(jax.vmap(je.init_state))(x0)
-    runner = jax_runner(je, jp, dt)
-    want = runner.run_chunk(x0, x0, st0["vc"], st0["il"],
-                            jnp.zeros((B,), bool), 0, steps, interpret=True)
-    want = [np.asarray(a) for a in want]
+
+    def run():
+        st0 = jax.jit(jax.vmap(je.init_state))(x0)
+        out = kernel_chunk(jax_runner(je, jp, dt), x0, x0, st0["vc"],
+                           st0["il"], jnp.zeros((B,), bool), 0, steps)
+        out["vc0"] = st0["vc"]
+        return out
+    rec = jax_chunk(f"k1b_{deck}", run)
+    want = outputs(rec)
 
     ts = Simulator.from_text(text, device="cpu",
                              opts=damped(DEFAULT_OPTIONS, torch.float32))
     tp = params_from_numpy({k: np.array(v) for k, v in jp.items()},
                            dtype=torch.float32)
     tr = fused_step.FusedStepRunner(ts.engine, tp, dt)
-    assert (tr.k, tr.W) == (runner.k, runner.W)
+    assert (tr.k, tr.W) == (rec["k"], rec["W"])
     x = torch.as_tensor(np.array(x0))
     st = ts.engine.init_state(x)
-    np.testing.assert_allclose(st["vc"].numpy(), np.asarray(st0["vc"]),
-                               rtol=0, atol=1e-6)
+    np.testing.assert_allclose(st["vc"].numpy(), rec["vc0"], rtol=0,
+                               atol=1e-6)
     got = tr.run_chunk_plain(x, x, st["vc"], st["il"],
                              torch.zeros((B,), dtype=torch.bool), 0, steps)
     xo, _, vco, ilo, fo, iters = (a.numpy() for a in got)
@@ -319,14 +367,13 @@ def test_plain_matches_jax_pallas_kernel_k1d(deck):
                            dtype=torch.float32)
     x = torch.as_tensor(np.array(x0))
     st = ts.engine.init_state(x, tp)
-    runner = jax_runner(je, jp, dt)
-    want = runner.run_chunk(x0, x0, jnp.asarray(st["vc"].numpy()),
-                            jnp.asarray(st["il"].numpy()),
-                            jnp.zeros((B,), bool), 0, steps, interpret=True)
-    want = [np.asarray(a) for a in want]
+    rec = jax_chunk(f"k1d_{deck}", lambda: kernel_chunk(
+        jax_runner(je, jp, dt), x0, x0, jnp.asarray(st["vc"].numpy()),
+        jnp.asarray(st["il"].numpy()), jnp.zeros((B,), bool), 0, steps))
+    want = outputs(rec)
 
     tr = fused_step.FusedStepRunner(ts.engine, tp, dt)
-    assert (tr.k, tr.W, tr.nCq) == (runner.k, runner.W, runner.nCq)
+    assert (tr.k, tr.W, tr.nCq) == (rec["k"], rec["W"], rec["nCq"])
     assert tr.k == (12 if deck == "charge" else 24)
     got = tr.run_chunk_plain(x, x, st["vc"], st["il"],
                              torch.zeros((B,), dtype=torch.bool), 0, steps)
@@ -535,3 +582,16 @@ def test_k1a_plain_output_is_unchanged_by_the_row_plan():
         vz = (v * torch.stack([ze[:, c] for c in cols])).sum(0)
         xx = z - torch.einsum("bnj,bj->bn", r.Y, lu_solve_plain(S, vz, 0.0))
     assert torch.equal(got[0], xx)
+
+
+if __name__ == "__main__":
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", True)
+    RECORD["on"] = True
+    for config in ("fast", "damped"):
+        test_plain_matches_jax_pallas_kernel(config)
+    for deck in K1B:
+        test_plain_matches_jax_pallas_kernel_k1b(deck)
+    for deck in ("charge", "buffer-charge"):
+        test_plain_matches_jax_pallas_kernel_k1d(deck)
+    np.savez_compressed(GOLDEN, **RECORD[GOLDEN])

@@ -157,3 +157,32 @@ def test_cuda_plan_refuses_n_above_64():
     for N in (0, cuda_lu.MAX_N + 1):
         with pytest.raises(ValueError):
             cuda_lu.plan(N, 1, 4)
+
+
+@pytest.mark.parametrize("n", [65, 130, 300])
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("R", [1, 3])
+def test_large_route_matches_plain(n, B, R):
+    """``lu_solve_large``, the route above K2's 64 unknowns on CUDA, against
+    the plain version: pivoting, several right-hand sides, and a singular
+    lane that both zero (f64, 1e-10 of each lane's largest entry)."""
+    A, b = systems(B, n, seed=n, R=R)
+    if B > 1:
+        A[2, :, 5] = 0.0                       # singular: zeroed
+    got = tlu.lu_solve_large(torch.as_tensor(A), torch.as_tensor(b),
+                             FLOOR).numpy()
+    want = plain(A, b)
+    scale = np.abs(want).reshape(B, -1).max(-1).clip(min=1e-300)
+    err = np.abs(got - want).reshape(B, -1).max(-1) / scale
+    assert (err <= 1e-10).all(), err
+    if B > 1:
+        assert not want[2].any() and not got[2].any()
+
+
+def test_large_route_lets_a_nan_through():
+    A, b = systems(2, 70, seed=1)
+    A[1, 3, 3] = np.nan
+    got = tlu.lu_solve_large(torch.as_tensor(A), torch.as_tensor(b),
+                             FLOOR).numpy()
+    assert np.isfinite(got[0]).all() and np.isnan(got[1]).any()
+    assert np.isnan(plain(A, b)[1]).any()

@@ -3,13 +3,16 @@ xfmr.sp's DC, transient and AC against the JAX package; the cases of
 tests/test_mutual.py on the port; K1e (the fused chunk's mutual history)
 in its plain version against the port's non-fused loop and JAX's
 ``batched_transient(fused=False)`` on xfmr and on a transformer-coupled
-half-wave rectifier; the K1 gate; the b0 row plan's mutual terms.  Each
-deck's JAX computations are made once and shared (module fixtures).
+half-wave rectifier; the K1 gate; the b0 row plan's mutual terms.  The
+JAX computations (about 20 s of compiles on the CPU) are
+``tests/goldens/mutual_jax.json``; ``PYTHONPATH=. JAX_PLATFORMS=cpu python
+tests/test_torch_mutual.py`` remakes it with the JAX package.
 
 JAX's Pallas kernel admits K but leaves the mutual history out of its
 right-hand side, so K1e is held to the loops that keep it, not to that
 kernel."""
 
+import json
 import os
 
 import jax
@@ -34,6 +37,7 @@ torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 XFMR = os.path.join(REPO, "examples", "xfmr.sp")
+GOLDEN = os.path.join(REPO, "tests", "goldens", "mutual_jax.json")
 J64 = JAX_OPTIONS.replace(dtype=jnp.float64)
 TOL = 1e-9
 B, STEPS, DT = 8, 100, 1e-8
@@ -94,25 +98,49 @@ def jax_batched(js, lanes):
     return np.asarray(fn({k: jnp.asarray(v) for k, v in lanes.items()}))
 
 
-@pytest.fixture(scope="module")
-def jax_xfmr():
+def jax_results():
     """xfmr.sp in JAX: DC, 200 transient steps, its .AC sweep, and the
-    batched transient of K1e's lanes."""
+    batched transients of K1e's lanes on xfmr and the rectifier."""
     js = JaxSimulator.from_file(XFMR, opts=J64)
-    lanes = k_lanes({k: np.asarray(v) for k, v in js.params.items()}, 3)
     res = js.transient(tstop=200 * DT)
     ac = js.ac()
-    return {"dc": np.asarray(js.dc()), "xs": np.asarray(res.xs),
-            "times": np.asarray(res.times), "ac": np.asarray(ac.xs),
-            "freqs": np.asarray(ac.freqs), "lanes": lanes,
-            "batched": jax_batched(js, lanes)}
+    xs = np.asarray(ac.xs)
+    jr = JaxSimulator.from_text(RECTIFIER, opts=J64)
+    out = {"xfmr": {"dc": js.dc(), "xs": res.xs, "times": res.times,
+                    "ac_re": xs.real, "ac_im": xs.imag, "freqs": ac.freqs,
+                    "batched": jax_batched(js, port_lanes(XFMR, 3))},
+           "rectifier": {"batched": jax_batched(
+               jr, port_lanes(RECTIFIER, 4))}}
+    return {d: {k: np.asarray(v).tolist() for k, v in r.items()}
+            for d, r in out.items()}
+
+
+def port_lanes(deck, seed):
+    """K1e's lanes (``k_lanes``) from the port's params of the deck."""
+    sim = (Simulator.from_file(deck, device="cpu") if deck == XFMR
+           else Simulator.from_text(deck, device="cpu"))
+    return k_lanes({k: v.numpy() for k, v in sim.params.items()}, seed)
 
 
 @pytest.fixture(scope="module")
-def jax_rectifier():
-    js = JaxSimulator.from_text(RECTIFIER, opts=J64)
-    lanes = k_lanes({k: np.asarray(v) for k, v in js.params.items()}, 4)
-    return {"lanes": lanes, "batched": jax_batched(js, lanes)}
+def golden():
+    with open(GOLDEN) as f:
+        return {d: {k: np.asarray(v) for k, v in r.items()}
+                for d, r in json.load(f).items()}
+
+
+@pytest.fixture(scope="module")
+def jax_xfmr(golden):
+    g = dict(golden["xfmr"])
+    g["ac"] = g.pop("ac_re") + 1j * g.pop("ac_im")
+    g["lanes"] = port_lanes(XFMR, 3)
+    return g
+
+
+@pytest.fixture(scope="module")
+def jax_rectifier(golden):
+    return {"lanes": port_lanes(RECTIFIER, 4),
+            "batched": golden["rectifier"]["batched"]}
 
 
 @pytest.fixture(scope="module")
@@ -333,3 +361,10 @@ def test_k1e_two_k_cards_share_an_inductor():
         sim.engine, params_from_numpy(lanes), DT).nK == 2
     fused, loop = _k1e(sim, lanes)
     np.testing.assert_allclose(fused, loop, rtol=0, atol=TOL)
+
+
+if __name__ == "__main__":
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", True)
+    with open(GOLDEN, "w") as fh:
+        json.dump(jax_results(), fh)

@@ -9,9 +9,15 @@ frequency; loop gain 1e-9 relative; S and Z 1e-9 of the peak; group delay
 report prints; poles and zeros 1e-9 relative after sorting.  On the CPU
 the port's K3 and K2 calls take their plain versions; each analysis is
 also held to the number of sweep calls it makes (one K3 call for noise,
-loop gain and S-parameters, two for group delay, none on T-line decks)."""
+loop gain and S-parameters, two for group delay, none on T-line decks).
+The JAX results (about 30 s of compiles on the CPU) are
+``tests/goldens/smallsig_jax.json``; ``PYTHONPATH=. JAX_PLATFORMS=cpu
+python tests/test_torch_smallsig.py`` reruns the cases against the JAX
+package itself (``RECORD``) and remakes it."""
 
 import functools
+import json
+import os
 
 import numpy as np
 import jax
@@ -31,6 +37,54 @@ from circuitsimulator_tpu_torch.analysis import sensitivity as tsens
 torch.set_num_threads(1)
 
 JAX_F64 = JAX_OPTS.replace(dtype=jnp.float64)
+GOLDEN = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "tests", "goldens", "smallsig_jax.json")
+RECORD = {}     # "on": the cases call JAX and record its results here
+
+
+def _enc(v):
+    """A JAX result as JSON: arrays as lists, complex ones as [re, im]."""
+    if isinstance(v, dict):
+        return {k: _enc(x) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return [_enc(x) for x in v]
+    if isinstance(v, str) or v is None:
+        return v
+    a = np.asarray(v)
+    if np.iscomplexobj(a):
+        return {"re": a.real.tolist(), "im": a.imag.tolist()}
+    return a.tolist()
+
+
+def _dec(v):
+    if isinstance(v, dict):
+        if set(v) == {"re", "im"}:
+            return np.asarray(v["re"]) + 1j * np.asarray(v["im"])
+        return {k: _dec(x) for k, x in v.items()}
+    if isinstance(v, list):
+        try:
+            a = np.asarray(v)
+        except ValueError:          # ragged
+            a = None
+        if a is not None and a.dtype.kind in "fiub":
+            return a
+        return [_dec(x) for x in v]
+    return v
+
+
+@functools.lru_cache(maxsize=None)
+def _golden():
+    with open(GOLDEN) as f:
+        return json.load(f)
+
+
+def jax_value(key, make):
+    """A JAX result: ``make()`` when recording (``__main__``), else the
+    golden's; numpy arrays either way."""
+    if RECORD.get("on"):
+        RECORD[key] = _enc(make())
+        return _dec(RECORD[key])
+    return _dec(_golden()[key])
 
 # every noise generator class (R thermal, MOS channel + flicker, JFET
 # channel, diode shot, BJT collector and base shot) and every controlled
@@ -251,17 +305,27 @@ NOISE_DECKS = {"mixed": MIXED, "tline": TLINE_NOISE}
 @functools.lru_cache(maxsize=None)
 def jax_noise(deck):
     """JAX's noise_analysis over the deck's .NOISE card with its
-    per-generator PSDs (the noise figure's input): one JAX computation per
-    deck."""
-    from circuitsimulator_tpu.analysis.noise import noise_analysis
-    text = NOISE_DECKS[deck]
-    js, ts, _ = sims(text)
-    cfg = ts.config.noise
-    freqs = ts._noise_freqs("")
-    return noise_analysis(js.engine, js.params, freqs,
-                          ts._node_eq(cfg.out_node), -1,
-                          ts._input_ref(cfg.input_source), x_op=jax_x(text),
-                          per_device=True)
+    per-generator PSDs (the noise figure's input), and the T-line deck's
+    noise CSV as JAX's writer writes it: one JAX computation per deck."""
+    def run():
+        import tempfile
+        from circuitsimulator_tpu.analysis.noise import (noise_analysis,
+                                                         write_noise_csv)
+        text = NOISE_DECKS[deck]
+        js, ts, _ = sims(text)
+        cfg = ts.config.noise
+        r = noise_analysis(js.engine, js.params, ts._noise_freqs(""),
+                           ts._node_eq(cfg.out_node), -1,
+                           ts._input_ref(cfg.input_source),
+                           x_op=jax_x(text), per_device=True)
+        with tempfile.TemporaryDirectory() as d:
+            write_noise_csv(os.path.join(d, "j.csv"), r)
+            with open(os.path.join(d, "j.csv")) as f:
+                csv = f.read()
+        return {"freqs": r.freqs, "onoise": r.onoise, "inoise": r.inoise,
+                "gain": r.gain, "by_class": dict(r.by_class),
+                "s_dev": r.s_dev, "csv": csv}
+    return jax_value(f"noise_{deck}", run)
 
 
 @pytest.mark.parametrize("deck", list(NOISE_DECKS))
@@ -275,13 +339,13 @@ def test_noise_matches_jax(deck, k3_calls):
     got = ts.noise(x_op=x)
     assert k3_calls == ([] if deck == "tline"
                         else [(1, ts.engine.N, ts.engine.N)])
-    np.testing.assert_array_equal(got.freqs, np.asarray(want.freqs))
-    assert rel(got.onoise, want.onoise) <= 1e-9
-    assert rel(got.inoise, want.inoise) <= 1e-9
-    assert rel(got.gain, want.gain) <= 1e-9
-    assert set(got.by_class) == set(want.by_class)
-    for k in want.by_class:
-        assert rel(got.by_class[k], want.by_class[k]) <= 1e-9, k
+    np.testing.assert_array_equal(got.freqs, want["freqs"])
+    assert rel(got.onoise, want["onoise"]) <= 1e-9
+    assert rel(got.inoise, want["inoise"]) <= 1e-9
+    assert rel(got.gain, want["gain"]) <= 1e-9
+    assert set(got.by_class) == set(want["by_class"])
+    for k in want["by_class"]:
+        assert rel(got.by_class[k], want["by_class"][k]) <= 1e-9, k
     if deck == "mixed":
         assert set(got.by_class) == {"R", "M", "D", "Q"}
 
@@ -292,11 +356,10 @@ def test_noise_figure_matches_jax():
     _, ts, x = sims(MIXED)
     want = jax_noise("mixed")
     f_t, nf_t = ts.noise_figure("RL", x_op=x)
-    np.testing.assert_array_equal(f_t, np.asarray(want.freqs))
+    np.testing.assert_array_equal(f_t, want["freqs"])
     ridx = [e.name for e in ts.circuit.elements if e.kind == "R"].index("RL")
-    s = np.asarray(want.s_dev)
-    assert rel(nf_t, 10 * np.log10(np.asarray(want.onoise) / s[:, ridx])) \
-        <= 1e-9
+    s = want["s_dev"]
+    assert rel(nf_t, 10 * np.log10(want["onoise"] / s[:, ridx])) <= 1e-9
     pad = Simulator.from_text(NF_PAD, device="cpu")
     _, nf = pad.noise_figure("RS")
     np.testing.assert_allclose(nf, 10 * np.log10(1 + 50 / 450), rtol=1e-9)
@@ -305,14 +368,11 @@ def test_noise_figure_matches_jax():
 
 
 def test_noise_csv_and_errors(tmp_path):
-    from circuitsimulator_tpu.analysis.noise import \
-        write_noise_csv as jax_write
     from circuitsimulator_tpu_torch.analysis.noise import write_noise_csv
     _, ts, x = sims(TLINE_NOISE)
     write_noise_csv(str(tmp_path / "t.csv"), ts.noise(x_op=x))
-    jax_write(str(tmp_path / "j.csv"), jax_noise("tline"))
     t = (tmp_path / "t.csv").read_text().splitlines()
-    j = (tmp_path / "j.csv").read_text().splitlines()
+    j = jax_noise("tline")["csv"].splitlines()
     assert t[0] == j[0] and len(t) == len(j)
     assert peak_rel(np.loadtxt(t[1:], delimiter=","),
                     np.loadtxt(j[1:], delimiter=",")) <= 1e-9
@@ -335,7 +395,8 @@ LOOP_DECKS = {"three_pole": THREE_POLE, "tline": TLINE_LOOP}
 def test_loop_gain_matches_jax(deck, k3_calls):
     text = LOOP_DECKS[deck]
     js, ts, x = sims(text)
-    want = js.loop_gain("E1", x_op=jax_x(text))
+    want = jax_value(f"loop_gain_{deck}",
+                     lambda: js.loop_gain("E1", x_op=jax_x(text)))
     got = ts.loop_gain("E1", x_op=x)
     assert len(k3_calls) == (0 if deck == "tline" else 1)
     assert rel(got["T"], want["T"]) <= 1e-9
@@ -353,7 +414,8 @@ def test_group_delay_tline_matches_jax(k3_calls):
     through the solve.  The K3 route is held to JAX by the CLI cases
     (feedback_loop.sp, bjt_amp.sp) and by the next test."""
     js, ts, x = sims(TLINE_LOOP)
-    f_j, tau_j = js.group_delay("out", x_op=jax_x(TLINE_LOOP))
+    f_j, tau_j = jax_value("group_delay_tline", lambda: list(
+        js.group_delay("out", x_op=jax_x(TLINE_LOOP))))
     f_t, tau_t = ts.group_delay("out", x_op=x)
     assert k3_calls == []
     np.testing.assert_array_equal(f_t, np.asarray(f_j))
@@ -380,9 +442,27 @@ def test_group_delay_two_k3_sweeps_match_phase_slope(k3_calls):
 # --------------------------------------------------------- S-parameters
 @functools.lru_cache(maxsize=None)
 def sparams_pair(deck):
+    """(JAX's S, Z, z0, two-port metrics and its Touchstone and S-CSV
+    files' text, the port's sparams result) of one deck."""
     text, ports, freqs = SPARAM_DECKS[deck]
     js, ts, x = sims(text)
-    return (js.sparams(ports, freqs=freqs, x_op=jax_x(text)),
+
+    def run():
+        import tempfile
+        from circuitsimulator_tpu.analysis import sparams as jsp
+        r = js.sparams(ports, freqs=freqs, x_op=jax_x(text))
+        m = jsp.two_port_metrics(r)
+        out = {"s": r.s, "z": r.z, "z0": r.z0,
+               "metrics": {k: getattr(m, k) for k in
+                           ("k", "delta", "mu_load", "mu_src", "msg",
+                            "stable")}}
+        with tempfile.TemporaryDirectory() as d:
+            for writer in ("write_touchstone", "write_sparams_csv"):
+                getattr(jsp, writer)(os.path.join(d, "j"), r)
+                with open(os.path.join(d, "j")) as f:
+                    out[writer] = f.read()
+        return out
+    return (jax_value(f"sparams_{deck}", run),
             ts.sparams(ports, freqs=freqs, x_op=x))
 
 
@@ -394,16 +474,15 @@ def test_sparams_and_stability_match_jax(deck, k3_calls):
     _, ports, freqs = SPARAM_DECKS[deck]
     n = sims(SPARAM_DECKS[deck][0])[1].engine.N
     assert k3_calls == ([] if deck == "tline" else [(2, n, n)])
-    assert peak_rel(got.s, want.s) <= 1e-9
-    assert peak_rel(got.z, want.z) <= 1e-9
-    np.testing.assert_array_equal(got.z0, want.z0)
-    from circuitsimulator_tpu.analysis.sparams import two_port_metrics
-    mj = two_port_metrics(want)
+    assert peak_rel(got.s, want["s"]) <= 1e-9
+    assert peak_rel(got.z, want["z"]) <= 1e-9
+    np.testing.assert_array_equal(got.z0, want["z0"])
+    mj = want["metrics"]
     mt = sims(SPARAM_DECKS[deck][0])[1].stability(sres=got)
     for k in ("k", "delta", "mu_load", "mu_src", "msg"):
-        assert peak_rel(getattr(mt, k), getattr(mj, k)) <= 1e-9, k
+        assert peak_rel(getattr(mt, k), mj[k]) <= 1e-9, k
     if deck == "pad":
-        np.testing.assert_array_equal(mt.stable, mj.stable)
+        np.testing.assert_array_equal(mt.stable, mj["stable"])
         assert abs(got.s[0, 1, 0]) == pytest.approx(10 ** -0.5, rel=1e-4)
         with pytest.raises(ValueError, match="two ports"):
             sims(SPARAM_DECKS[deck][0])[1].stability(ports=ports[:1])
@@ -417,14 +496,12 @@ def _ma_complex(line):
 
 
 def test_touchstone_and_sparams_csv_match_jax(tmp_path):
-    from circuitsimulator_tpu.analysis import sparams as jsp
     from circuitsimulator_tpu_torch.analysis import sparams as tsp
     want, got = sparams_pair("tline")
     for writer in ("write_touchstone", "write_sparams_csv"):
         getattr(tsp, writer)(str(tmp_path / "t"), got)
-        getattr(jsp, writer)(str(tmp_path / "j"), want)
         t = (tmp_path / "t").read_text().splitlines()
-        j = (tmp_path / "j").read_text().splitlines()
+        j = want[writer].splitlines()
         assert len(t) == len(j) > 2
         for a, b in zip(t, j):
             if a[:1] in "!#f":
@@ -447,26 +524,32 @@ def test_tf_matches_jax():
     from circuitsimulator_tpu_torch.analysis.tf import \
         dc_transfer_function as ttf
     js, ts, x = sims(MIXED)
-    xj = jax_x(MIXED)
-    results = [(ts.tf(x_op=x), js.tf(x_op=xj))]
+    got = [ts.tf(x_op=x)]
+    cases = []
     for kind, out, ref, src in TF_CASES.values():
         if kind == "v":
             a, b = ts._node_eq(out), ts._node_eq(ref) if ref else -1
         else:
             a, b = next(e.branch_eq for e in ts.circuit.elements
                         if e.name == out), -1
-        inp = ts._input_ref(src)
-        results.append((ttf(ts.engine, ts.params, kind, a, b, inp, x=x),
-                        jtf(js.engine, js.params, kind, a, b, inp, x=xj)))
-    for got, want in results:
-        assert rel(float(got.gain), float(want.gain)) <= 1e-10
-        if np.isfinite(float(want.r_in)):
-            assert rel(float(got.r_in), float(want.r_in)) <= 1e-10
+        cases.append((kind, a, b, ts._input_ref(src)))
+        got.append(ttf(ts.engine, ts.params, *cases[-1], x=x))
+
+    def run():
+        xj = jax_x(MIXED)
+        rs = [js.tf(x_op=xj)] + [jtf(js.engine, js.params, *c, x=xj)
+                                 for c in cases]
+        return [[float(r.gain), float(r.r_in),
+                 None if r.r_out is None else float(r.r_out)] for r in rs]
+    for g, (gain, r_in, r_out) in zip(got, jax_value("tf", run)):
+        assert rel(float(g.gain), gain) <= 1e-10
+        if np.isfinite(r_in):
+            assert rel(float(g.r_in), r_in) <= 1e-10
         else:
-            assert float(got.r_in) == float(want.r_in)
-        assert (got.r_out is None) == (want.r_out is None)
-        if want.r_out is not None:
-            assert rel(float(got.r_out), float(want.r_out)) <= 1e-10
+            assert float(g.r_in) == r_in
+        assert (g.r_out is None) == (r_out is None)
+        if r_out is not None:
+            assert rel(float(g.r_out), r_out) <= 1e-10
 
 
 def test_sensitivity_matches_jax():
@@ -478,10 +561,15 @@ def test_sensitivity_matches_jax():
         dc_sensitivity, sensitivity_report)
     js, ts, x = sims(MIXED)
     out = ts._node_eq(ts.config.sens.out_node)
-    gj = jax.jit(lambda p, xx: dc_sensitivity(js.engine, p, out, -1,
-                                              x=xx)[0])(js.params,
-                                                        jax_x(MIXED))
-    rows_j = sensitivity_report(js.circuit, gj, normalize_params=js.params)
+
+    def run():
+        gj = jax.jit(lambda p, xx: dc_sensitivity(js.engine, p, out, -1,
+                                                  x=xx)[0])(js.params,
+                                                            jax_x(MIXED))
+        return [[r[0], float(r[1]), float(r[2])] for r in
+                sensitivity_report(js.circuit, gj,
+                                   normalize_params=js.params)]
+    rows_j = jax_value("sensitivity", run)
     gt, rows_t = ts.sensitivity(x_op=x)
     want = {r[0]: r[1:] for r in rows_j}
     got = {r[0]: r[1:] for r in rows_t}
@@ -516,11 +604,37 @@ def test_sens_tf_pz_errors():
 
 def test_pole_zero_matches_jax():
     js, ts, x = sims(PZ_DECK)
-    want = js.pole_zero(x_op=jax_x(PZ_DECK))
+
+    def run():
+        r = js.pole_zero(x_op=jax_x(PZ_DECK))
+        return {"poles": np.asarray(r.poles, complex),
+                "zeros": np.asarray(r.zeros, complex), "sigma": r.sigma}
+    want = jax_value("pole_zero", run)
     got = ts.pole_zero(x_op=x)
-    assert len(got.poles) == len(want.poles) > 0
-    assert len(got.zeros) == len(want.zeros) > 0
-    assert got.sigma == want.sigma
-    for a, b in ((got.poles, want.poles), (got.zeros, want.zeros)):
+    assert len(got.poles) == len(want["poles"]) > 0
+    assert len(got.zeros) == len(want["zeros"]) > 0
+    assert got.sigma == want["sigma"]
+    for a, b in ((got.poles, want["poles"]), (got.zeros, want["zeros"])):
         a, b = np.sort_complex(a), np.sort_complex(b)
         assert np.max(np.abs(a - b) / np.abs(b)) <= 1e-9
+
+
+class _Record:
+    """pytest plugin of ``__main__``: the cases run with ``RECORD`` on in
+    the module pytest imports, and the session's end writes the golden."""
+
+    def pytest_collection_finish(self, session):
+        self.mod = session.items[0].module
+        self.mod.RECORD["on"] = True
+
+    def pytest_sessionfinish(self, session, exitstatus):
+        rec = {k: v for k, v in self.mod.RECORD.items() if k != "on"}
+        if exitstatus == 0:
+            with open(GOLDEN, "w") as fh:
+                json.dump(rec, fh)
+
+
+if __name__ == "__main__":
+    import sys
+    sys.exit(pytest.main([__file__, "-q", "-p", "no:cacheprovider"],
+                         plugins=[_Record()]))

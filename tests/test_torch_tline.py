@@ -24,7 +24,9 @@ from circuitsimulator_tpu_torch.cli import main
 from circuitsimulator_tpu_torch.convert import params_from_numpy
 from circuitsimulator_tpu_torch.ops import fused_step
 from circuitsimulator_tpu_torch.parallel import montecarlo as tmc
-from test_torch_fused_step import damped, dc_points, draw_lanes, jax_runner
+from test_torch_fused_step import (RECORD, damped, dc_points, draw_lanes,
+                                   jax_chunk, jax_runner, kernel_chunk,
+                                   outputs)
 
 # one intra-op thread, as in every port test file (pytest-xdist shares
 # the cores between workers)
@@ -32,6 +34,10 @@ torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDENS = os.path.join(REPO, "tests", "goldens")
+# K1c-ii's chunk of the JAX kernel in interpret mode (test_torch_fused_step
+# .jax_chunk); ``PYTHONPATH=. JAX_PLATFORMS=cpu python
+# tests/test_torch_tline.py`` remakes it
+K1_GOLDEN = os.path.join(GOLDENS, "tline_k1_jax.npz")
 REFLECT = os.path.join(REPO, "examples", "tline_reflect.sp")
 RTOL = 1e-12
 
@@ -245,14 +251,20 @@ def test_k1c_ii_plain_matches_jax_pallas_kernel():
                            dtype=torch.float32)
     x = torch.as_tensor(np.array(x0))
     st = ts.engine.init_state(x, tp, dt)
-    runner = jax_runner(je, jp, dt)
-    assert (runner.nT, runner.Dmax) == (2, 8)
-    assert list(runner.tl_read) == [7, 4]
-    want = runner.run_chunk(x0, x0, jnp.asarray(st["vc"].numpy()),
-                            jnp.asarray(st["il"].numpy()),
-                            jnp.zeros((B,), bool), 0, steps, interpret=True,
-                            tlw=jnp.asarray(st["tlw"].numpy()))
-    want = [np.asarray(a) for a in want]
+
+    def run():
+        runner = jax_runner(je, jp, dt)
+        out = kernel_chunk(runner, x0, x0, jnp.asarray(st["vc"].numpy()),
+                           jnp.asarray(st["il"].numpy()),
+                           jnp.zeros((B,), bool), 0, steps,
+                           tlw=jnp.asarray(st["tlw"].numpy()))
+        out.update(nT=runner.nT, Dmax=runner.Dmax,
+                   tl_read=np.asarray(runner.tl_read))
+        return out
+    rec = jax_chunk("k1c_ii", run, K1_GOLDEN)
+    assert (int(rec["nT"]), int(rec["Dmax"])) == (2, 8)
+    assert list(rec["tl_read"]) == [7, 4]
+    want = outputs(rec)
     tr = fused_step.FusedStepRunner(ts.engine, tp, dt)
     got = tr.run_chunk_plain(x, x, st["vc"], st["il"],
                              torch.zeros((B,), dtype=torch.bool), 0, steps,
@@ -324,3 +336,11 @@ def test_cli_matches_jax_cli(tmp_path, monkeypatch, capsys):
     want = np.loadtxt(os.path.join(GOLDENS, "tline_reflect_tran_jax.csv"),
                       delimiter=",", skiprows=1)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-9)
+
+
+if __name__ == "__main__":
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", True)
+    RECORD["on"] = True
+    test_k1c_ii_plain_matches_jax_pallas_kernel()
+    np.savez_compressed(K1_GOLDEN, **RECORD[K1_GOLDEN])

@@ -35,7 +35,9 @@ from circuitsimulator_tpu_torch.convert import (key_from_numpy,
 from circuitsimulator_tpu_torch.ops import fused_step
 from circuitsimulator_tpu_torch.parallel import montecarlo as tmc
 from circuitsimulator_tpu_torch.utils import prng
-from test_torch_fused_step import damped, dc_points, draw_lanes, jax_runner
+from test_torch_fused_step import (RECORD, damped, dc_points, draw_lanes,
+                                   jax_chunk, jax_runner, kernel_chunk,
+                                   outputs)
 
 # one intra-op thread, as in every port test file (pytest-xdist shares
 # the cores between workers)
@@ -44,6 +46,9 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDENS = os.path.join(REPO, "tests", "goldens")
 STREAM_GOLDEN = os.path.join(GOLDENS, "trnoise_stream_jax.csv")
+# K1c-iii's chunk of the JAX kernel in interpret mode (test_torch_fused_step
+# .jax_chunk; the ``__main__`` below remakes it after the stream golden)
+K1_GOLDEN = os.path.join(GOLDENS, "trnoise_k1_jax.npz")
 
 # the decks of tests/test_trnoise_fused.py
 WHITE_DECK = """* white noise, V and I sources, diode load
@@ -320,12 +325,13 @@ def test_k1c_iii_plain_matches_jax_pallas_kernel():
     rng = np.random.default_rng(3)
     nz = (rng.standard_normal((steps, 2, B))
           * np.array([5e-3, 2e-6])[None, :, None]).astype(np.float32)
-    runner = jax_runner(je, jp, DT, noise_idx=idx)
-    st0 = jax.jit(jax.vmap(je.init_state))(x0)
-    want = runner.run_chunk(x0, x0, st0["vc"], st0["il"],
-                            jnp.zeros((B,), bool), 0, steps, interpret=True,
-                            noise=jnp.asarray(nz))
-    want = [np.asarray(a) for a in want]
+
+    def run():
+        st0 = jax.jit(jax.vmap(je.init_state))(x0)
+        return kernel_chunk(jax_runner(je, jp, DT, noise_idx=idx), x0, x0,
+                            st0["vc"], st0["il"], jnp.zeros((B,), bool), 0,
+                            steps, noise=jnp.asarray(nz))
+    want = outputs(jax_chunk("k1c_iii", run, K1_GOLDEN))
     ts = Simulator.from_text(WHITE_DECK, device="cpu",
                              opts=damped(DEFAULT_OPTIONS, torch.float32))
     assert fused_step.supported(ts.engine, DT)
@@ -532,3 +538,7 @@ if __name__ == "__main__":
     jax.config.update("jax_enable_x64", True)
     write_stream_golden()
     print(f"wrote {STREAM_GOLDEN}")
+    RECORD["on"] = True
+    test_k1c_iii_plain_matches_jax_pallas_kernel()
+    np.savez_compressed(K1_GOLDEN, **RECORD[K1_GOLDEN])
+    print(f"wrote {K1_GOLDEN}")
