@@ -326,12 +326,24 @@ Phases (one JSON line each):
      ladder and a 30 x 30 grid (blockband and blockwb) in f64 within 1e-9
      V of the port's CPU runs (worker processes); the large-N route
      (lu_solve_large) against lu_solve_plain at (64, 130, 1) and (1, 500,
-     1) with a singular lane; K2 at the Schur corner's shapes.
+     1) with a singular lane; K2 at the Schur corner's shapes;
+ 40. harmonic: the driven harmonic stack through Simulator's entry points
+     and the CLI: dbmixer.sp at its .hb 100e6 50 (K = 101, KN = 3,131),
+     dense and GMRES f64 against the port's CPU runs (1e-9 V, equal Newton
+     counts) and each other, GMRES f32 (residual < 1e-6, within 1e-3 V of
+     f64), the batched HB of 64 f32 lanes (lane 0 nominal), each from 1
+     warm-up period (HB_WARMUP); --run-hb (shooting, at SHOOT_SPP = 128
+     steps a period after 1 warm-up period) on mixer_rf.sp and
+     --run-envelope 5e-6:1e-7 --env-order 2 on am_envelope.sp in f64
+     against the CPU's CSVs.  The CPU references
+     run in worker processes started before phase 38.  Per run: Newton
+     iterations, ms a Newton iteration, wall and warm-up seconds, K2
+     launches, peak MiB and the library solves' share of the wall.
 
 Every error of K3 and of the AC path is lane-relative: for each lane
 max|x - ref| / max|ref| over its frequencies and unknowns, then the worst
 lane.  Kernel launch counts are reset just before each main-path run
-(phases 4, 7, 8, 11, 12, 13, 15, 16, 18, 22, 25, 27 and 29-39) and read
+(phases 4, 7, 8, 11, 12, 13, 15, 16, 18, 22, 25, 27 and 29-40) and read
 just after it.  The
 junction decks run the damped while-loop Newton configuration at f32
 tolerances: the fast configuration (alpha 1, predictor, two unrolled
@@ -5017,6 +5029,372 @@ def phase_large_circuit():
     return out
 
 
+# ---------------------------------------------------------------- phase 40
+HB_ENVELOPE_ARGS = ["--run-envelope", "5e-6:1e-7:env.csv", "--env-order", "2"]
+# depth cuts of phase 40 (the card and the CPU references alike): the
+# warm-up transient of dbmixer's HB solves (1 of its 6 periods of 404
+# steps: about 30 ms a step on the card, 15-20 damped Newton iterations),
+# and the shooting run of the CLI at 128 steps a period after 1 warm-up
+# period (512 and 8 by default: about 26 ms a step, 24 damped Newton
+# iterations at its 1e-9 per-step tolerance, 150 s)
+HB_WARMUP = 1
+SHOOT_SPP, SHOOT_WARMUP = 128, 1
+
+
+@contextlib.contextmanager
+def _short_shooting():
+    """The CLI's steady_state at phase 40's depth (SHOOT_SPP, SHOOT_WARMUP)."""
+    import functools
+    from circuitsimulator_tpu_torch.analysis import sstate
+    real = sstate.steady_state
+    sstate.steady_state = functools.partial(
+        real, steps_per_period=SHOOT_SPP, warmup_periods=SHOOT_WARMUP)
+    try:
+        yield
+    finally:
+        sstate.steady_state = real
+
+
+class _SharedWarmup:
+    """Within a block, hb.warmup_samples runs once per (engine, params,
+    grid): the dense and GMRES solves of one deck start from the same
+    samples, and the warm-up's seconds are kept apart from Newton's."""
+
+    def __init__(self):
+        self.cache, self.seconds = {}, 0.0
+
+    def __enter__(self):
+        from circuitsimulator_tpu_torch.analysis import hb
+        self.hb, self.real = hb, hb.warmup_samples
+
+        def cached(engine, params, x0, T, K, wp):
+            import torch
+            key = (id(engine), id(params), T, K, wp)
+            if key not in self.cache:
+                t0 = time.perf_counter()
+                X = self.real(engine, params, x0, T, K, wp)
+                if X.is_cuda:
+                    torch.cuda.synchronize()
+                self.seconds += time.perf_counter() - t0
+                self.cache[key] = (engine, params, X)
+            return self.cache[key][2].clone()
+
+        hb.warmup_samples = cached
+        return self
+
+    def __exit__(self, *exc):
+        self.hb.warmup_samples = self.real
+        return False
+
+
+def _harmonic_cli(device, args, csv, workdir):
+    """The port's CLI in ``workdir`` (the deck path absolute): (rc,
+    stdout, seconds, the CSV as numpy)."""
+    import numpy as np
+    cwd = os.getcwd()
+    try:
+        os.chdir(workdir)
+        with _short_shooting():
+            rc, out, secs = _cli(args + ["--device", device])
+        data = (np.loadtxt(csv, delimiter=",", skiprows=1)
+                if os.path.exists(csv) else None)
+    finally:
+        os.chdir(cwd)
+    return rc, out, secs, data
+
+
+def _harmonic_cpu(task):
+    """One CPU reference of phase 40 in a worker process, started before
+    phase 38 so that it runs beside the earlier phases' card work: dbmixer's
+    .hb 100e6 50 dense and GMRES (one warm-up), f64; mixer_rf.sp's
+    --run-hb (shooting); am_envelope.sp's --run-envelope."""
+    import torch
+    sys.path.insert(0, REPO)
+    torch.set_num_threads(2)
+    from circuitsimulator_tpu_torch import Simulator
+    if task == "dbmixer":
+        sim = Simulator.from_file(os.path.join(NETLISTS, "dbmixer.sp"),
+                                  device="cpu")
+        with _SharedWarmup():
+            runs = {s: sim.harmonic_balance(solver=s,
+                                            warmup_periods=HB_WARMUP)
+                    for s in ("dense", "gmres")}
+        return {s: {"xs": r.xs.numpy(), "iters": r.newton_iters,
+                    "residual": float(r.residual)} for s, r in runs.items()}
+    d = tempfile.mkdtemp(prefix="hb_cpu_")
+    try:
+        if task == "mixer_rf_cli":
+            args = [os.path.join(EXAMPLES, "mixer_rf.sp"), "t.csv",
+                    "--run-hb", "hb.csv"]
+            csv = "hb.csv"
+        else:
+            args = [os.path.join(EXAMPLES, "am_envelope.sp"), "t.csv",
+                    *HB_ENVELOPE_ARGS]
+            csv = "env.csv"
+        rc, out, secs, data = _harmonic_cli("cpu", args, csv, d)
+        return {"rc": rc, "stdout": out, "seconds": secs, "csv": data}
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def start_harmonic_cpu():
+    """The pool and futures of phase 40's CPU references."""
+    import multiprocessing
+    pool = concurrent.futures.ProcessPoolExecutor(
+        3, mp_context=multiprocessing.get_context("spawn"))
+    return pool, {t: pool.submit(_harmonic_cpu, t)
+                  for t in ("dbmixer", "mixer_rf_cli", "am_envelope_cli")}
+
+
+class _HBCounts:
+    """Newton iterations, the dense solves' and the preconditioners'
+    counts of one harmonic run (hb.newton_step, hb._hb_freq_precond,
+    torch.linalg.solve_ex and svd wrapped), and each HB Newton step's
+    wall ms (synchronised before and after: the loops sync on the
+    residual each iteration anyway)."""
+
+    def __enter__(self):
+        from circuitsimulator_tpu_torch.analysis import hb, hbmulti
+        self.mods = (hb, hbmulti)
+        self.real_step, self.real_pre = hb.newton_step, hb._hb_freq_precond
+        self.newton = self.precond = self.applies = 0
+        self.last = None
+        self.step_ms = []
+
+        def step(system, ctx, X, solver, *a, **kw):
+            import torch
+            self.newton += 1
+            self.last = (system, ctx, X, solver)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.real_step(system, ctx, X, solver, *a, **kw)
+            torch.cuda.synchronize()
+            self.step_ms.append(1e3 * (time.perf_counter() - t0))
+            return out
+
+        def pre(*a, **kw):
+            self.precond += 1
+            apply_M = self.real_pre(*a, **kw)
+
+            def counted(v):
+                self.applies += 1
+                return apply_M(v)
+            return counted
+
+        import torch
+        self.linalg = torch.linalg
+        self.real_solve, self.real_svd = torch.linalg.solve_ex, \
+            torch.linalg.svd
+        self.solves = self.svds = 0
+
+        def solve_ex(*a, **kw):
+            self.solves += 1
+            return self.real_solve(*a, **kw)
+
+        def svd(*a, **kw):
+            self.svds += 1
+            return self.real_svd(*a, **kw)
+
+        for m in self.mods:
+            m.newton_step = step
+            m._hb_freq_precond = pre
+        torch.linalg.solve_ex, torch.linalg.svd = solve_ex, svd
+        return self
+
+    @property
+    def iterations(self):
+        """Newton iterations: HB's steps, else the envelope's dense solves
+        or shooting's SVD solves."""
+        return self.newton or self.solves or self.svds
+
+    def __exit__(self, *exc):
+        for m in self.mods:
+            m.newton_step = self.real_step
+            m._hb_freq_precond = self.real_pre
+        self.linalg.solve_ex, self.linalg.svd = self.real_solve, self.real_svd
+        return False
+
+
+def _library_ms(counts, engine, params, omegas, trig):
+    """(dense solve ms, preconditioner build ms, one apply ms) at the last
+    Newton state of a run, CUDA events: the library solves' times."""
+    from circuitsimulator_tpu_torch.analysis import hb
+    import torch
+    system, ctx, X, solver = counts.last
+    r, aux = system.residual_ctx(X, ctx, True)
+    if solver == "dense":
+        J = system.jacobian_ctx(aux, ctx)
+        b = -r.reshape(-1)
+        return cuda_ms(lambda: torch.linalg.solve_ex(J, b), reps=5,
+                       warmup=1), None, None
+    build = cuda_ms(lambda: hb._hb_freq_precond(engine, params, omegas, aux,
+                                                trig, ctx["C"]),
+                    reps=5, warmup=1)
+    apply_M = hb._hb_freq_precond(engine, params, omegas, aux, trig,
+                                  ctx["C"])
+    return None, build, cuda_ms(lambda: apply_M(r), reps=10, warmup=2)
+
+
+def phase_harmonic(cpu_refs):
+    """Phase 40: the driven harmonic stack on the card through Simulator's
+    entry points and the CLI.  dbmixer.sp at its own .hb 100e6 50 (K =
+    101, KN = 3,131): dense f64 and GMRES f64 (one warm-up) against the
+    port's CPU f64 runs (1e-9 V, equal Newton counts) and against each
+    other, GMRES f32 (residual < 1e-6, within 1e-3 V of f64); the batched
+    HB of 64 f32 lanes (dense; lane 0 nominal, held to f64 within 1e-3 V,
+    every lane converged); --run-hb (shooting) on examples/mixer_rf.sp and
+    --run-envelope 5e-6:1e-7 --env-order 2 on examples/am_envelope.sp in
+    f64, their CSVs against the CPU's.  The f32 runs take the damped
+    configuration at f32 tolerances; the depth cuts are HB_WARMUP and
+    SHOOT_SPP / SHOOT_WARMUP.  Per run: Newton iterations, ms a Newton
+    iteration, wall seconds, K2 launches, peak MiB, and the library
+    solves' share of the wall."""
+    import numpy as np
+    import torch
+    from circuitsimulator_tpu_torch import Simulator
+    from circuitsimulator_tpu_torch.analysis import hb
+    from circuitsimulator_tpu_torch.ops import cuda_lu
+    from circuitsimulator_tpu_torch.parallel import montecarlo as tmc
+    t_phase = time.perf_counter()
+    db = os.path.join(NETLISTS, "dbmixer.sp")
+    f0, H = 100e6, 50
+    K = 2 * H + 1
+    omegas = np.arange(1, H + 1) * (2.0 * np.pi * f0)
+    trig = hb._hb_trig_mats(K, H, 1.0 / f0)
+    out = {"runs": {}}
+
+    def measured(name, fn, engine=None, params=None):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_lu.LAUNCHES = 0
+        with _SharedWarmup() as w, _HBCounts() as c:
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        m = {"wall_s": wall, "warmup_s": w.seconds,
+             "newton_iters": c.iterations,
+             # HB: the median Newton step (the first carries the linear
+             # algebra library's load); else the wall past the warm-up over
+             # the iterations
+             "ms_per_newton": (statistics.median(c.step_ms) if c.step_ms
+                               else 1e3 * (wall - w.seconds) / c.iterations
+                               if c.iterations else None),
+             "newton_ms_first": c.step_ms[0] if c.step_ms else None,
+             "k2_launches": cuda_lu.LAUNCHES,
+             "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+             "preconditioners": c.precond, "precond_applies": c.applies}
+        if c.last is not None and engine is not None:
+            solve, build, apply_ = _library_ms(c, engine, params, omegas,
+                                               trig)
+            lib = (c.newton * solve if solve is not None
+                   else c.precond * build + c.applies * apply_)
+            m.update({"solve_ms": solve, "precond_build_ms": build,
+                      "precond_apply_ms": apply_,
+                      "library_share": lib / 1e3 / wall})
+        out["runs"][name] = m
+        emit(f"harmonic_{name}", **m)
+        return res, m
+
+    sim64 = Simulator.from_file(db, device="cuda")
+    with _SharedWarmup():
+        runs = {}
+        for s in ("dense", "gmres"):
+            runs[s], _ = measured(
+                f"dbmixer_{s}_f64",
+                lambda s=s: sim64.harmonic_balance(
+                    solver=s, warmup_periods=HB_WARMUP),
+                sim64.engine, sim64.params)
+    ref = cpu_refs["dbmixer"].result()
+    checks = {}
+    for s, r in runs.items():
+        x = r.xs.cpu().numpy()
+        checks[f"{s}_f64_vs_cpu_max_abs"] = float(
+            np.abs(x - ref[s]["xs"]).max())
+        check(r.newton_iters == ref[s]["iters"],
+              f"dbmixer {s}: Newton iterations {r.newton_iters} vs CPU "
+              f"{ref[s]['iters']}")
+        check(bool(r.converged) and float(r.residual) < 1e-9,
+              f"dbmixer {s} f64 converged ({float(r.residual)})")
+        check(checks[f"{s}_f64_vs_cpu_max_abs"] <= 1e-9,
+              f"dbmixer {s} f64 card vs CPU")
+    x64 = runs["dense"].xs
+    checks["gmres_vs_dense_f64_max_abs"] = float(
+        (runs["gmres"].xs - x64).abs().max())
+    check(checks["gmres_vs_dense_f64_max_abs"] <= 1e-9,
+          "dbmixer GMRES vs dense f64")
+    sim32 = _sim(damped_f32_options(), db)
+    r32, _ = measured("dbmixer_gmres_f32",
+                      lambda: sim32.harmonic_balance(
+                          solver="gmres", warmup_periods=HB_WARMUP),
+                      sim32.engine, sim32.params)
+    checks["gmres_f32_residual"] = float(r32.residual)
+    checks["gmres_f32_vs_f64_max_abs"] = float(
+        (r32.xs.double() - x64).abs().max())
+    check(checks["gmres_f32_residual"] < 1e-6, "dbmixer GMRES f32 residual")
+    check(checks["gmres_f32_vs_f64_max_abs"] <= 1e-3,
+          "dbmixer GMRES f32 vs f64")
+    # the batched HB: 64 f32 lanes, resistors and MOS VT perturbed, lane 0
+    # nominal
+    B = 64
+    bp = tmc.perturb_params(sim32.params, torch.Generator(
+        device="cuda").manual_seed(40), B, {"res_r": 0.01, "mos_vth": 0.01})
+    for k, v in sim32.params.items():
+        bp[k] = bp[k].clone()
+        bp[k][0] = v
+    rb, mb = measured("dbmixer_batched64_f32",
+                      lambda: hb.harmonic_balance_batched(
+                          sim32.engine, bp, f0, n_harm=H,
+                          warmup_periods=HB_WARMUP))
+    mb["lanes_per_s"] = B / mb["wall_s"]
+    emit("harmonic_dbmixer_batched64_f32_rate", lanes_per_s=mb["lanes_per_s"])
+    checks["batched_f32_lanes_converged"] = int(rb.converged.sum())
+    checks["batched_f32_max_residual"] = float(rb.residual.max())
+    checks["batched_f32_lane0_vs_f64_max_abs"] = float(
+        (rb.xs[0].double() - x64).abs().max())
+    check(bool(rb.converged.all()), "batched f32: every lane converged")
+    check(checks["batched_f32_lane0_vs_f64_max_abs"] <= 1e-3,
+          "batched f32 lane 0 vs f64")
+    del bp, rb
+    torch.cuda.empty_cache()
+    # the CLI: shooting on mixer_rf.sp, the envelope on am_envelope.sp
+    cli = {}
+    for name, args, csv, task in (
+            ("shooting_cli_mixer_rf_f64",
+             [os.path.join(EXAMPLES, "mixer_rf.sp"), "t.csv", "--run-hb",
+              "hb.csv"], "hb.csv", "mixer_rf_cli"),
+            ("envelope_cli_am_envelope_f64",
+             [os.path.join(EXAMPLES, "am_envelope.sp"), "t.csv",
+              *HB_ENVELOPE_ARGS], "env.csv", "am_envelope_cli")):
+        d = tempfile.mkdtemp(prefix="hb_card_")
+        try:
+            (rc, stdout, secs, data), m = measured(
+                name, lambda a=args, c=csv, d=d: _harmonic_cli(
+                    "cuda", a, c, d))
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        cpu = cpu_refs[task].result()
+        check(rc == 0 and cpu["rc"] == 0, f"{name}: exit codes {rc}, "
+              f"{cpu['rc']}")
+        err = np.abs(data - cpu["csv"])
+        if csv == "env.csv":
+            # magnitude columns in volts, phase columns in degrees
+            cli[name] = {"max_abs_v": float(err[:, 1::2].max()),
+                         "max_abs_deg": float(err[:, 2::2].max())}
+            check(cli[name]["max_abs_v"] <= 1e-9
+                  and cli[name]["max_abs_deg"] <= 1e-6, f"{name} vs CPU")
+        else:
+            cli[name] = {"max_abs_v": float(err.max())}
+            check(cli[name]["max_abs_v"] <= 1e-9, f"{name} vs CPU")
+        check(m["k2_launches"] > 0, f"{name}: K2 launched")
+        cli[name]["cpu_seconds"] = cpu["seconds"]
+        cli[name]["stdout_lines_equal_cpu"] = stdout.splitlines() == \
+            cpu["stdout"].splitlines()
+    out["checks"] = {**checks, "cli": cli}
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    emit("harmonic", phase_seconds=out["phase_seconds"], **out["checks"])
+    return out
+
 
 def main():
     import torch
@@ -5071,8 +5449,13 @@ def main():
     adap = timed(phase_adaptive)
     ckpt = timed(phase_checkpoint, trap)
     ss = timed(phase_small_signal)
+    # phase 40's CPU references run beside phases 38 and 39 (whose own
+    # CPU references share the host with the card's work too)
+    hb_pool, hb_refs = start_harmonic_cpu()
     stats = timed(phase_statistics)
     large = timed(phase_large_circuit)
+    harm = timed(phase_harmonic, hb_refs)
+    hb_pool.shutdown()
     k3_rows = timed(phase_k3_timings)
     k2_device, k1_device_ms = timed(phase_k2_device, timings, k1_main_run)
     k3_device = timed(phase_k3_device, k3_rows)
@@ -5135,7 +5518,9 @@ def main():
                        "statistics_adjoint_backward_mc_filter_f64":
                            stats["adjoint"]["backward_k2_launches"],
                        **{f"large_circuit_{n}": r["k2_launches"]
-                          for n, r in large["runs"].items()}},
+                          for n, r in large["runs"].items()},
+                       **{f"harmonic_{n}": r["k2_launches"]
+                          for n, r in harm["runs"].items()}},
         "fused_step": {"monte_carlo_fused_f32_fast": k1_launches,
                        "monte_carlo_fused_bjt_f32": bjt["k1_launches"],
                        **{f"monte_carlo_fused_{n}_f32": m["k1_launches"]

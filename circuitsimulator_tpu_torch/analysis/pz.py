@@ -28,11 +28,10 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
-from ..models.moscap import charge_jacobian
 from ..ops.assemble import Engine
 from .dc import dc_operating_point
+from .hb import _reactive_structure
 from .sensitivity import _polish, dc_jacobian
-from ..utils.shapes import broadcast_shapes
 
 
 @dataclasses.dataclass
@@ -40,49 +39,6 @@ class PZResult:
     poles: np.ndarray     # complex, rad/s
     zeros: np.ndarray     # complex, rad/s (empty without an input)
     sigma: float          # shift actually used
-
-
-@torch.inference_mode()
-def reactive_structure(engine: Engine, params, x_op=None):
-    """C_struct (..., N, N) (JAX ``hb._reactive_structure``): the
-    capacitor patterns on node rows (+C at (a, a), -C at (a, b), ...), -L
-    on the inductor branch diagonals and -M at the mutual pairs, so that
-    r += C_struct dx/dt completes the KCL and branch equations.  Under
-    MOSCAP=CHARGE the MOS trans-capacitances dq_t/dv_j at ``x_op`` are
-    added (required there)."""
-    if engine.mos_charge and x_op is None:
-        raise NotImplementedError(
-            "state-dependent C structure (MOSCAP=CHARGE): pass x_op")
-    N = engine.N
-    t = engine.topo
-    C = engine._caplike_C(params)
-    lead = C.shape[:-1]
-    parts = [torch.stack([C, C, -C, -C], -1).flatten(-2)]
-    rows, cols = [engine.cap_rows], [engine.cap_cols]
-    if len(t.ind_k):
-        parts.append(-params["ind_l"])
-        rows.append(t.ind_k)
-        cols.append(t.ind_k)
-    if len(t.mut_a):
-        mm = engine._mutual_M(params)
-        parts.append(-torch.cat([mm, mm], -1))
-        rows.append(engine.mut_rows)
-        cols.append(engine.mut_cols)
-    if engine.mos_charge:
-        _, Jq = charge_jacobian(engine.mos_vdgs(x_op), params)
-        parts.append(Jq.flatten(-3))
-        rows.append(engine.mq_rows)
-        cols.append(engine.mq_cols)
-    lead = broadcast_shapes(lead, *(p.shape[:-1] for p in parts))
-    vals = torch.cat([p.expand(lead + p.shape[-1:]) for p in parts], -1)
-    N1 = N + 1
-    flat = torch.as_tensor(
-        np.concatenate(rows).astype(np.int64) * N1
-        + np.concatenate(cols).astype(np.int64), device=engine.device)
-    M = torch.zeros(lead + (N1 * N1,), dtype=engine.dtype,
-                    device=engine.device)
-    M.index_add_(-1, flat, vals)
-    return M.reshape(lead + (N1, N1))[..., :N, :N]
 
 
 def _finite_pencil_eigs(A: np.ndarray, C: np.ndarray,
@@ -119,7 +75,7 @@ def pole_zero(engine: Engine, params, out_eq: int, ref_eq: int = -1,
     with torch.inference_mode():
         A = dc_jacobian(engine, params, x_op).cpu().numpy().astype(
             np.float64)
-    C = reactive_structure(engine, params, x_op=x_op).cpu().numpy().astype(
+    C = _reactive_structure(engine, params, x_op=x_op).cpu().numpy().astype(
         np.float64)
 
     poles, sigma = _finite_pencil_eigs(A, C)

@@ -8,7 +8,8 @@ dicts stack along a leading lane axis, and the whole sweep runs as one
 batch through the port's batched entries (``parallel/montecarlo.py``): the
 batched DC (K2 on the card), the non-fused batched transient, or, for a
 waveform-free sweep with ``.MEASURE TRAN`` cards, the streaming measures
-(K1 with its probe stream on a float32 CUDA run of a deck in its scope).
+(K1 with its probe stream on a float32 CUDA run of a deck in its scope),
+or, with a single-tone ``.hb`` card, the batched harmonic balance.
 
 ``.STEP PARAM name ...`` re-parses the netlist text with the parameter
 bound (a parameter can feed any number of element values through
@@ -33,8 +34,9 @@ class StepResult:
     name: str                 # stepped parameter / source name(s)
     kind: str                 # "param" | "source" | "temp", comma-joined
     values: Any               # (B,) values, or B tuples for several cards
-    analysis: str             # "tran" | "op"
-    result: Any               # batched TransientResult or (B, N) DC points
+    analysis: str             # "tran" | "hb" | "op"
+    result: Any               # batched TransientResult, HBBatchResult or
+                              # (B, N) DC points
     measures: Optional[List] = None   # [(measure_name, (B,) values)]
 
 
@@ -128,8 +130,13 @@ def run_step(sim, cfgs, save_xs: bool = True) -> StepResult:
                           analysis="tran", result=res, measures=measures)
     hb = sim.config.hb
     if hb.enabled and not hb.extra_tones:
-        raise NotImplementedError(
-            ".STEP with a .hb card: harmonic balance (HB) is not yet ported")
+        # .STEP x .hb: every step point's periodic steady state as one
+        # batched HB (hb.harmonic_balance_batched)
+        from .hb import harmonic_balance_batched
+        res = harmonic_balance_batched(sim.engine, bparams, hb.f0,
+                                       n_harm=hb.n_harm or 8)
+        return StepResult(name=name, kind=kind, values=values,
+                          analysis="hb", result=res)
     xs = batched_dc_fast(sim.engine, bparams)
     return StepResult(name=name, kind=kind, values=values, analysis="op",
                       result=xs)
@@ -137,8 +144,9 @@ def run_step(sim, cfgs, save_xs: bool = True) -> StepResult:
 
 def write_step_csv(path: str, topo, sres: StepResult) -> None:
     """One row per step point: the stepped value(s) (one column per .STEP
-    card), then the .MEASURE results (transient steps with measures) or
-    every node voltage and branch current (%.9e, as the reference CSV)."""
+    card), then the .MEASURE results (transient steps with measures), the
+    fundamental magnitude and THD of every node (``.hb`` steps) or every
+    node voltage and branch current (%.9e, as the reference CSV)."""
     from ..io.csvout import format_header
     name_cols = sres.name.split(",")
 
@@ -152,6 +160,21 @@ def write_step_csv(path: str, topo, sres: StepResult) -> None:
             cols = [np.asarray(v) for _, v in sres.measures]
             for b, val in enumerate(sres.values):
                 row = val_cols(val) + [c[b] for c in cols]
+                f.write(",".join(f"{v:.9e}" for v in row) + "\n")
+            return
+        if sres.analysis == "hb":
+            # per step point: fundamental magnitude and THD of every node
+            spec = sres.result.spectrum.abs().cpu().numpy()  # (B, H+1, N)
+            eqs = np.asarray(topo.volt_col_eqs, int)
+            names = list(topo.volt_col_names)
+            fund = spec[:, 1, :][:, eqs]
+            thd = (np.sqrt((spec[:, 2:, :][:, :, eqs] ** 2).sum(axis=1))
+                   / np.maximum(fund, 1e-30))
+            hdr = ([f"VM1({n})" for n in names]
+                   + [f"THD({n})" for n in names])
+            f.write(",".join(name_cols + hdr) + "\n")
+            for b, val in enumerate(sres.values):
+                row = val_cols(val) + list(fund[b]) + list(thd[b])
                 f.write(",".join(f"{v:.9e}" for v in row) + "\n")
             return
         xs = sres.result.x_final if sres.analysis == "tran" else sres.result

@@ -22,6 +22,11 @@
     form = sim.worst_case(sig, measure="vset", high=1.27)   # FORM, adjoint
     sim.mismatch_budget(sig, measure="vset"); sim.center_design(...)
     sim.calibrate(target, "out", ["res_r"]); sim.fit_measures(...)   # Adam
+    pss = sim.steady_state()          # .hb card, Newton shooting (K2)
+    hb = sim.harmonic_balance(solver="gmres")   # spectral Newton(-Krylov)
+    sim.two_tone_ip3("out", 0.01); sim.p1db("out", "Vin")   # MPDE / HB
+    bp, hbs = sim.monte_carlo_hb(64)  # lanes of one batched HB
+    env = sim.envelope(5e-6, 1e-7, order=2)  # envelope transient
 
 Above 128 node equations ``Simulator`` picks a large-circuit backend, as
 the JAX package does: ``tridiag`` for a ladder (``synthetic.
@@ -722,6 +727,215 @@ class Simulator:
         cfgs = (self.config.steps if step_index is None
                 else self.config.steps[step_index])
         return run_step(self, cfgs, save_xs=save_xs)
+
+    # ---- periodic steady state and RF ----
+    def _hb_f0(self, f0, what: str = ".hb card missing or invalid (f0 must "
+                                     "be > 0)"):
+        hb = self.config.hb
+        f0 = f0 if f0 is not None else (hb.f0 if hb.enabled else None)
+        if not f0 or f0 <= 0:
+            raise ValueError(what)
+        return f0
+
+    def _hb_lanes(self, n: int, seed: int, sampler: str, params=None):
+        """n lanes of the netlist's DEV=/LOT= tolerances."""
+        from .parallel.montecarlo import perturb_params_netlist
+        if not self.lowered.mc_tols:
+            raise ValueError("no DEV=/LOT= tolerances in the netlist")
+        p = params if params is not None else self.params
+        return perturb_params_netlist(p, self._generator(seed), n,
+                                      self.lowered.mc_tols, sampler=sampler)
+
+    def _two_tones(self, tones, what: str):
+        hb = self.config.hb
+        if tones is None:
+            if not (hb.enabled and hb.extra_tones):
+                raise ValueError(f"{what} needs a multi-tone .hb card or "
+                                 "tones=[(f1,H1),(f2,H2)]")
+            tones = hb.tones
+        if len(tones) != 2:
+            raise ValueError(f"{what} needs exactly two tones")
+        if tones[0][1] < 2 or tones[1][1] < 1:
+            raise ValueError("IM3 (2,-1) needs H1 >= 2 and H2 >= 1")
+        return tones
+
+    def steady_state(self, params: Optional[Any] = None,
+                     f0: Optional[float] = None,
+                     n_harm: Optional[int] = None, **kw):
+        """Periodic steady state (.hb card) by Newton shooting
+        (analysis/sstate.py).  Defaults to the netlist's .hb card."""
+        from .analysis.sstate import steady_state
+        f0 = self._hb_f0(f0)
+        n_harm = n_harm if n_harm is not None else (self.config.hb.n_harm
+                                                    or 8)
+        p = params if params is not None else self.params
+        return steady_state(self.engine, p, f0, n_harm=n_harm, **kw)
+
+    def harmonic_balance(self, params: Optional[Any] = None,
+                         f0: Optional[float] = None,
+                         n_harm: Optional[int] = None,
+                         tones=None, **kw):
+        """Frequency-domain periodic steady state (analysis/hb.py).
+        Defaults to the netlist's .hb card; with several tones
+        (``tones=[(f, H), ...]`` or a multi-tone ``.hb f0 n0 f1 n1 ...``
+        card) the quasi-periodic MPDE grid (analysis/hbmulti.py)."""
+        from .analysis.hb import harmonic_balance
+        hb = self.config.hb
+        p = params if params is not None else self.params
+        if tones is None and f0 is None and hb.enabled and hb.extra_tones:
+            tones = hb.tones
+        if tones is not None:
+            from .analysis.hbmulti import harmonic_balance_multi
+            return harmonic_balance_multi(self.engine, p, tones, **kw)
+        f0 = self._hb_f0(f0)
+        n_harm = n_harm if n_harm is not None else (hb.n_harm or 8)
+        return harmonic_balance(self.engine, p, f0, n_harm=n_harm, **kw)
+
+    def monte_carlo_hb(self, n: int, seed: int = 0, sampler: str = "mc",
+                       params: Optional[Any] = None,
+                       f0: Optional[float] = None,
+                       n_harm: Optional[int] = None, **kw):
+        """RF Monte Carlo: n lanes of the netlist's DEV=/LOT= tolerances
+        (drawn from a ``torch.Generator`` seeded with ``seed``) of the .hb
+        periodic steady state as one batched HB.  Returns (bparams,
+        HBBatchResult); per-lane spectra in result.spectrum[lane]."""
+        from .analysis.hb import harmonic_balance_batched
+        bp = self._hb_lanes(n, seed, sampler, params)
+        f0 = self._hb_f0(f0)
+        n_harm = n_harm if n_harm is not None else (self.config.hb.n_harm
+                                                    or 8)
+        return bp, harmonic_balance_batched(self.engine, bp, f0,
+                                            n_harm=n_harm, **kw)
+
+    def two_tone_ip3(self, probe: str, input_amplitude: float,
+                     params: Optional[Any] = None, tones=None, **kw):
+        """Two-tone intermodulation on the multi-tone HB: the fundamental
+        (1, 0) and the lower IM3 (2, -1) of V(probe) and the third-order
+        intercept referred to the per-tone drive amplitude A,
+        IIP3 = A sqrt(fund / im3).  Returns a dict: fund, im3 (voltage
+        magnitudes), im3_dbc, iip3_amplitude, oip3_amplitude, result."""
+        from .analysis.hbmulti import coeff
+        tones = self._two_tones(tones, "two_tone_ip3")
+        res = self.harmonic_balance(params=params, tones=tones, **kw)
+        eqi = self._node_eq(probe)
+        fund = 2.0 * float(coeff(res, (1, 0))[eqi].abs())
+        im3 = 2.0 * float(coeff(res, (2, -1))[eqi].abs())
+        a = float(input_amplitude)
+        ratio = fund / max(im3, 1e-300)
+        return {"fund": fund, "im3": im3,
+                "im3_dbc": 20.0 * np.log10(max(im3, 1e-300) / fund),
+                "iip3_amplitude": a * np.sqrt(ratio),
+                "oip3_amplitude": fund * np.sqrt(ratio), "result": res}
+
+    def monte_carlo_ip3(self, n: int, probe: str, input_amplitude: float,
+                        seed: int = 0, sampler: str = "mc",
+                        params: Optional[Any] = None, tones=None, **kw):
+        """Monte-Carlo two-tone IP3: n lanes of the multi-tone HB
+        (analysis/hbmulti.harmonic_balance_multi_batched), each lane's
+        (1, 0) and (2, -1) read per lane.  Returns (bparams, dict) with
+        (n,) arrays fund, im3, im3_dbc, iip3_amplitude, oip3_amplitude,
+        converged and the HBMultiBatchResult under "result"."""
+        from .analysis.hbmulti import (coeff_batched,
+                                       harmonic_balance_multi_batched)
+        bp = self._hb_lanes(n, seed, sampler, params)
+        tones = self._two_tones(tones, "monte_carlo_ip3")
+        eqi = self._node_eq(probe)
+        res = harmonic_balance_multi_batched(self.engine, bp, tones, **kw)
+        fund = 2.0 * _host(coeff_batched(res, (1, 0))[:, eqi].abs())
+        im3 = 2.0 * _host(coeff_batched(res, (2, -1))[:, eqi].abs())
+        a = float(input_amplitude)
+        ratio = fund / np.maximum(im3, 1e-300)
+        return bp, {
+            "fund": fund, "im3": im3,
+            "im3_dbc": 20.0 * np.log10(np.maximum(im3, 1e-300) / fund),
+            "iip3_amplitude": a * np.sqrt(ratio),
+            "oip3_amplitude": fund * np.sqrt(ratio),
+            "converged": _host(res.converged), "result": res}
+
+    def p1db(self, probe: str, source: str, params: Optional[Any] = None,
+             f0: Optional[float] = None, n_harm: int = 7,
+             a_max_scale: float = 100.0, iters: int = 20, **kw):
+        """1 dB compression point: bisect the named SIN source's amplitude
+        until the fundamental gain of V(probe) (single-tone HB) is 1 dB
+        below its small-signal value.  Returns a dict: a_1db, gain_ss,
+        gain_1db, n_solves."""
+        import math
+        from .analysis.hb import harmonic_balance
+        from .analysis.sweep import find_source
+        f0 = self._hb_f0(f0, "p1db needs f0 (or a .hb card)")
+        kind, sidx = find_source(self.circuit, source)
+        if kind != KIND_V:
+            raise ValueError("p1db sweeps a V source's SIN amplitude")
+        p0 = dict(params if params is not None else self.params)
+        a0 = float(p0["vs_sin"][sidx, 1])
+        if a0 <= 0:
+            raise ValueError(f"{source!r} has no SIN amplitude")
+        eqi = self._node_eq(probe)
+        n_solves = 0
+
+        def gain_at(a):
+            nonlocal n_solves
+            p = dict(p0)
+            p["vs_sin"] = p0["vs_sin"].clone()
+            p["vs_sin"][sidx, 1] = a
+            res = harmonic_balance(self.engine, p, f0, n_harm=n_harm, **kw)
+            n_solves += 1
+            # the one-sided spectrum: |c_1| is the cosine amplitude
+            return float(res.spectrum[1][eqi].abs()) / a
+
+        g_ss = gain_at(a0 / a_max_scale)      # deep small-signal
+        target = g_ss * 10.0 ** (-1.0 / 20.0)
+        # walk up in half-octave steps to the first sub-target gain (|gain|
+        # is not monotone past a strong-compression null), then bisect
+        lo = a0 / a_max_scale
+        hi = None
+        a = lo * math.sqrt(2.0)
+        while a <= a0 * a_max_scale:
+            if gain_at(a) <= target:
+                hi = a
+                break
+            lo = a
+            a *= math.sqrt(2.0)
+        if hi is None:
+            raise ValueError("no 1 dB compression within the sweep "
+                             "range; widen a_max_scale")
+        for _ in range(iters):
+            mid = math.sqrt(lo * hi)
+            if gain_at(mid) > target:
+                lo = mid
+            else:
+                hi = mid
+        a_1db = math.sqrt(lo * hi)
+        return {"a_1db": a_1db, "gain_ss": g_ss,
+                "gain_1db": gain_at(a_1db), "n_solves": n_solves}
+
+    def envelope(self, t_stop: float, dt_env: float,
+                 f0: Optional[float] = None, n_harm: int = 7,
+                 params: Optional[Any] = None, **kw):
+        """Envelope-following transient (analysis/envelope.py): the
+        harmonic envelopes at the carrier f0 stepped on the slow axis; SIN
+        sources at >= f0/2 ride the fast axis, every other waveform and
+        every DC term the envelope.  Returns an EnvelopeResult."""
+        from .analysis.envelope import envelope_transient
+        f0 = self._hb_f0(f0, "envelope needs f0 (or a .hb card)")
+        p = params if params is not None else self.params
+        return envelope_transient(self.engine, p, f0, t_stop, dt_env,
+                                  n_harm=n_harm, **kw)
+
+    def monte_carlo_envelope(self, n: int, t_stop: float, dt_env: float,
+                             seed: int = 0, sampler: str = "mc",
+                             f0: Optional[float] = None,
+                             n_harm: int = 7, **kw):
+        """Monte-Carlo envelope transient: n lanes of the netlist's
+        DEV=/LOT= tolerances of the whole two-timescale run as one batch
+        (analysis/envelope.envelope_transient_batched).  Returns (bparams,
+        EnvelopeBatchResult)."""
+        from .analysis.envelope import envelope_transient_batched
+        bp = self._hb_lanes(n, seed, sampler)
+        f0 = self._hb_f0(f0, "monte_carlo_envelope needs f0 (or a .hb "
+                             "card)")
+        return bp, envelope_transient_batched(self.engine, bp, f0, t_stop,
+                                              dt_env, n_harm=n_harm, **kw)
 
     # ---- small-signal analyses ----
     def _ac_freqs(self):

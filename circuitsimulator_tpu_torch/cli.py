@@ -8,7 +8,9 @@
         [--run-loop-gain E] [--run-noise-figure R] [--run-group-delay NODE]
         [--run-mc N [--run-mc-out CSV] [--mc-sampler mc|lhs|sobol|antithetic]]
         [--run-step [CSV]]
+        [--run-hb [CSV] [--hb-method shooting|hb] [--hb-solver dense|gmres]]
         [--run-sparams PORTS [--sparams-out FILE]]
+        [--run-envelope TSTOP:DT[:CSV] [--env-order 1|2] [--mc-rf N]]
 
 prints the circuit summary and the DC node-voltage/branch-current tables,
 then runs the transient if a .TRAN card is present (Backward Euler, or
@@ -32,7 +34,13 @@ After the AC sweep come the .PZ, .SENS and .TF cards' reports, then
 ``--run-noise`` (the .NOISE sweep's PSD CSV, default noise_out.csv);
 after the DC sweep ``--run-loop-gain`` (margins, loopgain.csv),
 ``--run-noise-figure`` (nf.csv) and ``--run-group-delay``
-(groupdelay.csv); ``--run-sparams`` (Touchstone .sNp) comes last.
+(groupdelay.csv); ``--run-hb`` runs the .hb steady state after the .STEP
+sweep (Newton shooting, or ``--hb-method hb`` harmonic balance with the
+dense or the GMRES solver; a multi-tone card takes the MPDE grid), writes
+one period (default hb_out.csv) and prints the harmonic table;
+``--run-sparams`` (Touchstone .sNp) follows, then ``--run-envelope`` (the
+envelope transient's fundamental envelopes, default env_out.csv; with
+``--mc-rf N`` the Monte-Carlo spread of N lanes).
 ``--probes-only`` keeps the .PLOTNV/.PLOTNC/.PRINT columns in the CSVs,
 ``--raw`` writes every plot into one ngspice rawfile, ``--stats`` the
 transient's run metadata as JSON, ``--profile`` a torch.profiler Chrome
@@ -122,6 +130,34 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--run-mc-out", metavar="CSV", default="mc_out.csv",
                    help="per-lane Monte-Carlo results CSV "
                         "(default mc_out.csv)")
+    p.add_argument("--run-hb", metavar="CSV", nargs="?", const="hb_out.csv",
+                   help="run .hb periodic steady state, write one period "
+                        "CSV and print the harmonic table")
+    p.add_argument("--hb-method", choices=["shooting", "hb"],
+                   default="shooting",
+                   help="steady-state algorithm: time-domain Newton "
+                        "shooting or frequency-domain harmonic balance")
+    p.add_argument("--hb-solver", choices=["dense", "gmres"],
+                   default="dense",
+                   help="HB linear solver (--hb-method hb, single tone): "
+                        "dense (K·N)² Jacobian, or matrix-free "
+                        "preconditioned GMRES for large harmonic-count × "
+                        "node-count products")
+    p.add_argument("--run-envelope", metavar="TSTOP:DT[:CSV]", default=None,
+                   help="envelope-following transient at the .hb carrier: "
+                        "slow-axis step DT to TSTOP, e.g. '5e-6:1e-7' or "
+                        "'5e-6:1e-7:env.csv'; writes per-node fundamental-"
+                        "envelope magnitude/phase columns "
+                        "(default env_out.csv)")
+    p.add_argument("--env-order", type=int, choices=[1, 2], default=1,
+                   help="envelope integrator: 1 = backward Euler, "
+                        "2 = trapezoidal")
+    p.add_argument("--mc-rf", metavar="N", type=int, default=None,
+                   help="Monte-Carlo lanes for the RF analyses: with "
+                        "--run-envelope runs monte_carlo_envelope as one "
+                        "batched program over the netlist's DEV=/LOT= "
+                        "tolerances; prints mean/std summaries "
+                        "(--mc-sampler selects the sampling plan)")
     p.add_argument("--mc-sampler", default="mc",
                    choices=["mc", "lhs", "sobol", "antithetic"],
                    help="Monte-Carlo sampling plan: independent draws "
@@ -315,6 +351,99 @@ def _run_mc(sim, args) -> int:
     return 0
 
 
+def _run_hb(sim, args) -> int:
+    """--run-hb: the .hb steady state (shooting, or HB dense/GMRES; a
+    multi-tone card always takes the MPDE grid), its one-period CSV and
+    the harmonic table."""
+    import numpy as np
+    from .analysis.hbmulti import HBMultiResult, evaluate
+    from .analysis.sstate import harmonic_table
+    from .io.csvout import write_transient_csv
+    print(f"\nRunning periodic steady state ({args.hb_method})...")
+    try:
+        multi_card = bool(sim.config.hb.extra_tones)
+        if multi_card and args.hb_method != "hb":
+            print("multi-tone .hb card: using the MPDE harmonic-balance "
+                  "solver (shooting is single-tone only)")
+        if multi_card:
+            hbres = sim.harmonic_balance()
+        elif args.hb_method == "hb":
+            hbres = sim.harmonic_balance(solver=args.hb_solver)
+        else:
+            hbres = sim.steady_state()
+        if isinstance(hbres, HBMultiResult):
+            # the quasi-periodic waveform over one period of the slowest
+            # tone
+            f_min = min(f for f, _ in hbres.tones)
+            ts = np.linspace(0.0, 1.0 / f_min, 512, endpoint=False)
+            write_transient_csv(args.run_hb, sim.topo, ts,
+                                evaluate(hbres, ts))
+            print(f"multi-tone steady state: tones={hbres.tones}, "
+                  f"residual={float(hbres.residual):.3e}, "
+                  f"converged={bool(hbres.converged)}")
+        else:
+            write_transient_csv(args.run_hb, sim.topo,
+                                hbres.times.cpu().numpy(),
+                                hbres.xs.cpu().numpy())
+            print(f"steady state: residual={float(hbres.residual):.3e}, "
+                  f"newton_iters={hbres.newton_iters}, "
+                  f"converged={bool(hbres.converged)}")
+            print(harmonic_table(sim.topo, hbres))
+        print(f"One period written to '{args.run_hb}'.")
+    except Exception as e:  # noqa: BLE001
+        print(f"Steady state failed: {e}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def _run_envelope(sim, args) -> int:
+    """--run-envelope TSTOP:DT[:CSV] (and --mc-rf N): the fundamental
+    envelopes' magnitude and phase per node, then the Monte-Carlo
+    spread."""
+    import numpy as np
+    print("\nRunning envelope transient...")
+    try:
+        parts = args.run_envelope.split(":")
+        if len(parts) < 2:
+            raise ValueError("--run-envelope wants TSTOP:DT[:CSV]")
+        t_stop, dt_env = float(parts[0]), float(parts[1])
+        out = parts[2] if len(parts) > 2 else "env_out.csv"
+        env = sim.envelope(t_stop, dt_env, order=args.env_order)
+        names = list(sim.topo.volt_col_names)
+        eqs = list(sim.topo.volt_col_eqs)
+        with open(out, "w") as fh:
+            cols = ["time"]
+            for n in names:
+                cols += [f"|V({n})@f0|", f"argV({n})@f0(deg)"]
+            fh.write(",".join(cols) + "\n")
+            for i, t in enumerate(env.t1):
+                row = [t]
+                for eq in eqs:
+                    c = env.coeffs[i, 1, eq]
+                    row += [abs(c), np.degrees(np.angle(c))]
+                fh.write(",".join(f"{v:.9e}" for v in row) + "\n")
+        ok = int(env.converged.sum())
+        print(f"Envelope: {len(env.t1)} steps ({ok} converged), "
+              f"fundamental envelopes written to '{out}'.")
+        if ok < len(env.t1):
+            print(f"warning: {len(env.t1) - ok} envelope steps did "
+                  "not converge", file=sys.stderr)
+        if args.mc_rf:
+            _, benv = sim.monte_carlo_envelope(
+                args.mc_rf, t_stop, dt_env, sampler=args.mc_sampler)
+            fin = np.abs(benv.coeffs[:, -1, 1, :])   # (B, N)
+            print(f"==== Monte-Carlo envelope spread "
+                  f"({args.mc_rf} lanes, {args.mc_sampler}; "
+                  f"|Y1| at t1={benv.t1[-1]:g}) ====")
+            for nm, eq in zip(names, eqs):
+                print(f"  V({nm}): {fin[:, eq].mean():.6e} "
+                      f"+/- {fin[:, eq].std():.3e}")
+    except Exception as e:  # noqa: BLE001
+        print(f"Envelope transient failed: {e}", file=sys.stderr)
+        return 1
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
     import time
@@ -473,6 +602,14 @@ def main(argv=None) -> int:
         except Exception as e:  # noqa: BLE001
             print(f".STEP failed: {e}", file=sys.stderr)
             return 1
+    if args.run_hb:
+        rc = _run_hb(sim, args)
+        if rc:
+            return rc
     if args.run_sparams:
-        return _run_sparams(sim, args, x)
+        rc = _run_sparams(sim, args, x)
+        if rc:
+            return rc
+    if args.run_envelope:
+        return _run_envelope(sim, args)
     return 0

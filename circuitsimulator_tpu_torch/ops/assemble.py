@@ -648,6 +648,11 @@ class Engine:
                               params["vs_sin"], scale, pulse=params["vs_pulse"])
         ival = srcmod.eval_dc(params["is_dc"], params["is_kind"],
                               params["is_sin"], scale, pulse=params["is_pulse"])
+        return self.source_rhs(vval, ival)
+
+    def source_rhs(self, vval, ival):
+        """(..., N+1) RHS of the source values alone: V values on their
+        branch rows, I values out of their + node into their - node."""
         lead = broadcast_shapes(vval.shape[:-1], ival.shape[:-1])
         I = self._zeros_I(lead)
         self._vs_k.add_(I, vval.expand(lead + vval.shape[-1:]))

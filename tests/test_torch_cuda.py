@@ -1450,3 +1450,74 @@ def test_large_circuit_backends_match_cpu(cuda_device, deck):
     assert out["cuda"][3] > 0
     for i in (1, 2):
         assert float((out["cuda"][i] - out["cpu"][i]).abs().max()) <= 1e-9
+
+
+HB_INV = (".MODEL 2 VT 0.4 MU 1e-2 COX 1e-3 LAMBDA 0.05 CJ0 1e-13\n"
+          "VDD 1 0 3\nVin 2 0 SIN 1 0.5 1e8\nRD 1 3 1k\n"
+          "M1 3 2 0 n 10e-6 1e-6 2\nC1 3 0 2e-13\nL1 3 4 1e-8\nR4 4 0 1k\n"
+          ".hb 1e8 6\n")
+HB_TL = ("V1 1 0 SIN 0 1 1e8\nR1 1 2 50\nT1 2 0 3 0 Z0=50 TD=2.5e-9\n"
+         "D1 3 0 1\n.MODEL 1 IS 1e-12\nRL 3 0 120\n.hb 1e8 5\n")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deck", ["inv", "inv_charge", "tline", "dbmixer"])
+def test_harmonic_balance_matches_cpu(cuda_device, deck):
+    """Dense and GMRES HB on the card against the port's CPU run of the
+    same deck, f64, within 1e-9 V with equal Newton counts; the warm-up
+    transient's Woodbury solves launch K2; then 3 batched lanes (dense)
+    against the CPU's."""
+    from circuitsimulator_tpu_torch import DEFAULT_OPTIONS
+    from circuitsimulator_tpu_torch.analysis.hb import (
+        harmonic_balance, harmonic_balance_batched)
+    text, f0, H = {"inv": (HB_INV, 1e8, 6), "inv_charge": (HB_INV, 1e8, 6),
+                   "tline": (HB_TL, 1e8, 5),
+                   "dbmixer": (open(os.path.join(
+                       REPO, "tests/netlists/dbmixer.sp")).read(), 1e8, 5)
+                   }[deck]
+    opts = DEFAULT_OPTIONS.replace(mos_cap_model="charge") \
+        if deck == "inv_charge" else DEFAULT_OPTIONS
+    out = {}
+    for dev in ("cpu", cuda_device):
+        sim = Simulator.from_text(text, opts=opts, device=dev)
+        before = cuda_lu.LAUNCHES
+        runs = [harmonic_balance(sim.engine, sim.params, f0, n_harm=H,
+                                 warmup_periods=2, solver=s)
+                for s in ("dense", "gmres")]
+        bp = {k: v.expand((3,) + v.shape).clone()
+              for k, v in sim.params.items()}
+        bp["res_r"] = bp["res_r"] * torch.linspace(
+            0.95, 1.05, 3, dtype=torch.float64, device=dev)[:, None]
+        rb = harmonic_balance_batched(sim.engine, bp, f0, n_harm=H,
+                                      warmup_periods=2)
+        out[str(dev)[:4]] = ([(r.xs.cpu(), r.newton_iters) for r in runs],
+                             rb.xs.cpu(), cuda_lu.LAUNCHES - before)
+    cpu, card = out["cpu"], out["cuda"]
+    assert card[2] > 0
+    for (xg, ig), (xc, ic) in zip(card[0], cpu[0]):
+        assert ig == ic
+        assert float((xg - xc).abs().max()) <= 1e-9
+    assert float((card[0][1][0] - card[0][0][0]).abs().max()) <= 1e-9
+    assert float((card[1] - cpu[1]).abs().max()) <= 1e-9
+
+
+@pytest.mark.cuda
+def test_shooting_and_envelope_match_cpu(cuda_device):
+    """Shooting on mixer_rf.sp (64 steps a period; K2 launches for every
+    Newton iteration of the lu transient) and the order-2 envelope of
+    am_envelope.sp on the card against the CPU, f64, within 1e-9 V."""
+    out = {}
+    for dev in ("cpu", cuda_device):
+        sim = Simulator.from_file(os.path.join(REPO, "examples/mixer_rf.sp"),
+                                  device=dev)
+        before = cuda_lu.LAUNCHES
+        ss = sim.steady_state(steps_per_period=64, warmup_periods=2)
+        env = Simulator.from_file(
+            os.path.join(REPO, "examples/am_envelope.sp"), device=dev
+        ).envelope(5e-7, 1e-7, n_harm=5, order=2, warmup_periods=1)
+        out[str(dev)[:4]] = (ss.xs.cpu(), ss.newton_iters, env.xs,
+                             cuda_lu.LAUNCHES - before)
+    cpu, card = out["cpu"], out["cuda"]
+    assert card[3] > 0 and card[1] == cpu[1]
+    assert float((card[0] - cpu[0]).abs().max()) <= 1e-9
+    assert float(np.abs(card[2] - cpu[2]).max()) <= 1e-9

@@ -1,7 +1,9 @@
 """The DC + Backward-Euler slice of the PyTorch port against the goldens and
 the JAX package (CPU): single-lane dbmixer, the batched Monte-Carlo DC and
 the batched fast-Newton transient on lanes drawn with numpy, plus the
-guarantee that the port never imports JAX."""
+guarantee that the port never imports JAX.  The JAX side is
+tests/goldens/dc_tran_jax.npz, which this file's ``__main__`` remakes with
+the JAX package."""
 
 import os
 import subprocess
@@ -30,6 +32,11 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DBMIXER = os.path.join(REPO, "tests", "netlists", "dbmixer.sp")
 SIGMAS = {"res_r": 0.01, "mos_vth": 0.02, "cap_c": 0.02}
+# the JAX side of the f64 200-step, batched-DC and fast-f32 comparisons;
+# ``PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_dc_tran.py``
+# remakes it with the JAX package
+GOLDEN = os.path.join(REPO, "tests", "goldens", "dc_tran_jax.npz")
+FAST_LANES, FAST_STEPS = 4, 20
 
 
 def draw_lanes(params, B, seed):
@@ -76,27 +83,17 @@ def test_dbmixer_200_steps_match_golden(dbmixer_200):
     assert err <= 1e-9, err
 
 
-def test_dbmixer_200_steps_match_jax(dbmixer_200):
-    sim, res = dbmixer_200
+def jax_results():
+    """The JAX side of the three comparisons below (f64 dbmixer 200 steps,
+    the batched DC of 4 lanes, the batched fast f32 transient of 4 lanes
+    x 20 steps), recorded into tests/goldens/dc_tran_jax.npz."""
     jres = JaxSimulator.from_file(DBMIXER).transient(tstop=200 * 1e-13)
-    np.testing.assert_allclose(res.xs.numpy(), np.asarray(jres.xs),
-                               rtol=0, atol=1e-9)
-    np.testing.assert_array_equal(res.newton_iters.numpy(),
-                                  np.asarray(jres.newton_iters))
-
-
-def test_batched_dc_fast_matches_jax():
+    out = {"dbmixer200/xs": jres.xs, "dbmixer200/iters": jres.newton_iters}
     js = JaxSimulator.from_file(DBMIXER)
     jp = draw_lanes(js.params, 4, seed=11)
-    want = np.asarray(jax.jit(lambda p: jmc.batched_dc_fast(js.engine, p))(jp))
-    ts = Simulator.from_file(DBMIXER, device="cpu")
-    tp = params_from_numpy({k: np.array(v) for k, v in jp.items()})
-    got = tmc.batched_dc_fast(ts.engine, tp).numpy()
-    np.testing.assert_allclose(got, want, rtol=0, atol=1e-9)
-
-
-def test_batched_fast_transient_f32_matches_jax():
-    B, n = 4, 20
+    out["batched_dc/x"] = jax.jit(
+        lambda p: jmc.batched_dc_fast(js.engine, p))(jp)
+    B, n = FAST_LANES, FAST_STEPS
     js = JaxSimulator.from_file(
         DBMIXER, opts=fast_options(jnp.float32, JAX_OPTIONS))
     je = js.engine
@@ -118,14 +115,51 @@ def test_batched_fast_transient_f32_matches_jax():
         failed, xs = jax.vmap(lane)(bp, carry)
         return x0, failed, xs
 
-    jx0, jfailed, jxs = (np.asarray(a) for a in ref(jp))
+    for k, v in zip(("x0", "failed", "xs"), ref(jp)):
+        out[f"fast_f32/{k}"] = v
+    return {k: np.asarray(v) for k, v in out.items()}
 
+
+@pytest.fixture(scope="module")
+def jax_golden():
+    with np.load(GOLDEN) as z:
+        return {k: z[k] for k in z.files}
+
+
+def port_lanes(params, B, seed, dtype=torch.float64):
+    """draw_lanes on the port's params (the same values as JAX's), as
+    port tensors."""
+    jp = draw_lanes({k: v.numpy() for k, v in params.items()}, B, seed)
+    return params_from_numpy({k: np.array(v) for k, v in jp.items()},
+                             dtype=dtype)
+
+
+def test_dbmixer_200_steps_match_jax(dbmixer_200, jax_golden):
+    sim, res = dbmixer_200
+    np.testing.assert_allclose(res.xs.numpy(), jax_golden["dbmixer200/xs"],
+                               rtol=0, atol=1e-9)
+    np.testing.assert_array_equal(res.newton_iters.numpy(),
+                                  jax_golden["dbmixer200/iters"])
+
+
+def test_batched_dc_fast_matches_jax(jax_golden):
+    ts = Simulator.from_file(DBMIXER, device="cpu")
+    tp = port_lanes(ts.params, 4, seed=11)
+    got = tmc.batched_dc_fast(ts.engine, tp).numpy()
+    np.testing.assert_allclose(got, jax_golden["batched_dc/x"], rtol=0,
+                               atol=1e-9)
+
+
+def test_batched_fast_transient_f32_matches_jax(jax_golden):
+    n = FAST_STEPS
+    jx0, jfailed, jxs = (jax_golden[f"fast_f32/{k}"]
+                         for k in ("x0", "failed", "xs"))
     ts_ = Simulator.from_file(
         DBMIXER, device="cpu", opts=fast_options(torch.float32,
                                                  DEFAULT_OPTIONS))
     te = ts_.engine
-    tp = params_from_numpy({k: np.array(v) for k, v in jp.items()},
-                           dtype=torch.float32)
+    dt = float(ts_.config.tran.tstep)
+    tp = port_lanes(ts_.params, FAST_LANES, seed=42, dtype=torch.float32)
     x0 = tmc.batched_dc_fast(te, tp)
     np.testing.assert_allclose(x0.numpy(), jx0, rtol=0, atol=1e-4)
     carry = tmc.init_carry(te, x0)
@@ -198,6 +232,9 @@ def test_port_never_imports_jax():
             "from circuitsimulator_tpu_torch.analysis import ac\n"
             "from circuitsimulator_tpu_torch.ops import ac_sweep, cuda_ac\n"
             "from circuitsimulator_tpu_torch.utils import prng\n"
+            "from circuitsimulator_tpu_torch.analysis import (envelope, hb, "
+            "hb_diff, hbmulti, sstate)\n"
+            "from circuitsimulator_tpu_torch.ops import gmres\n"
             "from circuitsimulator_tpu_torch.netlist import "
             "parse_netlist_text, read_netlist\n"
             f"ckt, _ = parse_netlist_text(read_netlist({DBMIXER!r}))\n"
@@ -210,3 +247,9 @@ def test_port_never_imports_jax():
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+
+
+if __name__ == "__main__":
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", True)
+    np.savez_compressed(GOLDEN, **jax_results())

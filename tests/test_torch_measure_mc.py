@@ -33,6 +33,10 @@ torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MC_FILTER = os.path.join(REPO, "examples", "mc_filter.sp")
+# the JAX side of the batched-measures and probe-stream cases;
+# ``PYTHONPATH=.:tests JAX_PLATFORMS=cpu python
+# tests/test_torch_measure_mc.py`` remakes it with the JAX package
+GOLDEN = os.path.join(REPO, "tests", "goldens", "measure_mc_jax.npz")
 
 # a small MOS deck with transient measures: an inverter driven by a sine,
 # its output's statistics and crossings (K1c-i against the JAX kernel)
@@ -63,20 +67,40 @@ def jax_lanes(js, B, seed):
             draw(js.params, jax.random.key(seed)).items()}
 
 
-def test_batched_transient_measures_match_jax_f64():
-    """mc_filter.sp, 16 JAX-drawn lanes, its whole .TRAN in f64: the port's
-    non-fused loop (fused=False) and K1's plain version with its probe
-    stream (fused=True on CPU tensors) against JAX's loop (fused=False),
-    within 1e-9 relative."""
-    B = 16
+def jax_tran16():
+    """16 JAX-drawn lanes of mc_filter.sp and JAX's f64 measures of them
+    (its loop, fused=False), recorded into the golden."""
     js = JaxSimulator.from_file(MC_FILTER)
-    jp = jax_lanes(js, B, 0)
+    jp = jax_lanes(js, 16, 0)
     tran, ms = js.config.tran, js.config.measures
     _, want = jax.jit(lambda bp: jmc.batched_transient_measures(
         js.engine, bp, tran.tstep, tran.tstop, ms, js.topo,
         fused=False))({k: jnp.asarray(v) for k, v in jp.items()})
-    want = {k: np.asarray(v) for k, v in want.items()}
+    return {**{f"tran16/lanes/{k}": v for k, v in jp.items()},
+            **{f"tran16/want/{k}": np.asarray(v) for k, v in want.items()}}
+
+
+@pytest.fixture(scope="module")
+def jax_golden():
+    with np.load(GOLDEN) as z:
+        return {k: z[k] for k in z.files}
+
+
+def sub(golden, prefix):
+    pre = prefix + "/"
+    return {k[len(pre):]: v for k, v in golden.items() if k.startswith(pre)}
+
+
+def test_batched_transient_measures_match_jax_f64(jax_golden):
+    """mc_filter.sp, 16 JAX-drawn lanes, its whole .TRAN in f64: the port's
+    non-fused loop (fused=False) and K1's plain version with its probe
+    stream (fused=True on CPU tensors) against JAX's loop (fused=False),
+    within 1e-9 relative (the lanes and JAX's measures from the
+    golden)."""
+    jp = sub(jax_golden, "tran16/lanes")
+    want = sub(jax_golden, "tran16/want")
     ts = Simulator.from_file(MC_FILTER, device="cpu")
+    tran = ts.config.tran
     bp = params_from_numpy(jp)
     for fused in (False, True):
         res, got = tmc.batched_transient_measures(
@@ -108,29 +132,33 @@ def _jax_measures(jsm, ys, y0, ts, dt):
     return {k: np.asarray(v) for k, v in jax.jit(run)(ys, y0, ts).items()}
 
 
-def test_probe_stream_plain_matches_jax_pallas_kernel():
-    """K1c-i on a small MOS deck in f32, B = 128, 60 steps of 1 ns from each
-    lane's DC point (the port's f64 batched DC): the plain version's probe
-    block against the JAX kernel's (interpret mode, PallasStepRunner with
-    probe_mat) within 1e-4 V, the K1 tolerance of the MOS, junction and
-    charge-model interpret cases of tests/test_torch_fused_step.py (f32
-    rounding in another summation order: about 7e-6 V after 60 steps), and
-    the measures the accumulators make of each block within
-    rtol 2e-4, atol 2e-6 (the bar of tests/test_pallas_step.py's fused
-    streaming case).  The last tile of the block is probe_mat @ x_out bit
-    for bit."""
-    B, dt, steps = 128, 1e-9, 60
-    jopts = damped(JAX_OPTIONS, jnp.float32)
-    js = JaxSimulator.from_text(MOS_MEASURE_DECK, opts=jopts)
+PROBE_B, PROBE_DT, PROBE_STEPS = 128, 1e-9, 60
+
+
+def probe_inputs(params):
+    """The probe-stream case's lanes (numpy, from the deck's f32 params:
+    R and VT lognormal) and each lane's f32 start from the port's f64
+    batched DC."""
     rng = np.random.default_rng(2)
-    jp = {k: np.broadcast_to(np.asarray(v), (B,) + np.shape(v)).copy()
-          for k, v in js.params.items()}
+    jp = {k: np.broadcast_to(np.asarray(v), (PROBE_B,) + np.shape(v)).copy()
+          for k, v in params.items()}
     for key, sigma in (("res_r", 0.05), ("mos_vth", 0.03)):
         jp[key] = jp[key] * np.exp(sigma * rng.standard_normal(
             jp[key].shape)).astype(jp[key].dtype)
     x64 = Simulator.from_text(MOS_MEASURE_DECK, device="cpu",
                               opts=DEFAULT_OPTIONS.replace(**START_DC))
-    x0 = tmc.batched_dc_fast(x64.engine, params_from_numpy(jp)).float()
+    return jp, tmc.batched_dc_fast(x64.engine,
+                                   params_from_numpy(jp)).float()
+
+
+def jax_probe():
+    """The JAX kernel's probe block (interpret mode, PallasStepRunner with
+    probe_mat) and the JAX accumulators' measures of it, recorded into the
+    golden."""
+    B, dt, steps = PROBE_B, PROBE_DT, PROBE_STEPS
+    js = JaxSimulator.from_text(MOS_MEASURE_DECK,
+                                opts=damped(JAX_OPTIONS, jnp.float32))
+    jp, x0 = probe_inputs(js.params)
     jsm = jstream.StreamingMeasures(js.config.measures, js.topo, jnp.float32)
     je = js.engine
     runner = jax_runner(je, {k: jnp.asarray(v) for k, v in jp.items()}, dt,
@@ -140,13 +168,39 @@ def test_probe_stream_plain_matches_jax_pallas_kernel():
     want = runner.run_chunk(jx0, jx0, st0["vc"], st0["il"],
                             jnp.zeros((B,), bool), 0, steps, interpret=True)
     jys = np.asarray(want[6])
+    t_axis = np.arange(1, steps + 1, dtype=np.float32) * np.float32(dt)
+    jvals = _jax_measures(jsm, jnp.asarray(jys), jnp.asarray(
+        x0.numpy() @ np.asarray(jsm.probe_matrix).T), jnp.asarray(t_axis),
+        dt)
+    return {"probe/ys": jys, "probe/failed": np.asarray(want[4]),
+            "probe/probe_mat": np.asarray(jsm.probe_matrix),
+            "probe/res_r": jp["res_r"], "probe/mos_vth": jp["mos_vth"],
+            **{f"probe/vals/{k}": v for k, v in jvals.items()}}
 
+
+def test_probe_stream_plain_matches_jax_pallas_kernel(jax_golden):
+    """K1c-i on a small MOS deck in f32, B = 128, 60 steps of 1 ns from each
+    lane's DC point (the port's f64 batched DC): the plain version's probe
+    block against the JAX kernel's (interpret mode, PallasStepRunner with
+    probe_mat; tests/goldens/measure_mc_jax.npz) within 1e-4 V, the K1
+    tolerance of the MOS, junction and
+    charge-model interpret cases of tests/test_torch_fused_step.py (f32
+    rounding in another summation order: about 7e-6 V after 60 steps), and
+    the measures the accumulators make of each block within
+    rtol 2e-4, atol 2e-6 (the bar of tests/test_pallas_step.py's fused
+    streaming case).  The last tile of the block is probe_mat @ x_out bit
+    for bit."""
+    B, dt, steps = PROBE_B, PROBE_DT, PROBE_STEPS
+    g = sub(jax_golden, "probe")
     ts = Simulator.from_text(MOS_MEASURE_DECK, device="cpu",
                              opts=damped(DEFAULT_OPTIONS, torch.float32))
+    jp, x0 = probe_inputs({k: v.numpy() for k, v in ts.params.items()})
+    for key in ("res_r", "mos_vth"):
+        np.testing.assert_array_equal(jp[key], g[key])
+    jys = g["ys"]
     sm = tstream.StreamingMeasures(ts.config.measures, ts.topo,
                                    torch.float32)
-    np.testing.assert_array_equal(sm.probe_matrix.numpy(),
-                                  np.asarray(jsm.probe_matrix))
+    np.testing.assert_array_equal(sm.probe_matrix.numpy(), g["probe_mat"])
     tp = params_from_numpy(jp, dtype=torch.float32)
     tr = fused_step.FusedStepRunner(ts.engine, tp, dt,
                                     probe_mat=sm.probe_matrix)
@@ -155,14 +209,12 @@ def test_probe_stream_plain_matches_jax_pallas_kernel():
                        torch.zeros((B,), dtype=torch.bool), 0, steps)
     assert len(got) == 7 and got[6].shape == (steps, sm.probe_matrix.shape[0],
                                               B)
-    assert not bool(got[4].any()) and not np.asarray(want[4]).any()
+    assert not bool(got[4].any()) and not g["failed"].any()
     np.testing.assert_allclose(got[6].numpy(), jys, rtol=0, atol=1e-4)
     assert torch.equal(got[6][-1], sm.probe_matrix @ got[0].T)
 
     t_axis = np.arange(1, steps + 1, dtype=np.float32) * np.float32(dt)
-    jvals = _jax_measures(jsm, jnp.asarray(jys), jnp.asarray(
-        x0.numpy() @ np.asarray(jsm.probe_matrix).T), jnp.asarray(t_axis),
-        dt)
+    jvals = sub(g, "vals")
     acc = sm.init(ts.engine, x0)
     ys = sm.vals_from_raw(got[6].transpose(1, 2))
     dt_t = torch.tensor(dt, dtype=torch.float32)
@@ -244,3 +296,9 @@ C1 out 0 1u
     with pytest.raises(ValueError, match="DEV=/LOT="):
         Simulator.from_text("V1 a 0 DC 1\nR1 a 0 1k\n.op\n",
                             device="cpu").monte_carlo(4)
+
+
+if __name__ == "__main__":
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", True)
+    np.savez_compressed(GOLDEN, **jax_tran16(), **jax_probe())

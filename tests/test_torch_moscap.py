@@ -2,7 +2,10 @@
 port on the CPU, against the JAX package: the charge functions and their
 forward-mode Jacobian, the engine's charge patterns and state, the Woodbury
 charge rows, and the non-fused charge transient.  Inputs are drawn with
-numpy; everything runs in float64."""
+numpy; everything runs in float64; the JAX side is
+tests/goldens/moscap_jax.npz."""
+
+import os
 
 import numpy as np
 import jax
@@ -20,6 +23,11 @@ from circuitsimulator_tpu_torch.models import moscap
 from circuitsimulator_tpu_torch.ops.woodbury import WoodburySolver
 
 torch.set_num_threads(1)
+
+# the JAX side of the comparisons; ``PYTHONPATH=. JAX_PLATFORMS=cpu python
+# tests/test_torch_moscap.py`` remakes it with the JAX package
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "goldens",
+                      "moscap_jax.npz")
 
 # 2-MOS CMOS stage under the charge model (tests/test_pallas_step.py): rank
 # 2 conduction + 10 charge rows = 12
@@ -59,14 +67,13 @@ def biases(n=400, seed=0):
     return v, params
 
 
-def test_charges_and_jacobian_match_jax():
+def test_charges_and_jacobian_match_jax(jax_golden):
     """charges_of_x and charge_jacobian against the JAX functions, float64:
     charges within 1e-12 relative, the Jacobian within 1e-12 relative of its
     largest entry per device (entries that cancel to ~0 carry the absolute
     part)."""
     v, p = biases()
-    jq, jJ = jax.jit(jmq.charge_jacobian)(
-        jnp.asarray(v), {k: jnp.asarray(a) for k, a in p.items()})
+    jq, jJ = jax_golden["charges/q"], jax_golden["charges/J"]
     tp = {k: torch.as_tensor(a) for k, a in p.items()}
     tq = moscap.charges_of_x(torch.as_tensor(v), tp)
     q, J = moscap.charge_jacobian(torch.as_tensor(v), tp)
@@ -115,8 +122,8 @@ def test_dual_rules_equal_torch_forward_mode():
 
 
 def draw_lanes(params, B, seed=0):
-    """B lanes of the JAX params, res_r and mos_vth perturbed, drawn with
-    numpy."""
+    """B lanes of the params (numpy), res_r and mos_vth perturbed, drawn
+    with numpy."""
     rng = np.random.default_rng(seed)
     out = {k: np.broadcast_to(np.asarray(v), (B,) + np.shape(v)).copy()
            for k, v in params.items()}
@@ -126,32 +133,28 @@ def draw_lanes(params, B, seed=0):
     return out
 
 
-def close(got, want, rtol=1e-12):
-    want = np.asarray(want)
-    got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
-    assert got.shape == want.shape
-    np.testing.assert_allclose(got, want, rtol=rtol,
-                               atol=rtol * max(np.abs(want).max(), 1e-30))
+ENGINE_B, ENGINE_DT, ENGINE_T = 3, 1e-9, 3e-9
 
 
-def test_engine_and_woodbury_charge_rows_match_jax():
-    """The charge stage, three lanes: the engine's mq patterns, the zeroed
-    MOS lumps of _caplike_C, qm of init_state and of the state update and
-    the dense BE iteration with the charge entries (assemble_tran_iter)
-    within 1e-12 of the JAX engine; the Woodbury solve with the charge rows
-    equals the dense solve of that iteration (1e-12).  (Tracing JAX's
-    Woodbury solve with the charge rows as well would add its jvp trace
-    and compile, about 3 s, for a solve the dense one already pins.)"""
+def engine_inputs(params, N):
+    """The engine case's three lanes and their two random states."""
+    p = draw_lanes(params, ENGINE_B)
+    x, x2 = np.random.default_rng(7).uniform(-0.5, 3.5, (2, ENGINE_B, N))
+    return p, x, x2
+
+
+def jax_results():
+    """JAX's side of the three comparisons, recorded into
+    tests/goldens/moscap_jax.npz: charge_jacobian on the biases, the
+    charge stage's engine pieces on three lanes, its 5-step transient."""
+    v, p = biases()
+    jq, jJ = jax.jit(jmq.charge_jacobian)(
+        jnp.asarray(v), {k: jnp.asarray(a) for k, a in p.items()})
+    out = {"charges/q": jq, "charges/J": jJ}
     js = JaxSimulator.from_text(CHARGE_DECK)
-    ts = Simulator.from_text(CHARGE_DECK, device="cpu")
-    je, te = js.engine, ts.engine
-    assert je.mos_charge and te.mos_charge
-    for key in ("mq_rows", "mq_cols", "mq_rhs_rows"):
-        np.testing.assert_array_equal(getattr(te, key), getattr(je, key))
-    B, N, dt, t = 3, je.N, 1e-9, 3e-9
-    p = draw_lanes(js.params, B)
-    rng = np.random.default_rng(7)
-    x, x2 = rng.uniform(-0.5, 3.5, (2, B, N))
+    je = js.engine
+    dt, t = ENGINE_DT, ENGINE_T
+    p, x, x2 = engine_inputs(js.params, je.N)
 
     @jax.jit
     def ref(p, x, x2):
@@ -168,6 +171,47 @@ def test_engine_and_woodbury_charge_rows_match_jax():
 
     want = ref({k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x),
                jnp.asarray(x2))
+    out.update({f"engine/{k}": v for k, v in zip(
+        ("caps", "qm", "qm_up", "G", "I"), want)})
+    out.update({f"engine/{k}": getattr(je, k)
+                for k in ("mq_rows", "mq_cols", "mq_rhs_rows")})
+    res = js.transient(tstep=1e-9, tstop=5e-9)
+    out["tran/xs"], out["tran/iters"] = res.xs, res.newton_iters
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+@pytest.fixture(scope="module")
+def jax_golden():
+    with np.load(GOLDEN) as z:
+        return {k: z[k] for k in z.files}
+
+
+def close(got, want, rtol=1e-12):
+    want = np.asarray(want)
+    got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=rtol,
+                               atol=rtol * max(np.abs(want).max(), 1e-30))
+
+
+def test_engine_and_woodbury_charge_rows_match_jax(jax_golden):
+    """The charge stage, three lanes: the engine's mq patterns, the zeroed
+    MOS lumps of _caplike_C, qm of init_state and of the state update and
+    the dense BE iteration with the charge entries (assemble_tran_iter)
+    within 1e-12 of the JAX engine; the Woodbury solve with the charge rows
+    equals the dense solve of that iteration (1e-12).  (Tracing JAX's
+    Woodbury solve with the charge rows as well would add its jvp trace
+    and compile, about 3 s, for a solve the dense one already pins.)"""
+    ts = Simulator.from_text(CHARGE_DECK, device="cpu")
+    te = ts.engine
+    jg = {k[7:]: v for k, v in jax_golden.items() if k.startswith("engine/")}
+    assert te.mos_charge
+    for key in ("mq_rows", "mq_cols", "mq_rhs_rows"):
+        np.testing.assert_array_equal(getattr(te, key), jg[key])
+    p, x, x2 = engine_inputs({k: v.numpy() for k, v in ts.params.items()},
+                             te.N)
+    B, N, dt, t = ENGINE_B, te.N, ENGINE_DT, ENGINE_T
+    want = tuple(jg[k] for k in ("caps", "qm", "qm_up", "G", "I"))
     tp = params_from_numpy(p)
     d = torch.tensor(dt, dtype=torch.float64)
     tx, tx2 = torch.as_tensor(x), torch.as_tensor(x2)
@@ -189,18 +233,22 @@ def test_engine_and_woodbury_charge_rows_match_jax():
     close(xr, torch.linalg.solve(G[:, :N, :N], I[:, :N]))
 
 
-def test_charge_transient_matches_jax():
+def test_charge_transient_matches_jax(jax_golden):
     """The non-fused BE transient of the charge stage (Woodbury path with
     the charge rows, qm carried in the state) against the JAX package's
     (``Simulator.transient``: run_transient from its jitted DC point; given
     no x0, run_transient solves the DC point eagerly, 10 s more): f64, 5
     steps, within 1e-9 V, equal Newton iteration counts."""
-    js = JaxSimulator.from_text(CHARGE_DECK)
     ts = Simulator.from_text(CHARGE_DECK, device="cpu")
-    want = js.transient(tstep=1e-9, tstop=5e-9)
     got = ts.transient(tstep=1e-9, tstop=5e-9)
-    np.testing.assert_allclose(got.xs.numpy(), np.asarray(want.xs), rtol=0,
-                               atol=1e-9)
+    np.testing.assert_allclose(got.xs.numpy(), jax_golden["tran/xs"],
+                               rtol=0, atol=1e-9)
     np.testing.assert_array_equal(got.newton_iters.numpy(),
-                                  np.asarray(want.newton_iters))
+                                  jax_golden["tran/iters"])
     assert not bool(got.failed)
+
+
+if __name__ == "__main__":
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", True)
+    np.savez_compressed(GOLDEN, **jax_results())

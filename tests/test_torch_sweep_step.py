@@ -211,10 +211,19 @@ def test_step_transient_measures(save_xs):
 
 
 def test_step_with_hb_raises_naming_hb():
+    """.STEP with a .hb card: it raised (naming HB) until the harmonic
+    stack was ported; now the step points solve as one batched HB
+    (JAX's step.py), each lane equal to its own single-lane solve."""
+    from circuitsimulator_tpu_torch.analysis.hb import harmonic_balance
     sim = Simulator.from_text("V1 1 0 SIN 0 1 1e6\nR1 1 2 1k\nC1 2 0 1n\n"
                               ".STEP V1 LIST 1 2\n.hb 1e6 4\n", device="cpu")
-    with pytest.raises(NotImplementedError, match="HB"):
-        sim.step()
+    sres = sim.step()
+    assert sres.analysis == "hb" and bool(sres.result.converged.all())
+    p = dict(sim.params)
+    p["vs_dc"] = torch.full_like(p["vs_dc"], 2.0)
+    one = harmonic_balance(sim.engine, p, 1e6, n_harm=4)
+    np.testing.assert_allclose(sres.result.xs[1].numpy(), one.xs.numpy(),
+                               rtol=0, atol=1e-9)
     with pytest.raises(ValueError, match=".STEP card missing"):
         Simulator.from_text("V1 1 0 1\nR1 1 0 1k\n.op\n",
                             device="cpu").step()

@@ -38,6 +38,9 @@ GOLDENS = os.path.join(REPO, "tests", "goldens")
 # .jax_chunk); ``PYTHONPATH=. JAX_PLATFORMS=cpu python
 # tests/test_torch_tline.py`` remakes it
 K1_GOLDEN = os.path.join(GOLDENS, "tline_k1_jax.npz")
+# the JAX side of the engine, transient and AC cases (f64), remade by the
+# same command
+GOLDEN = os.path.join(GOLDENS, "tline_jax.npz")
 REFLECT = os.path.join(REPO, "examples", "tline_reflect.sp")
 RTOL = 1e-12
 
@@ -107,24 +110,19 @@ def waves(sim, xs, z0):
          xe[..., t.tl_ep2] - xe[..., t.tl_em2] + z0 * xe[..., t.tl_k2]], -1)
 
 
-@pytest.mark.parametrize("text", ["reflect", TL_DECK],
-                         ids=["tline_reflect", "tl_deck"])
-def test_engine_matches_jax(text):
-    """The DC and transient COO entries, rhs_mat, tl_ticks, the ring of
-    init_state, the RHS with the EMFs and the ring push, in f64 at
-    rtol 1e-12 (one JAX computation per deck)."""
-    if text == "reflect":
-        js, ts = JaxSimulator.from_file(REFLECT), Simulator.from_file(
-            REFLECT, device="cpu")
-    else:
-        js, ts = JaxSimulator.from_text(text), Simulator.from_text(
-            text, device="cpu")
-    je, te = js.engine, ts.engine
-    dt, t = 0.25e-9, 3.3e-9
-    assert np.array_equal(te.tl_ticks(dt), je.tl_ticks(dt))
-    assert list(te.tl_ticks(1e-10)) == ([100] if text == "reflect" else [20])
-    rng = np.random.default_rng(8)
-    x, x2 = rng.uniform(-1.0, 1.0, (2, te.N))
+ENGINE_DECKS = {"tline_reflect": "reflect", "tl_deck": TL_DECK}
+ENGINE_DT, ENGINE_T = 0.25e-9, 3.3e-9
+
+
+def jax_engine(text):
+    """JAX's DC and transient COO entries, rhs_mat, tl_ticks, the state
+    after init_state and one update (its ring), and the step RHS with the
+    EMFs, on the two random states (recorded into the golden)."""
+    js = (JaxSimulator.from_file(REFLECT) if text == "reflect"
+          else JaxSimulator.from_text(text))
+    je = js.engine
+    dt, t = ENGINE_DT, ENGINE_T
+    x, x2 = np.random.default_rng(8).uniform(-1.0, 1.0, (2, je.N))
 
     @jax.jit
     def ref(p, x, x2):
@@ -137,44 +135,76 @@ def test_engine_matches_jax(text):
                 je.make_tran_static_I(dt)(p, s, jnp.asarray(t)))
 
     jdc, jtr, js_, jI = ref(js.params, jnp.asarray(x), jnp.asarray(x2))
+    dr, dc_, _ = je.dc_static_entries(js.params)
+    tr, tc, _ = je.tran_static_entries(js.params, jnp.asarray(dt), 1e-6)
+    return {"ticks": je.tl_ticks(dt), "ticks_1e-10": je.tl_ticks(1e-10),
+            "dc_rows": dr, "dc_cols": dc_, "dc": jdc, "tr_rows": tr,
+            "tr_cols": tc, "tr": jtr, "rhs_mat": je.rhs_mat,
+            "vc": js_["vc"], "il": js_["il"], "tlw": js_["tlw"], "I": jI}
+
+
+@pytest.fixture(scope="module")
+def golden():
+    with np.load(GOLDEN) as z:
+        return {k: z[k] for k in z.files}
+
+
+def want(golden, name):
+    pre = name + "/"
+    return {k[len(pre):]: v for k, v in golden.items() if k.startswith(pre)}
+
+
+@pytest.mark.parametrize("name", list(ENGINE_DECKS))
+def test_engine_matches_jax(name, golden):
+    """The DC and transient COO entries, rhs_mat, tl_ticks, the ring of
+    init_state, the RHS with the EMFs and the ring push, in f64 at
+    rtol 1e-12 (JAX's in tests/goldens/tline_jax.npz)."""
+    text = ENGINE_DECKS[name]
+    ts = (Simulator.from_file(REFLECT, device="cpu") if text == "reflect"
+          else Simulator.from_text(text, device="cpu"))
+    g = want(golden, f"engine/{name}")
+    te = ts.engine
+    dt, t = ENGINE_DT, ENGINE_T
+    assert np.array_equal(te.tl_ticks(dt), g["ticks"])
+    assert list(te.tl_ticks(1e-10)) == ([100] if text == "reflect" else [20])
+    assert np.array_equal(te.tl_ticks(1e-10), g["ticks_1e-10"])
+    x, x2 = np.random.default_rng(8).uniform(-1.0, 1.0, (2, te.N))
     tp = ts.params
     rows, cols, vals = te.dc_static_entries(tp)
-    jr, jc, _ = je.dc_static_entries(js.params)
-    assert np.array_equal(rows, jr) and np.array_equal(cols, jc)
-    close(vals, jdc)
+    assert np.array_equal(rows, g["dc_rows"])
+    assert np.array_equal(cols, g["dc_cols"])
+    close(vals, g["dc"])
     rows, cols, vals = te.tran_static_entries(tp, torch.tensor(dt), 1e-6)
-    jr, jc, _ = je.tran_static_entries(js.params, jnp.asarray(dt), 1e-6)
-    assert np.array_equal(rows, jr) and np.array_equal(cols, jc)
-    close(vals, jtr)
-    close(te.rhs_mat, je.rhs_mat)
+    assert np.array_equal(rows, g["tr_rows"])
+    assert np.array_equal(cols, g["tr_cols"])
+    close(vals, g["tr"])
+    close(te.rhs_mat, g["rhs_mat"])
     s = te.init_state(torch.as_tensor(x), tp, dt)
     s = te.make_update_state(dt)(tp, torch.as_tensor(x2), s)
     for key in ("vc", "il", "tlw"):
-        close(s[key], js_[key])
-    close(te.make_tran_static_I(dt)(tp, s, torch.tensor(t)), jI)
+        close(s[key], g[key])
+    close(te.make_tran_static_I(dt)(tp, s, torch.tensor(t)), g["I"])
     with pytest.raises(ValueError, match="init_state"):
         te.init_state(torch.as_tensor(x), tp)
 
 
-@pytest.fixture(scope="module")
-def matched_jax():
+def jax_matched():
     """JAX transients of the matched and the open-end line: one Simulator,
     the open end through its params (one compile)."""
     js = JaxSimulator.from_text(MATCHED)
     openp = dict(js.params)
     openp["res_r"] = openp["res_r"].at[1].set(1e9)
-    return js, [np.asarray(js.transient(params=p).xs)
-                for p in (js.params, openp)]
+    return {f"{end}/xs": np.asarray(js.transient(params=p).xs)
+            for end, p in (("matched", js.params), ("open", openp))}
 
 
 @pytest.mark.parametrize("end", ["matched", "open"])
-def test_transient_matches_jax(matched_jax, end):
+def test_transient_matches_jax(golden, end):
     """f64 transients of the matched and the open-end line of
     tests/test_tline.py within 1e-9 V of JAX; the ring after the run (from
     the batched loop's carry) within 1e-9 V of the JAX waveform's last
     Dmax waves."""
-    js, runs = matched_jax
-    jxs = runs[end == "open"]
+    jxs = golden[f"transient/{end}/xs"]
     text = MATCHED if end == "matched" else MATCHED.replace(
         "Rl out 0 50", "Rl out 0 1e9")
     ts = Simulator.from_text(text, device="cpu")
@@ -200,17 +230,18 @@ def test_dc_is_a_short():
     assert abs(x[eq(ts, "in")] - 2.0) <= 1e-12
 
 
-@pytest.mark.parametrize("text", [AC_MATCHED, AC_QUARTER],
-                         ids=["matched", "quarter_wave"])
-def test_ac_matches_jax(text, monkeypatch):
+AC_DECKS = {"matched": AC_MATCHED, "quarter_wave": AC_QUARTER}
+
+
+@pytest.mark.parametrize("name", list(AC_DECKS))
+def test_ac_matches_jax(name, golden, monkeypatch):
     """The matched line and the quarter-wave transformer through the
     per-frequency route: Simulator.ac within 1e-12 of the peak of JAX's in
     f64; then four perturbed lanes through make_ac_batched_fn, with K3
     (ac_sweep) made to raise, each lane equal to its own single-lane sweep
     at rtol 1e-12."""
-    js = JaxSimulator.from_text(text)
-    ts = Simulator.from_text(text, device="cpu")
-    want = np.asarray(js.ac().xs)
+    ts = Simulator.from_text(AC_DECKS[name], device="cpu")
+    want = golden[f"ac/{name}/xs"]
     got = ts.ac().xs
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=1e-12 * np.abs(want).max())
@@ -219,8 +250,8 @@ def test_ac_matches_jax(text, monkeypatch):
         raise AssertionError("a T-line deck reached K3")
 
     monkeypatch.setattr(tac, "ac_sweep", no_k3)
-    jp = draw_lanes(js.params, 4, seed=2, sigmas=(("res_r", 0.05),
-                                                  ("tl_z0", 0.05)))
+    jp = draw_lanes({k: v.numpy() for k, v in ts.params.items()}, 4,
+                    seed=2, sigmas=(("res_r", 0.05), ("tl_z0", 0.05)))
     bp = params_from_numpy({k: np.array(v) for k, v in jp.items()})
     cfg = ts.config.ac
     freqs = tac.sweep_frequencies(cfg.sweep_type, cfg.n_points, cfg.fstart,
@@ -338,9 +369,24 @@ def test_cli_matches_jax_cli(tmp_path, monkeypatch, capsys):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-9)
 
 
+def make_golden():
+    """JAX's side of the engine, transient and AC cases into
+    tests/goldens/tline_jax.npz (f64, the CPU)."""
+    out = {}
+    for name, text in ENGINE_DECKS.items():
+        out.update({f"engine/{name}/{k}": np.asarray(v)
+                    for k, v in jax_engine(text).items()})
+    out.update({f"transient/{k}": v for k, v in jax_matched().items()})
+    for name, text in AC_DECKS.items():
+        out[f"ac/{name}/xs"] = np.asarray(JaxSimulator.from_text(
+            text).ac().xs)
+    np.savez_compressed(GOLDEN, **out)
+
+
 if __name__ == "__main__":
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     RECORD["on"] = True
     test_k1c_ii_plain_matches_jax_pallas_kernel()
     np.savez_compressed(K1_GOLDEN, **RECORD[K1_GOLDEN])
+    make_golden()

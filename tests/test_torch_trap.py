@@ -2,7 +2,8 @@
 the CPU, against the JAX package (f64): tests/test_trap.py's decks (the RC
 recurrence, the MOS + L + C deck on ``woodbury`` and ``lu``, the same deck
 under MOSCAP=CHARGE), xfmr.sp (K) and a batch of eight numpy-drawn lanes.
-One JAX computation per deck: the batch's lane 0 is the nominal deck."""
+The JAX side is tests/goldens/trap_jax.npz (the batch's lane 0 is the
+nominal deck), which this file's ``__main__`` remakes."""
 
 import os
 
@@ -35,6 +36,11 @@ MOS_TEXT = (".MODEL 2 VT 0.4 MU 1e-2 COX 1e-3 LAMBDA 0.05 CJ0 1e-13\n"
             "M1 3 2 0 n 10e-6 1e-6 2\nC1 3 0 2e-13\nL1 3 4 1e-9\n"
             "C2 4 0 1e-13\n.TRAN 1e-11 3e-10\n")
 SIGMAS = {"res_r": 0.05, "mos_vth": 0.05, "cap_c": 0.1, "ind_l": 0.1}
+XFMR = os.path.join(REPO, "examples", "xfmr.sp")
+XFMR_STEPS = 100
+# the JAX side of the comparisons; ``PYTHONPATH=. JAX_PLATFORMS=cpu python
+# tests/test_torch_trap.py`` remakes it with the JAX package
+GOLDEN = os.path.join(REPO, "tests", "goldens", "trap_jax.npz")
 
 
 def jopts(**kw):
@@ -50,7 +56,7 @@ def port(text, **kw):
 
 
 def draw_lanes(params, B, seed):
-    """B lanes of the JAX params, lane 0 nominal, the others lognormal on
+    """B lanes of the params (numpy), lane 0 nominal, the others lognormal on
     SIGMAS' leaves, drawn with numpy."""
     rng = np.random.default_rng(seed)
     out = {k: np.broadcast_to(np.asarray(v), (B,) + np.shape(v)).copy()
@@ -62,21 +68,51 @@ def draw_lanes(params, B, seed):
     return out
 
 
-@pytest.fixture(scope="module")
-def mos_batch():
-    """The MOS + L + C deck's eight lanes: the port's batched DC (held to
-    JAX's by tests/test_torch_dc_tran.py), then JAX's trap transient of
-    each lane from it (save_xs, the non-fused loop, vmapped): the lanes,
-    the DC points and JAX's xs (B, n + 1, N)."""
+def mos_lanes():
+    """The MOS + L + C deck's eight lanes (from the port's params, the
+    same values as JAX's) and the port's batched DC points (held to JAX's
+    by tests/test_torch_dc_tran.py)."""
+    ts = port(MOS_TEXT)
+    lanes = draw_lanes({k: v.numpy() for k, v in ts.params.items()}, 8,
+                       seed=14)
+    return lanes, tmc.batched_dc_fast(ts.engine, params_from_numpy(lanes))
+
+
+def jax_results():
+    """JAX's side, recorded into tests/goldens/trap_jax.npz: the eight
+    lanes' trap transients from the port's DC points (save_xs, the
+    non-fused loop, vmapped), the charge deck's 10 steps from the port's
+    DC point, and xfmr.sp's 100 steps."""
+    lanes, x0 = mos_lanes()
     js = JaxSimulator.from_text(MOS_TEXT, opts=jopts())
-    lanes = draw_lanes(js.params, 8, seed=14)
-    x0 = tmc.batched_dc_fast(port(MOS_TEXT).engine, params_from_numpy(lanes))
     res = jax.jit(jax.vmap(lambda p, x: run_transient(
         js.engine, p, 1e-11, 3e-10, x0=x)))(
             {k: jnp.asarray(v) for k, v in lanes.items()},
             jnp.asarray(x0.numpy()))
     assert not np.asarray(res.failed).any()
-    return lanes, x0, np.asarray(res.xs)
+    out = {"mos/xs": res.xs}
+    x0 = port(MOS_TEXT, mos_cap_model="charge").dc()
+    js = JaxSimulator.from_text(MOS_TEXT, opts=jopts(mos_cap_model="charge"))
+    out["charge/xs"] = jax.jit(lambda p, x: run_transient(
+        js.engine, p, 1e-11, 1e-10, x0=x))(js.params,
+                                           jnp.asarray(x0.numpy())).xs
+    js = JaxSimulator.from_file(XFMR, opts=jopts())
+    out["xfmr/xs"] = js.transient(
+        tstop=XFMR_STEPS * js.config.tran.tstep).xs
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+@pytest.fixture(scope="module")
+def jax_golden():
+    with np.load(GOLDEN) as z:
+        return {k: z[k] for k in z.files}
+
+
+@pytest.fixture(scope="module")
+def mos_batch(jax_golden):
+    """The lanes, the port's DC points and JAX's xs (B, n + 1, N)."""
+    lanes, x0 = mos_lanes()
+    return lanes, x0, jax_golden["mos/xs"]
 
 
 def test_trap_rc_recurrence():
@@ -134,15 +170,11 @@ def test_trap_batched_lanes_match_jax(mos_batch):
 
 
 @pytest.fixture(scope="module")
-def charge_jax():
+def charge_jax(jax_golden):
     """The deck under MOSCAP=CHARGE: the port's DC point and JAX's 10 trap
     steps from it."""
-    x0 = port(MOS_TEXT, mos_cap_model="charge").dc()
-    js = JaxSimulator.from_text(MOS_TEXT, opts=jopts(mos_cap_model="charge"))
-    res = jax.jit(lambda p, x: run_transient(js.engine, p, 1e-11, 1e-10,
-                                             x0=x))(js.params,
-                                                    jnp.asarray(x0.numpy()))
-    return x0, np.asarray(res.xs)
+    return (port(MOS_TEXT, mos_cap_model="charge").dc(),
+            jax_golden["charge/xs"])
 
 
 @pytest.mark.parametrize("solver", ["woodbury", "lu"])
@@ -156,16 +188,12 @@ def test_trap_charge_model_matches_jax(solver, charge_jax):
     np.testing.assert_allclose(res.xs.numpy(), want, rtol=0, atol=TOL)
 
 
-def test_trap_mutual_inductance_matches_jax():
+def test_trap_mutual_inductance_matches_jax(jax_golden):
     """xfmr.sp (K) over 100 trapezoidal steps: the doubled -2M/dt cross
     terms and history currents."""
-    path = os.path.join(REPO, "examples", "xfmr.sp")
-    js = JaxSimulator.from_file(path, opts=jopts())
-    n = 100
-    tstop = n * js.config.tran.tstep
-    want = np.asarray(js.transient(tstop=tstop).xs)
-    got = Simulator.from_file(path, opts=topts(), device="cpu").transient(
-        tstop=tstop)
+    want = jax_golden["xfmr/xs"]
+    sim = Simulator.from_file(XFMR, opts=topts(), device="cpu")
+    got = sim.transient(tstop=XFMR_STEPS * sim.config.tran.tstep)
     assert float(np.abs(want).max()) > 0.1
     np.testing.assert_allclose(got.xs.numpy(), want, rtol=0, atol=TOL)
 
@@ -243,3 +271,9 @@ def test_trap_step_and_monte_carlo_inherit_trap():
         for name in ("t50", "vfinal"):
             np.testing.assert_allclose(float(vals[name][lane]), want[name],
                                        rtol=1e-9)
+
+
+if __name__ == "__main__":
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", True)
+    np.savez_compressed(GOLDEN, **jax_results())
