@@ -339,11 +339,19 @@ Phases (one JSON line each):
      run in worker processes started before phase 38.  Per run: Newton
      iterations, ms a Newton iteration, wall and warm-up seconds, K2
      launches, peak MiB and the library solves' share of the wall.
+ 41. pac: the periodic small-signal family on phase 40's steady states:
+     dbmixer's pnoise (3 offsets), pxf and mixer noise figure in f64 at K N
+     = 3,131 against the port's CPU run (1e-9 relative; pnoise also on the
+     CPU's PSS), pnoise_batched over phase 40's 64 f32 lanes (all finite,
+     lane 0 within 1e-3 of f64), mixer_rf.sp's pac and am_envelope.sp's
+     --run-hot-sparams CLI (each through its own HB, K2) against the CPU's
+     (1e-9).  Per run: LPTV systems, ms a system, the library solves'
+     share of the wall, K2 launches and peak MiB.
 
 Every error of K3 and of the AC path is lane-relative: for each lane
 max|x - ref| / max|ref| over its frequencies and unknowns, then the worst
 lane.  Kernel launch counts are reset just before each main-path run
-(phases 4, 7, 8, 11, 12, 13, 15, 16, 18, 22, 25, 27 and 29-40) and read
+(phases 4, 7, 8, 11, 12, 13, 15, 16, 18, 22, 25, 27 and 29-41) and read
 just after it.  The
 junction decks run the damped while-loop Newton configuration at f32
 tolerances: the fast configuration (alpha 1, predictor, two unrolled
@@ -5104,14 +5112,25 @@ def _harmonic_cli(device, args, csv, workdir):
 
 
 def _harmonic_cpu(task):
-    """One CPU reference of phase 40 in a worker process, started before
-    phase 38 so that it runs beside the earlier phases' card work: dbmixer's
-    .hb 100e6 50 dense and GMRES (one warm-up), f64; mixer_rf.sp's
-    --run-hb (shooting); am_envelope.sp's --run-envelope."""
+    """One CPU reference of phases 40 and 41 in a worker process, started
+    before phase 38 so that it runs beside the earlier phases' card work:
+    dbmixer's .hb 100e6 50 dense and GMRES (one warm-up), f64; mixer_rf.sp's
+    --run-hb (shooting); am_envelope.sp's --run-envelope; dbmixer's pnoise,
+    pxf and mixer noise figure around its own dense PSS; mixer_rf.sp's pac;
+    am_envelope.sp's --run-hot-sparams."""
     import torch
     sys.path.insert(0, REPO)
     torch.set_num_threads(2)
     from circuitsimulator_tpu_torch import Simulator
+    if task == "dbmixer_pac":
+        sim = Simulator.from_file(os.path.join(NETLISTS, "dbmixer.sp"),
+                                  device="cpu")
+        r = sim.harmonic_balance(solver="dense", warmup_periods=HB_WARMUP)
+        return {"pss": r.xs.numpy(), **_pac_dbmixer(sim, r.xs)}
+    if task == "mixer_rf_pac":
+        sim = Simulator.from_file(os.path.join(EXAMPLES, "mixer_rf.sp"),
+                                  device="cpu")
+        return {"spectrum": sim.pac(PAC_MIXER_RF_DELTAS).spectrum}
     if task == "dbmixer":
         sim = Simulator.from_file(os.path.join(NETLISTS, "dbmixer.sp"),
                                   device="cpu")
@@ -5127,6 +5146,10 @@ def _harmonic_cpu(task):
             args = [os.path.join(EXAMPLES, "mixer_rf.sp"), "t.csv",
                     "--run-hb", "hb.csv"]
             csv = "hb.csv"
+        elif task == "am_envelope_hot_cli":
+            args = [os.path.join(EXAMPLES, "am_envelope.sp"), "t.csv",
+                    *PAC_HOT_ARGS]
+            csv = "hot_sparams.csv"
         else:
             args = [os.path.join(EXAMPLES, "am_envelope.sp"), "t.csv",
                     *HB_ENVELOPE_ARGS]
@@ -5138,12 +5161,14 @@ def _harmonic_cpu(task):
 
 
 def start_harmonic_cpu():
-    """The pool and futures of phase 40's CPU references."""
+    """The pool and futures of phases 40 and 41's CPU references."""
     import multiprocessing
     pool = concurrent.futures.ProcessPoolExecutor(
-        3, mp_context=multiprocessing.get_context("spawn"))
+        4, mp_context=multiprocessing.get_context("spawn"))
     return pool, {t: pool.submit(_harmonic_cpu, t)
-                  for t in ("dbmixer", "mixer_rf_cli", "am_envelope_cli")}
+                  for t in ("dbmixer", "dbmixer_pac", "mixer_rf_cli",
+                            "am_envelope_cli", "mixer_rf_pac",
+                            "am_envelope_hot_cli")}
 
 
 class _HBCounts:
@@ -5355,7 +5380,10 @@ def phase_harmonic(cpu_refs):
     check(bool(rb.converged.all()), "batched f32: every lane converged")
     check(checks["batched_f32_lane0_vs_f64_max_abs"] <= 1e-3,
           "batched f32 lane 0 vs f64")
-    del bp, rb
+    # phase 41 linearises around these steady states
+    out["pss"] = {"sim64": sim64, "x64": x64, "sim32": sim32, "bp32": bp,
+                  "xs32": rb.xs}
+    del rb
     torch.cuda.empty_cache()
     # the CLI: shooting on mixer_rf.sp, the envelope on am_envelope.sp
     cli = {}
@@ -5393,6 +5421,177 @@ def phase_harmonic(cpu_refs):
     out["checks"] = {**checks, "cli": cli}
     out["phase_seconds"] = time.perf_counter() - t_phase
     emit("harmonic", phase_seconds=out["phase_seconds"], **out["checks"])
+    return out
+
+
+# phase 41: dbmixer's output V(102, 103) at three offsets, the SSB noise
+# figure referred to Rs1 with the signal at 9 f0 + delta (the 900 MHz LO
+# plus the offset), mixer_rf.sp's pac and am_envelope.sp's hot
+# S-parameter header
+PAC_DELTAS = [1e5, 1e6, 1e7]
+PAC_PXF_DELTAS = [1e6]
+PAC_NF = ("Rs1", 1e6, (9,))
+PAC_MIXER_RF_DELTAS = [1e5]
+PAC_HOT_ARGS = ["--no-tran", "--run-hot-sparams", "m", "--psp-deltas", "1e5"]
+
+
+def _pac_dbmixer(sim, xs):
+    """dbmixer's pnoise, pxf and mixer noise figure around the PSS xs, as
+    numpy (phase 41 and its CPU reference)."""
+    pn = sim.pnoise(PAC_DELTAS, "102", "103", pss_xs=xs)
+    px = sim.pxf(PAC_PXF_DELTAS, "102", "103", pss_xs=xs)
+    src, delta, sidebands = PAC_NF
+    nf = sim.mixer_noise_figure(src, delta, "102", "103",
+                                sidebands=sidebands, pss_xs=xs)
+    return {"pnoise": pn.onoise,
+            **{f"pnoise_{k}": v for k, v in pn.by_kind.items()},
+            "pxf_v": px.xf_v, "pxf_i": px.xf_i, "nf_db": float(nf)}
+
+
+def _rel(got, ref):
+    """max |got - ref| over max |ref| (0 for empty arrays)."""
+    import numpy as np
+    got, ref = np.asarray(got), np.asarray(ref)
+    if not ref.size:
+        return 0.0
+    return float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-300))
+
+
+class _LPTVCounts:
+    """The LPTV systems of a run (torch.linalg.lu_factor_ex and lu_solve
+    wrapped): their count and the library calls' ms (synchronised before
+    and after each call)."""
+
+    def __enter__(self):
+        import torch
+        self.linalg = torch.linalg
+        self.real = (torch.linalg.lu_factor_ex, torch.linalg.lu_solve)
+        self.systems, self.ms = 0, 0.0
+
+        def timed(fn, count):
+            def call(A, *a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(A, *a, **kw)
+                torch.cuda.synchronize()
+                self.ms += 1e3 * (time.perf_counter() - t0)
+                if count:
+                    self.systems += A.numel() // (A.shape[-1] * A.shape[-2])
+                return out
+            return call
+
+        torch.linalg.lu_factor_ex = timed(self.real[0], True)
+        torch.linalg.lu_solve = timed(self.real[1], False)
+        return self
+
+    def __exit__(self, *exc):
+        self.linalg.lu_factor_ex, self.linalg.lu_solve = self.real
+        return False
+
+
+def phase_pac(cpu_refs, harm):
+    """Phase 41: the periodic small-signal family on the card, on phase 40's
+    steady states (no second HB).  dbmixer.sp at K N = 3,131: pnoise at
+    PAC_DELTAS, pxf and the mixer noise figure (PAC_NF) in f64 around the
+    card's dense PSS, each within 1e-9 relative of the port's CPU run
+    around the CPU's own PSS, and pnoise once more around the CPU's PSS
+    (the same inputs); pnoise_batched over the 64 f32 lanes (every lane
+    finite, lane 0 within 1e-3 relative of f64); mixer_rf.sp's pac through
+    its own PSS and am_envelope.sp's --run-hot-sparams CLI against the
+    CPU's (1e-9).  Per run: LPTV systems, ms a system (the library solves),
+    their share of the wall, wall seconds, K2 launches and peak MiB."""
+    import numpy as np
+    import torch
+    from circuitsimulator_tpu_torch import Simulator
+    from circuitsimulator_tpu_torch.analysis.pac import pnoise_batched
+    from circuitsimulator_tpu_torch.ops import cuda_lu
+    t_phase = time.perf_counter()
+    pss = harm.pop("pss")
+    sim64, x64 = pss["sim64"], pss["x64"]
+    out = {"runs": {}}
+
+    def measured(name, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_lu.LAUNCHES = 0
+        with _LPTVCounts() as c:
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        m = {"wall_s": wall, "lptv_systems": c.systems,
+             "ms_per_system": c.ms / c.systems if c.systems else None,
+             "library_share": c.ms / 1e3 / wall,
+             "k2_launches": cuda_lu.LAUNCHES,
+             "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20}
+        out["runs"][name] = m
+        emit(f"pac_{name}", **m)
+        return res, m
+
+    card, _ = measured("dbmixer_f64", lambda: _pac_dbmixer(sim64, x64))
+    ref = cpu_refs["dbmixer_pac"].result()
+    checks = {f"dbmixer_{k}_vs_cpu_rel": _rel(card[k], ref[k]) for k in ref
+              if k != "pss"}
+    same, _ = measured("dbmixer_pnoise_cpu_pss_f64",
+                       lambda: sim64.pnoise(PAC_DELTAS, "102", "103",
+                                            pss_xs=ref["pss"]))
+    checks["dbmixer_pnoise_on_cpu_pss_vs_cpu_rel"] = _rel(same.onoise,
+                                                          ref["pnoise"])
+    checks["pss_card_vs_cpu_max_abs"] = float(
+        np.abs(x64.cpu().numpy() - ref["pss"]).max())
+    for k, v in checks.items():
+        if k.endswith("_rel"):
+            check(v <= 1e-9, f"phase 41 {k} = {v}")
+    sim32 = pss["sim32"]
+    eq = sim32._node_eq
+    pb, m = measured("dbmixer_pnoise_batched64_f32",
+                     lambda: pnoise_batched(sim32.engine, pss["bp32"], 100e6,
+                                            pss["xs32"], PAC_DELTAS,
+                                            eq("102"), eq("103")))
+    m["lanes_per_s"] = pb.onoise.shape[0] / m["wall_s"]
+    checks["batched_f32_finite_lanes"] = int(
+        np.isfinite(pb.onoise).all(-1).sum())
+    checks["batched_f32_lane0_vs_f64_rel"] = _rel(pb.onoise[0], card["pnoise"])
+    check(checks["batched_f32_finite_lanes"] == pb.onoise.shape[0],
+          "pnoise_batched f32: every lane finite")
+    check(checks["batched_f32_lane0_vs_f64_rel"] <= 1e-3,
+          "pnoise_batched f32 lane 0 vs f64")
+    del pss
+    torch.cuda.empty_cache()
+    mixer = Simulator.from_file(os.path.join(EXAMPLES, "mixer_rf.sp"),
+                                device="cuda")
+    pr, m = measured("mixer_rf_pac_f64",
+                     lambda: mixer.pac(PAC_MIXER_RF_DELTAS))
+    checks["mixer_rf_pac_vs_cpu_rel"] = _rel(
+        pr.spectrum, cpu_refs["mixer_rf_pac"].result()["spectrum"])
+    check(checks["mixer_rf_pac_vs_cpu_rel"] <= 1e-9, "mixer_rf pac vs CPU")
+    check(m["k2_launches"] > 0, "mixer_rf pac: K2 launched")
+    d = tempfile.mkdtemp(prefix="pac_card_")
+    try:
+        (rc, stdout, _, data), m = measured(
+            "hot_sparams_cli_am_envelope_f64",
+            lambda: _harmonic_cli("cuda", [os.path.join(
+                EXAMPLES, "am_envelope.sp"), "t.csv", *PAC_HOT_ARGS],
+                "hot_sparams.csv", d))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    cpu = cpu_refs["am_envelope_hot_cli"].result()
+    check(rc == 0 and cpu["rc"] == 0, f"hot S-parameter CLI: exit codes "
+          f"{rc}, {cpu['rc']}")
+
+    def entries(a):
+        a = np.atleast_2d(a)
+        return a[:, 1::2] * np.exp(1j * np.radians(a[:, 2::2]))
+    checks["hot_sparams_cli_vs_cpu_rel"] = _rel(entries(data),
+                                                entries(cpu["csv"]))
+    checks["hot_sparams_cli_stdout_lines_equal_cpu"] = \
+        stdout.splitlines() == cpu["stdout"].splitlines()
+    check(checks["hot_sparams_cli_vs_cpu_rel"] <= 1e-9,
+          "hot S-parameter CLI vs CPU")
+    check(m["k2_launches"] > 0, "hot S-parameter CLI: K2 launched")
+    out["checks"] = checks
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    emit("pac", phase_seconds=out["phase_seconds"], **checks)
     return out
 
 
@@ -5455,6 +5654,7 @@ def main():
     stats = timed(phase_statistics)
     large = timed(phase_large_circuit)
     harm = timed(phase_harmonic, hb_refs)
+    pac = timed(phase_pac, hb_refs, harm)
     hb_pool.shutdown()
     k3_rows = timed(phase_k3_timings)
     k2_device, k1_device_ms = timed(phase_k2_device, timings, k1_main_run)
@@ -5520,7 +5720,10 @@ def main():
                        **{f"large_circuit_{n}": r["k2_launches"]
                           for n, r in large["runs"].items()},
                        **{f"harmonic_{n}": r["k2_launches"]
-                          for n, r in harm["runs"].items()}},
+                          for n, r in harm["runs"].items()},
+                       **{f"pac_{n}": pac["runs"][n]["k2_launches"]
+                          for n in ("mixer_rf_pac_f64",
+                                    "hot_sparams_cli_am_envelope_f64")}},
         "fused_step": {"monte_carlo_fused_f32_fast": k1_launches,
                        "monte_carlo_fused_bjt_f32": bjt["k1_launches"],
                        **{f"monte_carlo_fused_{n}_f32": m["k1_launches"]

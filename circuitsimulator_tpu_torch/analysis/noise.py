@@ -141,8 +141,13 @@ def _device_noise_currents(engine: Engine, params, x_op):
     if not pairs:
         z = torch.zeros((0,), dtype=engine.dtype, device=engine.device)
         return np.zeros((0, 2), np.int64), z, z, []
+    # x_op may carry sample axes that the resistors' params-only terms
+    # lack: broadcast every part to one lead before concatenating
+    lead = torch.broadcast_shapes(*(s.shape[:-1] for s in s_white + s_flick))
     return (np.concatenate(pairs).astype(np.int64),
-            torch.cat(s_white, -1), torch.cat(s_flick, -1), kinds)
+            torch.cat([s.expand(lead + s.shape[-1:]) for s in s_white], -1),
+            torch.cat([s.expand(lead + s.shape[-1:]) for s in s_flick], -1),
+            kinds)
 
 
 @torch.inference_mode()

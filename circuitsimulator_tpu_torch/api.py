@@ -27,6 +27,10 @@
     sim.two_tone_ip3("out", 0.01); sim.p1db("out", "Vin")   # MPDE / HB
     bp, hbs = sim.monte_carlo_hb(64)  # lanes of one batched HB
     env = sim.envelope(5e-6, 1e-7, order=2)  # envelope transient
+    sim.pac([1e5]); sim.pxf([1e5], "if"); sim.pnoise([1e5], "if")   # LPTV
+    sim.mixer_noise_figure("Rs", 1e5, "if"); sim.envelope_noise(...)
+    sim.hot_sparams(ports, [1e5]); sim.lssp(thevenin_ports, 1e-3)
+    bp, pn = sim.monte_carlo_pnoise(64, [1e5], "if")   # batched LPTV solves
 
 Above 128 node equations ``Simulator`` picks a large-circuit backend, as
 the JAX package does: ``tridiag`` for a ladder (``synthetic.
@@ -937,6 +941,423 @@ class Simulator:
         return bp, envelope_transient_batched(self.engine, bp, f0, t_stop,
                                               dt_env, n_harm=n_harm, **kw)
 
+    # ---- periodic small-signal analyses (PAC family) ----
+    def _pss_samples(self, p, f0, n_harm, **hb_kw):
+        """Converged single-tone HB samples for the LPTV analyses: an
+        unconverged PSS would give plausible-looking wrong gains and
+        noise, so it raises."""
+        if self.config.hb.extra_tones:
+            print("warning: multi-tone .hb card — PAC/PNOISE linearize "
+                  "around the single-tone PSS at f0 only", file=sys.stderr)
+        hbres = self.harmonic_balance(params=p, f0=f0, n_harm=n_harm,
+                                      **hb_kw)
+        if not bool(hbres.converged):
+            raise RuntimeError(
+                "periodic steady state did not converge (residual "
+                f"{float(hbres.residual):.3e}); pass pss_xs= from a solver "
+                "run you trust, or raise n_harm/warmup_periods")
+        return hbres.xs
+
+    def _out_ref(self, out_node: str, ref_node: Optional[str],
+                 ground_ok: bool = False):
+        """(out_eq, ref_eq) of V(out[, ref]); ref -1 is ground."""
+        out_eq = self._node_eq(out_node)
+        if out_eq < 0 and not ground_ok:
+            raise ValueError(f"output node {out_node!r} is ground")
+        return out_eq, (self._node_eq(ref_node) if ref_node else -1)
+
+    def _port_eqs(self, ports):
+        """(port_eqs, z0s) of (node_p, node_m_or_None, z0) ports, ground
+        the dump slot."""
+        dump = self.topo.n_unknowns
+
+        def node_eq(name):
+            if name is None or str(name).lower() in ("0", "gnd"):
+                return dump
+            eqi = self._node_eq(name)
+            return eqi if eqi >= 0 else dump
+        return ([(node_eq(p), node_eq(m)) for (p, m, _) in ports],
+                [z for (_, _, z) in ports])
+
+    def _resistor_column(self, source_resistor: str) -> int:
+        """The named resistor's generator column: resistors lead the
+        concatenation of noise._device_noise_currents, in element order."""
+        j = 0
+        for e in self.circuit.elements:
+            if e.kind == KIND_R:
+                if e.name.upper() == source_resistor.upper():
+                    return j
+                j += 1
+        raise KeyError(f"no resistor named {source_resistor!r}")
+
+    def _source_names(self, res):
+        from .netlist import KIND_I
+        res.v_names = tuple(e.name for e in self.circuit.elements
+                            if e.kind == KIND_V)
+        res.i_names = tuple(e.name for e in self.circuit.elements
+                            if e.kind == KIND_I)
+        return res
+
+    def _mc_pss(self, n, seed, sampler, f0, n_harm, what, **hb_kw):
+        """(bparams, HBBatchResult): n lanes of the DEV=/LOT= tolerances
+        and their batched-HB steady states."""
+        from .analysis.hb import harmonic_balance_batched
+        bp = self._hb_lanes(n, seed, sampler)
+        f0 = self._hb_f0(f0, f"{what} needs f0 (or a .hb card)")
+        n_harm = n_harm if n_harm is not None else (self.config.hb.n_harm
+                                                    or 8)
+        return bp, f0, harmonic_balance_batched(self.engine, bp, f0,
+                                                n_harm=n_harm, **hb_kw)
+
+    def pac(self, deltas, f0: Optional[float] = None,
+            n_harm: Optional[int] = None,
+            n_sidebands: Optional[int] = None,
+            pss_xs=None, params: Optional[Any] = None, **hb_kw):
+        """Periodic AC (analysis/pac.py): conversion gains from the
+        sources' AC specs to every sideband m*f0 + delta around the
+        periodic steady state (the .hb card's HB unless pss_xs (K, N)
+        gives one)."""
+        from .analysis.pac import pac
+        f0 = self._hb_f0(f0, "pac needs f0 (or a .hb card)")
+        p = params if params is not None else self.params
+        if pss_xs is None:
+            pss_xs = self._pss_samples(p, f0, n_harm, **hb_kw)
+        return pac(self.engine, p, f0, pss_xs, deltas,
+                   n_sidebands=n_sidebands)
+
+    def pxf(self, deltas, out_node: str, ref_node: Optional[str] = None,
+            f0: Optional[float] = None, n_harm: Optional[int] = None,
+            n_sidebands: Optional[int] = None,
+            pss_xs=None, params: Optional[Any] = None, **hb_kw):
+        """Periodic transfer functions (analysis/pac.py pxf), the adjoint
+        of PAC: one adjoint solve per offset gives the transfer from every
+        V/I source, injected at every sideband m*f0 + delta, to V(out[,
+        ref]) read at delta."""
+        from .analysis.pac import pxf
+        f0 = self._hb_f0(f0, "pxf needs f0 (or a .hb card)")
+        p = params if params is not None else self.params
+        out_eq, ref_eq = self._out_ref(out_node, ref_node)
+        if pss_xs is None:
+            pss_xs = self._pss_samples(p, f0, n_harm, **hb_kw)
+        return self._source_names(pxf(self.engine, p, f0, pss_xs, deltas,
+                                      out_eq, ref_eq,
+                                      n_sidebands=n_sidebands))
+
+    def pnoise(self, deltas, out_node: str, ref_node: Optional[str] = None,
+               f0: Optional[float] = None, n_harm: Optional[int] = None,
+               pss_xs=None, params: Optional[Any] = None, **hb_kw):
+        """Periodic (cyclostationary) noise at V(out[, ref]) around the
+        periodic steady state (analysis/pac.py pnoise): the time-averaged
+        output PSD with sideband folding; shot noise follows the
+        instantaneous operating point."""
+        from .analysis.pac import pnoise
+        f0 = self._hb_f0(f0, "pnoise needs f0 (or a .hb card)")
+        p = params if params is not None else self.params
+        out_eq, ref_eq = self._out_ref(out_node, ref_node)
+        if pss_xs is None:
+            pss_xs = self._pss_samples(p, f0, n_harm, **hb_kw)
+        return pnoise(self.engine, p, f0, pss_xs, deltas, out_eq, ref_eq)
+
+    def envelope_noise(self, deltas, out_node: str,
+                       t_stop: Optional[float] = None,
+                       dt_env: Optional[float] = None,
+                       ref_node: Optional[str] = None,
+                       f0: Optional[float] = None, n_harm: int = 7,
+                       t1_idx=None, env=None,
+                       params: Optional[Any] = None, **env_kw):
+        """Time-resolved envelope noise (analysis/envnoise.py): pnoise's
+        adjoint LPTV solve rebuilt at each selected envelope time t1, the
+        device noise intensities tracking the envelope.  Pass an
+        EnvelopeResult as env, or t_stop and dt_env to run the envelope
+        here.  Returns an EnvelopeNoiseResult with onoise (T1s, F)."""
+        from .analysis.envnoise import envelope_noise
+        f0 = self._hb_f0(f0, "envelope_noise needs f0 (or a .hb card)")
+        p = params if params is not None else self.params
+        out_eq, ref_eq = self._out_ref(out_node, ref_node)
+        if env is None:
+            if t_stop is None or dt_env is None:
+                raise ValueError("envelope_noise needs an EnvelopeResult "
+                                 "(env=...) or t_stop and dt_env")
+            env = self.envelope(t_stop, dt_env, f0=f0, n_harm=n_harm,
+                                params=p, **env_kw)
+        return envelope_noise(self.engine, p, env, deltas, out_eq, ref_eq,
+                              t1_idx=t1_idx)
+
+    def mixer_noise_figure(self, source_resistor: str, delta: float,
+                           out_node: str, ref_node: Optional[str] = None,
+                           sidebands=(1,),
+                           f0: Optional[float] = None,
+                           n_harm: Optional[int] = None,
+                           pss_xs=None, params: Optional[Any] = None,
+                           **hb_kw):
+        """Conversion (mixer) noise figure at IF = delta referred to
+        source_resistor (analysis/pac.py mixer_noise_figure): the folded
+        periodic output noise over the source resistor's share through the
+        signal sideband(s); SSB by default (sidebands=(1,): input at f0 +
+        delta), DSB with (1, -1).  Returns NF in dB."""
+        from .analysis.pac import mixer_noise_figure
+        f0 = self._hb_f0(f0, "mixer_noise_figure needs f0 (or a .hb card)")
+        p = params if params is not None else self.params
+        ridx = self._resistor_column(source_resistor)
+        out_eq, ref_eq = self._out_ref(out_node, ref_node, ground_ok=True)
+        if pss_xs is None:
+            pss_xs = self._pss_samples(p, f0, n_harm, **hb_kw)
+        nf_db, _, _ = mixer_noise_figure(self.engine, p, f0, pss_xs, delta,
+                                         out_eq, ridx, sidebands=sidebands,
+                                         ref_eq=ref_eq)
+        return nf_db
+
+    def monte_carlo_mixer_noise_figure(self, n: int,
+                                       source_resistor: str, delta: float,
+                                       out_node: str,
+                                       ref_node: Optional[str] = None,
+                                       sidebands=(1,), seed: int = 0,
+                                       sampler: str = "mc",
+                                       f0: Optional[float] = None,
+                                       n_harm: Optional[int] = None,
+                                       **hb_kw):
+        """Monte-Carlo conversion noise figure: n lanes' folded-pnoise NF
+        at IF = delta from one batched adjoint LPTV solve around their
+        batched-HB steady states (analysis/pac.py
+        mixer_noise_figure_batched); unconverged lanes are NaN.  Returns
+        (bparams, nf_db (n,))."""
+        from .analysis.pac import mixer_noise_figure_batched
+        ridx = self._resistor_column(source_resistor)
+        out_eq, ref_eq = self._out_ref(out_node, ref_node, ground_ok=True)
+        bp, f0, pss = self._mc_pss(n, seed, sampler, f0, n_harm,
+                                   "monte_carlo_mixer_noise_figure",
+                                   **hb_kw)
+        nf_db, _, _ = mixer_noise_figure_batched(
+            self.engine, bp, f0, pss.xs, delta, out_eq, ridx,
+            sidebands=sidebands, ref_eq=ref_eq)
+        conv = _host(pss.converged)
+        self._warn_unconverged_lanes(conv, "monte_carlo_mixer_noise_figure")
+        return bp, np.where(conv, nf_db, np.nan)
+
+    def hot_sparams(self, ports, deltas, f0: Optional[float] = None,
+                    n_sidebands: int = 1, n_harm: Optional[int] = None,
+                    pss_xs=None, params: Optional[Any] = None, **hb_kw):
+        """Periodic (hot) S-parameters (analysis/psp.py): the
+        frequency-translating scattering matrix around the periodic steady
+        state at f0, every (port, sideband m in -M..M) pair a terminal of
+        an extended multiport (a mixer's delta -> f0 + delta conversion
+        gain is res.s_at(1, 1, 0, 0)).  ports as for sparams(); the port
+        terminations must not be in the netlist."""
+        from .analysis.psp import periodic_s_parameters
+        f0 = self._hb_f0(f0, "hot_sparams needs f0 (or a .hb card)")
+        port_eqs, z0s = self._port_eqs(ports)
+        p = params if params is not None else self.params
+        if pss_xs is None:
+            pss_xs = self._pss_samples(p, f0, n_harm, **hb_kw)
+        return periodic_s_parameters(self.engine, p, f0, pss_xs, port_eqs,
+                                     z0s, deltas, n_sidebands=n_sidebands)
+
+    def lssp(self, ports, power, f0: Optional[float] = None,
+             n_harm: int = 7, params: Optional[Any] = None, **hb_kw):
+        """Large-signal S-parameters at the available drive power `power`
+        (W).  The port terminations live in the netlist: each port is a
+        grounded Thevenin pair, a V source with a SIN at f0 behind a z0
+        resistor, and ports lists (source_name, port_node, z0), port_node
+        the terminal after the resistor.  One harmonic balance per driven
+        port j (its amplitude sqrt(8 z0_j P), every other port source at
+        0); the fundamental waves a_j = Vs_j / (2 sqrt z0_j) and b_i = (2
+        V_i - Vs_i) / (2 sqrt z0_i) from the HB spectrum (e^{+jwt}
+        phasors).  Returns a dict: s (n, n) complex, amps (n,) and the
+        per-port HBResults."""
+        from .analysis.hb import harmonic_balance
+        f0 = self._hb_f0(f0, "lssp needs f0 (or a .hb card)")
+        n = len(ports)
+        src_idx, node_eqs, vs_ep, z0 = self._lssp_ports(ports)
+        p0 = dict(params if params is not None else self.params)
+        amps = np.sqrt(8.0 * z0 * float(power))
+        S = np.zeros((n, n), complex)
+        results = []
+        for j in range(n):
+            vs_sin = p0["vs_sin"].clone()
+            for i, si in enumerate(src_idx):
+                vs_sin[si, 1] = amps[j] if i == j else 0.0
+            p = dict(p0)
+            p["vs_sin"] = vs_sin
+            res = harmonic_balance(self.engine, p, f0, n_harm=n_harm,
+                                   **hb_kw)
+            if not bool(res.converged):
+                raise RuntimeError(f"lssp HB did not converge driving "
+                                   f"port {j} (residual "
+                                   f"{float(res.residual):.3e})")
+            results.append(res)
+            c1 = np.concatenate([_host(res.spectrum[1]), [0.0]])
+            vs = c1[vs_ep]
+            vp = c1[node_eqs]
+            a_j = vs[j] / (2.0 * np.sqrt(z0[j]))
+            S[:, j] = (2.0 * vp - vs) / (2.0 * np.sqrt(z0)) / a_j
+        return {"s": S, "amps": amps, "results": results}
+
+    def _lssp_ports(self, ports):
+        """Validate lssp-style (source, node, z0) ports; returns (src_idx,
+        node_eqs, vs_ep, z0).  A port source must be grounded: Vs = V(ep)
+        holds only with em = ground."""
+        from .analysis.sweep import find_source
+        src_idx, node_eqs, z0 = [], [], []
+        for (src, node, z) in ports:
+            kind, sidx = find_source(self.circuit, src)
+            if kind != KIND_V:
+                raise ValueError(f"lssp port source {src!r} must be a "
+                                 "V source")
+            src_idx.append(sidx)
+            eqi = self._node_eq(node)
+            if eqi < 0:
+                raise ValueError(f"port node {node!r} is ground")
+            node_eqs.append(eqi)
+            z0.append(float(z))
+        dump = self.engine.N
+        for i, (src, _, _) in zip(src_idx, ports):
+            if int(self.topo.vs_em[i]) != dump:
+                raise ValueError(
+                    f"lssp port source {src!r} is floating (negative "
+                    "terminal not ground): S-parameter ports must be "
+                    "grounded Thevenin sources (Vsrc + series Z0 to "
+                    "ground)")
+        vs_ep = [int(self.topo.vs_ep[i]) for i in src_idx]
+        return src_idx, node_eqs, vs_ep, np.asarray(z0)
+
+    def lssp_batched(self, ports, powers, f0: Optional[float] = None,
+                     n_harm: int = 7, bparams: Optional[Any] = None,
+                     **hb_kw):
+        """Batched large-signal S-parameters: every (Monte-Carlo lane,
+        drive power, driven port) triple is one lane of a single batched
+        harmonic balance (a whole compression curve and parameter spread
+        at once).  ports and f0 as lssp(); powers (Pw,) in W; bparams
+        optional lanes (leading axis), the nominal params as one lane when
+        omitted.  Returns a dict: s (B, Pw, n, n) complex, amps (Pw, n),
+        converged (B, Pw, n) and the HBBatchResult as result (lane order b,
+        power, driven port)."""
+        from .analysis.hb import harmonic_balance_batched
+        f0 = self._hb_f0(f0, "lssp needs f0 (or a .hb card)")
+        n = len(ports)
+        src_idx, node_eqs, vs_ep, z0 = self._lssp_ports(ports)
+        powers = np.asarray(powers, float).ravel()
+        Pw = len(powers)
+        if bparams is None:
+            bparams = {k: v[None] for k, v in self.params.items()}
+        B = int(next(iter(bparams.values())).shape[0])
+        L = B * Pw * n
+        amps = np.sqrt(8.0 * z0[None, :] * powers[:, None])   # (Pw, n)
+        tiled = {k: torch.as_tensor(v).repeat_interleave(Pw * n, dim=0)
+                 for k, v in bparams.items()}
+        # port j's source at amps[ip, j] on its own drive lane, 0 elsewhere
+        lane_amp = np.zeros((B, Pw, n, len(src_idx)))
+        for j in range(n):
+            lane_amp[:, :, j, j] = amps[:, j][None, :]
+        vs_sin = tiled["vs_sin"].clone()
+        for i, si in enumerate(src_idx):
+            vs_sin[:, si, 1] = torch.as_tensor(
+                lane_amp[..., i].reshape(L), dtype=vs_sin.dtype,
+                device=vs_sin.device)
+        tiled["vs_sin"] = vs_sin
+        res = harmonic_balance_batched(self.engine, tiled, f0, n_harm=n_harm,
+                                       **hb_kw)
+        c1 = np.concatenate([_host(res.spectrum[:, 1]),
+                             np.zeros((L, 1), complex)], axis=1)
+        vs = c1[:, vs_ep].reshape(B, Pw, n, n)     # (.., drive j, port i)
+        vp = c1[:, node_eqs].reshape(B, Pw, n, n)
+        a = vs.diagonal(axis1=-2, axis2=-1) / (2.0 * np.sqrt(z0))
+        b_w = (2.0 * vp - vs) / (2.0 * np.sqrt(z0)[None, None, None, :])
+        S = np.moveaxis(b_w / a[..., :, None], -2, -1)   # (B, Pw, i, j)
+        conv = _host(res.converged).reshape(B, Pw, n)
+        return {"s": S, "amps": amps, "converged": conv, "result": res}
+
+    def monte_carlo_lssp(self, n: int, ports, powers, seed: int = 0,
+                         sampler: str = "mc", **kw):
+        """Monte-Carlo large-signal S-parameters: n lanes of the DEV=/LOT=
+        tolerances x len(powers) drive levels x len(ports) driven ports as
+        one batched HB.  Returns (bparams, the lssp_batched dict with s (n,
+        Pw, p, p))."""
+        bp = self._hb_lanes(n, seed, sampler)
+        return bp, self.lssp_batched(ports, powers, bparams=bp, **kw)
+
+    def monte_carlo_psp(self, n: int, ports, deltas, seed: int = 0,
+                        sampler: str = "mc", f0: Optional[float] = None,
+                        n_sidebands: int = 1,
+                        n_harm: Optional[int] = None, **hb_kw):
+        """Monte-Carlo hot S-parameters: n lanes each linearised around its
+        own batched-HB steady state, every (lane, offset) LPTV solve in
+        the batched solves (analysis/psp.periodic_s_parameters_batched).
+        ports as hot_sparams.  Returns (bparams, PSPBatchResult)."""
+        from .analysis.psp import periodic_s_parameters_batched
+        bp, f0, pss = self._mc_pss(n, seed, sampler, f0, n_harm,
+                                   "monte_carlo_psp", **hb_kw)
+        port_eqs, z0s = self._port_eqs(ports)
+        return bp, periodic_s_parameters_batched(
+            self.engine, bp, f0, pss.xs, port_eqs, z0s, deltas,
+            n_sidebands=n_sidebands)
+
+    def monte_carlo_pnoise(self, n: int, deltas, out_node: str,
+                           ref_node: Optional[str] = None, seed: int = 0,
+                           sampler: str = "mc", f0: Optional[float] = None,
+                           n_harm: Optional[int] = None, **hb_kw):
+        """Monte-Carlo periodic noise: n lanes' cyclostationary output PSD,
+        each around its own batched-HB steady state
+        (analysis/pac.pnoise_batched).  Returns (bparams,
+        PNoiseBatchResult) with onoise (n, F) and the kind breakdown."""
+        from .analysis.pac import pnoise_batched
+        out_eq, ref_eq = self._out_ref(out_node, ref_node)
+        bp, f0, pss = self._mc_pss(n, seed, sampler, f0, n_harm,
+                                   "monte_carlo_pnoise", **hb_kw)
+        res = pnoise_batched(self.engine, bp, f0, pss.xs, deltas, out_eq,
+                             ref_eq)
+        res.converged = _host(pss.converged)
+        self._warn_unconverged_lanes(res.converged, "monte_carlo_pnoise")
+        return bp, res
+
+    def monte_carlo_pac(self, n: int, deltas, seed: int = 0,
+                        sampler: str = "mc", f0: Optional[float] = None,
+                        n_sidebands: Optional[int] = None,
+                        n_harm: Optional[int] = None, **hb_kw):
+        """Monte-Carlo periodic AC: n lanes' conversion gains around their
+        own batched-HB steady states (analysis/pac.pac_batched).  Returns
+        (bparams, PACBatchResult) with spectrum (n, F, M, N)."""
+        from .analysis.pac import pac_batched
+        bp, f0, pss = self._mc_pss(n, seed, sampler, f0, n_harm,
+                                   "monte_carlo_pac", **hb_kw)
+        res = pac_batched(self.engine, bp, f0, pss.xs, deltas,
+                          n_sidebands=n_sidebands)
+        res.converged = _host(pss.converged)
+        self._warn_unconverged_lanes(res.converged, "monte_carlo_pac")
+        return bp, res
+
+    def monte_carlo_pxf(self, n: int, deltas, out_node: str,
+                        ref_node: Optional[str] = None, seed: int = 0,
+                        sampler: str = "mc", f0: Optional[float] = None,
+                        n_sidebands: Optional[int] = None,
+                        n_harm: Optional[int] = None, **hb_kw):
+        """Monte-Carlo periodic transfer functions: every lane's source x
+        input-sideband -> output table from batched adjoint LPTV solves
+        (analysis/pac.pxf_batched).  Returns (bparams, PXFBatchResult)
+        with xf_v (n, F, M, nV) and xf_i (n, F, M, nI)."""
+        from .analysis.pac import pxf_batched
+        out_eq, ref_eq = self._out_ref(out_node, ref_node)
+        bp, f0, pss = self._mc_pss(n, seed, sampler, f0, n_harm,
+                                   "monte_carlo_pxf", **hb_kw)
+        res = self._source_names(pxf_batched(
+            self.engine, bp, f0, pss.xs, deltas, out_eq, ref_eq,
+            n_sidebands=n_sidebands))
+        res.converged = _host(pss.converged)
+        self._warn_unconverged_lanes(res.converged, "monte_carlo_pxf")
+        return bp, res
+
+    @staticmethod
+    def _warn_unconverged_lanes(converged, what: str):
+        """Batched-HB lanes that did not converge feed every later LPTV
+        stage a wrong steady state: warn instead of returning
+        plausible-looking per-lane numbers."""
+        import warnings
+        bad = int(np.size(converged) - np.count_nonzero(converged))
+        if bad:
+            warnings.warn(
+                f"{what}: {bad}/{np.size(converged)} HB lane(s) did not "
+                f"converge; mask those lanes via the result's .converged "
+                f"field before trusting their numbers", stacklevel=3)
+
     # ---- small-signal analyses ----
     def _ac_freqs(self):
         from .analysis.ac import sweep_frequencies
@@ -1147,18 +1568,7 @@ class Simulator:
             ref_node = ref_node or (cfg.ref_node or None)
         if freqs is None:
             freqs = self._noise_freqs("no frequency sweep available")
-        # the source resistor's generator column: resistors lead the
-        # concatenation in _device_noise_currents, in element order
-        ridx = None
-        j = 0
-        for e in self.circuit.elements:
-            if e.kind == KIND_R:
-                if e.name.upper() == source_resistor.upper():
-                    ridx = j
-                    break
-                j += 1
-        if ridx is None:
-            raise KeyError(f"no resistor named {source_resistor!r}")
+        ridx = self._resistor_column(source_resistor)
         out_eq = self._node_eq(out_node)
         ref_eq = self._node_eq(ref_node) if ref_node else -1
         p = params if params is not None else self.params
@@ -1188,15 +1598,7 @@ class Simulator:
                                  ".AC card")
             freqs = sweep_frequencies(ac.sweep_type, ac.n_points,
                                       ac.fstart, ac.fstop)
-        dump = self.topo.n_unknowns
-
-        def node_eq(name):
-            if name is None or str(name).lower() in ("0", "gnd"):
-                return dump
-            eqi = self._node_eq(name)
-            return eqi if eqi >= 0 else dump
-        port_eqs = [(node_eq(p), node_eq(m)) for (p, m, _) in ports]
-        z0s = [z for (_, _, z) in ports]
+        port_eqs, z0s = self._port_eqs(ports)
         p = params if params is not None else self.params
         if x_op is None:
             x_op = self.dc(params=params)

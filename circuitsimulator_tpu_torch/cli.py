@@ -11,6 +11,10 @@
         [--run-hb [CSV] [--hb-method shooting|hb] [--hb-solver dense|gmres]]
         [--run-sparams PORTS [--sparams-out FILE]]
         [--run-envelope TSTOP:DT[:CSV] [--env-order 1|2] [--mc-rf N]]
+        [--run-hot-sparams PORTS --psp-deltas D1,... [--psp-sidebands M]
+         [--hot-sparams-out CSV] [--mc-rf N]]
+        [--run-lssp PORTS [--lssp-power P | --lssp-powers P1,...]
+         [--mc-rf N]]
 
 prints the circuit summary and the DC node-voltage/branch-current tables,
 then runs the transient if a .TRAN card is present (Backward Euler, or
@@ -40,7 +44,11 @@ dense or the GMRES solver; a multi-tone card takes the MPDE grid), writes
 one period (default hb_out.csv) and prints the harmonic table;
 ``--run-sparams`` (Touchstone .sNp) follows, then ``--run-envelope`` (the
 envelope transient's fundamental envelopes, default env_out.csv; with
-``--mc-rf N`` the Monte-Carlo spread of N lanes).
+``--mc-rf N`` the Monte-Carlo spread of N lanes), then
+``--run-hot-sparams`` (the periodic S-parameters' magnitude and phase per
+offset, default hot_sparams.csv; with ``--mc-rf N`` the spread of the
+widest entry) and ``--run-lssp`` (the large-signal S matrix, or with
+``--lssp-powers`` / ``--mc-rf N`` |Sij| per power from one batched HB).
 ``--probes-only`` keeps the .PLOTNV/.PLOTNC/.PRINT columns in the CSVs,
 ``--raw`` writes every plot into one ngspice rawfile, ``--stats`` the
 transient's run metadata as JSON, ``--profile`` a torch.profiler Chrome
@@ -152,10 +160,38 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--env-order", type=int, choices=[1, 2], default=1,
                    help="envelope integrator: 1 = backward Euler, "
                         "2 = trapezoidal")
+    p.add_argument("--run-hot-sparams", metavar="PORTS", default=None,
+                   help="periodic (hot) S-parameters around the .hb PSS: "
+                        "same port grammar as --run-sparams; offset "
+                        "frequencies from --psp-deltas; writes the "
+                        "conversion scattering entries "
+                        "(default hot_sparams.csv)")
+    p.add_argument("--psp-deltas", metavar="D1,D2,...", default=None,
+                   help="offset frequencies for --run-hot-sparams")
+    p.add_argument("--psp-sidebands", type=int, default=1,
+                   help="sidebands -M..M kept in --run-hot-sparams")
+    p.add_argument("--hot-sparams-out", metavar="CSV", default=None,
+                   help="CSV path for --run-hot-sparams "
+                        "(default hot_sparams.csv)")
+    p.add_argument("--run-lssp", metavar="PORTS", default=None,
+                   help="large-signal S-parameters on the .hb carrier: "
+                        "comma-separated Thevenin ports 'SRC:NODE[@z0]' "
+                        "(V source + series z0 resistor in the deck), "
+                        "driven at --lssp-power; prints the S matrix")
+    p.add_argument("--lssp-power", type=float, default=1e-3,
+                   help="available drive power in watts for --run-lssp")
+    p.add_argument("--lssp-powers", metavar="P1,P2,...", default=None,
+                   help="power sweep for --run-lssp: comma-separated "
+                        "available powers in watts, the whole "
+                        "compression curve solved as one batched HB "
+                        "(Simulator.lssp_batched); prints |Sij| per power")
     p.add_argument("--mc-rf", metavar="N", type=int, default=None,
                    help="Monte-Carlo lanes for the RF analyses: with "
-                        "--run-envelope runs monte_carlo_envelope as one "
-                        "batched program over the netlist's DEV=/LOT= "
+                        "--run-hot-sparams runs monte_carlo_psp, with "
+                        "--run-lssp runs monte_carlo_lssp (honors "
+                        "--lssp-powers), with --run-envelope runs "
+                        "monte_carlo_envelope, each as one batched "
+                        "program over the netlist's DEV=/LOT= "
                         "tolerances; prints mean/std summaries "
                         "(--mc-sampler selects the sampling plan)")
     p.add_argument("--mc-sampler", default="mc",
@@ -288,15 +324,7 @@ def _run_sparams(sim, args, x) -> int:
     from .analysis.sparams import write_touchstone
     print("\nRunning S-parameter extraction...")
     try:
-        ports = []
-        for spec in args.run_sparams.split(","):
-            spec = spec.strip()
-            z0 = 50.0
-            if "@" in spec:
-                spec, z0txt = spec.split("@", 1)
-                z0 = float(z0txt)
-            pm = spec.split(":", 1)
-            ports.append((pm[0], pm[1] if len(pm) > 1 else None, z0))
+        ports = _ports(args.run_sparams, thevenin=False)
         sres = sim.sparams(ports, x_op=x)
         out = args.sparams_out or f"sparams.s{len(ports)}p"
         write_touchstone(out, sres)
@@ -440,6 +468,128 @@ def _run_envelope(sim, args) -> int:
                       f"+/- {fin[:, eq].std():.3e}")
     except Exception as e:  # noqa: BLE001
         print(f"Envelope transient failed: {e}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def _ports(spec_list: str, thevenin: bool):
+    """Comma-separated ports 'P[:M][@z0]' (--run-hot-sparams) or
+    'SRC:NODE[@z0]' (--run-lssp), z0 50 ohm by default."""
+    ports = []
+    for spec in spec_list.split(","):
+        spec = spec.strip()
+        z0 = 50.0
+        if "@" in spec:
+            spec, z0txt = spec.split("@", 1)
+            z0 = float(z0txt)
+        parts = spec.split(":", 1)
+        if thevenin:
+            if len(parts) != 2:
+                raise ValueError("--run-lssp port wants 'SRC:NODE[@z0]'")
+            ports.append((parts[0], parts[1], z0))
+        else:
+            ports.append((parts[0], parts[1] if len(parts) > 1 else None,
+                          z0))
+    return ports
+
+
+def _run_hot_sparams(sim, args) -> int:
+    """--run-hot-sparams PORTS --psp-deltas D1,...: the conversion
+    scattering entries' magnitude and phase per offset in a CSV, then
+    (--mc-rf N) the Monte-Carlo spread of the widest entry."""
+    import numpy as np
+    print("\nRunning periodic (hot) S-parameter extraction...")
+    try:
+        if not args.psp_deltas:
+            raise ValueError("--run-hot-sparams needs --psp-deltas")
+        deltas = [float(v) for v in args.psp_deltas.split(",")]
+        ports = _ports(args.run_hot_sparams, thevenin=False)
+        res = sim.hot_sparams(ports, deltas, n_sidebands=args.psp_sidebands)
+        out = args.hot_sparams_out or "hot_sparams.csv"
+        n = len(ports)
+        hs = list(res.harmonics)
+        terms = [(mi, i, mj, j) for mi in hs for i in range(n)
+                 for mj in hs for j in range(n)]
+        with open(out, "w") as fh:
+            cols = ["delta"]
+            for mi, i, mj, j in terms:
+                tag = f"{i + 1}@{mi:+d};{j + 1}@{mj:+d}"
+                cols += [f"|S({tag})|", f"argS({tag})deg"]
+            fh.write(",".join(cols) + "\n")
+            for k, d in enumerate(res.deltas):
+                row = [d]
+                for mi, i, mj, j in terms:
+                    s = res.s[k, res.index(i, mi), res.index(j, mj)]
+                    row += [abs(s), np.degrees(np.angle(s))]
+                fh.write(",".join(f"{v:.9e}" for v in row) + "\n")
+        print(f"Hot S-parameters ({n} ports x sidebands "
+              f"{hs[0]}..{hs[-1]}, {len(res.deltas)} offsets) "
+              f"written to '{out}'.")
+        if args.mc_rf:
+            _, bres = sim.monte_carlo_psp(args.mc_rf, ports, deltas=deltas,
+                                          n_sidebands=args.psp_sidebands,
+                                          sampler=args.mc_sampler)
+            mag = np.abs(bres.s)                   # (B, F, P, P)
+            print(f"==== Monte-Carlo hot-S spread "
+                  f"({args.mc_rf} lanes, {args.mc_sampler}) ====")
+            for k, d in enumerate(bres.deltas):
+                st = mag[:, k].std(axis=0)
+                mn = mag[:, k].mean(axis=0)
+                ij = np.unravel_index(np.argmax(st), st.shape)
+                print(f"  delta={d:g}: widest entry "
+                      f"S[{ij[0]},{ij[1]}] = {mn[ij]:.6f} "
+                      f"+/- {st[ij]:.3e}")
+    except Exception as e:  # noqa: BLE001
+        print(f"Hot S-parameter extraction failed: {e}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def _run_lssp(sim, args) -> int:
+    """--run-lssp PORTS: the large-signal S matrix at --lssp-power, or
+    (--lssp-powers, --mc-rf N) |Sij| per power from one batched HB."""
+    import numpy as np
+    print("\nRunning large-signal S-parameter extraction...")
+    try:
+        ports = _ports(args.run_lssp, thevenin=True)
+        n = len(ports)
+        powers = ([float(v) for v in args.lssp_powers.split(",")]
+                  if args.lssp_powers else [args.lssp_power])
+        if args.mc_rf or len(powers) > 1:
+            if args.mc_rf:
+                _, out = sim.monte_carlo_lssp(args.mc_rf, ports,
+                                              powers=powers,
+                                              sampler=args.mc_sampler)
+            else:
+                out = sim.lssp_batched(ports, powers=powers)
+            S = np.abs(out["s"])                   # (B, Pw, n, n)
+            tag = f"{S.shape[0]} MC lanes, " if args.mc_rf else ""
+            print(f"==== Large-signal S-parameters "
+                  f"({tag}{len(powers)} powers, one dispatch) ====")
+            for ip, pw in enumerate(powers):
+                cells = [f"P={pw:g}W"]
+                for i in range(n):
+                    for j in range(n):
+                        m = S[:, ip, i, j].mean()
+                        sd = S[:, ip, i, j].std()
+                        cells.append(f"|S{i + 1}{j + 1}|={m:.6f}"
+                                     + (f"+/-{sd:.2e}" if args.mc_rf
+                                        else ""))
+                print("  ".join(cells))
+        else:
+            res = sim.lssp(ports, power=args.lssp_power)
+            print(f"==== Large-signal S-parameters "
+                  f"(P = {args.lssp_power:g} W) ====")
+            for i in range(n):
+                cells = []
+                for j in range(n):
+                    s = res["s"][i, j]
+                    cells.append(f"S{i + 1}{j + 1} = {abs(s):.6f} "
+                                 f"/{np.degrees(np.angle(s)):7.2f}deg")
+                print("  ".join(cells))
+    except Exception as e:  # noqa: BLE001
+        print(f"Large-signal S-parameter extraction failed: {e}",
+              file=sys.stderr)
         return 1
     return 0
 
@@ -610,6 +760,11 @@ def main(argv=None) -> int:
         rc = _run_sparams(sim, args, x)
         if rc:
             return rc
-    if args.run_envelope:
-        return _run_envelope(sim, args)
+    for flag, run in ((args.run_envelope, _run_envelope),
+                      (args.run_hot_sparams, _run_hot_sparams),
+                      (args.run_lssp, _run_lssp)):
+        if flag:
+            rc = run(sim, args)
+            if rc:
+                return rc
     return 0

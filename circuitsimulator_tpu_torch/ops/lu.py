@@ -19,6 +19,8 @@ by N alone and never on a failure of the kernel.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from . import cuda_lu
@@ -37,13 +39,76 @@ def _as_columns(A, b):
     return (A.expand(lead + (N, N)), bm.expand(lead + bm.shape[-2:]), vec)
 
 
+# the largest single system that _lu_solve_scalar takes: its O(N^3) Python
+# loop beats the torch loop's O(N) operations up to about N = 50
+SCALAR_MAX_N = 32
+
+
+def _lu_solve_scalar(A, B, pivot_floor: float):
+    """``lu_solve_plain`` of one float64 system as Python floats (IEEE
+    doubles): the same pivot choice, row swap, update and back
+    substitution, operation for operation, without torch's per-operation
+    cost, which dominates the single-lane loops on the CPU.  A (N, N) and
+    B (N, R) nested lists; returns x as nested lists."""
+    N = len(A)
+    M = [A[i] + B[i] for i in range(N)]
+    W = len(M[0])
+    minpiv = math.inf
+    for k in range(N):
+        best, p = -1.0, k
+        for i in range(k, N):
+            v = abs(M[i][k])
+            if v != v:                  # a NaN counts as largest
+                best, p = v, i
+                break
+            if v > best:
+                best, p = v, i
+        if best != best or minpiv != minpiv:
+            minpiv = math.nan
+        elif best < minpiv:
+            minpiv = best
+        if p != k:
+            M[k], M[p] = M[p], M[k]
+        rowk = M[k]
+        pivot = rowk[k]
+        safe = 1.0 if pivot == 0.0 else pivot
+        for i in range(k + 1, N):
+            row = M[i]
+            f = row[k] / safe
+            for j in range(k + 1, W):
+                row[j] = row[j] - f * rowk[j]
+    R = W - N
+    x = [[0.0] * R for _ in range(N)]
+    for j in range(N - 1, -1, -1):
+        row = M[j]
+        d = row[j]
+        dsafe = 1.0 if d == 0.0 else d
+        zero = abs(d) < pivot_floor
+        xj = x[j]
+        for r in range(R):
+            acc = 0.0
+            for i in range(j + 1, N):
+                acc = acc + row[i] * x[i][r]
+            xj[r] = 0.0 if zero else (row[N + r] - acc) / dsafe
+    if minpiv < pivot_floor:
+        x = [[0.0] * R for _ in range(N)]
+    return x
+
+
 @torch.inference_mode()
 def lu_solve_plain(A, b, pivot_floor: float = 1e-15):
-    """Plain batched solve: A (..., N, N), b (..., N) or (..., N, R)."""
+    """Plain batched solve: A (..., N, N), b (..., N) or (..., N, R).  One
+    float64 system of at most SCALAR_MAX_N unknowns on the CPU takes
+    ``_lu_solve_scalar``, the same algorithm on Python floats."""
     N = A.shape[-1]
     if N == 0:
         return b
     A, B, vec = _as_columns(A, b)
+    if (A.dim() == 2 and N <= SCALAR_MAX_N and A.device.type == "cpu"
+            and A.dtype == torch.float64):
+        x = torch.tensor(_lu_solve_scalar(A.tolist(), B.tolist(),
+                                          pivot_floor), dtype=A.dtype)
+        return x[..., 0] if vec else x
     # augmented [A | B]: one row swap and one update per column serve both
     M = torch.cat([A, B], dim=-1)
     lead = M.shape[:-2]

@@ -1521,3 +1521,55 @@ def test_shooting_and_envelope_match_cpu(cuda_device):
     assert card[3] > 0 and card[1] == cpu[1]
     assert float((card[0] - cpu[0]).abs().max()) <= 1e-9
     assert float(np.abs(card[2] - cpu[2]).max()) <= 1e-9
+
+
+def _rel_err(got, ref):
+    got, ref = np.asarray(got), np.asarray(ref)
+    return float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-300))
+
+
+@pytest.mark.cuda
+def test_pac_family_matches_cpu(cuda_device):
+    """The periodic small-signal analyses of mixer_rf.sp around the port's
+    own HB steady state (the PSS path launches K2): PAC, PXF, PNOISE, the
+    mixer noise figure, the hot S-parameters and pnoise_batched over three
+    lanes; the envelope noise of am_envelope.sp and pnoise on the T-line
+    deck.  Card against CPU, f64, within 1e-9 of each result's largest
+    magnitude."""
+    from circuitsimulator_tpu_torch.analysis.pac import pnoise_batched
+    d = [1e5, 1e6]
+    out = {}
+    for dev in ("cpu", cuda_device):
+        sim = Simulator.from_file(os.path.join(REPO, "examples/mixer_rf.sp"),
+                                  device=dev)
+        before = cuda_lu.LAUNCHES
+        pss = sim._pss_samples(sim.params, 1e7, None, warmup_periods=2)
+        k2 = cuda_lu.LAUNCHES - before
+        r = {"pss": pss.cpu().numpy(),
+             "pac": sim.pac(d, pss_xs=pss).spectrum,
+             "pxf": sim.pxf(d, "if", pss_xs=pss).xf_v,
+             "pnoise": sim.pnoise(d, "if", pss_xs=pss).onoise,
+             "nf": sim.mixer_noise_figure("Rrf", 1e5, "if", pss_xs=pss),
+             "psp": sim.hot_sparams([("if", None, 50.0)], d,
+                                    pss_xs=pss).s}
+        bp = {k: v.expand((3,) + v.shape).clone()
+              for k, v in sim.params.items()}
+        bp["res_r"] = bp["res_r"] * torch.linspace(
+            0.95, 1.05, 3, dtype=torch.float64, device=dev)[:, None]
+        eq = sim.circuit.nodes[sim.circuit.node_name_to_id["if"]].eq_index
+        r["pnoise_b"] = pnoise_batched(sim.engine, bp, 1e7,
+                                       pss.expand((3,) + pss.shape), d,
+                                       eq).onoise
+        am = Simulator.from_file(os.path.join(REPO, "examples/am_envelope.sp"),
+                                 device=dev)
+        env = am.envelope(3e-7, 1e-7, n_harm=5, warmup_periods=1)
+        r["envnoise"] = am.envelope_noise(d, "out", env=env).onoise
+        tl = Simulator.from_text(HB_TL, device=dev)
+        r["tline"] = tl.pnoise(d, "3", f0=1e8, n_harm=5,
+                               warmup_periods=2).onoise
+        out[str(dev)[:4]] = (r, k2)
+    (cpu, _), (card, k2) = out["cpu"], out["cuda"]
+    assert k2 > 0
+    assert float(np.abs(card["pss"] - cpu["pss"]).max()) <= 1e-9
+    for k in cpu:
+        assert _rel_err(card[k], cpu[k]) <= 1e-9, k

@@ -234,6 +234,9 @@ def test_port_never_imports_jax():
             "from circuitsimulator_tpu_torch.utils import prng\n"
             "from circuitsimulator_tpu_torch.analysis import (envelope, hb, "
             "hb_diff, hbmulti, sstate)\n"
+            "from circuitsimulator_tpu_torch.analysis import (envnoise, pac, "
+            "psp)\n"
+            "from circuitsimulator_tpu_torch import cli\n"
             "from circuitsimulator_tpu_torch.ops import gmres\n"
             "from circuitsimulator_tpu_torch.netlist import "
             "parse_netlist_text, read_netlist\n"

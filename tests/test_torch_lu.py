@@ -186,3 +186,31 @@ def test_large_route_lets_a_nan_through():
                              FLOOR).numpy()
     assert np.isfinite(got[0]).all() and np.isnan(got[1]).any()
     assert np.isnan(plain(A, b)[1]).any()
+
+
+@pytest.mark.parametrize("n", [1, 5, 17, tlu.SCALAR_MAX_N])
+def test_single_system_scalar_path_matches_batched_plain(n):
+    """One float64 system on the CPU (``_lu_solve_scalar``, Python floats)
+    against the same system as a batch of one (the torch loop): a system
+    that pivots, a singular one, one below the pivot floor and one holding
+    a NaN; x within 1e-14 of its largest entry, zeros and NaNs where the
+    batch has them; a vector and a matrix right-hand side."""
+    rng = np.random.default_rng(n)
+    cases = [rng.standard_normal((n, n))[::-1].copy(), np.zeros((n, n)),
+             1e-16 * rng.standard_normal((n, n))]
+    cases[1][0, 0] = 1.0
+    nan = rng.standard_normal((n, n))
+    nan[n // 2, 0] = np.nan
+    cases.append(nan)
+    for A in cases:
+        for b in (rng.standard_normal(n), rng.standard_normal((n, 3))):
+            At, bt = torch.as_tensor(A), torch.as_tensor(b)
+            x = tlu.lu_solve_plain(At, bt, FLOOR).numpy()
+            ref = tlu.lu_solve_plain(At[None], bt[None], FLOOR)[0].numpy()
+            assert x.shape == ref.shape
+            np.testing.assert_array_equal(np.isnan(x), np.isnan(ref))
+            np.testing.assert_array_equal(x == 0.0, ref == 0.0)
+            fin = np.isfinite(ref)
+            scale = max(float(np.abs(ref[fin]).max(initial=0.0)), 1e-300)
+            assert float(np.abs(x[fin] - ref[fin]).max(initial=0.0)) \
+                <= 1e-14 * scale
