@@ -347,11 +347,21 @@ Phases (one JSON line each):
      --run-hot-sparams CLI (each through its own HB, K2) against the CPU's
      (1e-9).  Per run: LPTV systems, ms a system, the library solves'
      share of the wall, K2 launches and peak MiB.
+ 42. oscillators: the oscillator stack through Simulator's entry points
+     and the CLI (phase_oscillators): shooting, its PPV phase noise and
+     injection lock, the HB oscillator (dense, GMRES), the HB PPV and lock
+     on van der Pol and the Meissner MOS + K deck, subharmonic locking,
+     PSS Floquet stability on a driven RC and T-line deck, --run-osc on
+     examples/delay_osc.sp (the large-N route), the Monte-Carlo oscillator
+     phase noise of osc_yield's deck at B = 4,096 f64 and 64 f32 lanes,
+     jitter over 1,024 TRNOISE lanes; each held to the port's CPU run
+     (worker processes started before phase 38) at 1e-9 relative; K2 at
+     every shape the phase sent it against lu_solve_plain.
 
 Every error of K3 and of the AC path is lane-relative: for each lane
 max|x - ref| / max|ref| over its frequencies and unknowns, then the worst
 lane.  Kernel launch counts are reset just before each main-path run
-(phases 4, 7, 8, 11, 12, 13, 15, 16, 18, 22, 25, 27 and 29-41) and read
+(phases 4, 7, 8, 11, 12, 13, 15, 16, 18, 22, 25, 27 and 29-42) and read
 just after it.  The
 junction decks run the damped while-loop Newton configuration at f32
 tolerances: the fast configuration (alpha 1, predictor, two unrolled
@@ -5595,6 +5605,416 @@ def phase_pac(cpu_refs, harm):
     return out
 
 
+# ---------------------------------------------------------------- phase 42
+OSC_VDP = ("* van der pol lc oscillator\nL1 a 0 1u\nC1 a 0 1n\nRl a 0 2k\n"
+           "Bneg a 0 I=-2m*v(a) + 0.5m*v(a)**3\n.op\n")
+# the quadratic term mixes 2 f_inj onto f0: subharmonic (m = 2) locking
+OSC_VDP2 = OSC_VDP.replace("0.5m*v(a)**3", "0.5m*v(a)**3 + 2m*v(a)**2")
+# examples/osc_yield.py's deck: L and C 2%, the loss 5%
+OSC_YIELD = ("* van der pol lc oscillator w/ tolerances\nL1 a 0 1u DEV=2%\n"
+             "C1 a 0 1n DEV=2%\nRl a 0 2k DEV=5%\n"
+             "Bneg a 0 I=-2m*v(a) + 0.5m*v(a)**3\n.op\n")
+OSC_MEISSNER = (
+    "* meissner (transformer-feedback) mos oscillator, class A\n"
+    ".MODEL 1 VT 0.7 MU 5e-2 COX 2e-3 LAMBDA 0.01 KF 1e-15 AF 1\n"
+    "VDD 1 0 3\nVG gb 0 1.2\nL1 g gb 100u\nC1 g 0 100p\nRl g 0 5k\n"
+    "Blim g 0 I=100m*(v(g)-1.2)**3\nL2 1 d 10u\nK1 L1 L2 0.5\n"
+    "M1 d g 0 n 60e-6 1e-6 1\n.op\n")
+OSC_FLOQUET = {
+    "rc": "* driven rc\nI1 0 a SIN 0 1m 5e6\nR1 a 0 1k\nC1 a 0 1e-10\n"
+          ".hb 5e6 5\n",
+    "tline": "* driven line\nV1 src 0 SIN 0 1 20e6\nRs src in 10\n"
+             "T1 in 0 out 0 Z0=50 TD=7n\nRL out 0 200\nC1 out 0 30p\n"
+             ".hb 20e6 4\n"}
+# tests/test_jitter.py's noisy edges, .TRAN cut from 8 ms (8 edges) to 2.2
+# (3 edges): 10.7 ms a step over 1,024 lanes (20 damped iterations)
+OSC_JITTER_STEPS = 2200
+OSC_JITTER = ("* noisy edges\nV1 in 0 PULSE(0 1 1e-4 1e-4 1e-4 3e-4 1e-3) "
+              "TRNOISE(5m 4e-6)\nR1 in out 1k\nR2 out 0 1k\n"
+              ".TRAN 1e-6 2.2e-3\n.end\n")
+OSC_OFFSETS = [1e3, 1e4, 1e5]
+# depth cuts of phase 42 (the card and the CPU references alike; the
+# solvers' defaults are 256 steps a period after 30 warm-up periods from a
+# 0.5 V kick; a warm-up step costs 30-50 ms on the card, ~30 damped
+# Newton iterations at the 1e-9 tolerance): shooting and the HB warm-ups
+# at 32 steps a period after 2 periods (3 on Meissner) from a kick near
+# the limit cycle; the delay-line CLI's HB warm-up at 96 steps a period
+# over 20 periods (from its 0.5 V kick: 14 periods, or 80 steps a period,
+# settle on other modes)
+OSC_SHOOT = {"steps_per_period": 32, "warmup_periods": 2, "kick": 1.8}
+OSC_SHOOT_MEISSNER = {"steps_per_period": 32, "warmup_periods": 3,
+                      "kick": 2.0}
+OSC_DELAY_WARM = {"steps_per_period": 96, "warmup_periods": 20}
+OSC_MC_B, OSC_MC_CPU_LANES, OSC_F32_B, OSC_JITTER_B = 4096, 8, 64, 1024
+
+
+def _osc_host(x):
+    import numpy as np
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _osc_run(task, device, timed):
+    """One group of phase 42's oscillator paths on ``device`` through the
+    Simulator's entry points and the CLI; ``timed(name, fn)`` runs each
+    (measured on the card).  Returns {run: {key: numpy}}."""
+    import numpy as np
+    from circuitsimulator_tpu_torch import Simulator
+    from circuitsimulator_tpu_torch.analysis import hbosc
+    out = {}
+    if task in ("vdp", "meissner"):
+        deck, f0, node, kw = (
+            (OSC_VDP, 5e6, "a", OSC_SHOOT) if task == "vdp"
+            else (OSC_MEISSNER, 1.6e6, "g", OSC_SHOOT_MEISSNER))
+        s = Simulator.from_text(deck, device=device)
+        osc = timed(f"shoot_{task}_f64", lambda: s.oscillator(f0, node, **kw))
+        out[f"shoot_{task}_f64"] = {
+            "f0": np.asarray(osc.f0), "xs": _osc_host(osc.xs),
+            "iters": np.asarray(osc.newton_iters),
+            "converged": np.asarray(bool(osc.converged))}
+        pn = timed(f"pn_{task}_f64", lambda: s.oscillator_phase_noise(
+            OSC_OFFSETS, osc=osc))
+        out[f"pn_{task}_f64"] = {"c": np.asarray(pn.c),
+                                 "c_flicker": np.asarray(pn.c_flicker),
+                                 "L_dbc": pn.L_dbc,
+                                 "per_source": pn.per_source}
+        il = timed(f"lock_{task}_f64", lambda: s.injection_lock(
+            node, 1e-3, osc=osc))
+        out[f"lock_{task}_f64"] = {"range": np.asarray(il.lock_range_hz)}
+        hbs = {}
+        for solver in (("dense", "gmres") if task == "vdp" else ("dense",)):
+            r = timed(f"hb_{task}_{solver}_f64", lambda solver=solver:
+                      s.oscillator_hb(f0, node, solver=solver, **kw))
+            hbs[solver] = r
+            out[f"hb_{task}_{solver}_f64"] = {
+                "f0": np.asarray(r.f0), "xs": _osc_host(r.xs),
+                "iters": np.asarray(r.newton_iters),
+                "converged": np.asarray(bool(r.converged))}
+        pnh = timed(f"pn_hb_{task}_f64", lambda: s.oscillator_phase_noise_hb(
+            OSC_OFFSETS, osc=hbs["dense"]))
+        out[f"pn_hb_{task}_f64"] = {"c": np.asarray(pnh.c),
+                                    "L_dbc": pnh.L_dbc}
+        ilh = timed(f"lock_hb_{task}_f64", lambda: s.injection_lock(
+            node, 1e-3, osc=hbs["dense"]))
+        out[f"lock_hb_{task}_f64"] = {"range": np.asarray(ilh.lock_range_hz)}
+    elif task == "sub":
+        s = Simulator.from_text(OSC_VDP2, device=device)
+        r = timed("hb_vdp2_dense_f64",
+                  lambda: s.oscillator_hb(5e6, "a", **OSC_SHOOT))
+        sl = timed("sublock_vdp2_f64", lambda: s.subharmonic_lock(
+            "a", 10e-3, m=2, osc=r))
+        out["sublock_vdp2_f64"] = {
+            "f0": np.asarray(sl.f0), "f_lo": np.asarray(sl.f_lo),
+            "f_hi": np.asarray(sl.f_hi),
+            "center": _osc_host(sl.locked_center)}
+    elif task == "floquet":
+        for name, deck in OSC_FLOQUET.items():
+            s = Simulator.from_text(deck, device=device)
+            ss = timed(f"pss_{name}_f64", lambda s=s: s.steady_state(
+                steps_per_period=32, warmup_periods=1))
+            st = timed(f"floquet_{name}_f64",
+                       lambda s=s, ss=ss: s.pss_stability(ss=ss))
+            out[f"floquet_{name}_f64"] = {
+                "multipliers": np.sort_complex(st.multipliers),
+                "lambda_max": np.asarray(st.lambda_max),
+                "stable": np.asarray(st.stable)}
+    elif task == "delay_cli":
+        import functools
+        d = tempfile.mkdtemp(prefix="osc_cli_")
+        real = hbosc.oscillator_hb
+        hbosc.oscillator_hb = functools.partial(real, **OSC_DELAY_WARM)
+        cwd = os.getcwd()
+        try:
+            os.chdir(d)
+            rc, stdout, _ = timed("cli_osc_delay_f64", lambda: _cli(
+                [os.path.join(EXAMPLES, "delay_osc.sp"), "t.csv",
+                 "--run-osc", "1e8:a:osc.csv", "--device", device]))
+            csv = np.loadtxt("osc.csv", delimiter=",", skiprows=1) \
+                if rc == 0 else None
+        finally:
+            hbosc.oscillator_hb = real
+            os.chdir(cwd)
+            shutil.rmtree(d, ignore_errors=True)
+        out["cli_osc_delay_f64"] = {"rc": np.asarray(rc), "csv": csv,
+                                    "stdout": np.asarray(stdout)}
+    elif task == "jitter":
+        s = Simulator.from_text(OSC_JITTER, device=device)
+        j = timed("jitter_edges_f64",
+                  lambda: s.jitter("in", 0.5, n=OSC_JITTER_B))
+        out["jitter_edges_f64"] = {k: np.asarray(j[k]) for k in (
+            "edge_times", "edge_jitter", "period_jitter", "n_edges")}
+    return out
+
+
+def _osc_mc_lanes(lanes, device, dtype_name="float64"):
+    """The Monte-Carlo oscillator path on given lanes (numpy leaves): the
+    batched HB and its phase noise, f64 (the CPU reference of the card's
+    first lanes) or f32; as numpy."""
+    import torch
+    from circuitsimulator_tpu_torch import DEFAULT_OPTIONS, Simulator
+    from circuitsimulator_tpu_torch.analysis import hbosc
+    dtype = getattr(torch, dtype_name)
+    sim = Simulator.from_text(OSC_YIELD, opts=DEFAULT_OPTIONS.replace(
+        dtype=dtype), device=device)
+    bp = {k: (torch.as_tensor(v, device=device).to(dtype)
+              if v.dtype.kind == "f" else torch.as_tensor(v, device=device))
+          for k, v in lanes.items()}
+    r = hbosc.oscillator_hb_batched(sim.engine, bp, 5e6, sim._node_eq("a"),
+                                    **OSC_SHOOT)
+    r = hbosc.oscillator_phase_noise_hb_batched(sim.engine, bp, r,
+                                                OSC_OFFSETS)
+    return {"f0": r.f0, "xs": _osc_host(r.xs), "c": r.c, "L_dbc": r.L_dbc,
+            "converged": r.converged}
+
+
+def _osc_cpu(task, lanes=None):
+    """A CPU reference of phase 42 in a worker process."""
+    import torch
+    sys.path.insert(0, REPO)
+    torch.set_num_threads(2)
+    if task == "mc":
+        return _osc_mc_lanes(lanes, "cpu")
+    return _osc_run(task, "cpu", lambda name, fn: fn())
+
+
+OSC_TASKS = ("meissner", "delay_cli", "jitter", "vdp", "sub", "floquet")
+
+
+def start_osc_cpu():
+    """The pool and futures of phase 42's CPU references (the Monte-Carlo
+    lanes' is submitted by the phase, from the card's draws)."""
+    import multiprocessing
+    pool = concurrent.futures.ProcessPoolExecutor(
+        3, mp_context=multiprocessing.get_context("spawn"))
+    return pool, {t: pool.submit(_osc_cpu, t) for t in OSC_TASKS}
+
+
+class _K2Shapes:
+    """The first system of every shape that K2 (cuda_lu.lu_solve_cuda) and
+    the large-N route (lu.lu_solve_large) receive inside the block, cloned
+    and labelled with the run that sent it."""
+
+    def __enter__(self):
+        from circuitsimulator_tpu_torch.ops import cuda_lu, lu
+        self.mods = (cuda_lu, lu)
+        self.real = (cuda_lu.lu_solve_cuda, lu.lu_solve_large)
+        self.seen, self.run = {}, None
+
+        def wrap(fn, route):
+            def call(A, b, *a, **kw):
+                key = (route, tuple(A.shape), tuple(b.shape), str(A.dtype))
+                if key not in self.seen:
+                    self.seen[key] = (self.run, A.clone(), b.clone())
+                return fn(A, b, *a, **kw)
+            return call
+
+        cuda_lu.lu_solve_cuda = wrap(self.real[0], "k2")
+        lu.lu_solve_large = wrap(self.real[1], "large")
+        return self
+
+    def __exit__(self, *exc):
+        self.mods[0].lu_solve_cuda, self.mods[1].lu_solve_large = self.real
+        return False
+
+
+def _osc_shape_rows(seen):
+    """Every recorded shape: K2 (or the large-N route) against
+    lu_solve_plain on the run's own system (lane-relative; 1e-9 in f64,
+    1e-4 in f32), per call, plain, solve_ex and bound ms."""
+    import torch
+    from circuitsimulator_tpu_torch.ops import lu
+    rows = []
+    for (route, ashape, bshape, dt), (run, A, b) in seen.items():
+        if A.dim() == 2:
+            A, b = A[None], b[None]
+        bm = b if b.dim() == A.dim() else b[..., None]
+        B, N, R = bm.shape[0], A.shape[-1], bm.shape[-1]
+        fn = (lu.lu_solve if route == "k2" else
+              lambda A, b, f: lu.lu_solve_large(A, b, f))
+        got = fn(A, bm, FLOOR)
+        want = lu.lu_solve_plain(A, bm, FLOOR)
+        err = _lane_rel_err(got.reshape(B, N, R), want.reshape(B, N, R))
+        tol = 1e-9 if A.dtype == torch.float64 else 1e-4
+        check(err <= tol, f"phase 42 {route} at {(B, N, R)} {dt} ({run}) "
+              f"vs plain: {err}")
+        size = A.element_size()
+        bms, by = bound_ms(B * (N * N + 2 * N * R) * size,
+                           B * (sum(m + 2 * m * m for m in range(N))
+                                + R * sum(4 * m + 1 for m in range(N))),
+                           A.dtype)
+        rows.append({"route": route, "run": run, "B": B, "N": N, "R": R,
+                     "dtype": dt[6:], "lane_rel_err": err,
+                     "kernel_ms": cuda_ms(lambda: fn(A, bm, FLOOR)),
+                     "plain_ms": cuda_ms(lambda: lu.lu_solve_plain(
+                         A, bm, FLOOR), reps=5, warmup=1),
+                     "library_ms": cuda_ms(lambda: torch.linalg.solve_ex(
+                         A, bm)),
+                     "bound_ms": bms, "bound_by": by})
+    return rows
+
+
+# the batched PPV's inverse iteration on the regularised J^T (eps = 1e-9
+# ||J||_F / n, four solves) resolves the null vector to about 1e-8 between
+# two LU implementations: c and L(df) of the Monte-Carlo lanes are held at
+# 1e-8, the JAX package's own bar for them against its host SVD
+OSC_MC_PPV_BAR = 1e-8
+
+
+def _osc_compare(card, ref, bad, bars=None):
+    """card vs CPU, 1e-9 relative (``bars``: per key), every array of every
+    run; counts and masks equal.  Failures are appended to ``bad``."""
+    import numpy as np
+    errs = {}
+    for run, keys in ref.items():
+        for k, want in keys.items():
+            got = card[run][k]
+            if k in ("iters", "converged", "rc", "stable", "n_edges"):
+                if not np.array_equal(got, want):
+                    bad.append(f"{run} {k}: {got} vs CPU {want}")
+                continue
+            if k == "stdout":
+                errs[f"{run}_stdout_lines_equal_cpu"] = \
+                    str(got).splitlines() == str(want).splitlines()
+                continue
+            e = _rel(got, want)
+            errs[f"{run}_{k}_vs_cpu_rel"] = e
+            if e > (bars or {}).get(k, 1e-9):
+                bad.append(f"{run} {k} card vs CPU: {e}")
+    return errs
+
+
+def phase_oscillators(cpu_refs, pool):
+    """Phase 42: the oscillator stack on the card through Simulator's entry
+    points and the CLI, every path held to the port's CPU run (worker
+    processes) at 1e-9 relative, Newton counts and masks equal.
+    Autonomous shooting, its PPV phase noise and injection lock, the HB
+    oscillator (dense; GMRES on van der Pol), the HB PPV and lock, on van
+    der Pol and the Meissner MOS + K deck; subharmonic locking (m = 2) on
+    the asymmetric van der Pol; PSS Floquet stability on a driven RC and a
+    driven T-line deck; --run-osc 1e8:a on examples/delay_osc.sp (HB, the
+    bordered system on the large-N route); the Monte-Carlo oscillator
+    phase noise of examples/osc_yield.py's deck at B = 4,096 f64 (the CPU
+    holds the first 8 lanes) and 64 f32 lanes of the same draws (f0
+    within 1e-4 of f64); jitter over 1,024 TRNOISE lanes.  Depth cuts:
+    OSC_SHOOT, OSC_SHOOT_MEISSNER, OSC_DELAY_WARM and the jitter deck's
+    2.2 ms; the Monte-Carlo PPV's c and L(df) at OSC_MC_PPV_BAR.  Per run: wall seconds, warm-up seconds, Newton iterations and
+    ms a Newton iteration, K2 launches, large-N route calls, peak MiB;
+    then K2 (and the large-N route) at every shape the phase sent it, on
+    the runs' own systems, against lu_solve_plain, with plain, solve_ex
+    and bound ms."""
+    import numpy as np
+    import torch
+    from circuitsimulator_tpu_torch import Simulator
+    from circuitsimulator_tpu_torch.analysis import hbosc, sstate
+    from circuitsimulator_tpu_torch.ops import cuda_lu, lu
+    t_phase = time.perf_counter()
+    out = {"runs": {}}
+    warm = {"s": 0.0}
+    real_w = sstate.kicked_warmup
+
+    def warmup(*a, **kw):
+        t0 = time.perf_counter()
+        res = real_w(*a, **kw)
+        torch.cuda.synchronize()
+        warm["s"] += time.perf_counter() - t0
+        return res
+
+    def measured(name, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_lu.LAUNCHES = 0
+        lu.LARGE_CALLS = 0
+        warm["s"] = 0.0
+        shapes.run = name
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        iters = getattr(res, "newton_iters", None)
+        m = {"wall_s": wall, "warmup_s": warm["s"],
+             "newton_iters": iters,
+             "ms_per_newton": (1e3 * (wall - warm["s"]) / iters
+                               if iters else None),
+             "k2_launches": cuda_lu.LAUNCHES,
+             "large_route_calls": lu.LARGE_CALLS,
+             "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20}
+        out["runs"][name] = m
+        emit(f"oscillators_{name}", **m)
+        return res
+
+    sstate.kicked_warmup = hbosc.kicked_warmup = warmup
+    try:
+        with _K2Shapes() as shapes:
+            # the Monte-Carlo path first: its CPU reference needs the draws
+            sim = Simulator.from_text(OSC_YIELD, device="cuda")
+            bp, mc = measured(
+                "mc_osc_yield_b4096_f64",
+                lambda: sim.monte_carlo_oscillator_phase_noise(
+                    OSC_MC_B, OSC_OFFSETS, 5e6, "a", seed=42, **OSC_SHOOT))
+            m = out["runs"]["mc_osc_yield_b4096_f64"]
+            m["lanes_per_s"] = OSC_MC_B / m["wall_s"]
+            lanes = {k: v[:OSC_F32_B].cpu().numpy() for k, v in bp.items()}
+            mc_ref = pool.submit(_osc_cpu, "mc", {
+                k: v[:OSC_MC_CPU_LANES] for k, v in lanes.items()})
+            r32 = measured("mc_osc_yield_b64_f32", lambda: _osc_mc_lanes(
+                lanes, "cuda", "float32"))
+            m = out["runs"]["mc_osc_yield_b64_f32"]
+            m["lanes_per_s"] = OSC_F32_B / m["wall_s"]
+            card = {}
+            for task in OSC_TASKS:
+                card.update(_osc_run(task, "cuda", measured))
+    finally:
+        sstate.kicked_warmup = real_w
+        hbosc.kicked_warmup = real_w
+    checks = {}
+    conv = np.asarray(mc.converged)
+    checks["mc_f64_lanes_converged"] = int(conv.sum())
+    check(conv.mean() >= 0.99, f"Monte-Carlo oscillators: {conv.sum()} of "
+          f"{OSC_MC_B} lanes converged")
+    n = OSC_MC_CPU_LANES
+    mc_card = {"mc": {"f0": mc.f0[:n], "xs": _osc_host(mc.xs)[:n],
+                      "c": mc.c[:n], "L_dbc": mc.L_dbc[:n],
+                      "converged": mc.converged[:n]}}
+    bad = []
+    checks.update(_osc_compare(mc_card, {"mc": mc_ref.result()}, bad,
+                               {"c": OSC_MC_PPV_BAR,
+                                "L_dbc": OSC_MC_PPV_BAR}))
+    good = conv[:OSC_F32_B] & r32["converged"]
+    checks["f32_lanes_converged"] = int(r32["converged"].sum())
+    checks["f32_vs_f64_f0_rel"] = float(
+        np.abs(r32["f0"][good] / mc.f0[:OSC_F32_B][good] - 1.0).max())
+    checks["f32_vs_f64_c_rel"] = float(
+        np.abs(r32["c"][good] / mc.c[:OSC_F32_B][good] - 1.0).max())
+    check(r32["converged"].all(), "f32 oscillator lanes converged")
+    check(checks["f32_vs_f64_f0_rel"] <= 1e-4, "f32 lanes' f0 vs f64")
+    ref = {}
+    for task in OSC_TASKS:
+        ref.update(cpu_refs[task].result())
+    checks.update(_osc_compare(card, ref, bad))
+    for run, r in card.items():
+        if "converged" in r:
+            check(bool(r["converged"]), f"phase 42 {run} converged")
+    # every path that runs a transient, a shooting Newton or PPV tangents
+    # launched K2; the HB PPV and the subharmonic search run library solves
+    for name, m in out["runs"].items():
+        if not name.startswith(("pn_hb", "lock_hb", "sublock")):
+            check(m["k2_launches"] > 0, f"phase 42 {name}: K2 launched")
+    check(out["runs"]["cli_osc_delay_f64"]["large_route_calls"] > 0,
+          "the delay oscillator's bordered HB on the large-N route")
+    jt = out["runs"]["jitter_edges_f64"]
+    jt["lane_steps_per_s"] = OSC_JITTER_B * OSC_JITTER_STEPS / jt["wall_s"]
+    out["k2_shapes"] = _osc_shape_rows(shapes.seen)
+    for r in out["k2_shapes"]:
+        emit("oscillators_k2_shape", **r)
+    out["checks"] = checks
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    emit("oscillators", phase_seconds=out["phase_seconds"], **checks)
+    check(not bad, "phase 42: " + "; ".join(bad))
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5651,11 +6071,14 @@ def main():
     # phase 40's CPU references run beside phases 38 and 39 (whose own
     # CPU references share the host with the card's work too)
     hb_pool, hb_refs = start_harmonic_cpu()
+    osc_pool, osc_refs = start_osc_cpu()
     stats = timed(phase_statistics)
     large = timed(phase_large_circuit)
     harm = timed(phase_harmonic, hb_refs)
     pac = timed(phase_pac, hb_refs, harm)
     hb_pool.shutdown()
+    osc = timed(phase_oscillators, osc_refs, osc_pool)
+    osc_pool.shutdown()
     k3_rows = timed(phase_k3_timings)
     k2_device, k1_device_ms = timed(phase_k2_device, timings, k1_main_run)
     k3_device = timed(phase_k3_device, k3_rows)
@@ -5723,7 +6146,13 @@ def main():
                           for n, r in harm["runs"].items()},
                        **{f"pac_{n}": pac["runs"][n]["k2_launches"]
                           for n in ("mixer_rf_pac_f64",
-                                    "hot_sparams_cli_am_envelope_f64")}},
+                                    "hot_sparams_cli_am_envelope_f64")},
+                       # the HB PPV, its lock and the subharmonic search
+                       # run library solves only
+                       **{f"oscillators_{n}": r["k2_launches"]
+                          for n, r in osc["runs"].items()
+                          if not n.startswith(("pn_hb", "lock_hb",
+                                               "sublock"))}},
         "fused_step": {"monte_carlo_fused_f32_fast": k1_launches,
                        "monte_carlo_fused_bjt_f32": bjt["k1_launches"],
                        **{f"monte_carlo_fused_{n}_f32": m["k1_launches"]
@@ -5792,12 +6221,17 @@ def main():
         "shape": "B=8192 N=31 R=1 f32 (one batched-DC Newton solve)",
         "shapes": [{**t, **d} for t, d in zip(timings, k2_device)],
         "slice_shapes": stats["k2_shapes"] + large["k2_shapes"],
+        "oscillator_shapes": osc["k2_shapes"],
         "large_route": {
             "what": "lu_solve_large (torch.linalg.lu_factor_ex + lu_solve "
                     "with the fail contract) above N = 64 on CUDA: a "
                     "library call in place of XLA's looped LU, no kernel",
-            "calls_by_path": {n: r["large_route_calls"]
-                              for n, r in large["runs"].items()},
+            "calls_by_path": {
+                **{n: r["large_route_calls"]
+                   for n, r in large["runs"].items()},
+                **{f"oscillators_{n}": r["large_route_calls"]
+                   for n, r in osc["runs"].items()
+                   if r["large_route_calls"]}},
             "rows": large["large_route"]}}, {
         "name": "fused_step", "route": "cuda",
         "scope": "K1a + K1b + K1c-i + K1c-ii + K1c-iii + K1d-i + K1d-ii"

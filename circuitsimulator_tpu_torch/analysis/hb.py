@@ -173,7 +173,9 @@ def _tl_hb_terms(engine: Engine, params, ts, n_harm: int, f0: float):
     instead); S (..., n_tl, K, K) are the per-line band-limited delay
     operators S_i[t, s] = D_H(t_t - t_s - tau_i), D_H the order-H
     Dirichlet kernel, so (S_i @ w)(t) = w(t - tau_i) for any signal in the
-    HB harmonic space (differentiable in tl_td and tl_z0)."""
+    HB harmonic space (differentiable in tl_td and tl_z0).  f0 may be a
+    tensor, () or one per lane with ts (..., K) (the autonomous systems of
+    ``hbosc.py``)."""
     z0 = params["tl_z0"]
     td = params["tl_td"]
     one = torch.ones_like(z0)
@@ -182,10 +184,12 @@ def _tl_hb_terms(engine: Engine, params, ts, n_harm: int, f0: float):
     own = torch.stack([one, -one, -z0, one, -one, -z0], -1).flatten(-2)
     dc = -engine.tl_dc_vals
     corr_vals = torch.cat([dc.expand(own.shape[:-1] + dc.shape), own], -1)
-    K = ts.shape[0]
+    K = ts.shape[-1]
     w0 = 2.0 * np.pi * f0
-    dts = ts[:, None] - ts[None, :]                            # (K, K)
-    arg = w0 * (dts - td[..., :, None, None])                  # (..., nT, K, K)
+    if isinstance(w0, torch.Tensor):
+        w0 = w0[..., None, None, None]     # a fundamental per lane
+    dts = ts[..., :, None] - ts[..., None, :]                  # (..., K, K)
+    arg = w0 * (dts[..., None, :, :] - td[..., :, None, None])  # (..., nT, K, K)
     k = torch.arange(1, int(n_harm) + 1, dtype=ts.dtype, device=ts.device)
     S = (1.0 + 2.0 * torch.cos(
         k.reshape((-1,) + (1,) * arg.dim()) * arg).sum(0)) / K
@@ -251,7 +255,8 @@ class HarmonicSystem:
     shared by the single-tone HB, the multi-tone MPDE grid, the envelope
     and the sensitivities.
 
-    ``Dop`` (Kt, Kt) is the grid's d/dt; ``t_nl`` (Kt,) the times at which
+    ``Dop`` (..., Kt, Kt) is the grid's d/dt (a leading lane axis when
+    every lane has its own fundamental); ``t_nl`` (..., Kt) the times at which
     B sources read ``time``; ``b_src(params)`` the (..., Kt, N) source
     RHS; ``tl_parts(params)`` the T-line (corr_rows, corr_cols, corr_vals,
     S).  ``prepare(params)`` evaluates everything that does not depend on
@@ -263,7 +268,7 @@ class HarmonicSystem:
         self.engine = engine
         self.D = Dop
         self.t_nl = t_nl
-        self.Kt = Dop.shape[0]
+        self.Kt = Dop.shape[-1]
         self.b_src = b_src
         self.tl_parts = tl_parts
         self.gmin = float(gmin)
@@ -327,11 +332,11 @@ class HarmonicSystem:
         D, C = self.D, ctx["C"]
         if self.mos_q:
             A_t, Cq_t = aux
-            J = (torch.einsum("ts,...ij->...tisj", D, C)
-                 + torch.einsum("ts,...sij->...tisj", D, Cq_t))
+            J = (torch.einsum("...ts,...ij->...tisj", D, C)
+                 + torch.einsum("...ts,...sij->...tisj", D, Cq_t))
         else:
             A_t = aux
-            J = torch.einsum("ts,...ij->...tisj", D, C)
+            J = torch.einsum("...ts,...ij->...tisj", D, C)
         J = J.contiguous()
         J.diagonal(0, -4, -2).add_(A_t.movedim(-3, -1))
         if self.engine.n_tl:

@@ -941,6 +941,210 @@ class Simulator:
         return bp, envelope_transient_batched(self.engine, bp, f0, t_stop,
                                               dt_env, n_harm=n_harm, **kw)
 
+    # ---- oscillators ----
+    def _anchor_eq(self, anchor_node: str, what: str = "anchor node is "
+                                                        "ground") -> int:
+        eq = self._node_eq(anchor_node)
+        if eq < 0:
+            raise ValueError(what)
+        return eq
+
+    def _pair_eq(self, name) -> int:
+        """A node's equation, -1 for None and ground names."""
+        from .utils.numbers import is_ground_name
+        if name is None or is_ground_name(name):
+            return -1
+        return self._node_eq(name)
+
+    def oscillator(self, f0_guess: float, anchor_node: str,
+                   params: Optional[Any] = None, **kw):
+        """Autonomous-oscillator periodic steady state
+        (analysis/sstate.oscillator_steady_state): shooting with the period
+        a Newton unknown and a phase anchor on ``anchor_node``.  Returns an
+        OscillatorResult with the solved f0."""
+        from .analysis.sstate import oscillator_steady_state
+        eq = self._anchor_eq(anchor_node)
+        p = params if params is not None else self.params
+        return oscillator_steady_state(self.engine, p, f0_guess, eq, **kw)
+
+    def oscillator_hb(self, f0_guess: float, anchor_node: str,
+                      params: Optional[Any] = None, **kw):
+        """Autonomous harmonic balance (analysis/hbosc.oscillator_hb): the
+        frequency-domain twin of ``oscillator``, f0 a Newton unknown and a
+        spectral phase anchor on ``anchor_node``; the oscillator path of
+        transmission-line decks.  Returns an HBOscResult."""
+        from .analysis.hbosc import oscillator_hb
+        eq = self._anchor_eq(anchor_node)
+        p = params if params is not None else self.params
+        return oscillator_hb(self.engine, p, f0_guess, eq, **kw)
+
+    def _solved_osc(self, osc, f0_guess, anchor_node, p, hb: bool, what,
+                    **osc_kw):
+        """``osc`` or a new converged solve (shooting or HB)."""
+        if osc is not None:
+            return osc
+        if f0_guess is None or anchor_node is None:
+            raise ValueError("give osc= or f0_guess + anchor_node")
+        osc = (self.oscillator_hb if hb else self.oscillator)(
+            f0_guess, anchor_node, params=p, **osc_kw)
+        if not osc.converged:
+            raise RuntimeError(f"{what} did not converge "
+                               f"(residual {float(osc.residual):.3e})")
+        return osc
+
+    def oscillator_phase_noise_hb(self, offsets, f0_guess: Optional[float]
+                                  = None, anchor_node: Optional[str] = None,
+                                  osc=None, params: Optional[Any] = None,
+                                  extra_pairs=None, extra_psd=None,
+                                  **osc_kw):
+        """Phase noise by the HB PPV (analysis/hbosc.oscillator_phase_
+        noise_hb), the phase-noise path of T-line oscillators; pass a
+        converged ``osc`` (HBOscResult) or f0_guess + anchor_node."""
+        from .analysis.hbosc import oscillator_phase_noise_hb
+        p = params if params is not None else self.params
+        osc = self._solved_osc(osc, f0_guess, anchor_node, p, True,
+                               "autonomous HB", **osc_kw)
+        return oscillator_phase_noise_hb(self.engine, p, osc, offsets,
+                                         extra_pairs=extra_pairs,
+                                         extra_psd=extra_psd)
+
+    def oscillator_phase_noise(self, offsets, f0_guess: Optional[float]
+                               = None, anchor_node: Optional[str] = None,
+                               osc=None, params: Optional[Any] = None,
+                               extra_sources=None, **osc_kw):
+        """Phase noise of a free-running oscillator by the perturbation
+        projection vector (analysis/oscnoise.py): Demir's phase-diffusion
+        constant from the Floquet adjoint of the shooting limit cycle and
+        the .NOISE catalog along it.  Pass a converged ``osc`` or f0_guess
+        + anchor_node; extra_sources: (node_p, node_m, psd) with node
+        names ('0' ground) and one-sided PSDs in A^2/Hz."""
+        from .analysis.oscnoise import oscillator_phase_noise
+        p = params if params is not None else self.params
+        osc = self._solved_osc(osc, f0_guess, anchor_node, p, False,
+                               "oscillator shooting", **osc_kw)
+        extra_pairs = extra_psd = None
+        if extra_sources:
+            extra_pairs = [(self._pair_eq(a), self._pair_eq(b))
+                           for a, b, _ in extra_sources]
+            extra_psd = [s for _, _, s in extra_sources]
+        return oscillator_phase_noise(self.engine, p, osc, offsets,
+                                      extra_pairs=extra_pairs,
+                                      extra_psd=extra_psd)
+
+    def monte_carlo_oscillator_phase_noise(self, n: int, offsets,
+                                           f0_guess: float,
+                                           anchor_node: str,
+                                           seed: int = 0,
+                                           sampler: str = "mc",
+                                           n_harm: int = 9, **kw):
+        """Monte-Carlo oscillator phase noise: n lanes of the netlist's
+        DEV=/LOT= tolerances (drawn from a ``torch.Generator`` seeded with
+        ``seed``) each solve their own autonomous-HB limit cycle and
+        fundamental in one batch (analysis/hbosc.oscillator_hb_batched),
+        then every lane's PPV, phase-diffusion constant, L(df) and period
+        jitter in a second (inverse-iteration null vectors).  Returns
+        (bparams, HBOscBatchResult)."""
+        from .analysis.hbosc import (oscillator_hb_batched,
+                                     oscillator_phase_noise_hb_batched)
+        if not self.lowered.mc_tols:
+            raise ValueError("no DEV=/LOT= tolerances in the netlist")
+        anchor_eq = self._anchor_eq(anchor_node, f"anchor node "
+                                                 f"{anchor_node!r} is ground")
+        bp = self._hb_lanes(n, seed, sampler)
+        osc = oscillator_hb_batched(self.engine, bp, f0_guess, anchor_eq,
+                                    n_harm=n_harm, **kw)
+        return bp, oscillator_phase_noise_hb_batched(self.engine, bp, osc,
+                                                     offsets)
+
+    def pss_stability(self, ss=None, f0: Optional[float] = None,
+                      params: Optional[Any] = None, **kw):
+        """Floquet stability of a driven periodic steady state
+        (analysis/oscnoise.pss_floquet): the monodromy multipliers of the
+        shooting solution; all |lambda| < 1 is an attractor, |lambda| > 1 a
+        repellor.  Pass ss= from steady_state() or let this run it (a .hb
+        card or f0)."""
+        from .analysis.oscnoise import pss_floquet
+        p = params if params is not None else self.params
+        if ss is None:
+            ss = self.steady_state(params=p, f0=f0, **kw)
+            if not bool(ss.converged):
+                raise RuntimeError("steady state did not converge "
+                                   f"(residual {float(ss.residual):.3e})")
+        return pss_floquet(self.engine, p, ss, f0=f0)
+
+    def injection_lock(self, inj_node: str, amp: float,
+                       ref_node: Optional[str] = None,
+                       f0_guess: Optional[float] = None,
+                       anchor_node: Optional[str] = None,
+                       osc=None, harmonic: int = 1,
+                       method: str = "auto",
+                       params: Optional[Any] = None, **osc_kw):
+        """Adler injection-locking range from the oscillator PPV: a current
+        amp cos(2 pi f_inj t) into inj_node[, ref_node] locks for |f_inj -
+        m f0| <= lock_range_hz.  Pass a converged ``osc`` (its type picks
+        the path) or f0_guess + anchor_node; method="auto" takes
+        autonomous HB on T-line decks and shooting otherwise."""
+        from .analysis.hbosc import HBOscResult, injection_lock_hb
+        from .analysis.oscnoise import injection_lock
+        p = params if params is not None else self.params
+        if method not in ("auto", "shooting", "hb"):
+            raise ValueError("method must be auto/shooting/hb")
+        use_hb = method == "hb" or (method == "auto" and self.engine.n_tl > 0)
+        osc = self._solved_osc(osc, f0_guess, anchor_node, p, use_hb,
+                               "oscillator solve", **osc_kw)
+        pair = (self._pair_eq(inj_node), self._pair_eq(ref_node))
+        if isinstance(osc, HBOscResult):
+            return injection_lock_hb(self.engine, p, osc, pair, amp,
+                                     harmonic=harmonic)
+        return injection_lock(self.engine, p, osc, pair, amp,
+                              harmonic=harmonic)
+
+    def subharmonic_lock(self, inj_node: str, amp: float, m: int = 2,
+                         ref_node: Optional[str] = None,
+                         f0_guess: Optional[float] = None,
+                         anchor_node: Optional[str] = None,
+                         osc=None, params: Optional[Any] = None, **kw):
+        """Subharmonic injection-locking range (f_osc = m f_inj, injection
+        near f0/m) by the driven-HB fold search (analysis/hbosc.
+        subharmonic_lock_hb).  Pass a converged HBOscResult as osc= or
+        f0_guess + anchor_node.  Returns a SubharmonicLockResult."""
+        from .analysis.hbosc import HBOscResult, subharmonic_lock_hb
+        p = params if params is not None else self.params
+        osc_kw = {k: kw.pop(k) for k in list(kw)
+                  if k in ("n_harm", "warmup_periods", "steps_per_period",
+                           "max_newton", "tol", "damping", "kick", "gmin")}
+        osc = self._solved_osc(osc, f0_guess, anchor_node, p, True,
+                               "autonomous HB", **osc_kw)
+        if not isinstance(osc, HBOscResult):
+            raise TypeError("subharmonic_lock needs an HBOscResult "
+                            "(use oscillator_hb)")
+        pair = (self._pair_eq(inj_node), self._pair_eq(ref_node))
+        probe = kw.pop("probe_node", None)
+        if probe is None:
+            probe = pair[0] if pair[0] >= 0 else 0
+        return subharmonic_lock_hb(self.engine, p, osc, pair, amp, m=m,
+                                   probe_node=probe, **kw)
+
+    def jitter(self, probe: str, threshold: float, n: int = 64,
+               seed: int = 0, rising: bool = True, t_min: float = 0.0,
+               hysteresis: float = 0.0, params: Optional[Any] = None):
+        """Timing jitter of a probe's threshold crossings over n TRNOISE
+        realisations (analysis/jitter.py): one batched noisy transient,
+        per-edge absolute jitter and period jitter; ``hysteresis`` sets a
+        Schmitt release band.  Needs .TRAN and a TRNOISE source; the lanes'
+        noise comes from ``prng.key(seed)`` as the JAX package's from
+        ``jax.random.key(seed)``."""
+        from .analysis.jitter import jitter_analysis
+        tran = self.config.tran
+        if not tran.enabled:
+            raise ValueError("jitter analysis needs a .TRAN card")
+        eqi = self._node_eq(probe)
+        return jitter_analysis(
+            self.engine, params if params is not None else self.params,
+            tran.tstep, tran.tstop, eqi, threshold,
+            prng.key(seed, self.device), n_lanes=n, rising=rising,
+            t_min=t_min, hysteresis=hysteresis)
+
     # ---- periodic small-signal analyses (PAC family) ----
     def _pss_samples(self, p, f0, n_harm, **hb_kw):
         """Converged single-tone HB samples for the LPTV analyses: an

@@ -151,6 +151,34 @@ def build_argparser() -> argparse.ArgumentParser:
                         "dense (K·N)² Jacobian, or matrix-free "
                         "preconditioned GMRES for large harmonic-count × "
                         "node-count products")
+    p.add_argument("--run-osc", metavar="F0:NODE[:CSV]", default=None,
+                   help="free-running oscillator steady state: guess "
+                        "frequency + anchor node, e.g. '5e6:a' or "
+                        "'5e6:a:osc.csv'; prints the solved f0 and the "
+                        "harmonic table, writes one period "
+                        "(default osc_out.csv)")
+    p.add_argument("--osc-method", choices=["auto", "shooting", "hb"],
+                   default="auto",
+                   help="oscillator solver: time-domain shooting or "
+                        "autonomous harmonic balance (auto = hb when the "
+                        "deck has transmission lines, else shooting)")
+    p.add_argument("--pss-stability", action="store_true",
+                   help="with --run-hb (shooting method): also compute "
+                        "the Floquet multipliers of the periodic "
+                        "solution and report attractor/repellor")
+    p.add_argument("--run-lock", metavar="F0:ANCHOR:INJ:AMP",
+                   default=None,
+                   help="oscillator injection-locking range: shooting "
+                        "guess frequency, anchor node, injection node, "
+                        "injected current amplitude (A), e.g. "
+                        "'5e6:a:a:1e-3'; prints the solved f0 and the "
+                        "one-sided Adler lock range")
+    p.add_argument("--run-subharmonic-lock", metavar="F0:ANCHOR:INJ:AMP:M",
+                   default=None,
+                   help="subharmonic injection-locking window "
+                        "(f_osc = M*f_inj, injection near f0/M) by "
+                        "driven-HB fold search, e.g. '5e6:a:a:10m:2'; "
+                        "prints the locked frequency window")
     p.add_argument("--run-envelope", metavar="TSTOP:DT[:CSV]", default=None,
                    help="envelope-following transient at the .hb carrier: "
                         "slow-axis step DT to TSTOP, e.g. '5e-6:1e-7' or "
@@ -417,9 +445,114 @@ def _run_hb(sim, args) -> int:
                   f"newton_iters={hbres.newton_iters}, "
                   f"converged={bool(hbres.converged)}")
             print(harmonic_table(sim.topo, hbres))
+            if args.pss_stability and getattr(hbres, "s", None) is None:
+                print("--pss-stability needs the shooting method "
+                      "(--hb-method shooting); skipped", file=sys.stderr)
+            elif args.pss_stability:
+                st = sim.pss_stability(ss=hbres)
+                tag = ("stable (attractor)" if st.stable else
+                       "UNSTABLE — the transient flow cannot settle "
+                       "on this solution")
+                print(f"Floquet: |lambda|_max = {st.lambda_max:.6f} "
+                      f"-> {tag}")
         print(f"One period written to '{args.run_hb}'.")
     except Exception as e:  # noqa: BLE001
         print(f"Steady state failed: {e}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def _run_osc(sim, args) -> int:
+    """--run-osc F0:NODE[:CSV] (--osc-method): the oscillator's solved f0,
+    its one-period CSV and harmonic table (a shooting result's spectrum
+    from its uniform period samples, up to the 10th harmonic)."""
+    import numpy as np
+    from .analysis.sstate import harmonic_table
+    from .io.csvout import write_transient_csv
+    from .utils.numbers import parse_spice_number
+    try:
+        parts = args.run_osc.split(":")
+        if len(parts) < 2:
+            raise ValueError("--run-osc needs F0:NODE[:CSV]")
+        f0g = float(parse_spice_number(parts[0]))
+        node = parts[1]
+        out = parts[2] if len(parts) > 2 else "osc_out.csv"
+        method = args.osc_method
+        if method == "auto":
+            method = "hb" if sim.engine.n_tl else "shooting"
+        print(f"\nRunning oscillator steady state ({method})...")
+        osc = (sim.oscillator_hb(f0g, node, solver=args.hb_solver)
+               if method == "hb" else sim.oscillator(f0g, node))
+        print(f"oscillator: f0={float(osc.f0):.9e} Hz, "
+              f"residual={float(osc.residual):.3e}, "
+              f"newton_iters={osc.newton_iters}, "
+              f"converged={bool(osc.converged)}")
+        write_transient_csv(out, sim.topo, osc.times.cpu().numpy(),
+                            osc.xs.cpu().numpy())
+        if hasattr(osc, "spectrum"):
+            print(harmonic_table(sim.topo, osc))
+        else:
+            # the shooting result: the last row repeats the first
+            xs_p = osc.xs.cpu().numpy()[:-1]
+            K = xs_p.shape[0]
+            co = np.fft.rfft(xs_p, axis=0) / K * 2.0
+            co[0] /= 2.0
+            co = co[:11]
+            tbl = type("S", (), {})()
+            tbl.spectrum = co
+            tbl.freqs = np.arange(co.shape[0]) * float(osc.f0)
+            print(harmonic_table(sim.topo, tbl))
+        print(f"One period written to '{out}'.")
+    except Exception as e:  # noqa: BLE001
+        print(f"Oscillator failed: {e}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def _run_lock(sim, args) -> int:
+    """--run-lock F0:ANCHOR:INJ:AMP: the free-running f0 and the one-sided
+    Adler lock range."""
+    from .utils.numbers import parse_spice_number
+    print("\nRunning injection-lock analysis...")
+    try:
+        parts = args.run_lock.split(":")
+        if len(parts) != 4:
+            raise ValueError("--run-lock wants F0:ANCHOR:INJ:AMP")
+        f0g = parse_spice_number(parts[0])
+        amp = parse_spice_number(parts[3])
+        il = sim.injection_lock(parts[2], amp, f0_guess=f0g,
+                                anchor_node=parts[1])
+        print(f"Free-running f0 = {il.f0:.6e} Hz")
+        print(f"Injection {amp:g} A at '{parts[2]}': one-sided lock "
+              f"range = {il.lock_range_hz:.4e} Hz "
+              f"({il.k_per_amp:.4e} Hz/A)")
+    except Exception as e:  # noqa: BLE001
+        print(f"Injection-lock analysis failed: {e}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def _run_subharmonic_lock(sim, args) -> int:
+    """--run-subharmonic-lock F0:ANCHOR:INJ:AMP:M: the locked f_inj
+    window of the driven-HB fold search."""
+    from .utils.numbers import parse_spice_number
+    print("\nRunning subharmonic injection-lock analysis...")
+    try:
+        parts = args.run_subharmonic_lock.split(":")
+        if len(parts) != 5:
+            raise ValueError("--run-subharmonic-lock wants "
+                             "F0:ANCHOR:INJ:AMP:M")
+        f0g = parse_spice_number(parts[0])
+        amp = parse_spice_number(parts[3])
+        m = int(parts[4])
+        sl = sim.subharmonic_lock(parts[2], amp, m=m, f0_guess=f0g,
+                                  anchor_node=parts[1])
+        print(f"Free-running f0 = {sl.f0:.6e} Hz")
+        print(f"Injection {amp:g} A at '{parts[2]}', order m={m}: "
+              f"locked for f_inj in [{sl.f_lo:.6e}, {sl.f_hi:.6e}] "
+              f"Hz (one-sided {sl.lock_range_hz:.4e} Hz)")
+    except Exception as e:  # noqa: BLE001
+        print(f"Subharmonic-lock analysis failed: {e}", file=sys.stderr)
         return 1
     return 0
 
@@ -752,16 +885,19 @@ def main(argv=None) -> int:
         except Exception as e:  # noqa: BLE001
             print(f".STEP failed: {e}", file=sys.stderr)
             return 1
-    if args.run_hb:
-        rc = _run_hb(sim, args)
-        if rc:
-            return rc
+    for flag, run in ((args.run_hb, _run_hb), (args.run_osc, _run_osc)):
+        if flag:
+            rc = run(sim, args)
+            if rc:
+                return rc
     if args.run_sparams:
         rc = _run_sparams(sim, args, x)
         if rc:
             return rc
     for flag, run in ((args.run_envelope, _run_envelope),
                       (args.run_hot_sparams, _run_hot_sparams),
+                      (args.run_lock, _run_lock),
+                      (args.run_subharmonic_lock, _run_subharmonic_lock),
                       (args.run_lssp, _run_lssp)):
         if flag:
             rc = run(sim, args)

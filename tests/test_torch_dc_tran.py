@@ -236,6 +236,8 @@ def test_port_never_imports_jax():
             "hb_diff, hbmulti, sstate)\n"
             "from circuitsimulator_tpu_torch.analysis import (envnoise, pac, "
             "psp)\n"
+            "from circuitsimulator_tpu_torch.analysis import (hbosc, jitter, "
+            "oscnoise)\n"
             "from circuitsimulator_tpu_torch import cli\n"
             "from circuitsimulator_tpu_torch.ops import gmres\n"
             "from circuitsimulator_tpu_torch.netlist import "
